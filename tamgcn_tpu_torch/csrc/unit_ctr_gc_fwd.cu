@@ -1,0 +1,301 @@
+// Unit CTR-GC forward (K1) for Hopper (sm_90a), f32.
+//
+// Replaces tamgcn_tpu/ops/pallas/ctr_gc.py:_unit_fwd_kernel_tile (launched by
+// unit_ctr_gc_fwd_pallas) and computes the same function:
+//
+//   out[n,t,u,c] = sum_s sum_v M_s[n,u,v,c] * x3s[n,t,v,s*C+c]
+//   M_s[n,u,v,c] = (sum_r tanh(x1s[n,s,u,r] - x2s[n,s,v,r]) * w4s[s,r,c]
+//                   + b4s[s,c]) * alpha + As[s,u,v]
+//
+// with the refined adjacency M never written to device memory.
+//
+// What bounds it on this card. At the deep NW-UCLA shape (N=64, T=13, V=20,
+// C=256, R=32) the function moves ~68 MB (x3s in, out back: ~20 us at
+// 3.35 TB/s) and does 2*N*S*(V*V*R*C + T*V*V*C) ~ 1.77 GFLOP of f32 FMAs,
+// ~26 us on the 67 TFLOP/s f32 CUDA cores: the operations bound it, and
+// building M (the V*V*R*C term) is two thirds of them. At the wider-T
+// shapes (T=52, C=64) the bytes bound it. M for one (n, s) is V*V*C*4 B
+// (410 KB at C=256), larger than a block's 227 KB of shared memory.
+//
+// What the design does about it. One block of 256 threads per (sample n,
+// tile of CT=16 channels; 8 where 16 does not fit), so M for the tile and
+// all three subsets sits in shared memory, and at R <= 16 two blocks share
+// an SM. With so few warps per SM, every loop keeps several independent
+// loads or arithmetic chains in flight per thread.
+//   Stage 1: for each subset s, the block stages the x1/x2 rows in shared
+//   memory and computes D = tanh(x1_u - x2_v) (V*V*R values, once per block
+//   instead of once per channel). Then M_s = D @ w4s[s] is a small GEMM:
+//   each thread holds w4s[s,:,4 channels] in registers and, per r, reads one
+//   value of D (rows padded to RP+1 floats, so the 8 rows a warp reads sit in
+//   different banks) for 4 FMAs, two (u,v) rows at a time.
+//   Stage 2: the block walks T in chunks of 8 frames. All threads first copy
+//   the chunk's x3s tile (8 x V x S x CT values) into shared memory over D,
+//   with 16-byte loads, consecutive threads on consecutive channels, all of a
+//   thread's loads in flight at once; then each thread owns one channel and
+//   a 2 (frames) x 5 (joints) register tile of out and, for every (s,v),
+//   reads 5 values of M and 2 of x3s from shared memory for 10 FMAs.
+// x3s is read from device memory once per block and out written once.
+// Tensor cores, TMA, double-buffered chunks and a persistent grid are left
+// for later work.
+
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int kThreads = 256;
+constexpr int kUU = 5;  // joints u per thread in stage 2
+constexpr int kTT = 2;  // frames t per thread in stage 2
+constexpr int kTC = 8;  // frames per x3s chunk in shared memory
+constexpr int kBatch = 8;  // loads or tanh in flight per thread
+constexpr int kSmemLimit = 232448;  // bytes a block may use on sm_90
+
+__host__ __device__ inline int imax(int a, int b) { return a > b ? a : b; }
+__host__ __device__ inline int round4(int a) { return (a + 3) / 4 * 4; }
+
+__device__ inline float4 fma4(float d, float4 w, float4 acc) {
+  return make_float4(fmaf(d, w.x, acc.x), fmaf(d, w.y, acc.y),
+                     fmaf(d, w.z, acc.z), fmaf(d, w.w, acc.w));
+}
+
+// shared memory, in floats: D/X region, then M, then E
+__host__ __device__ inline int region0(int V, int S, int CT, int RP) {
+  return round4(imax(V * V * (RP + 1), kTC * V * S * CT));
+}
+
+template <int RP>
+__global__ void __launch_bounds__(kThreads)
+unit_ctr_gc_fwd_kernel(const float* __restrict__ x1s,
+                       const float* __restrict__ x2s,
+                       const float* __restrict__ x3s,
+                       const float* __restrict__ w4s,
+                       const float* __restrict__ b4s,
+                       const float* __restrict__ alpha,
+                       const float* __restrict__ As,
+                       float* __restrict__ out,
+                       int S, int T, int V, int R, int C, int CT, int VP) {
+  extern __shared__ float4 smem4[];
+  // D [V*V][RP+1]: tanh(x1_u - x2_v) of one subset, in stage 1; stage 2
+  // reuses its space for the x3s chunk X [kTC][V][S][CT].
+  // M [S][VP][V][CT]: the refined adjacency of the channel tile.
+  // E [2][V][RP]: the x1/x2 rows of one subset, zero-padded to RP.
+  float* D = reinterpret_cast<float*>(smem4);
+  float* X = D;
+  float* M = D + region0(V, S, CT, RP);
+  float* E = M + S * VP * V * CT;
+
+  const int n = blockIdx.y;
+  const int c0 = blockIdx.x * CT;
+  const int tid = threadIdx.x;
+  const int VV = V * V;
+  const float a = alpha[0];
+
+  // ---- stage 1: M_s[u,v,c] for the channel tile, all subsets ----
+  const int q = tid % (CT / 4);  // this thread's 4 channels: c0 + 4q ..
+  const int lane_uv = tid / (CT / 4);
+  const int NUV = kThreads / (CT / 4);
+  const int c4 = c0 + 4 * q;
+  const bool ok4 = c4 < C;  // C % 4 == 0: all 4 channels or none
+  for (int s = 0; s < S; ++s) {
+    __syncthreads();  // the previous subset's reads of D and E are done
+    {
+      const float* x1 = x1s + ((size_t)n * S + s) * V * R;
+      const float* x2 = x2s + ((size_t)n * S + s) * V * R;
+      const int esize = 2 * V * RP;
+      for (int base = tid; base < esize; base += kThreads * kBatch) {
+        float val[kBatch];
+#pragma unroll
+        for (int k = 0; k < kBatch; ++k) {
+          const int i = base + k * kThreads;
+          const int r = i % RP, row = i / RP;  // row < V: x1, else x2
+          val[k] = 0.f;
+          if (i < esize && r < R) val[k] = row < V ? x1[row * R + r] : x2[(row - V) * R + r];
+        }
+#pragma unroll
+        for (int k = 0; k < kBatch; ++k) {
+          const int i = base + k * kThreads;
+          if (i < esize) E[i] = val[k];
+        }
+      }
+    }
+    float4 w[RP];
+#pragma unroll
+    for (int r = 0; r < RP; ++r) {
+      w[r] = (ok4 && r < R)
+                 ? *reinterpret_cast<const float4*>(w4s + ((size_t)s * R + r) * C + c4)
+                 : make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+    const float4 b = ok4 ? *reinterpret_cast<const float4*>(b4s + (size_t)s * C + c4)
+                         : make_float4(0.f, 0.f, 0.f, 0.f);
+    const float* A = As + (size_t)s * VV;
+    __syncthreads();
+    for (int base = tid; base < VV * RP; base += kThreads * kBatch) {
+      float val[kBatch];
+#pragma unroll
+      for (int k = 0; k < kBatch; ++k) {
+        const int i = min(base + k * kThreads, VV * RP - 1);
+        const int r = i % RP, uv = i / RP;
+        val[k] = tanhf(E[(uv / V) * RP + r] - E[(V + uv % V) * RP + r]);
+      }
+#pragma unroll
+      for (int k = 0; k < kBatch; ++k) {
+        const int i = base + k * kThreads;
+        if (i < VV * RP) D[(i / RP) * (RP + 1) + i % RP] = val[k];
+      }
+    }
+    __syncthreads();
+    for (int uv0 = lane_uv; uv0 < VV; uv0 += 2 * NUV) {
+      const int uv1 = min(uv0 + NUV, VV - 1);
+      const float* d0 = D + uv0 * (RP + 1);
+      const float* d1 = D + uv1 * (RP + 1);
+      float4 acc0 = make_float4(0.f, 0.f, 0.f, 0.f);
+      float4 acc1 = acc0;
+#pragma unroll
+      for (int r = 0; r < RP; ++r) {
+        acc0 = fma4(d0[r], w[r], acc0);
+        acc1 = fma4(d1[r], w[r], acc1);
+      }
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int uv = uv0 + h * NUV;
+        const float4 acc = h ? acc1 : acc0;
+        if (ok4 && uv < VV) {
+          const int u = uv / V, v = uv % V;
+          const float Auv = A[uv];
+          *reinterpret_cast<float4*>(M + ((s * VP + u) * V + v) * CT + 4 * q) =
+              make_float4(fmaf(acc.x + b.x, a, Auv), fmaf(acc.y + b.y, a, Auv),
+                          fmaf(acc.z + b.z, a, Auv), fmaf(acc.w + b.w, a, Auv));
+        }
+      }
+    }
+  }
+  // zero the padded joint rows u in [V, VP): stage 2 reads them
+  for (int i = tid; i < S * (VP - V) * V * CT; i += kThreads) {
+    const int rest = i / (V * CT);  // (s, u - V)
+    M[((rest / (VP - V)) * VP + V + rest % (VP - V)) * V * CT + i % (V * CT)] = 0.f;
+  }
+
+  // ---- stage 2: out[n,t,u,c] = sum_{s,v} M_s[u,v,c] * x3s[n,t,v,s*C+c] ----
+  const int c = tid % CT;  // this thread's channel
+  const int g = tid / CT;
+  const int G = kThreads / CT;
+  const int cg = c0 + c;
+  const int nug = VP / kUU;
+  const int nitems = nug * (kTC / kTT);
+  const size_t SC = (size_t)S * C;
+  const int CT4 = CT / 4;
+  const int xsize4 = kTC * V * S * CT4;  // 16-byte groups of channels
+  for (int tb = 0; tb < T; tb += kTC) {
+    __syncthreads();  // M is complete, and the previous chunk is consumed
+    for (int base = tid; base < xsize4; base += kThreads * kBatch) {
+      float4 val[kBatch];
+#pragma unroll
+      for (int k = 0; k < kBatch; ++k) {
+        const int i = base + k * kThreads;
+        int rest = i / CT4;
+        const int s = rest % S;
+        rest /= S;
+        const int v = rest % V;
+        const int t = tb + rest / V;
+        const int cx = c0 + 4 * (i % CT4);
+        val[k] = make_float4(0.f, 0.f, 0.f, 0.f);
+        if (i < xsize4 && t < T && cx < C) {
+          val[k] = *reinterpret_cast<const float4*>(
+              x3s + (((size_t)n * T + t) * V + v) * SC + (size_t)s * C + cx);
+        }
+      }
+#pragma unroll
+      for (int k = 0; k < kBatch; ++k) {
+        const int i = base + k * kThreads;
+        if (i < xsize4) reinterpret_cast<float4*>(X)[i] = val[k];
+      }
+    }
+    __syncthreads();
+    for (int item = g; item < nitems; item += G) {
+      const int u0 = (item % nug) * kUU;
+      const int j0 = (item / nug) * kTT;  // frame within the chunk
+      float acc[kTT][kUU];
+#pragma unroll
+      for (int j = 0; j < kTT; ++j) {
+#pragma unroll
+        for (int i = 0; i < kUU; ++i) acc[j][i] = 0.f;
+      }
+      for (int s = 0; s < S; ++s) {
+#pragma unroll 4
+        for (int v = 0; v < V; ++v) {
+          const float* mrow = M + ((s * VP + u0) * V + v) * CT + c;
+          const float* xrow = X + ((j0 * V + v) * S + s) * CT + c;
+          float m[kUU];
+#pragma unroll
+          for (int i = 0; i < kUU; ++i) m[i] = mrow[i * V * CT];
+          float x[kTT];
+#pragma unroll
+          for (int j = 0; j < kTT; ++j) x[j] = xrow[j * V * S * CT];
+#pragma unroll
+          for (int j = 0; j < kTT; ++j) {
+#pragma unroll
+            for (int i = 0; i < kUU; ++i) acc[j][i] = fmaf(x[j], m[i], acc[j][i]);
+          }
+        }
+      }
+      if (cg < C) {
+#pragma unroll
+        for (int j = 0; j < kTT; ++j) {
+          const int t = tb + j0 + j;
+#pragma unroll
+          for (int i = 0; i < kUU; ++i) {
+            const int u = u0 + i;
+            if (t < T && u < V) {
+              out[(((size_t)n * T + t) * V + u) * C + cg] = acc[j][i];
+            }
+          }
+        }
+      }
+    }
+  }
+}
+
+template <int RP>
+int launch(const float* x1s, const float* x2s, const float* x3s,
+           const float* w4s, const float* b4s, const float* alpha,
+           const float* As, float* out, int N, int S, int T, int V, int R,
+           int C, cudaStream_t stream) {
+  const int VP = (V + kUU - 1) / kUU * kUU;
+  auto smem_bytes = [&](int ct) {
+    return sizeof(float) *
+           ((size_t)region0(V, S, ct, RP) + (size_t)S * VP * V * ct + 2 * V * RP);
+  };
+  int CT = 16;
+  if (smem_bytes(CT) > kSmemLimit) CT = 8;
+  if (smem_bytes(CT) > kSmemLimit) return cudaErrorInvalidValue;
+  const size_t smem = smem_bytes(CT);
+  cudaError_t err = cudaFuncSetAttribute(
+      unit_ctr_gc_fwd_kernel<RP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((C + CT - 1) / CT, N);
+  unit_ctr_gc_fwd_kernel<RP><<<grid, kThreads, smem, stream>>>(
+      x1s, x2s, x3s, w4s, b4s, alpha, As, out, S, T, V, R, C, CT, VP);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// All tensors contiguous f32 on the device, 16-byte aligned: x1s, x2s
+// (N,S,V,R); x3s (N,T,V,S*C); w4s (S,R,C); b4s (S,C); alpha (1,); As (S,V,V);
+// out (N,T,V,C); C % 4 == 0 and R <= 32. Launches on `stream` and returns
+// cudaGetLastError() (0 = ok).
+extern "C" int unit_ctr_gc_fwd_f32(const float* x1s, const float* x2s,
+                                   const float* x3s, const float* w4s,
+                                   const float* b4s, const float* alpha,
+                                   const float* As, float* out, int N, int S,
+                                   int T, int V, int R, int C, void* stream) {
+  if (N < 1 || N > 65535 || S < 1 || T < 1 || V < 1 || R < 1 || C < 4 ||
+      C % 4 != 0) {
+    return cudaErrorInvalidValue;
+  }
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (R <= 8) return launch<8>(x1s, x2s, x3s, w4s, b4s, alpha, As, out, N, S, T, V, R, C, st);
+  if (R <= 16) return launch<16>(x1s, x2s, x3s, w4s, b4s, alpha, As, out, N, S, T, V, R, C, st);
+  if (R <= 32) return launch<32>(x1s, x2s, x3s, w4s, b4s, alpha, As, out, N, S, T, V, R, C, st);
+  return cudaErrorInvalidValue;
+}

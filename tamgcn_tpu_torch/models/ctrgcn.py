@@ -1,0 +1,408 @@
+"""TAM/CTR-GCN — channel-wise topology-refined GCN with the TAM offset branch.
+
+Counterpart of tamgcn_tpu/models/ctrgcn.py with the same packed structure
+and the same parameter names (so tamgcn_tpu_torch/convert.py maps one onto
+the other by path): activations are NTVC (batch, time, vertex, channel);
+1x1 convs are matmuls on the last axis; the temporal (k, 1) convs run as
+`F.conv2d` on the `.permute(0, 3, 1, 2)` view, an NCHW tensor in
+channels_last memory format; the three CTR-GC subsets run as one unit op
+(ops.aggregation.unit_ctr_gc), the CUDA kernel on the card.
+
+Reference: CTRGC :150-177, unit_gcn :196-263 incl. the TAM offset branch
+:219-223 and :256-259, MultiScale_TemporalConv :72-147, unit_tcn :179-193,
+TCN_GCN_unit :266-284, Model :287-374.
+"""
+from __future__ import annotations
+
+from typing import Sequence
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..graphs import get_graph
+from ..ops import inits
+from ..ops.aggregation import conv3_matmul, unit_ctr_gc
+from ..ops.norm import BatchNorm
+
+
+def _rel_channels(in_channels: int, rel_reduction: int = 8) -> int:
+    """Reference models/ctrgcn.py:155-158."""
+    return 8 if in_channels in (3, 9) else in_channels // rel_reduction
+
+
+def _default_generator() -> torch.Generator:
+    return torch.Generator().manual_seed(0)
+
+
+class Conv1x1(nn.Module):
+    """1x1 conv on NTVC: x (..., Cin) @ weight (Cout, Cin)^T + bias, with an
+    optional temporal stride (axis 1). `blocks` > 1 marks a packed conv of
+    `blocks` independent convs for the init."""
+
+    def __init__(self, in_channels: int, out_channels: int, stride: int = 1,
+                 blocks: int = 1):
+        super().__init__()
+        self.stride = stride
+        self.blocks = blocks
+        self.weight = nn.Parameter(torch.empty(out_channels, in_channels))
+        self.bias = nn.Parameter(torch.zeros(out_channels))
+
+    def reset_parameters(self, generator, zero: bool = False):
+        if zero:
+            nn.init.zeros_(self.weight)
+        else:
+            inits.kaiming_normal_fan_out_blocked_(self.weight, self.blocks, generator)
+        nn.init.zeros_(self.bias)
+
+    def forward(self, x):
+        if self.stride != 1:
+            x = x[:, ::self.stride]
+        return F.linear(x, self.weight, self.bias)
+
+
+class TemporalConv2d(nn.Module):
+    """(k, 1) temporal conv on NTVC with stride and dilation, 'same' padding
+    as the reference: conv2d on the channels_last NCHW view."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
+                 stride: int = 1, dilation: int = 1):
+        super().__init__()
+        self.stride = stride
+        self.dilation = dilation
+        self.pad = (kernel_size + (kernel_size - 1) * (dilation - 1) - 1) // 2
+        self.weight = nn.Parameter(
+            torch.empty(out_channels, in_channels, kernel_size, 1)
+        )
+        self.bias = nn.Parameter(torch.zeros(out_channels))
+
+    def reset_parameters(self, generator):
+        inits.kaiming_normal_fan_out_(self.weight, generator)
+        nn.init.zeros_(self.bias)
+
+    def forward(self, x):
+        y = F.conv2d(
+            x.permute(0, 3, 1, 2), self.weight, self.bias,
+            stride=(self.stride, 1), padding=(self.pad, 0),
+            dilation=(self.dilation, 1),
+        )
+        return y.permute(0, 2, 3, 1).contiguous()
+
+
+class UnitGCN(nn.Module):
+    """3-subset CTR-GC layer with adaptive adjacency and the TAM offset branch
+    (reference models/ctrgcn.py:196-263)."""
+
+    def __init__(self, in_channels: int, out_channels: int, A: np.ndarray,
+                 adaptive: bool = True, residual: bool = True):
+        super().__init__()
+        A0 = torch.as_tensor(np.asarray(A, np.float32))
+        self.num_subset = S = A0.shape[0]
+        self.in_channels = in_channels
+        self.out_channels = C = out_channels
+        self.R = R = _rel_channels(in_channels)
+        self.residual = residual
+        self.adaptive = adaptive
+        if adaptive:
+            self.PA = nn.Parameter(A0.clone())
+        else:
+            self.register_buffer("PA", A0.clone())
+        self.alpha = nn.Parameter(torch.zeros(1))
+        # the subsets' 1x1 convs are PACKED, as in the JAX model: conv12 holds
+        # conv1 and conv2 of all subsets, conv3 the three conv3s
+        self.conv12 = Conv1x1(in_channels, 2 * S * R, blocks=2 * S)
+        self.conv3 = Conv1x1(in_channels, S * C, blocks=S)
+        self.conv4_kernel = nn.Parameter(torch.empty(S, R, C))
+        self.conv4_bias = nn.Parameter(torch.zeros(S, C))
+        self.bn = BatchNorm(C)
+        if residual and in_channels != out_channels:
+            self.down_conv = Conv1x1(in_channels, C)
+            self.down_bn = BatchNorm(C)
+        self.offset_conv = Conv1x1(C, C)
+        self.offset_bn = BatchNorm(C)
+
+    def reset_parameters(self, generator):
+        self.conv12.reset_parameters(generator)
+        self.conv3.reset_parameters(generator)
+        inits.kaiming_normal_fan_out_dense_(self.conv4_kernel, generator)
+        # bn_init(self.bn, 1e-6): near-zero scale at init (reference :240)
+        nn.init.constant_(self.bn.weight, 1e-6)
+        if hasattr(self, "down_conv"):
+            self.down_conv.reset_parameters(generator)
+        # TAM offset branch: zero conv, a no-op at init
+        self.offset_conv.reset_parameters(generator, zero=True)
+
+    def forward(self, x):
+        N, T, V, _ = x.shape
+        S, R = self.num_subset, self.R
+        # conv12 commutes with the T pool (a 1x1 conv is linear), so pooling
+        # first does T x less work; same math as conv-then-mean
+        e12 = self.conv12(x.mean(dim=1))  # (N, V, 2*S*R)
+        x1s = e12[..., : S * R].reshape(N, V, S, R).permute(0, 2, 1, 3).contiguous()
+        x2s = e12[..., S * R:].reshape(N, V, S, R).permute(0, 2, 1, 3).contiguous()
+        x3s = conv3_matmul(x, self.conv3.weight.t(), self.conv3.bias)
+        y = unit_ctr_gc(
+            x1s, x2s, x3s, self.conv4_kernel, self.conv4_bias, self.alpha, self.PA
+        )
+        y = self.bn(y)
+        if not self.residual:
+            res = 0.0
+        elif hasattr(self, "down_conv"):
+            res = self.down_bn(self.down_conv(x))
+        else:
+            res = x
+        offset = torch.tanh(self.offset_bn(self.offset_conv(res - y)))
+        return F.relu(y + offset + res)
+
+
+class TemporalConv(nn.Module):
+    """k x 1 dilated temporal conv + BN (reference models/ctrgcn.py:52-69)."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
+                 stride: int = 1, dilation: int = 1, bn_weights_init: bool = False):
+        super().__init__()
+        self.bn_weights_init = bn_weights_init
+        self.conv = TemporalConv2d(in_channels, out_channels, kernel_size,
+                                   stride, dilation)
+        self.bn = BatchNorm(out_channels)
+
+    def reset_parameters(self, generator):
+        self.conv.reset_parameters(generator)
+        if self.bn_weights_init:
+            inits.bn_weights_init_(self.bn.weight, generator)
+
+    def forward(self, x):
+        return self.bn(self.conv(x))
+
+
+class MultiScaleTCN(nn.Module):
+    """Multi-branch temporal conv (reference models/ctrgcn.py:72-147).
+
+    The dilated and maxpool branches' entry 1x1+BN+ReLU run PACKED as one
+    `prefix_conv`, and all branches' output BNs as one `out_bn`, as in the
+    JAX model.
+    """
+
+    def __init__(self, in_channels: int, out_channels: int, kernel_size=3,
+                 stride: int = 1, dilations: Sequence[int] = (1, 2, 3, 4),
+                 residual: bool = True, residual_kernel_size: int = 1):
+        super().__init__()
+        num_branches = len(dilations) + 2
+        if out_channels % num_branches:
+            raise ValueError("# out channels should be multiples of # branches")
+        bc = self.branch_channels = out_channels // num_branches
+        if isinstance(kernel_size, (list, tuple)):
+            if len(kernel_size) != len(dilations):
+                raise ValueError("kernel_size list must match dilations")
+            kernel_sizes = list(kernel_size)
+        else:
+            kernel_sizes = [kernel_size] * len(dilations)
+        self.n_dil = n_dil = len(dilations)
+        self.stride = stride
+        self.prefix_conv = Conv1x1(in_channels, (n_dil + 1) * bc, blocks=n_dil + 1)
+        self.prefix_bn = BatchNorm((n_dil + 1) * bc)
+        for i, (ks, dilation) in enumerate(zip(kernel_sizes, dilations)):
+            setattr(self, f"branch{i}_tconv_conv",
+                    TemporalConv2d(bc, bc, ks, stride, dilation))
+        self.pw_conv = Conv1x1(in_channels, bc, stride=stride)
+        self.out_bn = BatchNorm(out_channels)
+        self.res_mode = (
+            "none" if not residual
+            else "identity" if in_channels == out_channels and stride == 1
+            else "conv"
+        )
+        if self.res_mode == "conv":
+            self.residual = TemporalConv(in_channels, out_channels,
+                                         residual_kernel_size, stride=stride,
+                                         bn_weights_init=True)
+
+    def reset_parameters(self, generator):
+        self.prefix_conv.reset_parameters(generator)
+        inits.bn_weights_init_(self.prefix_bn.weight, generator)
+        for i in range(self.n_dil):
+            getattr(self, f"branch{i}_tconv_conv").reset_parameters(generator)
+        inits.kaiming_normal_fan_out_(self.pw_conv.weight, generator)
+        inits.bn_weights_init_(self.out_bn.weight, generator)
+        if self.res_mode == "conv":
+            self.residual.reset_parameters(generator)
+
+    def forward(self, x):
+        bc = self.branch_channels
+        prefix = F.relu(self.prefix_bn(self.prefix_conv(x)))
+        outs = [
+            getattr(self, f"branch{i}_tconv_conv")(prefix[..., i * bc:(i + 1) * bc])
+            for i in range(self.n_dil)
+        ]
+        # maxpool branch (reference :113-119)
+        pooled = F.max_pool2d(
+            prefix[..., self.n_dil * bc:].permute(0, 3, 1, 2),
+            kernel_size=(3, 1), stride=(self.stride, 1), padding=(1, 0),
+        )
+        outs.append(pooled.permute(0, 2, 3, 1))
+        # plain strided 1x1 branch (reference :121-124)
+        outs.append(self.pw_conv(x))
+        out = self.out_bn(torch.cat(outs, dim=-1))
+        if self.res_mode == "none":
+            return out
+        if self.res_mode == "identity":
+            return out + x
+        return out + self.residual(x)
+
+
+class UnitTCN(nn.Module):
+    """k x 1 temporal conv + BN residual unit (reference models/ctrgcn.py:179-193)."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel_size: int = 9,
+                 stride: int = 1):
+        super().__init__()
+        self.conv = TemporalConv2d(in_channels, out_channels, kernel_size, stride)
+        self.bn = BatchNorm(out_channels)
+
+    def reset_parameters(self, generator):
+        self.conv.reset_parameters(generator)
+
+    def forward(self, x):
+        return self.bn(self.conv(x))
+
+
+class TCNGCNUnit(nn.Module):
+    """One GCN+TCN block: relu(tcn(gcn(x)) + residual(x)) (reference
+    models/ctrgcn.py:266-284, dilations [1, 2])."""
+
+    def __init__(self, in_channels: int, out_channels: int, A, stride: int = 1,
+                 residual: bool = True, adaptive: bool = True,
+                 kernel_size: int = 5, dilations: Sequence[int] = (1, 2)):
+        super().__init__()
+        self.gcn1 = UnitGCN(in_channels, out_channels, A, adaptive=adaptive)
+        self.tcn1 = MultiScaleTCN(out_channels, out_channels,
+                                  kernel_size=kernel_size, stride=stride,
+                                  dilations=dilations, residual=False)
+        self.res_mode = (
+            "none" if not residual
+            else "identity" if in_channels == out_channels and stride == 1
+            else "conv"
+        )
+        if self.res_mode == "conv":
+            self.residual = UnitTCN(in_channels, out_channels, kernel_size=1,
+                                    stride=stride)
+
+    def reset_parameters(self, generator):
+        self.gcn1.reset_parameters(generator)
+        self.tcn1.reset_parameters(generator)
+        if self.res_mode == "conv":
+            self.residual.reset_parameters(generator)
+
+    def forward(self, x):
+        y = self.tcn1(self.gcn1(x))
+        if self.res_mode == "none":
+            return F.relu(y)
+        if self.res_mode == "identity":
+            return F.relu(y + x)
+        return F.relu(y + self.residual(x))
+
+
+class CTRGCN(nn.Module):
+    """Full TAM/CTR-GCN network (reference models/ctrgcn.py:287-374).
+
+    10 TCN+GCN blocks, 64 -> 128 (stride 2 at l5) -> 256 (stride 2 at l8),
+    data BN over (M, V, C) features, global (T, V) + person mean pooling,
+    dropout, linear head. Parameters are drawn from `generator` (a CPU
+    `torch.Generator`; seed 0 when none is given).
+    """
+
+    def __init__(self, num_class: int = 60, num_point: int = 25,
+                 num_person: int = 2, graph=None, graph_args=None,
+                 in_channels: int = 3, drop_out: float = 0.0,
+                 adaptive: bool = True, base_channel: int = 64,
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        if graph is None:
+            raise ValueError("graph must be specified")
+        if isinstance(graph, np.ndarray):
+            A = graph
+        elif isinstance(graph, str):
+            A = get_graph(graph, **(graph_args or {})).A
+        else:
+            A = graph.A
+        self.num_class = num_class
+        self.num_point = num_point
+        self.num_person = num_person
+        bc = base_channel
+        plan = [
+            (in_channels, bc, 1, False), (bc, bc, 1, True), (bc, bc, 1, True),
+            (bc, bc, 1, True), (bc, 2 * bc, 2, True), (2 * bc, 2 * bc, 1, True),
+            (2 * bc, 2 * bc, 1, True), (2 * bc, 4 * bc, 2, True),
+            (4 * bc, 4 * bc, 1, True), (4 * bc, 4 * bc, 1, True),
+        ]
+        for i, (cin, cout, stride, residual) in enumerate(plan):
+            setattr(self, f"l{i + 1}", TCNGCNUnit(
+                cin, cout, A, stride=stride, residual=residual, adaptive=adaptive
+            ))
+        self.data_bn = BatchNorm(num_person * num_point * in_channels)
+        self.fc = nn.Linear(4 * bc, num_class)
+        self.dropout = nn.Dropout(drop_out) if drop_out else None
+        self.reset_parameters(generator or _default_generator())
+
+    @property
+    def blocks(self) -> list[TCNGCNUnit]:
+        return [getattr(self, f"l{i}") for i in range(1, 11)]
+
+    def reset_parameters(self, generator):
+        for blk in self.blocks:
+            blk.reset_parameters(generator)
+        inits.fc_init_(self.fc.weight, self.num_class, generator)
+        inits.torch_linear_bias_init_(self.fc.bias, self.fc.in_features, generator)
+
+    def _to_ncvtm(self, x):
+        """Accept reference layouts (N,C,T,V,M) or (N,T,V*C) -> (N,C,T,V,M)."""
+        if x.ndim == 3:
+            N, T, VC = x.shape
+            x = x.reshape(N, T, self.num_point, VC // self.num_point)
+            x = x.permute(0, 3, 1, 2)[..., None]  # (N, C, T, V, 1)
+        return x
+
+    def _stem(self, x):
+        """data BN over flattened (M,V,C) features (reference :302, :330-332)."""
+        N, C, T, V, M = x.shape
+        h = x.permute(0, 2, 4, 3, 1).reshape(N, T, M * V * C)
+        h = self.data_bn(h).reshape(N, T, M, V, C)
+        h = h.permute(0, 2, 1, 3, 4).reshape(N * M, T, V, C)
+        return h, N, M
+
+    def _backbone(self, h):
+        for blk in self.blocks:
+            h = blk(h)
+        return h
+
+    def forward(self, x):
+        h, N, M = self._stem(self._to_ncvtm(x))
+        h = self._backbone(h)  # (N*M, T', V, 4*bc)
+        h = h.reshape(N, M, -1, h.shape[-1]).mean(dim=2).mean(dim=1)  # (N, C)
+        if self.dropout is not None:
+            h = self.dropout(h)
+        return self.fc(h)
+
+    def extract_feature(self, x):
+        """Pre-pool features (N, C', T', V, M) — reference models/ctrgcn.py:350-374.
+
+        Returns the feature tensor twice, matching the reference signature.
+        """
+        h, N, M = self._stem(self._to_ncvtm(x))
+        h = self._backbone(h)  # (N*M, T', V, C')
+        _, Tp, V, Cp = h.shape
+        h = h.reshape(N, M, Tp, V, Cp).permute(0, 4, 2, 3, 1)  # (N, C', T', V, M)
+        return h, h
+
+
+def create_ctrgcn_nucla(**overrides) -> CTRGCN:
+    """NW-UCLA flagship config (reference config/nucla/gcn.yaml:20-27)."""
+    kwargs = dict(
+        num_class=10,
+        num_point=20,
+        num_person=1,
+        graph="ucla",
+        graph_args={"labeling_mode": "spatial"},
+    )
+    kwargs.update(overrides)
+    return CTRGCN(**kwargs)

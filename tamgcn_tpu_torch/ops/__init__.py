@@ -1,0 +1,8 @@
+"""Compute ops: plain PyTorch versions and hand-written CUDA kernels."""
+from .aggregation import (  # noqa: F401
+    conv3_matmul,
+    ctr_gc_aggregate,
+    ctr_gc_dynamic_adjacency,
+    unit_ctr_gc,
+    unit_ctr_gc_plain,
+)
