@@ -9,25 +9,45 @@ Phases, each of which fails the run (non-zero exit, no result line):
   2. build: compiles every CUDA source of the port (one nvcc each, all
      started together) and prints the seconds;
   3. kernels: holds each kernel against its plain PyTorch version on the card
-     at the shapes of the main path (plus V=25 and ragged shapes), f32 with
-     TF32 off, within rtol 1e-5 and atol 1e-5*max|plain|, and times both with
-     CUDA events;
-  4. main path: `python -m tamgcn_tpu_torch recognition --phase test` run
-     in-process through `__main__.main` at full NW-UCLA width (base_channel
-     64, 10 blocks, T=52, V=20, batch 64, 256 synthetic val samples) on
-     weights of the port's seeded init with alpha, the TAM offset conv and the
-     gcn1 BN scale perturbed; checks that every kernel was launched (K1: 10
-     launches per batch) and that the logits of one batch match the same
-     model on the CPU through the plain path; times the eval forward with
-     the kernel and with the plain unit op, and lists its device time by
-     kernel name (torch.profiler).
+     at the shapes of the main paths (K1 at the test batch 64, K2 and K3 at
+     the training batch 16, plus V=25 and ragged shapes), f32 with TF32 off,
+     and times both with CUDA events. K1 and K2 are held within rtol 1e-5
+     and atol 1e-5*max|plain|; K3's outputs are sums of up to N*T*V*V terms
+     taken in another order, so each is held within rtol 1e-4 and atol
+     1e-4*max|plain| (dalpha, one sum over all N*S*V*V*C terms, within rtol
+     1e-3); two K3 launches must agree bit for bit;
+  4. test main path: `python -m tamgcn_tpu_torch recognition --phase test`
+     run in-process through `__main__.main` at full NW-UCLA width
+     (base_channel 64, 10 blocks, T=52, V=20, batch 64, 256 synthetic val
+     samples) on weights of the port's seeded init with alpha, the TAM offset
+     conv and the gcn1 BN scale perturbed; checks that K1 was launched 10
+     times per batch and that the logits of one batch match the same model
+     on the CPU through the plain path; times the eval forward with the
+     kernel and with the plain unit op, and lists its device time by kernel
+     name (torch.profiler);
+  5. train main path: `python -m tamgcn_tpu_torch recognition --phase
+     train` in-process at full width on configs/nucla/smoke.yaml (batch 16,
+     2 epochs of 128 synthetic samples, eval after each), then `--resume`
+     for a third epoch; checks K1 = K2 = K3 = 10 launches per train step
+     (and K1 10 per eval batch), finite losses, the checkpoints and
+     progress_info.csv; takes 3 SGD steps from the perturbed weights on the
+     same batches on the card (f32) and on the CPU (plain path, f64) and
+     holds the card's losses and every tensor of its state to the f64 run
+     within 10x the f32 error of two references (CPU f32, card f32 with the
+     plain unit op) plus a floor, per tensor a share of its own change, for
+     the flips of relu and max-pool decisions, after every step; the same
+     check with each of K3's six outputs zeroed in turn must fail
+     (check_trajectory); times the train step at batch
+     16 and 64, with the plain unit op beside it at 16, and lists its device
+     time by kernel name.
 The last lines are the card line, the kernels JSON and the result JSON.
 The kernels JSON gives, for each kernel, its times and bound summed over the
-launches of one eval forward at batch 64, and each shape's row under
-"shapes".
+launches of one eval forward at batch 64 (K1) or of one train step at batch
+16 (K2, K3), and each shape's row under "shapes".
 """
 from __future__ import annotations
 
+import csv
 import json
 import math
 import os
@@ -41,12 +61,22 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 SEED = 1
 N_SAMPLES = 256
 BATCH = 64
+TRAIN_BATCH = 16
+TRAIN_SAMPLES = 128  # configs/nucla/smoke.yaml: 8 steps per epoch
+EVAL_SAMPLES = 64  # configs/nucla/smoke.yaml test split: 4 batches of 16
 LOGIT_RTOL = 1e-4  # |gpu - cpu| <= LOGIT_RTOL * max|cpu|: sum order differs
+TRAJ_STEPS = 3
+TRAJ_TIMES = 10
+TRAJ_LOSS_FLOOR = 1e-2
+TRAJ_TENSOR_FLOOR = 2e-2
+# K3's outputs; a planted fault zeroes each in turn, and the trajectory
+# check must fail for every one
+K3_OUTPUTS = ("dx1s", "dx2s", "dw4s", "db4s", "dalpha", "dAs")
 # published H100 SXM peaks (NVIDIA data sheet), at the full 700 W limit
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12
 
-# unit op shapes (N, T, V, C, R), with the launches per forward at N=64
+# unit op shapes (N, T, V, C, R), with the launches per eval forward at N=64
 K1_MAIN_PATH = [
     ("l1", (64, 52, 20, 64, 8), 1),
     ("l2-l4", (64, 52, 20, 64, 8), 3),
@@ -58,6 +88,15 @@ K1_MAIN_PATH = [
 K1_EXTRA = [
     ("V=25", (64, 26, 25, 128, 16)),
     ("ragged", (3, 7, 20, 80, 10)),  # odd T, partial channel tile, R < 16
+]
+# the same blocks at the training batch, with the launches per train step
+BWD_MAIN_PATH = [(name, (TRAIN_BATCH,) + shape[1:], count)
+                 for name, shape, count in K1_MAIN_PATH]
+BWD_EXTRA = [
+    ("V=25", (TRAIN_BATCH, 26, 25, 128, 16)),
+    ("V=25 R=32", (TRAIN_BATCH, 13, 25, 256, 32)),  # K3's smaller channel tile
+    ("ragged", (3, 7, 20, 80, 10)),
+    ("N=1", (1, 13, 20, 256, 32)),
 ]
 
 
@@ -84,7 +123,9 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def k1_inputs(shape, seed: int, device):
+def unit_inputs(shape, seed: int, device):
+    """(x1s, x2s, x3s, w4s, b4s, alpha, As, g): the unit op's inputs with a
+    random non-symmetric A and alpha != 0, and a gradient g of its output."""
     import torch
 
     N, T, V, C, R = shape
@@ -99,66 +140,142 @@ def k1_inputs(shape, seed: int, device):
         randn(S, R, C, scale=0.1), randn(S, C, scale=0.1),
         (torch.rand(1, generator=g) + 0.5).to(device),
         torch.rand((S, V, V), generator=g).to(device),
+        randn(N, T, V, C),
     )
 
 
-def k1_bound(shape):
-    """(ms, 'bytes'|'operations'): each input read once and the output
-    written once over HBM, or the f32 FMAs (2 ops) over the f32 peak."""
-    N, T, V, C, R = shape
-    S = 3
-    elems = (2 * N * S * V * R + N * T * V * S * C + S * R * C + S * C + 1
-             + S * V * V + N * T * V * C)
+def bound(elems: int, flops: int):
+    """(ms, 'bytes'|'operations'): `elems` f32 values over HBM (each input
+    read once, each output written once), or the f32 FMAs (2 ops) over the
+    f32 peak, whichever is larger."""
     bytes_ms = 4 * elems / HBM_BYTES_PER_S * 1e3
-    flops = 2 * N * S * (V * V * R * C + T * V * V * C)
     ops_ms = flops / F32_FLOPS_PER_S * 1e3
     return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
 
 
-def check_k1(device):
+def k1_bound(shape):
+    N, T, V, C, R = shape
+    S = 3
+    elems = (2 * N * S * V * R + N * T * V * S * C + S * R * C + S * C + 1
+             + S * V * V + N * T * V * C)
+    return bound(elems, 2 * N * S * (V * V * R * C + T * V * V * C))
+
+
+def k2_bound(shape):
+    N, T, V, C, R = shape
+    S = 3
+    elems = (N * T * V * C + N * T * V * S * C + 2 * N * S * V * R + S * R * C
+             + S * C + 1 + S * V * V)
+    return bound(elems, 2 * N * S * (V * V * R * C + T * V * V * C))
+
+
+def k3_bound(shape):
+    N, T, V, C, R = shape
+    S = 3
+    # g, x3s, x1s, x2s in, dx1s, dx2s out; w4s, b4s, alpha in; dw4s, db4s,
+    # dalpha, dAs out (the bytes of the JAX cost estimate, ctr_gc.py:1360)
+    elems = (N * T * V * C + N * T * V * S * C + 4 * N * S * V * R
+             + 2 * (S * R * C + S * C + 1) + S * V * V)
+    # FMAs: dm = sum_t g x3, then D^T dm (dw4) and dm w4^T (dx1, dx2). dalpha
+    # reuses P = D^T dm as sum w4*P + b4*sum(dm), so it needs no third
+    # V*V*R*C product; the JAX estimate counts one (6 instead of 4)
+    return bound(elems, 2 * N * S * T * V * V * C + 4 * N * S * V * V * R * C)
+
+
+def _within(got, want, rtol, atol_frac):
+    """(ok, max |got - want|, max |want|)."""
     import torch
 
-    from tamgcn_tpu_torch.ops.aggregation import unit_ctr_gc_plain
+    err = (got - want).abs()
+    scale = want.abs().max().item()
+    ok = bool(torch.isfinite(got).all()) and not bool(
+        (err > rtol * want.abs() + atol_frac * scale).any())
+    return ok, err.max().item(), scale
+
+
+def check_kernels(device):
+    """K1, K2 and K3 against their plain versions at every shape; returns
+    {'K1': rows, 'K2': rows, 'K3': rows}."""
+    import torch
+
+    from tamgcn_tpu_torch.ops import aggregation as agg
     from tamgcn_tpu_torch.ops.cuda import ctr_gc
 
-    rows = []
-    shapes = [(name, shape, count) for name, shape, count in K1_MAIN_PATH]
-    shapes += [(name, shape, 0) for name, shape in K1_EXTRA]
-    for i, (name, shape, count) in enumerate(shapes):
-        args = k1_inputs(shape, seed=100 + i, device=device)
-        with torch.no_grad():
-            got = ctr_gc.unit_ctr_gc_fwd(*args)
-            want = unit_ctr_gc_plain(*args)
-            torch.cuda.synchronize()
-            err = (got - want).abs()
-            scale = want.abs().max().item()
-            bad = err > 1e-5 * want.abs() + 1e-5 * scale
-            max_err = err.max().item()
-            if bad.any() or not torch.isfinite(got).all():
-                raise AssertionError(
-                    f"K1 {name} {shape}: max |kernel - plain| {max_err:.3e} "
-                    f"(max|plain| {scale:.3e}), {int(bad.sum())} elements "
-                    "beyond rtol 1e-5 + 1e-5*max|plain|"
-                )
-            ms = cuda_ms(lambda: ctr_gc.unit_ctr_gc_fwd(*args))
-            plain_ms = cuda_ms(lambda: unit_ctr_gc_plain(*args))
-        bound_ms, bound_by = k1_bound(shape)
-        rows.append(dict(name=name, shape=dict(zip("NTVCR", shape)),
-                         launches_per_forward=count, max_abs_err=max_err,
-                         max_abs_plain=scale, ms=ms, plain_ms=plain_ms,
-                         bound_ms=bound_ms, bound_by=bound_by))
-        print(f"K1 {name:7s} N,T,V,C,R={shape}: max_abs_err {max_err:.3e} "
-              f"(max|plain| {scale:.3e}) kernel {ms * 1e3:.1f} us, plain "
-              f"{plain_ms * 1e3:.1f} us, bound {bound_ms * 1e3:.1f} us "
-              f"({bound_by})", flush=True)
-    return rows
+    def k1(x1s, x2s, x3s, w4s, b4s, alpha, As, g):
+        return ctr_gc.unit_ctr_gc_fwd(x1s, x2s, x3s, w4s, b4s, alpha, As)
+
+    def k1_plain(x1s, x2s, x3s, w4s, b4s, alpha, As, g):
+        return agg.unit_ctr_gc_plain(x1s, x2s, x3s, w4s, b4s, alpha, As)
+
+    def k2(x1s, x2s, x3s, w4s, b4s, alpha, As, g):
+        return ctr_gc.unit_ctr_gc_bwd_dx3(x1s, x2s, g, w4s, b4s, alpha, As)
+
+    def k2_plain(x1s, x2s, x3s, w4s, b4s, alpha, As, g):
+        return agg.unit_ctr_gc_dx3_plain(x1s, x2s, g, w4s, b4s, alpha, As)
+
+    def k3(x1s, x2s, x3s, w4s, b4s, alpha, As, g):
+        return ctr_gc.unit_ctr_gc_bwd_param(x1s, x2s, g, x3s, w4s, b4s, alpha)
+
+    def k3_plain(x1s, x2s, x3s, w4s, b4s, alpha, As, g):
+        return agg.unit_ctr_gc_param_grads_plain(x1s, x2s, g, x3s, w4s, b4s, alpha)
+
+    plan = [
+        ("K1", k1, k1_plain, k1_bound, K1_MAIN_PATH, K1_EXTRA),
+        ("K2", k2, k2_plain, k2_bound, BWD_MAIN_PATH, BWD_EXTRA),
+        ("K3", k3, k3_plain, k3_bound, BWD_MAIN_PATH, BWD_EXTRA),
+    ]
+    out = {}
+    for kname, fn, plain, bound_fn, main_path, extra in plan:
+        rows = []
+        shapes = [(n, s, c) for n, s, c in main_path] + [(n, s, 0) for n, s in extra]
+        for i, (name, shape, count) in enumerate(shapes):
+            args = unit_inputs(shape, seed=100 + i, device=device)
+            with torch.no_grad():
+                got = fn(*args)
+                want = plain(*args)
+                torch.cuda.synchronize()
+                if kname == "K3":
+                    again = fn(*args)
+                    torch.cuda.synchronize()
+                    for part, a, b in zip(K3_OUTPUTS, got, again):
+                        if not torch.equal(a, b):
+                            raise AssertionError(
+                                f"K3 {name} {shape}: two launches differ in {part}")
+                    errs = [(part,) + _within(a, b, *((1e-3, 0.0) if part == "dalpha"
+                                                      else (1e-4, 1e-4)))
+                            for part, a, b in zip(K3_OUTPUTS, got, want)]
+                else:
+                    rtol = 1e-5
+                    errs = [("out",) + _within(got, want, rtol, rtol)]
+                for part, ok, max_err, scale in errs:
+                    if not ok:
+                        raise AssertionError(
+                            f"{kname} {name} {shape} {part}: max |kernel - plain| "
+                            f"{max_err:.3e} (max|plain| {scale:.3e}) beyond the "
+                            "stated tolerance")
+                ms = cuda_ms(lambda: fn(*args))
+                plain_ms = cuda_ms(lambda: plain(*args))
+            bound_ms, bound_by = bound_fn(shape)
+            # the worst output relative to its own scale
+            worst = max(errs, key=lambda e: e[2] / max(e[3], 1e-30))
+            rows.append(dict(name=name, shape=dict(zip("NTVCR", shape)),
+                             launches_per_step=count, max_abs_err=worst[2],
+                             max_abs_plain=worst[3], worst_output=worst[0],
+                             ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                             bound_by=bound_by))
+            print(f"{kname} {name:9s} N,T,V,C,R={shape}: max_abs_err "
+                  f"{worst[2]:.3e} in {worst[0]} (max|plain| {worst[3]:.3e}) "
+                  f"kernel {ms * 1e3:.1f} us, plain {plain_ms * 1e3:.1f} us, "
+                  f"bound {bound_ms * 1e3:.1f} us ({bound_by})", flush=True)
+        out[kname] = rows
+    return out
 
 
 def make_weights(path: str, seed: int) -> None:
-    """The port's seeded init with what hides the kernel moved off its
-    degenerate values (alpha=0 makes M = A, the 1e-6 gcn1.bn scale scales
-    the aggregation away, the offset conv starts at zero) and calibrated
-    BatchNorm running stats."""
+    """The port's seeded init with what hides the kernels moved off its
+    degenerate values (alpha=0 makes M = A and zeroes dx1, dx2, dw4 and db4,
+    the 1e-6 gcn1.bn scale scales the aggregation away, the offset conv
+    starts at zero) and calibrated BatchNorm running stats."""
     import numpy as np
     import torch
 
@@ -200,30 +317,45 @@ def nucla_model_args() -> dict:
                 graph_args={"labeling_mode": "spatial"}, base_channel=64)
 
 
-def run_main_path(work_dir: str, weights: str):
+def reset_launches():
+    from tamgcn_tpu_torch.ops.cuda import ctr_gc
+
+    ctr_gc.launches = ctr_gc.bwd_dx3_launches = ctr_gc.bwd_param_launches = 0
+
+
+def read_launches() -> dict:
+    from tamgcn_tpu_torch.ops.cuda import ctr_gc
+
+    return {"K1": ctr_gc.launches, "K2": ctr_gc.bwd_dx3_launches,
+            "K3": ctr_gc.bwd_param_launches}
+
+
+def run_cli(argv):
     """The user's entry point, in-process; returns (seconds, launches)."""
     import torch
 
     from tamgcn_tpu_torch.__main__ import main
-    from tamgcn_tpu_torch.ops.cuda import ctr_gc
 
-    argv = [
+    reset_launches()
+    t0 = time.perf_counter()
+    rc = main(argv)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = read_launches()
+    if rc != 0:
+        raise AssertionError(f"main returned {rc}")
+    return seconds, launches
+
+
+def run_test_path(work_dir: str, weights: str):
+    return run_cli([
         "recognition", "-c", os.path.join(REPO, "configs/nucla/smoke.yaml"),
         "--phase", "test", "--weights", weights, "--work_dir", work_dir,
         "--use_gpu", "true", "--device", "0", "--seed", str(SEED),
         "--save_result", "true", "--test_batch_size", str(BATCH),
         "--test_feeder_args", f"num_samples={N_SAMPLES}",
         "--model_args", "base_channel=64",
-    ]
-    ctr_gc.launches = 0
-    t0 = time.perf_counter()
-    rc = main(argv)
-    torch.cuda.synchronize()
-    seconds = time.perf_counter() - t0
-    launches = {"K1": ctr_gc.launches}
-    if rc != 0:
-        raise AssertionError(f"main returned {rc}")
-    return seconds, launches
+    ])
 
 
 def check_logits(work_dir: str, weights: str):
@@ -259,16 +391,42 @@ def check_logits(work_dir: str, weights: str):
     return rel, x
 
 
+def profile_device(fn, reps: int = 5):
+    """Device time by kernel name over `reps` calls of fn (torch.profiler):
+    (busy_ms, n_kernels, top 10 (name, ms, launches)), all per call."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA], acc_events=True) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    events = [(e.key, e.self_device_time_total / reps / 1e3, e.count // reps)
+              for e in prof.key_averages() if e.self_device_time_total > 0]
+    if not events:
+        raise AssertionError("the profiler saw no device time")
+    events.sort(key=lambda e: -e[1])
+    busy_ms = sum(ms for _, ms, _ in events)
+    n_kernels = sum(count for _, _, count in events)
+    return busy_ms, n_kernels, events
+
+
+def print_profile(what, wall_ms, busy_ms, n_kernels, events):
+    print(f"{what} device time (torch.profiler): {busy_ms:.3f} ms busy of "
+          f"{wall_ms:.3f} ms ({100 * (1 - busy_ms / wall_ms):.1f}% idle) in "
+          f"{n_kernels} kernel launches; top kernels, ms and launches per call:",
+          flush=True)
+    for name, ms, count in events[:10]:
+        print(f"  {ms:8.4f} ms {count:4d}x  {name[:100]}", flush=True)
+
+
 def time_eval(weights: str, x, device):
     """Steady-state eval forward of one batch of 64: with the kernel and
     with the plain version of the unit op swapped in (CUDA events, in turns
-    kernel, plain, kernel), and the device time by kernel name over a few
-    forwards with the kernel (torch.profiler). Returns (kernel_ms, plain_ms,
-    busy_ms, n_kernels, top) with the last three per forward."""
+    kernel, plain, kernel), and the device time by kernel name."""
     from unittest import mock
 
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     from tamgcn_tpu_torch.models import ctrgcn, get_model
     from tamgcn_tpu_torch.ops.aggregation import unit_ctr_gc_plain
@@ -278,24 +436,261 @@ def time_eval(weights: str, x, device):
     model.load_state_dict(load_weights(weights))
     model.to(device).eval()
     xb = torch.from_numpy(x).to(device)
-    reps = 5
     with torch.inference_mode():
         kernel_ms = cuda_ms(lambda: model(xb))
         with mock.patch.object(ctrgcn, "unit_ctr_gc", unit_ctr_gc_plain):
             plain_ms = cuda_ms(lambda: model(xb))
         kernel_ms_2 = cuda_ms(lambda: model(xb))
-        with profile(activities=[ProfilerActivity.CUDA], acc_events=True) as prof:
-            for _ in range(reps):
-                model(xb)
-            torch.cuda.synchronize()
-    events = [(e.key, e.self_device_time_total / reps / 1e3, e.count // reps)
-              for e in prof.key_averages() if e.self_device_time_total > 0]
-    if not events:
-        raise AssertionError("the profiler saw no device time in the eval forward")
-    events.sort(key=lambda e: -e[1])
-    busy_ms = sum(ms for _, ms, _ in events)
-    n_kernels = sum(count for _, _, count in events)
-    return min(kernel_ms, kernel_ms_2), plain_ms, busy_ms, n_kernels, events[:10]
+        busy_ms, n_kernels, events = profile_device(lambda: model(xb))
+    return min(kernel_ms, kernel_ms_2), plain_ms, busy_ms, n_kernels, events
+
+
+def run_train_path(work_dir: str):
+    """--phase train for 2 epochs, then --resume for a third; checks the
+    launch counts, the losses and the files. Returns a summary dict."""
+    import numpy as np
+
+    steps = TRAIN_SAMPLES // TRAIN_BATCH
+    evals = math.ceil(EVAL_SAMPLES / TRAIN_BATCH)
+    argv = [
+        "recognition", "-c", os.path.join(REPO, "configs/nucla/smoke.yaml"),
+        "--phase", "train", "--work_dir", work_dir, "--use_gpu", "true",
+        "--device", "0", "--seed", str(SEED), "--model_args", "base_channel=64",
+        "--batch_size", str(TRAIN_BATCH), "--test_batch_size", str(TRAIN_BATCH),
+        "--train_feeder_args", f"num_samples={TRAIN_SAMPLES}",
+        "--test_feeder_args", f"num_samples={EVAL_SAMPLES}",
+        "--eval_interval", "1", "--save_interval", "1",
+    ]
+    summary = {}
+    ckpt = os.path.join(work_dir, "checkpoints")
+    for label, epochs, extra in (("train", 2, []),
+                                 ("resume", 1, ["--resume", "true"])):
+        total = 2 + (label == "resume")
+        seconds, launches = run_cli(argv + ["--num_epoch", str(total), *extra])
+        want = {"K1": 10 * epochs * (steps + evals), "K2": 10 * epochs * steps,
+                "K3": 10 * epochs * steps}
+        if launches != want:
+            raise AssertionError(
+                f"--phase train ({label}): launches {launches}, expected {want} "
+                f"(10 per train step of {steps} a epoch, K1 also 10 per eval "
+                f"batch of {evals})")
+        for n in range(1, total + 1):
+            if not os.path.isfile(os.path.join(ckpt, f"epoch{n}.pt")):
+                raise AssertionError(f"checkpoints/epoch{n}.pt missing")
+        with open(os.path.join(work_dir, "progress_info.csv")) as f:
+            rows = [r for r in csv.reader(f) if r and not r[0].startswith("#")]
+        # one row per eval of the run: train loss, test loss, top1, top5
+        progress = np.asarray(rows, dtype=np.float64)[total - epochs:]
+        if len(progress) != epochs or not np.isfinite(progress).all():
+            raise AssertionError(f"progress_info.csv ({label}): {rows}")
+        if label == "train" and (progress[:, 2].max() > 0) != os.path.isfile(
+                os.path.join(ckpt, "best.pt")):
+            raise AssertionError("best.pt does not follow the best top-1")
+        summary[label] = dict(seconds=seconds, launches=launches,
+                              progress=progress.tolist())
+        print(f"train path ({label}): {epochs} epoch(s) of {steps} steps at "
+              f"batch {TRAIN_BATCH} in {seconds:.2f} s (incl. model build, data "
+              f"and eval), launches {launches}; progress (train loss, test "
+              f"loss, top1, top5) {progress.tolist()}", flush=True)
+    return summary
+
+
+def train_batches(n: int, batch: int):
+    import numpy as np
+
+    from tamgcn_tpu_torch.data import SyntheticSkeletonFeeder
+
+    feeder = SyntheticSkeletonFeeder(num_samples=n * batch, split="train", seed=SEED)
+    out = []
+    for b in range(n):
+        items = [feeder[i] for i in range(b * batch, (b + 1) * batch)]
+        out.append((np.stack([it[0] for it in items]),
+                    np.asarray([it[1] for it in items], np.int64)))
+    return out
+
+
+def train_model(weights: str, device, dtype=None):
+    import torch
+
+    from tamgcn_tpu_torch.models import get_model
+    from tamgcn_tpu_torch.train.checkpoint import load_weights
+    from tamgcn_tpu_torch.train.optim import make_optimizer
+
+    model = get_model("ctrgcn", **nucla_model_args())
+    model.load_state_dict(load_weights(weights))
+    model.to(device, dtype or torch.float32).train()
+    opt = make_optimizer("SGD", model.parameters(), 0.05, weight_decay=1e-4)
+    return model, opt
+
+
+def train_step(model, opt, x, y):
+    import torch.nn.functional as F
+
+    opt.zero_grad(set_to_none=True)
+    loss = F.cross_entropy(model(x), y)
+    loss.backward()
+    opt.step()
+    return loss
+
+
+def trajectory(weights: str, batches, where, dtype):
+    """SGD steps from `weights`, one on each of `batches`: (losses, [state
+    before the first step, after each step], each {name: f64 CPU tensor})."""
+    import torch
+
+    def state():
+        return {k: v.detach().cpu().double().clone()
+                for k, v in model.state_dict().items()}
+
+    model, opt = train_model(weights, where, dtype)
+    losses, states = [], [state()]
+    for x, y in batches:
+        losses.append(train_step(model, opt, torch.from_numpy(x).to(where, dtype),
+                                 torch.from_numpy(y).to(where)).item())
+        states.append(state())
+    return losses, states
+
+
+def trajectory_limits(ref, refs):
+    """The tolerance of a trajectory against `ref` (f64), from the f32
+    trajectories `refs`: per step, TRAJ_TIMES x the largest |f32 - f64| of
+    `refs` + TRAJ_LOSS_FLOOR x |loss|; per tensor after each step, TRAJ_TIMES
+    x the largest max|f32 - f64| of `refs` + TRAJ_TENSOR_FLOOR x the tensor's
+    own change (max abs) from its start over the f64 run."""
+    (ref_l, ref_s) = ref
+    loss = [TRAJ_TIMES * max(abs(r[0][i] - want) for r in refs)
+            + TRAJ_LOSS_FLOOR * abs(want) for i, want in enumerate(ref_l)]
+    tensor = [{k: TRAJ_TIMES * max((r[1][i][k] - want).abs().max().item()
+                                   for r in refs)
+               + TRAJ_TENSOR_FLOOR * (want - ref_s[0][k]).abs().max().item()
+               for k, want in ref_s[i].items()}
+              for i in range(1, len(ref_s))]
+    return loss, tensor
+
+
+def trajectory_ratios(run, ref, limits):
+    """{what: |run - ref| / limit} for the loss of every step and every
+    tensor after every step (inf where the run is not finite)."""
+    import torch
+
+    out = {}
+    for i, (got, want, lim) in enumerate(zip(run[0], ref[0], limits[0])):
+        out[f"loss of step {i}"] = (abs(got - want) / lim if math.isfinite(got)
+                                    else math.inf)
+    for i, lims in enumerate(limits[1], start=1):
+        for k, lim in lims.items():
+            got, want = run[1][i][k], ref[1][i][k]
+            err = (got - want).abs().max().item()
+            out[f"{k} after step {i}"] = (
+                math.inf if not torch.isfinite(got).all()
+                else 0.0 if err == 0 else err / lim if lim else math.inf)
+    return out
+
+
+def check_trajectory(weights: str, device):
+    """TRAJ_STEPS SGD steps from the same weights on the same batches: on the
+    card with K1-K3 (f32), and as references on the CPU in f64 and, for the
+    size of f32 rounding, on the CPU in f32 and on the card in f32 with the
+    plain unit op. Relu and max-pool decisions at near-ties flip under
+    rounding-size changes, each flip moving some gradients: one step's
+    gradients in f32 leave the f64 ones by percent, and through ten blocks
+    of train-mode BatchNorm the trajectory is chaotic. So the card is held
+    to the f64 run, after every step, within trajectory_limits. The same
+    check is then run on the card with each of K3_OUTPUTS zeroed in turn,
+    and must fail each time. Returns the worst (err / limit) and its name."""
+    from unittest import mock
+
+    import torch
+
+    from tamgcn_tpu_torch.models import ctrgcn
+    from tamgcn_tpu_torch.ops.aggregation import unit_ctr_gc_plain
+    from tamgcn_tpu_torch.ops.cuda import ctr_gc
+
+    batches = train_batches(TRAJ_STEPS, TRAIN_BATCH)
+    ref = trajectory(weights, batches, "cpu", torch.float64)
+    refs = [trajectory(weights, batches, "cpu", torch.float32)]
+    with mock.patch.object(ctrgcn, "unit_ctr_gc", unit_ctr_gc_plain):
+        refs.append(trajectory(weights, batches, device, torch.float32))
+    limits = trajectory_limits(ref, refs)
+    card = trajectory(weights, batches, device, torch.float32)
+    ratios = trajectory_ratios(card, ref, limits)
+    worst = sorted(ratios.items(), key=lambda kv: -kv[1])
+    print(f"card vs CPU, {TRAJ_STEPS} SGD steps at batch {TRAIN_BATCH}: losses "
+          f"card {card[0]}, cpu f32 {refs[0][0]}, card f32 plain unit op "
+          f"{refs[1][0]}, cpu f64 {ref[0]}; tolerance after every step: |card "
+          f"- f64| <= {TRAJ_TIMES} x max(|cpu f32 - f64|, |card plain - f64|) "
+          f"+ {TRAJ_LOSS_FLOOR} x |loss| for the loss, + {TRAJ_TENSOR_FLOOR} "
+          f"x the tensor's own change over the f64 run for each tensor; worst "
+          f"of {len(ratios)}: " + ", ".join(f"{k} {v:.3f}" for k, v in worst[:5])
+          + f"; median {sorted(ratios.values())[len(ratios) // 2]:.3f} of its "
+          "limit", flush=True)
+    if worst[0][1] > 1:
+        raise AssertionError("the card's training trajectory left the CPU's")
+
+    real = ctr_gc.unit_ctr_gc_bwd_param
+    for part in K3_OUTPUTS:
+        def faulty(*args, part=part):
+            return tuple(t.zero_() if name == part else t
+                         for name, t in zip(K3_OUTPUTS, real(*args)))
+
+        with mock.patch.object(ctr_gc, "unit_ctr_gc_bwd_param", faulty):
+            f_ratios = trajectory_ratios(
+                trajectory(weights, batches, device, torch.float32), ref, limits)
+        beyond = sorted((k for k, v in f_ratios.items() if v > 1),
+                        key=lambda k: -f_ratios[k])
+        print(f"planted fault, K3's {part} zeroed: {len(beyond)} of "
+              f"{len(f_ratios)} beyond their limit, worst "
+              + ", ".join(f"{k} {f_ratios[k]:.3f}" for k in beyond[:5]), flush=True)
+        if not beyond:
+            raise AssertionError(
+                f"the trajectory check passed with K3's {part} zeroed")
+    return worst[0][1], worst[0][0]
+
+
+def time_train(weights: str, device):
+    """Steady-state train step (forward, backward, SGD step) at batch 16
+    (kernels, plain unit op, kernels) and 64 (kernels), CUDA events; the
+    device time by kernel name at both. Returns a dict of ms."""
+    from unittest import mock
+
+    import torch
+
+    from tamgcn_tpu_torch.models import ctrgcn
+    from tamgcn_tpu_torch.ops.aggregation import unit_ctr_gc_plain
+
+    out = {}
+    for batch in (TRAIN_BATCH, 64):
+        model, opt = train_model(weights, device)
+        (x, y), = train_batches(1, batch)
+        x, y = torch.from_numpy(x).to(device), torch.from_numpy(y).to(device)
+
+        def step():
+            train_step(model, opt, x, y)
+
+        out[f"kernel_ms_{batch}"] = cuda_ms(step, iters=10)
+        if batch == TRAIN_BATCH:
+            with mock.patch.object(ctrgcn, "unit_ctr_gc", unit_ctr_gc_plain):
+                out["plain_ms_16"] = cuda_ms(step, iters=10)
+            out["kernel_ms_16"] = min(out["kernel_ms_16"], cuda_ms(step, iters=10))
+        busy, n_kernels, events = profile_device(step)
+        out.update({f"busy_ms_{batch}": busy, f"n_kernels_{batch}": n_kernels,
+                    f"events_{batch}": events})
+    return out
+
+
+def kernel_summary(rows, per):
+    """Sum of each timing over the launches of one forward / step."""
+    used = [r for r in rows if r["launches_per_step"]]
+
+    def total(key):
+        return sum(r[key] * r["launches_per_step"] for r in used)
+
+    bound_ms = total("bound_ms")
+    ops_ms = sum(r["bound_ms"] * r["launches_per_step"] for r in used
+                 if r["bound_by"] == "operations")
+    return dict(ms=total("ms"), plain_ms=total("plain_ms"), bound_ms=bound_ms,
+                bound_by="operations" if ops_ms >= bound_ms / 2 else "bytes",
+                per=per)
 
 
 def main() -> int:
@@ -323,59 +718,77 @@ def main() -> int:
           flush=True)
 
     # ---- 3. kernels against their plain versions ----
-    k1_rows = check_k1(device)
-    print("K1 library_ms: none (no single PyTorch call computes the unit op)",
-          flush=True)
+    rows = check_kernels(device)
+    print("library_ms: none for K1, K2, K3 (no single PyTorch call computes "
+          "the unit op or its gradients)", flush=True)
 
-    # ---- 4. main path ----
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as work_dir:
         weights = os.path.join(work_dir, "weights.pt")
         make_weights(weights, seed=7)
-        seconds, launches = run_main_path(work_dir, weights)
+
+        # ---- 4. test main path ----
+        test_dir = os.path.join(work_dir, "test")
+        seconds, launches = run_test_path(test_dir, weights)
         batches = math.ceil(N_SAMPLES / BATCH)
-        if launches["K1"] != 10 * batches:
+        if launches != {"K1": 10 * batches, "K2": 0, "K3": 0}:
             raise AssertionError(
-                f"K1 launched {launches['K1']} times on the main path, "
-                f"expected 10 x {batches} batches"
-            )
-        rel, x = check_logits(work_dir, weights)
-        kernel_ms, plain_ms, busy_ms, n_kernels, top = time_eval(weights, x, device)
-    print(f"main path: {batches} batches of {BATCH} in {seconds:.2f} s (incl. "
-          f"model build and data), K1 launches {launches['K1']}, logits vs "
-          f"CPU plain path max rel err {rel:.3e}", flush=True)
-    print(f"eval forward, batch {BATCH}: {kernel_ms:.3f} ms/batch "
-          f"({BATCH / kernel_ms * 1e3:.1f} samples/s) with K1; {plain_ms:.3f} "
-          f"ms/batch with the plain unit op", flush=True)
-    print(f"eval forward device time (torch.profiler): {busy_ms:.3f} ms busy "
-          f"of {kernel_ms:.3f} ms ({100 * (1 - busy_ms / kernel_ms):.1f}% idle) "
-          f"in {n_kernels} kernel launches; top kernels, ms and launches per "
-          "forward:", flush=True)
-    for name, ms, count in top:
-        print(f"  {ms:8.4f} ms {count:4d}x  {name[:100]}", flush=True)
+                f"the test phase launched {launches}, expected K1 10 x "
+                f"{batches} batches and no backward kernel")
+        test_launches = launches["K1"]
+        rel, x = check_logits(test_dir, weights)
+        kernel_ms, plain_ms, busy_ms, n_kernels, events = time_eval(weights, x, device)
+        print(f"test path: {batches} batches of {BATCH} in {seconds:.2f} s (incl. "
+              f"model build and data), K1 launches {test_launches}, logits vs "
+              f"CPU plain path max rel err {rel:.3e}", flush=True)
+        print(f"eval forward, batch {BATCH}: {kernel_ms:.3f} ms/batch "
+              f"({BATCH / kernel_ms * 1e3:.1f} samples/s) with K1; {plain_ms:.3f} "
+              f"ms/batch with the plain unit op", flush=True)
+        print_profile("eval forward", kernel_ms, busy_ms, n_kernels, events)
 
-    per_fwd = [r for r in k1_rows if r["launches_per_forward"]]
+        # ---- 5. train main path ----
+        train = run_train_path(os.path.join(work_dir, "train"))
+        check_trajectory(weights, device)
+        t = time_train(weights, device)
+    print(f"train step (forward, backward, SGD), batch {TRAIN_BATCH}: "
+          f"{t['kernel_ms_16']:.3f} ms ({TRAIN_BATCH / t['kernel_ms_16'] * 1e3:.1f} "
+          f"samples/s) with K1-K3; {t['plain_ms_16']:.3f} ms with the plain unit "
+          f"op; batch 64: {t['kernel_ms_64']:.3f} ms "
+          f"({64 / t['kernel_ms_64'] * 1e3:.1f} samples/s)", flush=True)
+    for batch in (64, TRAIN_BATCH):
+        events = t[f"events_{batch}"]
+        print_profile(f"train step, batch {batch},", t[f"kernel_ms_{batch}"],
+                      t[f"busy_ms_{batch}"], t[f"n_kernels_{batch}"], events)
+    for kname, prefix in (("K1", "unit_ctr_gc_fwd_kernel"),
+                          ("K2", "unit_ctr_gc_bwd_dx3_kernel"),
+                          ("K3", "unit_ctr_gc_bwd_param")):
+        ms = sum(e[1] for e in t["events_16"] if prefix in e[0])
+        print(f"  {kname}: {ms:.4f} ms per train step at batch {TRAIN_BATCH}, "
+              f"{100 * ms / t['busy_ms_16']:.1f}% of the device time", flush=True)
 
-    def forward_sum(key):
-        return sum(r[key] * r["launches_per_forward"] for r in per_fwd)
-
-    bound_ms = forward_sum("bound_ms")
-    ops_ms = sum(r["bound_ms"] * r["launches_per_forward"] for r in per_fwd
-                 if r["bound_by"] == "operations")
-    kernels = [{
-        "name": "unit_ctr_gc_fwd",
-        "route": "cuda",
-        "source": "tamgcn_tpu_torch/csrc/unit_ctr_gc_fwd.cu",
-        "replaces": "tamgcn_tpu/ops/pallas/ctr_gc.py:367",
-        "launches": launches["K1"],
-        "max_abs_err": max(r["max_abs_err"] for r in k1_rows),
-        # times and bound: one eval forward at N=64 (its 10 launches)
-        "ms": forward_sum("ms"),
-        "plain_ms": forward_sum("plain_ms"),
-        "bound_ms": bound_ms,
-        "bound_by": "operations" if ops_ms >= bound_ms / 2 else "bytes",
-        "library_ms": None,
-        "shapes": k1_rows,
-    }]
+    sources = {"K1": ("unit_ctr_gc_fwd", "unit_ctr_gc_fwd.cu",
+                      "tamgcn_tpu/ops/pallas/ctr_gc.py:367",
+                      test_launches, "eval forward, batch 64"),
+               "K2": ("unit_ctr_gc_bwd_dx3", "unit_ctr_gc_bwd_dx3.cu",
+                      "tamgcn_tpu/ops/pallas/ctr_gc.py:494",
+                      train["train"]["launches"]["K2"], "train step, batch 16"),
+               "K3": ("unit_ctr_gc_bwd_param", "unit_ctr_gc_bwd_param.cu",
+                      "tamgcn_tpu/ops/pallas/ctr_gc.py:717",
+                      train["train"]["launches"]["K3"], "train step, batch 16")}
+    kernels = []
+    for kname, (name, source, replaces, count, per) in sources.items():
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": f"tamgcn_tpu_torch/csrc/{source}",
+            "replaces": replaces,
+            # launches on the main path's run (test phase for K1, the first
+            # two train epochs for K2 and K3)
+            "launches": count,
+            "max_abs_err": max(r["max_abs_err"] for r in rows[kname]),
+            "library_ms": None,
+            **kernel_summary(rows[kname], per),
+            "shapes": rows[kname],
+        })
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,5 +1,6 @@
 """tamgcn_tpu_torch CLI, the counterpart of main.py:
 
+    python -m tamgcn_tpu_torch recognition -c configs/nucla/gcn.yaml [overrides]
     python -m tamgcn_tpu_torch recognition -c configs/nucla/gcn.yaml \\
         --phase test --weights w.pt [overrides]
 
@@ -25,7 +26,7 @@ def main(argv=None) -> int:
         raise NotImplementedError(f"{argv[0]} comes with {_LATER[argv[0]]}")
     if not argv or argv[0] != "recognition":
         print("usage: python -m tamgcn_tpu_torch recognition [-c CONFIG] "
-              "--phase test --weights W.pt [overrides]")
+              "[--phase train | --phase test --weights W.pt] [overrides]")
         return 2
     arg = load_config(argv[1:], parser=base_parser(add_help=True))
     RecognitionTrainer(arg).start()

@@ -22,12 +22,13 @@
 // all three subsets sits in shared memory, and at R <= 16 two blocks share
 // an SM. With so few warps per SM, every loop keeps several independent
 // loads or arithmetic chains in flight per thread.
-//   Stage 1: for each subset s, the block stages the x1/x2 rows in shared
-//   memory and computes D = tanh(x1_u - x2_v) (V*V*R values, once per block
-//   instead of once per channel). Then M_s = D @ w4s[s] is a small GEMM:
-//   each thread holds w4s[s,:,4 channels] in registers and, per r, reads one
-//   value of D (rows padded to RP+1 floats, so the 8 rows a warp reads sit in
-//   different banks) for 4 FMAs, two (u,v) rows at a time.
+//   Stage 1 (unit_ctr_gc_common.cuh:build_m, shared with K2): for each
+//   subset s, the block stages the x1/x2 rows in shared memory and computes
+//   D = tanh(x1_u - x2_v) (V*V*R values, once per block instead of once per
+//   channel). Then M_s = D @ w4s[s] is a small GEMM: each thread holds
+//   w4s[s,:,4 channels] in registers and, per r, reads one value of D (rows
+//   padded to RP+1 floats, so the 8 rows a warp reads sit in different
+//   banks) for 4 FMAs, two (u,v) rows at a time.
 //   Stage 2: the block walks T in chunks of 8 frames. All threads first copy
 //   the chunk's x3s tile (8 x V x S x CT values) into shared memory over D,
 //   with 16-byte loads, consecutive threads on consecutive channels, all of a
@@ -40,22 +41,14 @@
 
 #include <cuda_runtime.h>
 
+#include "unit_ctr_gc_common.cuh"
+
 namespace {
 
-constexpr int kThreads = 256;
+using namespace unit_ctr_gc;
+
 constexpr int kUU = 5;  // joints u per thread in stage 2
 constexpr int kTT = 2;  // frames t per thread in stage 2
-constexpr int kTC = 8;  // frames per x3s chunk in shared memory
-constexpr int kBatch = 8;  // loads or tanh in flight per thread
-constexpr int kSmemLimit = 232448;  // bytes a block may use on sm_90
-
-__host__ __device__ inline int imax(int a, int b) { return a > b ? a : b; }
-__host__ __device__ inline int round4(int a) { return (a + 3) / 4 * 4; }
-
-__device__ inline float4 fma4(float d, float4 w, float4 acc) {
-  return make_float4(fmaf(d, w.x, acc.x), fmaf(d, w.y, acc.y),
-                     fmaf(d, w.z, acc.z), fmaf(d, w.w, acc.w));
-}
 
 // shared memory, in floats: D/X region, then M, then E
 __host__ __device__ inline int region0(int V, int S, int CT, int RP) {
@@ -86,88 +79,11 @@ unit_ctr_gc_fwd_kernel(const float* __restrict__ x1s,
   const int n = blockIdx.y;
   const int c0 = blockIdx.x * CT;
   const int tid = threadIdx.x;
-  const int VV = V * V;
   const float a = alpha[0];
 
   // ---- stage 1: M_s[u,v,c] for the channel tile, all subsets ----
-  const int q = tid % (CT / 4);  // this thread's 4 channels: c0 + 4q ..
-  const int lane_uv = tid / (CT / 4);
-  const int NUV = kThreads / (CT / 4);
-  const int c4 = c0 + 4 * q;
-  const bool ok4 = c4 < C;  // C % 4 == 0: all 4 channels or none
-  for (int s = 0; s < S; ++s) {
-    __syncthreads();  // the previous subset's reads of D and E are done
-    {
-      const float* x1 = x1s + ((size_t)n * S + s) * V * R;
-      const float* x2 = x2s + ((size_t)n * S + s) * V * R;
-      const int esize = 2 * V * RP;
-      for (int base = tid; base < esize; base += kThreads * kBatch) {
-        float val[kBatch];
-#pragma unroll
-        for (int k = 0; k < kBatch; ++k) {
-          const int i = base + k * kThreads;
-          const int r = i % RP, row = i / RP;  // row < V: x1, else x2
-          val[k] = 0.f;
-          if (i < esize && r < R) val[k] = row < V ? x1[row * R + r] : x2[(row - V) * R + r];
-        }
-#pragma unroll
-        for (int k = 0; k < kBatch; ++k) {
-          const int i = base + k * kThreads;
-          if (i < esize) E[i] = val[k];
-        }
-      }
-    }
-    float4 w[RP];
-#pragma unroll
-    for (int r = 0; r < RP; ++r) {
-      w[r] = (ok4 && r < R)
-                 ? *reinterpret_cast<const float4*>(w4s + ((size_t)s * R + r) * C + c4)
-                 : make_float4(0.f, 0.f, 0.f, 0.f);
-    }
-    const float4 b = ok4 ? *reinterpret_cast<const float4*>(b4s + (size_t)s * C + c4)
-                         : make_float4(0.f, 0.f, 0.f, 0.f);
-    const float* A = As + (size_t)s * VV;
-    __syncthreads();
-    for (int base = tid; base < VV * RP; base += kThreads * kBatch) {
-      float val[kBatch];
-#pragma unroll
-      for (int k = 0; k < kBatch; ++k) {
-        const int i = min(base + k * kThreads, VV * RP - 1);
-        const int r = i % RP, uv = i / RP;
-        val[k] = tanhf(E[(uv / V) * RP + r] - E[(V + uv % V) * RP + r]);
-      }
-#pragma unroll
-      for (int k = 0; k < kBatch; ++k) {
-        const int i = base + k * kThreads;
-        if (i < VV * RP) D[(i / RP) * (RP + 1) + i % RP] = val[k];
-      }
-    }
-    __syncthreads();
-    for (int uv0 = lane_uv; uv0 < VV; uv0 += 2 * NUV) {
-      const int uv1 = min(uv0 + NUV, VV - 1);
-      const float* d0 = D + uv0 * (RP + 1);
-      const float* d1 = D + uv1 * (RP + 1);
-      float4 acc0 = make_float4(0.f, 0.f, 0.f, 0.f);
-      float4 acc1 = acc0;
-#pragma unroll
-      for (int r = 0; r < RP; ++r) {
-        acc0 = fma4(d0[r], w[r], acc0);
-        acc1 = fma4(d1[r], w[r], acc1);
-      }
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int uv = uv0 + h * NUV;
-        const float4 acc = h ? acc1 : acc0;
-        if (ok4 && uv < VV) {
-          const int u = uv / V, v = uv % V;
-          const float Auv = A[uv];
-          *reinterpret_cast<float4*>(M + ((s * VP + u) * V + v) * CT + 4 * q) =
-              make_float4(fmaf(acc.x + b.x, a, Auv), fmaf(acc.y + b.y, a, Auv),
-                          fmaf(acc.z + b.z, a, Auv), fmaf(acc.w + b.w, a, Auv));
-        }
-      }
-    }
-  }
+  build_m<RP>(x1s, x2s, w4s, b4s, a, As, D, E, M, VP * V, V, n, c0, S, V, R,
+              C, CT);
   // zero the padded joint rows u in [V, VP): stage 2 reads them
   for (int i = tid; i < S * (VP - V) * V * CT; i += kThreads) {
     const int rest = i / (V * CT);  // (s, u - V)

@@ -1,4 +1,5 @@
-"""Data pipeline: NW-UCLA eval feeder, synthetic feeder, batch loader."""
+"""Data pipeline: NW-UCLA feeder (train and val splits), synthetic feeder,
+batch loader."""
 from .feeder_nucla_gcn import NUCLAFeederGCN  # noqa: F401
 from .loader import Loader  # noqa: F401
 from .splits import load_nucla_split  # noqa: F401

@@ -1,10 +1,14 @@
-"""NW-UCLA skeleton feeder for the GCN model families: the eval path.
+"""NW-UCLA skeleton feeder for the GCN model families.
 
-Numpy copy of the val-split pipeline of tamgcn_tpu/data/feeder_nucla_gcn.py
+Numpy copy of tamgcn_tpu/data/feeder_nucla_gcn.py with backend="numpy"
 (reference feeder/feeder_nucla_gcn.py:54-154): JSON skeleton loading
-`<data_path>/<name>/<name>.json`, centring on joint 1 of frame 0, min-max
-normalisation to [-1, 1], linspace resampling to T=52 and the bone/motion
-modalities. The train split's augmentation comes with the training slice.
+`<data_path>/<name>/<name>.json`, centring on joint 1 of frame 0, the train
+split's random 3-D view rotation of +-60 degrees and scale U(0.5, 1.5),
+min-max normalisation to [-1, 1], resampling to T=52 (train: sorted random
+without replacement; val: linspace), `repeat` oversampling and the
+bone/motion modalities. The randomness is an explicit per-sample
+np.random.Generator, Philox(key=seed, counter=[0, 0, epoch, index]), so the
+train samples equal the JAX feeder's draw for draw.
 """
 from __future__ import annotations
 
@@ -16,6 +20,12 @@ import numpy as np
 from . import transforms as T
 from .splits import load_nucla_split
 
+# the train split's augmentation: view rotation of up to +-60 degrees about
+# x and y, scale U(0.5, 1.5) (the defaults of
+# tamgcn_tpu/data/feeder_nucla_gcn.py:44-45, which no shipped config changes)
+ROTATION_DEG = 60
+SCALE_RANGE = (0.5, 1.5)
+
 
 class NUCLAFeederGCN:
     """Map-style dataset yielding (skeleton (3, 52, 20, 1) f32, label, index)."""
@@ -23,8 +33,9 @@ class NUCLAFeederGCN:
     def __init__(
         self,
         data_path: str,
-        split: str = "val",
+        split: str = "train",
         modality: str = "joint",  # joint | bone | motion
+        repeat: int = 1,
         time_steps: int = 52,
         seed: int = 0,
         debug: bool = False,
@@ -33,18 +44,16 @@ class NUCLAFeederGCN:
         # reference Feeder's random_choose/random_shift/... args for NUCLA
         **_unused,
     ):
-        if split != "val":
-            raise NotImplementedError(
-                f"split {split!r}: the port's NW-UCLA feeder has the eval "
-                "path only; train augmentation comes with the training slice"
-            )
         if modality not in ("joint", "bone", "motion"):
             raise ValueError(f"unknown modality {modality!r}")
         self.data_path = data_path
         self.split = split
+        self.train = split == "train"
         self.modality = modality
+        self.repeat = repeat if self.train else 1
         self.time_steps = time_steps
         self.seed = seed
+        self.epoch = 0
         self.dtype = np.dtype(dtype)
 
         self.data_dict = load_nucla_split(split)
@@ -66,21 +75,36 @@ class NUCLAFeederGCN:
             self.data.append(np.asarray(skeletons, np.float64))  # (T, 20, 3)
 
     def set_epoch(self, epoch: int):
-        """Eval samples do not depend on the epoch; kept for the Loader."""
+        """Advance the augmentation stream (the Loader calls it each epoch)."""
+        self.epoch = epoch
 
     def __len__(self) -> int:
-        return len(self.data_dict)
+        return len(self.data_dict) * self.repeat
 
     def __getitem__(self, index: int):
+        rng = np.random.Generator(
+            np.random.Philox(key=self.seed, counter=[0, 0, self.epoch, index])
+        )
+        index = index % len(self.data_dict)
         label = int(self.label[index])
         value = self.data[index]
 
+        if self.train:
+            agx = int(rng.integers(-ROTATION_DEG, ROTATION_DEG + 1))
+            agy = int(rng.integers(-ROTATION_DEG, ROTATION_DEG + 1))
+            s = float(rng.uniform(*SCALE_RANGE))
+        else:
+            agx, agy, s = 0, 0, 1.0
+
         # center on joint 1 of frame 0 (reference :99-100)
         value = value - value[0:1, 1:2, :]
-        value = T.rand_view_transform(value, 0, 0, 1.0)
+        value = T.rand_view_transform(value, agx, agy, s)
         value = T.minmax_normalize(value)
 
-        idx = T.resample_eval(value.shape[0], self.time_steps)
+        if self.train:
+            idx = T.resample_train(value.shape[0], self.time_steps, rng)
+        else:
+            idx = T.resample_eval(value.shape[0], self.time_steps)
         data = value[idx]  # (T=52, 20, 3)
 
         if self.modality == "bone":

@@ -1,9 +1,8 @@
 """Host-side skeleton preprocessing (numpy).
 
-Copies of the functions of tamgcn_tpu/data/transforms.py that the eval
-feeders use: view transform, min-max normalisation, eval resampling, the
-bone/motion modalities and top-k scoring. Augmentation for training comes
-with the training slice.
+Copies of the functions of tamgcn_tpu/data/transforms.py that the NW-UCLA
+and synthetic feeders use: view transform, min-max normalisation, train and
+eval resampling, the bone/motion modalities and top-k scoring.
 """
 from __future__ import annotations
 
@@ -51,6 +50,32 @@ def minmax_normalize(x: np.ndarray) -> np.ndarray:
     v_min, v_max = flat.min(axis=0), flat.max(axis=0)
     flat = (flat - v_min) / (v_max - v_min + 1e-6)
     return (flat * 2 - 1).reshape(x.shape)
+
+
+def sample_positions_without_replacement(
+    n: int, k: int, rng: np.random.Generator
+) -> np.ndarray:
+    """k distinct positions uniform over [0, n), via partial Fisher-Yates:
+    exactly k ``rng.integers(i, n)`` draws, one per output, so the draw
+    stream is the JAX package's draw for draw. Distribution == Python
+    ``random.sample(range(n), k)``."""
+    swap: dict[int, int] = {}
+    out = np.empty(k, np.int64)
+    for i in range(k):
+        j = int(rng.integers(i, n))
+        out[i] = swap.get(j, j)
+        swap[j] = swap.get(i, i)
+    return out
+
+
+def resample_train(length: int, time_steps: int, rng: np.random.Generator) -> np.ndarray:
+    """Sorted sample without replacement from the 100x-replicated frame list
+    (reference feeder_nucla_gcn.py:111-114:
+    ``sorted(random.sample(list(np.arange(length)) * 100, time_steps))``)."""
+    pos = sample_positions_without_replacement(length * 100, time_steps, rng)
+    idx = pos % length
+    idx.sort()
+    return idx
 
 
 def resample_eval(length: int, time_steps: int) -> np.ndarray:

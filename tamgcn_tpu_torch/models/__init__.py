@@ -26,7 +26,7 @@ def get_model(name: str, **model_args):
     if dtype not in (None, "float32"):
         raise NotImplementedError(
             f"model dtype {dtype!r}: the port computes in float32 until the "
-            "training slice adds bfloat16"
+            "bf16 slice adds bfloat16"
         )
     try:
         cls = _REGISTRY[name]

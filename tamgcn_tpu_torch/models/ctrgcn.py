@@ -379,8 +379,14 @@ class CTRGCN(nn.Module):
         h, N, M = self._stem(self._to_ncvtm(x))
         h = self._backbone(h)  # (N*M, T', V, 4*bc)
         h = h.reshape(N, M, -1, h.shape[-1]).mean(dim=2).mean(dim=1)  # (N, C)
-        if self.dropout is not None:
-            h = self.dropout(h)
+        if self.dropout is not None and self.training:
+            # nn.Dropout would draw from torch's global generator, not from a
+            # seeded stream as the JAX model's dropout rng; no shipped GCN
+            # config sets drop_out
+            raise NotImplementedError(
+                "drop_out > 0 in training comes with the RGB slice (the "
+                "seeded dropout of the ResNet block variant)"
+            )
         return self.fc(h)
 
     def extract_feature(self, x):

@@ -7,12 +7,14 @@ time, vertex, channel), as in the JAX package. The unit op
     M_s = (tanh(x1s[n,s,u,:] - x2s[n,s,v,:]) @ w4s[s] + b4s[s]) * alpha + As[s,u,v]
 
 (reference models/ctrgcn.py:174-176, summed over the three subsets) runs
-through `unit_ctr_gc`: the plain version below for CPU tensors, the
-hand-written CUDA kernel (ops/cuda/ctr_gc.py) for CUDA tensors.
+through `unit_ctr_gc`, the autograd Function `UnitCtrGc`: for CPU tensors the
+plain versions below (forward, x3 gradient, parameter gradients), for CUDA
+tensors the hand-written CUDA kernels K1, K2 and K3 (ops/cuda/ctr_gc.py).
 """
 from __future__ import annotations
 
 import torch
+from torch.autograd.function import once_differentiable
 
 
 def ctr_gc_dynamic_adjacency(x1, x2, w4, b4, alpha, A):
@@ -50,17 +52,102 @@ def unit_ctr_gc_plain(x1s, x2s, x3s, w4s, b4s, alpha, As):
     return out
 
 
-def unit_ctr_gc(x1s, x2s, x3s, w4s, b4s, alpha, As):
-    """The unit op, dispatched on the device of x3s: a CPU tensor takes the
-    plain version, a CUDA tensor launches the CUDA kernel (which raises on
-    what it does not take; there is no fallback)."""
-    if x3s.device.type == "cpu":
-        return unit_ctr_gc_plain(x1s, x2s, x3s, w4s, b4s, alpha, As)
-    if x3s.device.type == "cuda":
-        from .cuda.ctr_gc import unit_ctr_gc_fwd
+def unit_ctr_gc_dx3_plain(x1s, x2s, g, w4s, b4s, alpha, As):
+    """Plain version of K2, the unit op's x3 gradient:
+    dx3s[n,t,v,s*C+c] = sum_u M_s[n,u,v,c] * g[n,t,u,c].
 
-        return unit_ctr_gc_fwd(x1s, x2s, x3s, w4s, b4s, alpha, As)
-    raise NotImplementedError(f"unit_ctr_gc on device {x3s.device}")
+    x1s/x2s (N,S,V,R); g (N,T,V,C); w4s (S,R,C); b4s (S,C); alpha (1,);
+    As (S,V,V) -> (N,T,V,S*C).
+    """
+    return torch.cat([
+        torch.einsum(
+            "nuvc,ntuc->ntvc",
+            ctr_gc_dynamic_adjacency(x1s[:, s], x2s[:, s], w4s[s], b4s[s], alpha, As[s]),
+            g,
+        )
+        for s in range(x1s.shape[1])
+    ], dim=-1)
+
+
+def unit_ctr_gc_param_grads_plain(x1s, x2s, g, x3s, w4s, b4s, alpha):
+    """Plain version of K3, the unit op's other gradients (docs/KERNELS.md
+    "Fully-fused backward"), per subset s:
+
+        dm[n,u,v,c] = sum_t g[n,t,u,c] * x3s[n,t,v,s*C+c]
+        D = tanh(x1s[n,s,u,:] - x2s[n,s,v,:])
+        dA = sum_{n,c} dm;  db4 = alpha sum_{n,u,v} dm;  dw4 = alpha D^T dm
+        dalpha = sum dm * (D @ w4 + b4)
+        dpre = alpha (dm @ w4^T) (1 - D^2);  dx1 = sum_v dpre;  dx2 = -sum_u dpre
+
+    Returns (dx1s, dx2s, dw4s, db4s, dalpha, dAs) shaped as x1s, x2s, w4s,
+    b4s, alpha and (S,V,V).
+    """
+    S = x1s.shape[1]
+    C = x3s.shape[-1] // S
+    dx1s, dx2s, dw4s, db4s, dAs = [], [], [], [], []
+    dalpha = torch.zeros_like(alpha)
+    for s in range(S):
+        dm = torch.einsum("ntuc,ntvc->nuvc", g, x3s[..., s * C:(s + 1) * C])
+        d = torch.tanh(x1s[:, s, :, None, :] - x2s[:, s, None, :, :])  # (N,U,V,R)
+        dAs.append(dm.sum(dim=(0, 3)))
+        db4s.append(alpha * dm.sum(dim=(0, 1, 2)))
+        dw4s.append(alpha * torch.einsum("nuvr,nuvc->rc", d, dm))
+        dalpha = dalpha + (dm * (torch.matmul(d, w4s[s]) + b4s[s])).sum()
+        dpre = alpha * torch.matmul(dm, w4s[s].t()) * (1 - d * d)
+        dx1s.append(dpre.sum(dim=2))
+        dx2s.append(-dpre.sum(dim=1))
+    return (torch.stack(dx1s, dim=1), torch.stack(dx2s, dim=1),
+            torch.stack(dw4s), torch.stack(db4s), dalpha, torch.stack(dAs))
+
+
+def _kernels(device):
+    """(forward, x3 gradient, parameter gradients) for tensors on `device`:
+    the plain versions on the CPU, the CUDA kernels (which raise on what they
+    do not take; there is no fallback) on a CUDA device."""
+    if device.type == "cpu":
+        return unit_ctr_gc_plain, unit_ctr_gc_dx3_plain, unit_ctr_gc_param_grads_plain
+    if device.type == "cuda":
+        from .cuda import ctr_gc
+
+        return (ctr_gc.unit_ctr_gc_fwd, ctr_gc.unit_ctr_gc_bwd_dx3,
+                ctr_gc.unit_ctr_gc_bwd_param)
+    raise NotImplementedError(f"unit_ctr_gc on device {device}")
+
+
+class UnitCtrGc(torch.autograd.Function):
+    """The unit op with its gradient (counterpart of the JAX package's
+    custom_vjp `_unit_ctr_gc_pallas`, ops/aggregation.py:106-130): K1
+    forward, K2 and K3 backward on a CUDA device, their plain versions on the
+    CPU. Saves the inputs, never M. Its backward is not itself
+    differentiable (the kernels' outputs have no graph), so a second-order
+    gradient through it raises on both devices."""
+
+    @staticmethod
+    def forward(ctx, x1s, x2s, x3s, w4s, b4s, alpha, As):
+        ctx.save_for_backward(x1s, x2s, x3s, w4s, b4s, alpha, As)
+        return _kernels(x3s.device)[0](x1s, x2s, x3s, w4s, b4s, alpha, As)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        x1s, x2s, x3s, w4s, b4s, alpha, As = ctx.saved_tensors
+        need = ctx.needs_input_grad
+        _, dx3_fn, param_fn = _kernels(x3s.device)
+        g = g.contiguous()
+        dx3s = dx3_fn(x1s, x2s, g, w4s, b4s, alpha, As) if need[2] else None
+        dx1s = dx2s = dw4s = db4s = dalpha = dAs = None
+        if any(need[i] for i in (0, 1, 3, 4, 5, 6)):
+            dx1s, dx2s, dw4s, db4s, dalpha, dAs = param_fn(
+                x1s, x2s, g, x3s, w4s, b4s, alpha)
+        grads = (dx1s, dx2s, dx3s, dw4s, db4s, dalpha, dAs)
+        return tuple(d if n else None for d, n in zip(grads, need))
+
+
+def unit_ctr_gc(x1s, x2s, x3s, w4s, b4s, alpha, As):
+    """The unit op through `UnitCtrGc`, dispatched on the device of x3s: a
+    CPU tensor takes the plain versions, a CUDA tensor launches the CUDA
+    kernels (which raise on what they do not take; there is no fallback)."""
+    return UnitCtrGc.apply(x1s, x2s, x3s, w4s, b4s, alpha, As)
 
 
 def conv3_matmul(x, w3, b3):

@@ -2,9 +2,9 @@
 
 Each source under tamgcn_tpu_torch/csrc/ has a plain C interface and is
 compiled by `nvcc` for sm_90a into tamgcn_tpu_torch/_build/, under a name
-keyed by a hash of the source and the flags, at first use; it is then loaded
-with ctypes. Nothing is compiled when a module is imported, and a missing
-`nvcc` raises.
+keyed by a hash of the source, the headers beside it and the flags, at first
+use; it is then loaded with ctypes. Nothing is compiled when a module is
+imported, and a missing `nvcc` raises.
 """
 from __future__ import annotations
 
@@ -23,7 +23,9 @@ NVCC_FLAGS = [
     "-shared", "-Xcompiler", "-fPIC",
 ]
 # every kernel source of the port; chip_smoke.py builds them all at once
-SOURCES = ("unit_ctr_gc_fwd.cu",)
+SOURCES = (
+    "unit_ctr_gc_fwd.cu", "unit_ctr_gc_bwd_dx3.cu", "unit_ctr_gc_bwd_param.cu",
+)
 
 _lock = threading.Lock()
 _loaded: dict[str, ctypes.CDLL] = {}
@@ -44,9 +46,13 @@ def nvcc_path() -> str:
 
 
 def library_path(source: str) -> str:
-    """Where the library of `source` is built: keyed by source and flags."""
-    with open(os.path.join(CSRC, source), "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    """Where the library of `source` is built: keyed by the source, the
+    headers of csrc/ (which the sources include) and the flags."""
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    headers = sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))
+    for name in [source, *headers]:
+        with open(os.path.join(CSRC, name), "rb") as f:
+            digest.update(f.read())
     stem = os.path.splitext(source)[0]
     return os.path.join(BUILD_DIR, f"lib{stem}-{digest.hexdigest()[:16]}.so")
 

@@ -1,9 +1,15 @@
-"""Unit CTR-GC forward on the card: the wrapper of csrc/unit_ctr_gc_fwd.cu.
+"""Unit CTR-GC on the card: the wrappers of the three CUDA kernels.
 
-Counterpart of tamgcn_tpu/ops/pallas/ctr_gc.py:unit_ctr_gc_fwd_pallas. The
-kernel's plain version is ops/aggregation.py:unit_ctr_gc_plain. The wrapper
-checks its inputs, allocates the output and launches the kernel on the
-current stream; it never falls back to the plain version.
+  K1 `unit_ctr_gc_fwd`       csrc/unit_ctr_gc_fwd.cu        forward
+  K2 `unit_ctr_gc_bwd_dx3`   csrc/unit_ctr_gc_bwd_dx3.cu    x3 gradient
+  K3 `unit_ctr_gc_bwd_param` csrc/unit_ctr_gc_bwd_param.cu  parameter gradients
+
+Counterparts of tamgcn_tpu/ops/pallas/ctr_gc.py:unit_ctr_gc_fwd_pallas and
+unit_ctr_gc_bwd_pallas. The kernels' plain versions are
+ops/aggregation.py:unit_ctr_gc_plain, unit_ctr_gc_dx3_plain and
+unit_ctr_gc_param_grads_plain. Each wrapper checks its inputs, allocates the
+outputs (and scratch) and launches its kernel on the current stream; it never
+falls back to the plain version.
 """
 from __future__ import annotations
 
@@ -13,24 +19,39 @@ import torch
 
 from . import build
 
-SOURCE = "unit_ctr_gc_fwd.cu"
-# what the launcher returns for a shape it does not take
+FWD_SOURCE = "unit_ctr_gc_fwd.cu"
+DX3_SOURCE = "unit_ctr_gc_bwd_dx3.cu"
+PARAM_SOURCE = "unit_ctr_gc_bwd_param.cu"
+# what the launchers return for a shape they do not take
 _CUDA_ERROR_INVALID_VALUE = 1
-# kernel launches so far; a run sets it to 0 and reads it to show that a path
-# went through the kernel
-launches = 0
+# kernel launches so far, one count per kernel; a run sets them to 0 and reads
+# them to show that a path went through the kernels
+launches = 0  # K1
+bwd_dx3_launches = 0  # K2
+bwd_param_launches = 0  # K3
 
-_fn = None
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_SIGNATURES = {
+    "unit_ctr_gc_fwd_f32": (FWD_SOURCE, [_P] * 8 + [_I] * 6 + [_P], ctypes.c_int),
+    "unit_ctr_gc_bwd_dx3_f32": (DX3_SOURCE, [_P] * 8 + [_I] * 6 + [_P], ctypes.c_int),
+    "unit_ctr_gc_bwd_param_f32": (
+        PARAM_SOURCE, [_P] * 14 + [_I] * 6 + [_P], ctypes.c_int),
+    "unit_ctr_gc_bwd_param_scratch_floats": (
+        PARAM_SOURCE, [_I] * 5, ctypes.c_longlong),
+}
+_fns: dict = {}
 
 
-def _kernel():
-    global _fn
-    if _fn is None:
-        fn = build.load(SOURCE).unit_ctr_gc_fwd_f32
-        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        _fn = fn
-    return _fn
+def _kernel(name: str):
+    """The C entry point `name`, its library built and loaded at first use."""
+    fn = _fns.get(name)
+    if fn is None:
+        source, argtypes, restype = _SIGNATURES[name]
+        fn = getattr(build.load(source), name)
+        fn.argtypes = argtypes
+        fn.restype = restype
+        _fns[name] = fn
+    return fn
 
 
 def _check(name, t, shape, device):
@@ -44,26 +65,55 @@ def _check(name, t, shape, device):
         raise ValueError(f"{name} is not contiguous")
 
 
-def unit_ctr_gc_fwd(x1s, x2s, x3s, w4s, b4s, alpha, As):
-    """x1s/x2s (N,S,V,R); x3s (N,T,V,S*C); w4s (S,R,C); b4s (S,C);
-    alpha (1,); As (S,V,V), all contiguous float32 on one CUDA device, with
-    R <= 32 and C % 4 == 0 -> out (N,T,V,C). Forward only: the backward kernels come with the
-    training slice, so inputs that require grad raise."""
-    global launches
-    device = x3s.device
+def _check_unit(fn_name, device, named, R, C, aligned=()):
+    """Device, dtype, shape and contiguity of every (name, tensor, shape);
+    R <= 32; C % 4 == 0 and 16-byte alignment of the tensors named in
+    `aligned` (read with 16-byte loads), where there are any."""
     if device.type != "cuda":
-        raise ValueError(f"unit_ctr_gc_fwd takes CUDA tensors, got {device}")
-    if torch.is_grad_enabled() and any(
-        t.requires_grad for t in (x1s, x2s, x3s, w4s, b4s, alpha, As)
-    ):
-        raise NotImplementedError(
-            "unit_ctr_gc_fwd has no backward yet (training slice); run "
-            "under torch.no_grad() or torch.inference_mode()"
+        raise ValueError(f"{fn_name} takes CUDA tensors, got {device}")
+    for name, t, shape in named:
+        _check(name, t, shape, device)
+    if R > 32:
+        raise ValueError(f"R={R}: the kernel takes R <= 32")
+    if aligned and C % 4:
+        raise ValueError(f"C={C}: the kernel reads channels in fours and "
+                         "takes C % 4 == 0")
+    for name, t, _ in named:
+        if name in aligned and t.data_ptr() % 16:
+            raise ValueError(f"{name} is not 16-byte aligned")
+
+
+def _launch(name, device, dims, *args):
+    """Launch the C entry point `name` on the current stream of `device`;
+    raise on a non-zero return."""
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = _kernel(name)(*args, stream)
+    shape = " ".join(f"{k}={v}" for k, v in dims.items())
+    if err == _CUDA_ERROR_INVALID_VALUE:
+        raise ValueError(
+            f"{name} does not take {shape}: what a block keeps of the refined "
+            "adjacency (or its gradient) must fit in its shared memory (V = 20 "
+            "and V = 25 fit at every R <= 32)"
         )
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed: CUDA error {err} ({shape})")
+
+
+def _unit_dims(x1s, x3s_or_g, w4s):
     N, S, V, R = x1s.shape
-    T = x3s.shape[1]
-    C = w4s.shape[-1]
-    for name, t, shape in (
+    return N, S, x3s_or_g.shape[1], V, R, w4s.shape[-1]
+
+
+def unit_ctr_gc_fwd(x1s, x2s, x3s, w4s, b4s, alpha, As):
+    """K1. x1s/x2s (N,S,V,R); x3s (N,T,V,S*C); w4s (S,R,C); b4s (S,C);
+    alpha (1,); As (S,V,V), all contiguous float32 on one CUDA device, with
+    R <= 32 and C % 4 == 0 -> out (N,T,V,C). Its gradient is K2 and K3,
+    through ops/aggregation.py:UnitCtrGc."""
+    global launches
+    N, S, T, V, R, C = _unit_dims(x1s, x3s, w4s)
+    device = x3s.device
+    _check_unit("unit_ctr_gc_fwd", device, (
         ("x1s", x1s, (N, S, V, R)),
         ("x2s", x2s, (N, S, V, R)),
         ("x3s", x3s, (N, T, V, S * C)),
@@ -71,31 +121,78 @@ def unit_ctr_gc_fwd(x1s, x2s, x3s, w4s, b4s, alpha, As):
         ("b4s", b4s, (S, C)),
         ("alpha", alpha, (1,)),
         ("As", As, (S, V, V)),
-    ):
-        _check(name, t, shape, device)
-    if R > 32 or C % 4:
-        raise ValueError(f"R={R}, C={C}: the kernel takes R <= 32 and C % 4 == 0")
-    for name, t in (("x3s", x3s), ("w4s", w4s), ("b4s", b4s)):
-        if t.data_ptr() % 16:
-            raise ValueError(f"{name} is not 16-byte aligned")
+    ), R, C, aligned=("x3s", "w4s", "b4s"))
     out = torch.empty((N, T, V, C), device=device, dtype=torch.float32)
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = _kernel()(
-            x1s.data_ptr(), x2s.data_ptr(), x3s.data_ptr(), w4s.data_ptr(),
-            b4s.data_ptr(), alpha.data_ptr(), As.data_ptr(), out.data_ptr(),
-            N, S, T, V, R, C, stream,
-        )
-    if err == _CUDA_ERROR_INVALID_VALUE:
-        raise ValueError(
-            f"unit_ctr_gc_fwd_f32 does not take N={N} S={S} T={T} V={V} R={R} "
-            f"C={C}: the refined adjacency of a channel tile must fit in a "
-            "block's shared memory (V = 20 and V = 25 fit at every R <= 32)"
-        )
-    if err != 0:
-        raise RuntimeError(
-            f"unit_ctr_gc_fwd_f32 launch failed: CUDA error {err} "
-            f"(N={N} S={S} T={T} V={V} R={R} C={C})"
-        )
+    _launch(
+        "unit_ctr_gc_fwd_f32", device, dict(N=N, S=S, T=T, V=V, R=R, C=C),
+        x1s.data_ptr(), x2s.data_ptr(), x3s.data_ptr(), w4s.data_ptr(),
+        b4s.data_ptr(), alpha.data_ptr(), As.data_ptr(), out.data_ptr(),
+        N, S, T, V, R, C,
+    )
     launches += 1
     return out
+
+
+def unit_ctr_gc_bwd_dx3(x1s, x2s, g, w4s, b4s, alpha, As):
+    """K2. The unit op's x3 gradient: x1s/x2s (N,S,V,R); g (N,T,V,C), the
+    gradient of the output; w4s (S,R,C); b4s (S,C); alpha (1,); As (S,V,V),
+    all contiguous float32 on one CUDA device, with R <= 32 and C % 4 == 0
+    -> dx3s (N,T,V,S*C)."""
+    global bwd_dx3_launches
+    N, S, T, V, R, C = _unit_dims(x1s, g, w4s)
+    device = g.device
+    _check_unit("unit_ctr_gc_bwd_dx3", device, (
+        ("x1s", x1s, (N, S, V, R)),
+        ("x2s", x2s, (N, S, V, R)),
+        ("g", g, (N, T, V, C)),
+        ("w4s", w4s, (S, R, C)),
+        ("b4s", b4s, (S, C)),
+        ("alpha", alpha, (1,)),
+        ("As", As, (S, V, V)),
+    ), R, C, aligned=("g", "w4s", "b4s"))
+    dx3s = torch.empty((N, T, V, S * C), device=device, dtype=torch.float32)
+    _launch(
+        "unit_ctr_gc_bwd_dx3_f32", device, dict(N=N, S=S, T=T, V=V, R=R, C=C),
+        x1s.data_ptr(), x2s.data_ptr(), g.data_ptr(), w4s.data_ptr(),
+        b4s.data_ptr(), alpha.data_ptr(), As.data_ptr(), dx3s.data_ptr(),
+        N, S, T, V, R, C,
+    )
+    bwd_dx3_launches += 1
+    return dx3s
+
+
+def unit_ctr_gc_bwd_param(x1s, x2s, g, x3s, w4s, b4s, alpha):
+    """K3. The unit op's other gradients: x1s/x2s (N,S,V,R); g (N,T,V,C), the
+    gradient of the output; x3s (N,T,V,S*C); w4s (S,R,C); b4s (S,C); alpha
+    (1,), all contiguous float32 on one CUDA device, with R <= 32 (any C)
+    -> (dx1s, dx2s, dw4s, db4s, dalpha, dAs) shaped as x1s, x2s,
+    w4s, b4s, alpha and (S,V,V). The sums over samples run in a fixed order:
+    two calls on the same inputs give bitwise equal results."""
+    global bwd_param_launches
+    N, S, T, V, R, C = _unit_dims(x1s, g, w4s)
+    device = g.device
+    _check_unit("unit_ctr_gc_bwd_param", device, (
+        ("x1s", x1s, (N, S, V, R)),
+        ("x2s", x2s, (N, S, V, R)),
+        ("g", g, (N, T, V, C)),
+        ("x3s", x3s, (N, T, V, S * C)),
+        ("w4s", w4s, (S, R, C)),
+        ("b4s", b4s, (S, C)),
+        ("alpha", alpha, (1,)),
+    ), R, C)
+
+    def empty(*shape):
+        return torch.empty(shape, device=device, dtype=torch.float32)
+
+    dx1s, dx2s = empty(N, S, V, R), empty(N, S, V, R)
+    dw4s, db4s, dalpha, dAs = empty(S, R, C), empty(S, C), empty(1), empty(S, V, V)
+    scratch = empty(_kernel("unit_ctr_gc_bwd_param_scratch_floats")(N, S, V, R, C))
+    _launch(
+        "unit_ctr_gc_bwd_param_f32", device, dict(N=N, S=S, T=T, V=V, R=R, C=C),
+        x1s.data_ptr(), x2s.data_ptr(), g.data_ptr(), x3s.data_ptr(),
+        w4s.data_ptr(), b4s.data_ptr(), alpha.data_ptr(), dx1s.data_ptr(),
+        dx2s.data_ptr(), dw4s.data_ptr(), db4s.data_ptr(), dalpha.data_ptr(),
+        dAs.data_ptr(), scratch.data_ptr(), N, S, T, V, R, C,
+    )
+    bwd_param_launches += 1
+    return dx1s, dx2s, dw4s, db4s, dalpha, dAs

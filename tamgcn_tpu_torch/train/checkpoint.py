@@ -1,30 +1,45 @@
-"""Model weights as `.pt` state dicts.
+"""Model weights and training checkpoints as `.pt` files.
 
-Counterpart of tamgcn_tpu/train/checkpoint.py for the test phase: a weight
-file is a state dict that the port saved with `torch.save` (for example
-after `convert.from_flax`). `--ignore_weights` filtering and the partial
-load with a report of missing/unexpected tensors follow the reference
-(torchlight io.py:57-90). Checkpoints with optimizer state for resuming
-training come with the training slice.
+Counterpart of tamgcn_tpu/train/checkpoint.py (orbax there):
+
+  * a weight file is a state dict that the port saved with `torch.save`
+    (for example after `convert.from_flax`), or one of the port's training
+    checkpoints, whose model state it holds;
+  * training checkpoints live under `<work_dir>/checkpoints/`: `best.pt`
+    holds `{model, step}`, `epoch{n}.pt` holds `{model, optimizer, step}`,
+    a resume point (train/trainer.py:_save_checkpoint, resume);
+  * `--ignore_weights` filtering and the partial load with a report of
+    missing/unexpected tensors follow the reference (torchlight
+    io.py:57-90).
 """
 from __future__ import annotations
+
+import os
+import re
 
 import torch
 
 
+def _cpu_state(model: torch.nn.Module) -> dict:
+    return {k: v.detach().cpu() for k, v in model.state_dict().items()}
+
+
 def save_weights(model: torch.nn.Module, path: str) -> None:
-    torch.save({k: v.detach().cpu() for k, v in model.state_dict().items()}, path)
+    torch.save(_cpu_state(model), path)
 
 
 def load_weights(path: str) -> dict:
-    """The state dict in a `.pt` file, on the CPU."""
+    """The state dict in a `.pt` file (a saved state dict, or the model
+    state of a training checkpoint), on the CPU."""
     if not path.endswith(".pt"):
         raise NotImplementedError(
-            f"--weights {path!r}: the port loads the .pt state dicts it saves; "
-            "orbax checkpoints and reference .npz exports come with the "
-            "training slice"
+            f"--weights {path!r}: the port loads the .pt state dicts and "
+            "training checkpoints it saves; orbax checkpoints and reference "
+            ".npz exports come with the slice of bf16 and the weight importers"
         )
     state = torch.load(path, map_location="cpu", weights_only=True)
+    if isinstance(state, dict) and isinstance(state.get("model"), dict):
+        state = state["model"]
     if not isinstance(state, dict):
         raise ValueError(f"{path} holds a {type(state).__name__}, not a state dict")
     return state
@@ -45,3 +60,33 @@ def partial_update(model: torch.nn.Module, state: dict, log=print) -> None:
         log(f"checkpoint missing weight: {k} (kept initialised value)")
     for k in unexpected:
         log(f"checkpoint has unexpected weight: {k} (ignored)")
+
+
+class Checkpoints:
+    """The training checkpoints of one work dir: `<directory>/<name>.pt`."""
+
+    def __init__(self, directory: str):
+        self.directory = os.path.abspath(directory)
+        os.makedirs(self.directory, exist_ok=True)
+
+    def path(self, name: str) -> str:
+        return os.path.join(self.directory, f"{name}.pt")
+
+    def save(self, name: str, model: torch.nn.Module, step: int,
+             optimizer: torch.optim.Optimizer | None = None) -> None:
+        tree = {"model": _cpu_state(model), "step": int(step)}
+        if optimizer is not None:
+            tree["optimizer"] = optimizer.state_dict()
+        # write beside the target and rename: a crash never leaves half a file
+        tmp = f"{self.path(name)}.tmp"
+        torch.save(tree, tmp)
+        os.replace(tmp, self.path(name))
+
+    def load(self, name: str) -> dict:
+        return torch.load(self.path(name), map_location="cpu", weights_only=True)
+
+    def latest_epoch(self) -> int | None:
+        """The largest n of the `epoch{n}.pt` files, or None."""
+        epochs = [int(m.group(1)) for entry in os.listdir(self.directory)
+                  if (m := re.fullmatch(r"epoch(\d+)\.pt", entry))]
+        return max(epochs, default=None)

@@ -160,8 +160,6 @@ def load_config(argv=None, parser: argparse.ArgumentParser | None = None):
 
 # flag -> (the one value the port accepts, why any other raises)
 _NOT_PORTED = {
-    "phase": ("test", "--phase train comes with the training slice "
-                      "(backward kernels, optimizer, train loop)"),
     "use_pallas": (None, "--use_pallas has no meaning in the port: a CUDA "
                          "tensor runs the CUDA kernels, a CPU tensor the "
                          "plain versions"),
@@ -183,6 +181,11 @@ def check_supported(arg) -> None:
         value = getattr(arg, name)
         if value != accepted:
             raise NotImplementedError(f"{why} (got --{name} {value!r})")
+    if arg.phase == "train" and arg.freeze_params:
+        raise NotImplementedError(
+            "--freeze_params (the frozen GCN of the fusion model) comes with "
+            f"the cross-modal slice (got --freeze_params {arg.freeze_params!r})"
+        )
 
 
 def resolve_device(arg):

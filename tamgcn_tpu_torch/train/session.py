@@ -1,12 +1,13 @@
-"""Work-dir session management: logging, config snapshot, score pickle.
+"""Work-dir session management: logging, config snapshot, timers, artifacts.
 
-The part of tamgcn_tpu/train/session.py that the test phase uses, copied
-(yaml/stdlib only), after reference torchlight/torchlight/io.py:
+A copy of tamgcn_tpu/train/session.py (numpy/yaml/stdlib only), after
+reference torchlight/torchlight/io.py:
   * timestamped print_log to screen + <work_dir>/log.txt (:121-130);
   * save_arg session snapshot incl. the exact command line -> config.yaml
     (:109-119);
-  * save_pkl artifact writer (:92-99).
-The split timers and the progress csv come with the training slice.
+  * named split timers with proportion reporting (:132-157);
+  * save_pkl artifact writer (:92-99);
+  * progress_info.csv epoch matrix (processor/processor.py:45,145).
 """
 from __future__ import annotations
 
@@ -15,6 +16,7 @@ import pickle
 import sys
 import time
 
+import numpy as np
 import yaml
 
 
@@ -24,6 +26,8 @@ class Session:
         self.save_log = save_log
         self.print_to_screen = print_log
         os.makedirs(work_dir, exist_ok=True)
+        self.cur_time = time.time()
+        self.split_timer = {}
 
     # -- logging ------------------------------------------------------------
 
@@ -44,8 +48,43 @@ class Session:
             f.write(f"# command line: {' '.join(sys.argv)}\n\n")
             yaml.dump(arg_dict, f, default_flow_style=False, indent=4)
 
+    # -- timers ---------------------------------------------------------------
+
+    def init_timer(self, *names: str):
+        self.record_time()
+        self.split_timer = {name: 1e-6 for name in names}
+
+    def check_time(self, name: str):
+        self.split_timer[name] = self.split_timer.get(name, 1e-6) + self.split_time()
+
+    def record_time(self):
+        self.cur_time = time.time()
+        return self.cur_time
+
+    def split_time(self):
+        split = time.time() - self.cur_time
+        self.record_time()
+        return split
+
+    def print_timer(self):
+        total = sum(self.split_timer.values())
+        proportion = {
+            k: f"{int(round(v * 100 / total)):02d}%"
+            for k, v in self.split_timer.items()
+        }
+        self.print_log(f"Time consumption: {proportion}")
+
     # -- artifacts -------------------------------------------------------------
 
     def save_pkl(self, result, filename: str):
         with open(os.path.join(self.work_dir, filename), "wb") as f:
             pickle.dump(result, f)
+
+    def save_progress_csv(self, progress: np.ndarray, filename="progress_info.csv"):
+        np.savetxt(
+            os.path.join(self.work_dir, filename),
+            progress,
+            fmt="%f",
+            delimiter=",",
+            header=" Train_mean_loss, Test_mean_loss, Top_1, Top_5",
+        )

@@ -1,15 +1,27 @@
-"""Recognition trainer of the port: the test phase.
+"""Recognition trainer of the port: the train and test phases.
 
-Counterpart of tamgcn_tpu/train/trainer.py:RecognitionTrainer for
-`--phase test` (reference processor/processor.py lifecycle and
-recognition_rgb.py test): build the val loader, the model (seeded from
---seed) and its weights, run inference over the val split on the device
-that --use_gpu/--device name, report the mean loss and top-k, and save the
-per-sample score pickle. `--phase train` and the other flags of features
-the port lacks raise (train/config.py:check_supported).
+Counterpart of tamgcn_tpu/train/trainer.py:RecognitionTrainer (reference
+processor/processor.py lifecycle :27-35 and epoch loop :107-168;
+recognition_rgb.py train/test/start :48-126) on one device, the one that
+--use_gpu/--device name:
+
+  * train phase: a shuffled, drop_last train loader keyed on --seed; per
+    step the lr from the schedule (train/optim.py), a train-mode forward
+    (BatchNorm batch stats), mean cross-entropy, backward (on the card
+    through K1-K3) and a plain per-parameter optimizer step, where the JAX
+    package runs one fused flat-parameter step (train/packing.py, a TPU
+    device) with the same math; the val loader built at the first eval;
+    eval every --eval_interval epochs, the best top-1 with its checkpoint
+    and score pickle, epoch checkpoints every --save_interval, the
+    progress csv and --resume;
+  * test phase: inference over the val split with --weights, mean loss,
+    top-k and the per-sample score pickle.
+
+The flags of features the port lacks raise (train/config.py:check_supported).
 """
 from __future__ import annotations
 
+import os
 import time
 
 import numpy as np
@@ -20,13 +32,14 @@ from ..data import Loader, feeder_accepts_seed, get_feeder
 from ..data.loader import prefetch
 from ..data.transforms import top_k
 from ..models import get_model
-from .checkpoint import filter_ignore, load_weights, partial_update
+from .checkpoint import Checkpoints, filter_ignore, load_weights, partial_update
 from .config import check_supported, resolve_device
+from .optim import make_lr_schedule, make_optimizer, set_lr
 from .session import Session
 
 
 class RecognitionTrainer:
-    """Skeleton-recognition eval driver (reference REC_Processor, test phase)."""
+    """Skeleton-recognition training and evaluation (reference REC_Processor)."""
 
     def __init__(self, arg):
         check_supported(arg)
@@ -39,11 +52,43 @@ class RecognitionTrainer:
         self.loaders = {}
         self._load_data()
         self._load_model()
+        if arg.phase == "train":
+            self._load_optimizer()
+        self.checkpoints = Checkpoints(os.path.join(arg.work_dir, "checkpoints"))
+        self.best_t1 = 0.0
+        n_evals = max(1, arg.num_epoch // max(1, arg.eval_interval))
+        self.progress = np.zeros([n_evals, 4])
         self.result_scores = None
 
     # -- construction --------------------------------------------------------
 
     def _load_data(self):
+        arg = self.arg
+        if arg.phase == "train":
+            train_args = dict(arg.train_feeder_args)
+            train_args.setdefault("debug", arg.debug)
+            train_args.setdefault("split", "train")
+            # the augmentation stream is keyed on the run seed
+            if "seed" not in train_args and feeder_accepts_seed(arg.feeder):
+                train_args["seed"] = arg.seed
+            self.train_feeder = get_feeder(arg.feeder, **train_args)
+            self.loaders["train"] = Loader(
+                self.train_feeder,
+                batch_size=arg.batch_size,
+                shuffle=True,
+                drop_last=True,
+                seed=arg.seed,
+                num_workers=arg.num_worker,
+            )
+        else:
+            self._ensure_test_loader()
+
+    def _ensure_test_loader(self):
+        """Build the val feeder/loader on first use: training starts without
+        a loadable val split (the reference never touches val until eval,
+        processor/recognition_rgb.py:71-101)."""
+        if "test" in self.loaders:
+            return
         arg = self.arg
         test_args = dict(arg.test_feeder_args)
         test_args.setdefault("split", "val")
@@ -77,22 +122,77 @@ class RecognitionTrainer:
         state = filter_ignore(load_weights(arg.weights), arg.ignore_weights)
         partial_update(self.model, state, log=self.print_log)
 
-    # -- eval ------------------------------------------------------------------
+    def _load_optimizer(self):
+        arg = self.arg
+        self.steps_per_epoch = max(1, len(self.loaders["train"]))
+        self.schedule = make_lr_schedule(
+            arg.base_lr, arg.step, arg.lr_decay_rate, self.steps_per_epoch,
+            arg.warm_up_epoch,
+        )
+        self.optimizer = make_optimizer(
+            arg.optimizer, self.model.parameters(), arg.base_lr,
+            nesterov=arg.nesterov, weight_decay=arg.weight_decay,
+        )
+        self.step = 0  # optimizer steps taken; the schedule's counter
+
+    # -- epoch loops -------------------------------------------------------------
+
+    def _put(self, batch):
+        """Producer-thread host->device copy (loader.prefetch)."""
+        inputs, label = batch[:-2], batch[-2]
+        inputs = tuple(torch.from_numpy(a).to(self.device) for a in inputs)
+        return inputs, torch.from_numpy(label.astype(np.int64)).to(self.device), label
+
+    def train_epoch(self, epoch: int) -> np.ndarray:
+        """One epoch of optimizer steps; returns the loss of each step."""
+        arg = self.arg
+        loader = self.loaders["train"]
+        loader.set_epoch(epoch)
+        self.model.train()
+        losses, hits = [], []
+        self.session.init_timer("dataloader", "device", "statistics")
+        t0 = time.perf_counter()
+        nseen = 0
+        for it, (inputs, label, label_np) in enumerate(prefetch(iter(loader), self._put)):
+            self.session.check_time("dataloader")
+            lr = self.schedule(self.step)
+            set_lr(self.optimizer, lr)
+            logits = self.model(*inputs)
+            loss = F.cross_entropy(logits, label)
+            self.optimizer.zero_grad(set_to_none=True)
+            loss.backward()
+            self.optimizer.step()
+            self.step += 1
+            self.session.check_time("device")
+            # keep the statistics on the device; one copy at the epoch's end
+            losses.append(loss.detach())
+            hits.append((logits.detach().argmax(-1) == label).sum())
+            nseen += len(label_np)
+            if it % arg.log_interval == 0:
+                self.print_log(
+                    f"\tIter {it}/{len(loader)} | loss: {loss.item():.4f} "
+                    f"| lr: {lr:.6f}"
+                )
+            self.session.check_time("statistics")
+        losses = torch.stack(losses).cpu().numpy()
+        acc = torch.stack(hits).sum().item() / nseen
+        seconds = time.perf_counter() - t0
+        self.print_log(
+            f"\tTraining loss: {float(np.mean(losses)):.4f} | acc: {acc:.2%} "
+            f"| {nseen / seconds:.1f} samples/s"
+        )
+        self.session.print_timer()
+        return losses
 
     def test_epoch(self):
+        self._ensure_test_loader()
         loader = self.loaders["test"]
-        device = self.device
+        self.model.eval()
         losses, scores, labels = [], [], []
-
-        def put(batch):
-            inputs, label = batch[:-2], batch[-2]
-            inputs = tuple(torch.from_numpy(a).to(device) for a in inputs)
-            return inputs, torch.from_numpy(label.astype(np.int64)).to(device), label
-
         n_batches = n_samples = 0
         t0 = time.perf_counter()
         with torch.inference_mode():
-            for inputs, label, label_np in prefetch(iter(loader), put):
+            for inputs, label, label_np in prefetch(iter(loader), self._put):
                 logits = self.model(*inputs)
                 # keep results on the device; one bulk copy below
                 losses.append(F.cross_entropy(logits, label))
@@ -121,7 +221,38 @@ class RecognitionTrainer:
 
     def start(self):
         self.print_log(f"Parameters:\n{vars(self.arg)}\n")
-        self._test_phase()
+        if self.arg.phase == "train":
+            self._train_phase()
+        else:
+            self._test_phase()
+
+    def _train_phase(self):
+        arg = self.arg
+        start_epoch = arg.start_epoch
+        if arg.resume:
+            start_epoch = max(start_epoch, self.resume())
+        for epoch in range(start_epoch, arg.num_epoch):
+            self.print_log(f"Training epoch: {epoch + 1}")
+            train_loss = float(np.mean(self.train_epoch(epoch)))
+            last = epoch + 1 == arg.num_epoch
+            if (epoch + 1) % arg.eval_interval == 0 or last:
+                self.print_log(f"Eval epoch: {epoch + 1}")
+                test_loss, top1, top5 = self.test_epoch()
+                self.print_log(
+                    f"\tEvaluation Acc: {top1:.2%} (top5 {top5:.2%}) "
+                    f"loss {test_loss:.4f}"
+                )
+                row = min(epoch // max(1, arg.eval_interval), len(self.progress) - 1)
+                self.progress[row] = [train_loss, test_loss, top1, top5]
+                if top1 > self.best_t1:
+                    self.best_t1 = top1
+                    self.print_log(f"Save best Top1 at epoch:{epoch + 1}")
+                    self._save_checkpoint("best")
+                    self._save_scores(f"test_result_epoch{epoch + 1}.pkl")
+                if (epoch + 1) % arg.save_interval == 0 or last:
+                    self._save_checkpoint(f"epoch{epoch + 1}")
+        self.session.save_progress_csv(self.progress)
+        self.print_log(f"Best Top1: {self.best_t1:.2%}")
 
     def _test_phase(self):
         arg = self.arg
@@ -145,3 +276,23 @@ class RecognitionTrainer:
             names = list(range(len(self.result_scores)))
         self.session.save_pkl(dict(zip(names, self.result_scores)), filename)
         self.print_log(f"saved scores: {filename}")
+
+    def _save_checkpoint(self, name: str):
+        """best: {model, step}; epoch{n}, a resume point: {model, optimizer,
+        step}."""
+        optimizer = self.optimizer if name.startswith("epoch") else None
+        self.checkpoints.save(name, self.model, self.step, optimizer)
+        self.print_log(f"checkpoint saved: {name}")
+
+    def resume(self) -> int:
+        """Restore the latest epoch checkpoint if present; returns the epoch
+        to continue from."""
+        latest = self.checkpoints.latest_epoch()
+        if latest is None:
+            return self.arg.start_epoch
+        tree = self.checkpoints.load(f"epoch{latest}")
+        self.model.load_state_dict(tree["model"])
+        self.optimizer.load_state_dict(tree["optimizer"])
+        self.step = int(tree["step"])
+        self.print_log(f"resumed from epoch{latest}")
+        return latest

@@ -1,18 +1,24 @@
 """The port's CUDA kernels on the card (marker `cuda`; skipped without one).
 
-    python -m pytest -m cuda tests/test_torch_cuda.py -q
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 
 Each kernel against its plain PyTorch version on the same inputs, f32 with
-TF32 off, within rtol 1e-5 and atol 1e-5 * max|plain| (the sum order
-differs); the wrapper's checks and its launch count; and a small CTR-GCN on
-the card against the same model on the CPU. This file imports no JAX, so it
-runs where the port runs.
+TF32 off: K1 and K2 within rtol 1e-5 and atol 1e-5 * max|plain| (the sum
+order differs); K3's gradients are sums of up to N*T*V*V terms taken in
+another order, so within rtol 1e-4 and atol 1e-4 * max|plain| (dalpha, one
+sum over all N*S*V*V*C terms, within rtol 1e-3). Also the wrappers' checks
+and launch counts, two K3 launches bitwise equal, and a small CTR-GCN on the
+card against the same model on the CPU, forward and gradients. This file
+imports no JAX, so it runs where the port runs.
 """
 import pytest
 import torch
+import torch.nn.functional as F
 
 from tamgcn_tpu_torch.models import create_ctrgcn_nucla
-from tamgcn_tpu_torch.ops.aggregation import unit_ctr_gc, unit_ctr_gc_plain
+from tamgcn_tpu_torch.ops.aggregation import (
+    unit_ctr_gc, unit_ctr_gc_dx3_plain, unit_ctr_gc_param_grads_plain,
+    unit_ctr_gc_plain)
 from tamgcn_tpu_torch.ops.cuda import ctr_gc
 
 pytestmark = pytest.mark.cuda
@@ -62,19 +68,86 @@ def test_unit_kernel_rejects_what_it_does_not_take(device):
         ctr_gc.unit_ctr_gc_fwd(*bad)
     with pytest.raises(ValueError, match="R <= 32"):
         ctr_gc.unit_ctr_gc_fwd(*_inputs(1, 4, 20, 64, 40, device=device))
+    with pytest.raises(ValueError, match="C % 4"):
+        ctr_gc.unit_ctr_gc_fwd(*_inputs(1, 4, 20, 70, 8, device=device))
     with pytest.raises(ValueError, match="shared memory"):
         ctr_gc.unit_ctr_gc_fwd(*_inputs(1, 2, 64, 64, 8, device=device))
-    with pytest.raises(NotImplementedError, match="backward"):
-        ctr_gc.unit_ctr_gc_fwd(*[a.requires_grad_() for a in args])
+    # K2 and K3 refuse what they do not take, and count no launch for it
+    x1s, x2s, x3s, w4s, b4s, alpha, As = args
+    g = torch.randn((1, 4, 20, 64), device=device)
+    before = (ctr_gc.bwd_dx3_launches, ctr_gc.bwd_param_launches)
+    with pytest.raises(ValueError, match="contiguous"):
+        ctr_gc.unit_ctr_gc_bwd_dx3(x1s, x2s, g.transpose(1, 2).contiguous()
+                                   .transpose(1, 2), w4s, b4s, alpha, As)
+    with pytest.raises(TypeError, match="float32"):
+        ctr_gc.unit_ctr_gc_bwd_param(x1s, x2s, g.double(), x3s, w4s, b4s, alpha)
+    with pytest.raises(ValueError, match="shape"):
+        ctr_gc.unit_ctr_gc_bwd_param(x1s, x2s, g[:, :3], x3s, w4s, b4s, alpha)
+    with pytest.raises(ValueError, match="CUDA"):
+        ctr_gc.unit_ctr_gc_bwd_dx3(*[a.cpu() for a in (x1s, x2s, g, w4s, b4s, alpha, As)])
+    big = _inputs(1, 2, 64, 64, 8, device=device)
+    g_big = torch.randn((1, 2, 64, 64), device=device)
+    with pytest.raises(ValueError, match="shared memory"):
+        ctr_gc.unit_ctr_gc_bwd_dx3(*big[:2], g_big, *big[3:])
+    with pytest.raises(ValueError, match="shared memory"):
+        ctr_gc.unit_ctr_gc_bwd_param(*big[:2], g_big, *big[2:6])
+    assert (ctr_gc.bwd_dx3_launches, ctr_gc.bwd_param_launches) == before
+
+
+BWD_SHAPES = [
+    (16, 52, 20, 64, 8), (16, 52, 20, 128, 8), (16, 26, 20, 128, 16),
+    (16, 26, 20, 256, 16), (16, 13, 20, 256, 32), (4, 26, 25, 128, 16),
+    (4, 13, 25, 256, 32), (3, 7, 20, 80, 10), (1, 13, 20, 256, 32),
+]
+
+
+@pytest.mark.parametrize("shape", BWD_SHAPES, ids=lambda s: "N{}-T{}-V{}-C{}-R{}".format(*s))
+def test_dx3_kernel_matches_plain(device, shape):
+    x1s, x2s, _, w4s, b4s, alpha, As = _inputs(*shape, device=device)
+    n, t, v, c, _ = shape
+    g = torch.randn((n, t, v, c), generator=torch.Generator().manual_seed(9)).to(device)
+    before = ctr_gc.bwd_dx3_launches
+    got = ctr_gc.unit_ctr_gc_bwd_dx3(x1s, x2s, g, w4s, b4s, alpha, As)
+    want = unit_ctr_gc_dx3_plain(x1s, x2s, g, w4s, b4s, alpha, As)
+    torch.cuda.synchronize()
+    assert ctr_gc.bwd_dx3_launches == before + 1
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5 * want.abs().max().item())
+
+
+# K3 reads channels one at a time and takes any C
+@pytest.mark.parametrize("shape", BWD_SHAPES + [(2, 7, 20, 70, 10)],
+                         ids=lambda s: "N{}-T{}-V{}-C{}-R{}".format(*s))
+def test_param_kernel_matches_plain(device, shape):
+    x1s, x2s, x3s, w4s, b4s, alpha, _ = _inputs(*shape, device=device)
+    n, t, v, c, _ = shape
+    g = torch.randn((n, t, v, c), generator=torch.Generator().manual_seed(9)).to(device)
+    before = ctr_gc.bwd_param_launches
+    got = ctr_gc.unit_ctr_gc_bwd_param(x1s, x2s, g, x3s, w4s, b4s, alpha)
+    again = ctr_gc.unit_ctr_gc_bwd_param(x1s, x2s, g, x3s, w4s, b4s, alpha)
+    want = unit_ctr_gc_param_grads_plain(x1s, x2s, g, x3s, w4s, b4s, alpha)
+    torch.cuda.synchronize()
+    assert ctr_gc.bwd_param_launches == before + 2
+    names = ("dx1s", "dx2s", "dw4s", "db4s", "dalpha", "dAs")
+    for name, a, b, w in zip(names, got, again, want):
+        assert torch.equal(a, b), f"{name}: two launches differ"
+        rtol, atol = (1e-3, 0.0) if name == "dalpha" else (1e-4, 1e-4 * w.abs().max().item())
+        torch.testing.assert_close(a, w, rtol=rtol, atol=atol, msg=name)
+
+
+def _small_model():
+    model = create_ctrgcn_nucla(base_channel=16,
+                                generator=torch.Generator().manual_seed(2))
+    with torch.no_grad():
+        for blk in model.blocks:  # what hides the kernels at init
+            blk.gcn1.alpha.fill_(0.5)
+            blk.gcn1.bn.weight.fill_(1.0)
+            blk.gcn1.offset_conv.weight.normal_(
+                0.0, 0.02, generator=torch.Generator().manual_seed(4))
+    return model
 
 
 def test_model_on_card_matches_cpu(device):
-    model = create_ctrgcn_nucla(base_channel=16,
-                                generator=torch.Generator().manual_seed(2)).eval()
-    with torch.no_grad():
-        for blk in model.blocks:  # what hides the kernel at init
-            blk.gcn1.alpha.fill_(0.5)
-            blk.gcn1.bn.weight.fill_(1.0)
+    model = _small_model().eval()
     x = torch.randn((4, 3, 52, 20, 1), generator=torch.Generator().manual_seed(3))
     with torch.inference_mode():
         want = model(x)
@@ -82,3 +155,81 @@ def test_model_on_card_matches_cpu(device):
         got = model.to(device)(x.to(device)).cpu()
     assert ctr_gc.launches == before + 10
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4 * want.abs().max().item())
+
+
+def _grads(model, x, y):
+    model.zero_grad(set_to_none=True)
+    loss = F.cross_entropy(model(x), y)
+    loss.backward()
+    return loss.detach().double().cpu(), {
+        k: p.grad.double().cpu() for k, p in model.named_parameters()}
+
+
+def _batch():
+    x = torch.randn((4, 3, 52, 20, 1), generator=torch.Generator().manual_seed(3))
+    return x, torch.tensor([1, 4, 7, 2])
+
+
+def test_model_grads_on_card_match_cpu(device):
+    """One train-mode forward and backward of a small CTR-GCN: the loss and
+    every parameter gradient on the card (K1-K3, f32) against the CPU in
+    float64. The loss within rtol 1e-5. The gradients within 5e-2 x the
+    largest gradient of the model: relu and max-pool decisions at near-ties
+    flip under rounding-size changes of the forward, and each flip moves some
+    gradients (measured on the CPU with the plain path: a relative noise of
+    4e-7 on the unit op's output moves the offset convs' gradients by up to
+    1e-2 x the largest gradient). The test below holds the kernels
+    themselves to their plain versions inside such a backward."""
+    x, y = _batch()
+    want_loss, want = _grads(_small_model().double().train(), x.double(), y)
+    model = _small_model().train().to(device)
+    before = (ctr_gc.launches, ctr_gc.bwd_dx3_launches, ctr_gc.bwd_param_launches)
+    loss, got = _grads(model, x.to(device), y.to(device))
+    torch.cuda.synchronize()
+    assert (ctr_gc.launches, ctr_gc.bwd_dx3_launches, ctr_gc.bwd_param_launches) == tuple(
+        b + 10 for b in before)
+    torch.testing.assert_close(loss, want_loss, rtol=1e-5, atol=0)
+    gmax = max(w.abs().max().item() for w in want.values())
+    for k, w in want.items():
+        if k.split(".")[-1] in ("alpha", "conv4_kernel", "conv4_bias", "PA"):
+            assert w.abs().max() > 1e-3 * gmax, f"{k}: a zero gradient hides the check"
+        torch.testing.assert_close(got[k], w, rtol=0, atol=5e-2 * gmax, msg=k)
+
+
+def test_unit_kernels_inside_a_model_backward_match_plain(device, monkeypatch):
+    """Inside a train-mode forward and backward of the small CTR-GCN on the
+    card, every launch of K1, K2 and K3 is held against its plain version on
+    the very same inputs, with the tolerances of the tests above."""
+    from tamgcn_tpu_torch.ops import aggregation as agg
+
+    kernels = agg._kernels(device)
+    checked = []
+
+    def close(name, got, want, rtol, atol_frac):
+        torch.testing.assert_close(got, want, rtol=rtol,
+                                   atol=atol_frac * want.abs().max().item(), msg=name)
+
+    def k1(*a):
+        out = kernels[0](*a)
+        close("K1", out, unit_ctr_gc_plain(*a), 1e-5, 1e-5)
+        checked.append("K1")
+        return out
+
+    def k2(*a):
+        out = kernels[1](*a)
+        close("K2", out, unit_ctr_gc_dx3_plain(*a), 1e-5, 1e-5)
+        checked.append("K2")
+        return out
+
+    def k3(*a):
+        out = kernels[2](*a)
+        names = ("dx1s", "dx2s", "dw4s", "db4s", "dalpha", "dAs")
+        for name, got, want in zip(names, out, unit_ctr_gc_param_grads_plain(*a)):
+            close(name, got, want, *((1e-3, 0.0) if name == "dalpha" else (1e-4, 1e-4)))
+        checked.append("K3")
+        return out
+
+    monkeypatch.setattr(agg, "_kernels", lambda d: (k1, k2, k3))
+    x, y = _batch()
+    _grads(_small_model().train().to(device), x.to(device), y.to(device))
+    assert sorted(checked) == ["K1"] * 10 + ["K2"] * 10 + ["K3"] * 10

@@ -1,7 +1,9 @@
 """The port's graphs, feeders, loader and config parsing against the JAX
 package's, on the CPU: the adjacencies are equal, the synthetic and NW-UCLA
-eval feeders give identical samples, the eval loader batches alike, and every
-shipped YAML config parses in the port's `load_config`."""
+feeders give identical samples (the NW-UCLA train split with its
+augmentation stream over two epochs), the loaders batch alike (the train
+loader shuffled, dropping the last batch), and every shipped YAML config
+parses in the port's `load_config`."""
 import glob
 import json
 import os
@@ -87,9 +89,64 @@ def test_nucla_eval_feeder_identical(nucla_dir, modality):
         assert (la, ia) == (lb, ib)
 
 
-def test_nucla_feeder_train_split_raises(nucla_dir):
-    with pytest.raises(NotImplementedError, match="training slice"):
-        data.NUCLAFeederGCN(nucla_dir, split="train")
+@pytest.fixture(scope="module")
+def nucla_train_dir(tmp_path_factory):
+    """Random JSON skeletons of 10 to 39 frames for the first 64 train
+    samples, the ones a feeder with debug=True reads."""
+    root = tmp_path_factory.mktemp("nucla_train")
+    rng = np.random.default_rng(1)
+    for i, info in enumerate(jax_data.load_nucla_split("train")[:64]):
+        name = info["file_name"]
+        (root / name).mkdir(exist_ok=True)
+        skel = rng.normal(size=(10 + i % 30, 20, 3)).tolist()
+        with open(root / name / f"{name}.json", "w") as f:
+            json.dump({"skeletons": skel}, f)
+    return str(root)
+
+
+@pytest.mark.parametrize("modality", ["joint", "bone"])
+def test_nucla_train_feeder_identical(nucla_train_dir, modality):
+    """The train split's rotation, scale and random resampling draw the same
+    Philox(seed, epoch, index) stream in both packages, epoch after epoch;
+    `repeat` oversamples."""
+    kw = dict(split="train", modality=modality, repeat=2, seed=3, debug=True)
+    ours = data.NUCLAFeederGCN(nucla_train_dir, **kw)
+    ref = jax_data.NUCLAFeederGCN(nucla_train_dir, backend="numpy", **kw)
+    assert len(ours) == len(ref) == 128
+    np.testing.assert_array_equal(ours.label, ref.label)
+    first = {}
+    for epoch in (0, 1):
+        ours.set_epoch(epoch)
+        ref.set_epoch(epoch)
+        for i in (0, 5, 63, 64, 127):
+            a, la, ia = ours[i]
+            b, lb, ib = ref[i]
+            assert a.shape == (3, 52, 20, 1) and a.dtype == np.float32
+            np.testing.assert_array_equal(a, b)
+            assert (la, ia) == (lb, ib) == (int(ref.label[i % 64]), i % 64)
+            first.setdefault(i, a)
+        # the augmentation changes with the epoch, and between repeats
+        assert epoch == 0 or not np.array_equal(ours[5][0], first[5])
+    assert not np.array_equal(ours[0][0], ours[64][0])
+
+
+def test_train_loader_batches_like_jax():
+    """Shuffled per epoch from the seed, the last short batch dropped."""
+    feeder = data.SyntheticSkeletonFeeder(num_samples=11, split="train", seed=2)
+    ref_feeder = JaxSynthetic(num_samples=11, split="train", seed=2)
+    kw = dict(batch_size=4, shuffle=True, drop_last=True, seed=3, num_workers=2)
+    ours, ref = data.Loader(feeder, **kw), jax_data.Loader(ref_feeder, **kw)
+    orders = []
+    for epoch in (0, 1):
+        ours.set_epoch(epoch)
+        ref.set_epoch(epoch)
+        got, want = list(ours), list(ref)
+        assert [len(b[1]) for b in got] == [len(b[1]) for b in want] == [4, 4]
+        for g, w in zip(got, want):
+            for a, b in zip(g, w):
+                np.testing.assert_array_equal(a, b)
+        orders.append(np.concatenate([b[2] for b in got]))
+    assert not np.array_equal(orders[0], orders[1])
 
 
 def test_eval_loader_batches_like_jax():
@@ -147,5 +204,11 @@ def test_unknown_config_key_raises(tmp_path):
 
 def test_val_split_list_equals_jax():
     assert data.load_nucla_split("val") == jax_data.load_nucla_split("val")
-    with pytest.raises(NotImplementedError, match="training slice"):
-        data.load_nucla_split("train")
+    with pytest.raises(ValueError, match="split"):
+        data.load_nucla_split("test")
+
+
+def test_train_split_list_equals_jax():
+    train = data.load_nucla_split("train")
+    assert train == jax_data.load_nucla_split("train")
+    assert len(train) == 1020

@@ -89,7 +89,7 @@ def test_use_gpu_without_cuda_raises(weights, tmp_path):
 
 
 _OTHER_VALUE = {
-    "phase": "train", "use_pallas": "true", "fast_eval": "true",
+    "use_pallas": "true", "fast_eval": "true",
     "sequence_parallel": "true", "graph_partition": "ring",
     "model_parallel": "2", "profile_dir": "/nonexistent", "debug_nans": "true",
     "distributed": "true",
@@ -107,7 +107,7 @@ def test_flag_of_a_later_slice_raises(flag, tmp_path):
     ("w.npz", NotImplementedError), ("ckpt_dir", NotImplementedError),
 ])
 def test_weights_other_than_pt_raise(weights_path, error, tmp_path):
-    with pytest.raises(error, match="training slice"):
+    with pytest.raises(error, match="weight importers"):
         main(_argv(tmp_path, weights_path))
 
 
