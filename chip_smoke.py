@@ -39,11 +39,25 @@ Phases, each of which fails the run (non-zero exit, no result line):
      check with each of K3's six outputs zeroed in turn must fail
      (check_trajectory); times the train step at batch
      16 and 64, with the plain unit op beside it at 16, and lists its device
-     time by kernel name.
+     time by kernel name;
+  6. fast eval: holds K5, the whole eval-mode GCN+TCN block, against its
+     plain version at the ten blocks' shapes at batch 64 plus V=25 and a
+     ragged shape (Cin != C), f32 with TF32 off, within rtol 1e-5 and atol
+     1e-4*max|plain| (four products in a row, each summing up to 3*C terms in
+     another order), and times it, its plain version and the folded path
+     with K1 and cuBLAS products (use_kernel=False); runs `--phase test
+     --fast_eval true` through `__main__.main` at full width (as phase 4)
+     and checks that K5 was launched 10 times per batch and K1-K3 never,
+     and the logits of one batch against the unfused model on the CPU;
+     times the forward at batch 64 three ways (fast eval with K5, fast eval
+     with use_kernel=False, the unfused model) and lists their device time
+     by kernel name.
 The last lines are the card line, the kernels JSON and the result JSON.
 The kernels JSON gives, for each kernel, its times and bound summed over the
-launches of one eval forward at batch 64 (K1) or of one train step at batch
-16 (K2, K3), and each shape's row under "shapes".
+launches of one eval forward at batch 64 (K1), of one train step at batch 16
+(K2, K3) or of one fast-eval forward at batch 64 (K5, with the folded
+path's time under "folded_k1_cublas_ms"), and each shape's row under
+"shapes".
 """
 from __future__ import annotations
 
@@ -88,6 +102,20 @@ K1_MAIN_PATH = [
 K1_EXTRA = [
     ("V=25", (64, 26, 25, 128, 16)),
     ("ragged", (3, 7, 20, 80, 10)),  # odd T, partial channel tile, R < 16
+]
+# K5 shapes (N, T, V, Cin, C, R), with the launches per fast-eval forward at
+# N=64; P = 3C/4 and BC = C/4, a folded down conv where Cin != C
+K5_MAIN_PATH = [
+    ("l1", (64, 52, 20, 3, 64, 8), 1),
+    ("l2-l4", (64, 52, 20, 64, 64, 8), 3),
+    ("l5", (64, 52, 20, 64, 128, 8), 1),
+    ("l6-l7", (64, 26, 20, 128, 128, 16), 2),
+    ("l8", (64, 26, 20, 128, 256, 16), 1),
+    ("l9-l10", (64, 13, 20, 256, 256, 32), 2),
+]
+K5_EXTRA = [
+    ("V=25", (64, 26, 25, 128, 128, 16)),
+    ("ragged", (3, 7, 20, 80, 64, 10)),  # odd T, Cin != C, partial tile
 ]
 # the same blocks at the training batch, with the launches per train step
 BWD_MAIN_PATH = [(name, (TRAIN_BATCH,) + shape[1:], count)
@@ -182,6 +210,49 @@ def k3_bound(shape):
     return bound(elems, 2 * N * S * T * V * V * C + 4 * N * S * V * V * R * C)
 
 
+def block_inputs(shape, seed: int, device):
+    """K5's inputs as keywords: alpha != 0, b4 != 0, a random non-symmetric A,
+    a BN affine gy far from (1, 0), and a down conv where Cin != C."""
+    import torch
+
+    N, T, V, Cin, C, R = shape
+    S, P, BC = 3, 3 * C // 4, C // 4
+    g = torch.Generator().manual_seed(seed)
+
+    def w(*s, fan=4):
+        return torch.randn(s, generator=g) / fan ** 0.5
+
+    args = dict(
+        x=torch.randn((N, T, V, Cin), generator=g),
+        x1s=torch.randn((N, S, V, R), generator=g),
+        x2s=torch.randn((N, S, V, R), generator=g),
+        w3=w(Cin, S * C, fan=Cin), b3=w(S * C), w4s=w(S, R, C, fan=R), b4s=w(S, C),
+        alpha=torch.tensor([0.7]), As=torch.rand((S, V, V), generator=g),
+        gy=torch.stack([1.0 + 0.5 * torch.randn(C, generator=g),
+                        0.3 * torch.randn(C, generator=g)]),
+        wo=w(C, C, fan=C), bo=w(C), wp=w(C, P, fan=C), bp=w(P),
+        wpw=w(C, BC, fan=C), bpw=w(BC),
+        wd=None if Cin == C else w(Cin, C, fan=Cin), bd=None if Cin == C else w(C),
+    )
+    return {k: None if a is None else a.to(device) for k, a in args.items()}
+
+
+def k5_bound(shape):
+    """x read and prefix, pw written once, every weight read once; the FMAs of
+    the aggregation and of the five products as the JAX cost estimate counts
+    them (gcn_tcn_block.py:263-266)."""
+    N, T, V, Cin, C, R = shape
+    S, P, BC = 3, 3 * C // 4, C // 4
+    down = Cin != C
+    elems = (N * T * V * (Cin + P + BC) + 2 * N * S * V * R + Cin * S * C + S * C
+             + S * R * C + S * C + 1 + S * V * V + 2 * C + C * C + C + C * P + P
+             + C * BC + BC + (Cin * C + C if down else 0))
+    flops_agg = 2 * N * S * (V * V * R * C + T * V * V * C)
+    flops_mm = 2 * N * T * V * (Cin * S * C + C * C + C * P + C * BC
+                                + (Cin * C if down else 0))
+    return bound(elems, flops_agg + flops_mm)
+
+
 def _within(got, want, rtol, atol_frac):
     """(ok, max |got - want|, max |want|)."""
     import torch
@@ -271,6 +342,48 @@ def check_kernels(device):
     return out
 
 
+def check_k5(device):
+    """K5 against its plain version at every shape, and the times of K5, the
+    plain version and the folded path with K1 and cuBLAS products (the
+    engine's use_kernel=False); returns the rows."""
+    import torch
+
+    from tamgcn_tpu_torch.ops.aggregation import unit_ctr_gc
+    from tamgcn_tpu_torch.ops.cuda.gcn_tcn_block import gcn_tcn_block_fwd
+    from tamgcn_tpu_torch.ops.gcn_tcn_block import gcn_tcn_block_plain
+
+    rows = []
+    shapes = [(n, s, c) for n, s, c in K5_MAIN_PATH] + [(n, s, 0) for n, s in K5_EXTRA]
+    for i, (name, shape, count) in enumerate(shapes):
+        args = block_inputs(shape, seed=300 + i, device=device)
+        with torch.no_grad():
+            got = gcn_tcn_block_fwd(**args)
+            want = gcn_tcn_block_plain(**args)
+            torch.cuda.synchronize()
+            errs = [(part,) + _within(a, b, 1e-5, 1e-4)
+                    for part, a, b in zip(("prefix", "pw"), got, want)]
+            for part, ok, max_err, scale in errs:
+                if not ok:
+                    raise AssertionError(
+                        f"K5 {name} {shape} {part}: max |kernel - plain| {max_err:.3e} "
+                        f"(max|plain| {scale:.3e}) beyond the stated tolerance")
+            ms = cuda_ms(lambda: gcn_tcn_block_fwd(**args))
+            plain_ms = cuda_ms(lambda: gcn_tcn_block_plain(**args))
+            folded_ms = cuda_ms(lambda: gcn_tcn_block_plain(**args, aggregate=unit_ctr_gc))
+        bound_ms, bound_by = k5_bound(shape)
+        worst = max(errs, key=lambda e: e[2] / max(e[3], 1e-30))
+        rows.append(dict(name=name, shape=dict(zip(("N", "T", "V", "Cin", "C", "R"), shape)),
+                         launches_per_step=count, max_abs_err=worst[2],
+                         max_abs_plain=worst[3], worst_output=worst[0], ms=ms,
+                         plain_ms=plain_ms, folded_k1_cublas_ms=folded_ms,
+                         bound_ms=bound_ms, bound_by=bound_by))
+        print(f"K5 {name:9s} N,T,V,Cin,C,R={shape}: max_abs_err {worst[2]:.3e} in "
+              f"{worst[0]} (max|plain| {worst[3]:.3e}) kernel {ms * 1e3:.1f} us, "
+              f"plain {plain_ms * 1e3:.1f} us, folded K1+cuBLAS {folded_ms * 1e3:.1f} "
+              f"us, bound {bound_ms * 1e3:.1f} us ({bound_by})", flush=True)
+    return rows
+
+
 def make_weights(path: str, seed: int) -> None:
     """The port's seeded init with what hides the kernels moved off its
     degenerate values (alpha=0 makes M = A and zeroes dx1, dx2, dw4 and db4,
@@ -318,16 +431,17 @@ def nucla_model_args() -> dict:
 
 
 def reset_launches():
-    from tamgcn_tpu_torch.ops.cuda import ctr_gc
+    from tamgcn_tpu_torch.ops.cuda import ctr_gc, gcn_tcn_block
 
     ctr_gc.launches = ctr_gc.bwd_dx3_launches = ctr_gc.bwd_param_launches = 0
+    gcn_tcn_block.launches = 0
 
 
 def read_launches() -> dict:
-    from tamgcn_tpu_torch.ops.cuda import ctr_gc
+    from tamgcn_tpu_torch.ops.cuda import ctr_gc, gcn_tcn_block
 
     return {"K1": ctr_gc.launches, "K2": ctr_gc.bwd_dx3_launches,
-            "K3": ctr_gc.bwd_param_launches}
+            "K3": ctr_gc.bwd_param_launches, "K5": gcn_tcn_block.launches}
 
 
 def run_cli(argv):
@@ -347,14 +461,14 @@ def run_cli(argv):
     return seconds, launches
 
 
-def run_test_path(work_dir: str, weights: str):
+def run_test_path(work_dir: str, weights: str, *extra):
     return run_cli([
         "recognition", "-c", os.path.join(REPO, "configs/nucla/smoke.yaml"),
         "--phase", "test", "--weights", weights, "--work_dir", work_dir,
         "--use_gpu", "true", "--device", "0", "--seed", str(SEED),
         "--save_result", "true", "--test_batch_size", str(BATCH),
         "--test_feeder_args", f"num_samples={N_SAMPLES}",
-        "--model_args", "base_channel=64",
+        "--model_args", "base_channel=64", *extra,
     ])
 
 
@@ -445,6 +559,36 @@ def time_eval(weights: str, x, device):
     return min(kernel_ms, kernel_ms_2), plain_ms, busy_ms, n_kernels, events
 
 
+def time_fast_eval(weights: str, x, device):
+    """Steady-state forward of one batch of 64 three ways (CUDA events, in
+    turns fast, folded, unfused, then again in reverse): fast eval with K5,
+    fast eval with use_kernel=False (K1 and cuBLAS products), the unfused
+    model; and the device time by kernel name of each. Returns {way: (ms,
+    busy_ms, n_kernels, events)}."""
+    import torch
+
+    from tamgcn_tpu_torch.models import get_model
+    from tamgcn_tpu_torch.models.ctrgcn_infer import make_fast_eval
+    from tamgcn_tpu_torch.train.checkpoint import load_weights
+
+    model = get_model("ctrgcn", **nucla_model_args())
+    model.load_state_dict(load_weights(weights))
+    model.to(device).eval()
+    xb = torch.from_numpy(x).to(device)
+    out = {}
+    with torch.inference_mode():
+        ways = {"fast eval, K5": make_fast_eval(model),
+                "fast eval, use_kernel=False": make_fast_eval(model, use_kernel=False),
+                "unfused model": model}
+        ms = {way: [] for way in ways}
+        for order in (list(ways), list(ways)[::-1]):
+            for way in order:
+                ms[way].append(cuda_ms(lambda: ways[way](xb)))
+        for way, fn in ways.items():
+            out[way] = (min(ms[way]),) + profile_device(lambda: fn(xb))
+    return out
+
+
 def run_train_path(work_dir: str):
     """--phase train for 2 epochs, then --resume for a third; checks the
     launch counts, the losses and the files. Returns a summary dict."""
@@ -468,7 +612,7 @@ def run_train_path(work_dir: str):
         total = 2 + (label == "resume")
         seconds, launches = run_cli(argv + ["--num_epoch", str(total), *extra])
         want = {"K1": 10 * epochs * (steps + evals), "K2": 10 * epochs * steps,
-                "K3": 10 * epochs * steps}
+                "K3": 10 * epochs * steps, "K5": 0}
         if launches != want:
             raise AssertionError(
                 f"--phase train ({label}): launches {launches}, expected {want} "
@@ -730,7 +874,7 @@ def main() -> int:
         test_dir = os.path.join(work_dir, "test")
         seconds, launches = run_test_path(test_dir, weights)
         batches = math.ceil(N_SAMPLES / BATCH)
-        if launches != {"K1": 10 * batches, "K2": 0, "K3": 0}:
+        if launches != {"K1": 10 * batches, "K2": 0, "K3": 0, "K5": 0}:
             raise AssertionError(
                 f"the test phase launched {launches}, expected K1 10 x "
                 f"{batches} batches and no backward kernel")
@@ -749,6 +893,27 @@ def main() -> int:
         train = run_train_path(os.path.join(work_dir, "train"))
         check_trajectory(weights, device)
         t = time_train(weights, device)
+
+        # ---- 6. fast eval ----
+        k5_rows = check_k5(device)
+        print("library_ms: none for K5 (no single PyTorch call computes the "
+              "block)", flush=True)
+        fast_dir = os.path.join(work_dir, "fast_eval")
+        seconds, launches = run_test_path(fast_dir, weights, "--fast_eval", "true")
+        if launches != {"K1": 0, "K2": 0, "K3": 0, "K5": 10 * batches}:
+            raise AssertionError(
+                f"the fast-eval test phase launched {launches}, expected K5 10 x "
+                f"{batches} batches and no other kernel")
+        fast_launches = launches["K5"]
+        fast_rel, _ = check_logits(fast_dir, weights)
+        print(f"fast-eval test path: {batches} batches of {BATCH} in {seconds:.2f} s "
+              f"(incl. model build, folding and data), K5 launches {fast_launches}, "
+              f"logits vs the unfused CPU model max rel err {fast_rel:.3e}", flush=True)
+        fast = time_fast_eval(weights, x, device)
+        for way, (ms, busy, n_kernels, events) in fast.items():
+            print(f"forward, batch {BATCH}, {way}: {ms:.3f} ms/batch "
+                  f"({BATCH / ms * 1e3:.1f} samples/s)", flush=True)
+            print_profile(f"forward ({way})", ms, busy, n_kernels, events)
     print(f"train step (forward, backward, SGD), batch {TRAIN_BATCH}: "
           f"{t['kernel_ms_16']:.3f} ms ({TRAIN_BATCH / t['kernel_ms_16'] * 1e3:.1f} "
           f"samples/s) with K1-K3; {t['plain_ms_16']:.3f} ms with the plain unit "
@@ -773,7 +938,11 @@ def main() -> int:
                       train["train"]["launches"]["K2"], "train step, batch 16"),
                "K3": ("unit_ctr_gc_bwd_param", "unit_ctr_gc_bwd_param.cu",
                       "tamgcn_tpu/ops/pallas/ctr_gc.py:717",
-                      train["train"]["launches"]["K3"], "train step, batch 16")}
+                      train["train"]["launches"]["K3"], "train step, batch 16"),
+               "K5": ("gcn_tcn_block", "gcn_tcn_block.cu",
+                      "tamgcn_tpu/ops/pallas/gcn_tcn_block.py:52",
+                      fast_launches, "fast-eval forward, batch 64")}
+    rows["K5"] = k5_rows
     kernels = []
     for kname, (name, source, replaces, count, per) in sources.items():
         kernels.append({
@@ -789,6 +958,8 @@ def main() -> int:
             **kernel_summary(rows[kname], per),
             "shapes": rows[kname],
         })
+    kernels[-1]["folded_k1_cublas_ms"] = sum(
+        r["folded_k1_cublas_ms"] * r["launches_per_step"] for r in k5_rows)
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

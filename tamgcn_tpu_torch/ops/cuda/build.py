@@ -25,10 +25,12 @@ NVCC_FLAGS = [
 # every kernel source of the port; chip_smoke.py builds them all at once
 SOURCES = (
     "unit_ctr_gc_fwd.cu", "unit_ctr_gc_bwd_dx3.cu", "unit_ctr_gc_bwd_param.cu",
+    "gcn_tcn_block.cu",
 )
 
 _lock = threading.Lock()
 _loaded: dict[str, ctypes.CDLL] = {}
+_entries: dict = {}
 
 
 def nvcc_path() -> str:
@@ -101,3 +103,15 @@ def load(source: str) -> ctypes.CDLL:
             (path,) = build((source,))
             lib = _loaded[source] = ctypes.CDLL(path)
         return lib
+
+
+def entry(source: str, name: str, argtypes, restype):
+    """The C entry point `name` of `source`'s library, loaded at first use,
+    with its argument and return types declared."""
+    fn = _entries.get(name)
+    if fn is None:
+        fn = getattr(load(source), name)
+        fn.argtypes = argtypes
+        fn.restype = restype
+        _entries[name] = fn
+    return fn

@@ -39,19 +39,12 @@ _SIGNATURES = {
     "unit_ctr_gc_bwd_param_scratch_floats": (
         PARAM_SOURCE, [_I] * 5, ctypes.c_longlong),
 }
-_fns: dict = {}
 
 
 def _kernel(name: str):
     """The C entry point `name`, its library built and loaded at first use."""
-    fn = _fns.get(name)
-    if fn is None:
-        source, argtypes, restype = _SIGNATURES[name]
-        fn = getattr(build.load(source), name)
-        fn.argtypes = argtypes
-        fn.restype = restype
-        _fns[name] = fn
-    return fn
+    source, argtypes, restype = _SIGNATURES[name]
+    return build.entry(source, name, argtypes, restype)
 
 
 def _check(name, t, shape, device):
@@ -83,12 +76,13 @@ def _check_unit(fn_name, device, named, R, C, aligned=()):
             raise ValueError(f"{name} is not 16-byte aligned")
 
 
-def _launch(name, device, dims, *args):
-    """Launch the C entry point `name` on the current stream of `device`;
-    raise on a non-zero return."""
+def _launch(fn, device, dims, *args):
+    """Launch the C entry point `fn` (a launcher of csrc/) on the current
+    stream of `device`; raise on a non-zero return."""
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        err = _kernel(name)(*args, stream)
+        err = fn(*args, stream)
+    name = fn.__name__
     shape = " ".join(f"{k}={v}" for k, v in dims.items())
     if err == _CUDA_ERROR_INVALID_VALUE:
         raise ValueError(
@@ -124,7 +118,7 @@ def unit_ctr_gc_fwd(x1s, x2s, x3s, w4s, b4s, alpha, As):
     ), R, C, aligned=("x3s", "w4s", "b4s"))
     out = torch.empty((N, T, V, C), device=device, dtype=torch.float32)
     _launch(
-        "unit_ctr_gc_fwd_f32", device, dict(N=N, S=S, T=T, V=V, R=R, C=C),
+        _kernel("unit_ctr_gc_fwd_f32"), device, dict(N=N, S=S, T=T, V=V, R=R, C=C),
         x1s.data_ptr(), x2s.data_ptr(), x3s.data_ptr(), w4s.data_ptr(),
         b4s.data_ptr(), alpha.data_ptr(), As.data_ptr(), out.data_ptr(),
         N, S, T, V, R, C,
@@ -152,7 +146,7 @@ def unit_ctr_gc_bwd_dx3(x1s, x2s, g, w4s, b4s, alpha, As):
     ), R, C, aligned=("g", "w4s", "b4s"))
     dx3s = torch.empty((N, T, V, S * C), device=device, dtype=torch.float32)
     _launch(
-        "unit_ctr_gc_bwd_dx3_f32", device, dict(N=N, S=S, T=T, V=V, R=R, C=C),
+        _kernel("unit_ctr_gc_bwd_dx3_f32"), device, dict(N=N, S=S, T=T, V=V, R=R, C=C),
         x1s.data_ptr(), x2s.data_ptr(), g.data_ptr(), w4s.data_ptr(),
         b4s.data_ptr(), alpha.data_ptr(), As.data_ptr(), dx3s.data_ptr(),
         N, S, T, V, R, C,
@@ -188,7 +182,7 @@ def unit_ctr_gc_bwd_param(x1s, x2s, g, x3s, w4s, b4s, alpha):
     dw4s, db4s, dalpha, dAs = empty(S, R, C), empty(S, C), empty(1), empty(S, V, V)
     scratch = empty(_kernel("unit_ctr_gc_bwd_param_scratch_floats")(N, S, V, R, C))
     _launch(
-        "unit_ctr_gc_bwd_param_f32", device, dict(N=N, S=S, T=T, V=V, R=R, C=C),
+        _kernel("unit_ctr_gc_bwd_param_f32"), device, dict(N=N, S=S, T=T, V=V, R=R, C=C),
         x1s.data_ptr(), x2s.data_ptr(), g.data_ptr(), x3s.data_ptr(),
         w4s.data_ptr(), b4s.data_ptr(), alpha.data_ptr(), dx1s.data_ptr(),
         dx2s.data_ptr(), dw4s.data_ptr(), db4s.data_ptr(), dalpha.data_ptr(),

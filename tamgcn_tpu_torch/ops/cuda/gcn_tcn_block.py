@@ -1,0 +1,79 @@
+"""The whole eval-mode GCN+TCN block on the card: the wrapper of K5.
+
+  K5 `gcn_tcn_block_fwd`   csrc/gcn_tcn_block.cu
+
+Counterpart of tamgcn_tpu/ops/pallas/gcn_tcn_block.py:gcn_tcn_block_fused; its
+plain version is ops/gcn_tcn_block.py:gcn_tcn_block_plain. The wrapper checks
+its inputs, allocates the outputs and the scratch y (the unit_gcn output
+after its BN, which passes through device memory between the kernel's two
+phases), and launches both phases on the current stream as one call; it
+never falls back to the plain version.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import build
+from .ctr_gc import _check_unit, _launch
+
+SOURCE = "gcn_tcn_block.cu"
+# calls that launched K5 so far; a run sets it to 0 and reads it to show that
+# a path went through the kernel
+launches = 0
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+
+
+def _kernel():
+    return build.entry(SOURCE, "gcn_tcn_block_f32", [_P] * 21 + [_I] * 9 + [_P],
+                       ctypes.c_int)
+
+
+def gcn_tcn_block_fwd(x, x1s, x2s, w3, b3, w4s, b4s, alpha, As, gy, wo, bo,
+                      wp, bp, wpw, bpw, wd=None, bd=None):
+    """K5. x (N,T,V,Cin); x1s/x2s (N,S,V,R); w3 (Cin,S*C); b3 (S*C,); w4s
+    (S,R,C); b4s (S,C); alpha (1,); As (S,V,V); gy (2,C); wo (C,C); bo (C,);
+    wp (C,P); bp (P,); wpw (C,BC); bpw (BC,); wd (Cin,C) and bd (C,), or
+    None for an identity residual (Cin == C). All contiguous float32 on one
+    CUDA device, 16-byte aligned, with R <= 32 and C, P, BC % 4 == 0
+    -> (prefix (N,T,V,P), pw (N,T,V,BC))."""
+    global launches
+    N, T, V, Cin = x.shape
+    S, R = x1s.shape[1], x1s.shape[-1]
+    C, P, BC = w4s.shape[-1], wp.shape[-1], wpw.shape[-1]
+    device = x.device
+    if (wd is None) != (bd is None):
+        raise ValueError("wd and bd are both given or both None")
+    if wd is None and Cin != C:
+        raise ValueError(f"an identity residual needs Cin == C, got {Cin} and {C}")
+    named = [
+        ("x", x, (N, T, V, Cin)), ("x1s", x1s, (N, S, V, R)),
+        ("x2s", x2s, (N, S, V, R)), ("w3", w3, (Cin, S * C)), ("b3", b3, (S * C,)),
+        ("w4s", w4s, (S, R, C)), ("b4s", b4s, (S, C)), ("alpha", alpha, (1,)),
+        ("As", As, (S, V, V)), ("gy", gy, (2, C)), ("wo", wo, (C, C)),
+        ("bo", bo, (C,)), ("wp", wp, (C, P)), ("bp", bp, (P,)),
+        ("wpw", wpw, (C, BC)), ("bpw", bpw, (BC,)),
+    ]
+    if wd is not None:
+        named += [("wd", wd, (Cin, C)), ("bd", bd, (C,))]
+    _check_unit("gcn_tcn_block_fwd", device, named, R, C,
+                aligned=[name for name, _, _ in named])
+    for name, width in (("P", P), ("BC", BC)):
+        if width % 4:
+            raise ValueError(f"{name}={width}: the kernel reads channels in "
+                             "fours and takes a multiple of 4")
+
+    def empty(*shape):
+        return torch.empty(shape, device=device, dtype=torch.float32)
+
+    y, prefix, pw = empty(N, T, V, C), empty(N, T, V, P), empty(N, T, V, BC)
+    ptrs = [t.data_ptr() for t in (x, x1s, x2s, w3, b3, w4s, b4s, alpha, As, gy)]
+    ptrs += [None, None] if wd is None else [wd.data_ptr(), bd.data_ptr()]
+    ptrs += [t.data_ptr() for t in (wo, bo, wp, bp, wpw, bpw, y, prefix, pw)]
+    _launch(_kernel(), device,
+            dict(N=N, S=S, T=T, V=V, Cin=Cin, R=R, C=C, P=P, BC=BC),
+            *ptrs, N, S, T, V, Cin, R, C, P, BC)
+    launches += 1
+    return prefix, pw

@@ -1,0 +1,60 @@
+"""The whole eval-mode GCN+TCN block: its plain version and the dispatcher of K5.
+
+Counterpart of tamgcn_tpu/ops/pallas/gcn_tcn_block.py. In eval mode every
+BatchNorm of a TCN_GCN_unit is a per-channel affine folded into the 1x1 conv
+beside it (models/ctrgcn_infer.py), and the block up to its dilated temporal
+branches is
+
+    x3     = x @ W3 + b3                       # packed conv3 of the S subsets
+    y      = unit_ctr_gc(x1, x2, x3)           # the CTR-GC aggregation
+    y      = y * gy[0] + gy[1]                 # unit_gcn BN
+    res    = x  |  x @ Wd + bd                 # identity / folded down conv
+    off    = tanh((res - y) @ Wo + bo)         # TAM offset conv (folded)
+    h      = relu(y + off + res)               # unit_gcn output
+    prefix = relu(h @ Wp + bp)                 # TCN entry conv (folded)
+    pw     = h @ Wpw + bpw                     # TCN 1x1 branch (folded)
+
+`gcn_tcn_block_fused` runs it: the plain version for CPU tensors, the CUDA
+kernel K5 (ops/cuda/gcn_tcn_block.py) for CUDA tensors, with no fallback.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from .aggregation import unit_ctr_gc_plain
+
+
+def gcn_tcn_block_plain(x, x1s, x2s, w3, b3, w4s, b4s, alpha, As, gy, wo, bo,
+                        wp, bp, wpw, bpw, wd=None, bd=None,
+                        aggregate=unit_ctr_gc_plain):
+    """Plain version of K5. x (N,T,V,Cin); x1s/x2s (N,S,V,R); w3 (Cin,S*C);
+    b3 (S*C,); w4s (S,R,C); b4s (S,C); alpha (1,); As (S,V,V); gy (2,C);
+    wo (C,C); bo (C,); wp (C,P); bp (P,); wpw (C,BC); bpw (BC,); wd (Cin,C)
+    and bd (C,), or None for an identity residual. Returns (prefix
+    (N,T,V,P), pw (N,T,V,BC)), pw at every frame. `aggregate` computes the
+    unit op (ops/aggregation.py:unit_ctr_gc_plain; the folded comparison
+    path passes the dispatcher unit_ctr_gc, K1 on the card)."""
+    x3 = torch.matmul(x, w3) + b3
+    y = aggregate(x1s, x2s, x3, w4s, b4s, alpha, As)
+    y = y * gy[0] + gy[1]
+    res = x if wd is None else torch.matmul(x, wd) + bd
+    off = torch.tanh(torch.matmul(res - y, wo) + bo)
+    h = F.relu(y + off + res)
+    return F.relu(torch.matmul(h, wp) + bp), torch.matmul(h, wpw) + bpw
+
+
+def gcn_tcn_block_fused(x, x1s, x2s, w3, b3, w4s, b4s, alpha, As, gy, wo, bo,
+                        wp, bp, wpw, bpw, wd=None, bd=None):
+    """One eval-mode block on the device of x: the plain version for a CPU
+    tensor, K5 for a CUDA tensor (which raises on what it does not take;
+    there is no fallback). Shapes as gcn_tcn_block_plain."""
+    args = (x, x1s, x2s, w3, b3, w4s, b4s, alpha, As, gy, wo, bo, wp, bp,
+            wpw, bpw, wd, bd)
+    if x.device.type == "cpu":
+        return gcn_tcn_block_plain(*args)
+    if x.device.type == "cuda":
+        from .cuda.gcn_tcn_block import gcn_tcn_block_fwd
+
+        return gcn_tcn_block_fwd(*args)
+    raise NotImplementedError(f"gcn_tcn_block_fused on device {x.device}")

@@ -130,7 +130,9 @@ def base_parser(add_help: bool = False) -> argparse.ArgumentParser:
     p.add_argument("--use_pallas", type=str2bool, default=None,
                    help="not ported: kernels are chosen by tensor device")
     p.add_argument("--fast_eval", type=str2bool, default=False,
-                   help="not ported yet: only false")
+                   help="score CTR-GCN evaluation through the folded "
+                        "whole-block engine (models/ctrgcn_infer.py; the "
+                        "CUDA kernel K5 on the card)")
     p.add_argument("--sequence_parallel", type=str2bool, default=False,
                    help="not ported yet: only false")
     p.add_argument("--profile_dir", default=None,
@@ -163,8 +165,6 @@ _NOT_PORTED = {
     "use_pallas": (None, "--use_pallas has no meaning in the port: a CUDA "
                          "tensor runs the CUDA kernels, a CPU tensor the "
                          "plain versions"),
-    "fast_eval": (False, "--fast_eval (the fused block kernel) is not "
-                         "ported yet"),
     "sequence_parallel": (False, "--sequence_parallel is not ported yet"),
     "graph_partition": ("none", "--graph_partition ring is not ported yet"),
     "model_parallel": (1, "--model_parallel > 1 is not ported yet"),

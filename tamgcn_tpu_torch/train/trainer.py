@@ -17,6 +17,10 @@ recognition_rgb.py train/test/start :48-126) on one device, the one that
   * test phase: inference over the val split with --weights, mean loss,
     top-k and the per-sample score pickle.
 
+With --fast_eval every evaluation scores its batches through
+models/ctrgcn_infer.py:make_fast_eval (every block through K5 on the card),
+folded anew from the current weights at the start of each evaluation.
+
 The flags of features the port lacks raise (train/config.py:check_supported).
 """
 from __future__ import annotations
@@ -32,6 +36,7 @@ from ..data import Loader, feeder_accepts_seed, get_feeder
 from ..data.loader import prefetch
 from ..data.transforms import top_k
 from ..models import get_model
+from ..models.ctrgcn_infer import make_fast_eval
 from .checkpoint import Checkpoints, filter_ignore, load_weights, partial_update
 from .config import check_supported, resolve_device
 from .optim import make_lr_schedule, make_optimizer, set_lr
@@ -192,8 +197,11 @@ class RecognitionTrainer:
         n_batches = n_samples = 0
         t0 = time.perf_counter()
         with torch.inference_mode():
+            # folded here, not once at construction: training changes the
+            # weights between evaluations
+            forward = make_fast_eval(self.model) if self.arg.fast_eval else self.model
             for inputs, label, label_np in prefetch(iter(loader), self._put):
-                logits = self.model(*inputs)
+                logits = forward(*inputs)
                 # keep results on the device; one bulk copy below
                 losses.append(F.cross_entropy(logits, label))
                 scores.append(logits)

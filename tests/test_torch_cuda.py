@@ -233,3 +233,99 @@ def test_unit_kernels_inside_a_model_backward_match_plain(device, monkeypatch):
     x, y = _batch()
     _grads(_small_model().train().to(device), x.to(device), y.to(device))
     assert sorted(checked) == ["K1"] * 10 + ["K2"] * 10 + ["K3"] * 10
+
+
+def _block_inputs(n, t, v, cin, c, r, device, seed=0):
+    """K5's inputs (as keywords) with alpha != 0, b4 != 0, a random
+    non-symmetric A, a BN affine gy far from (1, 0) and, where Cin != C, a
+    down conv; P = 3C/4 and BC = C/4 as in the model."""
+    g = torch.Generator().manual_seed(seed)
+    S, P, BC = 3, 3 * c // 4, c // 4
+
+    def w(*shape, fan=4):
+        return torch.randn(shape, generator=g) / fan ** 0.5
+
+    args = dict(
+        x=torch.randn((n, t, v, cin), generator=g), x1s=torch.randn((n, S, v, r), generator=g),
+        x2s=torch.randn((n, S, v, r), generator=g), w3=w(cin, S * c, fan=cin), b3=w(S * c),
+        w4s=w(S, r, c, fan=r), b4s=w(S, c), alpha=torch.tensor([0.7]),
+        As=torch.rand((S, v, v), generator=g),
+        gy=torch.stack([1.0 + 0.5 * torch.randn(c, generator=g), 0.3 * torch.randn(c, generator=g)]),
+        wo=w(c, c, fan=c), bo=w(c), wp=w(c, P, fan=c), bp=w(P), wpw=w(c, BC, fan=c), bpw=w(BC),
+        wd=None if cin == c else w(cin, c, fan=cin), bd=None if cin == c else w(c),
+    )
+    return {k: None if a is None else a.to(device) for k, a in args.items()}
+
+
+# (N, T, V, Cin, C, R): the ten blocks' shapes at a small batch, V=25, ragged
+BLOCK_SHAPES = [
+    (4, 52, 20, 3, 64, 8), (4, 52, 20, 64, 64, 8), (4, 52, 20, 64, 128, 8),
+    (4, 26, 20, 128, 128, 16), (4, 26, 20, 128, 256, 16), (4, 13, 20, 256, 256, 32),
+    (4, 26, 25, 128, 128, 16), (3, 7, 20, 80, 64, 10),
+]
+
+
+@pytest.mark.parametrize("shape", BLOCK_SHAPES,
+                         ids=lambda s: "N{}-T{}-V{}-Cin{}-C{}-R{}".format(*s))
+def test_block_kernel_matches_plain(device, shape):
+    """K5 against its plain version within rtol 1e-5 and atol 1e-4 *
+    max|plain|: four products in a row, each summing up to 3*C terms in
+    another order."""
+    from tamgcn_tpu_torch.ops.cuda import gcn_tcn_block as k5
+    from tamgcn_tpu_torch.ops.gcn_tcn_block import gcn_tcn_block_fused, gcn_tcn_block_plain
+
+    args = _block_inputs(*shape, device=device)
+    before = (k5.launches, ctr_gc.launches)
+    with torch.no_grad():
+        got = gcn_tcn_block_fused(**args)
+        want = gcn_tcn_block_plain(**args)
+    torch.cuda.synchronize()
+    assert (k5.launches, ctr_gc.launches) == (before[0] + 1, before[1])
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-4 * b.abs().max().item())
+
+
+def test_block_kernel_rejects_what_it_does_not_take(device):
+    from tamgcn_tpu_torch.ops.cuda import gcn_tcn_block as k5
+
+    args = _block_inputs(2, 4, 20, 64, 64, 8, device=device)
+    before = k5.launches
+    with pytest.raises(TypeError, match="float32"):
+        k5.gcn_tcn_block_fwd(**{k: v.double() for k, v in args.items() if v is not None})
+    with pytest.raises(ValueError, match="CUDA"):
+        k5.gcn_tcn_block_fwd(**{k: v.cpu() for k, v in args.items() if v is not None})
+    bad = dict(args, x=args["x"].transpose(1, 2).contiguous().transpose(1, 2))
+    with pytest.raises(ValueError, match="contiguous"):
+        k5.gcn_tcn_block_fwd(**bad)
+    with pytest.raises(ValueError, match="shape"):
+        k5.gcn_tcn_block_fwd(**dict(args, wo=args["wo"][:, :60].contiguous()))
+    with pytest.raises(ValueError, match="both"):
+        k5.gcn_tcn_block_fwd(**dict(args, wd=torch.zeros((64, 64), device=device)))
+    with pytest.raises(ValueError, match="Cin == C"):
+        k5.gcn_tcn_block_fwd(**_block_inputs(2, 4, 20, 32, 64, 8, device=device) | dict(wd=None, bd=None))
+    with pytest.raises(ValueError, match="R <= 32"):
+        k5.gcn_tcn_block_fwd(**_block_inputs(1, 4, 20, 64, 64, 40, device=device))
+    with pytest.raises(ValueError, match="shared memory"):
+        k5.gcn_tcn_block_fwd(**_block_inputs(1, 2, 64, 64, 64, 8, device=device))
+    assert k5.launches == before
+
+
+def test_fast_eval_on_card_matches_cpu(device):
+    """make_fast_eval on the card (K5 in every block) against the unfused
+    model on the CPU, within rtol 1e-4 and atol 1e-4 * max|logit|."""
+    from tamgcn_tpu_torch.models.ctrgcn_infer import make_fast_eval
+    from tamgcn_tpu_torch.ops.cuda import gcn_tcn_block as k5
+
+    model = _small_model().eval()
+    with torch.no_grad():  # BN stats away from mean 0, var 1
+        for m in model.modules():
+            if hasattr(m, "running_var"):
+                m.running_mean.normal_(0.0, 0.1, generator=torch.Generator().manual_seed(5))
+                m.running_var.uniform_(0.5, 2.0, generator=torch.Generator().manual_seed(6))
+    x = torch.randn((4, 3, 52, 20, 1), generator=torch.Generator().manual_seed(3))
+    with torch.inference_mode():
+        want = model(x)
+        before = (k5.launches, ctr_gc.launches)
+        got = make_fast_eval(model.to(device))(x.to(device)).cpu()
+    assert (k5.launches, ctr_gc.launches) == (before[0] + 10, before[1])
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4 * want.abs().max().item())

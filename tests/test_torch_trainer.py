@@ -89,8 +89,7 @@ def test_use_gpu_without_cuda_raises(weights, tmp_path):
 
 
 _OTHER_VALUE = {
-    "use_pallas": "true", "fast_eval": "true",
-    "sequence_parallel": "true", "graph_partition": "ring",
+    "use_pallas": "true", "sequence_parallel": "true", "graph_partition": "ring",
     "model_parallel": "2", "profile_dir": "/nonexistent", "debug_nans": "true",
     "distributed": "true",
 }
