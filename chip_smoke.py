@@ -51,16 +51,38 @@ Phases, each of which fails the run (non-zero exit, no result line):
      and the logits of one batch against the unfused model on the CPU;
      times the forward at batch 64 three ways (fast eval with K5, fast eval
      with use_kernel=False, the unfused model) and lists their device time
-     by kernel name.
-The last lines are the card line, the kernels JSON and the result JSON.
-The kernels JSON gives, for each kernel, its times and bound summed over the
-launches of one eval forward at batch 64 (K1), of one train step at batch 16
-(K2, K3) or of one fast-eval forward at batch 64 (K5, with the folded
-path's time under "folded_k1_cublas_ms"), and each shape's row under
-"shapes".
+     by kernel name;
+  7. fused-conv3 training and CTRGC: holds K6, the x3 gradient carried
+     through conv3's VJP, against its plain version at the l5-l10 shapes at
+     batch 16 plus V=25 and a ragged shape (odd T, Cin != 4k), f32 with TF32
+     off: dx within rtol 1e-5 and atol 1e-4*max|plain| (two products in a
+     row), dw3 and db3 (sums over N*T*V rows) within rtol 1e-4 and atol
+     1e-4*max|plain|; two K6 launches must agree bit for bit; times K6, its
+     plain version and the unfused composition (K2, two torch.matmul
+     products and a sum). Runs `--phase train` for one epoch with
+     TAMGCN_FUSE_CONV3=1 (set around the call and restored after) and checks
+     K1 = 10 per step and eval batch, K2 = 4, K6 = 6 and K3 = 10 per step,
+     finite losses and the checkpoint; runs check_trajectory with the switch
+     on, whose planted faults then zero each of K6's outputs; times the train
+     step with the switch on at batch 16 and 64 beside the default step,
+     with device time by kernel name. Then the standalone CTRGC module,
+     forward and backward on the card (K1 and K2 at S = 1, K4's path) against
+     the same module with the plain single-subset op, and ctr_gc_fused
+     without b4 against its plain version, at (N=16, T=52, V=20, Cin=64,
+     C=128) and V=25, and times K4's work (K1 and K2 at S = 1) against its
+     plain version.
+The launch checks of phases 4-6 also require K6 = 0: the switch is off by
+default. The last lines are the card line, the kernels JSON and the result
+JSON. The kernels JSON gives, for each kernel, its times and bound summed
+over the launches of one eval forward at batch 64 (K1), of one train step at
+batch 16 (K2, K3; K6 with the switch on, with the unfused composition's time
+under "unfused_k2_cublas_ms"), of one CTRGC forward and backward (K4) or of
+one fast-eval forward at batch 64 (K5, with the folded path's time under
+"folded_k1_cublas_ms"), and each shape's row under "shapes".
 """
 from __future__ import annotations
 
+import contextlib
 import csv
 import json
 import math
@@ -86,6 +108,26 @@ TRAJ_TENSOR_FLOOR = 2e-2
 # K3's outputs; a planted fault zeroes each in turn, and the trajectory
 # check must fail for every one
 K3_OUTPUTS = ("dx1s", "dx2s", "dw4s", "db4s", "dalpha", "dAs")
+K6_OUTPUTS = ("dx", "dw3", "db3")
+# K6 shapes (N, T, V, Cin, C, R) at the training batch, with the launches per
+# train step with TAMGCN_FUSE_CONV3=1 (the blocks with C >= 128)
+K6_MAIN_PATH = [
+    ("l5", (TRAIN_BATCH, 52, 20, 64, 128, 8), 1),
+    ("l6-l7", (TRAIN_BATCH, 26, 20, 128, 128, 16), 2),
+    ("l8", (TRAIN_BATCH, 26, 20, 128, 256, 16), 1),
+    ("l9-l10", (TRAIN_BATCH, 13, 20, 256, 256, 32), 2),
+]
+K6_EXTRA = [
+    ("V=25", (TRAIN_BATCH, 26, 25, 128, 128, 16)),
+    ("V=25 R=32", (TRAIN_BATCH, 13, 25, 256, 256, 32)),
+    ("ragged", (3, 7, 20, 30, 40, 10)),  # odd T, Cin != 4k, partial tile
+]
+# the standalone CTRGC module (N, T, V, Cin, C): its first shape is K4's main
+# path, one forward and backward
+CTRGC_SHAPES = [
+    ("l5 widths", (TRAIN_BATCH, 52, 20, 64, 128)),
+    ("V=25", (TRAIN_BATCH, 26, 25, 128, 128)),
+]
 # published H100 SXM peaks (NVIDIA data sheet), at the full 700 W limit
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12
@@ -208,6 +250,28 @@ def k3_bound(shape):
     # reuses P = D^T dm as sum w4*P + b4*sum(dm), so it needs no third
     # V*V*R*C product; the JAX estimate counts one (6 instead of 4)
     return bound(elems, 2 * N * S * T * V * V * C + 4 * N * S * V * V * R * C)
+
+
+def k6_bound(shape):
+    N, T, V, Cin, C, R = shape
+    S = 3
+    # x1s, x2s, g, x, w3, w4s, b4s, alpha, As in; dx, dw3, db3 out
+    elems = (2 * N * S * V * R + N * T * V * C + 2 * N * T * V * Cin
+             + 2 * Cin * S * C + S * R * C + 2 * S * C + 1 + S * V * V)
+    # FMAs of M and the aggregation (as K2), of dx = dx3s w3^T and dw3 =
+    # x^T dx3s (the JAX cost estimate, ctr_gc.py:1475), and db3's adds
+    flops = (2 * N * S * (V * V * R * C + T * V * V * C)
+             + 4 * N * T * V * S * C * Cin + N * T * V * S * C)
+    return bound(elems, flops)
+
+
+def k4_bound(shape):
+    """K4's work on one CTRGC forward and backward: the single-subset forward
+    and its x3 gradient (x1, x2, x3, g, w4, b4, alpha, A in; out, dx3 out)."""
+    N, T, V, Cin, C = shape
+    R = 8 if Cin in (3, 9) else Cin // 8
+    elems = 2 * N * V * R + 4 * N * T * V * C + R * C + C + 1 + V * V
+    return bound(elems, 4 * N * (V * V * R * C + T * V * V * C))
 
 
 def block_inputs(shape, seed: int, device):
@@ -434,6 +498,7 @@ def reset_launches():
     from tamgcn_tpu_torch.ops.cuda import ctr_gc, gcn_tcn_block
 
     ctr_gc.launches = ctr_gc.bwd_dx3_launches = ctr_gc.bwd_param_launches = 0
+    ctr_gc.bwd_conv3_launches = 0
     gcn_tcn_block.launches = 0
 
 
@@ -441,7 +506,30 @@ def read_launches() -> dict:
     from tamgcn_tpu_torch.ops.cuda import ctr_gc, gcn_tcn_block
 
     return {"K1": ctr_gc.launches, "K2": ctr_gc.bwd_dx3_launches,
-            "K3": ctr_gc.bwd_param_launches, "K5": gcn_tcn_block.launches}
+            "K3": ctr_gc.bwd_param_launches, "K5": gcn_tcn_block.launches,
+            "K6": ctr_gc.bwd_conv3_launches}
+
+
+def fuse_conv3(on: bool = True):
+    """TAMGCN_FUSE_CONV3 set to 1 (or 0) in os.environ, restored after."""
+    from unittest import mock
+
+    return mock.patch.dict(os.environ, {"TAMGCN_FUSE_CONV3": "1" if on else "0"})
+
+
+def plain_unit_op():
+    """The unit op's plain version on the card in place of K1-K3, with the
+    switch off so that no block takes the conv3-fused op: the model's math
+    without its kernels."""
+    from unittest import mock
+
+    from tamgcn_tpu_torch.ops import aggregation
+
+    stack = contextlib.ExitStack()
+    stack.enter_context(mock.patch.object(aggregation, "unit_ctr_gc",
+                                          aggregation.unit_ctr_gc_plain))
+    stack.enter_context(fuse_conv3(False))
+    return stack
 
 
 def run_cli(argv):
@@ -538,12 +626,9 @@ def time_eval(weights: str, x, device):
     """Steady-state eval forward of one batch of 64: with the kernel and
     with the plain version of the unit op swapped in (CUDA events, in turns
     kernel, plain, kernel), and the device time by kernel name."""
-    from unittest import mock
-
     import torch
 
-    from tamgcn_tpu_torch.models import ctrgcn, get_model
-    from tamgcn_tpu_torch.ops.aggregation import unit_ctr_gc_plain
+    from tamgcn_tpu_torch.models import get_model
     from tamgcn_tpu_torch.train.checkpoint import load_weights
 
     model = get_model("ctrgcn", **nucla_model_args())
@@ -552,7 +637,7 @@ def time_eval(weights: str, x, device):
     xb = torch.from_numpy(x).to(device)
     with torch.inference_mode():
         kernel_ms = cuda_ms(lambda: model(xb))
-        with mock.patch.object(ctrgcn, "unit_ctr_gc", unit_ctr_gc_plain):
+        with plain_unit_op():
             plain_ms = cuda_ms(lambda: model(xb))
         kernel_ms_2 = cuda_ms(lambda: model(xb))
         busy_ms, n_kernels, events = profile_device(lambda: model(xb))
@@ -589,14 +674,8 @@ def time_fast_eval(weights: str, x, device):
     return out
 
 
-def run_train_path(work_dir: str):
-    """--phase train for 2 epochs, then --resume for a third; checks the
-    launch counts, the losses and the files. Returns a summary dict."""
-    import numpy as np
-
-    steps = TRAIN_SAMPLES // TRAIN_BATCH
-    evals = math.ceil(EVAL_SAMPLES / TRAIN_BATCH)
-    argv = [
+def train_argv(work_dir: str) -> list:
+    return [
         "recognition", "-c", os.path.join(REPO, "configs/nucla/smoke.yaml"),
         "--phase", "train", "--work_dir", work_dir, "--use_gpu", "true",
         "--device", "0", "--seed", str(SEED), "--model_args", "base_channel=64",
@@ -605,6 +684,32 @@ def run_train_path(work_dir: str):
         "--test_feeder_args", f"num_samples={EVAL_SAMPLES}",
         "--eval_interval", "1", "--save_interval", "1",
     ]
+
+
+def check_train_files(work_dir: str, total: int, epochs: int, label: str):
+    """The checkpoints of epochs 1..total, and the last `epochs` rows of
+    progress_info.csv (train loss, test loss, top1, top5) finite; returns
+    those rows."""
+    import numpy as np
+
+    for n in range(1, total + 1):
+        if not os.path.isfile(os.path.join(work_dir, "checkpoints", f"epoch{n}.pt")):
+            raise AssertionError(f"checkpoints/epoch{n}.pt missing ({label})")
+    with open(os.path.join(work_dir, "progress_info.csv")) as f:
+        rows = [r for r in csv.reader(f) if r and not r[0].startswith("#")]
+    # one row per eval of the run
+    progress = np.asarray(rows, dtype=np.float64)[total - epochs:]
+    if len(progress) != epochs or not np.isfinite(progress).all():
+        raise AssertionError(f"progress_info.csv ({label}): {rows}")
+    return progress
+
+
+def run_train_path(work_dir: str):
+    """--phase train for 2 epochs, then --resume for a third; checks the
+    launch counts, the losses and the files. Returns a summary dict."""
+    steps = TRAIN_SAMPLES // TRAIN_BATCH
+    evals = math.ceil(EVAL_SAMPLES / TRAIN_BATCH)
+    argv = train_argv(work_dir)
     summary = {}
     ckpt = os.path.join(work_dir, "checkpoints")
     for label, epochs, extra in (("train", 2, []),
@@ -612,21 +717,13 @@ def run_train_path(work_dir: str):
         total = 2 + (label == "resume")
         seconds, launches = run_cli(argv + ["--num_epoch", str(total), *extra])
         want = {"K1": 10 * epochs * (steps + evals), "K2": 10 * epochs * steps,
-                "K3": 10 * epochs * steps, "K5": 0}
+                "K3": 10 * epochs * steps, "K5": 0, "K6": 0}
         if launches != want:
             raise AssertionError(
                 f"--phase train ({label}): launches {launches}, expected {want} "
                 f"(10 per train step of {steps} a epoch, K1 also 10 per eval "
                 f"batch of {evals})")
-        for n in range(1, total + 1):
-            if not os.path.isfile(os.path.join(ckpt, f"epoch{n}.pt")):
-                raise AssertionError(f"checkpoints/epoch{n}.pt missing")
-        with open(os.path.join(work_dir, "progress_info.csv")) as f:
-            rows = [r for r in csv.reader(f) if r and not r[0].startswith("#")]
-        # one row per eval of the run: train loss, test loss, top1, top5
-        progress = np.asarray(rows, dtype=np.float64)[total - epochs:]
-        if len(progress) != epochs or not np.isfinite(progress).all():
-            raise AssertionError(f"progress_info.csv ({label}): {rows}")
+        progress = check_train_files(work_dir, total, epochs, label)
         if label == "train" and (progress[:, 2].max() > 0) != os.path.isfile(
                 os.path.join(ckpt, "best.pt")):
             raise AssertionError("best.pt does not follow the best top-1")
@@ -731,31 +828,40 @@ def trajectory_ratios(run, ref, limits):
     return out
 
 
-def check_trajectory(weights: str, device):
+# the planted faults of check_trajectory: the kernel, its wrapper and outputs
+FAULTS = {"K3": ("unit_ctr_gc_bwd_param", K3_OUTPUTS),
+          "K6": ("unit_ctr_gc_bwd_conv3", K6_OUTPUTS)}
+
+
+def check_trajectory(weights: str, device, faulted: str = "K3", references=None):
     """TRAJ_STEPS SGD steps from the same weights on the same batches: on the
-    card with K1-K3 (f32), and as references on the CPU in f64 and, for the
-    size of f32 rounding, on the CPU in f32 and on the card in f32 with the
-    plain unit op. Relu and max-pool decisions at near-ties flip under
+    card with its kernels (f32), and as references on the CPU in f64 and, for
+    the size of f32 rounding, on the CPU in f32 and on the card in f32 with
+    the plain unit op. Relu and max-pool decisions at near-ties flip under
     rounding-size changes, each flip moving some gradients: one step's
     gradients in f32 leave the f64 ones by percent, and through ten blocks
     of train-mode BatchNorm the trajectory is chaotic. So the card is held
     to the f64 run, after every step, within trajectory_limits. The same
-    check is then run on the card with each of K3_OUTPUTS zeroed in turn,
-    and must fail each time. Returns the worst (err / limit) and its name."""
+    check is then run on the card with each output of the kernel `faulted`
+    (K3, or K6 with TAMGCN_FUSE_CONV3=1) zeroed in turn, and must fail each
+    time. `references` (what an earlier call returned) skips the reference
+    runs: they compute the model's math whichever conv3 path the card takes
+    (tests/test_torch_conv3.py holds the two within 1e-10 in f64). Returns
+    the worst (err / limit), its name and the references."""
     from unittest import mock
 
     import torch
 
-    from tamgcn_tpu_torch.models import ctrgcn
-    from tamgcn_tpu_torch.ops.aggregation import unit_ctr_gc_plain
     from tamgcn_tpu_torch.ops.cuda import ctr_gc
 
-    batches = train_batches(TRAJ_STEPS, TRAIN_BATCH)
-    ref = trajectory(weights, batches, "cpu", torch.float64)
-    refs = [trajectory(weights, batches, "cpu", torch.float32)]
-    with mock.patch.object(ctrgcn, "unit_ctr_gc", unit_ctr_gc_plain):
-        refs.append(trajectory(weights, batches, device, torch.float32))
-    limits = trajectory_limits(ref, refs)
+    if references is None:
+        batches = train_batches(TRAJ_STEPS, TRAIN_BATCH)
+        ref = trajectory(weights, batches, "cpu", torch.float64)
+        refs = [trajectory(weights, batches, "cpu", torch.float32)]
+        with plain_unit_op():
+            refs.append(trajectory(weights, batches, device, torch.float32))
+        references = batches, ref, refs, trajectory_limits(ref, refs)
+    batches, ref, refs, limits = references
     card = trajectory(weights, batches, device, torch.float32)
     ratios = trajectory_ratios(card, ref, limits)
     worst = sorted(ratios.items(), key=lambda kv: -kv[1])
@@ -771,36 +877,32 @@ def check_trajectory(weights: str, device):
     if worst[0][1] > 1:
         raise AssertionError("the card's training trajectory left the CPU's")
 
-    real = ctr_gc.unit_ctr_gc_bwd_param
-    for part in K3_OUTPUTS:
+    wrapper, outputs = FAULTS[faulted]
+    real = getattr(ctr_gc, wrapper)
+    for part in outputs:
         def faulty(*args, part=part):
             return tuple(t.zero_() if name == part else t
-                         for name, t in zip(K3_OUTPUTS, real(*args)))
+                         for name, t in zip(outputs, real(*args)))
 
-        with mock.patch.object(ctr_gc, "unit_ctr_gc_bwd_param", faulty):
+        with mock.patch.object(ctr_gc, wrapper, faulty):
             f_ratios = trajectory_ratios(
                 trajectory(weights, batches, device, torch.float32), ref, limits)
         beyond = sorted((k for k, v in f_ratios.items() if v > 1),
                         key=lambda k: -f_ratios[k])
-        print(f"planted fault, K3's {part} zeroed: {len(beyond)} of "
+        print(f"planted fault, {faulted}'s {part} zeroed: {len(beyond)} of "
               f"{len(f_ratios)} beyond their limit, worst "
               + ", ".join(f"{k} {f_ratios[k]:.3f}" for k in beyond[:5]), flush=True)
         if not beyond:
             raise AssertionError(
-                f"the trajectory check passed with K3's {part} zeroed")
-    return worst[0][1], worst[0][0]
+                f"the trajectory check passed with {faulted}'s {part} zeroed")
+    return worst[0][1], worst[0][0], references
 
 
 def time_train(weights: str, device):
     """Steady-state train step (forward, backward, SGD step) at batch 16
     (kernels, plain unit op, kernels) and 64 (kernels), CUDA events; the
     device time by kernel name at both. Returns a dict of ms."""
-    from unittest import mock
-
     import torch
-
-    from tamgcn_tpu_torch.models import ctrgcn
-    from tamgcn_tpu_torch.ops.aggregation import unit_ctr_gc_plain
 
     out = {}
     for batch in (TRAIN_BATCH, 64):
@@ -813,13 +915,244 @@ def time_train(weights: str, device):
 
         out[f"kernel_ms_{batch}"] = cuda_ms(step, iters=10)
         if batch == TRAIN_BATCH:
-            with mock.patch.object(ctrgcn, "unit_ctr_gc", unit_ctr_gc_plain):
+            with plain_unit_op():
                 out["plain_ms_16"] = cuda_ms(step, iters=10)
             out["kernel_ms_16"] = min(out["kernel_ms_16"], cuda_ms(step, iters=10))
         busy, n_kernels, events = profile_device(step)
         out.update({f"busy_ms_{batch}": busy, f"n_kernels_{batch}": n_kernels,
                     f"events_{batch}": events})
     return out
+
+
+def conv3_inputs(shape, seed: int, device):
+    """K6's inputs (x1s, x2s, g, x, w3, w4s, b4s, alpha, As): the unit op's
+    of unit_inputs, conv3's input x and its weight w3 (Cin, S*C), a
+    transposed view of a contiguous (S*C, Cin) tensor as in the model."""
+    import torch
+
+    N, T, V, Cin, C, R = shape
+    x1s, x2s, _, w4s, b4s, alpha, As, g = unit_inputs((N, T, V, C, R), seed, device)
+    gen = torch.Generator().manual_seed(seed + 1)
+    x = torch.randn((N, T, V, Cin), generator=gen).to(device)
+    w3 = (torch.randn((3 * C, Cin), generator=gen) / Cin ** 0.5).to(device).t()
+    return x1s, x2s, g, x, w3, w4s, b4s, alpha, As
+
+
+def check_k6(device):
+    """K6 against its plain version at every shape, two launches bitwise
+    equal, and the times of K6, its plain version and the unfused
+    composition it replaces (K2, dx3s @ w3^T and x^T dx3s by torch.matmul,
+    the sum for db3); returns the rows."""
+    import torch
+
+    from tamgcn_tpu_torch.ops.aggregation import unit_ctr_gc_bwd_conv3_plain as plain
+    from tamgcn_tpu_torch.ops.cuda import ctr_gc
+
+    k6 = ctr_gc.unit_ctr_gc_bwd_conv3
+
+    def unfused(x1s, x2s, g, x, w3, w4s, b4s, alpha, As):
+        dx3s = ctr_gc.unit_ctr_gc_bwd_dx3(x1s, x2s, g, w4s, b4s, alpha, As)
+        flat = dx3s.reshape(-1, dx3s.shape[-1])
+        return (torch.matmul(dx3s, w3.t()),
+                torch.matmul(x.reshape(-1, x.shape[-1]).t(), flat), flat.sum(dim=0))
+
+    rows = []
+    shapes = [(n, s, c) for n, s, c in K6_MAIN_PATH] + [(n, s, 0) for n, s in K6_EXTRA]
+    for i, (name, shape, count) in enumerate(shapes):
+        args = conv3_inputs(shape, seed=500 + i, device=device)
+        with torch.no_grad():
+            got = k6(*args)
+            again = k6(*args)
+            want = plain(*args)
+            torch.cuda.synchronize()
+            for part, a, b in zip(K6_OUTPUTS, got, again):
+                if not torch.equal(a, b):
+                    raise AssertionError(f"K6 {name} {shape}: two launches differ in {part}")
+            errs = [(part,) + _within(a, b, rtol, 1e-4)
+                    for part, a, b, rtol in zip(K6_OUTPUTS, got, want, (1e-5, 1e-4, 1e-4))]
+            for part, ok, max_err, scale in errs:
+                if not ok:
+                    raise AssertionError(
+                        f"K6 {name} {shape} {part}: max |kernel - plain| {max_err:.3e} "
+                        f"(max|plain| {scale:.3e}) beyond the stated tolerance")
+            ms = cuda_ms(lambda: k6(*args))
+            plain_ms = cuda_ms(lambda: plain(*args))
+            unfused_ms = cuda_ms(lambda: unfused(*args))
+            # device time alone (torch.profiler): the composition's four
+            # short kernels can wait on the host between launches
+            device_ms = profile_device(lambda: k6(*args))[0]
+            unfused_device_ms = profile_device(lambda: unfused(*args))[0]
+        bound_ms, bound_by = k6_bound(shape)
+        worst = max(errs, key=lambda e: e[2] / max(e[3], 1e-30))
+        rows.append(dict(name=name, shape=dict(zip(("N", "T", "V", "Cin", "C", "R"), shape)),
+                         launches_per_step=count, max_abs_err=worst[2],
+                         max_abs_plain=worst[3], worst_output=worst[0], ms=ms,
+                         plain_ms=plain_ms, unfused_k2_cublas_ms=unfused_ms,
+                         device_ms=device_ms,
+                         unfused_k2_cublas_device_ms=unfused_device_ms,
+                         bound_ms=bound_ms, bound_by=bound_by))
+        print(f"K6 {name:9s} N,T,V,Cin,C,R={shape}: max_abs_err {worst[2]:.3e} in "
+              f"{worst[0]} (max|plain| {worst[3]:.3e}) kernel {ms * 1e3:.1f} us "
+              f"(device {device_ms * 1e3:.1f}), plain {plain_ms * 1e3:.1f} us, unfused "
+              f"K2+cuBLAS {unfused_ms * 1e3:.1f} us (device {unfused_device_ms * 1e3:.1f}), "
+              f"bound {bound_ms * 1e3:.1f} us ({bound_by})", flush=True)
+    return rows
+
+
+def run_fused_train_path(work_dir: str):
+    """--phase train for one epoch with TAMGCN_FUSE_CONV3=1: K6 at the six
+    blocks with C >= 128, K2 at the other four; checks the launch counts, the
+    losses and the checkpoint. Returns a summary dict."""
+    steps = TRAIN_SAMPLES // TRAIN_BATCH
+    evals = math.ceil(EVAL_SAMPLES / TRAIN_BATCH)
+    with fuse_conv3():
+        seconds, launches = run_cli(train_argv(work_dir) + ["--num_epoch", "1"])
+    want = {"K1": 10 * (steps + evals), "K2": 4 * steps, "K3": 10 * steps,
+            "K5": 0, "K6": 6 * steps}
+    if launches != want:
+        raise AssertionError(
+            f"--phase train with TAMGCN_FUSE_CONV3=1: launches {launches}, "
+            f"expected {want} (per train step of {steps} K1 10, K2 4, K6 6, K3 "
+            f"10; K1 also 10 per eval batch of {evals})")
+    progress = check_train_files(work_dir, 1, 1, "fused conv3")
+    print(f"train path (TAMGCN_FUSE_CONV3=1): 1 epoch of {steps} steps at batch "
+          f"{TRAIN_BATCH} in {seconds:.2f} s (incl. model build, data and eval), "
+          f"launches {launches}; progress (train loss, test loss, top1, top5) "
+          f"{progress.tolist()}", flush=True)
+    return dict(seconds=seconds, launches=launches, progress=progress.tolist())
+
+
+def time_train_fused(weights: str, device):
+    """Steady-state train step at batch 16 and 64 with TAMGCN_FUSE_CONV3=1
+    beside the default step, CUDA events in turns default, fused, fused,
+    default; the fused step's device time by kernel name. Returns {batch:
+    dict}."""
+    import torch
+
+    out = {}
+    for batch in (TRAIN_BATCH, 64):
+        model, opt = train_model(weights, device)
+        (x, y), = train_batches(1, batch)
+        x, y = torch.from_numpy(x).to(device), torch.from_numpy(y).to(device)
+
+        def step():
+            train_step(model, opt, x, y)
+
+        ms = {False: [], True: []}
+        for fused in (False, True, True, False):
+            with fuse_conv3(fused):
+                ms[fused].append(cuda_ms(step, iters=10))
+        with fuse_conv3():
+            busy, n_kernels, events = profile_device(step)
+        out[batch] = dict(default_ms=min(ms[False]), fused_ms=min(ms[True]),
+                          busy_ms=busy, n_kernels=n_kernels, events=events)
+    return out
+
+
+def check_ctrgc(device):
+    """The standalone CTRGC module, forward and backward on the card (K1 and
+    K2 at S = 1), against the same module with the plain single-subset op;
+    ctr_gc_fused without b4 against ctr_gc_fused_plain; and K4's work on the
+    module's operands (K1 and K2 at S = 1) against its plain version, timed.
+    Outputs within rtol 1e-5 and atol 1e-5*max, gradients within rtol 1e-4
+    and atol 1e-4*max (alpha's, one sum over every term, within rtol 1e-3).
+    Returns (rows, launches of the first module's forward and backward)."""
+    from unittest import mock
+
+    import torch
+
+    from tamgcn_tpu_torch.models import CTRGC, ctrgcn
+    from tamgcn_tpu_torch.ops import aggregation as agg
+    from tamgcn_tpu_torch.ops.cuda import ctr_gc
+
+    def check(what, got, want, rtol, atol_frac):
+        ok, max_err, scale = _within(got, want, rtol, atol_frac)
+        if not ok:
+            raise AssertionError(f"CTRGC {what}: max |route - plain| {max_err:.3e} "
+                                 f"(max|plain| {scale:.3e}) beyond the stated tolerance")
+        return max_err, scale
+
+    def fwd_bwd(fn, leaves, g):
+        leaves = [t.detach().clone().requires_grad_() for t in leaves]
+        out = fn(*leaves)
+        out.backward(g)
+        return [out.detach()] + [t.grad for t in leaves]
+
+    rows, main_launches = [], None
+    for i, (name, (N, T, V, Cin, C)) in enumerate(CTRGC_SHAPES):
+        gen = torch.Generator().manual_seed(600 + i)
+        module = CTRGC(Cin, C, generator=gen)
+        with torch.no_grad():
+            module.conv4_bias.normal_(0.0, 0.1, generator=gen)
+        module.to(device)
+        x = torch.randn((N, T, V, Cin), generator=gen).to(device)
+        A = torch.rand((V, V), generator=gen).to(device)
+        alpha = torch.tensor([0.7], device=device)
+        g = torch.randn((N, T, V, C), generator=gen).to(device)
+
+        def run():
+            module.zero_grad(set_to_none=True)
+            out = fwd_bwd(module, (x, A, alpha), g)
+            return out + [p.grad for p in module.parameters()]
+
+        reset_launches()
+        got = run()
+        torch.cuda.synchronize()
+        launches = read_launches()
+        if launches != {"K1": 1, "K2": 1, "K3": 0, "K5": 0, "K6": 0}:
+            raise AssertionError(f"CTRGC {name}: launches {launches}, expected K1 "
+                                 "and K2 once each")
+        if main_launches is None:
+            main_launches = launches["K1"] + launches["K2"]
+        with mock.patch.object(ctrgcn, "ctr_gc_fused", agg.ctr_gc_fused_plain):
+            want = run()
+        names = ["out", "x", "A", "alpha"] + [k for k, _ in module.named_parameters()]
+        for what, a, b in zip(names, got, want):
+            check(f"{name} {what}", a, b, *((1e-5, 1e-5) if what == "out" else
+                                            (1e-3, 0.0) if what == "alpha" else (1e-4, 1e-4)))
+        # the op without b4, on the module's operands
+        with torch.no_grad():
+            x1, x2 = module.conv1(x).mean(dim=1), module.conv2(x).mean(dim=1)
+            x3, w4, b4 = module.conv3(x), module.conv4_kernel[0, 0], module.conv4_bias
+        ops = (x1, x2, x3, w4, alpha, A)
+        for what, a, b in zip(("out", "x1", "x2", "x3", "w4", "alpha", "A"),
+                              fwd_bwd(lambda *t: agg.ctr_gc_fused(*t[:4], None, *t[4:]), ops, g),
+                              fwd_bwd(lambda *t: agg.ctr_gc_fused_plain(*t[:4], None, *t[4:]),
+                                      ops, g)):
+            check(f"{name} without b4 {what}", a, b, *((1e-5, 1e-5) if what == "out" else
+                                                       (1e-3, 0.0) if what == "alpha"
+                                                       else (1e-4, 1e-4)))
+        # K4's work: the forward and the x3 gradient at S = 1
+        unit = (x1[:, None], x2[:, None], x3, w4[None], b4[None], alpha, A[None])
+
+        def k4():
+            return (ctr_gc.unit_ctr_gc_fwd(*unit),
+                    ctr_gc.unit_ctr_gc_bwd_dx3(*unit[:2], g, *unit[3:]))
+
+        def k4_plain():
+            m = agg.ctr_gc_dynamic_adjacency(x1, x2, w4, b4, alpha, A)
+            return agg.ctr_gc_aggregate(m, x3), torch.einsum("nuvc,ntuc->ntvc", m, g)
+
+        with torch.no_grad():
+            errs = [(part,) + check(f"{name} K4 {part}", a, b, 1e-5, 1e-5)
+                    for part, a, b in zip(("out", "dx3"), k4(), k4_plain())]
+            ms = cuda_ms(k4)
+            plain_ms = cuda_ms(k4_plain)
+        route_ms = cuda_ms(run)
+        bound_ms, bound_by = k4_bound((N, T, V, Cin, C))
+        worst = max(errs, key=lambda e: e[1] / max(e[2], 1e-30))
+        rows.append(dict(name=name, shape=dict(zip(("N", "T", "V", "Cin", "C"),
+                                                   (N, T, V, Cin, C))),
+                         launches_per_step=int(i == 0), max_abs_err=worst[1],
+                         max_abs_plain=worst[2], worst_output=worst[0], ms=ms,
+                         plain_ms=plain_ms, module_fwd_bwd_ms=route_ms,
+                         bound_ms=bound_ms, bound_by=bound_by))
+        print(f"K4 (CTRGC) {name:9s} N,T,V,Cin,C={(N, T, V, Cin, C)}: module forward and "
+              f"backward (K1, K2 at S=1) {route_ms:.3f} ms, launches {launches}; K4's work "
+              f"(forward + x3 gradient) {ms * 1e3:.1f} us, plain {plain_ms * 1e3:.1f} us, "
+              f"bound {bound_ms * 1e3:.1f} us ({bound_by}), max_abs_err {worst[1]:.3e} in "
+              f"{worst[0]} (max|plain| {worst[2]:.3e})", flush=True)
+    return rows, main_launches
 
 
 def kernel_summary(rows, per):
@@ -835,6 +1168,13 @@ def kernel_summary(rows, per):
     return dict(ms=total("ms"), plain_ms=total("plain_ms"), bound_ms=bound_ms,
                 bound_by="operations" if ops_ms >= bound_ms / 2 else "bytes",
                 per=per)
+
+
+_START = time.perf_counter()
+
+
+def phase(name: str):
+    print(f"== phase {name} at {time.perf_counter() - _START:.1f} s", flush=True)
 
 
 def main() -> int:
@@ -862,6 +1202,7 @@ def main() -> int:
           flush=True)
 
     # ---- 3. kernels against their plain versions ----
+    phase("3. kernels")
     rows = check_kernels(device)
     print("library_ms: none for K1, K2, K3 (no single PyTorch call computes "
           "the unit op or its gradients)", flush=True)
@@ -871,10 +1212,11 @@ def main() -> int:
         make_weights(weights, seed=7)
 
         # ---- 4. test main path ----
+        phase("4. test main path")
         test_dir = os.path.join(work_dir, "test")
         seconds, launches = run_test_path(test_dir, weights)
         batches = math.ceil(N_SAMPLES / BATCH)
-        if launches != {"K1": 10 * batches, "K2": 0, "K3": 0, "K5": 0}:
+        if launches != {"K1": 10 * batches, "K2": 0, "K3": 0, "K5": 0, "K6": 0}:
             raise AssertionError(
                 f"the test phase launched {launches}, expected K1 10 x "
                 f"{batches} batches and no backward kernel")
@@ -890,17 +1232,19 @@ def main() -> int:
         print_profile("eval forward", kernel_ms, busy_ms, n_kernels, events)
 
         # ---- 5. train main path ----
+        phase("5. train main path")
         train = run_train_path(os.path.join(work_dir, "train"))
-        check_trajectory(weights, device)
+        *_, references = check_trajectory(weights, device)
         t = time_train(weights, device)
 
         # ---- 6. fast eval ----
+        phase("6. fast eval")
         k5_rows = check_k5(device)
         print("library_ms: none for K5 (no single PyTorch call computes the "
               "block)", flush=True)
         fast_dir = os.path.join(work_dir, "fast_eval")
         seconds, launches = run_test_path(fast_dir, weights, "--fast_eval", "true")
-        if launches != {"K1": 0, "K2": 0, "K3": 0, "K5": 10 * batches}:
+        if launches != {"K1": 0, "K2": 0, "K3": 0, "K5": 10 * batches, "K6": 0}:
             raise AssertionError(
                 f"the fast-eval test phase launched {launches}, expected K5 10 x "
                 f"{batches} batches and no other kernel")
@@ -914,6 +1258,21 @@ def main() -> int:
             print(f"forward, batch {BATCH}, {way}: {ms:.3f} ms/batch "
                   f"({BATCH / ms * 1e3:.1f} samples/s)", flush=True)
             print_profile(f"forward ({way})", ms, busy, n_kernels, events)
+
+        # ---- 7. fused-conv3 training and CTRGC ----
+        phase("7. fused-conv3 training and CTRGC")
+        k6_rows = check_k6(device)
+        print("library_ms: none for K6 (no single PyTorch call computes it); "
+              "the unfused composition's time is under unfused_k2_cublas_ms",
+              flush=True)
+        fused_train = run_fused_train_path(os.path.join(work_dir, "train_fused"))
+        with fuse_conv3():
+            check_trajectory(weights, device, faulted="K6", references=references)
+        tf = time_train_fused(weights, device)
+        k4_rows, k4_launches = check_ctrgc(device)
+        print("library_ms: none for K4 (no single PyTorch call computes it)",
+              flush=True)
+        phase("end")
     print(f"train step (forward, backward, SGD), batch {TRAIN_BATCH}: "
           f"{t['kernel_ms_16']:.3f} ms ({TRAIN_BATCH / t['kernel_ms_16'] * 1e3:.1f} "
           f"samples/s) with K1-K3; {t['plain_ms_16']:.3f} ms with the plain unit "
@@ -929,6 +1288,19 @@ def main() -> int:
         ms = sum(e[1] for e in t["events_16"] if prefix in e[0])
         print(f"  {kname}: {ms:.4f} ms per train step at batch {TRAIN_BATCH}, "
               f"{100 * ms / t['busy_ms_16']:.1f}% of the device time", flush=True)
+    for batch, r in tf.items():
+        print(f"train step, batch {batch}: {r['fused_ms']:.3f} ms with "
+              f"TAMGCN_FUSE_CONV3=1, {r['default_ms']:.3f} ms default (in turns)",
+              flush=True)
+        print_profile(f"train step with TAMGCN_FUSE_CONV3=1, batch {batch},",
+                      r["fused_ms"], r["busy_ms"], r["n_kernels"], r["events"])
+        for kname, prefix in (("K1", "unit_ctr_gc_fwd_kernel"),
+                              ("K2", "unit_ctr_gc_bwd_dx3_kernel"),
+                              ("K3", "unit_ctr_gc_bwd_param"),
+                              ("K6", "unit_ctr_gc_bwd_conv3")):
+            ms = sum(e[1] for e in r["events"] if prefix in e[0])
+            print(f"  {kname}: {ms:.4f} ms per train step at batch {batch}, "
+                  f"{100 * ms / r['busy_ms']:.1f}% of the device time", flush=True)
 
     sources = {"K1": ("unit_ctr_gc_fwd", "unit_ctr_gc_fwd.cu",
                       "tamgcn_tpu/ops/pallas/ctr_gc.py:367",
@@ -939,27 +1311,41 @@ def main() -> int:
                "K3": ("unit_ctr_gc_bwd_param", "unit_ctr_gc_bwd_param.cu",
                       "tamgcn_tpu/ops/pallas/ctr_gc.py:717",
                       train["train"]["launches"]["K3"], "train step, batch 16"),
+               "K4": ("ctr_gc_fused", "unit_ctr_gc_fwd.cu",
+                      "tamgcn_tpu/ops/pallas/ctr_gc.py:83", k4_launches,
+                      "CTRGC forward and backward, N=16, T=52, V=20, Cin=64, "
+                      "C=128 (K1 and K2 at S=1)"),
                "K5": ("gcn_tcn_block", "gcn_tcn_block.cu",
                       "tamgcn_tpu/ops/pallas/gcn_tcn_block.py:52",
-                      fast_launches, "fast-eval forward, batch 64")}
-    rows["K5"] = k5_rows
-    kernels = []
+                      fast_launches, "fast-eval forward, batch 64"),
+               "K6": ("unit_ctr_gc_bwd_conv3", "unit_ctr_gc_bwd_conv3.cu",
+                      "tamgcn_tpu/ops/pallas/ctr_gc.py:510",
+                      fused_train["launches"]["K6"],
+                      "train step, batch 16, TAMGCN_FUSE_CONV3=1")}
+    rows.update(K4=k4_rows, K5=k5_rows, K6=k6_rows)
+    kernels = {}
     for kname, (name, source, replaces, count, per) in sources.items():
-        kernels.append({
+        kernels[kname] = {
             "name": name,
             "route": "cuda",
             "source": f"tamgcn_tpu_torch/csrc/{source}",
             "replaces": replaces,
             # launches on the main path's run (test phase for K1, the first
-            # two train epochs for K2 and K3)
+            # two train epochs for K2 and K3, the fused-conv3 epoch for K6,
+            # the first CTRGC forward and backward for K4)
             "launches": count,
             "max_abs_err": max(r["max_abs_err"] for r in rows[kname]),
             "library_ms": None,
             **kernel_summary(rows[kname], per),
             "shapes": rows[kname],
-        })
-    kernels[-1]["folded_k1_cublas_ms"] = sum(
+        }
+    kernels["K4"]["sources"] = [f"tamgcn_tpu_torch/csrc/{f}" for f in (
+        "unit_ctr_gc_fwd.cu", "unit_ctr_gc_bwd_dx3.cu")]
+    kernels["K5"]["folded_k1_cublas_ms"] = sum(
         r["folded_k1_cublas_ms"] * r["launches_per_step"] for r in k5_rows)
+    for key in ("unfused_k2_cublas_ms", "unfused_k2_cublas_device_ms", "device_ms"):
+        kernels["K6"][key] = sum(r[key] * r["launches_per_step"] for r in k6_rows)
+    kernels = list(kernels.values())
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

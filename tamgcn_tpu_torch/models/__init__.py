@@ -1,6 +1,6 @@
 """Model families of the port: TAM/CTR-GCN (ST-GCN and the RGB models come
 with later slices)."""
-from .ctrgcn import CTRGCN, create_ctrgcn_nucla  # noqa: F401
+from .ctrgcn import CTRGC, CTRGCN, create_ctrgcn_nucla  # noqa: F401
 
 _REGISTRY = {
     "ctrgcn": CTRGCN,

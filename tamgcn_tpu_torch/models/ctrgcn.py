@@ -5,8 +5,8 @@ and the same parameter names (so tamgcn_tpu_torch/convert.py maps one onto
 the other by path): activations are NTVC (batch, time, vertex, channel);
 1x1 convs are matmuls on the last axis; the temporal (k, 1) convs run as
 `F.conv2d` on the `.permute(0, 3, 1, 2)` view, an NCHW tensor in
-channels_last memory format; the three CTR-GC subsets run as one unit op
-(ops.aggregation.unit_ctr_gc), the CUDA kernel on the card.
+channels_last memory format; conv3 and the three CTR-GC subsets run as one
+op (ops.aggregation.unit_ctr_gc_conv3), the CUDA kernels on the card.
 
 Reference: CTRGC :150-177, unit_gcn :196-263 incl. the TAM offset branch
 :219-223 and :256-259, MultiScale_TemporalConv :72-147, unit_tcn :179-193,
@@ -23,7 +23,7 @@ from torch import nn
 
 from ..graphs import get_graph
 from ..ops import inits
-from ..ops.aggregation import conv3_matmul, unit_ctr_gc
+from ..ops.aggregation import ctr_gc_fused, unit_ctr_gc_conv3
 from ..ops.norm import BatchNorm
 
 
@@ -90,6 +90,42 @@ class TemporalConv2d(nn.Module):
         return y.permute(0, 2, 3, 1).contiguous()
 
 
+class CTRGC(nn.Module):
+    """Channel-wise topology refinement unit, the standalone single-subset
+    form (reference models/ctrgcn.py:150-177; counterpart of the JAX
+    package's `CTRGC`, models/ctrgcn.py:78-117). conv1/conv2/conv3 are 1x1
+    convs with bias; x1 and x2 are conv-then-T-mean as in the JAX module;
+    conv4_kernel keeps the Flax layout (1, 1, R, C). The refinement and
+    aggregation run through ops.aggregation.ctr_gc_fused (K1 and K2 at S = 1
+    on the card). `UnitGCN` runs the three subsets through the packed unit
+    op instead."""
+
+    def __init__(self, in_channels: int, out_channels: int,
+                 rel_reduction: int = 8, generator: torch.Generator | None = None):
+        super().__init__()
+        R = _rel_channels(in_channels, rel_reduction)
+        self.conv1 = Conv1x1(in_channels, R)
+        self.conv2 = Conv1x1(in_channels, R)
+        self.conv3 = Conv1x1(in_channels, out_channels)
+        self.conv4_kernel = nn.Parameter(torch.empty(1, 1, R, out_channels))
+        self.conv4_bias = nn.Parameter(torch.zeros(out_channels))
+        self.reset_parameters(generator or _default_generator())
+
+    def reset_parameters(self, generator):
+        for conv in (self.conv1, self.conv2, self.conv3):
+            conv.reset_parameters(generator)
+        inits.kaiming_normal_fan_out_dense_(self.conv4_kernel, generator)
+        nn.init.zeros_(self.conv4_bias)
+
+    def forward(self, x, A, alpha):
+        """x (N,T,V,Cin); A (V,V); alpha (1,) -> (N,T,V,C)."""
+        x1 = self.conv1(x).mean(dim=1)  # (N, V, R)
+        x2 = self.conv2(x).mean(dim=1)
+        x3 = self.conv3(x)  # (N, T, V, C)
+        return ctr_gc_fused(x1, x2, x3, self.conv4_kernel[0, 0], self.conv4_bias,
+                            alpha, A)
+
+
 class UnitGCN(nn.Module):
     """3-subset CTR-GC layer with adaptive adjacency and the TAM offset branch
     (reference models/ctrgcn.py:196-263)."""
@@ -141,9 +177,11 @@ class UnitGCN(nn.Module):
         e12 = self.conv12(x.mean(dim=1))  # (N, V, 2*S*R)
         x1s = e12[..., : S * R].reshape(N, V, S, R).permute(0, 2, 1, 3).contiguous()
         x2s = e12[..., S * R:].reshape(N, V, S, R).permute(0, 2, 1, 3).contiguous()
-        x3s = conv3_matmul(x, self.conv3.weight.t(), self.conv3.bias)
-        y = unit_ctr_gc(
-            x1s, x2s, x3s, self.conv4_kernel, self.conv4_bias, self.alpha, self.PA
+        # conv3 and the unit op: the unfused conv3_matmul + unit_ctr_gc, or
+        # with TAMGCN_FUSE_CONV3=1 at C >= 128 the op whose backward is K6
+        y = unit_ctr_gc_conv3(
+            x, self.conv3.weight.t(), self.conv3.bias, x1s, x2s,
+            self.conv4_kernel, self.conv4_bias, self.alpha, self.PA,
         )
         y = self.bn(y)
         if not self.residual:

@@ -10,8 +10,16 @@ time, vertex, channel), as in the JAX package. The unit op
 through `unit_ctr_gc`, the autograd Function `UnitCtrGc`: for CPU tensors the
 plain versions below (forward, x3 gradient, parameter gradients), for CUDA
 tensors the hand-written CUDA kernels K1, K2 and K3 (ops/cuda/ctr_gc.py).
+
+`unit_ctr_gc_conv3` spans the packed conv3 that makes x3s as well; with the
+JAX package's switch TAMGCN_FUSE_CONV3=1 it takes `UnitCtrGcConv3`, whose
+backward is K6 (the x3 gradient carried through conv3's VJP on the chip) and
+K3. `ctr_gc_fused` is the standalone single-subset op of the `CTRGC` module
+(K4 in the JAX package), run through K1 and K2 at S = 1.
 """
 from __future__ import annotations
+
+import os
 
 import torch
 from torch.autograd.function import once_differentiable
@@ -100,6 +108,23 @@ def unit_ctr_gc_param_grads_plain(x1s, x2s, g, x3s, w4s, b4s, alpha):
             torch.stack(dw4s), torch.stack(db4s), dalpha, torch.stack(dAs))
 
 
+def unit_ctr_gc_bwd_conv3_plain(x1s, x2s, g, x, w3, w4s, b4s, alpha, As):
+    """Plain version of K6: the unit op's x3 gradient carried through the
+    packed conv3 x3s = x @ w3 + b3 (counterpart of the non-tile branch of
+    unit_ctr_gc_bwd_conv3_pallas, tamgcn_tpu/ops/pallas/ctr_gc.py:1401-1411):
+
+        dx3s = unit_ctr_gc_dx3_plain(...);  dx = dx3s @ w3^T
+        dw3 = x^T dx3s (summed over n, t, v);  db3 = sum_{n,t,v} dx3s
+
+    x (N,T,V,Cin); w3 (Cin,S*C); the rest as unit_ctr_gc_dx3_plain ->
+    (dx, dw3, db3) shaped as x, w3 and (S*C,).
+    """
+    dx3s = unit_ctr_gc_dx3_plain(x1s, x2s, g, w4s, b4s, alpha, As)
+    dx = torch.matmul(dx3s, w3.t())
+    dw3 = torch.einsum("ntvi,ntvo->io", x, dx3s)
+    return dx, dw3, dx3s.sum(dim=(0, 1, 2))
+
+
 def _kernels(device):
     """(forward, x3 gradient, parameter gradients) for tensors on `device`:
     the plain versions on the CPU, the CUDA kernels (which raise on what they
@@ -153,3 +178,119 @@ def unit_ctr_gc(x1s, x2s, x3s, w4s, b4s, alpha, As):
 def conv3_matmul(x, w3, b3):
     """The packed conv3 1x1 as a matmul: x (N,T,V,Cin) @ w3 (Cin,S*C) + b3."""
     return torch.matmul(x, w3) + b3
+
+
+def _conv3_kernel(device):
+    """K6 for tensors on `device`: its plain version on the CPU, the CUDA
+    kernel (which raises on what it does not take) on a CUDA device."""
+    if device.type == "cpu":
+        return unit_ctr_gc_bwd_conv3_plain
+    if device.type == "cuda":
+        from .cuda import ctr_gc
+
+        return ctr_gc.unit_ctr_gc_bwd_conv3
+    raise NotImplementedError(f"unit_ctr_gc_conv3 on device {device}")
+
+
+class UnitCtrGcConv3(torch.autograd.Function):
+    """conv3 and the unit op with one gradient (counterpart of the JAX
+    package's custom_vjp `_unit_ctr_gc_conv3_pallas`, ops/aggregation.py:
+    214-243): forward conv3_matmul then K1; backward K6 for (dx, dw3, db3)
+    and K3 for the rest, on a CUDA device; their plain versions on the CPU.
+    Saves x and x3s, never the x3 gradient or M. Once differentiable, as
+    `UnitCtrGc`."""
+
+    @staticmethod
+    def forward(ctx, x, w3, b3, x1s, x2s, w4s, b4s, alpha, As):
+        x3s = conv3_matmul(x, w3, b3)
+        ctx.save_for_backward(x, w3, x1s, x2s, x3s, w4s, b4s, alpha, As)
+        return _kernels(x3s.device)[0](x1s, x2s, x3s, w4s, b4s, alpha, As)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        x, w3, x1s, x2s, x3s, w4s, b4s, alpha, As = ctx.saved_tensors
+        need = ctx.needs_input_grad
+        g = g.contiguous()
+        grads = [None] * 9
+        if any(need[:3]):
+            grads[:3] = _conv3_kernel(g.device)(x1s, x2s, g, x, w3, w4s, b4s,
+                                                alpha, As)
+        if any(need[3:]):
+            grads[3:] = _kernels(g.device)[2](x1s, x2s, g, x3s, w4s, b4s, alpha)
+        return tuple(d if n else None for d, n in zip(grads, need))
+
+
+def unit_ctr_gc_conv3(x, w3, b3, x1s, x2s, w4s, b4s, alpha, As):
+    """conv3 and the unit op: out = unit_ctr_gc(conv3_matmul(x, w3, b3), ...)
+    (counterpart of the JAX package's `unit_ctr_gc_conv3`, ops/aggregation.py:
+    246-284). x (N,T,V,Cin); w3 (Cin,S*C); b3 (S*C,); the rest as
+    `unit_ctr_gc`. With the JAX package's switch TAMGCN_FUSE_CONV3=1, read
+    here and nowhere else, and where the JAX package takes its fused kernel
+    (C >= 128, S*C >= 384, V <= 32) it takes `UnitCtrGcConv3` (K6 in the
+    backward on the card); everywhere else conv3_matmul + `unit_ctr_gc`. The
+    device of the tensors picks kernels or plain versions in either case."""
+    S, V = x1s.shape[1], x1s.shape[2]
+    C = w3.shape[-1] // S
+    fuse = os.environ.get("TAMGCN_FUSE_CONV3", "0") == "1"
+    if fuse and C >= 128 and S * C >= 384 and V <= 32:
+        return UnitCtrGcConv3.apply(x, w3, b3, x1s, x2s, w4s, b4s, alpha, As)
+    return unit_ctr_gc(x1s, x2s, conv3_matmul(x, w3, b3), w4s, b4s, alpha, As)
+
+
+def ctr_gc_fused_plain(x1, x2, x3, w4, b4, alpha, A):
+    """Plain single-subset CTR-GC refine + aggregate (counterpart of
+    `ctr_gc_fused_xla`): x1/x2 (N,V,R); x3 (N,T,V,C); w4 (R,C); b4 (C,) or
+    None; alpha (1,); A (V,V) -> (N,T,V,C)."""
+    return ctr_gc_aggregate(ctr_gc_dynamic_adjacency(x1, x2, w4, b4, alpha, A), x3)
+
+
+class CtrGcFused(torch.autograd.Function):
+    """The single-subset op with its gradient (counterpart of the JAX
+    package's custom_vjp `ctr_gc_fused_pallas`, ops/pallas/ctr_gc.py:193-231,
+    whose kernel is K4): the forward is the unit op at S = 1 (K1 on a CUDA
+    device), the x3 gradient its x3 gradient at S = 1 (K2; the JAX kernel's
+    `transpose_m`), both on views of the operands with a zero b4 where b4 is
+    None; the other gradients are plain PyTorch on both devices, as the JAX
+    `_bwd` computes them outside its kernel. Once differentiable."""
+
+    @staticmethod
+    def forward(ctx, x1, x2, x3, w4, b4, alpha, A):
+        ctx.has_b4 = b4 is not None
+        b4v = b4 if ctx.has_b4 else x3.new_zeros(x3.shape[-1])
+        ctx.save_for_backward(x1, x2, x3, w4, b4v, alpha, A)
+        return _kernels(x3.device)[0](x1[:, None], x2[:, None], x3, w4[None],
+                                      b4v[None], alpha, A[None])
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        x1, x2, x3, w4, b4v, alpha, A = ctx.saved_tensors
+        need = ctx.needs_input_grad
+        g = g.contiguous()
+        dx3 = None
+        if need[2]:
+            dx3 = _kernels(g.device)[1](x1[:, None], x2[:, None], g, w4[None],
+                                        b4v[None], alpha, A[None])
+        dx1 = dx2 = dw4 = db4 = dalpha = dA = None
+        if any(need[i] for i in (0, 1, 3, 4, 5, 6)):
+            dm = torch.einsum("ntuc,ntvc->nuvc", g, x3)
+            d = torch.tanh(x1[:, :, None, :] - x2[:, None, :, :])  # (N,U,V,R)
+            dA = dm.sum(dim=(0, 3))
+            dp = dm * alpha  # the gradient of P = D @ w4 + b4
+            dalpha = (dm * (torch.matmul(d, w4) + b4v)).sum().reshape(alpha.shape)
+            db4 = dp.sum(dim=(0, 1, 2)) if ctx.has_b4 else None
+            dw4 = torch.einsum("nuvr,nuvc->rc", d, dp)
+            dpre = torch.matmul(dp, w4.t()) * (1 - d * d)
+            dx1, dx2 = dpre.sum(dim=2), -dpre.sum(dim=1)
+        grads = (dx1, dx2, dx3, dw4, db4, dalpha, dA)
+        return tuple(t if n else None for t, n in zip(grads, need))
+
+
+def ctr_gc_fused(x1, x2, x3, w4, b4, alpha, A):
+    """The single-subset op through `CtrGcFused`, dispatched on the device of
+    x3 (counterpart of the JAX package's `ctr_gc_fused`, ops/aggregation.py:
+    287-314): a CPU tensor takes the plain versions, a CUDA tensor K1 and K2,
+    which raise outside their limits (R <= 32, C % 4 == 0, V as K1 takes
+    it); there is no fallback."""
+    return CtrGcFused.apply(x1, x2, x3, w4, b4, alpha, A)

@@ -1,15 +1,17 @@
-"""Unit CTR-GC on the card: the wrappers of the three CUDA kernels.
+"""Unit CTR-GC on the card: the wrappers of the four CUDA kernels.
 
   K1 `unit_ctr_gc_fwd`       csrc/unit_ctr_gc_fwd.cu        forward
   K2 `unit_ctr_gc_bwd_dx3`   csrc/unit_ctr_gc_bwd_dx3.cu    x3 gradient
   K3 `unit_ctr_gc_bwd_param` csrc/unit_ctr_gc_bwd_param.cu  parameter gradients
+  K6 `unit_ctr_gc_bwd_conv3` csrc/unit_ctr_gc_bwd_conv3.cu  x3 gradient through
+                                                            conv3's VJP
 
-Counterparts of tamgcn_tpu/ops/pallas/ctr_gc.py:unit_ctr_gc_fwd_pallas and
-unit_ctr_gc_bwd_pallas. The kernels' plain versions are
-ops/aggregation.py:unit_ctr_gc_plain, unit_ctr_gc_dx3_plain and
-unit_ctr_gc_param_grads_plain. Each wrapper checks its inputs, allocates the
-outputs (and scratch) and launches its kernel on the current stream; it never
-falls back to the plain version.
+Counterparts of tamgcn_tpu/ops/pallas/ctr_gc.py:unit_ctr_gc_fwd_pallas,
+unit_ctr_gc_bwd_pallas and unit_ctr_gc_bwd_conv3_pallas. The kernels' plain
+versions are ops/aggregation.py:unit_ctr_gc_plain, unit_ctr_gc_dx3_plain,
+unit_ctr_gc_param_grads_plain and unit_ctr_gc_bwd_conv3_plain. Each wrapper
+checks its inputs, allocates the outputs (and scratch) and launches its
+kernel on the current stream; it never falls back to the plain version.
 """
 from __future__ import annotations
 
@@ -22,6 +24,7 @@ from . import build
 FWD_SOURCE = "unit_ctr_gc_fwd.cu"
 DX3_SOURCE = "unit_ctr_gc_bwd_dx3.cu"
 PARAM_SOURCE = "unit_ctr_gc_bwd_param.cu"
+CONV3_SOURCE = "unit_ctr_gc_bwd_conv3.cu"
 # what the launchers return for a shape they do not take
 _CUDA_ERROR_INVALID_VALUE = 1
 # kernel launches so far, one count per kernel; a run sets them to 0 and reads
@@ -29,6 +32,7 @@ _CUDA_ERROR_INVALID_VALUE = 1
 launches = 0  # K1
 bwd_dx3_launches = 0  # K2
 bwd_param_launches = 0  # K3
+bwd_conv3_launches = 0  # K6
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
@@ -38,6 +42,10 @@ _SIGNATURES = {
         PARAM_SOURCE, [_P] * 14 + [_I] * 6 + [_P], ctypes.c_int),
     "unit_ctr_gc_bwd_param_scratch_floats": (
         PARAM_SOURCE, [_I] * 5, ctypes.c_longlong),
+    "unit_ctr_gc_bwd_conv3_f32": (
+        CONV3_SOURCE, [_P] * 13 + [_I] * 7 + [_P], ctypes.c_int),
+    "unit_ctr_gc_bwd_conv3_scratch_floats": (
+        CONV3_SOURCE, [_I] * 7, ctypes.c_longlong),
 }
 
 
@@ -190,3 +198,59 @@ def unit_ctr_gc_bwd_param(x1s, x2s, g, x3s, w4s, b4s, alpha):
     )
     bwd_param_launches += 1
     return dx1s, dx2s, dw4s, db4s, dalpha, dAs
+
+
+def unit_ctr_gc_bwd_conv3(x1s, x2s, g, x, w3, w4s, b4s, alpha, As):
+    """K6. The unit op's x3 gradient carried through the packed conv3 that
+    made x3s = x @ w3 + b3, without writing the x3 gradient to device memory:
+    x1s/x2s (N,S,V,R); g (N,T,V,C), the gradient of the output; x
+    (N,T,V,Cin), conv3's input; w3 (Cin,S*C), conv3's weight transposed (a
+    transposed view of the contiguous (S*C,Cin) weight, as
+    `conv3.weight.t()`, is taken as it is; any other w3 is copied into that
+    layout); w4s (S,R,C); b4s (S,C); alpha (1,); As (S,V,V); all float32 on
+    one CUDA device, contiguous, with R <= 32 and C % 4 == 0 -> (dx, dw3,
+    db3) shaped as x, w3 and (S*C,). dw3 is a transposed view of a
+    contiguous (S*C,Cin) tensor. Its sums over rows run in a fixed order:
+    two calls on the same inputs give bitwise equal results."""
+    global bwd_conv3_launches
+    N, S, T, V, R, C = _unit_dims(x1s, g, w4s)
+    Cin = x.shape[-1]
+    device = g.device
+    _check_unit("unit_ctr_gc_bwd_conv3", device, (
+        ("x1s", x1s, (N, S, V, R)),
+        ("x2s", x2s, (N, S, V, R)),
+        ("g", g, (N, T, V, C)),
+        ("x", x, (N, T, V, Cin)),
+        ("w4s", w4s, (S, R, C)),
+        ("b4s", b4s, (S, C)),
+        ("alpha", alpha, (1,)),
+        ("As", As, (S, V, V)),
+    ), R, C, aligned=("g", "w4s", "b4s"))
+    if tuple(w3.shape) != (Cin, S * C):
+        raise ValueError(f"w3 has shape {tuple(w3.shape)}, expected {(Cin, S * C)}")
+    w3t = w3.t().contiguous()
+    _check("w3", w3t, (S * C, Cin), device)
+    dims = dict(N=N, S=S, T=T, V=V, R=R, C=C, Cin=Cin)
+    floats = _kernel("unit_ctr_gc_bwd_conv3_scratch_floats")(N, S, T, V, R, C, Cin)
+    if floats < 0:
+        raise ValueError(
+            "unit_ctr_gc_bwd_conv3 does not take "
+            + " ".join(f"{k}={v}" for k, v in dims.items())
+            + ": a block's frames of x and what it keeps of the refined "
+            "adjacency must fit in its shared memory (V = 20 and V = 25 fit "
+            "at every R <= 32 for Cin <= 256)")
+
+    def empty(*shape):
+        return torch.empty(shape, device=device, dtype=torch.float32)
+
+    dx, dw3t, db3 = empty(N, T, V, Cin), empty(S * C, Cin), empty(S * C)
+    partials = empty(floats)
+    _launch(
+        _kernel("unit_ctr_gc_bwd_conv3_f32"), device, dims,
+        x1s.data_ptr(), x2s.data_ptr(), g.data_ptr(), w4s.data_ptr(),
+        b4s.data_ptr(), alpha.data_ptr(), As.data_ptr(), x.data_ptr(),
+        w3t.data_ptr(), dx.data_ptr(), dw3t.data_ptr(), db3.data_ptr(),
+        partials.data_ptr(), N, S, T, V, R, C, Cin,
+    )
+    bwd_conv3_launches += 1
+    return dx, dw3t.t(), db3

@@ -6,10 +6,14 @@ Each kernel against its plain PyTorch version on the same inputs, f32 with
 TF32 off: K1 and K2 within rtol 1e-5 and atol 1e-5 * max|plain| (the sum
 order differs); K3's gradients are sums of up to N*T*V*V terms taken in
 another order, so within rtol 1e-4 and atol 1e-4 * max|plain| (dalpha, one
-sum over all N*S*V*V*C terms, within rtol 1e-3). Also the wrappers' checks
-and launch counts, two K3 launches bitwise equal, and a small CTR-GCN on the
-card against the same model on the CPU, forward and gradients. This file
-imports no JAX, so it runs where the port runs.
+sum over all N*S*V*V*C terms, within rtol 1e-3). K6's dx within rtol 1e-5
+and atol 1e-4 * max|plain| (two products in a row), its dw3 and db3 (sums
+over N*T*V rows) within rtol 1e-4 and atol 1e-4 * max|plain|. Also the
+wrappers' checks and launch counts, two K3 (and two K6) launches bitwise
+equal, a small CTR-GCN on the card against the same model on the CPU,
+forward and gradients, and the standalone CTRGC module through K1 and K2 at
+S = 1 against its plain route. This file imports no JAX, so it runs where
+the port runs.
 """
 import pytest
 import torch
@@ -329,3 +333,134 @@ def test_fast_eval_on_card_matches_cpu(device):
         got = make_fast_eval(model.to(device))(x.to(device)).cpu()
     assert (k5.launches, ctr_gc.launches) == (before[0] + 10, before[1])
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4 * want.abs().max().item())
+
+
+# (N, T, V, Cin, C, R): l5-l10 at a small batch, V=25, and a ragged shape
+CONV3_SHAPES = [
+    (4, 52, 20, 64, 128, 8), (4, 26, 20, 128, 128, 16), (4, 26, 20, 128, 256, 16),
+    (4, 13, 20, 256, 256, 32), (3, 9, 25, 128, 128, 16), (2, 13, 25, 256, 256, 32),
+    (3, 7, 20, 30, 40, 10),
+]
+
+
+def _conv3_inputs(n, t, v, cin, c, r, device, seed=0):
+    """K6's inputs: x1s, x2s, g, x, w3, w4s, b4s, alpha, As, with w3 the
+    transposed view of a contiguous (S*C, Cin) weight, as in the model."""
+    x1s, x2s, _, w4s, b4s, alpha, As = _inputs(n, 1, v, c, r, device=device, seed=seed)
+    gen = torch.Generator().manual_seed(seed + 1)
+    g = torch.randn((n, t, v, c), generator=gen).to(device)
+    x = torch.randn((n, t, v, cin), generator=gen).to(device)
+    w3 = (torch.randn((3 * c, cin), generator=gen) / cin ** 0.5).to(device).t()
+    return x1s, x2s, g, x, w3, w4s, b4s, alpha, As
+
+
+@pytest.mark.parametrize("shape", CONV3_SHAPES,
+                         ids=lambda s: "N{}-T{}-V{}-Cin{}-C{}-R{}".format(*s))
+def test_conv3_kernel_matches_plain(device, shape):
+    from tamgcn_tpu_torch.ops.aggregation import unit_ctr_gc_bwd_conv3_plain
+
+    args = _conv3_inputs(*shape, device=device)
+    before = ctr_gc.bwd_conv3_launches
+    got = ctr_gc.unit_ctr_gc_bwd_conv3(*args)
+    again = ctr_gc.unit_ctr_gc_bwd_conv3(*args)
+    want = unit_ctr_gc_bwd_conv3_plain(*args)
+    torch.cuda.synchronize()
+    assert ctr_gc.bwd_conv3_launches == before + 2
+    for name, a, b, w in zip(("dx", "dw3", "db3"), got, again, want):
+        assert a.shape == w.shape, name
+        assert torch.equal(a, b), f"{name}: two launches differ"
+        rtol = 1e-5 if name == "dx" else 1e-4
+        torch.testing.assert_close(a, w, rtol=rtol, atol=1e-4 * w.abs().max().item(), msg=name)
+
+
+def test_conv3_kernel_rejects_what_it_does_not_take(device):
+    args = list(_conv3_inputs(1, 4, 20, 64, 128, 8, device=device))
+    before = ctr_gc.bwd_conv3_launches
+    with pytest.raises(ValueError, match="CUDA"):
+        ctr_gc.unit_ctr_gc_bwd_conv3(*[a.cpu() for a in args])
+    bad = list(args)
+    bad[3] = args[3].transpose(1, 2).contiguous().transpose(1, 2)
+    with pytest.raises(ValueError, match="contiguous"):
+        ctr_gc.unit_ctr_gc_bwd_conv3(*bad)
+    with pytest.raises(ValueError, match="shape"):
+        ctr_gc.unit_ctr_gc_bwd_conv3(*args[:4], args[4][:, :-3], *args[5:])
+    with pytest.raises(TypeError, match="float32"):
+        ctr_gc.unit_ctr_gc_bwd_conv3(*args[:3], args[3].double(), *args[4:])
+    with pytest.raises(ValueError, match="shared memory"):
+        ctr_gc.unit_ctr_gc_bwd_conv3(*_conv3_inputs(1, 4, 20, 4096, 128, 8, device=device))
+    assert ctr_gc.bwd_conv3_launches == before
+
+
+def test_fused_conv3_op_on_card_matches_plain(device, monkeypatch):
+    """TAMGCN_FUSE_CONV3=1: the dispatcher takes UnitCtrGcConv3 (K1, K6, K3)
+    at C=128, and its output and nine gradients match the same op's plain
+    versions on the card."""
+    from tamgcn_tpu_torch.ops import aggregation as agg
+
+    monkeypatch.setenv("TAMGCN_FUSE_CONV3", "1")
+    x1s, x2s, g, x, w3, w4s, b4s, alpha, As = _conv3_inputs(4, 26, 20, 128, 128, 16, device)
+    args = [x, w3, torch.randn(384, device=device) * 0.1,
+            x1s, x2s, w4s, b4s, alpha, As]
+
+    def run():
+        leaves = [a.detach().clone().requires_grad_() for a in args]
+        out = agg.unit_ctr_gc_conv3(*leaves)
+        grads = torch.autograd.grad(out, leaves, g)
+        return [out.detach(), *grads]
+
+    before = (ctr_gc.launches, ctr_gc.bwd_dx3_launches, ctr_gc.bwd_param_launches,
+              ctr_gc.bwd_conv3_launches)
+    got = run()
+    torch.cuda.synchronize()
+    assert (ctr_gc.launches, ctr_gc.bwd_dx3_launches, ctr_gc.bwd_param_launches,
+            ctr_gc.bwd_conv3_launches) == (before[0] + 1, before[1], before[2] + 1, before[3] + 1)
+    monkeypatch.setattr(agg, "_kernels", lambda d: (
+        agg.unit_ctr_gc_plain, agg.unit_ctr_gc_dx3_plain, agg.unit_ctr_gc_param_grads_plain))
+    monkeypatch.setattr(agg, "_conv3_kernel", lambda d: agg.unit_ctr_gc_bwd_conv3_plain)
+    want = run()
+    names = ("out", "x", "w3", "b3", "x1s", "x2s", "w4s", "b4s", "alpha", "As")
+    for name, a, w in zip(names, got, want):
+        rtol, atol = (1e-3, 0.0) if name == "alpha" else (1e-4, 1e-4 * w.abs().max().item())
+        torch.testing.assert_close(a, w, rtol=rtol, atol=atol, msg=name)
+
+
+@pytest.mark.parametrize("shape", [(4, 52, 20, 64, 128), (3, 9, 25, 32, 64)],
+                         ids=lambda s: "N{}-T{}-V{}-Cin{}-C{}".format(*s))
+def test_ctrgc_module_on_card_matches_plain_route(device, shape, monkeypatch):
+    """The standalone CTRGC through K1 and K2 at S = 1 against the same
+    module with the plain single-subset op, on the card: the output within
+    rtol 1e-5 and atol 1e-5 * max, every gradient within rtol 1e-4 and atol
+    1e-4 * max (alpha's, one sum over every term, within rtol 1e-3)."""
+    from tamgcn_tpu_torch.models import CTRGC, ctrgcn
+    from tamgcn_tpu_torch.ops.aggregation import ctr_gc_fused_plain
+
+    n, t, v, cin, c = shape
+    gen = torch.Generator().manual_seed(8)
+    module = CTRGC(cin, c, generator=gen)
+    with torch.no_grad():
+        module.conv4_bias.normal_(0.0, 0.1, generator=gen)
+    module.to(device)
+    x = torch.randn((n, t, v, cin), generator=gen).to(device)
+    A = torch.rand((v, v), generator=gen).to(device)
+    g = torch.randn((n, t, v, c), generator=gen).to(device)
+
+    def run():
+        leaves = [x.clone().requires_grad_(), A.clone().requires_grad_(),
+                  torch.tensor([0.7], device=device, requires_grad=True)]
+        module.zero_grad(set_to_none=True)
+        out = module(*leaves)
+        out.backward(g)
+        grads = {k: p.grad for k, p in module.named_parameters()}
+        grads.update(zip(("x", "A", "alpha"), (a.grad for a in leaves)))
+        return out.detach(), grads
+
+    before = (ctr_gc.launches, ctr_gc.bwd_dx3_launches)
+    out, grads = run()
+    torch.cuda.synchronize()
+    assert (ctr_gc.launches, ctr_gc.bwd_dx3_launches) == (before[0] + 1, before[1] + 1)
+    monkeypatch.setattr(ctrgcn, "ctr_gc_fused", ctr_gc_fused_plain)
+    want_out, want = run()
+    torch.testing.assert_close(out, want_out, rtol=1e-5, atol=1e-5 * want_out.abs().max().item())
+    for k, w in want.items():
+        rtol, atol = (1e-3, 0.0) if k == "alpha" else (1e-4, 1e-4 * w.abs().max().item())
+        torch.testing.assert_close(grads[k], w, rtol=rtol, atol=atol, msg=k)
