@@ -71,14 +71,32 @@ Phases, each of which fails the run (non-zero exit, no result line):
      without b4 against its plain version, at (N=16, T=52, V=20, Cin=64,
      C=128) and V=25, and times K4's work (K1 and K2 at S = 1) against its
      plain version.
-The launch checks of phases 4-6 also require K6 = 0: the switch is off by
-default. The last lines are the card line, the kernels JSON and the result
-JSON. The kernels JSON gives, for each kernel, its times and bound summed
-over the launches of one eval forward at batch 64 (K1), of one train step at
-batch 16 (K2, K3; K6 with the switch on, with the unfused composition's time
-under "unfused_k2_cublas_ms"), of one CTRGC forward and backward (K4) or of
-one fast-eval forward at batch 64 (K5, with the folded path's time under
-"folded_k1_cublas_ms"), and each shape's row under "shapes".
+  8. experiment kernels T1 and T2: holds T1, the eval multi-scale TCN, against
+     its plain version at the ten fast-eval blocks' branch shapes at batch 64
+     plus V=25 and a ragged shape (N=3, odd T at stride 2, bc=5), f32 with
+     TF32 off, within rtol 1e-5 and atol 1e-4*max|plain| (each output sums
+     up to 5*bc terms in another order than cuDNN's), two launches bitwise
+     equal, and times it beside its plain version and the engine's cuDNN
+     composition; runs T1 on the ten folded blocks of the phase-4 model with
+     prefixes from its K5 blocks (ms_tcn_operands); holds T2 in every form
+     (tile, win, floor, flat with and without the subset sum, f32; tile on
+     bf16 operands) against its plain version at the tools' shape (N=64,
+     T=13, V=20, C=256, S=3), V=25 and a ragged shape, f32 within rtol 1e-5
+     and atol 1e-5*max|plain|, bf16 within one rounding of the output (rtol
+     2^-7), two launches bitwise equal, timed beside its plain version and one
+     torch.einsum call; then runs the three port tools (exp_ms_tcn,
+     exp_stage2, exp_stage2b) in-process and checks each one's launches.
+The launch checks of phases 4-7 also require K6 = 0 (phases 4-6: the switch
+is off by default) and T1 = T2 = 0. The last lines are the card line, the
+kernels JSON and the result JSON. The kernels JSON gives, for each kernel,
+its times and bound summed over the launches of one eval forward at batch 64
+(K1), of one train step at batch 16 (K2, K3; K6 with the switch on, with the
+unfused composition's time under "unfused_k2_cublas_ms"), of one CTRGC
+forward and backward (K4), of one fast-eval forward at batch 64 (K5, with
+the folded path's time under "folded_k1_cublas_ms"; T1 at the ten blocks'
+branch shapes, with the engine composition's time as "library_ms") or of one
+tile-form call at the tools' shape (T2, with one einsum's time as
+"library_ms"), and each shape's row under "shapes".
 """
 from __future__ import annotations
 
@@ -128,9 +146,30 @@ CTRGC_SHAPES = [
     ("l5 widths", (TRAIN_BATCH, 52, 20, 64, 128)),
     ("V=25", (TRAIN_BATCH, 26, 25, 128, 128)),
 ]
-# published H100 SXM peaks (NVIDIA data sheet), at the full 700 W limit
-HBM_BYTES_PER_S = 3.35e12
-F32_FLOPS_PER_S = 67e12
+# T1 shapes (N, T, V, bc, stride): exp_ms_tcn's six shapes (bc = C/4), the
+# ten fast-eval blocks' branch halves at N=64 and an NTU-shaped block, each
+# launched as often in one run of the tool; and a ragged one the tool lacks
+T1_TOOL_SHAPES = [
+    ("l1-l4", (64, 52, 20, 16, 1)),
+    ("l5", (64, 52, 20, 32, 2)),
+    ("l6-l7", (64, 26, 20, 32, 1)),
+    ("l8", (64, 26, 20, 64, 2)),
+    ("l9-l10", (64, 13, 20, 64, 1)),
+    ("V=25", (32, 64, 25, 16, 1)),
+]
+T1_EXTRA = [
+    ("ragged", (3, 7, 20, 5, 2)),  # odd T at stride 2, bc not a multiple of 4
+]
+# T2 shapes (N, T, V, C, S): the stage-2 tools' shape, V=25, a ragged one;
+# and the cases (form, subset sum, operand type) held at each
+T2_SHAPES = [
+    ("tool shape", (64, 13, 20, 256, 3)),
+    ("V=25", (64, 13, 25, 256, 3)),
+    ("ragged", (3, 5, 7, 10, 3)),
+]
+T2_CASES = [("tile", False, "float32"), ("tile", False, "bfloat16"),
+            ("win", False, "float32"), ("floor", False, "float32"),
+            ("flat", False, "float32"), ("flat", True, "float32")]
 
 # unit op shapes (N, T, V, C, R), with the launches per eval forward at N=64
 K1_MAIN_PATH = [
@@ -214,24 +253,21 @@ def unit_inputs(shape, seed: int, device):
     )
 
 
-def bound(elems: int, flops: int):
-    """(ms, 'bytes'|'operations'): `elems` f32 values over HBM (each input
-    read once, each output written once), or the f32 FMAs (2 ops) over the
-    f32 peak, whichever is larger."""
-    bytes_ms = 4 * elems / HBM_BYTES_PER_S * 1e3
-    ops_ms = flops / F32_FLOPS_PER_S * 1e3
-    return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
+# The k*_bound functions return (ms, 'bytes'|'operations'): the larger of
+# the f32 values each input read once and each output written once over HBM,
+# and the FMAs (2 ops) over the f32 peak, at the published H100 SXM peaks
+# (tamgcn_tpu_torch/utils/roofline.py).
 
 
 def k1_bound(shape):
-    N, T, V, C, R = shape
-    S = 3
-    elems = (2 * N * S * V * R + N * T * V * S * C + S * R * C + S * C + 1
-             + S * V * V + N * T * V * C)
-    return bound(elems, 2 * N * S * (V * V * R * C + T * V * V * C))
+    from tamgcn_tpu_torch.utils.roofline import unit_ctr_gc_sol
+
+    return unit_ctr_gc_sol(*shape)
 
 
 def k2_bound(shape):
+    from tamgcn_tpu_torch.utils.roofline import bound
+
     N, T, V, C, R = shape
     S = 3
     elems = (N * T * V * C + N * T * V * S * C + 2 * N * S * V * R + S * R * C
@@ -240,6 +276,8 @@ def k2_bound(shape):
 
 
 def k3_bound(shape):
+    from tamgcn_tpu_torch.utils.roofline import bound
+
     N, T, V, C, R = shape
     S = 3
     # g, x3s, x1s, x2s in, dx1s, dx2s out; w4s, b4s, alpha in; dw4s, db4s,
@@ -253,6 +291,8 @@ def k3_bound(shape):
 
 
 def k6_bound(shape):
+    from tamgcn_tpu_torch.utils.roofline import bound
+
     N, T, V, Cin, C, R = shape
     S = 3
     # x1s, x2s, g, x, w3, w4s, b4s, alpha, As in; dx, dw3, db3 out
@@ -268,6 +308,8 @@ def k6_bound(shape):
 def k4_bound(shape):
     """K4's work on one CTRGC forward and backward: the single-subset forward
     and its x3 gradient (x1, x2, x3, g, w4, b4, alpha, A in; out, dx3 out)."""
+    from tamgcn_tpu_torch.utils.roofline import bound
+
     N, T, V, Cin, C = shape
     R = 8 if Cin in (3, 9) else Cin // 8
     elems = 2 * N * V * R + 4 * N * T * V * C + R * C + C + 1 + V * V
@@ -305,6 +347,8 @@ def k5_bound(shape):
     """x read and prefix, pw written once, every weight read once; the FMAs of
     the aggregation and of the five products as the JAX cost estimate counts
     them (gcn_tcn_block.py:263-266)."""
+    from tamgcn_tpu_torch.utils.roofline import bound
+
     N, T, V, Cin, C, R = shape
     S, P, BC = 3, 3 * C // 4, C // 4
     down = Cin != C
@@ -495,19 +539,20 @@ def nucla_model_args() -> dict:
 
 
 def reset_launches():
-    from tamgcn_tpu_torch.ops.cuda import ctr_gc, gcn_tcn_block
+    from tamgcn_tpu_torch.ops.cuda import ctr_gc, gcn_tcn_block, ms_tcn, stage2
 
     ctr_gc.launches = ctr_gc.bwd_dx3_launches = ctr_gc.bwd_param_launches = 0
     ctr_gc.bwd_conv3_launches = 0
-    gcn_tcn_block.launches = 0
+    gcn_tcn_block.launches = ms_tcn.launches = stage2.launches = 0
 
 
 def read_launches() -> dict:
-    from tamgcn_tpu_torch.ops.cuda import ctr_gc, gcn_tcn_block
+    from tamgcn_tpu_torch.ops.cuda import ctr_gc, gcn_tcn_block, ms_tcn, stage2
 
     return {"K1": ctr_gc.launches, "K2": ctr_gc.bwd_dx3_launches,
             "K3": ctr_gc.bwd_param_launches, "K5": gcn_tcn_block.launches,
-            "K6": ctr_gc.bwd_conv3_launches}
+            "K6": ctr_gc.bwd_conv3_launches, "T1": ms_tcn.launches,
+            "T2": stage2.launches}
 
 
 def fuse_conv3(on: bool = True):
@@ -593,24 +638,81 @@ def check_logits(work_dir: str, weights: str):
     return rel, x
 
 
+# the first kernel each wrapper launches, by its counter's name
+KERNEL_SYMBOLS = {"K1": "unit_ctr_gc_fwd_kernel", "K2": "unit_ctr_gc_bwd_dx3_kernel",
+                  "K3": "unit_ctr_gc_bwd_param_kernel", "K5": "block_agg_kernel",
+                  "K6": "unit_ctr_gc_bwd_conv3_kernel", "T1": "ms_tcn_kernel",
+                  "T2": "stage2_kernel"}
+
+
 def profile_device(fn, reps: int = 5):
     """Device time by kernel name over `reps` calls of fn (torch.profiler):
-    (busy_ms, n_kernels, top 10 (name, ms, launches)), all per call."""
+    (busy_ms, n_kernels, top 10 (name, ms, launches)), all per call. The
+    trace must hold every launch of the port's kernels that the wrappers
+    counted while it ran; a partial trace is taken once more, then raises."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CUDA], acc_events=True) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
+    attempts = 2
+    for attempt in range(1, attempts + 1):
+        before = read_launches()
+        with profile(activities=[ProfilerActivity.CUDA], acc_events=True) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        launched = {k: n - before[k] for k, n in read_launches().items() if n > before[k]}
+        averages = prof.key_averages()
+        traced = {k: sum(e.count for e in averages if KERNEL_SYMBOLS[k] in e.key)
+                  for k in launched}
+        if traced == launched:
+            break
+        print(f"torch.profiler traced {traced} of the launches {launched} "
+              f"(attempt {attempt} of {attempts})", flush=True)
+    else:
+        raise AssertionError("torch.profiler missed launches of the port's kernels")
     events = [(e.key, e.self_device_time_total / reps / 1e3, e.count // reps)
-              for e in prof.key_averages() if e.self_device_time_total > 0]
+              for e in averages if e.self_device_time_total > 0]
     if not events:
         raise AssertionError("the profiler saw no device time")
     events.sort(key=lambda e: -e[1])
     busy_ms = sum(ms for _, ms, _ in events)
     n_kernels = sum(count for _, _, count in events)
     return busy_ms, n_kernels, events
+
+
+def graph_ms(fn) -> float:
+    """Device time per call of fn with no host time between its launches:
+    20 calls captured in one CUDA graph, replayed 5 times between two CUDA
+    events. fn launches on the current stream."""
+    import torch
+
+    reps, replays = 20, 5
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):  # library plans and workspaces, before the capture
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (reps * replays)
+
+
+def check_above_bound(what: str, device_ms: float, bound_ms: float):
+    """A device time below the speed of light is a broken measurement."""
+    if device_ms < bound_ms:
+        raise AssertionError(f"{what}: device time {device_ms * 1e3:.2f} us below its "
+                             f"bound {bound_ms * 1e3:.2f} us")
 
 
 def print_profile(what, wall_ms, busy_ms, n_kernels, events):
@@ -717,7 +819,7 @@ def run_train_path(work_dir: str):
         total = 2 + (label == "resume")
         seconds, launches = run_cli(argv + ["--num_epoch", str(total), *extra])
         want = {"K1": 10 * epochs * (steps + evals), "K2": 10 * epochs * steps,
-                "K3": 10 * epochs * steps, "K5": 0, "K6": 0}
+                "K3": 10 * epochs * steps, "K5": 0, "K6": 0, "T1": 0, "T2": 0}
         if launches != want:
             raise AssertionError(
                 f"--phase train ({label}): launches {launches}, expected {want} "
@@ -978,11 +1080,12 @@ def check_k6(device):
             ms = cuda_ms(lambda: k6(*args))
             plain_ms = cuda_ms(lambda: plain(*args))
             unfused_ms = cuda_ms(lambda: unfused(*args))
-            # device time alone (torch.profiler): the composition's four
-            # short kernels can wait on the host between launches
-            device_ms = profile_device(lambda: k6(*args))[0]
-            unfused_device_ms = profile_device(lambda: unfused(*args))[0]
+            # device time alone: the composition's four short kernels can
+            # wait on the host between launches
+            device_ms = graph_ms(lambda: k6(*args))
+            unfused_device_ms = graph_ms(lambda: unfused(*args))
         bound_ms, bound_by = k6_bound(shape)
+        check_above_bound(f"K6 {name}", device_ms, bound_ms)
         worst = max(errs, key=lambda e: e[2] / max(e[3], 1e-30))
         rows.append(dict(name=name, shape=dict(zip(("N", "T", "V", "Cin", "C", "R"), shape)),
                          launches_per_step=count, max_abs_err=worst[2],
@@ -1008,7 +1111,7 @@ def run_fused_train_path(work_dir: str):
     with fuse_conv3():
         seconds, launches = run_cli(train_argv(work_dir) + ["--num_epoch", "1"])
     want = {"K1": 10 * (steps + evals), "K2": 4 * steps, "K3": 10 * steps,
-            "K5": 0, "K6": 6 * steps}
+            "K5": 0, "K6": 6 * steps, "T1": 0, "T2": 0}
     if launches != want:
         raise AssertionError(
             f"--phase train with TAMGCN_FUSE_CONV3=1: launches {launches}, "
@@ -1099,7 +1202,7 @@ def check_ctrgc(device):
         got = run()
         torch.cuda.synchronize()
         launches = read_launches()
-        if launches != {"K1": 1, "K2": 1, "K3": 0, "K5": 0, "K6": 0}:
+        if launches != {"K1": 1, "K2": 1, "K3": 0, "K5": 0, "K6": 0, "T1": 0, "T2": 0}:
             raise AssertionError(f"CTRGC {name}: launches {launches}, expected K1 "
                                  "and K2 once each")
         if main_launches is None:
@@ -1153,6 +1256,284 @@ def check_ctrgc(device):
               f"bound {bound_ms * 1e3:.1f} us ({bound_by}), max_abs_err {worst[1]:.3e} in "
               f"{worst[0]} (max|plain| {worst[2]:.3e})", flush=True)
     return rows, main_launches
+
+
+def t1_inputs(shape, seed: int, device):
+    """T1's operands (prefix, w, b, mp_affine) for (N, T, V, bc, stride)."""
+    import torch
+
+    N, T, V, bc, _ = shape
+    g = torch.Generator().manual_seed(seed)
+    return (torch.randn((N, T, V, 3 * bc), generator=g).to(device),
+            (torch.randn((2, 5, bc, bc), generator=g) / (5 * bc) ** 0.5).to(device),
+            (0.1 * torch.randn((2, bc), generator=g)).to(device),
+            torch.stack([1.0 + 0.5 * torch.randn(bc, generator=g),
+                         0.3 * torch.randn(bc, generator=g)]).to(device))
+
+
+def engine_branches(w, b, mp_affine):
+    """The fast-eval engine's composition on T1's operands, as
+    models/ctrgcn_infer.py:_apply_block runs it from the folded block: two
+    F.conv2d on (out, in, k, 1) kernels, F.max_pool2d, the affine and
+    torch.cat. The kernels are laid out once, outside the returned call."""
+    import torch
+    import torch.nn.functional as F
+
+    bc = w.shape[-1]
+    kerns = [w[i].permute(2, 1, 0)[..., None].contiguous() for i in range(2)]
+
+    def run(prefix, stride):
+        outs = [F.conv2d(prefix[..., i * bc:(i + 1) * bc].permute(0, 3, 1, 2), kerns[i],
+                         b[i], stride=(stride, 1), padding=(2 * (i + 1), 0),
+                         dilation=(i + 1, 1)).permute(0, 2, 3, 1) for i in range(2)]
+        mp = F.max_pool2d(prefix[..., 2 * bc:].permute(0, 3, 1, 2), kernel_size=(3, 1),
+                          stride=(stride, 1), padding=(1, 0))
+        outs.append(mp.permute(0, 2, 3, 1) * mp_affine[0] + mp_affine[1])
+        return torch.cat(outs, dim=-1)
+
+    return run
+
+
+def check_t1(device):
+    """T1 against its plain version at every shape (rtol 1e-5 + atol
+    1e-4*max|plain|: each output sums up to 5*bc terms in another order than
+    cuDNN's), two launches bitwise equal, and the times of T1, its plain
+    version and the engine's composition; returns the rows."""
+    import torch
+
+    from tamgcn_tpu_torch.ops.cuda.ms_tcn import ms_tcn_fwd
+    from tamgcn_tpu_torch.ops.ms_tcn import ms_tcn_plain
+    from tamgcn_tpu_torch.utils.roofline import ms_tcn_sol
+
+    rows = []
+    from tamgcn_tpu_torch.tools.exp_ms_tcn import SHAPES
+
+    if [(n, t, v, 4 * bc, s) for n, t, v, bc, s in dict(T1_TOOL_SHAPES).values()] \
+            != list(SHAPES):
+        raise AssertionError(f"T1_TOOL_SHAPES are not exp_ms_tcn's {SHAPES}")
+    # weight 1 at each tool shape: the summary is one call at each
+    shapes = [(n, s, 1) for n, s in T1_TOOL_SHAPES] + [(n, s, 0) for n, s in T1_EXTRA]
+    for i, (name, shape, count) in enumerate(shapes):
+        prefix, w, b, mp = t1_inputs(shape, seed=800 + i, device=device)
+        stride = shape[-1]
+        library = engine_branches(w, b, mp)
+        with torch.no_grad():
+            got = ms_tcn_fwd(prefix, w, b, mp, stride)
+            again = ms_tcn_fwd(prefix, w, b, mp, stride)
+            want = ms_tcn_plain(prefix, w, b, mp, stride)
+            torch.cuda.synchronize()
+            if not torch.equal(got, again):
+                raise AssertionError(f"T1 {name} {shape}: two launches differ")
+            ok, max_err, scale = _within(got, want, 1e-5, 1e-4)
+            if not ok:
+                raise AssertionError(
+                    f"T1 {name} {shape}: max |kernel - plain| {max_err:.3e} (max|plain| "
+                    f"{scale:.3e}) beyond the stated tolerance")
+            ms = cuda_ms(lambda: ms_tcn_fwd(prefix, w, b, mp, stride))
+            plain_ms = cuda_ms(lambda: ms_tcn_plain(prefix, w, b, mp, stride))
+            library_ms = cuda_ms(lambda: library(prefix, stride))
+            # device time alone: short launches wait on the host, and the
+            # composition is five to seven of them
+            device_ms = graph_ms(lambda: ms_tcn_fwd(prefix, w, b, mp, stride))
+            library_device_ms = graph_ms(lambda: library(prefix, stride))
+        bound_ms, bound_by = ms_tcn_sol(*shape)
+        check_above_bound(f"T1 {name}", device_ms, bound_ms)
+        rows.append(dict(name=name, shape=dict(zip(("N", "T", "V", "bc", "stride"), shape)),
+                         launches_per_step=count, max_abs_err=max_err, max_abs_plain=scale,
+                         ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                         device_ms=device_ms, library_device_ms=library_device_ms,
+                         bound_ms=bound_ms, bound_by=bound_by))
+        print(f"T1 {name:9s} N,T,V,bc,s={shape}: max_abs_err {max_err:.3e} (max|plain| "
+              f"{scale:.3e}) kernel {ms * 1e3:.1f} us (device {device_ms * 1e3:.1f}), "
+              f"plain {plain_ms * 1e3:.1f} us, engine composition (cuDNN) "
+              f"{library_ms * 1e3:.1f} us (device {library_device_ms * 1e3:.1f}), bound "
+              f"{bound_ms * 1e3:.1f} us ({bound_by})", flush=True)
+    return rows
+
+
+def check_t1_real_weights(weights: str, x, device):
+    """T1 on the ten folded blocks of the full-width model: operands from
+    ms_tcn_operands, prefixes from the model's own K5 blocks in a fast-eval
+    forward of the phase-4 batch, each against the plain version on the same
+    operands (the tolerance of check_t1). Returns the worst (err, scale)."""
+    from unittest import mock
+
+    import torch
+
+    from tamgcn_tpu_torch.models import ctrgcn_infer, get_model
+    from tamgcn_tpu_torch.ops.cuda.ms_tcn import ms_tcn_fwd
+    from tamgcn_tpu_torch.ops.ms_tcn import ms_tcn_operands, ms_tcn_plain
+    from tamgcn_tpu_torch.train.checkpoint import load_weights
+
+    model = get_model("ctrgcn", **nucla_model_args())
+    model.load_state_dict(load_weights(weights))
+    model.to(device).eval()
+    prefixes = []
+    real_k5 = ctrgcn_infer.gcn_tcn_block_fused
+
+    def recording(*args):
+        prefix, pw = real_k5(*args)
+        prefixes.append(prefix)
+        return prefix, pw
+
+    with torch.inference_mode():
+        folded = ctrgcn_infer.fold_model(model)
+        with mock.patch.object(ctrgcn_infer, "gcn_tcn_block_fused", recording):
+            ctrgcn_infer.make_fast_eval_fn(model)(folded, torch.from_numpy(x).to(device))
+        if len(prefixes) != len(folded["blocks"]):
+            raise AssertionError(f"{len(prefixes)} K5 prefixes for "
+                                 f"{len(folded['blocks'])} blocks")
+        errs = []
+        for i, (fb, prefix) in enumerate(zip(folded["blocks"], prefixes)):
+            ops = ms_tcn_operands(fb)
+            got, want = ms_tcn_fwd(prefix, *ops), ms_tcn_plain(prefix, *ops)
+            ok, max_err, scale = _within(got, want, 1e-5, 1e-4)
+            if not ok:
+                raise AssertionError(
+                    f"T1 on block l{i + 1}'s folded weights: max |kernel - plain| "
+                    f"{max_err:.3e} (max|plain| {scale:.3e}) beyond the stated tolerance")
+            errs.append((max_err, scale))
+    worst = max(errs, key=lambda e: e[0] / max(e[1], 1e-30))
+    print(f"T1 on the ten folded blocks of the full-width model (K5 prefixes of one "
+          f"batch of {BATCH}): worst max_abs_err {worst[0]:.3e} (max|plain| "
+          f"{worst[1]:.3e})", flush=True)
+    return worst
+
+
+def t2_inputs(shape, form: str, dtype, seed: int, device):
+    """T2's operands for (N, T, V, C, S) in a form's layout: M (V, V, S*C)
+    (flattened to (V, V*S*C) for the flat form) and x3 (N, T, V, S*C)
+    (flattened to (N, T, V*S*C))."""
+    import torch
+
+    N, T, V, C, S = shape
+    g = torch.Generator().manual_seed(seed)
+    m = (0.05 * torch.randn((V, V, S * C), generator=g)).to(device, dtype)
+    x3 = torch.randn((N, T, V, S * C), generator=g).to(device, dtype)
+    if form == "flat":
+        return m.reshape(V, -1), x3.reshape(N, T, -1)
+    return m, x3
+
+
+def t2_library(m, x3, form: str, S: int, subset_sum: bool):
+    """One torch.einsum call computing the form's function (for the diagonal
+    forms on the M they expand to, expanded here, outside the timed call)."""
+    import torch
+
+    from tamgcn_tpu_torch.ops.stage2 import diag_to_vu, stage2_dims
+
+    mv, xv, N, T, V, L = stage2_dims(m, x3, form, S, subset_sum)
+    if form == "floor":
+        return lambda: torch.einsum("jul,ntul->ntul", mv, xv)
+    m_vu = mv if form == "tile" else diag_to_vu(mv)
+    if subset_sum:
+        m5, x5 = m_vu.reshape(V, V, S, L // S), xv.reshape(N, T, V, S, L // S)
+        return lambda: torch.einsum("vusc,ntvsc->ntuc", m5, x5)
+    return lambda: torch.einsum("vul,ntvl->ntul", m_vu, xv)
+
+
+def check_t2(device):
+    """T2 in every form against its plain version at every shape, f32 within
+    rtol 1e-5 + atol 1e-5*max|plain| (sums of V terms, S*V with the subset
+    sum, in another order); the tile form also on bf16 operands, within one
+    rounding of the output (rtol 2^-7, a bf16 ulp, + atol 1e-5*max|plain|);
+    two launches bitwise equal; times of T2, its plain version and one
+    einsum call. Returns the rows."""
+    import torch
+
+    from tamgcn_tpu_torch.ops.cuda import stage2 as t2
+    from tamgcn_tpu_torch.ops.stage2 import stage2_aggregate, stage2_plain
+    from tamgcn_tpu_torch.tools.exp_stage2 import PROBES
+    from tamgcn_tpu_torch.utils.roofline import stage2_sol
+
+    # the summary's weights: the probes one exp_stage2 run times at the tool
+    # shape in f32 (each launched as often), by (form, subset sum)
+    weights = {("flat", True): 1, ("flat", False): 1}
+    for _, form in PROBES:
+        weights[form, False] = weights.get((form, False), 0) + 1
+    rows = []
+    k = 0
+    for name, shape in T2_SHAPES:
+        for form, subset_sum, dtype_name in T2_CASES:
+            dtype = getattr(torch, dtype_name)
+            k += 1
+            N, T, V, C, S = shape
+            m, x3 = t2_inputs(shape, form, dtype, seed=900 + k, device=device)
+            library = t2_library(m, x3, form, S, subset_sum)
+            with torch.no_grad():
+                before = t2.launches
+                got = stage2_aggregate(m, x3, form, S, subset_sum)
+                again = stage2_aggregate(m, x3, form, S, subset_sum)
+                if t2.launches != before + 2:
+                    raise AssertionError(f"T2 {form}: the dispatcher did not launch T2")
+                want = stage2_plain(m, x3, form, S, subset_sum)
+                torch.cuda.synchronize()
+                if not torch.equal(got, again):
+                    raise AssertionError(f"T2 {name} {form}: two launches differ")
+                rtol = 2.0 ** -7 if dtype == torch.bfloat16 else 1e-5
+                ok, max_err, scale = _within(got.float(), want.float(), rtol, 1e-5)
+                if not ok:
+                    raise AssertionError(
+                        f"T2 {name} {shape} {form} subset_sum={subset_sum} {dtype}: max "
+                        f"|kernel - plain| {max_err:.3e} (max|plain| {scale:.3e}) beyond "
+                        "the stated tolerance")
+                ms = cuda_ms(lambda: stage2_aggregate(m, x3, form, S, subset_sum))
+                plain_ms = cuda_ms(lambda: stage2_plain(m, x3, form, S, subset_sum))
+                library_ms = cuda_ms(library)
+                device_ms = graph_ms(lambda: stage2_aggregate(m, x3, form, S, subset_sum))
+                library_device_ms = graph_ms(library)
+            bound_ms, bound_by = stage2_sol(N, T, V, S * C, S if subset_sum else 1,
+                                            itemsize=x3.element_size())
+            case = f"{form}{' ss' if subset_sum else ''} {str(dtype)[6:]}"
+            check_above_bound(f"T2 {name} {case}", device_ms, bound_ms)
+            weight = weights.get((form, subset_sum), 0) \
+                if name == "tool shape" and dtype == torch.float32 else 0
+            rows.append(dict(name=f"{name} {case}", shape=dict(zip("NTVCS", shape)),
+                             form=form, subset_sum=subset_sum, dtype=str(dtype),
+                             launches_per_step=weight, max_abs_err=max_err,
+                             max_abs_plain=scale, ms=ms, plain_ms=plain_ms,
+                             library_ms=library_ms, device_ms=device_ms,
+                             library_device_ms=library_device_ms, bound_ms=bound_ms,
+                             bound_by=bound_by))
+            print(f"T2 {name:10s} N,T,V,C,S={shape} {case:16s}: max_abs_err {max_err:.3e} "
+                  f"(max|plain| {scale:.3e}) kernel {ms * 1e3:.1f} us (device "
+                  f"{device_ms * 1e3:.1f}), plain {plain_ms * 1e3:.1f} us, einsum "
+                  f"{library_ms * 1e3:.1f} us (device {library_device_ms * 1e3:.1f}), bound "
+                  f"{bound_ms * 1e3:.1f} us ({bound_by})", flush=True)
+    return rows
+
+
+def run_tools():
+    """The three port tools in-process on the card, each with the counts set
+    to 0 just before it and read just after; checks each tool's launches.
+    Returns {tool: (seconds, launches)}."""
+    from tamgcn_tpu_torch.tools import exp_ms_tcn, exp_stage2, exp_stage2b
+
+    def timed(chain, iters, warmup=2):
+        return (warmup + iters) * chain  # launches of one time_chained
+
+    expected = {
+        "exp_ms_tcn": {"T1": len(exp_ms_tcn.SHAPES) * (1 + timed(60, 10))},
+        "exp_stage2": {"K1": len(exp_stage2.PRODUCTION) * timed(30, 5),
+                       "T2": (len(exp_stage2.PROBES) + 2) * timed(30, 5) + 1},
+        "exp_stage2b": {"K1": exp_stage2b.REPS * timed(30, 10),
+                        "T2": exp_stage2b.REPS * (len(exp_stage2b.CANDIDATES) - 1)
+                        * timed(30, 10)},
+    }
+    out = {}
+    for tool, mod in (("exp_ms_tcn", exp_ms_tcn), ("exp_stage2", exp_stage2),
+                      ("exp_stage2b", exp_stage2b)):
+        reset_launches()
+        t0 = time.perf_counter()
+        mod.main([])
+        seconds = time.perf_counter() - t0
+        launches = read_launches()
+        want = dict.fromkeys(launches, 0) | expected[tool]
+        if launches != want:
+            raise AssertionError(f"{tool}: launches {launches}, expected {want}")
+        out[tool] = (seconds, launches)
+        print(f"tool {tool}: {seconds:.2f} s, launches {launches}", flush=True)
+    return out
 
 
 def kernel_summary(rows, per):
@@ -1216,7 +1597,8 @@ def main() -> int:
         test_dir = os.path.join(work_dir, "test")
         seconds, launches = run_test_path(test_dir, weights)
         batches = math.ceil(N_SAMPLES / BATCH)
-        if launches != {"K1": 10 * batches, "K2": 0, "K3": 0, "K5": 0, "K6": 0}:
+        if launches != {"K1": 10 * batches, "K2": 0, "K3": 0, "K5": 0, "K6": 0,
+                        "T1": 0, "T2": 0}:
             raise AssertionError(
                 f"the test phase launched {launches}, expected K1 10 x "
                 f"{batches} batches and no backward kernel")
@@ -1244,7 +1626,8 @@ def main() -> int:
               "block)", flush=True)
         fast_dir = os.path.join(work_dir, "fast_eval")
         seconds, launches = run_test_path(fast_dir, weights, "--fast_eval", "true")
-        if launches != {"K1": 0, "K2": 0, "K3": 0, "K5": 10 * batches, "K6": 0}:
+        if launches != {"K1": 0, "K2": 0, "K3": 0, "K5": 10 * batches, "K6": 0,
+                        "T1": 0, "T2": 0}:
             raise AssertionError(
                 f"the fast-eval test phase launched {launches}, expected K5 10 x "
                 f"{batches} batches and no other kernel")
@@ -1272,6 +1655,13 @@ def main() -> int:
         k4_rows, k4_launches = check_ctrgc(device)
         print("library_ms: none for K4 (no single PyTorch call computes it)",
               flush=True)
+
+        # ---- 8. experiment kernels T1 and T2 ----
+        phase("8. experiment kernels T1 and T2")
+        t1_rows = check_t1(device)
+        check_t1_real_weights(weights, x, device)
+        t2_rows = check_t2(device)
+        tools = run_tools()
         phase("end")
     print(f"train step (forward, backward, SGD), batch {TRAIN_BATCH}: "
           f"{t['kernel_ms_16']:.3f} ms ({TRAIN_BATCH / t['kernel_ms_16'] * 1e3:.1f} "
@@ -1321,8 +1711,19 @@ def main() -> int:
                "K6": ("unit_ctr_gc_bwd_conv3", "unit_ctr_gc_bwd_conv3.cu",
                       "tamgcn_tpu/ops/pallas/ctr_gc.py:510",
                       fused_train["launches"]["K6"],
-                      "train step, batch 16, TAMGCN_FUSE_CONV3=1")}
-    rows.update(K4=k4_rows, K5=k5_rows, K6=k6_rows)
+                      "train step, batch 16, TAMGCN_FUSE_CONV3=1"),
+               "T1": ("ms_tcn", "ms_tcn.cu", "tools/exp_ms_tcn.py:44",
+                      tools["exp_ms_tcn"][1]["T1"],
+                      "one call at each of exp_ms_tcn's six shapes; one run of "
+                      "the tool launches T1 equally often at each (no model path "
+                      "runs T1)"),
+               "T2": ("stage2_aggregate", "stage2_aggregate.cu",
+                      "tools/exp_stage2.py:134", tools["exp_stage2"][1]["T2"],
+                      "one call of each of exp_stage2's twelve T2 probes at "
+                      "N=64, T=13, V=20, C=256, S=3, f32 (7 tile, win, 2 floor, "
+                      "flat with and without the subset sum); one run of the "
+                      "tool launches each probe equally often")}
+    rows.update(K4=k4_rows, K5=k5_rows, K6=k6_rows, T1=t1_rows, T2=t2_rows)
     kernels = {}
     for kname, (name, source, replaces, count, per) in sources.items():
         kernels[kname] = {
@@ -1332,7 +1733,8 @@ def main() -> int:
             "replaces": replaces,
             # launches on the main path's run (test phase for K1, the first
             # two train epochs for K2 and K3, the fused-conv3 epoch for K6,
-            # the first CTRGC forward and backward for K4)
+            # the first CTRGC forward and backward for K4, the exp_ms_tcn
+            # run for T1, the exp_stage2 run for T2)
             "launches": count,
             "max_abs_err": max(r["max_abs_err"] for r in rows[kname]),
             "library_ms": None,
@@ -1345,6 +1747,13 @@ def main() -> int:
         r["folded_k1_cublas_ms"] * r["launches_per_step"] for r in k5_rows)
     for key in ("unfused_k2_cublas_ms", "unfused_k2_cublas_device_ms", "device_ms"):
         kernels["K6"][key] = sum(r[key] * r["launches_per_step"] for r in k6_rows)
+    # T1's library call: the engine's cuDNN composition; T2's: one einsum
+    for kname in ("T1", "T2"):
+        for key in ("library_ms", "device_ms", "library_device_ms"):
+            kernels[kname][key] = sum(r[key] * r["launches_per_step"] for r in rows[kname])
+    kernels["T2"]["replaces_also"] = [
+        "tools/exp_stage2.py:64", "tools/exp_stage2.py:100", "tools/exp_stage2.py:174",
+        "tools/exp_stage2b.py:37"]
     kernels = list(kernels.values())
     print(card)
     print(json.dumps({"kernels": kernels}))

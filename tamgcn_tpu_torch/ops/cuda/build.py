@@ -25,7 +25,8 @@ NVCC_FLAGS = [
 # every kernel source of the port; chip_smoke.py builds them all at once
 SOURCES = (
     "unit_ctr_gc_fwd.cu", "unit_ctr_gc_bwd_dx3.cu", "unit_ctr_gc_bwd_param.cu",
-    "gcn_tcn_block.cu", "unit_ctr_gc_bwd_conv3.cu",
+    "gcn_tcn_block.cu", "unit_ctr_gc_bwd_conv3.cu", "ms_tcn.cu",
+    "stage2_aggregate.cu",
 )
 
 _lock = threading.Lock()

@@ -464,3 +464,123 @@ def test_ctrgc_module_on_card_matches_plain_route(device, shape, monkeypatch):
     for k, w in want.items():
         rtol, atol = (1e-3, 0.0) if k == "alpha" else (1e-4, 1e-4 * w.abs().max().item())
         torch.testing.assert_close(grads[k], w, rtol=rtol, atol=atol, msg=k)
+
+
+# T1 (N, T, V, bc, stride): the fast-eval blocks' branch halves at batch 64,
+# exp_ms_tcn's NTU-shaped block, and a ragged shape (odd T at stride 2, bc=5)
+T1_SHAPES = [
+    (64, 52, 20, 16, 1), (64, 52, 20, 32, 2), (64, 26, 20, 32, 1), (64, 26, 20, 64, 2),
+    (64, 13, 20, 64, 1), (32, 64, 25, 16, 1), (3, 7, 20, 5, 2),
+]
+
+
+def _t1_inputs(n, t, v, bc, device, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    return [a.to(device) for a in (
+        torch.randn((n, t, v, 3 * bc), generator=g),
+        torch.randn((2, 5, bc, bc), generator=g) / (5 * bc) ** 0.5,
+        0.1 * torch.randn((2, bc), generator=g),
+        torch.stack([1.0 + 0.5 * torch.randn(bc, generator=g), 0.3 * torch.randn(bc, generator=g)]))]
+
+
+@pytest.mark.parametrize("shape", T1_SHAPES, ids=lambda s: "N{}-T{}-V{}-bc{}-s{}".format(*s))
+def test_ms_tcn_kernel_matches_plain(device, shape):
+    """T1 against its plain version (cuDNN convolutions) within rtol 1e-5 and
+    atol 1e-4 * max|plain|: each output sums up to 5*bc terms in another
+    order; two launches bitwise equal."""
+    from tamgcn_tpu_torch.ops.cuda import ms_tcn as t1
+    from tamgcn_tpu_torch.ops.ms_tcn import ms_tcn_fused, ms_tcn_plain
+
+    args, stride = _t1_inputs(*shape[:4], device=device), shape[4]
+    before = t1.launches
+    with torch.no_grad():
+        got = ms_tcn_fused(*args, stride)
+        again = ms_tcn_fused(*args, stride)
+        want = ms_tcn_plain(*args, stride)
+    torch.cuda.synchronize()
+    assert t1.launches == before + 2
+    assert got.shape == want.shape and torch.equal(got, again)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-4 * want.abs().max().item())
+
+
+def test_ms_tcn_kernel_rejects_what_it_does_not_take(device):
+    from tamgcn_tpu_torch.ops.cuda import ms_tcn as t1
+
+    prefix, w, b, mp = _t1_inputs(2, 8, 20, 16, device)
+    before = t1.launches
+    with pytest.raises(ValueError, match="CUDA"):
+        t1.ms_tcn_fwd(prefix.cpu(), w.cpu(), b.cpu(), mp.cpu(), 1)
+    with pytest.raises(TypeError, match="float32"):
+        t1.ms_tcn_fwd(prefix.double(), w, b, mp, 1)
+    with pytest.raises(ValueError, match="contiguous"):
+        t1.ms_tcn_fwd(prefix.transpose(1, 2).contiguous().transpose(1, 2), w, b, mp, 1)
+    with pytest.raises(ValueError, match="w has shape"):
+        t1.ms_tcn_fwd(prefix, w[:, :, :8], b, mp, 1)
+    with pytest.raises(ValueError, match="shared memory"):
+        t1.ms_tcn_fwd(*_t1_inputs(1, 4, 20, 512, device), 1)
+    assert t1.launches == before
+
+
+# T2 (N, T, V, C, S): the stage-2 tools' shape, V=25 and a ragged shape;
+# the cases (form, subset sum, dtype)
+T2_SHAPES = [(64, 13, 20, 256, 3), (8, 13, 25, 256, 3), (3, 5, 7, 10, 3)]
+T2_CASES = [("tile", False, torch.float32), ("tile", False, torch.bfloat16),
+            ("win", False, torch.float32), ("floor", False, torch.float32),
+            ("flat", False, torch.float32), ("flat", True, torch.float32),
+            ("floor", True, torch.bfloat16)]
+
+
+@pytest.mark.parametrize("case", T2_CASES,
+                         ids=lambda c: f"{c[0]}{'-ss' if c[1] else ''}-{str(c[2])[6:]}")
+@pytest.mark.parametrize("shape", T2_SHAPES, ids=lambda s: "N{}-T{}-V{}-C{}-S{}".format(*s))
+def test_stage2_kernel_matches_plain(device, shape, case):
+    """T2 against its plain version: f32 within rtol 1e-5 and atol 1e-5 *
+    max|plain| (sums of V terms, S*V with the subset sum, in another order);
+    bf16 within one rounding of the output (rtol 2^-7, a bf16 ulp); two
+    launches bitwise equal."""
+    from tamgcn_tpu_torch.ops.cuda import stage2 as t2
+    from tamgcn_tpu_torch.ops.stage2 import stage2_aggregate, stage2_plain
+
+    form, subset_sum, dtype = case
+    n, t, v, c, s = shape
+    g = torch.Generator().manual_seed(7)
+    m = (0.05 * torch.randn((v, v, s * c), generator=g)).to(device, dtype)
+    x3 = torch.randn((n, t, v, s * c), generator=g).to(device, dtype)
+    if form == "flat":
+        m, x3 = m.reshape(v, -1), x3.reshape(n, t, -1)
+    before = t2.launches
+    with torch.no_grad():
+        got = stage2_aggregate(m, x3, form, s, subset_sum)
+        again = stage2_aggregate(m, x3, form, s, subset_sum)
+        want = stage2_plain(m, x3, form, s, subset_sum)
+    torch.cuda.synchronize()
+    assert t2.launches == before + 2
+    assert got.dtype == dtype and got.shape == want.shape and torch.equal(got, again)
+    rtol = 2.0 ** -7 if dtype == torch.bfloat16 else 1e-5
+    torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
+                               atol=1e-5 * want.float().abs().max().item())
+
+
+def test_stage2_kernel_rejects_what_it_does_not_take(device):
+    from tamgcn_tpu_torch.ops.cuda import stage2 as t2
+
+    g = torch.Generator().manual_seed(7)
+    m = torch.randn((20, 20, 48), generator=g).to(device)
+    x3 = torch.randn((2, 3, 20, 48), generator=g).to(device)
+    before = t2.launches
+    with pytest.raises(ValueError, match="CUDA"):
+        t2.stage2_aggregate_fwd(m.cpu(), x3.cpu(), "tile")
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        t2.stage2_aggregate_fwd(m.double(), x3.double(), "tile")
+    with pytest.raises(TypeError, match="same"):
+        t2.stage2_aggregate_fwd(m.bfloat16(), x3, "tile")
+    with pytest.raises(ValueError, match="contiguous"):
+        t2.stage2_aggregate_fwd(m, x3.transpose(0, 1).contiguous().transpose(0, 1), "diag")
+    with pytest.raises(ValueError, match="m has shape"):
+        t2.stage2_aggregate_fwd(m[:, :, :40].contiguous(), x3, "floor")
+    with pytest.raises(ValueError, match="L % S"):
+        t2.stage2_aggregate_fwd(m, x3, "tile", subsets=5)
+    big = torch.randn((40, 40, 8), device=device)
+    with pytest.raises(ValueError, match="V <= 32"):
+        t2.stage2_aggregate_fwd(big, torch.randn((1, 1, 40, 8), device=device), "tile")
+    assert t2.launches == before
