@@ -10,10 +10,15 @@ Phases, each of which fails the run (non-zero exit, no result line):
      started together) and prints the seconds;
   3. kernels: holds each kernel against its plain PyTorch version on the card
      at the shapes of the main paths (K1 at the test batch 64, K2 and K3 at
-     the training batch 16, plus V=25 and ragged shapes), f32 with TF32 off,
-     and times both with CUDA events. K1 and K2 are held within rtol 1e-5
-     and atol 1e-5*max|plain|; K3's outputs are sums of up to N*T*V*V terms
-     taken in another order, so each is held within rtol 1e-4 and atol
+     the training batch 16, plus V=25 and ragged shapes; the joint-tiled
+     designs K1t and K2t, and K3, at configs/scene256.yaml's blocks (V=256,
+     batch 8) and a ragged V=37), f32 with TF32 off, and times both with
+     CUDA events (K3 also by a CUDA graph, with its block count, at least
+     132 at every NW-UCLA train-step shape). Each launch must count on the
+     counter of the design the shape takes (the whole-V K1 and K2 at V=20
+     and V=25). K1 and K2 are held within rtol 1e-5 and atol
+     1e-5*max|plain|; K3's outputs are sums of up to N*T*V*V terms taken in
+     another order, so each is held within rtol 1e-4 and atol
      1e-4*max|plain| (dalpha, one sum over all N*S*V*V*C terms, within rtol
      1e-3); two K3 launches must agree bit for bit;
   4. test main path: `python -m tamgcn_tpu_torch recognition --phase test`
@@ -86,12 +91,24 @@ Phases, each of which fails the run (non-zero exit, no result line):
      2^-7), two launches bitwise equal, timed beside its plain version and one
      torch.einsum call; then runs the three port tools (exp_ms_tcn,
      exp_stage2, exp_stage2b) in-process and checks each one's launches.
-The launch checks of phases 4-7 also require K6 = 0 (phases 4-6: the switch
-is off by default) and T1 = T2 = 0. The last lines are the card line, the
+  9. scene256: `python -m tamgcn_tpu_torch recognition -c
+     configs/scene256.yaml` (V=256, the synthetic random-tree graph, batch 8)
+     in-process: --phase train for 2 epochs of 8 steps, then --phase test and
+     --phase test --fast_eval true on perturbed, calibrated weights; checks
+     the joint-tiled K1 = 10 per forward, the joint-tiled K2 = K3 = 10 per
+     train step, and no whole-V K1 or K2, no K5 and no K6; holds the logits
+     of one batch of each test run to the same model on the card with the
+     plain unit op within 1e-4*max|logit|, and times the eval forward, the
+     fast-eval forward and the train step with their device time by kernel.
+The launch checks of phases 4-9 also require K6 = 0 (except with the switch
+on), T1 = T2 = 0 (except in the tools' runs) and the joint-tiled designs at
+0 outside phase 9. The last lines are the card line, the
 kernels JSON and the result JSON. The kernels JSON gives, for each kernel,
 its times and bound summed over the launches of one eval forward at batch 64
-(K1), of one train step at batch 16 (K2, K3; K6 with the switch on, with the
-unfused composition's time under "unfused_k2_cublas_ms"), of one CTRGC
+(K1), of one train step at batch 16 (K2, K3 with its CUDA-graph time under
+"device_ms"; K6 with the switch on, with the unfused composition's time
+under "unfused_k2_cublas_ms"), of one scene256 eval forward or train step at
+batch 8 (the joint-tiled K1t, K2t), of one CTRGC
 forward and backward (K4), of one fast-eval forward at batch 64 (K5, with
 the folded path's time under "folded_k1_cublas_ms"; T1 at the ten blocks'
 branch shapes, with the engine composition's time as "library_ms") or of one
@@ -203,10 +220,31 @@ BWD_MAIN_PATH = [(name, (TRAIN_BATCH,) + shape[1:], count)
                  for name, shape, count in K1_MAIN_PATH]
 BWD_EXTRA = [
     ("V=25", (TRAIN_BATCH, 26, 25, 128, 16)),
-    ("V=25 R=32", (TRAIN_BATCH, 13, 25, 256, 32)),  # K3's smaller channel tile
+    ("V=25 R=32", (TRAIN_BATCH, 13, 25, 256, 32)),
     ("ragged", (3, 7, 20, 80, 10)),
     ("N=1", (1, 13, 20, 256, 32)),
 ]
+# configs/scene256.yaml: V=256, T=32, batch 8 (train and test); its blocks
+# (N, T, V, C, R) with the launches per forward (and per train step) of the
+# joint-tiled K1 (K2), and a ragged V that leaves partial joint tiles
+SCENE = os.path.join(REPO, "configs", "scene256.yaml")
+SCENE_BATCH = 8
+SCENE_TRAIN_STEPS = 8  # 64 train samples in batches of 8
+SCENE_EVALS = 4  # 32 val samples in batches of 8
+SCENE_MAIN_PATH = [
+    ("l1-l4", (SCENE_BATCH, 32, 256, 64, 8), 4),
+    ("l5", (SCENE_BATCH, 32, 256, 128, 8), 1),
+    ("l6-l7", (SCENE_BATCH, 16, 256, 128, 16), 2),
+    ("l8", (SCENE_BATCH, 16, 256, 256, 16), 1),
+    ("l9-l10", (SCENE_BATCH, 8, 256, 256, 32), 2),
+]
+TILED_EXTRA = [
+    ("ragged V=37", (3, 7, 37, 80, 10)),
+]
+# K3 runs every V with one design: the scene256 blocks and the ragged V are
+# held and timed beside the NW-UCLA train step's shapes
+K3_EXTRA = BWD_EXTRA + [(name, shape) for name, shape, _ in SCENE_MAIN_PATH] + TILED_EXTRA
+K3_MIN_BLOCKS = 132  # one block per SM at least, at every BWD_MAIN_PATH shape
 
 
 def card_line() -> str:
@@ -276,18 +314,9 @@ def k2_bound(shape):
 
 
 def k3_bound(shape):
-    from tamgcn_tpu_torch.utils.roofline import bound
+    from tamgcn_tpu_torch.utils.roofline import unit_ctr_gc_param_sol
 
-    N, T, V, C, R = shape
-    S = 3
-    # g, x3s, x1s, x2s in, dx1s, dx2s out; w4s, b4s, alpha in; dw4s, db4s,
-    # dalpha, dAs out (the bytes of the JAX cost estimate, ctr_gc.py:1360)
-    elems = (N * T * V * C + N * T * V * S * C + 4 * N * S * V * R
-             + 2 * (S * R * C + S * C + 1) + S * V * V)
-    # FMAs: dm = sum_t g x3, then D^T dm (dw4) and dm w4^T (dx1, dx2). dalpha
-    # reuses P = D^T dm as sum w4*P + b4*sum(dm), so it needs no third
-    # V*V*R*C product; the JAX estimate counts one (6 instead of 4)
-    return bound(elems, 2 * N * S * T * V * V * C + 4 * N * S * V * V * R * C)
+    return unit_ctr_gc_param_sol(*shape)
 
 
 def k6_bound(shape):
@@ -373,9 +402,14 @@ def _within(got, want, rtol, atol_frac):
 
 
 def check_kernels(device):
-    """K1, K2 and K3 against their plain versions at every shape; returns
-    {'K1': rows, 'K2': rows, 'K3': rows}."""
+    """K1, K2 (each in its whole-V and its joint-tiled design: K1t, K2t) and
+    K3 against their plain versions at every shape; each launch must count on
+    the counter of the design the shape takes, and K3 must launch at least
+    K3_MIN_BLOCKS blocks at every BWD_MAIN_PATH shape. Returns {'K1': rows,
+    'K1t': rows, 'K2': rows, 'K2t': rows, 'K3': rows}."""
     import torch
+
+    from tamgcn_tpu_torch.utils.timing import graph_ms
 
     from tamgcn_tpu_torch.ops import aggregation as agg
     from tamgcn_tpu_torch.ops.cuda import ctr_gc
@@ -400,8 +434,10 @@ def check_kernels(device):
 
     plan = [
         ("K1", k1, k1_plain, k1_bound, K1_MAIN_PATH, K1_EXTRA),
+        ("K1t", k1, k1_plain, k1_bound, SCENE_MAIN_PATH, TILED_EXTRA),
         ("K2", k2, k2_plain, k2_bound, BWD_MAIN_PATH, BWD_EXTRA),
-        ("K3", k3, k3_plain, k3_bound, BWD_MAIN_PATH, BWD_EXTRA),
+        ("K2t", k2, k2_plain, k2_bound, SCENE_MAIN_PATH, TILED_EXTRA),
+        ("K3", k3, k3_plain, k3_bound, BWD_MAIN_PATH, K3_EXTRA),
     ]
     out = {}
     for kname, fn, plain, bound_fn, main_path, extra in plan:
@@ -410,7 +446,12 @@ def check_kernels(device):
         for i, (name, shape, count) in enumerate(shapes):
             args = unit_inputs(shape, seed=100 + i, device=device)
             with torch.no_grad():
+                reset_launches()
                 got = fn(*args)
+                launched = {k: v for k, v in read_launches().items() if v}
+                if launched != {kname: 1}:
+                    raise AssertionError(f"{kname} {name} {shape}: launches {launched}, "
+                                         f"expected {kname} once")
                 want = plain(*args)
                 torch.cuda.synchronize()
                 if kname == "K3":
@@ -434,19 +475,37 @@ def check_kernels(device):
                             "stated tolerance")
                 ms = cuda_ms(lambda: fn(*args))
                 plain_ms = cuda_ms(lambda: plain(*args))
+                extra_row = {}
+                if kname == "K3":
+                    N, T, V, C, R = shape
+                    blocks = ctr_gc.bwd_param_blocks(N, 3, V, C)
+                    if count and blocks < K3_MIN_BLOCKS:
+                        raise AssertionError(f"K3 {name} {shape}: {blocks} blocks, "
+                                             f"fewer than {K3_MIN_BLOCKS}")
+                    extra_row = dict(blocks=blocks, device_ms=graph_ms(lambda: fn(*args)))
             bound_ms, bound_by = bound_fn(shape)
+            if "device_ms" in extra_row:
+                check_above_bound(f"K3 {name}", extra_row["device_ms"], bound_ms)
             # the worst output relative to its own scale
             worst = max(errs, key=lambda e: e[2] / max(e[3], 1e-30))
             rows.append(dict(name=name, shape=dict(zip("NTVCR", shape)),
                              launches_per_step=count, max_abs_err=worst[2],
                              max_abs_plain=worst[3], worst_output=worst[0],
                              ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                             bound_by=bound_by))
-            print(f"{kname} {name:9s} N,T,V,C,R={shape}: max_abs_err "
+                             bound_by=bound_by, **extra_row))
+            more = (f", device {extra_row['device_ms'] * 1e3:.1f} us in "
+                    f"{extra_row['blocks']} blocks" if extra_row else "")
+            print(f"{kname:3s} {name:11s} N,T,V,C,R={shape}: max_abs_err "
                   f"{worst[2]:.3e} in {worst[0]} (max|plain| {worst[3]:.3e}) "
-                  f"kernel {ms * 1e3:.1f} us, plain {plain_ms * 1e3:.1f} us, "
+                  f"kernel {ms * 1e3:.1f} us{more}, plain {plain_ms * 1e3:.1f} us, "
                   f"bound {bound_ms * 1e3:.1f} us ({bound_by})", flush=True)
         out[kname] = rows
+    k3 = kernel_summary(out["K3"], "train step, batch 16")
+    device_ms = sum(r["device_ms"] * r["launches_per_step"] for r in out["K3"])
+    print(f"K3 per train step at batch {TRAIN_BATCH}: {k3['ms']:.4f} ms by events, "
+          f"{device_ms:.4f} ms device (graph), bound {k3['bound_ms']:.4f} ms; at least "
+          f"{min(r['blocks'] for r in out['K3'] if r['launches_per_step'])} blocks a "
+          "launch", flush=True)
     return out
 
 
@@ -492,11 +551,14 @@ def check_k5(device):
     return rows
 
 
-def make_weights(path: str, seed: int) -> None:
+def make_weights(path: str, seed: int, model_args=None, feeder_args=None,
+                 batch: int = BATCH, device="cpu") -> None:
     """The port's seeded init with what hides the kernels moved off its
     degenerate values (alpha=0 makes M = A and zeroes dx1, dx2, dw4 and db4,
     the 1e-6 gcn1.bn scale scales the aggregation away, the offset conv
-    starts at zero) and calibrated BatchNorm running stats."""
+    starts at zero) and calibrated BatchNorm running stats. The model and
+    the synthetic feeder are NW-UCLA's unless model_args and feeder_args say
+    otherwise; the calibration pass runs on `device`."""
     import numpy as np
     import torch
 
@@ -506,7 +568,7 @@ def make_weights(path: str, seed: int) -> None:
     from tamgcn_tpu_torch.train.checkpoint import save_weights
 
     model = get_model("ctrgcn", generator=torch.Generator().manual_seed(SEED),
-                      **nucla_model_args())
+                      **(model_args or nucla_model_args()))
     g = torch.Generator().manual_seed(seed)
     with torch.no_grad():
         for name, t in model.state_dict().items():
@@ -524,13 +586,14 @@ def make_weights(path: str, seed: int) -> None:
     bns = [m for m in model.modules() if isinstance(m, BatchNorm)]
     for bn in bns:
         bn.momentum = 1.0
-    feeder = SyntheticSkeletonFeeder(num_samples=BATCH, split="train", seed=SEED)
-    x = torch.from_numpy(np.stack([feeder[i][0] for i in range(BATCH)]))
+    feeder = SyntheticSkeletonFeeder(num_samples=batch, split="train", seed=SEED,
+                                     **(feeder_args or {}))
+    x = torch.from_numpy(np.stack([feeder[i][0] for i in range(batch)]))
     with torch.no_grad():
-        model.train()(x)
+        model.to(device).train()(x.to(device))
     for bn in bns:
         bn.momentum = 0.1
-    save_weights(model, path)
+    save_weights(model.cpu(), path)
 
 
 def nucla_model_args() -> dict:
@@ -542,17 +605,27 @@ def reset_launches():
     from tamgcn_tpu_torch.ops.cuda import ctr_gc, gcn_tcn_block, ms_tcn, stage2
 
     ctr_gc.launches = ctr_gc.bwd_dx3_launches = ctr_gc.bwd_param_launches = 0
+    ctr_gc.launches_tiled = ctr_gc.bwd_dx3_tiled_launches = 0
     ctr_gc.bwd_conv3_launches = 0
     gcn_tcn_block.launches = ms_tcn.launches = stage2.launches = 0
 
 
 def read_launches() -> dict:
+    """Every kernel's count; K1t and K2t are the joint-tiled designs of K1
+    and K2."""
     from tamgcn_tpu_torch.ops.cuda import ctr_gc, gcn_tcn_block, ms_tcn, stage2
 
-    return {"K1": ctr_gc.launches, "K2": ctr_gc.bwd_dx3_launches,
+    return {"K1": ctr_gc.launches, "K1t": ctr_gc.launches_tiled,
+            "K2": ctr_gc.bwd_dx3_launches, "K2t": ctr_gc.bwd_dx3_tiled_launches,
             "K3": ctr_gc.bwd_param_launches, "K5": gcn_tcn_block.launches,
             "K6": ctr_gc.bwd_conv3_launches, "T1": ms_tcn.launches,
             "T2": stage2.launches}
+
+
+def only(**counts) -> dict:
+    """The launch counts of read_launches with every kernel not named at 0."""
+    return dict.fromkeys(("K1", "K1t", "K2", "K2t", "K3", "K5", "K6", "T1", "T2"),
+                         0) | counts
 
 
 def fuse_conv3(on: bool = True):
@@ -639,7 +712,9 @@ def check_logits(work_dir: str, weights: str):
 
 
 # the first kernel each wrapper launches, by its counter's name
-KERNEL_SYMBOLS = {"K1": "unit_ctr_gc_fwd_kernel", "K2": "unit_ctr_gc_bwd_dx3_kernel",
+KERNEL_SYMBOLS = {"K1": "unit_ctr_gc_fwd_kernel", "K1t": "unit_ctr_gc_fwd_tiled_kernel",
+                  "K2": "unit_ctr_gc_bwd_dx3_kernel",
+                  "K2t": "unit_ctr_gc_bwd_dx3_tiled_kernel",
                   "K3": "unit_ctr_gc_bwd_param_kernel", "K5": "block_agg_kernel",
                   "K6": "unit_ctr_gc_bwd_conv3_kernel", "T1": "ms_tcn_kernel",
                   "T2": "stage2_kernel"}
@@ -678,34 +753,6 @@ def profile_device(fn, reps: int = 5):
     busy_ms = sum(ms for _, ms, _ in events)
     n_kernels = sum(count for _, _, count in events)
     return busy_ms, n_kernels, events
-
-
-def graph_ms(fn) -> float:
-    """Device time per call of fn with no host time between its launches:
-    20 calls captured in one CUDA graph, replayed 5 times between two CUDA
-    events. fn launches on the current stream."""
-    import torch
-
-    reps, replays = 20, 5
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        for _ in range(3):  # library plans and workspaces, before the capture
-            fn()
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(reps):
-            fn()
-    graph.replay()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(replays):
-        graph.replay()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / (reps * replays)
 
 
 def check_above_bound(what: str, device_ms: float, bound_ms: float):
@@ -818,8 +865,8 @@ def run_train_path(work_dir: str):
                                  ("resume", 1, ["--resume", "true"])):
         total = 2 + (label == "resume")
         seconds, launches = run_cli(argv + ["--num_epoch", str(total), *extra])
-        want = {"K1": 10 * epochs * (steps + evals), "K2": 10 * epochs * steps,
-                "K3": 10 * epochs * steps, "K5": 0, "K6": 0, "T1": 0, "T2": 0}
+        want = only(K1=10 * epochs * (steps + evals), K2=10 * epochs * steps,
+                    K3=10 * epochs * steps)
         if launches != want:
             raise AssertionError(
                 f"--phase train ({label}): launches {launches}, expected {want} "
@@ -1047,6 +1094,8 @@ def check_k6(device):
     the sum for db3); returns the rows."""
     import torch
 
+    from tamgcn_tpu_torch.utils.timing import graph_ms
+
     from tamgcn_tpu_torch.ops.aggregation import unit_ctr_gc_bwd_conv3_plain as plain
     from tamgcn_tpu_torch.ops.cuda import ctr_gc
 
@@ -1110,8 +1159,7 @@ def run_fused_train_path(work_dir: str):
     evals = math.ceil(EVAL_SAMPLES / TRAIN_BATCH)
     with fuse_conv3():
         seconds, launches = run_cli(train_argv(work_dir) + ["--num_epoch", "1"])
-    want = {"K1": 10 * (steps + evals), "K2": 4 * steps, "K3": 10 * steps,
-            "K5": 0, "K6": 6 * steps, "T1": 0, "T2": 0}
+    want = only(K1=10 * (steps + evals), K2=4 * steps, K3=10 * steps, K6=6 * steps)
     if launches != want:
         raise AssertionError(
             f"--phase train with TAMGCN_FUSE_CONV3=1: launches {launches}, "
@@ -1202,7 +1250,7 @@ def check_ctrgc(device):
         got = run()
         torch.cuda.synchronize()
         launches = read_launches()
-        if launches != {"K1": 1, "K2": 1, "K3": 0, "K5": 0, "K6": 0, "T1": 0, "T2": 0}:
+        if launches != only(K1=1, K2=1):
             raise AssertionError(f"CTRGC {name}: launches {launches}, expected K1 "
                                  "and K2 once each")
         if main_launches is None:
@@ -1300,6 +1348,8 @@ def check_t1(device):
     cuDNN's), two launches bitwise equal, and the times of T1, its plain
     version and the engine's composition; returns the rows."""
     import torch
+
+    from tamgcn_tpu_torch.utils.timing import graph_ms
 
     from tamgcn_tpu_torch.ops.cuda.ms_tcn import ms_tcn_fwd
     from tamgcn_tpu_torch.ops.ms_tcn import ms_tcn_plain
@@ -1441,6 +1491,8 @@ def check_t2(device):
     einsum call. Returns the rows."""
     import torch
 
+    from tamgcn_tpu_torch.utils.timing import graph_ms
+
     from tamgcn_tpu_torch.ops.cuda import stage2 as t2
     from tamgcn_tpu_torch.ops.stage2 import stage2_aggregate, stage2_plain
     from tamgcn_tpu_torch.tools.exp_stage2 import PROBES
@@ -1536,6 +1588,134 @@ def run_tools():
     return out
 
 
+def scene_model_args() -> dict:
+    """configs/scene256.yaml's model_args."""
+    return dict(num_class=10, num_point=256, num_person=1, graph="synthetic",
+                graph_args={"labeling_mode": "spatial", "num_node": 256})
+
+
+def scene_argv(work_dir: str, phase: str, *extra) -> list:
+    return ["recognition", "-c", SCENE, "--phase", phase, "--work_dir", work_dir,
+            "--use_gpu", "true", "--device", "0", "--seed", str(SEED), *extra]
+
+
+def check_scene_logits(work_dir: str, weights: str, device):
+    """Logits of the first batch from a scene256 test run's score pickle
+    against the same model on the card with the plain unit op (M of one
+    subset at l9 is 0.5 GB at batch 8, so the reference is the card's plain
+    version rather than the CPU's), TF32 off for matmuls and convolutions on
+    both sides. Returns (max relative error, the batch)."""
+    import numpy as np
+    import torch
+
+    from tamgcn_tpu_torch.data import SyntheticSkeletonFeeder
+    from tamgcn_tpu_torch.models import get_model
+    from tamgcn_tpu_torch.train.checkpoint import load_weights
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    with open(os.path.join(work_dir, "test_result.pkl"), "rb") as f:
+        scores = pickle.load(f)
+    feeder = SyntheticSkeletonFeeder(num_samples=SCENE_EVALS * SCENE_BATCH, split="val",
+                                     seed=SEED, num_point=256, time_steps=32)
+    if len(scores) != SCENE_EVALS * SCENE_BATCH:
+        raise AssertionError(f"{len(scores)} scores for {SCENE_EVALS * SCENE_BATCH} samples")
+    got = np.stack([scores[feeder.sample_name[i]] for i in range(SCENE_BATCH)])
+    x = np.stack([feeder[i][0] for i in range(SCENE_BATCH)])
+    model = get_model("ctrgcn", **scene_model_args())
+    model.load_state_dict(load_weights(weights))
+    model.to(device).eval()
+    with torch.inference_mode(), plain_unit_op():
+        want = model(torch.from_numpy(x).to(device)).cpu().numpy()
+    if got.shape != (SCENE_BATCH, 10) or not np.isfinite(got).all():
+        raise AssertionError(f"bad scene256 logits: shape {got.shape}")
+    rel = float(np.abs(got - want).max() / np.abs(want).max())
+    if rel > LOGIT_RTOL:
+        raise AssertionError(
+            f"scene256 logits differ from the card's plain unit op: max|d|/max|plain| "
+            f"{rel:.3e} > {LOGIT_RTOL}")
+    return rel, x
+
+
+def run_scene256(work_dir: str, device):
+    """Phase 9: configs/scene256.yaml (V=256) through __main__.main on the
+    card: --phase train for 2 epochs of 8 steps (eval after each), --phase
+    test and --phase test --fast_eval true on perturbed, calibrated weights.
+    Checks the launches (the joint-tiled K1 10 per forward, the joint-tiled
+    K2 and K3 10 per train step, no whole-V K1 or K2, no K5, no K6), the
+    losses and files, and the logits of one batch of each test run against
+    the card's plain unit op. Times the eval forward, the fast-eval forward
+    and the train step at batch 8, with their device time by kernel name.
+    Returns a summary dict."""
+    import torch
+
+    from tamgcn_tpu_torch.models import get_model
+    from tamgcn_tpu_torch.models.ctrgcn_infer import make_fast_eval
+    from tamgcn_tpu_torch.train.checkpoint import load_weights
+    from tamgcn_tpu_torch.train.optim import make_optimizer
+
+    out = {}
+    train_dir = os.path.join(work_dir, "scene256_train")
+    seconds, launches = run_cli(scene_argv(train_dir, "train", "--num_epoch", "2",
+                                           "--save_interval", "1"))
+    steps, evals = SCENE_TRAIN_STEPS, SCENE_EVALS
+    want = only(K1t=10 * 2 * (steps + evals), K2t=10 * 2 * steps, K3=10 * 2 * steps)
+    if launches != want:
+        raise AssertionError(f"scene256 --phase train: launches {launches}, expected "
+                             f"{want} (10 per train step of {steps} an epoch, K1t "
+                             f"also 10 per eval batch of {evals})")
+    progress = check_train_files(train_dir, 2, 2, "scene256")
+    out["train"] = dict(seconds=seconds, launches=launches, progress=progress.tolist())
+    print(f"scene256 train: 2 epochs of {steps} steps at batch {SCENE_BATCH} in "
+          f"{seconds:.2f} s (incl. model build, data and eval), launches {launches}; "
+          f"progress (train loss, test loss, top1, top5) {progress.tolist()}", flush=True)
+
+    weights = os.path.join(work_dir, "scene256_weights.pt")
+    make_weights(weights, seed=7, model_args=scene_model_args(),
+                 feeder_args=dict(num_point=256, time_steps=32), batch=SCENE_BATCH,
+                 device=device)
+    for label, extra in (("test", []), ("fast_eval", ["--fast_eval", "true"])):
+        test_dir = os.path.join(work_dir, f"scene256_{label}")
+        seconds, launches = run_cli(scene_argv(test_dir, "test", "--weights", weights,
+                                               "--save_result", "true", *extra))
+        if launches != only(K1t=10 * evals):
+            raise AssertionError(
+                f"scene256 --phase test {' '.join(extra)}: launches {launches}, expected "
+                f"the joint-tiled K1 10 x {evals} batches and no other kernel (no block "
+                "of V=256 takes K5)")
+        rel, x = check_scene_logits(test_dir, weights, device)
+        out[label] = dict(seconds=seconds, launches=launches, logit_rel_err=rel)
+        print(f"scene256 {label}: {evals} batches of {SCENE_BATCH} in {seconds:.2f} s, "
+              f"launches {launches}, logits vs the card's plain unit op max rel err "
+              f"{rel:.3e}", flush=True)
+
+    model = get_model("ctrgcn", **scene_model_args())
+    model.load_state_dict(load_weights(weights))
+    model.to(device)
+    xb = torch.from_numpy(x).to(device)
+    with torch.inference_mode():
+        model.eval()
+        fast = make_fast_eval(model)
+        for way, fn in (("eval forward", lambda: model(xb)),
+                        ("fast-eval forward", lambda: fast(xb))):
+            ms = cuda_ms(fn, iters=10)
+            out[way] = (ms,) + profile_device(fn, reps=3)
+            print_profile(f"scene256 {way}, batch {SCENE_BATCH}: {ms:.3f} ms;", ms,
+                          *out[way][1:])
+    model.train()
+    opt = make_optimizer("SGD", model.parameters(), 0.05, weight_decay=1e-4)
+    y = torch.zeros(SCENE_BATCH, dtype=torch.long, device=device)
+
+    def step():
+        train_step(model, opt, xb, y)
+
+    ms = cuda_ms(step, iters=5, warmup=2)
+    out["train step"] = (ms,) + profile_device(step, reps=3)
+    print_profile(f"scene256 train step, batch {SCENE_BATCH}: {ms:.3f} ms;", ms,
+                  *out["train step"][1:])
+    return out
+
+
 def kernel_summary(rows, per):
     """Sum of each timing over the launches of one forward / step."""
     used = [r for r in rows if r["launches_per_step"]]
@@ -1597,8 +1777,7 @@ def main() -> int:
         test_dir = os.path.join(work_dir, "test")
         seconds, launches = run_test_path(test_dir, weights)
         batches = math.ceil(N_SAMPLES / BATCH)
-        if launches != {"K1": 10 * batches, "K2": 0, "K3": 0, "K5": 0, "K6": 0,
-                        "T1": 0, "T2": 0}:
+        if launches != only(K1=10 * batches):
             raise AssertionError(
                 f"the test phase launched {launches}, expected K1 10 x "
                 f"{batches} batches and no backward kernel")
@@ -1626,8 +1805,7 @@ def main() -> int:
               "block)", flush=True)
         fast_dir = os.path.join(work_dir, "fast_eval")
         seconds, launches = run_test_path(fast_dir, weights, "--fast_eval", "true")
-        if launches != {"K1": 0, "K2": 0, "K3": 0, "K5": 10 * batches, "K6": 0,
-                        "T1": 0, "T2": 0}:
+        if launches != only(K5=10 * batches):
             raise AssertionError(
                 f"the fast-eval test phase launched {launches}, expected K5 10 x "
                 f"{batches} batches and no other kernel")
@@ -1662,6 +1840,10 @@ def main() -> int:
         check_t1_real_weights(weights, x, device)
         t2_rows = check_t2(device)
         tools = run_tools()
+
+        # ---- 9. configs/scene256.yaml ----
+        phase("9. scene256")
+        scene = run_scene256(work_dir, device)
         phase("end")
     print(f"train step (forward, backward, SGD), batch {TRAIN_BATCH}: "
           f"{t['kernel_ms_16']:.3f} ms ({TRAIN_BATCH / t['kernel_ms_16'] * 1e3:.1f} "
@@ -1678,6 +1860,13 @@ def main() -> int:
         ms = sum(e[1] for e in t["events_16"] if prefix in e[0])
         print(f"  {kname}: {ms:.4f} ms per train step at batch {TRAIN_BATCH}, "
               f"{100 * ms / t['busy_ms_16']:.1f}% of the device time", flush=True)
+    for way in ("eval forward", "fast-eval forward", "train step"):
+        ms, busy, _, events = scene[way]
+        for kname in ("K1t", "K2t", "K3"):
+            kms = sum(e[1] for e in events if KERNEL_SYMBOLS[kname] in e[0])
+            if kms:
+                print(f"  scene256 {way}: {kname} {kms:.4f} ms, {100 * kms / busy:.1f}% "
+                      "of the device time", flush=True)
     for batch, r in tf.items():
         print(f"train step, batch {batch}: {r['fused_ms']:.3f} ms with "
               f"TAMGCN_FUSE_CONV3=1, {r['default_ms']:.3f} ms default (in turns)",
@@ -1695,9 +1884,17 @@ def main() -> int:
     sources = {"K1": ("unit_ctr_gc_fwd", "unit_ctr_gc_fwd.cu",
                       "tamgcn_tpu/ops/pallas/ctr_gc.py:367",
                       test_launches, "eval forward, batch 64"),
+               "K1t": ("unit_ctr_gc_fwd, joint-tiled design", "unit_ctr_gc_fwd.cu",
+                       "tamgcn_tpu/ops/pallas/ctr_gc.py:367",
+                       scene["test"]["launches"]["K1t"],
+                       "eval forward, configs/scene256.yaml, batch 8"),
                "K2": ("unit_ctr_gc_bwd_dx3", "unit_ctr_gc_bwd_dx3.cu",
                       "tamgcn_tpu/ops/pallas/ctr_gc.py:494",
                       train["train"]["launches"]["K2"], "train step, batch 16"),
+               "K2t": ("unit_ctr_gc_bwd_dx3, joint-tiled design", "unit_ctr_gc_bwd_dx3.cu",
+                       "tamgcn_tpu/ops/pallas/ctr_gc.py:494",
+                       scene["train"]["launches"]["K2t"],
+                       "train step, configs/scene256.yaml, batch 8"),
                "K3": ("unit_ctr_gc_bwd_param", "unit_ctr_gc_bwd_param.cu",
                       "tamgcn_tpu/ops/pallas/ctr_gc.py:717",
                       train["train"]["launches"]["K3"], "train step, batch 16"),
@@ -1732,7 +1929,8 @@ def main() -> int:
             "source": f"tamgcn_tpu_torch/csrc/{source}",
             "replaces": replaces,
             # launches on the main path's run (test phase for K1, the first
-            # two train epochs for K2 and K3, the fused-conv3 epoch for K6,
+            # two train epochs for K2 and K3, scene256's test phase for K1t
+            # and its train phase for K2t, the fused-conv3 epoch for K6,
             # the first CTRGC forward and backward for K4, the exp_ms_tcn
             # run for T1, the exp_stage2 run for T2)
             "launches": count,
@@ -1743,6 +1941,11 @@ def main() -> int:
         }
     kernels["K4"]["sources"] = [f"tamgcn_tpu_torch/csrc/{f}" for f in (
         "unit_ctr_gc_fwd.cu", "unit_ctr_gc_bwd_dx3.cu")]
+    for kname in ("K1t", "K2t"):
+        kernels[kname]["sources"] = [kernels[kname]["source"],
+                                     "tamgcn_tpu_torch/csrc/unit_ctr_gc_tiled.cuh"]
+    kernels["K3"]["device_ms"] = sum(r["device_ms"] * r["launches_per_step"]
+                                     for r in rows["K3"])
     kernels["K5"]["folded_k1_cublas_ms"] = sum(
         r["folded_k1_cublas_ms"] * r["launches_per_step"] for r in k5_rows)
     for key in ("unfused_k2_cublas_ms", "unfused_k2_cublas_device_ms", "device_ms"):

@@ -35,10 +35,18 @@
 //   x 5 (joints v) register tile of dx3s, and for every u reads 5 values of M
 //   and 2 of g for 10 FMAs.
 // g is read from device memory once per block and dx3s written once.
+//
+// Where M of even 8 channels for all V x V pairs does not fit a block's
+// shared memory (see unit_ctr_gc_bwd_dx3_variant), the joint-tiled design of
+// unit_ctr_gc_tiled.cuh runs instead, with the forward's roles swapped: a
+// block owns (sample, subset, 16 joints v, 16 channels), walks the tiles of
+// 16 joints u, builds each M tile in shared memory stored [v][u][c] and keeps
+// dx3s of 32 frames x 16 joints x 16 channels in registers.
 
 #include <cuda_runtime.h>
 
 #include "unit_ctr_gc_common.cuh"
+#include "unit_ctr_gc_tiled.cuh"
 
 namespace {
 
@@ -165,20 +173,82 @@ unit_ctr_gc_bwd_dx3_kernel(const float* __restrict__ x1s,
   }
 }
 
+// The whole-V design's channel tile at (S, V, RP): 16, else 8 where 16 does
+// not fit its shared memory, else 0, and then the tiled design runs.
+inline int whole_v_ct(int S, int V, int RP) {
+  const int VP = (V + kVV - 1) / kVV * kVV;
+  for (int ct = 16; ct >= 8; ct /= 2) {
+    const size_t bytes = sizeof(float) * ((size_t)region0(V, ct, RP) +
+                                          (size_t)S * V * VP * ct + 2 * V * RP);
+    if (bytes <= kSmemLimit) return ct;
+  }
+  return 0;
+}
+
+inline int rp_of(int R) { return R <= 8 ? 8 : R <= 16 ? 16 : 32; }
+
+template <int RP>
+__global__ void __launch_bounds__(kThreads)
+unit_ctr_gc_bwd_dx3_tiled_kernel(const float* __restrict__ x1s,
+                                 const float* __restrict__ x2s,
+                                 const float* __restrict__ g,
+                                 const float* __restrict__ w4s,
+                                 const float* __restrict__ b4s,
+                                 const float* __restrict__ alpha,
+                                 const float* __restrict__ As,
+                                 float* __restrict__ dx3s,
+                                 int S, int T, int V, int R, int C) {
+  using namespace tiled;
+  extern __shared__ float4 smem4[];
+  float* X = reinterpret_cast<float*>(smem4);
+  float* M = X + kTF * kXS;
+  float* D = M + kJ * kJ * kCT;
+  float* W = D + round4(kJ * kJ * (RP + 1));
+  float* E = W + RP * kCT;
+
+  const int c0 = blockIdx.x * kCT;
+  const int s = blockIdx.y % S;
+  const int v0 = (blockIdx.y / S) * kJ;
+  const int n = blockIdx.z;
+  const float a = alpha[0];
+  const Item it;
+  for (int tb = 0; tb < T; tb += kTF) {
+    float acc[kFr][kOwn] = {};
+    for (int u0 = 0; u0 < V; u0 += kJ) {
+      __syncthreads();  // the previous step's reads are done
+      stage_chunk(g, X, n, tb, u0, T, V, C, c0, C - c0);
+      // M stored [v][u][c]: the thread's own joints are v
+      tile_m<RP>(x1s, x2s, w4s, b4s, a, As, D, W, E, M, n, s, S, u0, v0, V, R,
+                 C, c0, 1, kJ);
+      __syncthreads();
+      accumulate(M, X, it, acc);
+    }
+    write_out(dx3s, acc, it, n, tb, v0, T, V, (size_t)S * C, s * C + c0,
+              c0 + it.c < C);
+  }
+}
+
 template <int RP>
 int launch(const float* x1s, const float* x2s, const float* g,
            const float* w4s, const float* b4s, const float* alpha,
            const float* As, float* dx3s, int N, int S, int T, int V, int R,
            int C, cudaStream_t stream) {
+  const int CT = whole_v_ct(S, V, RP);
+  if (CT == 0) {
+    using namespace tiled;
+    const size_t smem = sizeof(float) * smem_floats(RP);
+    cudaError_t err = cudaFuncSetAttribute(
+        unit_ctr_gc_bwd_dx3_tiled_kernel<RP>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+    const dim3 grid((C + kCT - 1) / kCT, ((V + kJ - 1) / kJ) * S, N);
+    unit_ctr_gc_bwd_dx3_tiled_kernel<RP><<<grid, kThreads, smem, stream>>>(
+        x1s, x2s, g, w4s, b4s, alpha, As, dx3s, S, T, V, R, C);
+    return cudaGetLastError();
+  }
   const int VP = (V + kVV - 1) / kVV * kVV;
-  auto smem_bytes = [&](int ct) {
-    return sizeof(float) *
-           ((size_t)region0(V, ct, RP) + (size_t)S * V * VP * ct + 2 * V * RP);
-  };
-  int CT = 16;
-  if (smem_bytes(CT) > kSmemLimit) CT = 8;
-  if (smem_bytes(CT) > kSmemLimit) return cudaErrorInvalidValue;
-  const size_t smem = smem_bytes(CT);
+  const size_t smem = sizeof(float) *
+      ((size_t)region0(V, CT, RP) + (size_t)S * V * VP * CT + 2 * V * RP);
   cudaError_t err = cudaFuncSetAttribute(
       unit_ctr_gc_bwd_dx3_kernel<RP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
@@ -191,9 +261,17 @@ int launch(const float* x1s, const float* x2s, const float* g,
 
 }  // namespace
 
+// Which design unit_ctr_gc_bwd_dx3_f32 launches at (S, V, R): 0 the whole-V
+// kernel, 1 the joint-tiled one, -1 neither (R or S or V out of range).
+extern "C" int unit_ctr_gc_bwd_dx3_variant(int S, int V, int R) {
+  if (S < 1 || V < 1 || R < 1 || R > 32) return -1;
+  return whole_v_ct(S, V, rp_of(R)) == 0 ? 1 : 0;
+}
+
 // All tensors contiguous f32 on the device, 16-byte aligned: x1s, x2s
 // (N,S,V,R); g (N,T,V,C); w4s (S,R,C); b4s (S,C); alpha (1,); As (S,V,V);
-// dx3s (N,T,V,S*C); C % 4 == 0 and R <= 32. Launches on `stream` and returns
+// dx3s (N,T,V,S*C); C % 4 == 0 and R <= 32, any V (the design as
+// unit_ctr_gc_bwd_dx3_variant says). Launches on `stream` and returns
 // cudaGetLastError() (0 = ok).
 extern "C" int unit_ctr_gc_bwd_dx3_f32(const float* x1s, const float* x2s,
                                        const float* g, const float* w4s,

@@ -22,61 +22,108 @@
 // What bounds it on this card. At the deep NW-UCLA shape (N=16, T=13, V=20,
 // C=256, R=32) it reads g and x3s (~17 MB, ~5 us at 3.35 TB/s) and does
 // 2*N*S*T*V*V*C + 4*N*S*V*V*R*C ~ 0.75 GFLOP of f32 FMAs (~11 us at
-// 67 TFLOP/s): dm, then D^T dm and dm w4^T; dalpha reuses P = D^T dm, so
-// it needs no third V*V*R*C product. Its reductions span more than one block holds: dm sums over
-// T; dpre needs dm @ w4^T summed over all C channels (V*V*R floats, 51 KB at
-// R=32); dw4/db4/dA/dalpha sum over samples; and dm for a whole (n, s) is
-// 410 KB at C=256, more than a block's 227 KB of shared memory.
+// 67 TFLOP/s): dm, then P = D^T dm and DD = dm w4^T; dalpha reuses P as
+// sum w4*P + b4*sum(dm), so it needs no third V*V*R*C product. Its sums span
+// more than a block: dm sums over T; DD over all C channels; dx1s and dx2s
+// over v and u; dw4, db4, dA and dalpha over samples. dm for a whole (n, s)
+// is 410 KB at C=256 (8 MB of D alone at V=256, R=32), more than a block's
+// 227 KB of shared memory.
 //
-// What the design does about it. One block of 256 threads per (subset s,
-// sample n). It keeps D = tanh(x1_u - x2_v) and DD = dm @ w4^T (V*V*R floats
-// each) and the dA row sums in shared memory, and loops over channel tiles
-// of CT=16 (8 where 16 does not fit):
-//   1. dm of the tile, V*V*CT floats in shared memory: the block walks T in
-//      chunks of 8 frames, copying the chunk's g and x3s tiles into shared
-//      memory (8 loads in flight per thread); each thread owns one channel
-//      and a 5 x 5 register tile of (u, v), 25 FMAs per 10 loads;
-//   2. from the dm tile: the dA row sums, the per-sample dw4/alpha
-//      (P = D^T dm) and db4/alpha (sum over u, v) partials, written to a
-//      scratch buffer, and DD += dm @ w4^T.
-// Then the block writes dx1s/dx2s directly. A second kernel reduces the
-// per-sample partials over N in a fixed order and forms dw4, db4, dA and the
-// per-block sums of dalpha = sum w4*P + b4*sum(dm); the last of its blocks to
-// finish adds those up in block order. The one atomic only hands out that
-// role (a ticket counter); no sum depends on the order in which blocks
-// finish, so two launches give bitwise equal gradients.
-// This launches only N*S blocks (48 at batch 16): tensor cores for the
-// D^T dm and dm w4^T products and a split of the channels across blocks are
-// left for later work.
+// What the design does about it. The work is split over blocks by (sample
+// n, subset s, tile of J <= 20 joints u, tile of 16 channels), so that every
+// main-path shape at batch 16 launches at least 192 blocks and two or more
+// blocks share an SM. A block walks the tiles of J joints v:
+//   1. dm of the (u tile, v tile, channel tile) in registers: the block
+//      walks T in chunks of 8 frames, staging the chunk's g and x3s tiles in
+//      shared memory (8 loads in flight per thread); each thread owns one
+//      channel and a 5 x 5 (u, v) tile, 25 FMAs per 10 loads. Then dm goes to shared memory, and D of the two
+//      joint tiles is built beside it.
+//   2. From the dm tile: dA's channel sum (written to a partial), P += D^T dm
+//      and sum(dm) in registers (each thread 4 r x 4 channels over a share of
+//      the joint pairs), DD = dm w4^T over the tile's 16 channels, and from
+//      it dpre = DD * (1 - D^2): its sum over v accumulates in shared memory
+//      (dx1s), its sum over u goes to a partial (dx2s).
+// Every sum across blocks is a per-block partial in device memory that a
+// second kernel reduces in a fixed order: dx1s over the channel tiles, dx2s
+// over the channel and u tiles, dA over samples and channel tiles, dw4 and
+// db4 over samples and u tiles; that kernel also forms the per-block sums of
+// dalpha = sum w4*P + b4*sum(dm), which the last of its blocks to finish adds
+// up in block order. The one atomic only hands out that role (a ticket
+// counter); no sum depends on the order in which blocks finish, so two
+// launches give bitwise equal gradients. The products run as f32 FFMA on the
+// CUDA cores; tensor cores (3xTF32 for f32 accuracy) are left for later
+// work.
 
 #include <cuda_runtime.h>
 
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kJ = 5;  // joints per side of a thread's (u, v) tile
-constexpr int kTC = 8;  // frames per g/x3s chunk in shared memory
+constexpr int kCT = 16;   // channels per block
+constexpr int kJmax = 20;  // joints per tile, at most
+constexpr int kJ5 = 5;    // joints per side of a thread's (u, v) dm tile
+constexpr int kTC = 8;    // frames per g/x3s chunk in shared memory
 constexpr int kBatch = 8;  // loads in flight per thread
-constexpr int kSmemLimit = 232448;  // bytes a block may use on sm_90
+constexpr int kRed = 20;  // P (4 x 4) and sum (4) values a thread keeps
 
-// per-sample partials of one (n, s), in floats: dA [V*V], P [R][C], sum [C]
-__host__ __device__ inline size_t per_sample(int V, int R, int C) {
-  return (size_t)V * V + (size_t)R * C + C;
+// The joint tiling of V: nt tiles of J joints (the last may be partial),
+// each padded to JP, a multiple of kJ5.
+struct Tiling {
+  int nt, J, JP;
+};
+__host__ __device__ inline Tiling tiling(int V) {
+  const int nt = (V + kJmax - 1) / kJmax;
+  const int J = (V + nt - 1) / nt;
+  return {nt, J, (J + kJ5 - 1) / kJ5 * kJ5};
 }
 
-__host__ inline int reduce_blocks(int S, int V, int R, int C) {
-  return (int)((S * per_sample(V, R, C) + kThreads - 1) / kThreads);
+__host__ __device__ inline int channel_tiles(int C) { return (C + kCT - 1) / kCT; }
+
+// The partials in the scratch buffer, in floats, in this order:
+//   P    [N][S][nt][R*C + C]  P = D^T dm and sum(dm) of one u tile
+//   dA   [N][KC][S][V*V]      sum_c dm of one channel tile
+//   dx1  [N][S][KC][V*R]      sum_v dpre of one channel tile
+//   dx2  [N][S][KC][nt][V*R]  sum_u dpre of one channel tile and u tile
+struct Parts {
+  size_t p, a, x1, x2, end;
+};
+__host__ __device__ inline Parts parts(int N, int S, int V, int R, int C) {
+  const Tiling tl = tiling(V);
+  const size_t KC = channel_tiles(C), NS = (size_t)N * S;
+  Parts o;
+  o.p = 0;
+  o.a = o.p + NS * tl.nt * ((size_t)R * C + C);
+  o.x1 = o.a + NS * KC * V * V;
+  o.x2 = o.x1 + NS * KC * V * R;
+  o.end = o.x2 + NS * KC * tl.nt * V * R;
+  return o;
 }
 
-// shared memory, in floats
-__host__ __device__ inline size_t smem_floats(int V, int VP, int RP, int CT) {
-  const size_t VV = (size_t)V * V;
-  return 2 * VV * RP              // D, DD
-         + VV * (CT + 1)          // DM
-         + 2 * (size_t)kTC * VP * CT  // g and x3s chunks
-         + (size_t)RP * (CT + 1)  // W
-         + 2 * (size_t)V * RP     // E
-         + VV;                    // DA
+// the reduce kernel's outputs, one thread each: dx1s, dx2s (N*S*V*R each),
+// dAs (S*V*V), dw4s and db4s (S*(R*C + C))
+__host__ inline size_t reduce_items(int N, int S, int V, int R, int C) {
+  return 2 * (size_t)N * S * V * R + (size_t)S * V * V + (size_t)S * ((size_t)R * C + C);
+}
+
+__host__ inline int reduce_blocks(int N, int S, int V, int R, int C) {
+  return (int)((reduce_items(N, S, V, R, C) + kThreads - 1) / kThreads);
+}
+
+// shared memory, in floats: D, DM, the chunk region (g and x3s chunks, then
+// the P reduction), W, E, DX1
+__host__ __device__ inline int chunk_region(int JP) {
+  const int chunks = 2 * kTC * JP * kCT;
+  const int red = kThreads * kRed;
+  return chunks > red ? chunks : red;
+}
+__host__ __device__ inline size_t smem_floats(int JP, int RP) {
+  const size_t PP = (size_t)JP * JP;
+  return PP * RP + PP * kCT + chunk_region(JP) + (size_t)RP * kCT +
+         2 * (size_t)JP * RP + (size_t)JP * RP;
+}
+
+__device__ inline float4 ld4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
 }
 
 template <int RP>
@@ -86,87 +133,80 @@ unit_ctr_gc_bwd_param_kernel(const float* __restrict__ x1s,
                              const float* __restrict__ g,
                              const float* __restrict__ x3s,
                              const float* __restrict__ w4s,
-                             const float* __restrict__ alpha,
-                             float* __restrict__ dx1s,
-                             float* __restrict__ dx2s,
                              float* __restrict__ part,
                              unsigned int* __restrict__ done,
-                             int S, int T, int V, int R, int C, int CT, int VP) {
+                             int N, int S, int T, int V, int R, int C) {
   extern __shared__ float4 smem4[];
-  const int VV = V * V;
-  const int CTP = CT + 1;  // row stride of DM and W: a warp's column reads
-                           // from 32 rows fall in distinct banks
-  // D [V*V][RP]: tanh(x1_u - x2_v); DD [V*V][RP]: sum_c dm * w4
-  // DM [V*V][CTP]: dm of the channel tile
-  // Gc, Xc [kTC][VP][CT]: the chunk of g and of x3s's subset s, joints padded
-  // W [RP][CTP]: w4s[s] of the channel tile; E [2][V][RP]: x1/x2 rows
-  // DA [V*V]: sum_c dm, over the tiles so far
+  const Tiling tl = tiling(V);
+  const int J = tl.J, JP = tl.JP, PP = JP * JP;
+  const int KC = channel_tiles(C);
+  // D [PP][RP]: tanh(x1_u - x2_v) of the two joint tiles, then dpre
+  // DM [PP][kCT]: dm of the tile
+  // Gc, Xc [kTC][JP][kCT]: the chunk of g and of x3s's subset s; then the
+  // P reduction Red [pair group][role][kRed]
+  // W [kCT][RP]: w4s[s] of the channel tile, transposed, so that the 8
+  // r-quads a warp reads at one channel are 128 contiguous bytes
+  // E [2][JP][RP]: x1/x2 rows
+  // DX1 [JP][RP]: sum_v dpre, over the v tiles so far
   float* D = reinterpret_cast<float*>(smem4);
-  float* DD = D + VV * RP;
-  float* DM = DD + VV * RP;
-  float* Gc = DM + VV * CTP;
-  float* Xc = Gc + kTC * VP * CT;
-  float* W = Xc + kTC * VP * CT;
-  float* E = W + RP * CTP;
-  float* DA = E + 2 * V * RP;
+  float* DM = D + PP * RP;
+  float* Gc = DM + PP * kCT;
+  float* Xc = Gc + kTC * JP * kCT;
+  float* Red = Gc;
+  float* W = Gc + chunk_region(JP);
+  float* E = W + RP * kCT;
+  float* DX1 = E + 2 * JP * RP;
 
-  const int s = blockIdx.x;
-  const int n = blockIdx.y;
+  const int ut = blockIdx.x / KC, kc = blockIdx.x % KC;
+  const int s = blockIdx.y, n = blockIdx.z;
+  const int u0 = ut * J, c0 = kc * kCT;
+  const int nu = min(J, V - u0);  // joints of the u tile that exist
   const int tid = threadIdx.x;
-  const float a = alpha[0];
   const size_t SC = (size_t)S * C;
-  float* pA = part + ((size_t)n * S + s) * per_sample(V, R, C);
-  float* pP = pA + VV;
-  float* pSum = pP + (size_t)R * C;
+  const Parts pt = parts(N, S, V, R, C);
 
   // the reduce kernel's ticket counter starts at 0
-  if (s == 0 && n == 0 && tid == 0) *done = 0;
-  // ---- D, and zeroed DD and DA ----
-  {
-    const float* x1 = x1s + ((size_t)n * S + s) * V * R;
-    const float* x2 = x2s + ((size_t)n * S + s) * V * R;
-    for (int i = tid; i < 2 * V * RP; i += kThreads) {
-      const int r = i % RP, row = i / RP;  // row < V: x1, else x2
-      E[i] = r < R ? (row < V ? x1[row * R + r] : x2[(row - V) * R + r]) : 0.f;
-    }
-    for (int i = tid; i < VV; i += kThreads) DA[i] = 0.f;
+  if (blockIdx.x == 0 && s == 0 && n == 0 && tid == 0) *done = 0;
+  for (int i = tid; i < RP * kCT; i += kThreads) {
+    const int r = i / kCT, c = i % kCT;
+    W[c * RP + r] = (r < R && c0 + c < C) ? w4s[((size_t)s * R + r) * C + c0 + c] : 0.f;
   }
-  __syncthreads();
-  for (int i = tid; i < VV * RP; i += kThreads) {
-    const int r = i % RP, uv = i / RP;
-    D[i] = tanhf(E[(uv / V) * RP + r] - E[(V + uv % V) * RP + r]);
-    DD[i] = 0.f;
-  }
+  for (int i = tid; i < JP * RP; i += kThreads) DX1[i] = 0.f;
 
-  const int c = tid % CT;  // this thread's channel in the dm pass
-  const int grp = tid / CT;
-  const int G = kThreads / CT;
-  const int nj = VP / kJ;
-  const int ntiles = nj * nj;
-  const int csize = kTC * VP * CT;
-  for (int c0 = 0; c0 < C; c0 += CT) {
-    __syncthreads();  // the previous tile's reads of DM and W are done
-    for (int i = tid; i < RP * CT; i += kThreads) {
-      const int r = i / CT, cc = i % CT;
-      W[r * CTP + cc] =
-          (r < R && c0 + cc < C) ? w4s[((size_t)s * R + r) * C + c0 + cc] : 0.f;
-    }
-    // ---- 1. dm of the tile ----
+  // this thread's dm tile: channel c, joints u su*5 .., v sv*5 .. of the
+  // tiles; threads past the last tile only stage
+  const int c = tid % kCT;
+  const int nsub = JP / kJ5;
+  const int sub = tid / kCT;
+  const bool dm_thread = sub < nsub * nsub;
+  const int su = dm_thread ? sub / nsub : 0, sv = dm_thread ? sub % nsub : 0;
+  // this thread's role in the P pass: 4 r x 4 channels over a pair group
+  constexpr int kNR = (RP / 4) * (kCT / 4);
+  constexpr int kG = kThreads / kNR;
+  const int role = tid % kNR, pg = tid / kNR;
+  const int rq = role / (kCT / 4), cq = role % (kCT / 4);
+  float pacc[4][4] = {}, psum[4] = {};
+  const int csize = kTC * JP * kCT;
+
+  for (int v0 = 0; v0 < V; v0 += J) {
+    const int nv = min(J, V - v0);
+    // ---- 1. dm of the tile, in registers ----
+    float acc[kJ5][kJ5] = {};
     for (int tb = 0; tb < T; tb += kTC) {
-      __syncthreads();  // the previous chunk is consumed
+      __syncthreads();  // the previous chunk (or v tile) is consumed
       for (int base = tid; base < csize; base += kThreads * kBatch) {
         float gv[kBatch], xv[kBatch];
 #pragma unroll
         for (int k = 0; k < kBatch; ++k) {
           const int i = base + k * kThreads;
-          const int cc = i % CT, rest = i / CT;
-          const int v = rest % VP, t = tb + rest / VP;
+          const int cc = i % kCT, rest = i / kCT;
+          const int j = rest % JP, t = tb + rest / JP;
           gv[k] = 0.f;
           xv[k] = 0.f;
-          if (i < csize && t < T && v < V && c0 + cc < C) {
-            const size_t row = ((size_t)n * T + t) * V + v;
-            gv[k] = g[row * C + c0 + cc];
-            xv[k] = x3s[row * SC + (size_t)s * C + c0 + cc];
+          if (i < csize && t < T && c0 + cc < C) {
+            const size_t row = (size_t)n * T + t;
+            if (j < nu) gv[k] = g[(row * V + u0 + j) * C + c0 + cc];
+            if (j < nv) xv[k] = x3s[(row * V + v0 + j) * SC + (size_t)s * C + c0 + cc];
           }
         }
 #pragma unroll
@@ -179,101 +219,167 @@ unit_ctr_gc_bwd_param_kernel(const float* __restrict__ x1s,
         }
       }
       __syncthreads();
-      for (int item = grp; item < ntiles; item += G) {
-        const int u0 = (item / nj) * kJ, v0 = (item % nj) * kJ;
-        float acc[kJ][kJ];
-#pragma unroll
-        for (int i = 0; i < kJ; ++i) {
-#pragma unroll
-          for (int k = 0; k < kJ; ++k) {
-            const int u = u0 + i, v = v0 + k;
-            acc[i][k] = (tb > 0 && u < V && v < V) ? DM[(u * V + v) * CTP + c] : 0.f;
-          }
-        }
+      if (dm_thread) {
 #pragma unroll 2
         for (int j = 0; j < kTC; ++j) {
-          float gu[kJ], xv[kJ];
+          float gu[kJ5], xw[kJ5];
 #pragma unroll
-          for (int i = 0; i < kJ; ++i) {
-            gu[i] = Gc[(j * VP + u0 + i) * CT + c];
-            xv[i] = Xc[(j * VP + v0 + i) * CT + c];
+          for (int i = 0; i < kJ5; ++i) {
+            gu[i] = Gc[(j * JP + su * kJ5 + i) * kCT + c];
+            xw[i] = Xc[(j * JP + sv * kJ5 + i) * kCT + c];
           }
 #pragma unroll
-          for (int i = 0; i < kJ; ++i) {
+          for (int i = 0; i < kJ5; ++i) {
 #pragma unroll
-            for (int k = 0; k < kJ; ++k) acc[i][k] = fmaf(gu[i], xv[k], acc[i][k]);
-          }
-        }
-#pragma unroll
-        for (int i = 0; i < kJ; ++i) {
-#pragma unroll
-          for (int k = 0; k < kJ; ++k) {
-            const int u = u0 + i, v = v0 + k;
-            if (u < V && v < V) DM[(u * V + v) * CTP + c] = acc[i][k];
+            for (int k = 0; k < kJ5; ++k) acc[i][k] = fmaf(gu[i], xw[k], acc[i][k]);
           }
         }
       }
     }
-    __syncthreads();  // dm of the tile is complete
+    // DM and E: the previous v tile's last reads of both were before the
+    // barriers of this tile's chunk loop
+    if (dm_thread) {
+#pragma unroll
+      for (int i = 0; i < kJ5; ++i) {
+#pragma unroll
+        for (int k = 0; k < kJ5; ++k) {
+          DM[((su * kJ5 + i) * JP + sv * kJ5 + k) * kCT + c] = acc[i][k];
+        }
+      }
+    }
+    {
+      const float* x1 = x1s + ((size_t)n * S + s) * V * R;
+      const float* x2 = x2s + ((size_t)n * S + s) * V * R;
+      for (int i = tid; i < 2 * JP * RP; i += kThreads) {
+        const int r = i % RP, row = i / RP;  // row < JP: x1 of u0 + row
+        const bool x1row = row < JP;
+        const int j = x1row ? row : row - JP;
+        const bool ok = r < R && j < (x1row ? nu : nv);
+        E[i] = ok ? (x1row ? x1[(u0 + j) * R + r] : x2[(v0 + j) * R + r]) : 0.f;
+      }
+    }
+    __syncthreads();
     // ---- 2. what the dm tile contributes ----
-    // dA row sums; each (u, v) always belongs to the same thread
-    for (int uv = tid; uv < VV; uv += kThreads) {
-      float sum = 0.f;
-      for (int cc = 0; cc < CT; ++cc) sum += DM[uv * CTP + cc];
-      DA[uv] += sum;
+    // D, and dA's channel sum of each existing pair
+    for (int i = tid; i < PP * RP; i += kThreads) {
+      const int r = i % RP, p = i / RP;
+      D[i] = tanhf(E[(p / JP) * RP + r] - E[(JP + p % JP) * RP + r]);
     }
-    // per-sample P[r][c] = sum_uv D[uv][r] dm[uv][c], and (row RP) sum_uv dm
-    for (int i = tid; i < (RP + 1) * CT; i += kThreads) {
-      const int r = i / CT, cc = i % CT;
-      if (c0 + cc >= C || (r < RP && r >= R)) continue;
-      float acc = 0.f;
-      if (r == RP) {
-        for (int uv = 0; uv < VV; ++uv) acc += DM[uv * CTP + cc];
-        pSum[c0 + cc] = acc;
-      } else {
-        for (int uv = 0; uv < VV; ++uv) acc = fmaf(D[uv * RP + r], DM[uv * CTP + cc], acc);
-        pP[(size_t)r * C + c0 + cc] = acc;
+    for (int p = tid; p < PP; p += kThreads) {
+      const int iu = p / JP, iv = p % JP;
+      if (iu < nu && iv < nv) {
+        // from channel p % kCT on, so that a warp's 32 pairs read 16 banks
+        float sum = 0.f;
+#pragma unroll
+        for (int cc = 0; cc < kCT; ++cc) sum += DM[p * kCT + (cc + p) % kCT];
+        part[pt.a + (((size_t)n * KC + kc) * S + s) * V * V +
+             (size_t)(u0 + iu) * V + v0 + iv] = sum;
       }
     }
-    // DD[uv][r] += sum_c dm[uv][c] * w4[r][c]
-    for (int i = tid; i < VV * RP; i += kThreads) {
-      const int r = i % RP, uv = i / RP;
-      float acc = 0.f;
-      for (int cc = 0; cc < CT; ++cc) acc = fmaf(DM[uv * CTP + cc], W[r * CTP + cc], acc);
-      DD[i] += acc;
+    __syncthreads();
+    // P[r][c] += sum_p D[p][r] dm[p][c], and sum_p dm[p][c]
+    for (int p = pg; p < PP; p += kG) {
+      const float4 d = ld4(D + p * RP + 4 * rq);
+      const float4 m = ld4(DM + p * kCT + 4 * cq);
+      const float dv[4] = {d.x, d.y, d.z, d.w}, mv[4] = {m.x, m.y, m.z, m.w};
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+#pragma unroll
+        for (int k = 0; k < 4; ++k) pacc[i][k] = fmaf(dv[i], mv[k], pacc[i][k]);
+      }
+#pragma unroll
+      for (int k = 0; k < 4; ++k) psum[k] += mv[k];
+    }
+    __syncthreads();
+    // dpre[p][r] = (sum_c dm[p][c] w4[r][c]) * (1 - D[p][r]^2), over D
+    {
+      constexpr int kNRQ = RP / 4;
+      const int q = tid % kNRQ;
+      for (int p = tid / kNRQ; p < PP; p += kThreads / kNRQ) {
+        float dd[4] = {};
+#pragma unroll
+        for (int c4 = 0; c4 < kCT / 4; ++c4) {
+          const float4 m = ld4(DM + p * kCT + 4 * c4);
+          const float mv[4] = {m.x, m.y, m.z, m.w};
+#pragma unroll
+          for (int k = 0; k < 4; ++k) {
+            const float4 w = ld4(W + (4 * c4 + k) * RP + 4 * q);
+            dd[0] = fmaf(mv[k], w.x, dd[0]);
+            dd[1] = fmaf(mv[k], w.y, dd[1]);
+            dd[2] = fmaf(mv[k], w.z, dd[2]);
+            dd[3] = fmaf(mv[k], w.w, dd[3]);
+          }
+        }
+        float4* dp = reinterpret_cast<float4*>(D + p * RP + 4 * q);
+        const float4 d = *dp;
+        *dp = make_float4(dd[0] * (1.f - d.x * d.x), dd[1] * (1.f - d.y * d.y),
+                          dd[2] * (1.f - d.z * d.z), dd[3] * (1.f - d.w * d.w));
+      }
+    }
+    __syncthreads();
+    // dx1: DX1[u][r] += sum_v dpre; dx2: the partial sum_u dpre
+    for (int i = tid; i < 2 * JP * RP; i += kThreads) {
+      const int r = i % RP, row = i / RP;
+      if (r >= R) continue;
+      if (row < JP) {
+        if (row >= nu) continue;
+        float sum = 0.f;
+        for (int iv = 0; iv < nv; ++iv) sum += D[(row * JP + iv) * RP + r];
+        DX1[row * RP + r] += sum;
+      } else {
+        const int iv = row - JP;
+        if (iv >= nv) continue;
+        float sum = 0.f;
+        for (int iu = 0; iu < nu; ++iu) sum += D[(iu * JP + iv) * RP + r];
+        part[pt.x2 + ((((size_t)n * S + s) * KC + kc) * tl.nt + ut) * V * R +
+             (size_t)(v0 + iv) * R + r] = sum;
+      }
     }
   }
   __syncthreads();
-  // ---- dx1s = sum_v dpre, dx2s = -sum_u dpre; dpre = a * DD * (1 - D^2) ----
-  for (int i = tid; i < 2 * V * R; i += kThreads) {
-    const int r = i % R, row = i / R;  // row < V: dx1s of u = row; else dx2s
-    float acc = 0.f;
-    if (row < V) {
-      for (int v = 0; v < V; ++v) {
-        const int k = (row * V + v) * RP + r;
-        acc = fmaf(DD[k], 1.f - D[k] * D[k], acc);
-      }
-      dx1s[(((size_t)n * S + s) * V + row) * R + r] = a * acc;
+  // ---- the block's partials of dx1, P and sum(dm) ----
+  for (int i = tid; i < nu * R; i += kThreads) {
+    const int iu = i / R, r = i % R;
+    part[pt.x1 + (((size_t)n * S + s) * KC + kc) * V * R + (size_t)(u0 + iu) * R + r] =
+        DX1[iu * RP + r];
+  }
+  {
+    float* mine = Red + (pg * kNR + role) * kRed;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+#pragma unroll
+      for (int k = 0; k < 4; ++k) mine[i * 4 + k] = pacc[i][k];
+    }
+#pragma unroll
+    for (int k = 0; k < 4; ++k) mine[16 + k] = psum[k];
+  }
+  __syncthreads();
+  float* pP = part + pt.p + (((size_t)n * S + s) * tl.nt + ut) * ((size_t)R * C + C);
+  for (int i = tid; i < kNR * kRed; i += kThreads) {
+    const int rl = i / kRed, k = i % kRed;
+    const int r4 = rl / (kCT / 4), c4 = rl % (kCT / 4);
+    float sum = 0.f;
+    for (int gi = 0; gi < kG; ++gi) sum += Red[(gi * kNR + rl) * kRed + k];
+    if (k < 16) {
+      const int r = 4 * r4 + k / 4, cc = c0 + 4 * c4 + k % 4;
+      if (r < R && cc < C) pP[(size_t)r * C + cc] = sum;
     } else {
-      const int v = row - V;
-      for (int u = 0; u < V; ++u) {
-        const int k = (u * V + v) * RP + r;
-        acc = fmaf(DD[k], 1.f - D[k] * D[k], acc);
-      }
-      dx2s[(((size_t)n * S + s) * V + v) * R + r] = -a * acc;
+      const int cc = c0 + 4 * c4 + k - 16;
+      if (r4 == 0 && cc < C) pP[(size_t)R * C + cc] = sum;
     }
   }
-  for (int uv = tid; uv < VV; uv += kThreads) pA[uv] = DA[uv];
 }
 
-// Sums the per-sample partials over n, in order: dAs, dw4s = a * P,
-// db4s = a * sum; and per block, sum of w4 * P + b4 * sum (dalpha's terms),
-// which the block that finishes last adds up in block order into dalpha.
+// Sums the partials in a fixed order into dx1s, dx2s (times a and -a), dAs,
+// dw4s = a * P and db4s = a * sum; and per block, sum of w4 * P + b4 * sum
+// (dalpha's terms), which the block that finishes last adds up in block
+// order into dalpha.
 __global__ void __launch_bounds__(kThreads)
 unit_ctr_gc_bwd_param_reduce(const float* __restrict__ part,
                              const float* __restrict__ w4s,
                              const float* __restrict__ b4s,
                              const float* __restrict__ alpha,
+                             float* __restrict__ dx1s, float* __restrict__ dx2s,
                              float* __restrict__ dw4s, float* __restrict__ db4s,
                              float* __restrict__ dAs,
                              float* __restrict__ dalpha_part,
@@ -282,25 +388,49 @@ unit_ctr_gc_bwd_param_reduce(const float* __restrict__ part,
                              int N, int S, int V, int R, int C) {
   __shared__ float red[kThreads];
   __shared__ bool last;
-  const size_t VV = (size_t)V * V, RC = (size_t)R * C;
-  const size_t per = per_sample(V, R, C);
+  const Tiling tl = tiling(V);
+  const int KC = channel_tiles(C);
+  const Parts pt = parts(N, S, V, R, C);
+  const size_t VR = (size_t)V * R, VV = (size_t)V * V, RC = (size_t)R * C;
+  const size_t nx = (size_t)N * S * VR;
   const size_t i = (size_t)blockIdx.x * kThreads + threadIdx.x;
+  const float a = alpha[0];
   float term = 0.f;
-  if (i < S * per) {
-    const size_t s = i / per, k = i % per;
+  if (i < nx) {  // dx1s[ns, u, r] over the channel tiles
+    const size_t ns = i / VR, k = i % VR;
     float sum = 0.f;
-    for (int n = 0; n < N; ++n) sum += part[((size_t)n * S + s) * per + k];
-    const float a = alpha[0];
-    if (k < VV) {
-      dAs[s * VV + k] = sum;
-    } else if (k < VV + RC) {
-      const size_t rc = k - VV;
-      dw4s[s * RC + rc] = a * sum;
-      term = w4s[s * RC + rc] * sum;
+    for (int kc = 0; kc < KC; ++kc) sum += part[pt.x1 + (ns * KC + kc) * VR + k];
+    dx1s[i] = a * sum;
+  } else if (i < 2 * nx) {  // dx2s[ns, v, r] over the channel and u tiles
+    const size_t j = i - nx, ns = j / VR, k = j % VR;
+    float sum = 0.f;
+    for (int kt = 0; kt < KC * tl.nt; ++kt) {
+      sum += part[pt.x2 + (ns * KC * tl.nt + kt) * VR + k];
+    }
+    dx2s[j] = -a * sum;
+  } else if (i < 2 * nx + S * VV) {  // dAs[s, u, v] over samples, channel tiles
+    const size_t j = i - 2 * nx, s = j / VV, k = j % VV;
+    float sum = 0.f;
+    for (int n = 0; n < N; ++n) {
+      for (int kc = 0; kc < KC; ++kc) {
+        sum += part[pt.a + (((size_t)n * KC + kc) * S + s) * VV + k];
+      }
+    }
+    dAs[j] = sum;
+  } else if (i < 2 * nx + S * VV + S * (RC + C)) {  // dw4s, db4s
+    const size_t j = i - 2 * nx - S * VV, s = j / (RC + C), k = j % (RC + C);
+    float sum = 0.f;
+    for (int n = 0; n < N; ++n) {
+      for (int ut = 0; ut < tl.nt; ++ut) {
+        sum += part[pt.p + (((size_t)n * S + s) * tl.nt + ut) * (RC + C) + k];
+      }
+    }
+    if (k < RC) {
+      dw4s[s * RC + k] = a * sum;
+      term = w4s[s * RC + k] * sum;
     } else {
-      const size_t cc = k - VV - RC;
-      db4s[s * C + cc] = a * sum;
-      term = b4s[s * C + cc] * sum;
+      db4s[s * C + k - RC] = a * sum;
+      term = b4s[s * C + k - RC] * sum;
     }
   }
   red[threadIdx.x] = term;
@@ -337,27 +467,24 @@ int launch(const float* x1s, const float* x2s, const float* g, const float* x3s,
            float* dx2s, float* dw4s, float* db4s, float* dalpha, float* dAs,
            float* scratch, int N, int S, int T, int V, int R, int C,
            cudaStream_t stream) {
-  const int VP = (V + kJ - 1) / kJ * kJ;
-  int CT = 16;
-  if (sizeof(float) * smem_floats(V, VP, RP, CT) > kSmemLimit) CT = 8;
-  const size_t smem = sizeof(float) * smem_floats(V, VP, RP, CT);
-  if (smem > kSmemLimit) return cudaErrorInvalidValue;
+  const Tiling tl = tiling(V);
+  const size_t smem = sizeof(float) * smem_floats(tl.JP, RP);
   cudaError_t err = cudaFuncSetAttribute(
       unit_ctr_gc_bwd_param_kernel<RP>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  const int nb = reduce_blocks(S, V, R, C);
-  float* part = scratch;
-  float* dalpha_part = scratch + (size_t)N * S * per_sample(V, R, C);
+  const int nb = reduce_blocks(N, S, V, R, C);
+  const Parts pt = parts(N, S, V, R, C);
+  float* dalpha_part = scratch + pt.end;
   unsigned int* done = reinterpret_cast<unsigned int*>(dalpha_part + nb);
-  unit_ctr_gc_bwd_param_kernel<RP><<<dim3(S, N), kThreads, smem, stream>>>(
-      x1s, x2s, g, x3s, w4s, alpha, dx1s, dx2s, part, done, S, T, V, R, C, CT,
-      VP);
+  const dim3 grid(tl.nt * channel_tiles(C), S, N);
+  unit_ctr_gc_bwd_param_kernel<RP><<<grid, kThreads, smem, stream>>>(
+      x1s, x2s, g, x3s, w4s, scratch, done, N, S, T, V, R, C);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   unit_ctr_gc_bwd_param_reduce<<<nb, kThreads, 0, stream>>>(
-      part, w4s, b4s, alpha, dw4s, db4s, dAs, dalpha_part, done, dalpha, N, S,
-      V, R, C);
+      scratch, w4s, b4s, alpha, dx1s, dx2s, dw4s, db4s, dAs, dalpha_part, done,
+      dalpha, N, S, V, R, C);
   return cudaGetLastError();
 }
 
@@ -366,15 +493,20 @@ int launch(const float* x1s, const float* x2s, const float* g, const float* x3s,
 // Floats of device scratch that unit_ctr_gc_bwd_param_f32 needs.
 extern "C" long long unit_ctr_gc_bwd_param_scratch_floats(int N, int S, int V,
                                                           int R, int C) {
-  // per-sample partials, per-block dalpha terms, the ticket counter
-  return (long long)N * S * per_sample(V, R, C) + reduce_blocks(S, V, R, C) + 1;
+  // the partials, the per-block dalpha terms, the ticket counter
+  return (long long)parts(N, S, V, R, C).end + reduce_blocks(N, S, V, R, C) + 1;
+}
+
+// Blocks of the first kernel that unit_ctr_gc_bwd_param_f32 launches.
+extern "C" long long unit_ctr_gc_bwd_param_blocks(int N, int S, int V, int C) {
+  return (long long)tiling(V).nt * channel_tiles(C) * S * N;
 }
 
 // All tensors contiguous f32 on the device: x1s, x2s (N,S,V,R); g (N,T,V,C);
 // x3s (N,T,V,S*C); w4s (S,R,C); b4s (S,C); alpha (1,) -> dx1s, dx2s
 // (N,S,V,R); dw4s (S,R,C); db4s (S,C); dalpha (1,); dAs (S,V,V); scratch of
-// unit_ctr_gc_bwd_param_scratch_floats(N, S, V, R, C) floats; R <= 32.
-// Launches on `stream` and returns cudaGetLastError() (0 = ok).
+// unit_ctr_gc_bwd_param_scratch_floats(N, S, V, R, C) floats; R <= 32, any V
+// and C. Launches on `stream` and returns cudaGetLastError() (0 = ok).
 extern "C" int unit_ctr_gc_bwd_param_f32(
     const float* x1s, const float* x2s, const float* g, const float* x3s,
     const float* w4s, const float* b4s, const float* alpha, float* dx1s,

@@ -38,10 +38,21 @@
 // x3s is read from device memory once per block and out written once.
 // Tensor cores, TMA, double-buffered chunks and a persistent grid are left
 // for later work.
+//
+// Where M of even 8 channels for all V x V pairs does not fit a block's
+// shared memory (V >= 33 at R <= 8; see unit_ctr_gc_fwd_variant), the
+// joint-tiled design of unit_ctr_gc_tiled.cuh runs instead: a block owns
+// (sample, 16 joints u, 16 channels), walks the subsets and the tiles of 16
+// joints v, builds each M tile in shared memory and keeps out of 32 frames x
+// 16 joints x 16 channels in registers (8 joints x 4 frames a thread). At
+// configs/scene256.yaml's shapes (V=256) the operations bound it: M costs
+// V*V*R*C FMAs per sample and subset, as many as or more than the
+// aggregation's T*V*V*C.
 
 #include <cuda_runtime.h>
 
 #include "unit_ctr_gc_common.cuh"
+#include "unit_ctr_gc_tiled.cuh"
 
 namespace {
 
@@ -170,20 +181,83 @@ unit_ctr_gc_fwd_kernel(const float* __restrict__ x1s,
   }
 }
 
+// The whole-V design's channel tile at (S, V, RP): 16, else 8 where 16 does
+// not fit its shared memory, else 0, and then the tiled design runs.
+inline int whole_v_ct(int S, int V, int RP) {
+  const int VP = (V + kUU - 1) / kUU * kUU;
+  for (int ct = 16; ct >= 8; ct /= 2) {
+    const size_t bytes = sizeof(float) * ((size_t)region0(V, S, ct, RP) +
+                                          (size_t)S * VP * V * ct + 2 * V * RP);
+    if (bytes <= kSmemLimit) return ct;
+  }
+  return 0;
+}
+
+inline int rp_of(int R) { return R <= 8 ? 8 : R <= 16 ? 16 : 32; }
+
+template <int RP>
+__global__ void __launch_bounds__(kThreads)
+unit_ctr_gc_fwd_tiled_kernel(const float* __restrict__ x1s,
+                             const float* __restrict__ x2s,
+                             const float* __restrict__ x3s,
+                             const float* __restrict__ w4s,
+                             const float* __restrict__ b4s,
+                             const float* __restrict__ alpha,
+                             const float* __restrict__ As,
+                             float* __restrict__ out,
+                             int S, int T, int V, int R, int C) {
+  using namespace tiled;
+  extern __shared__ float4 smem4[];
+  float* X = reinterpret_cast<float*>(smem4);
+  float* M = X + kTF * kXS;
+  float* D = M + kJ * kJ * kCT;
+  float* W = D + round4(kJ * kJ * (RP + 1));
+  float* E = W + RP * kCT;
+
+  const int c0 = blockIdx.x * kCT;
+  const int u0 = blockIdx.y * kJ;
+  const int n = blockIdx.z;
+  const float a = alpha[0];
+  const size_t SC = (size_t)S * C;
+  const Item it;
+  for (int tb = 0; tb < T; tb += kTF) {
+    float acc[kFr][kOwn] = {};
+    for (int s = 0; s < S; ++s) {
+      for (int v0 = 0; v0 < V; v0 += kJ) {
+        __syncthreads();  // the previous step's reads are done
+        stage_chunk(x3s, X, n, tb, v0, T, V, SC, s * C + c0, C - c0);
+        // M stored [u][v][c]: the thread's own joints are u
+        tile_m<RP>(x1s, x2s, w4s, b4s, a, As, D, W, E, M, n, s, S, u0, v0, V,
+                   R, C, c0, kJ, 1);
+        __syncthreads();
+        accumulate(M, X, it, acc);
+      }
+    }
+    write_out(out, acc, it, n, tb, u0, T, V, C, c0, c0 + it.c < C);
+  }
+}
+
 template <int RP>
 int launch(const float* x1s, const float* x2s, const float* x3s,
            const float* w4s, const float* b4s, const float* alpha,
            const float* As, float* out, int N, int S, int T, int V, int R,
            int C, cudaStream_t stream) {
+  const int CT = whole_v_ct(S, V, RP);
+  if (CT == 0) {
+    using namespace tiled;
+    const size_t smem = sizeof(float) * smem_floats(RP);
+    cudaError_t err = cudaFuncSetAttribute(
+        unit_ctr_gc_fwd_tiled_kernel<RP>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+    const dim3 grid((C + kCT - 1) / kCT, (V + kJ - 1) / kJ, N);
+    unit_ctr_gc_fwd_tiled_kernel<RP><<<grid, kThreads, smem, stream>>>(
+        x1s, x2s, x3s, w4s, b4s, alpha, As, out, S, T, V, R, C);
+    return cudaGetLastError();
+  }
   const int VP = (V + kUU - 1) / kUU * kUU;
-  auto smem_bytes = [&](int ct) {
-    return sizeof(float) *
-           ((size_t)region0(V, S, ct, RP) + (size_t)S * VP * V * ct + 2 * V * RP);
-  };
-  int CT = 16;
-  if (smem_bytes(CT) > kSmemLimit) CT = 8;
-  if (smem_bytes(CT) > kSmemLimit) return cudaErrorInvalidValue;
-  const size_t smem = smem_bytes(CT);
+  const size_t smem = sizeof(float) *
+      ((size_t)region0(V, S, CT, RP) + (size_t)S * VP * V * CT + 2 * V * RP);
   cudaError_t err = cudaFuncSetAttribute(
       unit_ctr_gc_fwd_kernel<RP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
@@ -196,9 +270,17 @@ int launch(const float* x1s, const float* x2s, const float* x3s,
 
 }  // namespace
 
+// Which design unit_ctr_gc_fwd_f32 launches at (S, V, R): 0 the whole-V
+// kernel, 1 the joint-tiled one, -1 neither (R or S or V out of range).
+extern "C" int unit_ctr_gc_fwd_variant(int S, int V, int R) {
+  if (S < 1 || V < 1 || R < 1 || R > 32) return -1;
+  return whole_v_ct(S, V, rp_of(R)) == 0 ? 1 : 0;
+}
+
 // All tensors contiguous f32 on the device, 16-byte aligned: x1s, x2s
 // (N,S,V,R); x3s (N,T,V,S*C); w4s (S,R,C); b4s (S,C); alpha (1,); As (S,V,V);
-// out (N,T,V,C); C % 4 == 0 and R <= 32. Launches on `stream` and returns
+// out (N,T,V,C); C % 4 == 0 and R <= 32, any V (the design as
+// unit_ctr_gc_fwd_variant says). Launches on `stream` and returns
 // cudaGetLastError() (0 = ok).
 extern "C" int unit_ctr_gc_fwd_f32(const float* x1s, const float* x2s,
                                    const float* x3s, const float* w4s,

@@ -1,16 +1,21 @@
-"""Fast CTR-GCN inference: every block through the whole-block kernel K5.
+"""Fast CTR-GCN inference: the blocks through the whole-block kernel K5.
 
 Counterpart of tamgcn_tpu/models/ctrgcn_infer.py. From a `CTRGCN`'s current
 weights, `make_fast_eval` folds every eval BatchNorm into the 1x1 conv
 beside it (and `out_bn` into the branch convs, the max-pool affine and the
 1x1 branch), once, on the model's device, and returns an eval forward equal
-to ``model.eval()(x)`` that runs each of the ten TCN_GCN_units through
+to ``model.eval()(x)``. Each of the ten TCN_GCN_units whose shape K5 takes
+(ops/gcn_tcn_block.py:k5_takes, V <= 28 at the model's widths) runs through
 ops/gcn_tcn_block.py:gcn_tcn_block_fused (K5 on the card, its plain version
-on the CPU). The dilated temporal branches, the max-pool and the pooled head
-stay plain PyTorch, as the JAX engine leaves them to XLA. With
-``use_kernel=False`` each block runs `_block_prefix_pw` instead: the same
-folded math with the unit op through ops/aggregation.py:unit_ctr_gc (K1 on
-the card) and `torch.matmul` products, kept as the comparison path.
+on the CPU); every other block runs `_block_prefix_pw`: the same folded math
+with the unit op through ops/aggregation.py:unit_ctr_gc (K1, or its
+joint-tiled design at large V, on the card) and `torch.matmul` products.
+The rule reads the shape, never a failed launch, as the JAX engine's `auto`
+policy picks its engine from `num_point`. The dilated temporal branches, the
+max-pool and the pooled head stay plain PyTorch, as the JAX engine leaves
+them to XLA. ``use_kernel=True`` runs every block through K5 (and raises
+where K5 does not take the shape), ``use_kernel=False`` every block through
+`_block_prefix_pw`, the comparison path.
 
 Weights change between the evaluations of a training run, so a caller folds
 anew (calls `make_fast_eval` again) after every change.
@@ -23,7 +28,7 @@ import torch
 import torch.nn.functional as F
 
 from ..ops.aggregation import unit_ctr_gc
-from ..ops.gcn_tcn_block import gcn_tcn_block_fused, gcn_tcn_block_plain
+from ..ops.gcn_tcn_block import gcn_tcn_block_fused, gcn_tcn_block_plain, k5_takes
 from .ctrgcn import CTRGCN
 
 
@@ -102,6 +107,13 @@ def _block_prefix_pw(fb: dict, x, x1s, x2s):
         fb["bpw"], fb["wd"], fb["bd"], aggregate=unit_ctr_gc)
 
 
+def block_takes_k5(fb: dict) -> bool:
+    """Whether the folded block `fb` runs through K5 under the default rule
+    (use_kernel=None): K5's launcher takes its shape."""
+    S, R, C = fb["w4s"].shape
+    return k5_takes(fb["A"].shape[-1], fb["w3"].shape[0], C, R, S)
+
+
 def _apply_block(fb: dict, x, use_kernel: bool):
     """One folded TCN_GCN_unit forward. x (NM, T, V, Cin), contiguous."""
     S, C, stride = fb["S"], fb["C"], fb["stride"]
@@ -154,13 +166,17 @@ def fold_model(model: CTRGCN) -> dict:
 def make_fast_eval_fn(model: CTRGCN, use_kernel: bool | None = None):
     """``fn(folded, x) -> logits`` equal to ``model.eval()(x)``, `folded`
     from `fold_model(model)`; x is (N, C, T, V, M) or the NW-UCLA feeder's
-    (N, T, V*C). use_kernel None or True runs every block through
-    `gcn_tcn_block_fused` (K5 on the card), False through `_block_prefix_pw`."""
+    (N, T, V*C). use_kernel None runs each block whose shape K5 takes
+    (block_takes_k5) through `gcn_tcn_block_fused` (K5 on the card) and the
+    others through `_block_prefix_pw`; True runs every block through
+    `gcn_tcn_block_fused`, False every block through `_block_prefix_pw`."""
     if not isinstance(model, CTRGCN):
         raise TypeError(
             f"make_fast_eval_fn requires a CTRGCN model, got {type(model).__name__}")
-    use_kernel = use_kernel is None or bool(use_kernel)
     num_point = model.num_point
+
+    def use_k5(fb):
+        return block_takes_k5(fb) if use_kernel is None else bool(use_kernel)
 
     def forward(folded, x):
         if x.ndim == 3:  # (N, T, V*C) NW-UCLA feeder layout
@@ -172,7 +188,7 @@ def make_fast_eval_fn(model: CTRGCN, use_kernel: bool | None = None):
         h = h.reshape(N, T, M, V, C0).permute(0, 2, 1, 3, 4).reshape(N * M, T, V, C0)
         h = h.contiguous()
         for fb in folded["blocks"]:
-            h = _apply_block(fb, h, use_kernel)
+            h = _apply_block(fb, h, use_k5(fb))
         h = h.reshape(N, M, -1, h.shape[-1]).mean(dim=2).mean(dim=1)
         fc_w, fc_b = folded["fc"]
         return torch.matmul(h, fc_w) + fc_b

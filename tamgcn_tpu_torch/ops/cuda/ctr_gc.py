@@ -12,6 +12,13 @@ versions are ops/aggregation.py:unit_ctr_gc_plain, unit_ctr_gc_dx3_plain,
 unit_ctr_gc_param_grads_plain and unit_ctr_gc_bwd_conv3_plain. Each wrapper
 checks its inputs, allocates the outputs (and scratch) and launches its
 kernel on the current stream; it never falls back to the plain version.
+
+K1 and K2 each have two designs in their source: the whole-V kernel, which
+keeps M of a channel tile for all V x V joint pairs in shared memory, and
+the joint-tiled kernel (csrc/unit_ctr_gc_tiled.cuh) where that does not fit
+(V = 256). The launcher picks one from the shape; `fwd_variant` and
+`dx3_variant` ask it which, and each design counts its launches on its own
+counter.
 """
 from __future__ import annotations
 
@@ -29,19 +36,24 @@ CONV3_SOURCE = "unit_ctr_gc_bwd_conv3.cu"
 _CUDA_ERROR_INVALID_VALUE = 1
 # kernel launches so far, one count per kernel; a run sets them to 0 and reads
 # them to show that a path went through the kernels
-launches = 0  # K1
-bwd_dx3_launches = 0  # K2
+launches = 0  # K1, whole-V design
+launches_tiled = 0  # K1, joint-tiled design
+bwd_dx3_launches = 0  # K2, whole-V design
+bwd_dx3_tiled_launches = 0  # K2, joint-tiled design
 bwd_param_launches = 0  # K3
 bwd_conv3_launches = 0  # K6
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     "unit_ctr_gc_fwd_f32": (FWD_SOURCE, [_P] * 8 + [_I] * 6 + [_P], ctypes.c_int),
+    "unit_ctr_gc_fwd_variant": (FWD_SOURCE, [_I] * 3, ctypes.c_int),
     "unit_ctr_gc_bwd_dx3_f32": (DX3_SOURCE, [_P] * 8 + [_I] * 6 + [_P], ctypes.c_int),
+    "unit_ctr_gc_bwd_dx3_variant": (DX3_SOURCE, [_I] * 3, ctypes.c_int),
     "unit_ctr_gc_bwd_param_f32": (
         PARAM_SOURCE, [_P] * 14 + [_I] * 6 + [_P], ctypes.c_int),
     "unit_ctr_gc_bwd_param_scratch_floats": (
         PARAM_SOURCE, [_I] * 5, ctypes.c_longlong),
+    "unit_ctr_gc_bwd_param_blocks": (PARAM_SOURCE, [_I] * 4, ctypes.c_longlong),
     "unit_ctr_gc_bwd_conv3_f32": (
         CONV3_SOURCE, [_P] * 13 + [_I] * 7 + [_P], ctypes.c_int),
     "unit_ctr_gc_bwd_conv3_scratch_floats": (
@@ -84,20 +96,24 @@ def _check_unit(fn_name, device, named, R, C, aligned=()):
             raise ValueError(f"{name} is not 16-byte aligned")
 
 
-def _launch(fn, device, dims, *args):
+# what the unit op's launchers (K1-K3) refuse once the checks of
+# _check_unit pass: every V fits one of their designs
+_UNIT_REFUSED = "its grid takes N <= 65535 and S * ceil(V / 16) <= 65535"
+
+
+def _launch(fn, device, dims, *args,
+            refused="what a block keeps of the refined adjacency must fit in "
+                    "its shared memory (V = 20 and V = 25 fit at every R <= 32)"):
     """Launch the C entry point `fn` (a launcher of csrc/) on the current
-    stream of `device`; raise on a non-zero return."""
+    stream of `device`; raise on a non-zero return, with `refused` saying
+    what the launcher does not take where it returns cudaErrorInvalidValue."""
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = fn(*args, stream)
     name = fn.__name__
     shape = " ".join(f"{k}={v}" for k, v in dims.items())
     if err == _CUDA_ERROR_INVALID_VALUE:
-        raise ValueError(
-            f"{name} does not take {shape}: what a block keeps of the refined "
-            "adjacency (or its gradient) must fit in its shared memory (V = 20 "
-            "and V = 25 fit at every R <= 32)"
-        )
+        raise ValueError(f"{name} does not take {shape}: {refused}")
     if err != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {err} ({shape})")
 
@@ -107,12 +123,29 @@ def _unit_dims(x1s, x3s_or_g, w4s):
     return N, S, x3s_or_g.shape[1], V, R, w4s.shape[-1]
 
 
+def fwd_variant(S: int, V: int, R: int) -> str:
+    """The design K1's launcher takes at (S, V, R <= 32): "whole" (M of a
+    channel tile for all V x V pairs in shared memory) or "tiled"."""
+    return ("whole", "tiled")[_kernel("unit_ctr_gc_fwd_variant")(S, V, R)]
+
+
+def dx3_variant(S: int, V: int, R: int) -> str:
+    """The design K2's launcher takes at (S, V, R <= 32), as fwd_variant."""
+    return ("whole", "tiled")[_kernel("unit_ctr_gc_bwd_dx3_variant")(S, V, R)]
+
+
+def bwd_param_blocks(N: int, S: int, V: int, C: int) -> int:
+    """Blocks of K3's main kernel at (N, S, V, C)."""
+    return _kernel("unit_ctr_gc_bwd_param_blocks")(N, S, V, C)
+
+
 def unit_ctr_gc_fwd(x1s, x2s, x3s, w4s, b4s, alpha, As):
     """K1. x1s/x2s (N,S,V,R); x3s (N,T,V,S*C); w4s (S,R,C); b4s (S,C);
     alpha (1,); As (S,V,V), all contiguous float32 on one CUDA device, with
-    R <= 32 and C % 4 == 0 -> out (N,T,V,C). Its gradient is K2 and K3,
-    through ops/aggregation.py:UnitCtrGc."""
-    global launches
+    R <= 32 and C % 4 == 0, any V (the whole-V or the joint-tiled design, as
+    fwd_variant says) -> out (N,T,V,C). Its gradient is K2 and K3, through
+    ops/aggregation.py:UnitCtrGc."""
+    global launches, launches_tiled
     N, S, T, V, R, C = _unit_dims(x1s, x3s, w4s)
     device = x3s.device
     _check_unit("unit_ctr_gc_fwd", device, (
@@ -129,18 +162,21 @@ def unit_ctr_gc_fwd(x1s, x2s, x3s, w4s, b4s, alpha, As):
         _kernel("unit_ctr_gc_fwd_f32"), device, dict(N=N, S=S, T=T, V=V, R=R, C=C),
         x1s.data_ptr(), x2s.data_ptr(), x3s.data_ptr(), w4s.data_ptr(),
         b4s.data_ptr(), alpha.data_ptr(), As.data_ptr(), out.data_ptr(),
-        N, S, T, V, R, C,
+        N, S, T, V, R, C, refused=_UNIT_REFUSED,
     )
-    launches += 1
+    if fwd_variant(S, V, R) == "tiled":
+        launches_tiled += 1
+    else:
+        launches += 1
     return out
 
 
 def unit_ctr_gc_bwd_dx3(x1s, x2s, g, w4s, b4s, alpha, As):
     """K2. The unit op's x3 gradient: x1s/x2s (N,S,V,R); g (N,T,V,C), the
     gradient of the output; w4s (S,R,C); b4s (S,C); alpha (1,); As (S,V,V),
-    all contiguous float32 on one CUDA device, with R <= 32 and C % 4 == 0
-    -> dx3s (N,T,V,S*C)."""
-    global bwd_dx3_launches
+    all contiguous float32 on one CUDA device, with R <= 32 and C % 4 == 0,
+    any V (as dx3_variant says) -> dx3s (N,T,V,S*C)."""
+    global bwd_dx3_launches, bwd_dx3_tiled_launches
     N, S, T, V, R, C = _unit_dims(x1s, g, w4s)
     device = g.device
     _check_unit("unit_ctr_gc_bwd_dx3", device, (
@@ -157,16 +193,20 @@ def unit_ctr_gc_bwd_dx3(x1s, x2s, g, w4s, b4s, alpha, As):
         _kernel("unit_ctr_gc_bwd_dx3_f32"), device, dict(N=N, S=S, T=T, V=V, R=R, C=C),
         x1s.data_ptr(), x2s.data_ptr(), g.data_ptr(), w4s.data_ptr(),
         b4s.data_ptr(), alpha.data_ptr(), As.data_ptr(), dx3s.data_ptr(),
-        N, S, T, V, R, C,
+        N, S, T, V, R, C, refused=_UNIT_REFUSED,
     )
-    bwd_dx3_launches += 1
+    if dx3_variant(S, V, R) == "tiled":
+        bwd_dx3_tiled_launches += 1
+    else:
+        bwd_dx3_launches += 1
     return dx3s
 
 
 def unit_ctr_gc_bwd_param(x1s, x2s, g, x3s, w4s, b4s, alpha):
     """K3. The unit op's other gradients: x1s/x2s (N,S,V,R); g (N,T,V,C), the
     gradient of the output; x3s (N,T,V,S*C); w4s (S,R,C); b4s (S,C); alpha
-    (1,), all contiguous float32 on one CUDA device, with R <= 32 (any C)
+    (1,), all contiguous float32 on one CUDA device, with R <= 32 (any C
+    and V)
     -> (dx1s, dx2s, dw4s, db4s, dalpha, dAs) shaped as x1s, x2s,
     w4s, b4s, alpha and (S,V,V). The sums over samples run in a fixed order:
     two calls on the same inputs give bitwise equal results."""
@@ -194,7 +234,7 @@ def unit_ctr_gc_bwd_param(x1s, x2s, g, x3s, w4s, b4s, alpha):
         x1s.data_ptr(), x2s.data_ptr(), g.data_ptr(), x3s.data_ptr(),
         w4s.data_ptr(), b4s.data_ptr(), alpha.data_ptr(), dx1s.data_ptr(),
         dx2s.data_ptr(), dw4s.data_ptr(), db4s.data_ptr(), dalpha.data_ptr(),
-        dAs.data_ptr(), scratch.data_ptr(), N, S, T, V, R, C,
+        dAs.data_ptr(), scratch.data_ptr(), N, S, T, V, R, C, refused=_UNIT_REFUSED,
     )
     bwd_param_launches += 1
     return dx1s, dx2s, dw4s, db4s, dalpha, dAs

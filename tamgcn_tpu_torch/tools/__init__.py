@@ -5,7 +5,9 @@
     python -m tamgcn_tpu_torch.tools.exp_stage2b   # T2 repeats, f32 and bf16
 
 They run on the card unless `--device cpu` is given; without CUDA and
-without that flag they raise.
+without that flag they raise. Beside them, for the card only:
+
+    python -m tamgcn_tpu_torch.tools.k3_ab --other OTHER.cu   # K3 against another K3 source
 """
 from __future__ import annotations
 

@@ -37,6 +37,19 @@ def unit_ctr_gc_sol(n: int, t: int, v: int, c: int, r: int, s: int = 3):
     return bound(elems, 2 * n * s * (v * v * r * c + t * v * v * c))
 
 
+def unit_ctr_gc_param_sol(n: int, t: int, v: int, c: int, r: int, s: int = 3):
+    """The unit op's parameter gradients (K3): g, x3s, x1s, x2s, w4s, b4s,
+    alpha in; dx1s, dx2s, dw4s, db4s, dalpha, dAs out (the bytes of the JAX
+    cost estimate, tamgcn_tpu/ops/pallas/ctr_gc.py:1360). FMAs: dm = sum_t
+    g x3 (t*v*v*c per sample and subset), then D^T dm and dm w4^T (v*v*r*c
+    each); dalpha reuses P = D^T dm as sum w4*P + b4*sum(dm), so it needs no
+    third v*v*r*c product (the JAX estimate counts one). Returns bound()'s
+    (ms, by)."""
+    elems = (n * t * v * c + n * t * v * s * c + 4 * n * s * v * r
+             + 2 * (s * r * c + s * c + 1) + s * v * v)
+    return bound(elems, 2 * n * s * t * v * v * c + 4 * n * s * v * v * r * c)
+
+
 def ms_tcn_sol(n: int, t: int, v: int, bc: int, stride: int = 1):
     """The eval multi-scale TCN (T1) on a prefix (n,t,v,3*bc): the prefix,
     w (2,5,bc,bc), b (2,bc) and the max-pool affine (2,bc) in, (n,ceil(t/

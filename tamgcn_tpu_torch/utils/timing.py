@@ -9,6 +9,9 @@ at the end. There is no `lax.scan`: the chain is a Python loop of launches.
 On CUDA tensors the time comes from CUDA events recorded around the timed
 loop and one `torch.cuda.synchronize()`; on CPU tensors from
 `time.perf_counter`, after `hard_sync` has fetched a scalar.
+
+`graph_ms` gives the device time of one call with no host time between
+launches: CUDA events around a CUDA graph of back-to-back calls.
 """
 from __future__ import annotations
 
@@ -76,3 +79,29 @@ def time_chained(fn: Callable, feedback: Callable, args: tuple, *,
         out = run()
     hard_sync(out)
     return (time.perf_counter() - t0) / (iters * chain)
+
+
+def graph_ms(fn) -> float:
+    """Device time per call of fn with no host time between its launches:
+    20 calls captured in one CUDA graph, replayed 5 times between two CUDA
+    events. fn launches on the current stream."""
+    reps, replays = 20, 5
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):  # library plans and workspaces, before the capture
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (reps * replays)

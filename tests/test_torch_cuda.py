@@ -3,7 +3,9 @@
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 
 Each kernel against its plain PyTorch version on the same inputs, f32 with
-TF32 off: K1 and K2 within rtol 1e-5 and atol 1e-5 * max|plain| (the sum
+TF32 off, K1 and K2 in both of their designs (whole-V and joint-tiled, up to
+V=256), with the designs' variant queries and K5's shape rule held to what
+the launchers run and take: K1 and K2 within rtol 1e-5 and atol 1e-5 * max|plain| (the sum
 order differs); K3's gradients are sums of up to N*T*V*V terms taken in
 another order, so within rtol 1e-4 and atol 1e-4 * max|plain| (dalpha, one
 sum over all N*S*V*V*C terms, within rtol 1e-3). K6's dx within rtol 1e-5
@@ -74,8 +76,6 @@ def test_unit_kernel_rejects_what_it_does_not_take(device):
         ctr_gc.unit_ctr_gc_fwd(*_inputs(1, 4, 20, 64, 40, device=device))
     with pytest.raises(ValueError, match="C % 4"):
         ctr_gc.unit_ctr_gc_fwd(*_inputs(1, 4, 20, 70, 8, device=device))
-    with pytest.raises(ValueError, match="shared memory"):
-        ctr_gc.unit_ctr_gc_fwd(*_inputs(1, 2, 64, 64, 8, device=device))
     # K2 and K3 refuse what they do not take, and count no launch for it
     x1s, x2s, x3s, w4s, b4s, alpha, As = args
     g = torch.randn((1, 4, 20, 64), device=device)
@@ -89,15 +89,26 @@ def test_unit_kernel_rejects_what_it_does_not_take(device):
         ctr_gc.unit_ctr_gc_bwd_param(x1s, x2s, g[:, :3], x3s, w4s, b4s, alpha)
     with pytest.raises(ValueError, match="CUDA"):
         ctr_gc.unit_ctr_gc_bwd_dx3(*[a.cpu() for a in (x1s, x2s, g, w4s, b4s, alpha, As)])
+    assert (ctr_gc.bwd_dx3_launches, ctr_gc.bwd_param_launches) == before
+    # V = 64, once refused for shared memory, runs (the joint-tiled designs
+    # of K1 and K2) and matches the plain versions
     big = _inputs(1, 2, 64, 64, 8, device=device)
     g_big = torch.randn((1, 2, 64, 64), device=device)
-    with pytest.raises(ValueError, match="shared memory"):
-        ctr_gc.unit_ctr_gc_bwd_dx3(*big[:2], g_big, *big[3:])
-    with pytest.raises(ValueError, match="shared memory"):
-        ctr_gc.unit_ctr_gc_bwd_param(*big[:2], g_big, *big[2:6])
-    assert (ctr_gc.bwd_dx3_launches, ctr_gc.bwd_param_launches) == before
+    with torch.no_grad():
+        out = ctr_gc.unit_ctr_gc_fwd(*big)
+        dx3 = ctr_gc.unit_ctr_gc_bwd_dx3(*big[:2], g_big, *big[3:])
+        grads = ctr_gc.unit_ctr_gc_bwd_param(*big[:2], g_big, *big[2:6])
+    want = unit_ctr_gc_plain(*big)
+    torch.testing.assert_close(out, want, rtol=1e-5, atol=1e-5 * want.abs().max().item())
+    want = unit_ctr_gc_dx3_plain(*big[:2], g_big, *big[3:])
+    torch.testing.assert_close(dx3, want, rtol=1e-5, atol=1e-5 * want.abs().max().item())
+    for name, a, w in zip(K3_OUTPUTS, grads,
+                          unit_ctr_gc_param_grads_plain(*big[:2], g_big, *big[2:6])):
+        rtol, atol = (1e-3, 0.0) if name == "dalpha" else (1e-4, 1e-4 * w.abs().max().item())
+        torch.testing.assert_close(a, w, rtol=rtol, atol=atol, msg=name)
 
 
+K3_OUTPUTS = ("dx1s", "dx2s", "dw4s", "db4s", "dalpha", "dAs")
 BWD_SHAPES = [
     (16, 52, 20, 64, 8), (16, 52, 20, 128, 8), (16, 26, 20, 128, 16),
     (16, 26, 20, 256, 16), (16, 13, 20, 256, 32), (4, 26, 25, 128, 16),
@@ -131,11 +142,96 @@ def test_param_kernel_matches_plain(device, shape):
     want = unit_ctr_gc_param_grads_plain(x1s, x2s, g, x3s, w4s, b4s, alpha)
     torch.cuda.synchronize()
     assert ctr_gc.bwd_param_launches == before + 2
-    names = ("dx1s", "dx2s", "dw4s", "db4s", "dalpha", "dAs")
-    for name, a, b, w in zip(names, got, again, want):
+    for name, a, b, w in zip(K3_OUTPUTS, got, again, want):
         assert torch.equal(a, b), f"{name}: two launches differ"
         rtol, atol = (1e-3, 0.0) if name == "dalpha" else (1e-4, 1e-4 * w.abs().max().item())
         torch.testing.assert_close(a, w, rtol=rtol, atol=atol, msg=name)
+
+
+# past the whole-V designs' shared memory: a ragged V (partial joint tiles
+# of 16 and of K3's 20), V=64, and configs/scene256.yaml's V=256 at its
+# blocks' widths (batch cut to 2)
+LARGE_V_SHAPES = [
+    (2, 7, 37, 80, 10), (2, 9, 64, 64, 8), (2, 32, 256, 64, 8),
+    (2, 16, 256, 128, 16), (2, 8, 256, 256, 32),
+]
+
+
+@pytest.mark.parametrize("shape", LARGE_V_SHAPES, ids=lambda s: "N{}-T{}-V{}-C{}-R{}".format(*s))
+def test_large_v_kernels_match_plain(device, shape):
+    """K1 and K2 take their joint-tiled designs (counted on their own
+    counters) and K3 its one design; each within the tolerances above of its
+    plain version, and two K3 launches bitwise equal."""
+    x1s, x2s, x3s, w4s, b4s, alpha, As = args = _inputs(*shape, device=device)
+    n, t, v, c, r = shape
+    g = torch.randn((n, t, v, c), generator=torch.Generator().manual_seed(9)).to(device)
+    assert ctr_gc.fwd_variant(3, v, r) == ctr_gc.dx3_variant(3, v, r) == "tiled"
+    before = (ctr_gc.launches, ctr_gc.launches_tiled, ctr_gc.bwd_dx3_launches,
+              ctr_gc.bwd_dx3_tiled_launches)
+    with torch.no_grad():
+        out = ctr_gc.unit_ctr_gc_fwd(*args)
+        dx3 = ctr_gc.unit_ctr_gc_bwd_dx3(x1s, x2s, g, w4s, b4s, alpha, As)
+        grads = ctr_gc.unit_ctr_gc_bwd_param(x1s, x2s, g, x3s, w4s, b4s, alpha)
+        again = ctr_gc.unit_ctr_gc_bwd_param(x1s, x2s, g, x3s, w4s, b4s, alpha)
+    torch.cuda.synchronize()
+    assert (ctr_gc.launches, ctr_gc.launches_tiled, ctr_gc.bwd_dx3_launches,
+            ctr_gc.bwd_dx3_tiled_launches) == (before[0], before[1] + 1, before[2],
+                                               before[3] + 1)
+    with torch.no_grad():
+        want = unit_ctr_gc_plain(*args)
+        torch.testing.assert_close(out, want, rtol=1e-5, atol=1e-5 * want.abs().max().item())
+        want = unit_ctr_gc_dx3_plain(x1s, x2s, g, w4s, b4s, alpha, As)
+        torch.testing.assert_close(dx3, want, rtol=1e-5, atol=1e-5 * want.abs().max().item())
+        want = unit_ctr_gc_param_grads_plain(x1s, x2s, g, x3s, w4s, b4s, alpha)
+    for name, a, b, w in zip(K3_OUTPUTS, grads, again, want):
+        assert torch.equal(a, b), f"{name}: two launches differ"
+        rtol, atol = (1e-3, 0.0) if name == "dalpha" else (1e-4, 1e-4 * w.abs().max().item())
+        torch.testing.assert_close(a, w, rtol=rtol, atol=atol, msg=name)
+
+
+def _kernel_names(fn, reps=5):
+    """The names of the device kernels that calls of fn launch (several
+    calls: torch.profiler can drop the first launches of a short trace)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA], acc_events=True) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return {e.key for e in prof.key_averages() if e.self_device_time_total > 0}
+
+
+@pytest.mark.parametrize("V", [20, 25, 28, 29, 32, 33, 64, 256])
+def test_variant_queries_match_the_launchers(device, V):
+    """fwd_variant and dx3_variant name the kernel that K1's and K2's
+    launchers actually run (read from the profiler's kernel names), at every
+    R tier; ops/gcn_tcn_block.py:k5_takes says whether K5's launcher takes the
+    block (Cin = C = 16 and 256, P = 3C/4, BC = C/4 as in the model)."""
+    from tamgcn_tpu_torch.ops.cuda import gcn_tcn_block as k5
+    from tamgcn_tpu_torch.ops.gcn_tcn_block import k5_takes
+
+    for r in (8, 16, 32):
+        x1s, x2s, x3s, w4s, b4s, alpha, As = args = _inputs(1, 2, V, 16, r, device=device)
+        g = torch.randn((1, 2, V, 16), device=device)
+        for variant, fn, symbol in (
+                (ctr_gc.fwd_variant(3, V, r), lambda: ctr_gc.unit_ctr_gc_fwd(*args),
+                 "unit_ctr_gc_fwd_"),
+                (ctr_gc.dx3_variant(3, V, r),
+                 lambda: ctr_gc.unit_ctr_gc_bwd_dx3(x1s, x2s, g, w4s, b4s, alpha, As),
+                 "unit_ctr_gc_bwd_dx3_")):
+            names = {k for k in _kernel_names(fn) if symbol in k}
+            tiled = {k for k in names if symbol + "tiled_kernel" in k}
+            assert len(names) == 1 and bool(tiled) == (variant == "tiled"), (V, r, names)
+        for C in (16, 256):
+            blk = _block_inputs(1, 2, V, C, C, r, device=device)
+            if k5_takes(V, C, C, r):
+                before = k5.launches
+                k5.gcn_tcn_block_fwd(**blk)
+                torch.cuda.synchronize()
+                assert k5.launches == before + 1
+            else:
+                with pytest.raises(ValueError, match="shared memory"):
+                    k5.gcn_tcn_block_fwd(**blk)
 
 
 def _small_model():

@@ -41,6 +41,18 @@ def test_unit_ctr_gc_sol(shape, want):
     assert by == want[1] and ms == pytest.approx(want[0], rel=1e-3)
 
 
+@pytest.mark.parametrize("shape,want", [
+    # K3 at l1, batch 16: 4.30 M f32 values, 17.2 MB (5.13 us), above 0.167
+    # GFLOP (2.49 us)
+    ((16, 52, 20, 64, 8), (5.129e-3, "bytes")),
+    # K3 at l9, batch 16: dm 0.128 and D^T dm, dm w4^T 0.629 GFLOP (11.30 us)
+    ((16, 13, 20, 256, 32), (11.297e-3, "operations")),
+])
+def test_unit_ctr_gc_param_sol(shape, want):
+    ms, by = roofline.unit_ctr_gc_param_sol(*shape)
+    assert by == want[1] and ms == pytest.approx(want[0], rel=1e-3)
+
+
 def test_peaks_and_bound_match_the_published_h100():
     assert roofline.HBM_BW == 3.35e12 and roofline.F32_FLOPS == 67e12
     # 3.35e9 / 4 f32 values: 1 ms of bytes; 67e9 FLOP: 1 ms of operations
