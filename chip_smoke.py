@@ -13,8 +13,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
      the training batch 16, plus V=25 and ragged shapes; the joint-tiled
      designs K1t and K2t, and K3, at configs/scene256.yaml's blocks (V=256,
      batch 8) and a ragged V=37), f32 with TF32 off, and times both with
-     CUDA events (K3 also by a CUDA graph, with its block count, at least
-     132 at every NW-UCLA train-step shape). Each launch must count on the
+     CUDA events and each kernel also by a CUDA graph (device time; K3 with
+     its block count, at least 132 at every NW-UCLA train-step shape). Each launch must count on the
      counter of the design the shape takes (the whole-V K1 and K2 at V=20
      and V=25). K1 and K2 are held within rtol 1e-5 and atol
      1e-5*max|plain|; K3's outputs are sums of up to N*T*V*V terms taken in
@@ -100,9 +100,29 @@ Phases, each of which fails the run (non-zero exit, no result line):
      of one batch of each test run to the same model on the card with the
      plain unit op within 1e-4*max|logit|, and times the eval forward, the
      fast-eval forward and the train step with their device time by kernel.
-The launch checks of phases 4-9 also require K6 = 0 (except with the switch
-on), T1 = T2 = 0 (except in the tools' runs) and the joint-tiled designs at
-0 outside phase 9. The last lines are the card line, the
+ 10. bf16: the bf16 forms of K1, K2 and K3 (bf16 activations, f32
+     parameters; K1t and K2t at a ragged V=37) against their bf16 plain
+     versions at the NW-UCLA eval forward's and train step's shapes: bf16
+     outputs within 2^-7 of their max |value| and equal in all but 1% of
+     their elements, K3's f32 outputs as in phase 3, two K3 launches bitwise
+     equal, each launch on its bf16 counter; `--phase test` and one epoch of
+     `--phase train` through `__main__.main` at full width with
+     `--model_args dtype=bfloat16` (configs/nucla/gcn_bf16.yaml's compute
+     dtype): K1-bf16 10 per forward, K2-bf16 and K3-bf16 10 per train step
+     and no f32 unit-op kernel, the logits of one batch against the card's
+     plain bf16 unit op within 2^-5 of max |logit|, finite progress and f32
+     checkpoints; 3 bf16 SGD steps with the kernels held to the same steps
+     with the plain bf16 unit op within twice the distance of an f32 run
+     from them (the loss after every step, each tensor after the first;
+     check_trajectory_bf16), which must fail with each of K3-bf16's outputs
+     and K2-bf16's dx3 zeroed; the bf16 eval forward at
+     batch 64 and train step at batch 16 and 64 timed beside the f32 ones;
+     tools/bf16_convergence.py in-process for 2 small epochs with a launch
+     check.
+The launch checks of phases 4-10 also require K6 = 0 (except with the
+switch on), T1 = T2 = 0 (except in the tools' runs), the joint-tiled
+designs at 0 outside phase 9 and the bf16 forms at 0 outside phase 10. The
+last lines are the card line, the
 kernels JSON and the result JSON. The kernels JSON gives, for each kernel,
 its times and bound summed over the launches of one eval forward at batch 64
 (K1), of one train step at batch 16 (K2, K3 with its CUDA-graph time under
@@ -113,7 +133,9 @@ forward and backward (K4), of one fast-eval forward at batch 64 (K5, with
 the folded path's time under "folded_k1_cublas_ms"; T1 at the ten blocks'
 branch shapes, with the engine composition's time as "library_ms") or of one
 tile-form call at the tools' shape (T2, with one einsum's time as
-"library_ms"), and each shape's row under "shapes".
+"library_ms"), of one bf16 eval forward at batch 64 (K1_bf16) or bf16 train
+step at batch 16 (K2_bf16, K3_bf16), and each shape's row under "shapes";
+the unit-op kernels' CUDA-graph device time under "device_ms".
 """
 from __future__ import annotations
 
@@ -245,6 +267,22 @@ TILED_EXTRA = [
 # held and timed beside the NW-UCLA train step's shapes
 K3_EXTRA = BWD_EXTRA + [(name, shape) for name, shape, _ in SCENE_MAIN_PATH] + TILED_EXTRA
 K3_MIN_BLOCKS = 132  # one block per SM at least, at every BWD_MAIN_PATH shape
+# phase 10 (bf16): a bf16 output within one rounding of its max |value| of
+# its plain version and equal to it in all but 1% of its elements (the
+# kernels and the plain versions differ only in f32 sum order before one
+# rounding, which flips a value at a near-tie; a missed rounding of stage
+# 1's operands changes more: tests/test_torch_bf16.py); the bf16 model's
+# logits against the card's plain bf16 unit op; and the bf16 trajectory's
+# factor (check_trajectory_bf16)
+BF16_TOL = 2.0 ** -7
+BF16_SHARE = 0.01
+BF16_LOGIT_TOL = 2.0 ** -5
+BF16_TRAJ_TIMES = 2.0
+# the biases of the convs that feed a train-mode BatchNorm directly: a
+# per-channel shift that the BatchNorm removes, so their gradient is zero in
+# exact arithmetic and rounding noise in bf16
+BN_FED_BIASES = ("down_conv.bias", "offset_conv.bias", "prefix_conv.bias",
+                 "tconv_conv.bias", "pw_conv.bias", "residual.conv.bias")
 
 
 def card_line() -> str:
@@ -297,26 +335,62 @@ def unit_inputs(shape, seed: int, device):
 # (tamgcn_tpu_torch/utils/roofline.py).
 
 
-def k1_bound(shape):
+def k1_bound(shape, act_bytes=4):
     from tamgcn_tpu_torch.utils.roofline import unit_ctr_gc_sol
 
-    return unit_ctr_gc_sol(*shape)
+    return unit_ctr_gc_sol(*shape, act_bytes=act_bytes)
 
 
-def k2_bound(shape):
-    from tamgcn_tpu_torch.utils.roofline import bound
+def k2_bound(shape, act_bytes=4):
+    from tamgcn_tpu_torch.utils.roofline import unit_ctr_gc_dx3_sol
 
-    N, T, V, C, R = shape
-    S = 3
-    elems = (N * T * V * C + N * T * V * S * C + 2 * N * S * V * R + S * R * C
-             + S * C + 1 + S * V * V)
-    return bound(elems, 2 * N * S * (V * V * R * C + T * V * V * C))
+    return unit_ctr_gc_dx3_sol(*shape, act_bytes=act_bytes)
 
 
-def k3_bound(shape):
+def k3_bound(shape, act_bytes=4):
     from tamgcn_tpu_torch.utils.roofline import unit_ctr_gc_param_sol
 
-    return unit_ctr_gc_param_sol(*shape)
+    return unit_ctr_gc_param_sol(*shape, act_bytes=act_bytes)
+
+
+# K1, K2 and K3 on unit_inputs' (x1s, x2s, x3s, w4s, b4s, alpha, As, g), and
+# their plain versions; in the dtype of the activations they are given
+
+
+def k1(x1s, x2s, x3s, w4s, b4s, alpha, As, g):
+    from tamgcn_tpu_torch.ops.cuda import ctr_gc
+
+    return ctr_gc.unit_ctr_gc_fwd(x1s, x2s, x3s, w4s, b4s, alpha, As)
+
+
+def k1_plain(x1s, x2s, x3s, w4s, b4s, alpha, As, g):
+    from tamgcn_tpu_torch.ops import aggregation as agg
+
+    return agg.unit_ctr_gc_plain(x1s, x2s, x3s, w4s, b4s, alpha, As)
+
+
+def k2(x1s, x2s, x3s, w4s, b4s, alpha, As, g):
+    from tamgcn_tpu_torch.ops.cuda import ctr_gc
+
+    return ctr_gc.unit_ctr_gc_bwd_dx3(x1s, x2s, g, w4s, b4s, alpha, As)
+
+
+def k2_plain(x1s, x2s, x3s, w4s, b4s, alpha, As, g):
+    from tamgcn_tpu_torch.ops import aggregation as agg
+
+    return agg.unit_ctr_gc_dx3_plain(x1s, x2s, g, w4s, b4s, alpha, As)
+
+
+def k3(x1s, x2s, x3s, w4s, b4s, alpha, As, g):
+    from tamgcn_tpu_torch.ops.cuda import ctr_gc
+
+    return ctr_gc.unit_ctr_gc_bwd_param(x1s, x2s, g, x3s, w4s, b4s, alpha)
+
+
+def k3_plain(x1s, x2s, x3s, w4s, b4s, alpha, As, g):
+    from tamgcn_tpu_torch.ops import aggregation as agg
+
+    return agg.unit_ctr_gc_param_grads_plain(x1s, x2s, g, x3s, w4s, b4s, alpha)
 
 
 def k6_bound(shape):
@@ -409,28 +483,8 @@ def check_kernels(device):
     'K1t': rows, 'K2': rows, 'K2t': rows, 'K3': rows}."""
     import torch
 
-    from tamgcn_tpu_torch.utils.timing import graph_ms
-
-    from tamgcn_tpu_torch.ops import aggregation as agg
     from tamgcn_tpu_torch.ops.cuda import ctr_gc
-
-    def k1(x1s, x2s, x3s, w4s, b4s, alpha, As, g):
-        return ctr_gc.unit_ctr_gc_fwd(x1s, x2s, x3s, w4s, b4s, alpha, As)
-
-    def k1_plain(x1s, x2s, x3s, w4s, b4s, alpha, As, g):
-        return agg.unit_ctr_gc_plain(x1s, x2s, x3s, w4s, b4s, alpha, As)
-
-    def k2(x1s, x2s, x3s, w4s, b4s, alpha, As, g):
-        return ctr_gc.unit_ctr_gc_bwd_dx3(x1s, x2s, g, w4s, b4s, alpha, As)
-
-    def k2_plain(x1s, x2s, x3s, w4s, b4s, alpha, As, g):
-        return agg.unit_ctr_gc_dx3_plain(x1s, x2s, g, w4s, b4s, alpha, As)
-
-    def k3(x1s, x2s, x3s, w4s, b4s, alpha, As, g):
-        return ctr_gc.unit_ctr_gc_bwd_param(x1s, x2s, g, x3s, w4s, b4s, alpha)
-
-    def k3_plain(x1s, x2s, x3s, w4s, b4s, alpha, As, g):
-        return agg.unit_ctr_gc_param_grads_plain(x1s, x2s, g, x3s, w4s, b4s, alpha)
+    from tamgcn_tpu_torch.utils.timing import graph_ms
 
     plan = [
         ("K1", k1, k1_plain, k1_bound, K1_MAIN_PATH, K1_EXTRA),
@@ -475,17 +529,16 @@ def check_kernels(device):
                             "stated tolerance")
                 ms = cuda_ms(lambda: fn(*args))
                 plain_ms = cuda_ms(lambda: plain(*args))
-                extra_row = {}
+                extra_row = dict(device_ms=graph_ms(lambda: fn(*args)))
                 if kname == "K3":
                     N, T, V, C, R = shape
                     blocks = ctr_gc.bwd_param_blocks(N, 3, V, C)
                     if count and blocks < K3_MIN_BLOCKS:
                         raise AssertionError(f"K3 {name} {shape}: {blocks} blocks, "
                                              f"fewer than {K3_MIN_BLOCKS}")
-                    extra_row = dict(blocks=blocks, device_ms=graph_ms(lambda: fn(*args)))
+                    extra_row["blocks"] = blocks
             bound_ms, bound_by = bound_fn(shape)
-            if "device_ms" in extra_row:
-                check_above_bound(f"K3 {name}", extra_row["device_ms"], bound_ms)
+            check_above_bound(f"{kname} {name}", extra_row["device_ms"], bound_ms)
             # the worst output relative to its own scale
             worst = max(errs, key=lambda e: e[2] / max(e[3], 1e-30))
             rows.append(dict(name=name, shape=dict(zip("NTVCR", shape)),
@@ -493,17 +546,17 @@ def check_kernels(device):
                              max_abs_plain=worst[3], worst_output=worst[0],
                              ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                              bound_by=bound_by, **extra_row))
-            more = (f", device {extra_row['device_ms'] * 1e3:.1f} us in "
-                    f"{extra_row['blocks']} blocks" if extra_row else "")
+            more = f", device {extra_row['device_ms'] * 1e3:.1f} us" + (
+                f" in {extra_row['blocks']} blocks" if "blocks" in extra_row else "")
             print(f"{kname:3s} {name:11s} N,T,V,C,R={shape}: max_abs_err "
                   f"{worst[2]:.3e} in {worst[0]} (max|plain| {worst[3]:.3e}) "
                   f"kernel {ms * 1e3:.1f} us{more}, plain {plain_ms * 1e3:.1f} us, "
                   f"bound {bound_ms * 1e3:.1f} us ({bound_by})", flush=True)
         out[kname] = rows
-    k3 = kernel_summary(out["K3"], "train step, batch 16")
+    k3_sum = kernel_summary(out["K3"], "train step, batch 16")
     device_ms = sum(r["device_ms"] * r["launches_per_step"] for r in out["K3"])
-    print(f"K3 per train step at batch {TRAIN_BATCH}: {k3['ms']:.4f} ms by events, "
-          f"{device_ms:.4f} ms device (graph), bound {k3['bound_ms']:.4f} ms; at least "
+    print(f"K3 per train step at batch {TRAIN_BATCH}: {k3_sum['ms']:.4f} ms by events, "
+          f"{device_ms:.4f} ms device (graph), bound {k3_sum['bound_ms']:.4f} ms; at least "
           f"{min(r['blocks'] for r in out['K3'] if r['launches_per_step'])} blocks a "
           "launch", flush=True)
     return out
@@ -601,31 +654,38 @@ def nucla_model_args() -> dict:
                 graph_args={"labeling_mode": "spatial"}, base_channel=64)
 
 
+# each kernel's launch counter in ops/cuda/ctr_gc.py; K1t and K2t are the
+# joint-tiled designs of K1 and K2, the *_bf16 kernels the bf16 forms
+UNIT_COUNTERS = {"K1": "launches", "K1t": "launches_tiled", "K2": "bwd_dx3_launches",
+                 "K2t": "bwd_dx3_tiled_launches", "K3": "bwd_param_launches",
+                 "K6": "bwd_conv3_launches", "K1_bf16": "launches_bf16",
+                 "K1t_bf16": "launches_tiled_bf16", "K2_bf16": "bwd_dx3_launches_bf16",
+                 "K2t_bf16": "bwd_dx3_tiled_launches_bf16",
+                 "K3_bf16": "bwd_param_launches_bf16"}
+KERNELS = ("K1", "K1t", "K2", "K2t", "K3", "K5", "K6", "T1", "T2", "K1_bf16", "K1t_bf16",
+           "K2_bf16", "K2t_bf16", "K3_bf16")
+
+
 def reset_launches():
     from tamgcn_tpu_torch.ops.cuda import ctr_gc, gcn_tcn_block, ms_tcn, stage2
 
-    ctr_gc.launches = ctr_gc.bwd_dx3_launches = ctr_gc.bwd_param_launches = 0
-    ctr_gc.launches_tiled = ctr_gc.bwd_dx3_tiled_launches = 0
-    ctr_gc.bwd_conv3_launches = 0
+    for counter in UNIT_COUNTERS.values():
+        setattr(ctr_gc, counter, 0)
     gcn_tcn_block.launches = ms_tcn.launches = stage2.launches = 0
 
 
 def read_launches() -> dict:
-    """Every kernel's count; K1t and K2t are the joint-tiled designs of K1
-    and K2."""
+    """Every kernel's count (KERNELS)."""
     from tamgcn_tpu_torch.ops.cuda import ctr_gc, gcn_tcn_block, ms_tcn, stage2
 
-    return {"K1": ctr_gc.launches, "K1t": ctr_gc.launches_tiled,
-            "K2": ctr_gc.bwd_dx3_launches, "K2t": ctr_gc.bwd_dx3_tiled_launches,
-            "K3": ctr_gc.bwd_param_launches, "K5": gcn_tcn_block.launches,
-            "K6": ctr_gc.bwd_conv3_launches, "T1": ms_tcn.launches,
-            "T2": stage2.launches}
+    counts = {k: getattr(ctr_gc, c) for k, c in UNIT_COUNTERS.items()}
+    counts.update(K5=gcn_tcn_block.launches, T1=ms_tcn.launches, T2=stage2.launches)
+    return {k: counts[k] for k in KERNELS}
 
 
 def only(**counts) -> dict:
     """The launch counts of read_launches with every kernel not named at 0."""
-    return dict.fromkeys(("K1", "K1t", "K2", "K2t", "K3", "K5", "K6", "T1", "T2"),
-                         0) | counts
+    return dict.fromkeys(KERNELS, 0) | counts
 
 
 def fuse_conv3(on: bool = True):
@@ -711,13 +771,20 @@ def check_logits(work_dir: str, weights: str):
     return rel, x
 
 
-# the first kernel each wrapper launches, by its counter's name
+# the first kernel each wrapper launches, by its counter's name; a bf16 form
+# is the same template on __nv_bfloat16, so its name holds "bfloat16"
 KERNEL_SYMBOLS = {"K1": "unit_ctr_gc_fwd_kernel", "K1t": "unit_ctr_gc_fwd_tiled_kernel",
                   "K2": "unit_ctr_gc_bwd_dx3_kernel",
                   "K2t": "unit_ctr_gc_bwd_dx3_tiled_kernel",
                   "K3": "unit_ctr_gc_bwd_param_kernel", "K5": "block_agg_kernel",
                   "K6": "unit_ctr_gc_bwd_conv3_kernel", "T1": "ms_tcn_kernel",
                   "T2": "stage2_kernel"}
+
+
+def is_kernel(kname: str, event_name: str) -> bool:
+    """Whether a profiler event is the first kernel of `kname` (KERNELS)."""
+    base, bf16 = kname.removesuffix("_bf16"), kname.endswith("_bf16")
+    return KERNEL_SYMBOLS[base] in event_name and ("bfloat16" in event_name) == bf16
 
 
 def profile_device(fn, reps: int = 5):
@@ -737,7 +804,7 @@ def profile_device(fn, reps: int = 5):
             torch.cuda.synchronize()
         launched = {k: n - before[k] for k, n in read_launches().items() if n > before[k]}
         averages = prof.key_averages()
-        traced = {k: sum(e.count for e in averages if KERNEL_SYMBOLS[k] in e.key)
+        traced = {k: sum(e.count for e in averages if is_kernel(k, e.key))
                   for k in launched}
         if traced == launched:
             break
@@ -899,14 +966,17 @@ def train_batches(n: int, batch: int):
     return out
 
 
-def train_model(weights: str, device, dtype=None):
+def train_model(weights: str, device, dtype=None, compute=None):
+    """The NW-UCLA model on `weights`, its parameters in `dtype` (float32
+    by default) and its compute dtype `compute` (model_args.dtype), with
+    the SGD optimizer of the train phase."""
     import torch
 
     from tamgcn_tpu_torch.models import get_model
     from tamgcn_tpu_torch.train.checkpoint import load_weights
     from tamgcn_tpu_torch.train.optim import make_optimizer
 
-    model = get_model("ctrgcn", **nucla_model_args())
+    model = get_model("ctrgcn", **nucla_model_args(), dtype=compute)
     model.load_state_dict(load_weights(weights))
     model.to(device, dtype or torch.float32).train()
     opt = make_optimizer("SGD", model.parameters(), 0.05, weight_decay=1e-4)
@@ -923,7 +993,7 @@ def train_step(model, opt, x, y):
     return loss
 
 
-def trajectory(weights: str, batches, where, dtype):
+def trajectory(weights: str, batches, where, dtype, compute=None):
     """SGD steps from `weights`, one on each of `batches`: (losses, [state
     before the first step, after each step], each {name: f64 CPU tensor})."""
     import torch
@@ -932,7 +1002,7 @@ def trajectory(weights: str, batches, where, dtype):
         return {k: v.detach().cpu().double().clone()
                 for k, v in model.state_dict().items()}
 
-    model, opt = train_model(weights, where, dtype)
+    model, opt = train_model(weights, where, dtype, compute)
     losses, states = [], [state()]
     for x, y in batches:
         losses.append(train_step(model, opt, torch.from_numpy(x).to(where, dtype),
@@ -941,17 +1011,17 @@ def trajectory(weights: str, batches, where, dtype):
     return losses, states
 
 
-def trajectory_limits(ref, refs):
+def trajectory_limits(ref, refs, times=TRAJ_TIMES):
     """The tolerance of a trajectory against `ref` (f64), from the f32
-    trajectories `refs`: per step, TRAJ_TIMES x the largest |f32 - f64| of
-    `refs` + TRAJ_LOSS_FLOOR x |loss|; per tensor after each step, TRAJ_TIMES
-    x the largest max|f32 - f64| of `refs` + TRAJ_TENSOR_FLOOR x the tensor's
-    own change (max abs) from its start over the f64 run."""
+    trajectories `refs`: per step, `times` (TRAJ_TIMES) x the largest |f32 -
+    f64| of `refs` + TRAJ_LOSS_FLOOR x |loss|; per tensor after each step,
+    `times` x the largest max|f32 - f64| of `refs` + TRAJ_TENSOR_FLOOR x the
+    tensor's own change (max abs) from its start over the f64 run."""
     (ref_l, ref_s) = ref
-    loss = [TRAJ_TIMES * max(abs(r[0][i] - want) for r in refs)
+    loss = [times * max(abs(r[0][i] - want) for r in refs)
             + TRAJ_LOSS_FLOOR * abs(want) for i, want in enumerate(ref_l)]
-    tensor = [{k: TRAJ_TIMES * max((r[1][i][k] - want).abs().max().item()
-                                   for r in refs)
+    tensor = [{k: times * max((r[1][i][k] - want).abs().max().item()
+                              for r in refs)
                + TRAJ_TENSOR_FLOOR * (want - ref_s[0][k]).abs().max().item()
                for k, want in ref_s[i].items()}
               for i in range(1, len(ref_s))]
@@ -1716,6 +1786,354 @@ def run_scene256(work_dir: str, device):
     return out
 
 
+def bf16_inputs(shape, seed: int, device):
+    """unit_inputs with the activations (x1s, x2s, x3s, g) in bf16 and the
+    parameters in f32."""
+    x1s, x2s, x3s, w4s, b4s, alpha, As, g = unit_inputs(shape, seed, device)
+    return (x1s.bfloat16(), x2s.bfloat16(), x3s.bfloat16(), w4s, b4s, alpha, As,
+            g.bfloat16())
+
+
+def bf16_within(got, want):
+    """(ok, max |got - want|, max |want|) of a bf16 output against its plain
+    version: within BF16_TOL of max |want| and equal in all but BF16_SHARE
+    of the elements."""
+    import torch
+
+    err = (got.float() - want.float()).abs()
+    scale = want.float().abs().max().item()
+    share = (got != want).float().mean().item()
+    ok = (bool(torch.isfinite(got).all()) and got.dtype == want.dtype == torch.bfloat16
+          and err.max().item() <= BF16_TOL * scale and share <= BF16_SHARE)
+    return ok, err.max().item(), scale
+
+
+def check_kernels_bf16(device):
+    """Phase 10's kernel checks: K1, K2 and K3 on bf16 activations with f32
+    parameters against their bf16 plain versions on the card, at the shapes
+    of the NW-UCLA eval forward (K1, batch 64) and train step (K2, K3, batch
+    16) and at a ragged V=37, where K1 and K2 take their joint-tiled
+    designs. Each launch must count on the bf16 counter of the design the
+    shape takes and on no other. bf16 outputs within BF16_TOL of their max
+    |value| and equal in all but BF16_SHARE of their elements; K3's f32
+    outputs as in phase 3; two K3 launches bitwise equal. Times each by CUDA
+    events and by a CUDA graph (device), beside the bound with 2-byte
+    activations. Returns {'K1_bf16': rows, 'K2_bf16': rows, 'K3_bf16': rows}."""
+    import torch
+
+    from tamgcn_tpu_torch.ops.cuda import ctr_gc
+    from tamgcn_tpu_torch.utils.timing import graph_ms
+
+    plan = [("K1_bf16", k1, k1_plain, k1_bound, K1_MAIN_PATH),
+            ("K2_bf16", k2, k2_plain, k2_bound, BWD_MAIN_PATH),
+            ("K3_bf16", k3, k3_plain, k3_bound, BWD_MAIN_PATH)]
+    out = {}
+    for kname, fn, plain, bound_fn, main_path in plan:
+        rows = []
+        shapes = [(n, s, c) for n, s, c in main_path] + [(n, s, 0) for n, s in TILED_EXTRA]
+        for i, (name, shape, count) in enumerate(shapes):
+            args = bf16_inputs(shape, seed=300 + i, device=device)
+            N, T, V, C, R = shape
+            design = "whole"
+            if kname != "K3_bf16":
+                design = (ctr_gc.fwd_variant if kname == "K1_bf16" else ctr_gc.dx3_variant)(
+                    3, V, R)
+            counter = kname.replace("_bf16", "t_bf16") if design == "tiled" else kname
+            with torch.no_grad():
+                reset_launches()
+                got = fn(*args)
+                launched = {k: v for k, v in read_launches().items() if v}
+                if launched != {counter: 1}:
+                    raise AssertionError(f"{kname} {name} {shape}: launches {launched}, "
+                                         f"expected {counter} once")
+                want = plain(*args)
+                torch.cuda.synchronize()
+                if kname == "K3_bf16":
+                    again = fn(*args)
+                    torch.cuda.synchronize()
+                    for part, a, b in zip(K3_OUTPUTS, got, again):
+                        if not torch.equal(a, b):
+                            raise AssertionError(
+                                f"K3_bf16 {name} {shape}: two launches differ in {part}")
+                    errs = [(part,) + (bf16_within(a, b) if part in ("dx1s", "dx2s") else
+                                       _within(a, b, *((1e-3, 0.0) if part == "dalpha"
+                                                       else (1e-4, 1e-4))))
+                            for part, a, b in zip(K3_OUTPUTS, got, want)]
+                else:
+                    errs = [("out",) + bf16_within(got, want)]
+                for part, ok, max_err, scale in errs:
+                    if not ok:
+                        raise AssertionError(
+                            f"{kname} {name} {shape} {part}: max |kernel - plain| "
+                            f"{max_err:.3e} (max|plain| {scale:.3e}) beyond the "
+                            "stated tolerance")
+                ms = cuda_ms(lambda: fn(*args))
+                plain_ms = cuda_ms(lambda: plain(*args))
+                device_ms = graph_ms(lambda: fn(*args))
+            bound_ms, bound_by = bound_fn(shape, act_bytes=2)
+            check_above_bound(f"{kname} {name}", device_ms, bound_ms)
+            worst = max(errs, key=lambda e: e[2] / max(e[3], 1e-30))
+            rows.append(dict(name=name, shape=dict(zip("NTVCR", shape)), design=design,
+                             launches_per_step=count, max_abs_err=worst[2],
+                             max_abs_plain=worst[3], worst_output=worst[0], ms=ms,
+                             plain_ms=plain_ms, device_ms=device_ms, bound_ms=bound_ms,
+                             bound_by=bound_by))
+            print(f"{kname:7s} {name:11s} N,T,V,C,R={shape} ({design}): max_abs_err "
+                  f"{worst[2]:.3e} in {worst[0]} (max|plain| {worst[3]:.3e}) kernel "
+                  f"{ms * 1e3:.1f} us, device {device_ms * 1e3:.1f} us, plain "
+                  f"{plain_ms * 1e3:.1f} us, bound {bound_ms * 1e3:.1f} us ({bound_by})",
+                  flush=True)
+        out[kname] = rows
+    return out
+
+
+def check_bf16_logits(work_dir: str, weights: str, device):
+    """Logits of the first batch of a bf16 test run's score pickle against
+    the same bf16 model on the card with the plain bf16 unit op: within
+    BF16_LOGIT_TOL of max |logit| (the kernels and the plain versions differ
+    in f32 sum order, which flips a bf16 rounding at a near-tie, and ten
+    blocks of bf16 carry such flips on). Returns the max relative error."""
+    import numpy as np
+    import torch
+
+    from tamgcn_tpu_torch.data import SyntheticSkeletonFeeder
+    from tamgcn_tpu_torch.models import get_model
+    from tamgcn_tpu_torch.train.checkpoint import load_weights
+
+    with open(os.path.join(work_dir, "test_result.pkl"), "rb") as f:
+        scores = pickle.load(f)
+    feeder = SyntheticSkeletonFeeder(num_samples=N_SAMPLES, split="val", seed=SEED)
+    got = np.stack([scores[feeder.sample_name[i]] for i in range(BATCH)])
+    x = np.stack([feeder[i][0] for i in range(BATCH)])
+    model = get_model("ctrgcn", **nucla_model_args(), dtype="bfloat16")
+    model.load_state_dict(load_weights(weights))
+    model.to(device).eval()
+    with torch.inference_mode(), plain_unit_op():
+        want = model(torch.from_numpy(x).to(device))
+    if want.dtype != torch.float32 or got.shape != (BATCH, 10) or not np.isfinite(got).all():
+        raise AssertionError(f"bad bf16 logits: shape {got.shape}, dtype {want.dtype}")
+    want = want.cpu().numpy()
+    rel = float(np.abs(got - want).max() / np.abs(want).max())
+    if rel > BF16_LOGIT_TOL:
+        raise AssertionError(
+            f"bf16 logits differ from the card's plain bf16 unit op: max|d|/max|plain| "
+            f"{rel:.3e} > {BF16_LOGIT_TOL}")
+    return rel
+
+
+# the planted faults of check_trajectory_bf16: each of K3's outputs, and K2's
+BF16_FAULTS = [("unit_ctr_gc_bwd_param", K3_OUTPUTS, part) for part in K3_OUTPUTS] + [
+    ("unit_ctr_gc_bwd_dx3", ("dx3s",), "dx3s")]
+
+
+def bf16_trajectory_ratios(run, plain, f32):
+    """{what: |run - plain| / its limit} of check_trajectory_bf16: the loss
+    of every step, within BF16_TRAJ_TIMES x |f32 - plain| + TRAJ_LOSS_FLOOR x
+    |loss|; after the first step each tensor but the alphas and the biases
+    that feed a train-mode BatchNorm (BN_FED_BIASES), within BF16_TRAJ_TIMES
+    x max |f32 - plain| + TRAJ_TENSOR_FLOOR x the tensor's own change, and
+    the alphas as one vector, within |f32 - plain| (L2)."""
+    import torch
+
+    out = {}
+    for i, (got, want, w32) in enumerate(zip(run[0], plain[0], f32[0])):
+        lim = BF16_TRAJ_TIMES * abs(w32 - want) + TRAJ_LOSS_FLOOR * abs(want)
+        out[f"loss of step {i}"] = abs(got - want) / lim if math.isfinite(got) else math.inf
+    start, got, want, w32 = plain[1][0], run[1][1], plain[1][1], f32[1][1]
+    alphas = [k for k in want if k.endswith("gcn1.alpha")]
+    for k in want:
+        if k in alphas or k.endswith(BN_FED_BIASES):
+            continue
+        err = (got[k] - want[k]).abs().max().item()
+        lim = (BF16_TRAJ_TIMES * (w32[k] - want[k]).abs().max().item()
+               + TRAJ_TENSOR_FLOOR * (want[k] - start[k]).abs().max().item())
+        out[f"{k} after step 1"] = (math.inf if not torch.isfinite(got[k]).all()
+                                    else 0.0 if err == 0 else err / lim if lim else math.inf)
+
+    def vec(state):
+        return torch.cat([state[k] for k in alphas])
+
+    out["the alphas after step 1"] = ((vec(got) - vec(want)).norm()
+                                      / (vec(w32) - vec(want)).norm()).item()
+    return out
+
+
+def check_trajectory_bf16(weights: str, device):
+    """TRAJ_STEPS SGD steps in bf16 (model_args.dtype) from the same weights
+    on the same batches: on the card with K1-K3's bf16 forms; with the plain
+    bf16 unit op on the card; and on the card in f32 with the f32 kernels
+    (phase 5 holds those to the CPU). The kernels and the plain versions
+    differ only in f32 sum order before a rounding, bf16 and f32 in every
+    rounding, so the kernels' run is held to the plain bf16 run within
+    BF16_TRAJ_TIMES x the f32 run's distance from it (bf16_trajectory_ratios).
+    Past the first step the bf16 trajectory is chaotic (two runs of the same
+    code differ by then: cuDNN's and cuBLAS's backward sums are not in a
+    fixed order, and a flipped bf16 rounding grows through ten train-mode
+    BatchNorms), so the tensors are held after the first step and the loss
+    after every step. The biases that feed a train-mode BatchNorm have a zero
+    gradient in exact arithmetic, so theirs is rounding noise and they are
+    not held; the alphas' gradients (each one sum of every term) are held as
+    one vector. The same check with each output of K3's bf16 form, and K2's
+    dx3, zeroed in turn must fail. Returns (worst ratio, its name)."""
+    from unittest import mock
+
+    import torch
+
+    from tamgcn_tpu_torch.ops.cuda import ctr_gc
+
+    batches = train_batches(TRAJ_STEPS, TRAIN_BATCH)
+    f32 = trajectory(weights, batches, device, torch.float32)
+    with plain_unit_op():
+        plain = trajectory(weights, batches, device, torch.float32, "bfloat16")
+    reset_launches()
+    card = trajectory(weights, batches, device, torch.float32, "bfloat16")
+    launches = {k: v for k, v in read_launches().items() if v}
+    want = {"K1_bf16": 10 * TRAJ_STEPS, "K2_bf16": 10 * TRAJ_STEPS,
+            "K3_bf16": 10 * TRAJ_STEPS}
+    if launches != want:
+        raise AssertionError(f"bf16 trajectory: launches {launches}, expected {want}")
+    ratios = bf16_trajectory_ratios(card, plain, f32)
+    worst = sorted(ratios.items(), key=lambda kv: -kv[1])
+    print(f"bf16 trajectory, {TRAJ_STEPS} SGD steps at batch {TRAIN_BATCH}: losses card "
+          f"bf16 {card[0]}, card plain bf16 unit op {plain[0]}, card f32 {f32[0]}; "
+          f"tolerance: |kernels - plain bf16| <= {BF16_TRAJ_TIMES} x |f32 - plain bf16| "
+          f"+ {TRAJ_LOSS_FLOOR} x |loss| (the loss, every step), + {TRAJ_TENSOR_FLOOR} x "
+          "the tensor's own change (each tensor after step 1), the alphas as one vector "
+          f"within |f32 - plain bf16|; worst of {len(ratios)}: "
+          + ", ".join(f"{k} {v:.3f}" for k, v in worst[:5])
+          + f"; median {sorted(ratios.values())[len(ratios) // 2]:.3f} of its limit",
+          flush=True)
+    if worst[0][1] > 1:
+        raise AssertionError("the card's bf16 trajectory left the plain bf16 run's")
+    for wrapper, outputs, part in BF16_FAULTS:
+        real = getattr(ctr_gc, wrapper)
+
+        def faulty(*args, real=real, outputs=outputs, part=part):
+            result = real(*args)
+            if isinstance(result, torch.Tensor):
+                return result.zero_()
+            return tuple(t.zero_() if name == part else t for name, t in zip(outputs, result))
+
+        with mock.patch.object(ctr_gc, wrapper, faulty):
+            f_ratios = bf16_trajectory_ratios(
+                trajectory(weights, batches, device, torch.float32, "bfloat16"), plain, f32)
+        beyond = sorted((k for k, v in f_ratios.items() if v > 1), key=lambda k: -f_ratios[k])
+        print(f"planted fault, the bf16 {wrapper}'s {part} zeroed: {len(beyond)} of "
+              f"{len(f_ratios)} beyond their limit, worst "
+              + ", ".join(f"{k} {f_ratios[k]:.3f}" for k in beyond[:5]), flush=True)
+        if not beyond:
+            raise AssertionError(
+                f"the bf16 trajectory check passed with {wrapper}'s {part} zeroed")
+    return worst[0][1], worst[0][0]
+
+
+def time_bf16(weights: str, x, device):
+    """The bf16 model's steady-state eval forward at batch 64 and train step
+    at batch 16 and 64: CUDA events, and device time by kernel name.
+    Returns {what: (ms, busy_ms, n_kernels, events)}."""
+    import torch
+
+    from tamgcn_tpu_torch.models import get_model
+    from tamgcn_tpu_torch.train.checkpoint import load_weights
+
+    out = {}
+    model = get_model("ctrgcn", **nucla_model_args(), dtype="bfloat16")
+    model.load_state_dict(load_weights(weights))
+    model.to(device).eval()
+    xb = torch.from_numpy(x).to(device)
+    with torch.inference_mode():
+        ms = cuda_ms(lambda: model(xb))
+        out[f"eval forward, batch {BATCH}"] = (ms,) + profile_device(lambda: model(xb))
+    for batch in (TRAIN_BATCH, 64):
+        model, opt = train_model(weights, device, compute="bfloat16")
+        (xt, yt), = train_batches(1, batch)
+        xt, yt = torch.from_numpy(xt).to(device), torch.from_numpy(yt).to(device)
+
+        def step():
+            train_step(model, opt, xt, yt)
+
+        ms = cuda_ms(step, iters=10)
+        out[f"train step, batch {batch}"] = (ms,) + profile_device(step)
+    return out
+
+
+def run_convergence_tool():
+    """tamgcn_tpu_torch/tools/bf16_convergence.py in-process at a small size
+    (2 epochs of 64 samples in batches of 16, full width): each run finite,
+    the f32 run through the f32 kernels only and the bf16 run through the
+    bf16 forms only, 10 launches per train step (K1 also per eval batch).
+    Returns the tool's record."""
+    import io
+
+    from tamgcn_tpu_torch.tools import bf16_convergence
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        bf16_convergence.main(["--epochs", "2", "--samples", "64", "--batch", "16"])
+    record = json.loads(buf.getvalue().strip().splitlines()[-1])
+    steps, evals, epochs = 64 // 16, 64 // 16, 2
+    for run, suffix in (("f32", ""), ("bf16", "_bf16")):
+        want = dict.fromkeys(bf16_convergence.COUNTERS, 0) | {
+            "launches" + suffix: 10 * epochs * (steps + evals),
+            "bwd_dx3_launches" + suffix: 10 * epochs * steps,
+            "bwd_param_launches" + suffix: 10 * epochs * steps}
+        if record[run]["launches"] != want:
+            raise AssertionError(f"bf16_convergence, {run} run: launches "
+                                 f"{record[run]['launches']}, expected {want}")
+        if not all(math.isfinite(v) for v in record[run]["train_loss"] + record[run]["test_loss"]):
+            raise AssertionError(f"bf16_convergence, {run} run: losses not finite")
+    print(f"bf16_convergence (2 epochs, 64 samples, batch 16): train loss f32 "
+          f"{record['f32']['train_loss']}, bf16 {record['bf16']['train_loss']}; best top-1 "
+          f"f32 {record['f32']['best_top1']}, bf16 {record['bf16']['best_top1']}; launches "
+          f"f32 {record['f32']['launches']}, bf16 {record['bf16']['launches']}", flush=True)
+    return record
+
+
+def run_bf16(work_dir: str, weights: str, x, device):
+    """Phase 10: bf16 mixed precision (configs/nucla/gcn_bf16.yaml's
+    model_args.dtype) on the NW-UCLA model at full width through K1-K3's bf16
+    forms: the kernel checks, `--phase test` and one epoch of `--phase
+    train` through __main__.main with `--model_args dtype=bfloat16` (launch
+    checks, the logits against the card's plain bf16 unit op, the files,
+    f32 checkpoints), the bf16 trajectory check with its planted faults, the
+    timings, and the convergence tool at a small size. Returns a summary."""
+    import torch
+
+    out = {"kernels": check_kernels_bf16(device)}
+    batches = math.ceil(N_SAMPLES / BATCH)
+    test_dir = os.path.join(work_dir, "test_bf16")
+    seconds, launches = run_test_path(test_dir, weights, "--model_args", "dtype=bfloat16")
+    if launches != only(K1_bf16=10 * batches):
+        raise AssertionError(f"the bf16 test phase launched {launches}, expected the bf16 "
+                             f"K1 10 x {batches} batches and no other kernel")
+    rel = check_bf16_logits(test_dir, weights, device)
+    out["test"] = dict(seconds=seconds, launches=launches, logit_rel_err=rel)
+    print(f"bf16 test path: {batches} batches of {BATCH} in {seconds:.2f} s, launches "
+          f"{launches}, logits vs the card's plain bf16 unit op max rel err {rel:.3e} "
+          f"(bound {BF16_LOGIT_TOL})", flush=True)
+
+    steps, evals = TRAIN_SAMPLES // TRAIN_BATCH, math.ceil(EVAL_SAMPLES / TRAIN_BATCH)
+    train_dir = os.path.join(work_dir, "train_bf16")
+    seconds, launches = run_cli(train_argv(train_dir) + [
+        "--num_epoch", "1", "--model_args", "dtype=bfloat16"])
+    want = only(K1_bf16=10 * (steps + evals), K2_bf16=10 * steps, K3_bf16=10 * steps)
+    if launches != want:
+        raise AssertionError(f"the bf16 train phase launched {launches}, expected {want}")
+    progress = check_train_files(train_dir, 1, 1, "bf16")
+    tree = torch.load(os.path.join(train_dir, "checkpoints", "epoch1.pt"), weights_only=True)
+    if any(v.is_floating_point() and v.dtype != torch.float32 for v in tree["model"].values()):
+        raise AssertionError("a bf16 run's checkpoint holds tensors that are not float32")
+    out["train"] = dict(seconds=seconds, launches=launches, progress=progress.tolist())
+    print(f"bf16 train path: 1 epoch of {steps} steps at batch {TRAIN_BATCH} in "
+          f"{seconds:.2f} s, launches {launches}; progress {progress.tolist()}; "
+          "checkpoint tensors float32", flush=True)
+
+    out["trajectory"] = check_trajectory_bf16(weights, device)
+    out["times"] = time_bf16(weights, x, device)
+    out["convergence"] = run_convergence_tool()
+    return out
+
+
 def kernel_summary(rows, per):
     """Sum of each timing over the launches of one forward / step."""
     used = [r for r in rows if r["launches_per_step"]]
@@ -1784,6 +2202,7 @@ def main() -> int:
         test_launches = launches["K1"]
         rel, x = check_logits(test_dir, weights)
         kernel_ms, plain_ms, busy_ms, n_kernels, events = time_eval(weights, x, device)
+        eval32 = (kernel_ms, busy_ms, n_kernels)
         print(f"test path: {batches} batches of {BATCH} in {seconds:.2f} s (incl. "
               f"model build and data), K1 launches {test_launches}, logits vs "
               f"CPU plain path max rel err {rel:.3e}", flush=True)
@@ -1844,6 +2263,10 @@ def main() -> int:
         # ---- 9. configs/scene256.yaml ----
         phase("9. scene256")
         scene = run_scene256(work_dir, device)
+
+        # ---- 10. bf16 mixed precision ----
+        phase("10. bf16")
+        bf16 = run_bf16(work_dir, weights, x, device)
         phase("end")
     print(f"train step (forward, backward, SGD), batch {TRAIN_BATCH}: "
           f"{t['kernel_ms_16']:.3f} ms ({TRAIN_BATCH / t['kernel_ms_16'] * 1e3:.1f} "
@@ -1863,10 +2286,35 @@ def main() -> int:
     for way in ("eval forward", "fast-eval forward", "train step"):
         ms, busy, _, events = scene[way]
         for kname in ("K1t", "K2t", "K3"):
-            kms = sum(e[1] for e in events if KERNEL_SYMBOLS[kname] in e[0])
+            kms = sum(e[1] for e in events if is_kernel(kname, e[0]))
             if kms:
                 print(f"  scene256 {way}: {kname} {kms:.4f} ms, {100 * kms / busy:.1f}% "
                       "of the device time", flush=True)
+    f32_times = {f"eval forward, batch {BATCH}": eval32} | {
+        f"train step, batch {b}": (t[f"kernel_ms_{b}"], t[f"busy_ms_{b}"],
+                                   t[f"n_kernels_{b}"]) for b in (TRAIN_BATCH, 64)}
+    for what, (ms, busy, n_kernels, events) in bf16["times"].items():
+        ms32, busy32, n32 = f32_times[what]
+        print(f"bf16 {what}: {ms:.3f} ms, device busy {busy:.3f} ms in {n_kernels} "
+              f"launches; f32 in this run {ms32:.3f} ms, busy {busy32:.3f} ms in {n32} "
+              "launches", flush=True)
+        print_profile(f"bf16 {what},", ms, busy, n_kernels, events)
+        for kname in ("K1_bf16", "K2_bf16", "K3_bf16"):
+            kms = sum(e[1] for e in events if is_kernel(kname, e[0]))
+            if kms:
+                print(f"  {kname}: {kms:.4f} ms, {100 * kms / busy:.1f}% of the device "
+                      "time", flush=True)
+    for kname, f32_name, per in (("K1_bf16", "K1", f"eval forward, batch {BATCH}"),
+                                 ("K2_bf16", "K2", f"train step, batch {TRAIN_BATCH}"),
+                                 ("K3_bf16", "K3", f"train step, batch {TRAIN_BATCH}")):
+        def path(rows, key):
+            return sum(r[key] * r["launches_per_step"] for r in rows)
+
+        b_rows, f_rows = bf16["kernels"][kname], rows[f32_name]
+        print(f"{kname} per {per} (CUDA graph): {path(b_rows, 'device_ms'):.4f} ms "
+              f"device, bound {path(b_rows, 'bound_ms'):.4f} ms; the f32 form "
+              f"{path(f_rows, 'device_ms'):.4f} ms, bound {path(f_rows, 'bound_ms'):.4f} ms",
+              flush=True)
     for batch, r in tf.items():
         print(f"train step, batch {batch}: {r['fused_ms']:.3f} ms with "
               f"TAMGCN_FUSE_CONV3=1, {r['default_ms']:.3f} ms default (in turns)",
@@ -1919,8 +2367,18 @@ def main() -> int:
                       "one call of each of exp_stage2's twelve T2 probes at "
                       "N=64, T=13, V=20, C=256, S=3, f32 (7 tile, win, 2 floor, "
                       "flat with and without the subset sum); one run of the "
-                      "tool launches each probe equally often")}
-    rows.update(K4=k4_rows, K5=k5_rows, K6=k6_rows, T1=t1_rows, T2=t2_rows)
+                      "tool launches each probe equally often"),
+               "K1_bf16": ("unit_ctr_gc_fwd_bf16", "unit_ctr_gc_fwd.cu",
+                           "tamgcn_tpu/ops/pallas/ctr_gc.py:367",
+                           bf16["test"]["launches"]["K1_bf16"],
+                           "eval forward, batch 64, bf16 (--model_args dtype=bfloat16)"),
+               "K2_bf16": ("unit_ctr_gc_bwd_dx3_bf16", "unit_ctr_gc_bwd_dx3.cu",
+                           "tamgcn_tpu/ops/pallas/ctr_gc.py:494",
+                           bf16["train"]["launches"]["K2_bf16"], "train step, batch 16, bf16"),
+               "K3_bf16": ("unit_ctr_gc_bwd_param_bf16", "unit_ctr_gc_bwd_param.cu",
+                           "tamgcn_tpu/ops/pallas/ctr_gc.py:717",
+                           bf16["train"]["launches"]["K3_bf16"], "train step, batch 16, bf16")}
+    rows.update(K4=k4_rows, K5=k5_rows, K6=k6_rows, T1=t1_rows, T2=t2_rows, **bf16["kernels"])
     kernels = {}
     for kname, (name, source, replaces, count, per) in sources.items():
         kernels[kname] = {
@@ -1932,7 +2390,8 @@ def main() -> int:
             # two train epochs for K2 and K3, scene256's test phase for K1t
             # and its train phase for K2t, the fused-conv3 epoch for K6,
             # the first CTRGC forward and backward for K4, the exp_ms_tcn
-            # run for T1, the exp_stage2 run for T2)
+            # run for T1, the exp_stage2 run for T2, the bf16 test phase
+            # for K1_bf16 and the bf16 train epoch for K2_bf16 and K3_bf16)
             "launches": count,
             "max_abs_err": max(r["max_abs_err"] for r in rows[kname]),
             "library_ms": None,
@@ -1944,8 +2403,13 @@ def main() -> int:
     for kname in ("K1t", "K2t"):
         kernels[kname]["sources"] = [kernels[kname]["source"],
                                      "tamgcn_tpu_torch/csrc/unit_ctr_gc_tiled.cuh"]
-    kernels["K3"]["device_ms"] = sum(r["device_ms"] * r["launches_per_step"]
-                                     for r in rows["K3"])
+    for kname in ("K1", "K1t", "K2", "K2t", "K3", "K1_bf16", "K2_bf16", "K3_bf16"):
+        kernels[kname]["device_ms"] = sum(r["device_ms"] * r["launches_per_step"]
+                                          for r in rows[kname])
+    for kname in ("K1_bf16", "K2_bf16", "K3_bf16"):
+        kernels[kname]["sources"] = [kernels[kname]["source"],
+                                     "tamgcn_tpu_torch/csrc/unit_ctr_gc_common.cuh",
+                                     "tamgcn_tpu_torch/csrc/unit_ctr_gc_tiled.cuh"]
     kernels["K5"]["folded_k1_cublas_ms"] = sum(
         r["folded_k1_cublas_ms"] * r["launches_per_step"] for r in k5_rows)
     for key in ("unfused_k2_cublas_ms", "unfused_k2_cublas_device_ms", "device_ms"):

@@ -1,4 +1,5 @@
-// Unit CTR-GC backward, the x3 gradient (K2), for Hopper (sm_90a), f32.
+// Unit CTR-GC backward, the x3 gradient (K2), for Hopper (sm_90a), f32 and
+// bf16.
 //
 // Replaces tamgcn_tpu/ops/pallas/ctr_gc.py:_unit_bwd_dx3_kernel_tile (stages
 // in _dx3_tile_stages) and its schedule variants _unit_bwd_dx3_kernel_bcast
@@ -36,6 +37,10 @@
 //   and 2 of g for 10 FMAs.
 // g is read from device memory once per block and dx3s written once.
 //
+// bf16 (unit_ctr_gc_bwd_dx3_bf16): x1s, x2s, g and dx3s bf16, the
+// parameters f32; stage 1 as the forward's bf16 form, M and every sum in
+// f32, dx3s rounded to bf16 once (Act<T> in unit_ctr_gc_common.cuh).
+//
 // Where M of even 8 channels for all V x V pairs does not fit a block's
 // shared memory (see unit_ctr_gc_bwd_dx3_variant), the joint-tiled design of
 // unit_ctr_gc_tiled.cuh runs instead, with the forward's roles swapped: a
@@ -60,16 +65,16 @@ __host__ __device__ inline int region0(int V, int CT, int RP) {
   return round4(imax(V * V * (RP + 1), kTC * V * CT));
 }
 
-template <int RP>
+template <int RP, typename TA>
 __global__ void __launch_bounds__(kThreads)
-unit_ctr_gc_bwd_dx3_kernel(const float* __restrict__ x1s,
-                           const float* __restrict__ x2s,
-                           const float* __restrict__ g,
+unit_ctr_gc_bwd_dx3_kernel(const TA* __restrict__ x1s,
+                           const TA* __restrict__ x2s,
+                           const TA* __restrict__ g,
                            const float* __restrict__ w4s,
                            const float* __restrict__ b4s,
                            const float* __restrict__ alpha,
                            const float* __restrict__ As,
-                           float* __restrict__ dx3s,
+                           TA* __restrict__ dx3s,
                            int S, int T, int V, int R, int C, int CT, int VP) {
   extern __shared__ float4 smem4[];
   // D [V*V][RP+1]: tanh(x1_u - x2_v) of one subset, in stage 1; stage 2
@@ -87,8 +92,8 @@ unit_ctr_gc_bwd_dx3_kernel(const float* __restrict__ x1s,
   const float a = alpha[0];
 
   // ---- stage 1: M_s[u,v,c] for the channel tile, all subsets ----
-  build_m<RP>(x1s, x2s, w4s, b4s, a, As, D, E, M, V * VP, VP, n, c0, S, V, R,
-              C, CT);
+  build_m<RP, TA>(x1s, x2s, w4s, b4s, a, As, D, E, M, V * VP, VP, n, c0, S, V,
+                  R, C, CT);
   // zero the padded joint columns v in [V, VP): stage 2 reads them
   const int pad = (VP - V) * CT;
   for (int i = tid; i < S * V * pad; i += kThreads) {
@@ -118,8 +123,7 @@ unit_ctr_gc_bwd_dx3_kernel(const float* __restrict__ x1s,
         const int cx = c0 + 4 * (i % CT4);
         val[k] = make_float4(0.f, 0.f, 0.f, 0.f);
         if (i < gsize4 && t < T && cx < C) {
-          val[k] = *reinterpret_cast<const float4*>(
-              g + (((size_t)n * T + t) * V + u) * C + cx);
+          val[k] = Act<TA>::load4(g + (((size_t)n * T + t) * V + u) * C + cx);
         }
       }
 #pragma unroll
@@ -164,7 +168,8 @@ unit_ctr_gc_bwd_dx3_kernel(const float* __restrict__ x1s,
           for (int i = 0; i < kVV; ++i) {
             const int v = v0 + i;
             if (t < T && v < V) {
-              dx3s[(((size_t)n * T + t) * V + v) * SC + (size_t)s * C + cg] = acc[j][i];
+              Act<TA>::store(dx3s + (((size_t)n * T + t) * V + v) * SC + (size_t)s * C + cg,
+                             acc[j][i]);
             }
           }
         }
@@ -187,16 +192,16 @@ inline int whole_v_ct(int S, int V, int RP) {
 
 inline int rp_of(int R) { return R <= 8 ? 8 : R <= 16 ? 16 : 32; }
 
-template <int RP>
+template <int RP, typename TA>
 __global__ void __launch_bounds__(kThreads)
-unit_ctr_gc_bwd_dx3_tiled_kernel(const float* __restrict__ x1s,
-                                 const float* __restrict__ x2s,
-                                 const float* __restrict__ g,
+unit_ctr_gc_bwd_dx3_tiled_kernel(const TA* __restrict__ x1s,
+                                 const TA* __restrict__ x2s,
+                                 const TA* __restrict__ g,
                                  const float* __restrict__ w4s,
                                  const float* __restrict__ b4s,
                                  const float* __restrict__ alpha,
                                  const float* __restrict__ As,
-                                 float* __restrict__ dx3s,
+                                 TA* __restrict__ dx3s,
                                  int S, int T, int V, int R, int C) {
   using namespace tiled;
   extern __shared__ float4 smem4[];
@@ -218,8 +223,8 @@ unit_ctr_gc_bwd_dx3_tiled_kernel(const float* __restrict__ x1s,
       __syncthreads();  // the previous step's reads are done
       stage_chunk(g, X, n, tb, u0, T, V, C, c0, C - c0);
       // M stored [v][u][c]: the thread's own joints are v
-      tile_m<RP>(x1s, x2s, w4s, b4s, a, As, D, W, E, M, n, s, S, u0, v0, V, R,
-                 C, c0, 1, kJ);
+      tile_m<RP, TA>(x1s, x2s, w4s, b4s, a, As, D, W, E, M, n, s, S, u0, v0, V,
+                     R, C, c0, 1, kJ);
       __syncthreads();
       accumulate(M, X, it, acc);
     }
@@ -228,21 +233,20 @@ unit_ctr_gc_bwd_dx3_tiled_kernel(const float* __restrict__ x1s,
   }
 }
 
-template <int RP>
-int launch(const float* x1s, const float* x2s, const float* g,
-           const float* w4s, const float* b4s, const float* alpha,
-           const float* As, float* dx3s, int N, int S, int T, int V, int R,
-           int C, cudaStream_t stream) {
+template <int RP, typename TA>
+int launch(const TA* x1s, const TA* x2s, const TA* g, const float* w4s,
+           const float* b4s, const float* alpha, const float* As, TA* dx3s,
+           int N, int S, int T, int V, int R, int C, cudaStream_t stream) {
   const int CT = whole_v_ct(S, V, RP);
   if (CT == 0) {
     using namespace tiled;
     const size_t smem = sizeof(float) * smem_floats(RP);
     cudaError_t err = cudaFuncSetAttribute(
-        unit_ctr_gc_bwd_dx3_tiled_kernel<RP>,
+        unit_ctr_gc_bwd_dx3_tiled_kernel<RP, TA>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
     const dim3 grid((C + kCT - 1) / kCT, ((V + kJ - 1) / kJ) * S, N);
-    unit_ctr_gc_bwd_dx3_tiled_kernel<RP><<<grid, kThreads, smem, stream>>>(
+    unit_ctr_gc_bwd_dx3_tiled_kernel<RP, TA><<<grid, kThreads, smem, stream>>>(
         x1s, x2s, g, w4s, b4s, alpha, As, dx3s, S, T, V, R, C);
     return cudaGetLastError();
   }
@@ -250,19 +254,35 @@ int launch(const float* x1s, const float* x2s, const float* g,
   const size_t smem = sizeof(float) *
       ((size_t)region0(V, CT, RP) + (size_t)S * V * VP * CT + 2 * V * RP);
   cudaError_t err = cudaFuncSetAttribute(
-      unit_ctr_gc_bwd_dx3_kernel<RP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      unit_ctr_gc_bwd_dx3_kernel<RP, TA>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((C + CT - 1) / CT, N);
-  unit_ctr_gc_bwd_dx3_kernel<RP><<<grid, kThreads, smem, stream>>>(
+  unit_ctr_gc_bwd_dx3_kernel<RP, TA><<<grid, kThreads, smem, stream>>>(
       x1s, x2s, g, w4s, b4s, alpha, As, dx3s, S, T, V, R, C, CT, VP);
   return cudaGetLastError();
 }
 
+template <typename TA>
+int dx3(const TA* x1s, const TA* x2s, const TA* g, const float* w4s,
+        const float* b4s, const float* alpha, const float* As, TA* dx3s, int N,
+        int S, int T, int V, int R, int C, void* stream) {
+  if (N < 1 || N > 65535 || S < 1 || T < 1 || V < 1 || R < 1 || C < 4 ||
+      C % 4 != 0) {
+    return cudaErrorInvalidValue;
+  }
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (R <= 8) return launch<8>(x1s, x2s, g, w4s, b4s, alpha, As, dx3s, N, S, T, V, R, C, st);
+  if (R <= 16) return launch<16>(x1s, x2s, g, w4s, b4s, alpha, As, dx3s, N, S, T, V, R, C, st);
+  if (R <= 32) return launch<32>(x1s, x2s, g, w4s, b4s, alpha, As, dx3s, N, S, T, V, R, C, st);
+  return cudaErrorInvalidValue;
+}
+
 }  // namespace
 
-// Which design unit_ctr_gc_bwd_dx3_f32 launches at (S, V, R): 0 the whole-V
-// kernel, 1 the joint-tiled one, -1 neither (R or S or V out of range).
+// Which design unit_ctr_gc_bwd_dx3_f32 and unit_ctr_gc_bwd_dx3_bf16 launch
+// at (S, V, R): 0 the whole-V kernel, 1 the joint-tiled one, -1 neither (R or
+// S or V out of range).
 extern "C" int unit_ctr_gc_bwd_dx3_variant(int S, int V, int R) {
   if (S < 1 || V < 1 || R < 1 || R > 32) return -1;
   return whole_v_ct(S, V, rp_of(R)) == 0 ? 1 : 0;
@@ -279,13 +299,18 @@ extern "C" int unit_ctr_gc_bwd_dx3_f32(const float* x1s, const float* x2s,
                                        const float* As, float* dx3s, int N,
                                        int S, int T, int V, int R, int C,
                                        void* stream) {
-  if (N < 1 || N > 65535 || S < 1 || T < 1 || V < 1 || R < 1 || C < 4 ||
-      C % 4 != 0) {
-    return cudaErrorInvalidValue;
-  }
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (R <= 8) return launch<8>(x1s, x2s, g, w4s, b4s, alpha, As, dx3s, N, S, T, V, R, C, st);
-  if (R <= 16) return launch<16>(x1s, x2s, g, w4s, b4s, alpha, As, dx3s, N, S, T, V, R, C, st);
-  if (R <= 32) return launch<32>(x1s, x2s, g, w4s, b4s, alpha, As, dx3s, N, S, T, V, R, C, st);
-  return cudaErrorInvalidValue;
+  return dx3(x1s, x2s, g, w4s, b4s, alpha, As, dx3s, N, S, T, V, R, C, stream);
+}
+
+// As unit_ctr_gc_bwd_dx3_f32 with x1s, x2s, g and dx3s bf16 (g and dx3s
+// 8-byte aligned), the parameters f32.
+extern "C" int unit_ctr_gc_bwd_dx3_bf16(const __nv_bfloat16* x1s,
+                                        const __nv_bfloat16* x2s,
+                                        const __nv_bfloat16* g,
+                                        const float* w4s, const float* b4s,
+                                        const float* alpha, const float* As,
+                                        __nv_bfloat16* dx3s, int N, int S,
+                                        int T, int V, int R, int C,
+                                        void* stream) {
+  return dx3(x1s, x2s, g, w4s, b4s, alpha, As, dx3s, N, S, T, V, R, C, stream);
 }

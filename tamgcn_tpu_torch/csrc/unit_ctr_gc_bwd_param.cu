@@ -1,5 +1,5 @@
 // Unit CTR-GC backward, the parameter gradients (K3), for Hopper (sm_90a),
-// f32.
+// f32 and bf16.
 //
 // Replaces tamgcn_tpu/ops/pallas/ctr_gc.py:_unit_bwd_param_kernel_flat and
 // its schedule variants _unit_bwd_param_kernel_tile (with _param_phase_c),
@@ -53,10 +53,20 @@
 // launches give bitwise equal gradients. The products run as f32 FFMA on the
 // CUDA cores; tensor cores (3xTF32 for f32 accuracy) are left for later
 // work.
+//
+// bf16 (unit_ctr_gc_bwd_param_bf16): x1s, x2s, g and x3s are read as bf16
+// and dx1s, dx2s written as bf16, rounded once; everything else is the f32
+// kernel's arithmetic on the widened values, with D and w4s in f32 (the JAX
+// kernel's phase C, tamgcn_tpu/ops/pallas/ctr_gc.py:781-797), and dw4s,
+// db4s, dalpha and dAs stay f32 (Act<T> in unit_ctr_gc_common.cuh).
 
 #include <cuda_runtime.h>
 
+#include "unit_ctr_gc_common.cuh"
+
 namespace {
+
+using unit_ctr_gc::Act;
 
 constexpr int kThreads = 256;
 constexpr int kCT = 16;   // channels per block
@@ -126,12 +136,12 @@ __device__ inline float4 ld4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
 }
 
-template <int RP>
+template <int RP, typename TA>
 __global__ void __launch_bounds__(kThreads)
-unit_ctr_gc_bwd_param_kernel(const float* __restrict__ x1s,
-                             const float* __restrict__ x2s,
-                             const float* __restrict__ g,
-                             const float* __restrict__ x3s,
+unit_ctr_gc_bwd_param_kernel(const TA* __restrict__ x1s,
+                             const TA* __restrict__ x2s,
+                             const TA* __restrict__ g,
+                             const TA* __restrict__ x3s,
                              const float* __restrict__ w4s,
                              float* __restrict__ part,
                              unsigned int* __restrict__ done,
@@ -205,8 +215,10 @@ unit_ctr_gc_bwd_param_kernel(const float* __restrict__ x1s,
           xv[k] = 0.f;
           if (i < csize && t < T && c0 + cc < C) {
             const size_t row = (size_t)n * T + t;
-            if (j < nu) gv[k] = g[(row * V + u0 + j) * C + c0 + cc];
-            if (j < nv) xv[k] = x3s[(row * V + v0 + j) * SC + (size_t)s * C + c0 + cc];
+            if (j < nu) gv[k] = Act<TA>::load(g + (row * V + u0 + j) * C + c0 + cc);
+            if (j < nv) {
+              xv[k] = Act<TA>::load(x3s + (row * V + v0 + j) * SC + (size_t)s * C + c0 + cc);
+            }
           }
         }
 #pragma unroll
@@ -248,14 +260,14 @@ unit_ctr_gc_bwd_param_kernel(const float* __restrict__ x1s,
       }
     }
     {
-      const float* x1 = x1s + ((size_t)n * S + s) * V * R;
-      const float* x2 = x2s + ((size_t)n * S + s) * V * R;
+      const TA* x1 = x1s + ((size_t)n * S + s) * V * R;
+      const TA* x2 = x2s + ((size_t)n * S + s) * V * R;
       for (int i = tid; i < 2 * JP * RP; i += kThreads) {
         const int r = i % RP, row = i / RP;  // row < JP: x1 of u0 + row
         const bool x1row = row < JP;
         const int j = x1row ? row : row - JP;
         const bool ok = r < R && j < (x1row ? nu : nv);
-        E[i] = ok ? (x1row ? x1[(u0 + j) * R + r] : x2[(v0 + j) * R + r]) : 0.f;
+        E[i] = ok ? Act<TA>::load(x1row ? x1 + (u0 + j) * R + r : x2 + (v0 + j) * R + r) : 0.f;
       }
     }
     __syncthreads();
@@ -373,13 +385,14 @@ unit_ctr_gc_bwd_param_kernel(const float* __restrict__ x1s,
 // Sums the partials in a fixed order into dx1s, dx2s (times a and -a), dAs,
 // dw4s = a * P and db4s = a * sum; and per block, sum of w4 * P + b4 * sum
 // (dalpha's terms), which the block that finishes last adds up in block
-// order into dalpha.
+// order into dalpha. dx1s and dx2s are rounded once to TA.
+template <typename TA>
 __global__ void __launch_bounds__(kThreads)
 unit_ctr_gc_bwd_param_reduce(const float* __restrict__ part,
                              const float* __restrict__ w4s,
                              const float* __restrict__ b4s,
                              const float* __restrict__ alpha,
-                             float* __restrict__ dx1s, float* __restrict__ dx2s,
+                             TA* __restrict__ dx1s, TA* __restrict__ dx2s,
                              float* __restrict__ dw4s, float* __restrict__ db4s,
                              float* __restrict__ dAs,
                              float* __restrict__ dalpha_part,
@@ -400,14 +413,14 @@ unit_ctr_gc_bwd_param_reduce(const float* __restrict__ part,
     const size_t ns = i / VR, k = i % VR;
     float sum = 0.f;
     for (int kc = 0; kc < KC; ++kc) sum += part[pt.x1 + (ns * KC + kc) * VR + k];
-    dx1s[i] = a * sum;
+    Act<TA>::store(dx1s + i, a * sum);
   } else if (i < 2 * nx) {  // dx2s[ns, v, r] over the channel and u tiles
     const size_t j = i - nx, ns = j / VR, k = j % VR;
     float sum = 0.f;
     for (int kt = 0; kt < KC * tl.nt; ++kt) {
       sum += part[pt.x2 + (ns * KC * tl.nt + kt) * VR + k];
     }
-    dx2s[j] = -a * sum;
+    Act<TA>::store(dx2s + j, -a * sum);
   } else if (i < 2 * nx + S * VV) {  // dAs[s, u, v] over samples, channel tiles
     const size_t j = i - 2 * nx, s = j / VV, k = j % VV;
     float sum = 0.f;
@@ -461,16 +474,16 @@ unit_ctr_gc_bwd_param_reduce(const float* __restrict__ part,
   if (threadIdx.x == 0) dalpha[0] = red[0];
 }
 
-template <int RP>
-int launch(const float* x1s, const float* x2s, const float* g, const float* x3s,
-           const float* w4s, const float* b4s, const float* alpha, float* dx1s,
-           float* dx2s, float* dw4s, float* db4s, float* dalpha, float* dAs,
+template <int RP, typename TA>
+int launch(const TA* x1s, const TA* x2s, const TA* g, const TA* x3s,
+           const float* w4s, const float* b4s, const float* alpha, TA* dx1s,
+           TA* dx2s, float* dw4s, float* db4s, float* dalpha, float* dAs,
            float* scratch, int N, int S, int T, int V, int R, int C,
            cudaStream_t stream) {
   const Tiling tl = tiling(V);
   const size_t smem = sizeof(float) * smem_floats(tl.JP, RP);
   cudaError_t err = cudaFuncSetAttribute(
-      unit_ctr_gc_bwd_param_kernel<RP>,
+      unit_ctr_gc_bwd_param_kernel<RP, TA>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const int nb = reduce_blocks(N, S, V, R, C);
@@ -478,26 +491,49 @@ int launch(const float* x1s, const float* x2s, const float* g, const float* x3s,
   float* dalpha_part = scratch + pt.end;
   unsigned int* done = reinterpret_cast<unsigned int*>(dalpha_part + nb);
   const dim3 grid(tl.nt * channel_tiles(C), S, N);
-  unit_ctr_gc_bwd_param_kernel<RP><<<grid, kThreads, smem, stream>>>(
+  unit_ctr_gc_bwd_param_kernel<RP, TA><<<grid, kThreads, smem, stream>>>(
       x1s, x2s, g, x3s, w4s, scratch, done, N, S, T, V, R, C);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  unit_ctr_gc_bwd_param_reduce<<<nb, kThreads, 0, stream>>>(
+  unit_ctr_gc_bwd_param_reduce<TA><<<nb, kThreads, 0, stream>>>(
       scratch, w4s, b4s, alpha, dx1s, dx2s, dw4s, db4s, dAs, dalpha_part, done,
       dalpha, N, S, V, R, C);
   return cudaGetLastError();
 }
 
+template <typename TA>
+int param(const TA* x1s, const TA* x2s, const TA* g, const TA* x3s,
+          const float* w4s, const float* b4s, const float* alpha, TA* dx1s,
+          TA* dx2s, float* dw4s, float* db4s, float* dalpha, float* dAs,
+          float* scratch, int N, int S, int T, int V, int R, int C,
+          void* stream) {
+  if (N < 1 || N > 65535 || S < 1 || S > 65535 || T < 1 || V < 1 || R < 1 ||
+      C < 1) {
+    return cudaErrorInvalidValue;
+  }
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define TAMGCN_LAUNCH(RP)                                                      \
+  launch<RP>(x1s, x2s, g, x3s, w4s, b4s, alpha, dx1s, dx2s, dw4s, db4s,       \
+             dalpha, dAs, scratch, N, S, T, V, R, C, st)
+  if (R <= 8) return TAMGCN_LAUNCH(8);
+  if (R <= 16) return TAMGCN_LAUNCH(16);
+  if (R <= 32) return TAMGCN_LAUNCH(32);
+#undef TAMGCN_LAUNCH
+  return cudaErrorInvalidValue;
+}
+
 }  // namespace
 
-// Floats of device scratch that unit_ctr_gc_bwd_param_f32 needs.
+// Floats of device scratch that unit_ctr_gc_bwd_param_f32 and
+// unit_ctr_gc_bwd_param_bf16 need.
 extern "C" long long unit_ctr_gc_bwd_param_scratch_floats(int N, int S, int V,
                                                           int R, int C) {
   // the partials, the per-block dalpha terms, the ticket counter
   return (long long)parts(N, S, V, R, C).end + reduce_blocks(N, S, V, R, C) + 1;
 }
 
-// Blocks of the first kernel that unit_ctr_gc_bwd_param_f32 launches.
+// Blocks of the first kernel that unit_ctr_gc_bwd_param_f32 and
+// unit_ctr_gc_bwd_param_bf16 launch.
 extern "C" long long unit_ctr_gc_bwd_param_blocks(int N, int S, int V, int C) {
   return (long long)tiling(V).nt * channel_tiles(C) * S * N;
 }
@@ -512,17 +548,18 @@ extern "C" int unit_ctr_gc_bwd_param_f32(
     const float* w4s, const float* b4s, const float* alpha, float* dx1s,
     float* dx2s, float* dw4s, float* db4s, float* dalpha, float* dAs,
     float* scratch, int N, int S, int T, int V, int R, int C, void* stream) {
-  if (N < 1 || N > 65535 || S < 1 || S > 65535 || T < 1 || V < 1 || R < 1 ||
-      C < 1) {
-    return cudaErrorInvalidValue;
-  }
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define TAMGCN_LAUNCH(RP)                                                      \
-  launch<RP>(x1s, x2s, g, x3s, w4s, b4s, alpha, dx1s, dx2s, dw4s, db4s,       \
-             dalpha, dAs, scratch, N, S, T, V, R, C, st)
-  if (R <= 8) return TAMGCN_LAUNCH(8);
-  if (R <= 16) return TAMGCN_LAUNCH(16);
-  if (R <= 32) return TAMGCN_LAUNCH(32);
-#undef TAMGCN_LAUNCH
-  return cudaErrorInvalidValue;
+  return param(x1s, x2s, g, x3s, w4s, b4s, alpha, dx1s, dx2s, dw4s, db4s,
+               dalpha, dAs, scratch, N, S, T, V, R, C, stream);
+}
+
+// As unit_ctr_gc_bwd_param_f32 with x1s, x2s, g, x3s, dx1s and dx2s bf16; the
+// parameters, dw4s, db4s, dalpha, dAs and the scratch f32.
+extern "C" int unit_ctr_gc_bwd_param_bf16(
+    const __nv_bfloat16* x1s, const __nv_bfloat16* x2s, const __nv_bfloat16* g,
+    const __nv_bfloat16* x3s, const float* w4s, const float* b4s,
+    const float* alpha, __nv_bfloat16* dx1s, __nv_bfloat16* dx2s, float* dw4s,
+    float* db4s, float* dalpha, float* dAs, float* scratch, int N, int S, int T,
+    int V, int R, int C, void* stream) {
+  return param(x1s, x2s, g, x3s, w4s, b4s, alpha, dx1s, dx2s, dw4s, db4s,
+               dalpha, dAs, scratch, N, S, T, V, R, C, stream);
 }

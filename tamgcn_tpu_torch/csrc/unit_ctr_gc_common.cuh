@@ -5,12 +5,52 @@
 //   M_s[n,u,v,c] = (sum_r tanh(x1s[n,s,u,r] - x2s[n,s,v,r]) * w4s[s,r,c]
 //                   + b4s[s,c]) * alpha + As[s,u,v]
 //
-// of one sample and one tile of CT channels in shared memory.
+// of one sample and one tile of CT channels in shared memory; and, with K3
+// (unit_ctr_gc_bwd_param.cu), the activation element types (Act).
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace unit_ctr_gc {
+
+// The activations (x1s, x2s, x3s, g and the outputs of the same shapes) are
+// float or __nv_bfloat16, bf16 mixed precision; the parameters (w4s, b4s,
+// alpha, As) are float in either. Shared memory, tanh and every sum are f32
+// in both. Act<TA> loads an activation as f32, stores an f32 result rounded
+// once to T, and gives stage 1's product operands: as is in f32; rounded to
+// bf16 in bf16, where the JAX kernels run stage 1 as a bf16 product with f32
+// accumulation (tamgcn_tpu/ops/pallas/ctr_gc.py `mm_dtype`). The product of
+// two bf16 values is exact in f32, so an FMA over rounded operands computes
+// what that product computes, up to the order of the sum.
+template <typename T>
+struct Act;
+
+template <>
+struct Act<float> {
+  __device__ static float load(const float* p) { return *p; }
+  __device__ static float4 load4(const float* p) {
+    return *reinterpret_cast<const float4*>(p);
+  }
+  __device__ static void store(float* p, float v) { *p = v; }
+  __device__ static float operand(float v) { return v; }
+};
+
+template <>
+struct Act<__nv_bfloat16> {
+  __device__ static float load(const __nv_bfloat16* p) { return __bfloat162float(*p); }
+  // 4 channels in one 8-byte load
+  __device__ static float4 load4(const __nv_bfloat16* p) {
+    const uint2 raw = *reinterpret_cast<const uint2*>(p);
+    const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.x));
+    const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.y));
+    return make_float4(lo.x, lo.y, hi.x, hi.y);
+  }
+  __device__ static void store(__nv_bfloat16* p, float v) { *p = __float2bfloat16_rn(v); }
+  __device__ static float operand(float v) {
+    return __bfloat162float(__float2bfloat16_rn(v));
+  }
+};
 
 constexpr int kThreads = 256;
 constexpr int kTC = 8;  // frames per x3s/g chunk in shared memory
@@ -30,17 +70,18 @@ __device__ inline float4 fma4(float d, float4 w, float4 acc) {
 // build_d: for sample n and subset s, stages the x1/x2 rows in E [2][V][RP]
 // (zero-padded to RP) and computes D = tanh(x1_u - x2_v) into D [V*V][RP+1]
 // (V*V*R values, once per block instead of once per channel; rows padded to
-// RP+1 floats so the 8 rows a warp reads sit in different banks). The caller
-// synchronises before it writes E or D and before it reads D.
-template <int RP>
-__device__ inline void build_d(const float* __restrict__ x1s,
-                               const float* __restrict__ x2s, float* D,
+// RP+1 floats so the 8 rows a warp reads sit in different banks), as stage
+// 1's operand (Act<TA>::operand). The caller synchronises before it writes E
+// or D and before it reads D.
+template <int RP, typename TA = float>
+__device__ inline void build_d(const TA* __restrict__ x1s,
+                               const TA* __restrict__ x2s, float* D,
                                float* E, int n, int s, int S, int V, int R) {
   const int tid = threadIdx.x;
   const int VV = V * V;
   {
-    const float* x1 = x1s + ((size_t)n * S + s) * V * R;
-    const float* x2 = x2s + ((size_t)n * S + s) * V * R;
+    const TA* x1 = x1s + ((size_t)n * S + s) * V * R;
+    const TA* x2 = x2s + ((size_t)n * S + s) * V * R;
     const int esize = 2 * V * RP;
     for (int base = tid; base < esize; base += kThreads * kBatch) {
       float val[kBatch];
@@ -49,7 +90,9 @@ __device__ inline void build_d(const float* __restrict__ x1s,
         const int i = base + k * kThreads;
         const int r = i % RP, row = i / RP;  // row < V: x1, else x2
         val[k] = 0.f;
-        if (i < esize && r < R) val[k] = row < V ? x1[row * R + r] : x2[(row - V) * R + r];
+        if (i < esize && r < R) {
+          val[k] = Act<TA>::load(row < V ? x1 + row * R + r : x2 + (row - V) * R + r);
+        }
       }
 #pragma unroll
       for (int k = 0; k < kBatch; ++k) {
@@ -65,7 +108,7 @@ __device__ inline void build_d(const float* __restrict__ x1s,
     for (int k = 0; k < kBatch; ++k) {
       const int i = min(base + k * kThreads, VV * RP - 1);
       const int r = i % RP, uv = i / RP;
-      val[k] = tanhf(E[(uv / V) * RP + r] - E[(V + uv % V) * RP + r]);
+      val[k] = Act<TA>::operand(tanhf(E[(uv / V) * RP + r] - E[(V + uv % V) * RP + r]));
     }
 #pragma unroll
     for (int k = 0; k < kBatch; ++k) {
@@ -79,9 +122,10 @@ __device__ inline void build_d(const float* __restrict__ x1s,
 // CT % 4 == 0), a small GEMM: each thread holds w4s[s,:,4 channels] in
 // registers and, per r, reads one value of D for 4 FMAs, two (u,v) rows at
 // a time. M_s[u,v,:] goes to Ms + (u * m_u + v) * CT, so the caller chooses
-// which joint index is padded. The caller synchronises after build_d and
-// before it reads Ms.
-template <int RP>
+// which joint index is padded; w4s enters as stage 1's operand
+// (Act<TA>::operand). The caller synchronises after build_d and before it
+// reads Ms.
+template <int RP, typename TA = float>
 __device__ inline void m_from_d(const float* __restrict__ w4s,
                                 const float* __restrict__ b4s, float a,
                                 const float* __restrict__ As, const float* D,
@@ -100,6 +144,8 @@ __device__ inline void m_from_d(const float* __restrict__ w4s,
     w[r] = (ok4 && r < R)
                ? *reinterpret_cast<const float4*>(w4s + ((size_t)s * R + r) * C + c4)
                : make_float4(0.f, 0.f, 0.f, 0.f);
+    w[r] = make_float4(Act<TA>::operand(w[r].x), Act<TA>::operand(w[r].y),
+                       Act<TA>::operand(w[r].z), Act<TA>::operand(w[r].w));
   }
   const float4 b = ok4 ? *reinterpret_cast<const float4*>(b4s + (size_t)s * C + c4)
                        : make_float4(0.f, 0.f, 0.f, 0.f);
@@ -135,9 +181,9 @@ __device__ inline void m_from_d(const float* __restrict__ w4s,
 //   M + (s * m_subset + u * m_u + v) * CT.
 // There is no barrier after the last subset: the caller synchronises before
 // it reads M or reuses D or E.
-template <int RP>
-__device__ inline void build_m(const float* __restrict__ x1s,
-                               const float* __restrict__ x2s,
+template <int RP, typename TA = float>
+__device__ inline void build_m(const TA* __restrict__ x1s,
+                               const TA* __restrict__ x2s,
                                const float* __restrict__ w4s,
                                const float* __restrict__ b4s, float a,
                                const float* __restrict__ As, float* D,
@@ -146,9 +192,9 @@ __device__ inline void build_m(const float* __restrict__ x1s,
                                int CT) {
   for (int s = 0; s < S; ++s) {
     __syncthreads();  // the previous subset's reads of D and E are done
-    build_d<RP>(x1s, x2s, D, E, n, s, S, V, R);
+    build_d<RP, TA>(x1s, x2s, D, E, n, s, S, V, R);
     __syncthreads();
-    m_from_d<RP>(w4s, b4s, a, As, D, M + s * m_subset * CT, m_u, s, c0, V, R,
+    m_from_d<RP, TA>(w4s, b4s, a, As, D, M + s * m_subset * CT, m_u, s, c0, V, R,
                  C, CT);
   }
 }

@@ -1,4 +1,4 @@
-// Unit CTR-GC forward (K1) for Hopper (sm_90a), f32.
+// Unit CTR-GC forward (K1) for Hopper (sm_90a), f32 and bf16.
 //
 // Replaces tamgcn_tpu/ops/pallas/ctr_gc.py:_unit_fwd_kernel_tile (launched by
 // unit_ctr_gc_fwd_pallas) and computes the same function:
@@ -39,6 +39,13 @@
 // Tensor cores, TMA, double-buffered chunks and a persistent grid are left
 // for later work.
 //
+// bf16 (unit_ctr_gc_fwd_bf16): x1s, x2s, x3s and out are bf16, the
+// parameters f32, as the JAX kernel takes them under bf16 mixed precision.
+// The same kernels run on them (Act<T> in unit_ctr_gc_common.cuh): tanh in
+// f32 from the bf16 x1s and x2s; stage 1 over D and w4s rounded to bf16,
+// accumulated in f32; M in f32 in shared memory; stage 2 in f32; out rounded
+// to bf16 once. The f32 kernels are the same code with nothing rounded.
+//
 // Where M of even 8 channels for all V x V pairs does not fit a block's
 // shared memory (V >= 33 at R <= 8; see unit_ctr_gc_fwd_variant), the
 // joint-tiled design of unit_ctr_gc_tiled.cuh runs instead: a block owns
@@ -66,16 +73,16 @@ __host__ __device__ inline int region0(int V, int S, int CT, int RP) {
   return round4(imax(V * V * (RP + 1), kTC * V * S * CT));
 }
 
-template <int RP>
+template <int RP, typename TA>
 __global__ void __launch_bounds__(kThreads)
-unit_ctr_gc_fwd_kernel(const float* __restrict__ x1s,
-                       const float* __restrict__ x2s,
-                       const float* __restrict__ x3s,
+unit_ctr_gc_fwd_kernel(const TA* __restrict__ x1s,
+                       const TA* __restrict__ x2s,
+                       const TA* __restrict__ x3s,
                        const float* __restrict__ w4s,
                        const float* __restrict__ b4s,
                        const float* __restrict__ alpha,
                        const float* __restrict__ As,
-                       float* __restrict__ out,
+                       TA* __restrict__ out,
                        int S, int T, int V, int R, int C, int CT, int VP) {
   extern __shared__ float4 smem4[];
   // D [V*V][RP+1]: tanh(x1_u - x2_v) of one subset, in stage 1; stage 2
@@ -93,8 +100,8 @@ unit_ctr_gc_fwd_kernel(const float* __restrict__ x1s,
   const float a = alpha[0];
 
   // ---- stage 1: M_s[u,v,c] for the channel tile, all subsets ----
-  build_m<RP>(x1s, x2s, w4s, b4s, a, As, D, E, M, VP * V, V, n, c0, S, V, R,
-              C, CT);
+  build_m<RP, TA>(x1s, x2s, w4s, b4s, a, As, D, E, M, VP * V, V, n, c0, S, V,
+                  R, C, CT);
   // zero the padded joint rows u in [V, VP): stage 2 reads them
   for (int i = tid; i < S * (VP - V) * V * CT; i += kThreads) {
     const int rest = i / (V * CT);  // (s, u - V)
@@ -126,7 +133,7 @@ unit_ctr_gc_fwd_kernel(const float* __restrict__ x1s,
         const int cx = c0 + 4 * (i % CT4);
         val[k] = make_float4(0.f, 0.f, 0.f, 0.f);
         if (i < xsize4 && t < T && cx < C) {
-          val[k] = *reinterpret_cast<const float4*>(
+          val[k] = Act<TA>::load4(
               x3s + (((size_t)n * T + t) * V + v) * SC + (size_t)s * C + cx);
         }
       }
@@ -172,7 +179,7 @@ unit_ctr_gc_fwd_kernel(const float* __restrict__ x1s,
           for (int i = 0; i < kUU; ++i) {
             const int u = u0 + i;
             if (t < T && u < V) {
-              out[(((size_t)n * T + t) * V + u) * C + cg] = acc[j][i];
+              Act<TA>::store(out + (((size_t)n * T + t) * V + u) * C + cg, acc[j][i]);
             }
           }
         }
@@ -195,16 +202,16 @@ inline int whole_v_ct(int S, int V, int RP) {
 
 inline int rp_of(int R) { return R <= 8 ? 8 : R <= 16 ? 16 : 32; }
 
-template <int RP>
+template <int RP, typename TA>
 __global__ void __launch_bounds__(kThreads)
-unit_ctr_gc_fwd_tiled_kernel(const float* __restrict__ x1s,
-                             const float* __restrict__ x2s,
-                             const float* __restrict__ x3s,
+unit_ctr_gc_fwd_tiled_kernel(const TA* __restrict__ x1s,
+                             const TA* __restrict__ x2s,
+                             const TA* __restrict__ x3s,
                              const float* __restrict__ w4s,
                              const float* __restrict__ b4s,
                              const float* __restrict__ alpha,
                              const float* __restrict__ As,
-                             float* __restrict__ out,
+                             TA* __restrict__ out,
                              int S, int T, int V, int R, int C) {
   using namespace tiled;
   extern __shared__ float4 smem4[];
@@ -227,8 +234,8 @@ unit_ctr_gc_fwd_tiled_kernel(const float* __restrict__ x1s,
         __syncthreads();  // the previous step's reads are done
         stage_chunk(x3s, X, n, tb, v0, T, V, SC, s * C + c0, C - c0);
         // M stored [u][v][c]: the thread's own joints are u
-        tile_m<RP>(x1s, x2s, w4s, b4s, a, As, D, W, E, M, n, s, S, u0, v0, V,
-                   R, C, c0, kJ, 1);
+        tile_m<RP, TA>(x1s, x2s, w4s, b4s, a, As, D, W, E, M, n, s, S, u0, v0,
+                       V, R, C, c0, kJ, 1);
         __syncthreads();
         accumulate(M, X, it, acc);
       }
@@ -237,21 +244,20 @@ unit_ctr_gc_fwd_tiled_kernel(const float* __restrict__ x1s,
   }
 }
 
-template <int RP>
-int launch(const float* x1s, const float* x2s, const float* x3s,
-           const float* w4s, const float* b4s, const float* alpha,
-           const float* As, float* out, int N, int S, int T, int V, int R,
-           int C, cudaStream_t stream) {
+template <int RP, typename TA>
+int launch(const TA* x1s, const TA* x2s, const TA* x3s, const float* w4s,
+           const float* b4s, const float* alpha, const float* As, TA* out,
+           int N, int S, int T, int V, int R, int C, cudaStream_t stream) {
   const int CT = whole_v_ct(S, V, RP);
   if (CT == 0) {
     using namespace tiled;
     const size_t smem = sizeof(float) * smem_floats(RP);
     cudaError_t err = cudaFuncSetAttribute(
-        unit_ctr_gc_fwd_tiled_kernel<RP>,
+        unit_ctr_gc_fwd_tiled_kernel<RP, TA>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
     const dim3 grid((C + kCT - 1) / kCT, (V + kJ - 1) / kJ, N);
-    unit_ctr_gc_fwd_tiled_kernel<RP><<<grid, kThreads, smem, stream>>>(
+    unit_ctr_gc_fwd_tiled_kernel<RP, TA><<<grid, kThreads, smem, stream>>>(
         x1s, x2s, x3s, w4s, b4s, alpha, As, out, S, T, V, R, C);
     return cudaGetLastError();
   }
@@ -259,19 +265,36 @@ int launch(const float* x1s, const float* x2s, const float* x3s,
   const size_t smem = sizeof(float) *
       ((size_t)region0(V, S, CT, RP) + (size_t)S * VP * V * CT + 2 * V * RP);
   cudaError_t err = cudaFuncSetAttribute(
-      unit_ctr_gc_fwd_kernel<RP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      unit_ctr_gc_fwd_kernel<RP, TA>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((C + CT - 1) / CT, N);
-  unit_ctr_gc_fwd_kernel<RP><<<grid, kThreads, smem, stream>>>(
+  unit_ctr_gc_fwd_kernel<RP, TA><<<grid, kThreads, smem, stream>>>(
       x1s, x2s, x3s, w4s, b4s, alpha, As, out, S, T, V, R, C, CT, VP);
   return cudaGetLastError();
 }
 
+template <typename TA>
+int fwd(const TA* x1s, const TA* x2s, const TA* x3s, const float* w4s,
+        const float* b4s, const float* alpha, const float* As, TA* out, int N,
+        int S, int T, int V, int R, int C, void* stream) {
+  if (N < 1 || N > 65535 || S < 1 || T < 1 || V < 1 || R < 1 || C < 4 ||
+      C % 4 != 0) {
+    return cudaErrorInvalidValue;
+  }
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (R <= 8) return launch<8>(x1s, x2s, x3s, w4s, b4s, alpha, As, out, N, S, T, V, R, C, st);
+  if (R <= 16) return launch<16>(x1s, x2s, x3s, w4s, b4s, alpha, As, out, N, S, T, V, R, C, st);
+  if (R <= 32) return launch<32>(x1s, x2s, x3s, w4s, b4s, alpha, As, out, N, S, T, V, R, C, st);
+  return cudaErrorInvalidValue;
+}
+
 }  // namespace
 
-// Which design unit_ctr_gc_fwd_f32 launches at (S, V, R): 0 the whole-V
-// kernel, 1 the joint-tiled one, -1 neither (R or S or V out of range).
+// Which design unit_ctr_gc_fwd_f32 and unit_ctr_gc_fwd_bf16 launch at
+// (S, V, R): 0 the whole-V kernel, 1 the joint-tiled one, -1 neither (R or S
+// or V out of range). Shared memory holds f32 in either dtype, so the two
+// take the same design.
 extern "C" int unit_ctr_gc_fwd_variant(int S, int V, int R) {
   if (S < 1 || V < 1 || R < 1 || R > 32) return -1;
   return whole_v_ct(S, V, rp_of(R)) == 0 ? 1 : 0;
@@ -287,13 +310,17 @@ extern "C" int unit_ctr_gc_fwd_f32(const float* x1s, const float* x2s,
                                    const float* b4s, const float* alpha,
                                    const float* As, float* out, int N, int S,
                                    int T, int V, int R, int C, void* stream) {
-  if (N < 1 || N > 65535 || S < 1 || T < 1 || V < 1 || R < 1 || C < 4 ||
-      C % 4 != 0) {
-    return cudaErrorInvalidValue;
-  }
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (R <= 8) return launch<8>(x1s, x2s, x3s, w4s, b4s, alpha, As, out, N, S, T, V, R, C, st);
-  if (R <= 16) return launch<16>(x1s, x2s, x3s, w4s, b4s, alpha, As, out, N, S, T, V, R, C, st);
-  if (R <= 32) return launch<32>(x1s, x2s, x3s, w4s, b4s, alpha, As, out, N, S, T, V, R, C, st);
-  return cudaErrorInvalidValue;
+  return fwd(x1s, x2s, x3s, w4s, b4s, alpha, As, out, N, S, T, V, R, C, stream);
+}
+
+// As unit_ctr_gc_fwd_f32 with x1s, x2s, x3s and out bf16 (x3s and out
+// 8-byte aligned), the parameters f32.
+extern "C" int unit_ctr_gc_fwd_bf16(const __nv_bfloat16* x1s,
+                                    const __nv_bfloat16* x2s,
+                                    const __nv_bfloat16* x3s, const float* w4s,
+                                    const float* b4s, const float* alpha,
+                                    const float* As, __nv_bfloat16* out, int N,
+                                    int S, int T, int V, int R, int C,
+                                    void* stream) {
+  return fwd(x1s, x2s, x3s, w4s, b4s, alpha, As, out, N, S, T, V, R, C, stream);
 }

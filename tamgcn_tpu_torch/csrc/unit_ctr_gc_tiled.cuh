@@ -12,9 +12,10 @@
 // frames in chunks and builds the M tiles again for each chunk.
 //
 // M is computed with the arithmetic of unit_ctr_gc_common.cuh:build_m (the
-// same tanh and the same FMA order over r), so an M value is bitwise the one
-// the whole-V design builds; only the order of the sum over the summed joint
-// differs.
+// same tanh, the same operand rounding in bf16 and the same FMA order over
+// r), so an M value is bitwise the one the whole-V design builds; only the
+// order of the sum over the summed joint differs. The activations are float
+// or __nv_bfloat16 (Act<TA>); shared memory holds f32 in both.
 #pragma once
 
 #include "unit_ctr_gc_common.cuh"
@@ -43,7 +44,8 @@ __host__ __device__ inline int smem_floats(int RP) {
 // src + ((n*T + t)*V + j)*ld, channels coff .. coff+kCT) into
 // X [t][j][c], zero where t >= T, j >= V or the channel >= C (cend - coff
 // channels exist). Channels in fours: ld, coff and C are multiples of 4.
-__device__ inline void stage_chunk(const float* __restrict__ src, float* X,
+template <typename TA>
+__device__ inline void stage_chunk(const TA* __restrict__ src, float* X,
                                    int n, int tb, int j0, int T, int V,
                                    size_t ld, int coff, int nch) {
   constexpr int kQ = kCT / 4;
@@ -57,7 +59,7 @@ __device__ inline void stage_chunk(const float* __restrict__ src, float* X,
       const int q = i % kQ, j = (i / kQ) % kJ, t = i / (kQ * kJ);
       val[k] = make_float4(0.f, 0.f, 0.f, 0.f);
       if (i < kItems && tb + t < T && j0 + j < V && 4 * q < nch) {
-        val[k] = *reinterpret_cast<const float4*>(
+        val[k] = Act<TA>::load4(
             src + (((size_t)n * T + tb + t) * V + j0 + j) * ld + coff + 4 * q);
       }
     }
@@ -76,10 +78,11 @@ __device__ inline void stage_chunk(const float* __restrict__ src, float* X,
 // c0 .. c0+kCT: M_s[u,v,c] at M + (iu*su + iv*sv)*kCT + c (iu = u - u0,
 // iv = v - v0), zero where u >= V or v >= V. Run by all threads; the caller
 // synchronises before (the previous reads of D, E, W and M are done) and
-// after (before it reads M).
-template <int RP>
-__device__ inline void tile_m(const float* __restrict__ x1s,
-                              const float* __restrict__ x2s,
+// after (before it reads M). D and W hold stage 1's operands
+// (Act<TA>::operand).
+template <int RP, typename TA>
+__device__ inline void tile_m(const TA* __restrict__ x1s,
+                              const TA* __restrict__ x2s,
                               const float* __restrict__ w4s,
                               const float* __restrict__ b4s, float a,
                               const float* __restrict__ As, float* D, float* W,
@@ -91,16 +94,16 @@ __device__ inline void tile_m(const float* __restrict__ x1s,
   // E: the x1 rows of the u tile, then the x2 rows of the v tile, zero-padded
   // to RP; W: w4s[s] of the channel tile
   {
-    const float* x1 = x1s + ((size_t)n * S + s) * V * R;
-    const float* x2 = x2s + ((size_t)n * S + s) * V * R;
+    const TA* x1 = x1s + ((size_t)n * S + s) * V * R;
+    const TA* x2 = x2s + ((size_t)n * S + s) * V * R;
     for (int i = tid; i < 2 * kJ * RP; i += kThreads) {
       const int r = i % RP, row = i / RP;  // row < kJ: x1 of u0 + row
       const int j = row < kJ ? u0 + row : v0 + row - kJ;
-      E[i] = (r < R && j < V) ? (row < kJ ? x1[j * R + r] : x2[j * R + r]) : 0.f;
+      E[i] = (r < R && j < V) ? Act<TA>::load((row < kJ ? x1 : x2) + j * R + r) : 0.f;
     }
     for (int i = tid; i < RP * kCT; i += kThreads) {
       const int r = i / kCT, c = c0 + i % kCT;
-      W[i] = (r < R && c < C) ? w4s[((size_t)s * R + r) * C + c] : 0.f;
+      W[i] = (r < R && c < C) ? Act<TA>::operand(w4s[((size_t)s * R + r) * C + c]) : 0.f;
     }
   }
   __syncthreads();
@@ -111,7 +114,7 @@ __device__ inline void tile_m(const float* __restrict__ x1s,
     for (int k = 0; k < kBatch; ++k) {
       const int i = min(base + k * kThreads, kPairs * RP - 1);
       const int r = i % RP, p = i / RP;
-      val[k] = tanhf(E[(p / kJ) * RP + r] - E[(kJ + p % kJ) * RP + r]);
+      val[k] = Act<TA>::operand(tanhf(E[(p / kJ) * RP + r] - E[(kJ + p % kJ) * RP + r]));
     }
 #pragma unroll
     for (int k = 0; k < kBatch; ++k) {
@@ -189,8 +192,9 @@ __device__ inline void accumulate(const float* M, const float* X, Item it,
 
 // Writes acc to dst + ((n*T + t)*V + own)*ld + coff + c for the frames
 // t = tb + f0 + j < T, own joints own0_tile + own0 + i < V and channels
-// c0 + c < C (coff includes c0).
-__device__ inline void write_out(float* __restrict__ dst, const float (&acc)[kFr][kOwn],
+// c0 + c < C (coff includes c0), each rounded once to TA.
+template <typename TA>
+__device__ inline void write_out(TA* __restrict__ dst, const float (&acc)[kFr][kOwn],
                                  Item it, int n, int tb, int own_tile0, int T,
                                  int V, size_t ld, int coff, bool c_ok) {
   if (!c_ok) return;
@@ -201,7 +205,7 @@ __device__ inline void write_out(float* __restrict__ dst, const float (&acc)[kFr
     for (int i = 0; i < kOwn; ++i) {
       const int own = own_tile0 + it.own0 + i;
       if (t < T && own < V) {
-        dst[(((size_t)n * T + t) * V + own) * ld + coff + it.c] = acc[j][i];
+        Act<TA>::store(dst + (((size_t)n * T + t) * V + own) * ld + coff + it.c, acc[j][i]);
       }
     }
   }

@@ -19,14 +19,16 @@ _LATER = {
 
 def get_model(name: str, **model_args):
     """Instantiate a registered model by name. A `generator` keyword seeds
-    the parameters; the compute dtype is float32 in this slice."""
+    the parameters; `dtype` (the config's model_args.dtype) is the compute
+    dtype, float32 (None) or bfloat16 with float32 parameters, and any other
+    raises."""
     if name in _LATER:
         raise NotImplementedError(f"model {name!r} comes with {_LATER[name]}")
-    dtype = model_args.pop("dtype", None)
-    if dtype not in (None, "float32"):
+    dtype = model_args.get("dtype")
+    if dtype not in (None, "float32", "bfloat16"):
         raise NotImplementedError(
-            f"model dtype {dtype!r}: the port computes in float32 until the "
-            "bf16 slice adds bfloat16"
+            f"model dtype {dtype!r}: the port computes in float32 or in "
+            "bfloat16 (mixed precision, float32 parameters)"
         )
     try:
         cls = _REGISTRY[name]

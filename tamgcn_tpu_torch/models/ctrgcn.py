@@ -11,6 +11,16 @@ op (ops.aggregation.unit_ctr_gc_conv3), the CUDA kernels on the card.
 Reference: CTRGC :150-177, unit_gcn :196-263 incl. the TAM offset branch
 :219-223 and :256-259, MultiScale_TemporalConv :72-147, unit_tcn :179-193,
 TCN_GCN_unit :266-284, Model :287-374.
+
+Compute dtype (`dtype`: None or "float32", or "bfloat16"), the JAX model's
+mixed precision (tamgcn_tpu/models/ctrgcn.py `dtype`): the parameters, the
+BatchNorm statistics and the logits stay float32. In bfloat16 the stem
+casts the input, and every conv, as a Flax `nn.Conv(dtype=bfloat16)`, casts
+its input, weight and bias to bf16, rounds its product to bf16 and then adds
+the bias in bf16; BatchNorm normalises in bf16 arithmetic (ops/norm.py); the
+unit op takes bf16 activations with its float32 parameters (K1-K3's bf16
+forms on the card); the head's logits are widened to float32. The casts of
+the weights are part of the graph, so the optimizer gets float32 gradients.
 """
 from __future__ import annotations
 
@@ -36,16 +46,35 @@ def _default_generator() -> torch.Generator:
     return torch.Generator().manual_seed(0)
 
 
+def compute_dtype(dtype) -> torch.dtype | None:
+    """None for float32 compute (None, "float32", torch.float32),
+    torch.bfloat16 for "bfloat16" or torch.bfloat16; raises on anything else."""
+    if dtype in (None, "float32", torch.float32):
+        return None
+    if dtype in ("bfloat16", torch.bfloat16):
+        return torch.bfloat16
+    raise NotImplementedError(
+        f"compute dtype {dtype!r}: the model computes in float32 or bfloat16")
+
+
+def _cast_linear(x, weight, bias, dtype):
+    """A Flax Dense/1x1 Conv with a compute dtype: input, weight and bias
+    cast to `dtype`, the product rounded to it, then the bias added."""
+    return F.linear(x.to(dtype), weight.to(dtype)) + bias.to(dtype)
+
+
 class Conv1x1(nn.Module):
     """1x1 conv on NTVC: x (..., Cin) @ weight (Cout, Cin)^T + bias, with an
     optional temporal stride (axis 1). `blocks` > 1 marks a packed conv of
-    `blocks` independent convs for the init."""
+    `blocks` independent convs for the init. `dtype` is the compute dtype
+    (compute_dtype)."""
 
     def __init__(self, in_channels: int, out_channels: int, stride: int = 1,
-                 blocks: int = 1):
+                 blocks: int = 1, dtype=None):
         super().__init__()
         self.stride = stride
         self.blocks = blocks
+        self.dtype = compute_dtype(dtype)
         self.weight = nn.Parameter(torch.empty(out_channels, in_channels))
         self.bias = nn.Parameter(torch.zeros(out_channels))
 
@@ -59,6 +88,8 @@ class Conv1x1(nn.Module):
     def forward(self, x):
         if self.stride != 1:
             x = x[:, ::self.stride]
+        if self.dtype is not None:
+            return _cast_linear(x, self.weight, self.bias, self.dtype)
         return F.linear(x, self.weight, self.bias)
 
 
@@ -67,10 +98,11 @@ class TemporalConv2d(nn.Module):
     as the reference: conv2d on the channels_last NCHW view."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
-                 stride: int = 1, dilation: int = 1):
+                 stride: int = 1, dilation: int = 1, dtype=None):
         super().__init__()
         self.stride = stride
         self.dilation = dilation
+        self.dtype = compute_dtype(dtype)
         self.pad = (kernel_size + (kernel_size - 1) * (dilation - 1) - 1) // 2
         self.weight = nn.Parameter(
             torch.empty(out_channels, in_channels, kernel_size, 1)
@@ -81,13 +113,21 @@ class TemporalConv2d(nn.Module):
         inits.kaiming_normal_fan_out_(self.weight, generator)
         nn.init.zeros_(self.bias)
 
-    def forward(self, x):
+    def _conv(self, x, weight, bias):
         y = F.conv2d(
-            x.permute(0, 3, 1, 2), self.weight, self.bias,
+            x.permute(0, 3, 1, 2), weight, bias,
             stride=(self.stride, 1), padding=(self.pad, 0),
             dilation=(self.dilation, 1),
         )
         return y.permute(0, 2, 3, 1).contiguous()
+
+    def forward(self, x):
+        dt = self.dtype
+        if dt is None:
+            return self._conv(x, self.weight, self.bias)
+        # as a Flax nn.Conv with a compute dtype: the product rounded, then
+        # the bias added
+        return self._conv(x.to(dt), self.weight.to(dt), None) + self.bias.to(dt)
 
 
 class CTRGC(nn.Module):
@@ -98,11 +138,18 @@ class CTRGC(nn.Module):
     conv4_kernel keeps the Flax layout (1, 1, R, C). The refinement and
     aggregation run through ops.aggregation.ctr_gc_fused (K1 and K2 at S = 1
     on the card). `UnitGCN` runs the three subsets through the packed unit
-    op instead."""
+    op instead. Its compute dtype is float32: bfloat16 (the JAX module's
+    `dtype`, whose kernel is K4's bf16 form) raises, and comes with a later
+    slice."""
 
     def __init__(self, in_channels: int, out_channels: int,
-                 rel_reduction: int = 8, generator: torch.Generator | None = None):
+                 rel_reduction: int = 8, generator: torch.Generator | None = None,
+                 dtype=None):
         super().__init__()
+        if compute_dtype(dtype) is not None:
+            raise NotImplementedError(
+                f"CTRGC with dtype {dtype!r}: the standalone module's bf16 form "
+                "(K4's) comes with a later slice")
         R = _rel_channels(in_channels, rel_reduction)
         self.conv1 = Conv1x1(in_channels, R)
         self.conv2 = Conv1x1(in_channels, R)
@@ -131,8 +178,9 @@ class UnitGCN(nn.Module):
     (reference models/ctrgcn.py:196-263)."""
 
     def __init__(self, in_channels: int, out_channels: int, A: np.ndarray,
-                 adaptive: bool = True, residual: bool = True):
+                 adaptive: bool = True, residual: bool = True, dtype=None):
         super().__init__()
+        self.dtype = dt = compute_dtype(dtype)
         A0 = torch.as_tensor(np.asarray(A, np.float32))
         self.num_subset = S = A0.shape[0]
         self.in_channels = in_channels
@@ -147,16 +195,16 @@ class UnitGCN(nn.Module):
         self.alpha = nn.Parameter(torch.zeros(1))
         # the subsets' 1x1 convs are PACKED, as in the JAX model: conv12 holds
         # conv1 and conv2 of all subsets, conv3 the three conv3s
-        self.conv12 = Conv1x1(in_channels, 2 * S * R, blocks=2 * S)
-        self.conv3 = Conv1x1(in_channels, S * C, blocks=S)
+        self.conv12 = Conv1x1(in_channels, 2 * S * R, blocks=2 * S, dtype=dt)
+        self.conv3 = Conv1x1(in_channels, S * C, blocks=S, dtype=dt)
         self.conv4_kernel = nn.Parameter(torch.empty(S, R, C))
         self.conv4_bias = nn.Parameter(torch.zeros(S, C))
-        self.bn = BatchNorm(C)
+        self.bn = BatchNorm(C, dtype=dt)
         if residual and in_channels != out_channels:
-            self.down_conv = Conv1x1(in_channels, C)
-            self.down_bn = BatchNorm(C)
-        self.offset_conv = Conv1x1(C, C)
-        self.offset_bn = BatchNorm(C)
+            self.down_conv = Conv1x1(in_channels, C, dtype=dt)
+            self.down_bn = BatchNorm(C, dtype=dt)
+        self.offset_conv = Conv1x1(C, C, dtype=dt)
+        self.offset_bn = BatchNorm(C, dtype=dt)
 
     def reset_parameters(self, generator):
         self.conv12.reset_parameters(generator)
@@ -178,9 +226,13 @@ class UnitGCN(nn.Module):
         x1s = e12[..., : S * R].reshape(N, V, S, R).permute(0, 2, 1, 3).contiguous()
         x2s = e12[..., S * R:].reshape(N, V, S, R).permute(0, 2, 1, 3).contiguous()
         # conv3 and the unit op: the unfused conv3_matmul + unit_ctr_gc, or
-        # with TAMGCN_FUSE_CONV3=1 at C >= 128 the op whose backward is K6
+        # with TAMGCN_FUSE_CONV3=1 at C >= 128 the op whose backward is K6;
+        # conv3 in the compute dtype, the unit op's parameters float32
+        w3, b3 = self.conv3.weight.t(), self.conv3.bias
+        if self.dtype is not None:
+            x, w3, b3 = x.to(self.dtype), w3.to(self.dtype), b3.to(self.dtype)
         y = unit_ctr_gc_conv3(
-            x, self.conv3.weight.t(), self.conv3.bias, x1s, x2s,
+            x, w3, b3, x1s, x2s,
             self.conv4_kernel, self.conv4_bias, self.alpha, self.PA,
         )
         y = self.bn(y)
@@ -198,12 +250,13 @@ class TemporalConv(nn.Module):
     """k x 1 dilated temporal conv + BN (reference models/ctrgcn.py:52-69)."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
-                 stride: int = 1, dilation: int = 1, bn_weights_init: bool = False):
+                 stride: int = 1, dilation: int = 1, bn_weights_init: bool = False,
+                 dtype=None):
         super().__init__()
         self.bn_weights_init = bn_weights_init
         self.conv = TemporalConv2d(in_channels, out_channels, kernel_size,
-                                   stride, dilation)
-        self.bn = BatchNorm(out_channels)
+                                   stride, dilation, dtype=dtype)
+        self.bn = BatchNorm(out_channels, dtype=compute_dtype(dtype))
 
     def reset_parameters(self, generator):
         self.conv.reset_parameters(generator)
@@ -224,8 +277,9 @@ class MultiScaleTCN(nn.Module):
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size=3,
                  stride: int = 1, dilations: Sequence[int] = (1, 2, 3, 4),
-                 residual: bool = True, residual_kernel_size: int = 1):
+                 residual: bool = True, residual_kernel_size: int = 1, dtype=None):
         super().__init__()
+        dt = compute_dtype(dtype)
         num_branches = len(dilations) + 2
         if out_channels % num_branches:
             raise ValueError("# out channels should be multiples of # branches")
@@ -238,13 +292,14 @@ class MultiScaleTCN(nn.Module):
             kernel_sizes = [kernel_size] * len(dilations)
         self.n_dil = n_dil = len(dilations)
         self.stride = stride
-        self.prefix_conv = Conv1x1(in_channels, (n_dil + 1) * bc, blocks=n_dil + 1)
-        self.prefix_bn = BatchNorm((n_dil + 1) * bc)
+        self.prefix_conv = Conv1x1(in_channels, (n_dil + 1) * bc, blocks=n_dil + 1,
+                                   dtype=dt)
+        self.prefix_bn = BatchNorm((n_dil + 1) * bc, dtype=dt)
         for i, (ks, dilation) in enumerate(zip(kernel_sizes, dilations)):
             setattr(self, f"branch{i}_tconv_conv",
-                    TemporalConv2d(bc, bc, ks, stride, dilation))
-        self.pw_conv = Conv1x1(in_channels, bc, stride=stride)
-        self.out_bn = BatchNorm(out_channels)
+                    TemporalConv2d(bc, bc, ks, stride, dilation, dtype=dt))
+        self.pw_conv = Conv1x1(in_channels, bc, stride=stride, dtype=dt)
+        self.out_bn = BatchNorm(out_channels, dtype=dt)
         self.res_mode = (
             "none" if not residual
             else "identity" if in_channels == out_channels and stride == 1
@@ -253,7 +308,7 @@ class MultiScaleTCN(nn.Module):
         if self.res_mode == "conv":
             self.residual = TemporalConv(in_channels, out_channels,
                                          residual_kernel_size, stride=stride,
-                                         bn_weights_init=True)
+                                         bn_weights_init=True, dtype=dt)
 
     def reset_parameters(self, generator):
         self.prefix_conv.reset_parameters(generator)
@@ -292,10 +347,11 @@ class UnitTCN(nn.Module):
     """k x 1 temporal conv + BN residual unit (reference models/ctrgcn.py:179-193)."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int = 9,
-                 stride: int = 1):
+                 stride: int = 1, dtype=None):
         super().__init__()
-        self.conv = TemporalConv2d(in_channels, out_channels, kernel_size, stride)
-        self.bn = BatchNorm(out_channels)
+        self.conv = TemporalConv2d(in_channels, out_channels, kernel_size, stride,
+                                   dtype=dtype)
+        self.bn = BatchNorm(out_channels, dtype=compute_dtype(dtype))
 
     def reset_parameters(self, generator):
         self.conv.reset_parameters(generator)
@@ -310,12 +366,14 @@ class TCNGCNUnit(nn.Module):
 
     def __init__(self, in_channels: int, out_channels: int, A, stride: int = 1,
                  residual: bool = True, adaptive: bool = True,
-                 kernel_size: int = 5, dilations: Sequence[int] = (1, 2)):
+                 kernel_size: int = 5, dilations: Sequence[int] = (1, 2),
+                 dtype=None):
         super().__init__()
-        self.gcn1 = UnitGCN(in_channels, out_channels, A, adaptive=adaptive)
+        self.gcn1 = UnitGCN(in_channels, out_channels, A, adaptive=adaptive,
+                            dtype=dtype)
         self.tcn1 = MultiScaleTCN(out_channels, out_channels,
                                   kernel_size=kernel_size, stride=stride,
-                                  dilations=dilations, residual=False)
+                                  dilations=dilations, residual=False, dtype=dtype)
         self.res_mode = (
             "none" if not residual
             else "identity" if in_channels == out_channels and stride == 1
@@ -323,7 +381,7 @@ class TCNGCNUnit(nn.Module):
         )
         if self.res_mode == "conv":
             self.residual = UnitTCN(in_channels, out_channels, kernel_size=1,
-                                    stride=stride)
+                                    stride=stride, dtype=dtype)
 
     def reset_parameters(self, generator):
         self.gcn1.reset_parameters(generator)
@@ -346,15 +404,19 @@ class CTRGCN(nn.Module):
     10 TCN+GCN blocks, 64 -> 128 (stride 2 at l5) -> 256 (stride 2 at l8),
     data BN over (M, V, C) features, global (T, V) + person mean pooling,
     dropout, linear head. Parameters are drawn from `generator` (a CPU
-    `torch.Generator`; seed 0 when none is given).
+    `torch.Generator`; seed 0 when none is given). `dtype` is the compute
+    dtype (None or "float32", or "bfloat16"; the module docstring says what
+    bf16 computes); the parameters are float32 in both, and so are the
+    logits.
     """
 
     def __init__(self, num_class: int = 60, num_point: int = 25,
                  num_person: int = 2, graph=None, graph_args=None,
                  in_channels: int = 3, drop_out: float = 0.0,
                  adaptive: bool = True, base_channel: int = 64,
-                 generator: torch.Generator | None = None):
+                 generator: torch.Generator | None = None, dtype=None):
         super().__init__()
+        self.dtype = dt = compute_dtype(dtype)
         if graph is None:
             raise ValueError("graph must be specified")
         if isinstance(graph, np.ndarray):
@@ -375,9 +437,10 @@ class CTRGCN(nn.Module):
         ]
         for i, (cin, cout, stride, residual) in enumerate(plan):
             setattr(self, f"l{i + 1}", TCNGCNUnit(
-                cin, cout, A, stride=stride, residual=residual, adaptive=adaptive
+                cin, cout, A, stride=stride, residual=residual, adaptive=adaptive,
+                dtype=dt,
             ))
-        self.data_bn = BatchNorm(num_person * num_point * in_channels)
+        self.data_bn = BatchNorm(num_person * num_point * in_channels, dtype=dt)
         self.fc = nn.Linear(4 * bc, num_class)
         self.dropout = nn.Dropout(drop_out) if drop_out else None
         self.reset_parameters(generator or _default_generator())
@@ -401,7 +464,10 @@ class CTRGCN(nn.Module):
         return x
 
     def _stem(self, x):
-        """data BN over flattened (M,V,C) features (reference :302, :330-332)."""
+        """data BN over flattened (M,V,C) features (reference :302, :330-332),
+        on the input cast to the compute dtype."""
+        if self.dtype is not None:
+            x = x.to(self.dtype)
         N, C, T, V, M = x.shape
         h = x.permute(0, 2, 4, 3, 1).reshape(N, T, M * V * C)
         h = self.data_bn(h).reshape(N, T, M, V, C)
@@ -425,7 +491,10 @@ class CTRGCN(nn.Module):
                 "drop_out > 0 in training comes with the RGB slice (the "
                 "seeded dropout of the ResNet block variant)"
             )
-        return self.fc(h)
+        if self.dtype is None:
+            return self.fc(h)
+        # the head in the compute dtype, its logits widened to float32
+        return _cast_linear(h, self.fc.weight, self.fc.bias, self.dtype).float()
 
     def extract_feature(self, x):
         """Pre-pool features (N, C', T', V, M) — reference models/ctrgcn.py:350-374.

@@ -19,6 +19,12 @@ where K5 does not take the shape), ``use_kernel=False`` every block through
 
 Weights change between the evaluations of a training run, so a caller folds
 anew (calls `make_fast_eval` again) after every change.
+
+The engine computes in f32 from the model's f32 parameters whatever the
+model's compute dtype: on a bf16 model (`model_args.dtype: bfloat16`) the
+fast eval is the f32 engine, as the JAX engine (tamgcn_tpu/models/
+ctrgcn_infer.py:make_fast_eval_fn, which never reads the model's dtype)
+computes for such a model. So no bf16 form of K5 runs on any path.
 """
 from __future__ import annotations
 

@@ -11,10 +11,19 @@ through `unit_ctr_gc`, the autograd Function `UnitCtrGc`: for CPU tensors the
 plain versions below (forward, x3 gradient, parameter gradients), for CUDA
 tensors the hand-written CUDA kernels K1, K2 and K3 (ops/cuda/ctr_gc.py).
 
+The activations of the unit op (x1s, x2s, x3s, its output and their
+gradients) are float32 or, under the JAX package's bf16 mixed precision,
+bfloat16, with w4s, b4s, alpha and As float32 in both. The plain versions
+then follow the JAX kernels' bf16 bodies (tamgcn_tpu/ops/pallas/ctr_gc.py
+`mm_dtype`), not the XLA reference: D = tanh(x1 - x2) in f32 from the bf16
+values; M's product over r on D and w4s rounded to bf16, summed in f32; the
+aggregation in f32; each bf16 output rounded once. The parameter gradients
+use the f32 D and w4s and stay f32; dx1s and dx2s are rounded to bf16.
+
 `unit_ctr_gc_conv3` spans the packed conv3 that makes x3s as well; with the
 JAX package's switch TAMGCN_FUSE_CONV3=1 it takes `UnitCtrGcConv3`, whose
 backward is K6 (the x3 gradient carried through conv3's VJP on the chip) and
-K3. `ctr_gc_fused` is the standalone single-subset op of the `CTRGC` module
+K3; K6 has no bf16 form yet. `ctr_gc_fused` is the standalone single-subset op of the `CTRGC` module
 (K4 in the JAX package), run through K1 and K2 at S = 1.
 """
 from __future__ import annotations
@@ -25,13 +34,20 @@ import torch
 from torch.autograd.function import once_differentiable
 
 
-def ctr_gc_dynamic_adjacency(x1, x2, w4, b4, alpha, A):
+def _operand(t, operand_dtype):
+    """`t` rounded to `operand_dtype` and widened back (as is where None)."""
+    return t if operand_dtype is None else t.to(operand_dtype).to(t.dtype)
+
+
+def ctr_gc_dynamic_adjacency(x1, x2, w4, b4, alpha, A, operand_dtype=None):
     """Channel-wise refined adjacency M[n,u,v,c] = (tanh(x1-x2)@w4 + b4)*alpha + A.
 
     x1 (N,U,R), x2 (N,V,R), w4 (R,C), b4 (C,) or None, alpha (1,), A (U,V).
+    With `operand_dtype` (bfloat16), D = tanh(x1-x2) and w4 are rounded to it
+    before their product, which sums in the dtype of x1.
     """
     d = torch.tanh(x1[:, :, None, :] - x2[:, None, :, :])  # (N, U, V, R)
-    m = torch.matmul(d, w4)  # (N, U, V, C)
+    m = torch.matmul(_operand(d, operand_dtype), _operand(w4, operand_dtype))  # (N, U, V, C)
     if b4 is not None:
         m = m + b4
     return m * alpha + A[None, :, :, None]
@@ -42,22 +58,33 @@ def ctr_gc_aggregate(m, x3):
     return torch.einsum("nuvc,ntvc->ntuc", m, x3)
 
 
+def _widened(*activations):
+    """(the activations' dtype, the bf16 operand dtype of stage 1 or None, the
+    activations widened to float32 where they are bfloat16)."""
+    dtype = activations[0].dtype
+    if dtype != torch.bfloat16:
+        return dtype, None, activations
+    return dtype, torch.bfloat16, tuple(a.float() for a in activations)
+
+
 def unit_ctr_gc_plain(x1s, x2s, x3s, w4s, b4s, alpha, As):
-    """Plain version of the unit op (counterpart of `unit_ctr_gc_xla`).
+    """Plain version of the unit op (counterpart of `unit_ctr_gc_xla`; in
+    bfloat16, of the JAX kernel's bf16 body, as the module docstring says).
 
     x1s/x2s (N,S,V,R); x3s (N,T,V,S*C); w4s (S,R,C); b4s (S,C); alpha (1,);
-    As (S,V,V) -> (N,T,V,C).
+    As (S,V,V) -> (N,T,V,C) in the dtype of x3s.
     """
     S = x1s.shape[1]
     C = x3s.shape[-1] // S
+    dtype, operand, (x1s, x2s, x3s) = _widened(x1s, x2s, x3s)
     out = None
     for s in range(S):
         m = ctr_gc_dynamic_adjacency(
-            x1s[:, s], x2s[:, s], w4s[s], b4s[s], alpha, As[s]
+            x1s[:, s], x2s[:, s], w4s[s], b4s[s], alpha, As[s], operand
         )
         y = ctr_gc_aggregate(m, x3s[..., s * C:(s + 1) * C])
         out = y if out is None else out + y
-    return out
+    return out.to(dtype)
 
 
 def unit_ctr_gc_dx3_plain(x1s, x2s, g, w4s, b4s, alpha, As):
@@ -65,16 +92,18 @@ def unit_ctr_gc_dx3_plain(x1s, x2s, g, w4s, b4s, alpha, As):
     dx3s[n,t,v,s*C+c] = sum_u M_s[n,u,v,c] * g[n,t,u,c].
 
     x1s/x2s (N,S,V,R); g (N,T,V,C); w4s (S,R,C); b4s (S,C); alpha (1,);
-    As (S,V,V) -> (N,T,V,S*C).
+    As (S,V,V) -> (N,T,V,S*C) in the dtype of g.
     """
+    dtype, operand, (x1s, x2s, g) = _widened(x1s, x2s, g)
     return torch.cat([
         torch.einsum(
             "nuvc,ntuc->ntvc",
-            ctr_gc_dynamic_adjacency(x1s[:, s], x2s[:, s], w4s[s], b4s[s], alpha, As[s]),
+            ctr_gc_dynamic_adjacency(x1s[:, s], x2s[:, s], w4s[s], b4s[s], alpha,
+                                     As[s], operand),
             g,
         )
         for s in range(x1s.shape[1])
-    ], dim=-1)
+    ], dim=-1).to(dtype)
 
 
 def unit_ctr_gc_param_grads_plain(x1s, x2s, g, x3s, w4s, b4s, alpha):
@@ -88,10 +117,12 @@ def unit_ctr_gc_param_grads_plain(x1s, x2s, g, x3s, w4s, b4s, alpha):
         dpre = alpha (dm @ w4^T) (1 - D^2);  dx1 = sum_v dpre;  dx2 = -sum_u dpre
 
     Returns (dx1s, dx2s, dw4s, db4s, dalpha, dAs) shaped as x1s, x2s, w4s,
-    b4s, alpha and (S,V,V).
+    b4s, alpha and (S,V,V); in bfloat16, the f32 arithmetic on the widened
+    activations, with dx1s and dx2s rounded to bfloat16 and the rest f32.
     """
     S = x1s.shape[1]
     C = x3s.shape[-1] // S
+    dtype, _, (x1s, x2s, g, x3s) = _widened(x1s, x2s, g, x3s)
     dx1s, dx2s, dw4s, db4s, dAs = [], [], [], [], []
     dalpha = torch.zeros_like(alpha)
     for s in range(S):
@@ -104,7 +135,7 @@ def unit_ctr_gc_param_grads_plain(x1s, x2s, g, x3s, w4s, b4s, alpha):
         dpre = alpha * torch.matmul(dm, w4s[s].t()) * (1 - d * d)
         dx1s.append(dpre.sum(dim=2))
         dx2s.append(-dpre.sum(dim=1))
-    return (torch.stack(dx1s, dim=1), torch.stack(dx2s, dim=1),
+    return (torch.stack(dx1s, dim=1).to(dtype), torch.stack(dx2s, dim=1).to(dtype),
             torch.stack(dw4s), torch.stack(db4s), dalpha, torch.stack(dAs))
 
 
@@ -143,9 +174,10 @@ class UnitCtrGc(torch.autograd.Function):
     """The unit op with its gradient (counterpart of the JAX package's
     custom_vjp `_unit_ctr_gc_pallas`, ops/aggregation.py:106-130): K1
     forward, K2 and K3 backward on a CUDA device, their plain versions on the
-    CPU. Saves the inputs, never M. Its backward is not itself
-    differentiable (the kernels' outputs have no graph), so a second-order
-    gradient through it raises on both devices."""
+    CPU. Saves the inputs, never M. Its gradients come in the primal dtypes
+    (bf16 for bf16 activations, f32 for the parameters). Its backward is
+    not itself differentiable (the kernels' outputs have no graph), so a
+    second-order gradient through it raises on both devices."""
 
     @staticmethod
     def forward(ctx, x1s, x2s, x3s, w4s, b4s, alpha, As):
@@ -228,12 +260,19 @@ def unit_ctr_gc_conv3(x, w3, b3, x1s, x2s, w4s, b4s, alpha, As):
     `unit_ctr_gc`. With the JAX package's switch TAMGCN_FUSE_CONV3=1, read
     here and nowhere else, and where the JAX package takes its fused kernel
     (C >= 128, S*C >= 384, V <= 32) it takes `UnitCtrGcConv3` (K6 in the
-    backward on the card); everywhere else conv3_matmul + `unit_ctr_gc`. The
-    device of the tensors picks kernels or plain versions in either case."""
+    backward on the card), and raises NotImplementedError on bfloat16
+    activations (K6's bf16 form comes with a later slice); everywhere else
+    conv3_matmul + `unit_ctr_gc`. The device of the tensors picks kernels or
+    plain versions in either case."""
     S, V = x1s.shape[1], x1s.shape[2]
     C = w3.shape[-1] // S
     fuse = os.environ.get("TAMGCN_FUSE_CONV3", "0") == "1"
     if fuse and C >= 128 and S * C >= 384 and V <= 32:
+        if x.dtype == torch.bfloat16:
+            raise NotImplementedError(
+                "TAMGCN_FUSE_CONV3=1 with bfloat16 activations needs the bf16 form "
+                "of K6 (the x3 gradient through conv3's VJP), which comes with a "
+                "later slice; unset the switch to train in bf16")
         return UnitCtrGcConv3.apply(x, w3, b3, x1s, x2s, w4s, b4s, alpha, As)
     return unit_ctr_gc(x1s, x2s, conv3_matmul(x, w3, b3), w4s, b4s, alpha, As)
 

@@ -19,6 +19,13 @@ the joint-tiled kernel (csrc/unit_ctr_gc_tiled.cuh) where that does not fit
 (V = 256). The launcher picks one from the shape; `fwd_variant` and
 `dx3_variant` ask it which, and each design counts its launches on its own
 counter.
+
+K1, K2 and K3 take their activations (x1s, x2s, x3s, g and the outputs of
+those shapes) in float32 or in bfloat16, the JAX package's bf16 mixed
+precision, and their parameters (w4s, b4s, alpha, As) in float32 in both
+forms; the wrappers dispatch on the activations' dtype, and each form
+counts its launches on its own counter (the bf16 ones end in `_bf16`). K6
+takes float32 only.
 """
 from __future__ import annotations
 
@@ -42,14 +49,24 @@ bwd_dx3_launches = 0  # K2, whole-V design
 bwd_dx3_tiled_launches = 0  # K2, joint-tiled design
 bwd_param_launches = 0  # K3
 bwd_conv3_launches = 0  # K6
+# the bf16 forms
+launches_bf16 = 0  # K1, whole-V design
+launches_tiled_bf16 = 0  # K1, joint-tiled design
+bwd_dx3_launches_bf16 = 0  # K2, whole-V design
+bwd_dx3_tiled_launches_bf16 = 0  # K2, joint-tiled design
+bwd_param_launches_bf16 = 0  # K3
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     "unit_ctr_gc_fwd_f32": (FWD_SOURCE, [_P] * 8 + [_I] * 6 + [_P], ctypes.c_int),
+    "unit_ctr_gc_fwd_bf16": (FWD_SOURCE, [_P] * 8 + [_I] * 6 + [_P], ctypes.c_int),
     "unit_ctr_gc_fwd_variant": (FWD_SOURCE, [_I] * 3, ctypes.c_int),
     "unit_ctr_gc_bwd_dx3_f32": (DX3_SOURCE, [_P] * 8 + [_I] * 6 + [_P], ctypes.c_int),
+    "unit_ctr_gc_bwd_dx3_bf16": (DX3_SOURCE, [_P] * 8 + [_I] * 6 + [_P], ctypes.c_int),
     "unit_ctr_gc_bwd_dx3_variant": (DX3_SOURCE, [_I] * 3, ctypes.c_int),
     "unit_ctr_gc_bwd_param_f32": (
+        PARAM_SOURCE, [_P] * 14 + [_I] * 6 + [_P], ctypes.c_int),
+    "unit_ctr_gc_bwd_param_bf16": (
         PARAM_SOURCE, [_P] * 14 + [_I] * 6 + [_P], ctypes.c_int),
     "unit_ctr_gc_bwd_param_scratch_floats": (
         PARAM_SOURCE, [_I] * 5, ctypes.c_longlong),
@@ -67,33 +84,62 @@ def _kernel(name: str):
     return build.entry(source, name, argtypes, restype)
 
 
-def _check(name, t, shape, device):
+def _check(name, t, shape, device, dtype=torch.float32):
     if t.device != device:
         raise ValueError(f"{name} is on {t.device}, expected {device}")
-    if t.dtype != torch.float32:
-        raise TypeError(f"{name} is {t.dtype}; the kernel takes float32")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} is {t.dtype}; the kernel takes {dtype}")
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name} is not contiguous")
 
 
-def _check_unit(fn_name, device, named, R, C, aligned=()):
+def _activation_dtype(fn_name, named, activations):
+    """The one dtype, float32 or bfloat16, of the tensors named in
+    `activations` (float32 where there are none); raises on any other dtype
+    and on a mix."""
+    acts = [(name, t) for name, t, _ in named if name in activations]
+    if not acts:
+        return torch.float32
+    first, dtype = acts[0][0], acts[0][1].dtype
+    listed = ", ".join(name for name, _ in acts)
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"{first} is {dtype}; {fn_name} takes its activations "
+                        f"({listed}) in float32 or bfloat16")
+    for name, t in acts[1:]:
+        if t.dtype != dtype:
+            raise TypeError(f"{name} is {t.dtype} but {first} is {dtype}: the "
+                            f"activations of {fn_name} ({listed}) take one dtype")
+    return dtype
+
+
+def _check_unit(fn_name, device, named, R, C, aligned=(), activations=()):
     """Device, dtype, shape and contiguity of every (name, tensor, shape);
-    R <= 32; C % 4 == 0 and 16-byte alignment of the tensors named in
-    `aligned` (read with 16-byte loads), where there are any."""
+    R <= 32; C % 4 == 0 and the alignment of 4 values (16 bytes in float32,
+    8 in bfloat16) of the tensors named in `aligned` (read 4 channels at a
+    time), where there are any. The tensors named in `activations` are all
+    float32 or all bfloat16, every other tensor float32; returns the
+    activations' dtype."""
     if device.type != "cuda":
         raise ValueError(f"{fn_name} takes CUDA tensors, got {device}")
+    act = _activation_dtype(fn_name, named, activations)
     for name, t, shape in named:
-        _check(name, t, shape, device)
+        if name not in activations and t.dtype != torch.float32:
+            raise TypeError(
+                f"{name} is {t.dtype}; {fn_name} takes it in float32"
+                + (" with float32 and with bfloat16 activations" if activations else ""))
+        _check(name, t, shape, device, act if name in activations else torch.float32)
     if R > 32:
         raise ValueError(f"R={R}: the kernel takes R <= 32")
     if aligned and C % 4:
         raise ValueError(f"C={C}: the kernel reads channels in fours and "
                          "takes C % 4 == 0")
     for name, t, _ in named:
-        if name in aligned and t.data_ptr() % 16:
-            raise ValueError(f"{name} is not 16-byte aligned")
+        align = 4 * t.element_size()
+        if name in aligned and t.data_ptr() % align:
+            raise ValueError(f"{name} is not {align}-byte aligned")
+    return act
 
 
 # what the unit op's launchers (K1-K3) refuse once the checks of
@@ -141,14 +187,15 @@ def bwd_param_blocks(N: int, S: int, V: int, C: int) -> int:
 
 def unit_ctr_gc_fwd(x1s, x2s, x3s, w4s, b4s, alpha, As):
     """K1. x1s/x2s (N,S,V,R); x3s (N,T,V,S*C); w4s (S,R,C); b4s (S,C);
-    alpha (1,); As (S,V,V), all contiguous float32 on one CUDA device, with
+    alpha (1,); As (S,V,V), all contiguous on one CUDA device, the
+    activations x1s, x2s, x3s float32 or bfloat16 and the rest float32, with
     R <= 32 and C % 4 == 0, any V (the whole-V or the joint-tiled design, as
-    fwd_variant says) -> out (N,T,V,C). Its gradient is K2 and K3, through
-    ops/aggregation.py:UnitCtrGc."""
-    global launches, launches_tiled
+    fwd_variant says) -> out (N,T,V,C) in the activations' dtype. Its
+    gradient is K2 and K3, through ops/aggregation.py:UnitCtrGc."""
+    global launches, launches_tiled, launches_bf16, launches_tiled_bf16
     N, S, T, V, R, C = _unit_dims(x1s, x3s, w4s)
     device = x3s.device
-    _check_unit("unit_ctr_gc_fwd", device, (
+    act = _check_unit("unit_ctr_gc_fwd", device, (
         ("x1s", x1s, (N, S, V, R)),
         ("x2s", x2s, (N, S, V, R)),
         ("x3s", x3s, (N, T, V, S * C)),
@@ -156,15 +203,22 @@ def unit_ctr_gc_fwd(x1s, x2s, x3s, w4s, b4s, alpha, As):
         ("b4s", b4s, (S, C)),
         ("alpha", alpha, (1,)),
         ("As", As, (S, V, V)),
-    ), R, C, aligned=("x3s", "w4s", "b4s"))
-    out = torch.empty((N, T, V, C), device=device, dtype=torch.float32)
+    ), R, C, aligned=("x3s", "w4s", "b4s"), activations=("x1s", "x2s", "x3s"))
+    bf16 = act == torch.bfloat16
+    out = torch.empty((N, T, V, C), device=device, dtype=act)
     _launch(
-        _kernel("unit_ctr_gc_fwd_f32"), device, dict(N=N, S=S, T=T, V=V, R=R, C=C),
+        _kernel("unit_ctr_gc_fwd_bf16" if bf16 else "unit_ctr_gc_fwd_f32"), device,
+        dict(N=N, S=S, T=T, V=V, R=R, C=C),
         x1s.data_ptr(), x2s.data_ptr(), x3s.data_ptr(), w4s.data_ptr(),
         b4s.data_ptr(), alpha.data_ptr(), As.data_ptr(), out.data_ptr(),
         N, S, T, V, R, C, refused=_UNIT_REFUSED,
     )
-    if fwd_variant(S, V, R) == "tiled":
+    tiled = fwd_variant(S, V, R) == "tiled"
+    if bf16 and tiled:
+        launches_tiled_bf16 += 1
+    elif bf16:
+        launches_bf16 += 1
+    elif tiled:
         launches_tiled += 1
     else:
         launches += 1
@@ -174,12 +228,14 @@ def unit_ctr_gc_fwd(x1s, x2s, x3s, w4s, b4s, alpha, As):
 def unit_ctr_gc_bwd_dx3(x1s, x2s, g, w4s, b4s, alpha, As):
     """K2. The unit op's x3 gradient: x1s/x2s (N,S,V,R); g (N,T,V,C), the
     gradient of the output; w4s (S,R,C); b4s (S,C); alpha (1,); As (S,V,V),
-    all contiguous float32 on one CUDA device, with R <= 32 and C % 4 == 0,
-    any V (as dx3_variant says) -> dx3s (N,T,V,S*C)."""
+    all contiguous on one CUDA device, x1s, x2s, g float32 or bfloat16 and the
+    rest float32, with R <= 32 and C % 4 == 0, any V (as dx3_variant says)
+    -> dx3s (N,T,V,S*C) in the dtype of g."""
     global bwd_dx3_launches, bwd_dx3_tiled_launches
+    global bwd_dx3_launches_bf16, bwd_dx3_tiled_launches_bf16
     N, S, T, V, R, C = _unit_dims(x1s, g, w4s)
     device = g.device
-    _check_unit("unit_ctr_gc_bwd_dx3", device, (
+    act = _check_unit("unit_ctr_gc_bwd_dx3", device, (
         ("x1s", x1s, (N, S, V, R)),
         ("x2s", x2s, (N, S, V, R)),
         ("g", g, (N, T, V, C)),
@@ -187,15 +243,22 @@ def unit_ctr_gc_bwd_dx3(x1s, x2s, g, w4s, b4s, alpha, As):
         ("b4s", b4s, (S, C)),
         ("alpha", alpha, (1,)),
         ("As", As, (S, V, V)),
-    ), R, C, aligned=("g", "w4s", "b4s"))
-    dx3s = torch.empty((N, T, V, S * C), device=device, dtype=torch.float32)
+    ), R, C, aligned=("g", "w4s", "b4s"), activations=("x1s", "x2s", "g"))
+    bf16 = act == torch.bfloat16
+    dx3s = torch.empty((N, T, V, S * C), device=device, dtype=act)
     _launch(
-        _kernel("unit_ctr_gc_bwd_dx3_f32"), device, dict(N=N, S=S, T=T, V=V, R=R, C=C),
+        _kernel("unit_ctr_gc_bwd_dx3_bf16" if bf16 else "unit_ctr_gc_bwd_dx3_f32"),
+        device, dict(N=N, S=S, T=T, V=V, R=R, C=C),
         x1s.data_ptr(), x2s.data_ptr(), g.data_ptr(), w4s.data_ptr(),
         b4s.data_ptr(), alpha.data_ptr(), As.data_ptr(), dx3s.data_ptr(),
         N, S, T, V, R, C, refused=_UNIT_REFUSED,
     )
-    if dx3_variant(S, V, R) == "tiled":
+    tiled = dx3_variant(S, V, R) == "tiled"
+    if bf16 and tiled:
+        bwd_dx3_tiled_launches_bf16 += 1
+    elif bf16:
+        bwd_dx3_launches_bf16 += 1
+    elif tiled:
         bwd_dx3_tiled_launches += 1
     else:
         bwd_dx3_launches += 1
@@ -205,15 +268,16 @@ def unit_ctr_gc_bwd_dx3(x1s, x2s, g, w4s, b4s, alpha, As):
 def unit_ctr_gc_bwd_param(x1s, x2s, g, x3s, w4s, b4s, alpha):
     """K3. The unit op's other gradients: x1s/x2s (N,S,V,R); g (N,T,V,C), the
     gradient of the output; x3s (N,T,V,S*C); w4s (S,R,C); b4s (S,C); alpha
-    (1,), all contiguous float32 on one CUDA device, with R <= 32 (any C
-    and V)
+    (1,), all contiguous on one CUDA device, x1s, x2s, g, x3s float32 or
+    bfloat16 and the rest float32, with R <= 32 (any C and V)
     -> (dx1s, dx2s, dw4s, db4s, dalpha, dAs) shaped as x1s, x2s,
-    w4s, b4s, alpha and (S,V,V). The sums over samples run in a fixed order:
-    two calls on the same inputs give bitwise equal results."""
-    global bwd_param_launches
+    w4s, b4s, alpha and (S,V,V), dx1s and dx2s in the activations' dtype and
+    the rest float32. The sums over samples run in a fixed order: two calls
+    on the same inputs give bitwise equal results."""
+    global bwd_param_launches, bwd_param_launches_bf16
     N, S, T, V, R, C = _unit_dims(x1s, g, w4s)
     device = g.device
-    _check_unit("unit_ctr_gc_bwd_param", device, (
+    act = _check_unit("unit_ctr_gc_bwd_param", device, (
         ("x1s", x1s, (N, S, V, R)),
         ("x2s", x2s, (N, S, V, R)),
         ("g", g, (N, T, V, C)),
@@ -221,22 +285,27 @@ def unit_ctr_gc_bwd_param(x1s, x2s, g, x3s, w4s, b4s, alpha):
         ("w4s", w4s, (S, R, C)),
         ("b4s", b4s, (S, C)),
         ("alpha", alpha, (1,)),
-    ), R, C)
+    ), R, C, activations=("x1s", "x2s", "g", "x3s"))
+    bf16 = act == torch.bfloat16
 
-    def empty(*shape):
-        return torch.empty(shape, device=device, dtype=torch.float32)
+    def empty(*shape, dtype=torch.float32):
+        return torch.empty(shape, device=device, dtype=dtype)
 
-    dx1s, dx2s = empty(N, S, V, R), empty(N, S, V, R)
+    dx1s, dx2s = empty(N, S, V, R, dtype=act), empty(N, S, V, R, dtype=act)
     dw4s, db4s, dalpha, dAs = empty(S, R, C), empty(S, C), empty(1), empty(S, V, V)
     scratch = empty(_kernel("unit_ctr_gc_bwd_param_scratch_floats")(N, S, V, R, C))
     _launch(
-        _kernel("unit_ctr_gc_bwd_param_f32"), device, dict(N=N, S=S, T=T, V=V, R=R, C=C),
+        _kernel("unit_ctr_gc_bwd_param_bf16" if bf16 else "unit_ctr_gc_bwd_param_f32"),
+        device, dict(N=N, S=S, T=T, V=V, R=R, C=C),
         x1s.data_ptr(), x2s.data_ptr(), g.data_ptr(), x3s.data_ptr(),
         w4s.data_ptr(), b4s.data_ptr(), alpha.data_ptr(), dx1s.data_ptr(),
         dx2s.data_ptr(), dw4s.data_ptr(), db4s.data_ptr(), dalpha.data_ptr(),
         dAs.data_ptr(), scratch.data_ptr(), N, S, T, V, R, C, refused=_UNIT_REFUSED,
     )
-    bwd_param_launches += 1
+    if bf16:
+        bwd_param_launches_bf16 += 1
+    else:
+        bwd_param_launches += 1
     return dx1s, dx2s, dw4s, db4s, dalpha, dAs
 
 

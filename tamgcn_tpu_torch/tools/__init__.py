@@ -4,10 +4,13 @@
     python -m tamgcn_tpu_torch.tools.exp_stage2    # T2's forms against K1
     python -m tamgcn_tpu_torch.tools.exp_stage2b   # T2 repeats, f32 and bf16
 
+    python -m tamgcn_tpu_torch.tools.bf16_convergence  # bf16 against f32 training
+
 They run on the card unless `--device cpu` is given; without CUDA and
 without that flag they raise. Beside them, for the card only:
 
     python -m tamgcn_tpu_torch.tools.k3_ab --other OTHER.cu   # K3 against another K3 source
+    python -m tamgcn_tpu_torch.tools.f32_ab --other CSRC_DIR  # f32 K1-K3 against other sources, bitwise
 """
 from __future__ import annotations
 

@@ -73,9 +73,11 @@ def ablated(source: str, anchors) -> str:
     return source
 
 
-def load_other(source: str, out_dir: str, lib: str = "libk3_other.so"):
-    """(scratch_floats, launch) of `source`, built by nvcc with the port's
-    flags into out_dir/lib."""
+def load_other(source: str, out_dir: str, lib: str = "libk3_other.so",
+               names=("unit_ctr_gc_bwd_param_scratch_floats", "unit_ctr_gc_bwd_param_f32")):
+    """The C entry points `names` (K3's scratch size and launcher by
+    default) of `source`, built by nvcc with the port's flags into
+    out_dir/lib, with the argument types of ops/cuda/ctr_gc.py."""
     target = os.path.join(out_dir, lib)
     cmd = [build.nvcc_path(), *build.NVCC_FLAGS, "-o", target, source]
     done = subprocess.run(cmd, capture_output=True, text=True)
@@ -83,7 +85,7 @@ def load_other(source: str, out_dir: str, lib: str = "libk3_other.so"):
         raise RuntimeError(f"nvcc failed for {source}:\n{done.stdout}{done.stderr}")
     lib = ctypes.CDLL(target)
     fns = []
-    for name in ("unit_ctr_gc_bwd_param_scratch_floats", "unit_ctr_gc_bwd_param_f32"):
+    for name in names:
         _, argtypes, restype = ctr_gc._SIGNATURES[name]
         fn = getattr(lib, name)
         fn.argtypes, fn.restype = argtypes, restype

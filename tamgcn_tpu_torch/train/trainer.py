@@ -116,7 +116,9 @@ class RecognitionTrainer:
         generator = torch.Generator().manual_seed(arg.seed)
         self.model = get_model(arg.model, generator=generator, **dict(arg.model_args))
         n_params = sum(p.numel() for p in self.model.parameters())
-        self.print_log(f"model: {arg.model} ({n_params/1e6:.2f}M params)")
+        compute = getattr(self.model, "dtype", None) or torch.float32
+        self.print_log(f"model: {arg.model} ({n_params/1e6:.2f}M params, {compute} "
+                       "compute)")
         if arg.weights:
             self._load_weights()
         self.model.to(self.device).eval()

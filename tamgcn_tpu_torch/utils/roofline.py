@@ -5,7 +5,10 @@ TPU table. The bound of a call is the larger of two times: the bytes it
 must move (each input read once, each output written once) over the card's
 memory rate, and the operations it does (an FMA counts two) over the peak
 rate for their type. The port's kernels run f32 arithmetic outside the
-tensor cores, so the operations are held to the f32 peak.
+tensor cores, so the operations are held to the f32 peak, in their bf16
+forms too (bf16 operands, f32 FMAs). The unit op's bounds take the
+activations' item size (`act_bytes`: 4 in f32, 2 in bf16; the parameters
+and K3's parameter gradients stay f32).
 
 Peaks: NVIDIA's H100 SXM data sheet, dense, at the full 700 W limit: 80 GB
 of HBM3 at 3.35 TB/s, 67 TFLOP/s f32 outside the tensor cores. A card set
@@ -28,26 +31,44 @@ def bound(elems: int, flops: int, *, itemsize: int = 4):
     return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
 
 
-def unit_ctr_gc_sol(n: int, t: int, v: int, c: int, r: int, s: int = 3):
+def _act_bound(act_elems: int, param_elems: int, flops: int, act_bytes: int):
+    """bound() of act_elems activations of act_bytes bytes and param_elems
+    f32 values."""
+    return bound(act_bytes * act_elems + 4 * param_elems, flops, itemsize=1)
+
+
+def unit_ctr_gc_sol(n: int, t: int, v: int, c: int, r: int, s: int = 3, *,
+                    act_bytes: int = 4):
     """The unit CTR-GC forward (K1): x1s, x2s, x3s, w4s, b4s, alpha, As in,
     (n,t,v,c) out; the FMAs of M (v*v*r*c per sample and subset) and of the
     aggregation (t*v*v*c). Returns bound()'s (ms, by)."""
-    elems = (2 * n * s * v * r + n * t * v * s * c + s * r * c + s * c + 1
-             + s * v * v + n * t * v * c)
-    return bound(elems, 2 * n * s * (v * v * r * c + t * v * v * c))
+    acts = 2 * n * s * v * r + n * t * v * s * c + n * t * v * c
+    params = s * r * c + s * c + 1 + s * v * v
+    return _act_bound(acts, params, 2 * n * s * (v * v * r * c + t * v * v * c), act_bytes)
 
 
-def unit_ctr_gc_param_sol(n: int, t: int, v: int, c: int, r: int, s: int = 3):
+def unit_ctr_gc_dx3_sol(n: int, t: int, v: int, c: int, r: int, s: int = 3, *,
+                        act_bytes: int = 4):
+    """The unit op's x3 gradient (K2): x1s, x2s, g, w4s, b4s, alpha, As in,
+    (n,t,v,s*c) out; the FMAs of M and of the aggregation, as K1's."""
+    acts = 2 * n * s * v * r + n * t * v * c + n * t * v * s * c
+    params = s * r * c + s * c + 1 + s * v * v
+    return _act_bound(acts, params, 2 * n * s * (v * v * r * c + t * v * v * c), act_bytes)
+
+
+def unit_ctr_gc_param_sol(n: int, t: int, v: int, c: int, r: int, s: int = 3, *,
+                          act_bytes: int = 4):
     """The unit op's parameter gradients (K3): g, x3s, x1s, x2s, w4s, b4s,
     alpha in; dx1s, dx2s, dw4s, db4s, dalpha, dAs out (the bytes of the JAX
     cost estimate, tamgcn_tpu/ops/pallas/ctr_gc.py:1360). FMAs: dm = sum_t
     g x3 (t*v*v*c per sample and subset), then D^T dm and dm w4^T (v*v*r*c
     each); dalpha reuses P = D^T dm as sum w4*P + b4*sum(dm), so it needs no
-    third v*v*r*c product (the JAX estimate counts one). Returns bound()'s
-    (ms, by)."""
-    elems = (n * t * v * c + n * t * v * s * c + 4 * n * s * v * r
-             + 2 * (s * r * c + s * c + 1) + s * v * v)
-    return bound(elems, 2 * n * s * t * v * v * c + 4 * n * s * v * v * r * c)
+    third v*v*r*c product (the JAX estimate counts one). g, x3s, x1s, x2s,
+    dx1s and dx2s are activations. Returns bound()'s (ms, by)."""
+    acts = n * t * v * c + n * t * v * s * c + 4 * n * s * v * r
+    params = 2 * (s * r * c + s * c + 1) + s * v * v
+    return _act_bound(acts, params, 2 * n * s * t * v * v * c + 4 * n * s * v * v * r * c,
+                      act_bytes)
 
 
 def ms_tcn_sol(n: int, t: int, v: int, bc: int, stride: int = 1):

@@ -14,8 +14,13 @@ over N*T*V rows) within rtol 1e-4 and atol 1e-4 * max|plain|. Also the
 wrappers' checks and launch counts, two K3 (and two K6) launches bitwise
 equal, a small CTR-GCN on the card against the same model on the CPU,
 forward and gradients, and the standalone CTRGC module through K1 and K2 at
-S = 1 against its plain route. This file imports no JAX, so it runs where
-the port runs.
+S = 1 against its plain route. The bf16 forms of K1, K2 and K3 (bf16
+activations, f32 parameters; both designs of K1 and K2) against their bf16
+plain versions: bf16 outputs within 2^-7 of their max |value| (they differ
+in f32 sum order before one rounding), K3's f32 outputs at the f32
+tolerances, each launch on its own bf16 counter; and the dtypes the
+wrappers refuse (float16, mixed activations, bf16 parameters, K6 in bf16).
+This file imports no JAX, so it runs where the port runs.
 """
 import pytest
 import torch
@@ -187,6 +192,97 @@ def test_large_v_kernels_match_plain(device, shape):
         assert torch.equal(a, b), f"{name}: two launches differ"
         rtol, atol = (1e-3, 0.0) if name == "dalpha" else (1e-4, 1e-4 * w.abs().max().item())
         torch.testing.assert_close(a, w, rtol=rtol, atol=atol, msg=name)
+
+
+# the bf16 forms: the whole-V designs at NW-UCLA and NTU widths, the
+# joint-tiled ones at a ragged V and at V=256
+BF16_SHAPES = [(4, 13, 20, 256, 32), (4, 52, 20, 64, 8), (3, 9, 25, 128, 16),
+               (2, 7, 37, 80, 10), (2, 8, 256, 256, 32)]
+BF16_COUNTERS = ("launches", "launches_tiled", "bwd_dx3_launches",
+                 "bwd_dx3_tiled_launches", "bwd_param_launches", "launches_bf16",
+                 "launches_tiled_bf16", "bwd_dx3_launches_bf16",
+                 "bwd_dx3_tiled_launches_bf16", "bwd_param_launches_bf16")
+
+
+def _counts():
+    return {k: getattr(ctr_gc, k) for k in BF16_COUNTERS}
+
+
+def _bf16_close(got, want, name):
+    """A bf16 output against its plain version: the two differ only in the
+    order of their f32 sums before one rounding, so within 2^-7 of the
+    output's max |value|."""
+    assert got.dtype == want.dtype == torch.bfloat16, name
+    err = (got.float() - want.float()).abs().max().item()
+    assert torch.isfinite(got).all() and err <= 2 ** -7 * want.float().abs().max().item(), (
+        f"{name}: max |kernel - plain| {err:.3e}")
+
+
+@pytest.mark.parametrize("shape", BF16_SHAPES, ids=lambda s: "N{}-T{}-V{}-C{}-R{}".format(*s))
+def test_bf16_kernels_match_plain(device, shape):
+    """K1, K2 and K3 on bf16 activations with f32 parameters (their bf16
+    forms, counted on the *_bf16 counters of the design the shape takes and
+    on no f32 counter) against the bf16 plain versions: the bf16 outputs
+    within 2^-7 of their max |value|, K3's f32 outputs at the f32 tolerances
+    above, two K3 launches bitwise equal."""
+    x1s, x2s, x3s, w4s, b4s, alpha, As = _inputs(*shape, device=device)
+    n, t, v, c, r = shape
+    g = torch.randn((n, t, v, c), generator=torch.Generator().manual_seed(9)).to(device)
+    x1s, x2s, x3s, g = (a.bfloat16() for a in (x1s, x2s, x3s, g))
+    tiled = ctr_gc.fwd_variant(3, v, r) == "tiled"
+    assert tiled == (ctr_gc.dx3_variant(3, v, r) == "tiled") == (v > 28)
+    before = _counts()
+    with torch.no_grad():
+        out = ctr_gc.unit_ctr_gc_fwd(x1s, x2s, x3s, w4s, b4s, alpha, As)
+        dx3 = ctr_gc.unit_ctr_gc_bwd_dx3(x1s, x2s, g, w4s, b4s, alpha, As)
+        grads = ctr_gc.unit_ctr_gc_bwd_param(x1s, x2s, g, x3s, w4s, b4s, alpha)
+        again = ctr_gc.unit_ctr_gc_bwd_param(x1s, x2s, g, x3s, w4s, b4s, alpha)
+    torch.cuda.synchronize()
+    moved = {k: n - before[k] for k, n in _counts().items() if n != before[k]}
+    suffix = "_tiled_bf16" if tiled else "_bf16"
+    assert moved == {"launches" + suffix: 1, "bwd_dx3" + ("_tiled" if tiled else "")
+                     + "_launches_bf16": 1, "bwd_param_launches_bf16": 2}, moved
+    with torch.no_grad():
+        _bf16_close(out, unit_ctr_gc_plain(x1s, x2s, x3s, w4s, b4s, alpha, As), "out")
+        _bf16_close(dx3, unit_ctr_gc_dx3_plain(x1s, x2s, g, w4s, b4s, alpha, As), "dx3s")
+        want = unit_ctr_gc_param_grads_plain(x1s, x2s, g, x3s, w4s, b4s, alpha)
+    for name, a, b, w in zip(K3_OUTPUTS, grads, again, want):
+        assert torch.equal(a, b), f"{name}: two launches differ"
+        if name in ("dx1s", "dx2s"):
+            _bf16_close(a, w, name)
+            continue
+        assert a.dtype == torch.float32, name
+        rtol, atol = (1e-3, 0.0) if name == "dalpha" else (1e-4, 1e-4 * w.abs().max().item())
+        torch.testing.assert_close(a, w, rtol=rtol, atol=atol, msg=name)
+
+
+def test_bf16_kernels_reject_other_dtypes(device):
+    """K1-K3 take float32 or bfloat16 activations, one dtype for all, with
+    float32 parameters; K6 float32 only. A refused call counts no launch."""
+    x1s, x2s, x3s, w4s, b4s, alpha, As = _inputs(1, 4, 20, 64, 8, device=device)
+    g = torch.randn((1, 4, 20, 64), device=device)
+    b = [a.bfloat16() for a in (x1s, x2s, x3s, g)]
+    before = _counts()
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        ctr_gc.unit_ctr_gc_fwd(x1s.half(), x2s.half(), x3s.half(), w4s, b4s, alpha, As)
+    with pytest.raises(TypeError, match="one dtype"):
+        ctr_gc.unit_ctr_gc_fwd(b[0], b[1], x3s, w4s, b4s, alpha, As)
+    with pytest.raises(TypeError, match="one dtype"):
+        ctr_gc.unit_ctr_gc_bwd_dx3(b[0], b[1], g, w4s, b4s, alpha, As)
+    with pytest.raises(TypeError, match="one dtype"):
+        ctr_gc.unit_ctr_gc_bwd_param(b[0], b[1], b[3], x3s, w4s, b4s, alpha)
+    with pytest.raises(TypeError, match="w4s .*float32"):
+        ctr_gc.unit_ctr_gc_fwd(*b[:3], w4s.bfloat16(), b4s, alpha, As)
+    with pytest.raises(TypeError, match="As .*float32"):
+        ctr_gc.unit_ctr_gc_bwd_dx3(b[0], b[1], b[3], w4s, b4s, alpha, As.bfloat16())
+    with pytest.raises(TypeError, match="alpha .*float32"):
+        ctr_gc.unit_ctr_gc_bwd_param(*b[:2], b[3], b[2], w4s, b4s, alpha.bfloat16())
+    assert _counts() == before
+    args = list(_conv3_inputs(1, 4, 20, 64, 128, 8, device=device))
+    conv3_before = ctr_gc.bwd_conv3_launches
+    with pytest.raises(TypeError, match="float32"):
+        ctr_gc.unit_ctr_gc_bwd_conv3(*[a.bfloat16() for a in args])
+    assert ctr_gc.bwd_conv3_launches == conv3_before
 
 
 def _kernel_names(fn, reps=5):

@@ -178,7 +178,7 @@ def test_init_schemes_at_full_width():
 def test_get_model_rejects_what_the_slice_lacks():
     with pytest.raises(NotImplementedError, match="ST-GCN"):
         get_model("stgcn", num_class=10)
-    with pytest.raises(NotImplementedError, match="bfloat16"):
-        get_model("ctrgcn", dtype="bfloat16", graph="ucla")
+    with pytest.raises(NotImplementedError, match="float16"):
+        get_model("ctrgcn", dtype="float16", graph="ucla")
     with pytest.raises(KeyError):
         get_model("nope")

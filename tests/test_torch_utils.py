@@ -53,6 +53,25 @@ def test_unit_ctr_gc_param_sol(shape, want):
     assert by == want[1] and ms == pytest.approx(want[0], rel=1e-3)
 
 
+@pytest.mark.parametrize("fn,shape,want", [
+    # K1 bf16 at l1, batch 64: 17.10 M bf16 activations and 2929 f32
+    # parameters, 34.2 MB (10.21 us), above 0.590 GFLOP (8.80 us)
+    ("unit_ctr_gc_sol", (64, 52, 20, 64, 8), (10.213e-3, "bytes")),
+    # K2 bf16 at l1, batch 16: 4.28 M activations, 8.56 MB (2.556 us)
+    ("unit_ctr_gc_dx3_sol", (16, 52, 20, 64, 8), (2.556e-3, "bytes")),
+    # K3 bf16 at l1, batch 16: 4.29 M activations and 4658 f32 values, 8.60
+    # MB (2.567 us), above 0.167 GFLOP (2.494 us)
+    ("unit_ctr_gc_param_sol", (16, 52, 20, 64, 8), (2.567e-3, "bytes")),
+    # the operations do not depend on the item size
+    ("unit_ctr_gc_sol", (16, 13, 20, 256, 32), (6.603e-3, "operations")),
+])
+def test_unit_op_bf16_bounds(fn, shape, want):
+    ms, by = getattr(roofline, fn)(*shape, act_bytes=2)
+    assert by == want[1] and ms == pytest.approx(want[0], rel=1e-3)
+    f32 = getattr(roofline, fn)(*shape)[0]
+    assert ms <= f32
+
+
 def test_peaks_and_bound_match_the_published_h100():
     assert roofline.HBM_BW == 3.35e12 and roofline.F32_FLOPS == 67e12
     # 3.35e9 / 4 f32 values: 1 ms of bytes; 67e9 FLOP: 1 ms of operations
