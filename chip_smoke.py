@@ -105,16 +105,19 @@ Phases, each of which fails the run (non-zero exit, no result line):
      versions at the NW-UCLA eval forward's and train step's shapes: bf16
      outputs within 2^-7 of their max |value| and equal in all but 1% of
      their elements, K3's f32 outputs as in phase 3, two K3 launches bitwise
-     equal, each launch on its bf16 counter; `--phase test` and one epoch of
+     equal, each launch on its bf16 counter; `--phase test` (also with
+     `--fast_eval true`, which on a bf16 model at V=20 is its own forward:
+     the same K1-bf16 launches and the same scores) and one epoch of
      `--phase train` through `__main__.main` at full width with
      `--model_args dtype=bfloat16` (configs/nucla/gcn_bf16.yaml's compute
      dtype): K1-bf16 10 per forward, K2-bf16 and K3-bf16 10 per train step
      and no f32 unit-op kernel, the logits of one batch against the card's
      plain bf16 unit op within 2^-5 of max |logit|, finite progress and f32
      checkpoints; 3 bf16 SGD steps with the kernels held to the same steps
-     with the plain bf16 unit op within twice the distance of an f32 run
-     from them (the loss after every step, each tensor after the first;
-     check_trajectory_bf16), which must fail with each of K3-bf16's outputs
+     with the plain bf16 unit op after the first step, within twice the
+     distance of an f32 run from them (the loss and each tensor; later
+     losses finite; check_trajectory_bf16, which prints the spread of two
+     plain runs per step), which must fail with each of K3-bf16's outputs
      and K2-bf16's dx3 zeroed; the bf16 eval forward at
      batch 64 and train step at batch 16 and 64 timed beside the f32 ones;
      tools/bf16_convergence.py in-process for 2 small epochs with a launch
@@ -1927,18 +1930,21 @@ BF16_FAULTS = [("unit_ctr_gc_bwd_param", K3_OUTPUTS, part) for part in K3_OUTPUT
 
 
 def bf16_trajectory_ratios(run, plain, f32):
-    """{what: |run - plain| / its limit} of check_trajectory_bf16: the loss
-    of every step, within BF16_TRAJ_TIMES x |f32 - plain| + TRAJ_LOSS_FLOOR x
-    |loss|; after the first step each tensor but the alphas and the biases
-    that feed a train-mode BatchNorm (BN_FED_BIASES), within BF16_TRAJ_TIMES
-    x max |f32 - plain| + TRAJ_TENSOR_FLOOR x the tensor's own change, and
-    the alphas as one vector, within |f32 - plain| (L2)."""
+    """{what: |run - plain| / its limit} of check_trajectory_bf16, after the
+    first step: the loss, within BF16_TRAJ_TIMES x |f32 - plain| +
+    TRAJ_LOSS_FLOOR x |loss|; each tensor but the alphas and the biases that
+    feed a train-mode BatchNorm (BN_FED_BIASES), within BF16_TRAJ_TIMES x
+    max |f32 - plain| + TRAJ_TENSOR_FLOOR x the tensor's own change; the
+    alphas as one vector, within |f32 - plain| (L2). The losses of the later
+    steps only have to be finite."""
     import torch
 
-    out = {}
-    for i, (got, want, w32) in enumerate(zip(run[0], plain[0], f32[0])):
-        lim = BF16_TRAJ_TIMES * abs(w32 - want) + TRAJ_LOSS_FLOOR * abs(want)
-        out[f"loss of step {i}"] = abs(got - want) / lim if math.isfinite(got) else math.inf
+    got, want, w32 = run[0][0], plain[0][0], f32[0][0]
+    lim = BF16_TRAJ_TIMES * abs(w32 - want) + TRAJ_LOSS_FLOOR * abs(want)
+    out = {"loss of step 1": abs(got - want) / lim if math.isfinite(got) else math.inf}
+    for i, loss in enumerate(run[0][1:], start=2):
+        if not math.isfinite(loss):
+            out[f"loss of step {i}"] = math.inf
     start, got, want, w32 = plain[1][0], run[1][1], plain[1][1], f32[1][1]
     alphas = [k for k in want if k.endswith("gcn1.alpha")]
     for k in want:
@@ -1958,23 +1964,44 @@ def bf16_trajectory_ratios(run, plain, f32):
     return out
 
 
+def trajectory_spread(runs, ref):
+    """Per step, for each run of `runs` ({name: trajectory}) against `ref`:
+    |loss - ref's| and the median over the tensors of max |tensor - ref's|
+    / the tensor's own change over `ref` (tensors that do not change left
+    out). Returns {name: [(loss distance, median), ...]}."""
+    out = {}
+    for name, run in runs.items():
+        rows = []
+        for i in range(1, len(ref[1])):
+            start, want, got = ref[1][0], ref[1][i], run[1][i]
+            rel = sorted((got[k] - want[k]).abs().max().item() / change
+                         for k in want
+                         if (change := (want[k] - start[k]).abs().max().item()) > 0)
+            rows.append((abs(run[0][i - 1] - ref[0][i - 1]), rel[len(rel) // 2]))
+        out[name] = rows
+    return out
+
+
 def check_trajectory_bf16(weights: str, device):
     """TRAJ_STEPS SGD steps in bf16 (model_args.dtype) from the same weights
-    on the same batches: on the card with K1-K3's bf16 forms; with the plain
-    bf16 unit op on the card; and on the card in f32 with the f32 kernels
-    (phase 5 holds those to the CPU). The kernels and the plain versions
-    differ only in f32 sum order before a rounding, bf16 and f32 in every
-    rounding, so the kernels' run is held to the plain bf16 run within
-    BF16_TRAJ_TIMES x the f32 run's distance from it (bf16_trajectory_ratios).
-    Past the first step the bf16 trajectory is chaotic (two runs of the same
-    code differ by then: cuDNN's and cuBLAS's backward sums are not in a
-    fixed order, and a flipped bf16 rounding grows through ten train-mode
-    BatchNorms), so the tensors are held after the first step and the loss
-    after every step. The biases that feed a train-mode BatchNorm have a zero
+    on the same batches: on the card with K1-K3's bf16 forms; twice with the
+    plain bf16 unit op on the card; and on the card in f32 with the f32
+    kernels (phase 5 holds those to the CPU). The kernels and the plain
+    versions differ only in f32 sum order before a rounding, bf16 and f32 in
+    every rounding, so after the first step the kernels' run is held to the
+    plain bf16 run within BF16_TRAJ_TIMES x the f32 run's distance from it
+    (bf16_trajectory_ratios). Past the first step nothing is held but that
+    the losses are finite: the two runs of the plain bf16 unit op, the same
+    code, differ there by a share of each tensor's own change that grows
+    step by step (cuDNN's backward sums are not in a fixed order, and a
+    flipped bf16 rounding grows through ten train-mode BatchNorms), as the
+    kernels' run differs from the plain one; the printed spread per step
+    shows it. The biases that feed a train-mode BatchNorm have a zero
     gradient in exact arithmetic, so theirs is rounding noise and they are
     not held; the alphas' gradients (each one sum of every term) are held as
     one vector. The same check with each output of K3's bf16 form, and K2's
-    dx3, zeroed in turn must fail. Returns (worst ratio, its name)."""
+    dx3, zeroed in turn must fail. Returns (worst ratio, its name, the
+    spread per step)."""
     from unittest import mock
 
     import torch
@@ -1985,6 +2012,7 @@ def check_trajectory_bf16(weights: str, device):
     f32 = trajectory(weights, batches, device, torch.float32)
     with plain_unit_op():
         plain = trajectory(weights, batches, device, torch.float32, "bfloat16")
+        plain_again = trajectory(weights, batches, device, torch.float32, "bfloat16")
     reset_launches()
     card = trajectory(weights, batches, device, torch.float32, "bfloat16")
     launches = {k: v for k, v in read_launches().items() if v}
@@ -1992,15 +2020,23 @@ def check_trajectory_bf16(weights: str, device):
             "K3_bf16": 10 * TRAJ_STEPS}
     if launches != want:
         raise AssertionError(f"bf16 trajectory: launches {launches}, expected {want}")
+    spread = trajectory_spread({"kernels": card, "plain bf16 again": plain_again,
+                                "f32": f32}, plain)
+    print("bf16 trajectory, distance from the plain bf16 unit op's run per step "
+          "(|loss difference|, median over tensors of max|difference| / the tensor's "
+          "change): " + "; ".join(
+              f"{name} " + ", ".join(f"step {i} {d:.4g} {m:.3g}"
+                                     for i, (d, m) in enumerate(rows, start=1))
+              for name, rows in spread.items()), flush=True)
     ratios = bf16_trajectory_ratios(card, plain, f32)
     worst = sorted(ratios.items(), key=lambda kv: -kv[1])
     print(f"bf16 trajectory, {TRAJ_STEPS} SGD steps at batch {TRAIN_BATCH}: losses card "
-          f"bf16 {card[0]}, card plain bf16 unit op {plain[0]}, card f32 {f32[0]}; "
-          f"tolerance: |kernels - plain bf16| <= {BF16_TRAJ_TIMES} x |f32 - plain bf16| "
-          f"+ {TRAJ_LOSS_FLOOR} x |loss| (the loss, every step), + {TRAJ_TENSOR_FLOOR} x "
-          "the tensor's own change (each tensor after step 1), the alphas as one vector "
-          f"within |f32 - plain bf16|; worst of {len(ratios)}: "
-          + ", ".join(f"{k} {v:.3f}" for k, v in worst[:5])
+          f"bf16 {card[0]}, card plain bf16 unit op {plain[0]} and {plain_again[0]}, card "
+          f"f32 {f32[0]}; tolerance after step 1: |kernels - plain bf16| <= "
+          f"{BF16_TRAJ_TIMES} x |f32 - plain bf16| + {TRAJ_LOSS_FLOOR} x |loss| (the loss), "
+          f"+ {TRAJ_TENSOR_FLOOR} x the tensor's own change (each tensor), the alphas as "
+          f"one vector within |f32 - plain bf16|; later losses finite; worst of "
+          f"{len(ratios)}: " + ", ".join(f"{k} {v:.3f}" for k, v in worst[:5])
           + f"; median {sorted(ratios.values())[len(ratios) // 2]:.3f} of its limit",
           flush=True)
     if worst[0][1] > 1:
@@ -2024,7 +2060,7 @@ def check_trajectory_bf16(weights: str, device):
         if not beyond:
             raise AssertionError(
                 f"the bf16 trajectory check passed with {wrapper}'s {part} zeroed")
-    return worst[0][1], worst[0][0]
+    return worst[0][1], worst[0][0], spread
 
 
 def time_bf16(weights: str, x, device):
@@ -2092,11 +2128,13 @@ def run_convergence_tool():
 def run_bf16(work_dir: str, weights: str, x, device):
     """Phase 10: bf16 mixed precision (configs/nucla/gcn_bf16.yaml's
     model_args.dtype) on the NW-UCLA model at full width through K1-K3's bf16
-    forms: the kernel checks, `--phase test` and one epoch of `--phase
-    train` through __main__.main with `--model_args dtype=bfloat16` (launch
+    forms: the kernel checks, `--phase test` (also with `--fast_eval true`)
+    and one epoch of `--phase train` through __main__.main with
+    `--model_args dtype=bfloat16` (launch
     checks, the logits against the card's plain bf16 unit op, the files,
     f32 checkpoints), the bf16 trajectory check with its planted faults, the
     timings, and the convergence tool at a small size. Returns a summary."""
+    import numpy as np
     import torch
 
     out = {"kernels": check_kernels_bf16(device)}
@@ -2111,6 +2149,24 @@ def run_bf16(work_dir: str, weights: str, x, device):
     print(f"bf16 test path: {batches} batches of {BATCH} in {seconds:.2f} s, launches "
           f"{launches}, logits vs the card's plain bf16 unit op max rel err {rel:.3e} "
           f"(bound {BF16_LOGIT_TOL})", flush=True)
+
+    # --fast_eval on a bf16 model at V=20 is the model's own bf16 forward, as
+    # the JAX package's `auto` policy (models/ctrgcn_infer.py)
+    fast_dir = os.path.join(work_dir, "fast_eval_bf16")
+    seconds, launches = run_test_path(fast_dir, weights, "--fast_eval", "true",
+                                      "--model_args", "dtype=bfloat16")
+    if launches != only(K1_bf16=10 * batches):
+        raise AssertionError(f"the bf16 fast-eval test phase launched {launches}, expected "
+                             f"the bf16 K1 10 x {batches} batches and no other kernel")
+    scores = []
+    for d in (test_dir, fast_dir):
+        with open(os.path.join(d, "test_result.pkl"), "rb") as f:
+            scores.append(pickle.load(f))
+    if scores[0].keys() != scores[1].keys() or any(
+            not np.array_equal(scores[0][k], scores[1][k]) for k in scores[0]):
+        raise AssertionError("the bf16 fast-eval scores differ from the bf16 test phase's")
+    print(f"bf16 fast-eval test path: {seconds:.2f} s, launches {launches}, scores equal "
+          "to the bf16 test phase's", flush=True)
 
     steps, evals = TRAIN_SAMPLES // TRAIN_BATCH, math.ceil(EVAL_SAMPLES / TRAIN_BATCH)
     train_dir = os.path.join(work_dir, "train_bf16")

@@ -21,10 +21,15 @@ Weights change between the evaluations of a training run, so a caller folds
 anew (calls `make_fast_eval` again) after every change.
 
 The engine computes in f32 from the model's f32 parameters whatever the
-model's compute dtype: on a bf16 model (`model_args.dtype: bfloat16`) the
-fast eval is the f32 engine, as the JAX engine (tamgcn_tpu/models/
-ctrgcn_infer.py:make_fast_eval_fn, which never reads the model's dtype)
-computes for such a model. So no bf16 form of K5 runs on any path.
+model's compute dtype. On a bf16 model (`model_args.dtype: bfloat16`) the
+default (use_kernel None) follows the JAX package's `auto` policy
+(tamgcn_tpu/models/ctrgcn_infer.py:make_fast_eval_fn, which never reads the
+model's dtype): at num_point <= 20, where that policy returns the model's
+own eval forward, the fast eval is the bf16 model's own forward (bf16
+arithmetic through K1's bf16 form); at num_point > 20 it is the f32 engine,
+as the JAX engine is. An f32 model keeps the engine at every num_point: the
+two compute the same function in f32. So no bf16 form of K5 runs on any
+path.
 """
 from __future__ import annotations
 
@@ -175,11 +180,15 @@ def make_fast_eval_fn(model: CTRGCN, use_kernel: bool | None = None):
     (N, T, V*C). use_kernel None runs each block whose shape K5 takes
     (block_takes_k5) through `gcn_tcn_block_fused` (K5 on the card) and the
     others through `_block_prefix_pw`; True runs every block through
-    `gcn_tcn_block_fused`, False every block through `_block_prefix_pw`."""
+    `gcn_tcn_block_fused`, False every block through `_block_prefix_pw`.
+    A bf16 model at num_point <= 20 with use_kernel None gets its own eval
+    forward, which ignores `folded` (the module docstring says why)."""
     if not isinstance(model, CTRGCN):
         raise TypeError(
             f"make_fast_eval_fn requires a CTRGCN model, got {type(model).__name__}")
     num_point = model.num_point
+    if use_kernel is None and model.dtype == torch.bfloat16 and num_point <= 20:
+        return lambda folded, x: model.eval()(x)
 
     def use_k5(fb):
         return block_takes_k5(fb) if use_kernel is None else bool(use_kernel)

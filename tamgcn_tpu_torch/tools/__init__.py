@@ -9,8 +9,8 @@
 They run on the card unless `--device cpu` is given; without CUDA and
 without that flag they raise. Beside them, for the card only:
 
-    python -m tamgcn_tpu_torch.tools.k3_ab --other OTHER.cu   # K3 against another K3 source
-    python -m tamgcn_tpu_torch.tools.f32_ab --other CSRC_DIR  # f32 K1-K3 against other sources, bitwise
+    python -m tamgcn_tpu_torch.tools.f32_ab --other CSRC_DIR  # f32 K1-K3 against other sources
+    python -m tamgcn_tpu_torch.tools.k3_ab                    # K3 with each phase skipped
 """
 from __future__ import annotations
 

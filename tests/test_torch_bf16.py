@@ -47,10 +47,13 @@ V=20). Tolerances:
     |value|; leaving out the biases that feed a train-mode BatchNorm, whose
     f32 gradients are rounding noise below 1e-4 of the largest) in L2, and as
     the median over the running stats of the same ratio per buffer;
-  * the fast eval of a bf16 model is the f32 engine from the f32 parameters,
-    as the JAX engine's: within rtol 1e-4 and atol 1e-4 * max of JAX's
-    `make_fast_eval_fn(model, use_pallas=False)`, and bitwise the fast eval
-    of the same weights in an f32 model.
+  * the fast eval of a bf16 model follows JAX's default `auto` policy: at
+    V=20 the bf16 model's own forward, bitwise, held to JAX's default
+    `make_fast_eval_fn(model)` as the logits are; past V=20 the f32 engine,
+    bitwise the fast eval of the same weights in an f32 model. The engine
+    itself (use_kernel=False) is f32 from the f32 parameters: within rtol
+    1e-4 and atol 1e-4 * max of JAX's `make_fast_eval_fn(model,
+    use_pallas=False)`, and bitwise the f32 model's.
 """
 import functools
 import json
@@ -350,16 +353,53 @@ def test_bf16_train_step_matches_jax_pallas(variables):
 
 
 def test_bf16_fast_eval_is_the_f32_engine(variables):
+    """The folded engine (asked for with use_kernel=False, as JAX's with
+    use_pallas=False) computes in f32 from the f32 parameters of a bf16
+    model."""
     _, v, x = variables
     jm = jax_create(use_pallas=False, base_channel=BC, dtype=jnp.bfloat16)
     want = _f32(jax_make_fast_eval_fn(jm, use_pallas=False)(v, jnp.asarray(x)))
     with torch.no_grad():
-        got = make_fast_eval(_port_model(v).eval())(torch.from_numpy(x))
-        f32 = make_fast_eval(_port_model(v, dtype=None).eval())(torch.from_numpy(x))
+        got = make_fast_eval(_port_model(v).eval(), use_kernel=False)(torch.from_numpy(x))
+        f32 = make_fast_eval(_port_model(v, dtype=None).eval(),
+                             use_kernel=False)(torch.from_numpy(x))
     assert got.dtype == torch.float32
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-4,
                                atol=1e-4 * float(np.abs(want).max()))
     assert torch.equal(got, f32)
+
+
+def test_bf16_fast_eval_follows_the_jax_auto_policy(variables, monkeypatch):
+    """The default fast eval of a bf16 model is what JAX's default
+    `make_fast_eval_fn(model)` computes: at V=20 (its `auto` policy returns
+    the model's own eval forward) the bf16 forward, held to JAX's as the
+    logits are (test_bf16_logits_match_jax_pallas; jitted without XLA's
+    excess precision, see _jax_step); past V=20 the f32 engine."""
+    jm32, v, x = variables
+    monkeypatch.delenv("TAMGCN_FAST_EVAL_BLOCKS", raising=False)
+    want32 = _f32(jax.jit(functools.partial(jm32.apply, train=False))(v, jnp.asarray(x)))
+    jm = jax_create(use_pallas=True, base_channel=BC, dtype=jnp.bfloat16)
+    args = (v, jnp.asarray(x))
+    fast = jax_make_fast_eval_fn(jm).lower(*args).compile(
+        compiler_options={"xla_allow_excess_precision": False})
+    want = _f32(fast(*args))
+    model = _port_model(v)
+    with torch.no_grad():
+        got = make_fast_eval(model)(torch.from_numpy(x))
+        assert torch.equal(got, model.eval()(torch.from_numpy(x)))
+    got = _f32(got)
+    port_gap, jax_gap = np.abs(got - want).max(), np.abs(want - want32).max()
+    assert port_gap <= LOGIT_TOL * np.abs(want32).max(), port_gap
+    assert port_gap <= HALF * jax_gap, (port_gap, jax_gap)
+
+    def wide(dtype):
+        return create_ctrgcn_nucla(base_channel=BC, num_point=25, graph="synthetic",
+                                   graph_args={"labeling_mode": "spatial", "num_node": 25},
+                                   dtype=dtype).eval()
+
+    x25 = torch.from_numpy(np.random.RandomState(5).randn(2, 3, 8, 25, 1).astype(np.float32))
+    with torch.no_grad():
+        assert torch.equal(make_fast_eval(wide("bfloat16"))(x25), make_fast_eval(wide(None))(x25))
 
 
 # ---- what the slice refuses ---------------------------------------------------------

@@ -211,11 +211,16 @@ def _counts():
 def _bf16_close(got, want, name):
     """A bf16 output against its plain version: the two differ only in the
     order of their f32 sums before one rounding, so within 2^-7 of the
-    output's max |value|."""
+    output's max |value|, and equal in all but 1% of the elements (a
+    flipped rounding only at a near-tie; a kernel that skips the bf16
+    rounding of stage 1's operands changes far more of them)."""
     assert got.dtype == want.dtype == torch.bfloat16, name
-    err = (got.float() - want.float()).abs().max().item()
+    diff = got.float() - want.float()
+    err = diff.abs().max().item()
+    share = (diff != 0).float().mean().item()
     assert torch.isfinite(got).all() and err <= 2 ** -7 * want.float().abs().max().item(), (
         f"{name}: max |kernel - plain| {err:.3e}")
+    assert share <= 0.01, f"{name}: {share:.2%} of the elements differ from plain"
 
 
 @pytest.mark.parametrize("shape", BF16_SHAPES, ids=lambda s: "N{}-T{}-V{}-C{}-R{}".format(*s))

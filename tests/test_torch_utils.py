@@ -55,15 +55,18 @@ def test_unit_ctr_gc_param_sol(shape, want):
 
 @pytest.mark.parametrize("fn,shape,want", [
     # K1 bf16 at l1, batch 64: 17.10 M bf16 activations and 2929 f32
-    # parameters, 34.2 MB (10.21 us), above 0.590 GFLOP (8.80 us)
+    # parameters, 34.2 MB (10.21 us), above stage 1's 0.079 GFLOP at the
+    # bf16 peak and stage 2's 0.511 GFLOP at the f32 peak (7.71 us)
     ("unit_ctr_gc_sol", (64, 52, 20, 64, 8), (10.213e-3, "bytes")),
     # K2 bf16 at l1, batch 16: 4.28 M activations, 8.56 MB (2.556 us)
     ("unit_ctr_gc_dx3_sol", (16, 52, 20, 64, 8), (2.556e-3, "bytes")),
     # K3 bf16 at l1, batch 16: 4.29 M activations and 4658 f32 values, 8.60
     # MB (2.567 us), above 0.167 GFLOP (2.494 us)
     ("unit_ctr_gc_param_sol", (16, 52, 20, 64, 8), (2.567e-3, "bytes")),
-    # the operations do not depend on the item size
-    ("unit_ctr_gc_sol", (16, 13, 20, 256, 32), (6.603e-3, "operations")),
+    # K1 bf16 at l9, batch 16: stage 1 (0.315 GFLOP) at the bf16 tensor-core
+    # peak and stage 2 (0.128 GFLOP) at the f32 peak take 2.226 us, below
+    # the 8.75 MB (2.612 us); in f32 the same shape is bound by operations
+    ("unit_ctr_gc_sol", (16, 13, 20, 256, 32), (2.612e-3, "bytes")),
 ])
 def test_unit_op_bf16_bounds(fn, shape, want):
     ms, by = getattr(roofline, fn)(*shape, act_bytes=2)
@@ -78,6 +81,9 @@ def test_peaks_and_bound_match_the_published_h100():
     assert roofline.bound(3.35e9 / 4, 67e9 / 2) == pytest.approx((1.0, "bytes"))
     assert roofline.bound(1, 67e9) == (1.0, "operations")
     assert roofline.bound(3.35e9 / 2, 0, itemsize=2) == pytest.approx((1.0, "bytes"))
+    assert roofline.BF16_FLOPS == 989e12
+    assert roofline.bound(1, 67e9 / 2, bf16_flops=989e9 / 2) == pytest.approx(
+        (1.0, "operations"))
 
 
 def test_ms_tcn_and_stage2_bounds():
