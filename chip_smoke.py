@@ -12,7 +12,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
      at the shapes of the main paths (K1 at the test batch 64, K2 and K3 at
      the training batch 16, plus V=25 and ragged shapes; the joint-tiled
      designs K1t and K2t, and K3, at configs/scene256.yaml's blocks (V=256,
-     batch 8) and a ragged V=37), f32 with TF32 off, and times both with
+     batch 8), a ragged V=37 and the joint-tiled design's edges: T of 13
+     with C of 80, T of 40, N = 1), f32 with TF32 off, and times both with
      CUDA events and each kernel also by a CUDA graph (device time; K3 with
      its block count, at least 132 at every NW-UCLA train-step shape). Each launch must count on the
      counter of the design the shape takes (the whole-V K1 and K2 at V=20
@@ -20,7 +21,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
      1e-5*max|plain|; K3's outputs are sums of up to N*T*V*V terms taken in
      another order, so each is held within rtol 1e-4 and atol
      1e-4*max|plain| (dalpha, one sum over all N*S*V*V*C terms, within rtol
-     1e-3); two K3 launches must agree bit for bit;
+     1e-3); two K3 launches, and two of K1t and of K2t, must agree bit for
+     bit;
   4. test main path: `python -m tamgcn_tpu_torch recognition --phase test`
      run in-process through `__main__.main` at full NW-UCLA width
      (base_channel 64, 10 blocks, T=52, V=20, batch 64, 256 synthetic val
@@ -101,7 +103,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
      plain unit op within 1e-4*max|logit|, and times the eval forward, the
      fast-eval forward and the train step with their device time by kernel.
  10. bf16: the bf16 forms of K1, K2 and K3 (bf16 activations, f32
-     parameters; K1t and K2t at a ragged V=37) against their bf16 plain
+     parameters; K1t and K2t at a ragged V=37 and the joint-tiled design's
+     edges, two launches of each bitwise equal) against their bf16 plain
      versions at the NW-UCLA eval forward's and train step's shapes: bf16
      outputs within 2^-7 of their max |value| and equal in all but 1% of
      their elements, K3's f32 outputs as in phase 3, two K3 launches bitwise
@@ -265,6 +268,12 @@ SCENE_MAIN_PATH = [
 ]
 TILED_EXTRA = [
     ("ragged V=37", (3, 7, 37, 80, 10)),
+    # the joint-tiled design's edges: T not a multiple of the frame tile (13
+    # of 16; 40 of 32, a second chunk of 8) with C not a multiple of the
+    # channel tile (80 of 64), and N = 1
+    ("T=13 C=80", (2, 13, 37, 80, 10)),
+    ("T=40", (2, 40, 256, 64, 8)),
+    ("N=1", (1, 16, 256, 128, 16)),
 ]
 # K3 runs every V with one design: the scene256 blocks and the ragged V are
 # held and timed beside the NW-UCLA train step's shapes
@@ -413,13 +422,14 @@ def k6_bound(shape):
 
 def k4_bound(shape):
     """K4's work on one CTRGC forward and backward: the single-subset forward
-    and its x3 gradient (x1, x2, x3, g, w4, b4, alpha, A in; out, dx3 out)."""
-    from tamgcn_tpu_torch.utils.roofline import bound
+    and its x3 gradient (x1, x2, x3, g, w4, b4, alpha, A in; out, dx3 out),
+    K1's and K2's, so its FMAs at their 3xTF32 rate (utils/roofline.py)."""
+    from tamgcn_tpu_torch.utils.roofline import TF32X3_FLOPS, bound
 
     N, T, V, Cin, C = shape
     R = 8 if Cin in (3, 9) else Cin // 8
     elems = 2 * N * V * R + 4 * N * T * V * C + R * C + C + 1 + V * V
-    return bound(elems, 4 * N * (V * V * R * C + T * V * V * C))
+    return bound(elems, 4 * N * (V * V * R * C + T * V * V * C), f32_peak=TF32X3_FLOPS)
 
 
 def block_inputs(shape, seed: int, device):
@@ -480,7 +490,8 @@ def _within(got, want, rtol, atol_frac):
 
 def check_kernels(device):
     """K1, K2 (each in its whole-V and its joint-tiled design: K1t, K2t) and
-    K3 against their plain versions at every shape; each launch must count on
+    K3 against their plain versions at every shape, two launches of K1t, K2t
+    and K3 bitwise equal; each launch must count on
     the counter of the design the shape takes, and K3 must launch at least
     K3_MIN_BLOCKS blocks at every BWD_MAIN_PATH shape. Returns {'K1': rows,
     'K1t': rows, 'K2': rows, 'K2t': rows, 'K3': rows}."""
@@ -522,6 +533,11 @@ def check_kernels(device):
                                                       else (1e-4, 1e-4)))
                             for part, a, b in zip(K3_OUTPUTS, got, want)]
                 else:
+                    if kname in ("K1t", "K2t"):
+                        again = fn(*args)
+                        torch.cuda.synchronize()
+                        if not torch.equal(got, again):
+                            raise AssertionError(f"{kname} {name} {shape}: two launches differ")
                     rtol = 1e-5
                     errs = [("out",) + _within(got, want, rtol, rtol)]
                 for part, ok, max_err, scale in errs:
@@ -1815,11 +1831,12 @@ def check_kernels_bf16(device):
     """Phase 10's kernel checks: K1, K2 and K3 on bf16 activations with f32
     parameters against their bf16 plain versions on the card, at the shapes
     of the NW-UCLA eval forward (K1, batch 64) and train step (K2, K3, batch
-    16) and at a ragged V=37, where K1 and K2 take their joint-tiled
-    designs. Each launch must count on the bf16 counter of the design the
-    shape takes and on no other. bf16 outputs within BF16_TOL of their max
-    |value| and equal in all but BF16_SHARE of their elements; K3's f32
-    outputs as in phase 3; two K3 launches bitwise equal. Times each by CUDA
+    16) and at TILED_EXTRA (a ragged V=37 and the joint-tiled design's
+    edges), where K1 and K2 take their joint-tiled designs. Each launch must
+    count on the bf16 counter of the design the shape takes and on no other.
+    bf16 outputs within BF16_TOL of their max |value| and equal in all but
+    BF16_SHARE of their elements; K3's f32 outputs as in phase 3; two
+    launches of K3, and of the joint-tiled K1 and K2, bitwise equal. Times each by CUDA
     events and by a CUDA graph (device), beside the bound with 2-byte
     activations. Returns {'K1_bf16': rows, 'K2_bf16': rows, 'K3_bf16': rows}."""
     import torch
@@ -1863,6 +1880,12 @@ def check_kernels_bf16(device):
                                                        else (1e-4, 1e-4))))
                             for part, a, b in zip(K3_OUTPUTS, got, want)]
                 else:
+                    if design == "tiled":
+                        again = fn(*args)
+                        torch.cuda.synchronize()
+                        if not torch.equal(got, again):
+                            raise AssertionError(f"{kname} {name} {shape} (tiled): two "
+                                                 "launches differ")
                     errs = [("out",) + bf16_within(got, want)]
                 for part, ok, max_err, scale in errs:
                     if not ok:

@@ -43,10 +43,13 @@
 //
 // Where M of even 8 channels for all V x V pairs does not fit a block's
 // shared memory (see unit_ctr_gc_bwd_dx3_variant), the joint-tiled design of
-// unit_ctr_gc_tiled.cuh runs instead, with the forward's roles swapped: a
-// block owns (sample, subset, 16 joints v, 16 channels), walks the tiles of
-// 16 joints u, builds each M tile in shared memory stored [v][u][c] and keeps
-// dx3s of 32 frames x 16 joints x 16 channels in registers.
+// unit_ctr_gc_tiled.cuh runs instead (K2t), with the forward's roles
+// swapped: a block owns (sample, subset, 16 joints v, 32 or 64 channels),
+// walks the tiles of 16 joints u, builds each M tile stored [v][u][c] on
+// the tensor cores and adds M_c^T @ g_c of TF frames, 3xTF32 in f32, with
+// the next g chunk on its way by tensor copy. What bounds it on this card
+// and what the design does about it: the header's design note (the
+// operations, 82 G FMAs per configs/scene256.yaml train step at batch 8).
 
 #include <cuda_runtime.h>
 
@@ -192,8 +195,8 @@ inline int whole_v_ct(int S, int V, int RP) {
 
 inline int rp_of(int R) { return R <= 8 ? 8 : R <= 16 ? 16 : 32; }
 
-template <int RP, typename TA>
-__global__ void __launch_bounds__(kThreads)
+template <int RP, int TF, typename TA>
+__global__ void __launch_bounds__(kThreads, 1)
 unit_ctr_gc_bwd_dx3_tiled_kernel(const TA* __restrict__ x1s,
                                  const TA* __restrict__ x2s,
                                  const TA* __restrict__ g,
@@ -202,35 +205,37 @@ unit_ctr_gc_bwd_dx3_tiled_kernel(const TA* __restrict__ x1s,
                                  const float* __restrict__ alpha,
                                  const float* __restrict__ As,
                                  TA* __restrict__ dx3s,
+                                 const __grid_constant__ CUtensorMap xmap,
                                  int S, int T, int V, int R, int C) {
   using namespace tiled;
-  extern __shared__ float4 smem4[];
-  float* X = reinterpret_cast<float*>(smem4);
-  float* M = X + kTF * kXS;
-  float* D = M + kJ * kJ * kCT;
-  float* W = D + round4(kJ * kJ * (RP + 1));
-  float* E = W + RP * kCT;
+  constexpr int CT = channel_tile(TF, RP, sizeof(TA));
+  // own joints v of subset s, summed u; the block walks the u tiles
+  run<false, RP, TF, CT, TA>(x1s, x2s, g, w4s, b4s, alpha[0], As, dx3s, &xmap, blockIdx.z,
+                             blockIdx.y % S, (blockIdx.y / S) * kJ, blockIdx.x * CT, S, T,
+                             V, R, C);
+}
 
-  const int c0 = blockIdx.x * kCT;
-  const int s = blockIdx.y % S;
-  const int v0 = (blockIdx.y / S) * kJ;
-  const int n = blockIdx.z;
-  const float a = alpha[0];
-  const Item it;
-  for (int tb = 0; tb < T; tb += kTF) {
-    float acc[kFr][kOwn] = {};
-    for (int u0 = 0; u0 < V; u0 += kJ) {
-      __syncthreads();  // the previous step's reads are done
-      stage_chunk(g, X, n, tb, u0, T, V, C, c0, C - c0);
-      // M stored [v][u][c]: the thread's own joints are v
-      tile_m<RP, TA>(x1s, x2s, w4s, b4s, a, As, D, W, E, M, n, s, S, u0, v0, V,
-                     R, C, c0, 1, kJ);
-      __syncthreads();
-      accumulate(M, X, it, acc);
-    }
-    write_out(dx3s, acc, it, n, tb, v0, T, V, (size_t)S * C, s * C + c0,
-              c0 + it.c < C);
+template <int RP, int TF, typename TA>
+int launch_tiled(const TA* x1s, const TA* x2s, const TA* g, const float* w4s,
+                 const float* b4s, const float* alpha, const float* As, TA* dx3s,
+                 int N, int S, int T, int V, int R, int C, cudaStream_t stream) {
+  using namespace tiled;
+  constexpr int CT = channel_tile(TF, RP, sizeof(TA));
+  constexpr int smem = smem_bytes(TF, CT, RP, sizeof(TA));
+  static_assert(smem <= kSmemLimit, "the tiled design's shared memory");
+  cudaError_t err = cudaFuncSetAttribute(unit_ctr_gc_bwd_dx3_tiled_kernel<RP, TF, TA>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  // the f32 chunks arrive by tensor copies; the bf16 form does not read the map
+  CUtensorMap xmap = {};
+  if constexpr (sizeof(TA) == 4) {
+    err = chunk_map(&xmap, reinterpret_cast<const float*>(g), N, T, V, C, TF);
+    if (err != cudaSuccess) return err;
   }
+  const dim3 grid((C + CT - 1) / CT, ((V + kJ - 1) / kJ) * S, N);
+  unit_ctr_gc_bwd_dx3_tiled_kernel<RP, TF, TA><<<grid, kThreads, smem, stream>>>(
+      x1s, x2s, g, w4s, b4s, alpha, As, dx3s, xmap, S, T, V, R, C);
+  return cudaGetLastError();
 }
 
 template <int RP, typename TA>
@@ -239,16 +244,10 @@ int launch(const TA* x1s, const TA* x2s, const TA* g, const float* w4s,
            int N, int S, int T, int V, int R, int C, cudaStream_t stream) {
   const int CT = whole_v_ct(S, V, RP);
   if (CT == 0) {
-    using namespace tiled;
-    const size_t smem = sizeof(float) * smem_floats(RP);
-    cudaError_t err = cudaFuncSetAttribute(
-        unit_ctr_gc_bwd_dx3_tiled_kernel<RP, TA>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return err;
-    const dim3 grid((C + kCT - 1) / kCT, ((V + kJ - 1) / kJ) * S, N);
-    unit_ctr_gc_bwd_dx3_tiled_kernel<RP, TA><<<grid, kThreads, smem, stream>>>(
-        x1s, x2s, g, w4s, b4s, alpha, As, dx3s, S, T, V, R, C);
-    return cudaGetLastError();
+    const int TF = tiled::frame_tile(T);
+    if (TF == 8) return launch_tiled<RP, 8>(x1s, x2s, g, w4s, b4s, alpha, As, dx3s, N, S, T, V, R, C, stream);
+    if (TF == 16) return launch_tiled<RP, 16>(x1s, x2s, g, w4s, b4s, alpha, As, dx3s, N, S, T, V, R, C, stream);
+    return launch_tiled<RP, 32>(x1s, x2s, g, w4s, b4s, alpha, As, dx3s, N, S, T, V, R, C, stream);
   }
   const int VP = (V + kVV - 1) / kVV * kVV;
   const size_t smem = sizeof(float) *

@@ -48,13 +48,15 @@
 //
 // Where M of even 8 channels for all V x V pairs does not fit a block's
 // shared memory (V >= 33 at R <= 8; see unit_ctr_gc_fwd_variant), the
-// joint-tiled design of unit_ctr_gc_tiled.cuh runs instead: a block owns
-// (sample, 16 joints u, 16 channels), walks the subsets and the tiles of 16
-// joints v, builds each M tile in shared memory and keeps out of 32 frames x
-// 16 joints x 16 channels in registers (8 joints x 4 frames a thread). At
-// configs/scene256.yaml's shapes (V=256) the operations bound it: M costs
-// V*V*R*C FMAs per sample and subset, as many as or more than the
-// aggregation's T*V*V*C.
+// joint-tiled design of unit_ctr_gc_tiled.cuh runs instead (K1t): a block
+// owns (sample, 16 joints u, 32 or 64 channels), walks the subsets and the
+// tiles of 16 joints v, builds each M tile on the tensor cores with the
+// tanh in registers, and adds M_c @ x3s_c of TF = 8, 16 or 32 frames (from
+// T) on the tensor cores, 3xTF32 in f32, with the next x3s chunk on its way
+// by tensor copy. At configs/scene256.yaml's shapes (V=256) the operations
+// bound it: M costs V*V*R*C FMAs per sample and subset, as many as or more
+// than the aggregation's T*V*V*C; the design note in the header says what
+// held the first design back and what this one does about it.
 
 #include <cuda_runtime.h>
 
@@ -202,8 +204,8 @@ inline int whole_v_ct(int S, int V, int RP) {
 
 inline int rp_of(int R) { return R <= 8 ? 8 : R <= 16 ? 16 : 32; }
 
-template <int RP, typename TA>
-__global__ void __launch_bounds__(kThreads)
+template <int RP, int TF, typename TA>
+__global__ void __launch_bounds__(kThreads, 1)
 unit_ctr_gc_fwd_tiled_kernel(const TA* __restrict__ x1s,
                              const TA* __restrict__ x2s,
                              const TA* __restrict__ x3s,
@@ -212,36 +214,36 @@ unit_ctr_gc_fwd_tiled_kernel(const TA* __restrict__ x1s,
                              const float* __restrict__ alpha,
                              const float* __restrict__ As,
                              TA* __restrict__ out,
+                             const __grid_constant__ CUtensorMap xmap,
                              int S, int T, int V, int R, int C) {
   using namespace tiled;
-  extern __shared__ float4 smem4[];
-  float* X = reinterpret_cast<float*>(smem4);
-  float* M = X + kTF * kXS;
-  float* D = M + kJ * kJ * kCT;
-  float* W = D + round4(kJ * kJ * (RP + 1));
-  float* E = W + RP * kCT;
+  constexpr int CT = channel_tile(TF, RP, sizeof(TA));
+  // own joints u, summed v; the block walks the subsets and the v tiles
+  run<true, RP, TF, CT, TA>(x1s, x2s, x3s, w4s, b4s, alpha[0], As, out, &xmap, blockIdx.z, 0,
+                            blockIdx.y * kJ, blockIdx.x * CT, S, T, V, R, C);
+}
 
-  const int c0 = blockIdx.x * kCT;
-  const int u0 = blockIdx.y * kJ;
-  const int n = blockIdx.z;
-  const float a = alpha[0];
-  const size_t SC = (size_t)S * C;
-  const Item it;
-  for (int tb = 0; tb < T; tb += kTF) {
-    float acc[kFr][kOwn] = {};
-    for (int s = 0; s < S; ++s) {
-      for (int v0 = 0; v0 < V; v0 += kJ) {
-        __syncthreads();  // the previous step's reads are done
-        stage_chunk(x3s, X, n, tb, v0, T, V, SC, s * C + c0, C - c0);
-        // M stored [u][v][c]: the thread's own joints are u
-        tile_m<RP, TA>(x1s, x2s, w4s, b4s, a, As, D, W, E, M, n, s, S, u0, v0,
-                       V, R, C, c0, kJ, 1);
-        __syncthreads();
-        accumulate(M, X, it, acc);
-      }
-    }
-    write_out(out, acc, it, n, tb, u0, T, V, C, c0, c0 + it.c < C);
+template <int RP, int TF, typename TA>
+int launch_tiled(const TA* x1s, const TA* x2s, const TA* x3s, const float* w4s,
+                 const float* b4s, const float* alpha, const float* As, TA* out,
+                 int N, int S, int T, int V, int R, int C, cudaStream_t stream) {
+  using namespace tiled;
+  constexpr int CT = channel_tile(TF, RP, sizeof(TA));
+  constexpr int smem = smem_bytes(TF, CT, RP, sizeof(TA));
+  static_assert(smem <= kSmemLimit, "the tiled design's shared memory");
+  cudaError_t err = cudaFuncSetAttribute(unit_ctr_gc_fwd_tiled_kernel<RP, TF, TA>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  // the f32 chunks arrive by tensor copies; the bf16 form does not read the map
+  CUtensorMap xmap = {};
+  if constexpr (sizeof(TA) == 4) {
+    err = chunk_map(&xmap, reinterpret_cast<const float*>(x3s), N, T, V, S * C, TF);
+    if (err != cudaSuccess) return err;
   }
+  const dim3 grid((C + CT - 1) / CT, (V + kJ - 1) / kJ, N);
+  unit_ctr_gc_fwd_tiled_kernel<RP, TF, TA><<<grid, kThreads, smem, stream>>>(
+      x1s, x2s, x3s, w4s, b4s, alpha, As, out, xmap, S, T, V, R, C);
+  return cudaGetLastError();
 }
 
 template <int RP, typename TA>
@@ -250,16 +252,10 @@ int launch(const TA* x1s, const TA* x2s, const TA* x3s, const float* w4s,
            int N, int S, int T, int V, int R, int C, cudaStream_t stream) {
   const int CT = whole_v_ct(S, V, RP);
   if (CT == 0) {
-    using namespace tiled;
-    const size_t smem = sizeof(float) * smem_floats(RP);
-    cudaError_t err = cudaFuncSetAttribute(
-        unit_ctr_gc_fwd_tiled_kernel<RP, TA>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return err;
-    const dim3 grid((C + kCT - 1) / kCT, (V + kJ - 1) / kJ, N);
-    unit_ctr_gc_fwd_tiled_kernel<RP, TA><<<grid, kThreads, smem, stream>>>(
-        x1s, x2s, x3s, w4s, b4s, alpha, As, out, S, T, V, R, C);
-    return cudaGetLastError();
+    const int TF = tiled::frame_tile(T);
+    if (TF == 8) return launch_tiled<RP, 8>(x1s, x2s, x3s, w4s, b4s, alpha, As, out, N, S, T, V, R, C, stream);
+    if (TF == 16) return launch_tiled<RP, 16>(x1s, x2s, x3s, w4s, b4s, alpha, As, out, N, S, T, V, R, C, stream);
+    return launch_tiled<RP, 32>(x1s, x2s, x3s, w4s, b4s, alpha, As, out, N, S, T, V, R, C, stream);
   }
   const int VP = (V + kUU - 1) / kUU * kUU;
   const size_t smem = sizeof(float) *

@@ -10,13 +10,19 @@ gradients stay f32). The type of an operation is the one the JAX kernel
 computes it in, whatever instructions the port uses: in bf16, stage 1 of
 K1 and K2 (the (V*V, R) @ (R, C) product that builds M) is a bf16 x bf16
 product with f32 accumulation (tamgcn_tpu/ops/pallas/ctr_gc.py:401-404),
-held to the bf16 tensor-core peak; the rest (stage 2, K3's sums, all of
-f32) is f32 work, held to the f32 peak outside the tensor cores.
+held to the bf16 tensor-core peak; the rest of K1 and K2 is f32 work. The
+joint-tiled K1 and K2 (csrc/unit_ctr_gc_tiled.cuh) run those f32 products
+on the tensor cores as 3xTF32 (three TF32 products per f32 product), so
+the f32 work of K1 and K2, in either design since they compute the same
+function, is held to the TF32 tensor-core peak over three: 165 TFLOP/s,
+not the 67 TFLOP/s of the CUDA cores, which would read above what the
+card can do. K3's sums stay at the f32 peak outside the tensor cores.
 
 Peaks: NVIDIA's H100 SXM data sheet, dense, at the full 700 W limit: 80 GB
-of HBM3 at 3.35 TB/s, 989 TFLOP/s bf16 on the tensor cores, 67 TFLOP/s f32
-outside them. A card set below 700 W runs slower under load; a roofline
-share is stated against these peaks with the card's limit beside it.
+of HBM3 at 3.35 TB/s, 989 TFLOP/s bf16 and 495 TFLOP/s TF32 on the tensor
+cores, 67 TFLOP/s f32 outside them. A card set below 700 W runs slower
+under load; a roofline share is stated against these peaks with the card's
+limit beside it.
 """
 from __future__ import annotations
 
@@ -25,38 +31,42 @@ import math
 HBM_BW = 3.35e12  # bytes/s
 F32_FLOPS = 67e12  # FLOP/s, f32 outside the tensor cores
 BF16_FLOPS = 989e12  # FLOP/s, bf16 on the tensor cores (f32 accumulation)
+TF32X3_FLOPS = 495e12 / 3  # FLOP/s, f32 products on the tensor cores as 3xTF32
 
 
-def bound(elems: int, flops: int, *, itemsize: int = 4, bf16_flops: int = 0):
+def bound(elems: int, flops: int, *, itemsize: int = 4, bf16_flops: int = 0,
+          f32_peak: float = F32_FLOPS):
     """(ms, 'bytes' | 'operations'): `elems` values of `itemsize` bytes over
-    the memory rate, or `flops` over the f32 peak plus `bf16_flops` over the
-    bf16 tensor-core peak, whichever is larger."""
+    the memory rate, or `flops` over `f32_peak` (the f32 peak outside the
+    tensor cores unless given) plus `bf16_flops` over the bf16 tensor-core
+    peak, whichever is larger."""
     bytes_ms = itemsize * elems / HBM_BW * 1e3
-    ops_ms = (flops / F32_FLOPS + bf16_flops / BF16_FLOPS) * 1e3
+    ops_ms = (flops / f32_peak + bf16_flops / BF16_FLOPS) * 1e3
     return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
 
 
 def _act_bound(act_elems: int, param_elems: int, flops: int, act_bytes: int,
-               stage1_flops: int = 0):
+               stage1_flops: int = 0, f32_peak: float = F32_FLOPS):
     """bound() of act_elems activations of act_bytes bytes and param_elems
     f32 values; `stage1_flops` at the bf16 peak where act_bytes is 2, else
-    at the f32 peak beside `flops`."""
+    at `f32_peak` beside `flops`."""
     if act_bytes == 2:
         return bound(act_bytes * act_elems + 4 * param_elems, flops, itemsize=1,
-                     bf16_flops=stage1_flops)
-    return bound(act_bytes * act_elems + 4 * param_elems, flops + stage1_flops, itemsize=1)
+                     bf16_flops=stage1_flops, f32_peak=f32_peak)
+    return bound(act_bytes * act_elems + 4 * param_elems, flops + stage1_flops, itemsize=1,
+                 f32_peak=f32_peak)
 
 
 def unit_ctr_gc_sol(n: int, t: int, v: int, c: int, r: int, s: int = 3, *,
                     act_bytes: int = 4):
     """The unit CTR-GC forward (K1): x1s, x2s, x3s, w4s, b4s, alpha, As in,
     (n,t,v,c) out; the FMAs of M (stage 1, v*v*r*c per sample and subset;
-    bf16 in bf16) and of the aggregation (stage 2, t*v*v*c, f32). Returns
-    bound()'s (ms, by)."""
+    bf16 in bf16) and of the aggregation (stage 2, t*v*v*c, f32), the f32
+    ones at the 3xTF32 rate. Returns bound()'s (ms, by)."""
     acts = 2 * n * s * v * r + n * t * v * s * c + n * t * v * c
     params = s * r * c + s * c + 1 + s * v * v
     return _act_bound(acts, params, 2 * n * s * t * v * v * c, act_bytes,
-                      2 * n * s * v * v * r * c)
+                      2 * n * s * v * v * r * c, TF32X3_FLOPS)
 
 
 def unit_ctr_gc_dx3_sol(n: int, t: int, v: int, c: int, r: int, s: int = 3, *,
@@ -66,7 +76,7 @@ def unit_ctr_gc_dx3_sol(n: int, t: int, v: int, c: int, r: int, s: int = 3, *,
     acts = 2 * n * s * v * r + n * t * v * c + n * t * v * s * c
     params = s * r * c + s * c + 1 + s * v * v
     return _act_bound(acts, params, 2 * n * s * t * v * v * c, act_bytes,
-                      2 * n * s * v * v * r * c)
+                      2 * n * s * v * v * r * c, TF32X3_FLOPS)
 
 
 def unit_ctr_gc_param_sol(n: int, t: int, v: int, c: int, r: int, s: int = 3, *,

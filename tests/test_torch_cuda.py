@@ -154,11 +154,15 @@ def test_param_kernel_matches_plain(device, shape):
 
 
 # past the whole-V designs' shared memory: a ragged V (partial joint tiles
-# of 16 and of K3's 20), V=64, and configs/scene256.yaml's V=256 at its
-# blocks' widths (batch cut to 2)
+# of 16 and of K3's 20), V=64, configs/scene256.yaml's V=256 at its blocks'
+# widths (batch cut to 2), and the joint-tiled design's edges: T not a
+# multiple of the frame tile (13 of 16; 33 and 40 of 32, a second chunk of 1
+# and 8 frames), C not a multiple of the channel tile (80 of 64, 48 of 32),
+# N = 1
 LARGE_V_SHAPES = [
     (2, 7, 37, 80, 10), (2, 9, 64, 64, 8), (2, 32, 256, 64, 8),
     (2, 16, 256, 128, 16), (2, 8, 256, 256, 32),
+    (2, 13, 37, 80, 10), (2, 40, 256, 64, 8), (2, 33, 48, 48, 16), (1, 16, 256, 128, 16),
 ]
 
 
@@ -166,7 +170,7 @@ LARGE_V_SHAPES = [
 def test_large_v_kernels_match_plain(device, shape):
     """K1 and K2 take their joint-tiled designs (counted on their own
     counters) and K3 its one design; each within the tolerances above of its
-    plain version, and two K3 launches bitwise equal."""
+    plain version, and two launches of each bitwise equal."""
     x1s, x2s, x3s, w4s, b4s, alpha, As = args = _inputs(*shape, device=device)
     n, t, v, c, r = shape
     g = torch.randn((n, t, v, c), generator=torch.Generator().manual_seed(9)).to(device)
@@ -183,6 +187,9 @@ def test_large_v_kernels_match_plain(device, shape):
             ctr_gc.bwd_dx3_tiled_launches) == (before[0], before[1] + 1, before[2],
                                                before[3] + 1)
     with torch.no_grad():
+        assert torch.equal(ctr_gc.unit_ctr_gc_fwd(*args), out), "two K1t launches differ"
+        assert torch.equal(ctr_gc.unit_ctr_gc_bwd_dx3(x1s, x2s, g, w4s, b4s, alpha, As),
+                           dx3), "two K2t launches differ"
         want = unit_ctr_gc_plain(*args)
         torch.testing.assert_close(out, want, rtol=1e-5, atol=1e-5 * want.abs().max().item())
         want = unit_ctr_gc_dx3_plain(x1s, x2s, g, w4s, b4s, alpha, As)
@@ -195,9 +202,11 @@ def test_large_v_kernels_match_plain(device, shape):
 
 
 # the bf16 forms: the whole-V designs at NW-UCLA and NTU widths, the
-# joint-tiled ones at a ragged V and at V=256
+# joint-tiled ones at a ragged V, at V=256 and at the design's edges (T of
+# 13 and 40, C of 80, N = 1)
 BF16_SHAPES = [(4, 13, 20, 256, 32), (4, 52, 20, 64, 8), (3, 9, 25, 128, 16),
-               (2, 7, 37, 80, 10), (2, 8, 256, 256, 32)]
+               (2, 7, 37, 80, 10), (2, 8, 256, 256, 32), (2, 13, 37, 80, 10),
+               (2, 40, 256, 64, 8), (1, 16, 256, 128, 16)]
 BF16_COUNTERS = ("launches", "launches_tiled", "bwd_dx3_launches",
                  "bwd_dx3_tiled_launches", "bwd_param_launches", "launches_bf16",
                  "launches_tiled_bf16", "bwd_dx3_launches_bf16",
@@ -248,6 +257,11 @@ def test_bf16_kernels_match_plain(device, shape):
     assert moved == {"launches" + suffix: 1, "bwd_dx3" + ("_tiled" if tiled else "")
                      + "_launches_bf16": 1, "bwd_param_launches_bf16": 2}, moved
     with torch.no_grad():
+        if tiled:
+            assert torch.equal(ctr_gc.unit_ctr_gc_fwd(x1s, x2s, x3s, w4s, b4s, alpha, As),
+                               out), "two K1t launches differ"
+            assert torch.equal(ctr_gc.unit_ctr_gc_bwd_dx3(x1s, x2s, g, w4s, b4s, alpha, As),
+                               dx3), "two K2t launches differ"
         _bf16_close(out, unit_ctr_gc_plain(x1s, x2s, x3s, w4s, b4s, alpha, As), "out")
         _bf16_close(dx3, unit_ctr_gc_dx3_plain(x1s, x2s, g, w4s, b4s, alpha, As), "dx3s")
         want = unit_ctr_gc_param_grads_plain(x1s, x2s, g, x3s, w4s, b4s, alpha)

@@ -30,15 +30,47 @@ def test_hard_sync_sums_every_tensor():
     assert timing.hard_sync(x) == 6.0
 
 
+# K1's and K2's f32 FMAs are held to the 3xTF32 tensor-core rate, 495 / 3
+# TFLOP/s: the joint-tiled designs run them there
 @pytest.mark.parametrize("shape,want", [
     # l1 at batch 64: 17.10 M f32 values, 68.4 MB (20.4 us), bytes
     ((64, 52, 20, 64, 8), (20.42e-3, "bytes")),
-    # l9 at batch 16: 0.221 G FMA (6.60 us) above 17.4 MB (5.19 us)
-    ((16, 13, 20, 256, 32), (6.603e-3, "operations")),
+    # l9 at batch 16: 0.221 G FMA (2.68 us at 165 TFLOP/s; 6.60 us at the
+    # CUDA cores' 67) below 17.4 MB (5.19 us)
+    ((16, 13, 20, 256, 32), (5.191e-3, "bytes")),
+    # configs/scene256.yaml l1-l4 at batch 8 (K1t): 4.03 G FMA (48.8 us)
+    ((8, 32, 256, 64, 8), (48.81e-3, "operations")),
+    # scene256 l9-l10 (K1t): 16.1 G FMA (195.2 us), above 69.6 MB (20.8 us)
+    ((8, 8, 256, 256, 32), (195.23e-3, "operations")),
 ])
 def test_unit_ctr_gc_sol(shape, want):
     ms, by = roofline.unit_ctr_gc_sol(*shape)
     assert by == want[1] and ms == pytest.approx(want[0], rel=1e-3)
+
+
+@pytest.mark.parametrize("shape,want", [
+    # K2 at l1, batch 16: 4.28 M f32 values, 17.1 MB (5.108 us)
+    ((16, 52, 20, 64, 8), (5.108e-3, "bytes")),
+    # K2t at scene256 l6-l7 and l9-l10, batch 8: the forward's FMAs
+    ((8, 16, 256, 128, 16), (78.09e-3, "operations")),
+    ((8, 8, 256, 256, 32), (195.23e-3, "operations")),
+])
+def test_unit_ctr_gc_dx3_sol(shape, want):
+    ms, by = roofline.unit_ctr_gc_dx3_sol(*shape)
+    assert by == want[1] and ms == pytest.approx(want[0], rel=1e-3)
+
+
+def test_scene256_paths_at_the_3xtf32_rate():
+    # K1t per scene256 eval forward and K2t per train step (blocks l1-l4 x4,
+    # l5, l6-l7 x2, l8, l9-l10 x2): 82.1 G FMA, 0.996 ms at 165 TFLOP/s
+    # (2.452 ms at the CUDA cores' 67)
+    blocks = [((8, 32, 256, 64, 8), 4), ((8, 32, 256, 128, 8), 1),
+              ((8, 16, 256, 128, 16), 2), ((8, 16, 256, 256, 16), 1),
+              ((8, 8, 256, 256, 32), 2)]
+    for fn in (roofline.unit_ctr_gc_sol, roofline.unit_ctr_gc_dx3_sol):
+        ms = sum(k * fn(*shape)[0] for shape, k in blocks)
+        assert ms == pytest.approx(0.9957, rel=1e-3)
+    assert roofline.TF32X3_FLOPS == pytest.approx(165e12)
 
 
 @pytest.mark.parametrize("shape,want", [
@@ -64,8 +96,8 @@ def test_unit_ctr_gc_param_sol(shape, want):
     # MB (2.567 us), above 0.167 GFLOP (2.494 us)
     ("unit_ctr_gc_param_sol", (16, 52, 20, 64, 8), (2.567e-3, "bytes")),
     # K1 bf16 at l9, batch 16: stage 1 (0.315 GFLOP) at the bf16 tensor-core
-    # peak and stage 2 (0.128 GFLOP) at the f32 peak take 2.226 us, below
-    # the 8.75 MB (2.612 us); in f32 the same shape is bound by operations
+    # peak and stage 2 (0.128 GFLOP) at the 3xTF32 rate take 1.1 us, below
+    # the 8.75 MB (2.612 us)
     ("unit_ctr_gc_sol", (16, 13, 20, 256, 32), (2.612e-3, "bytes")),
 ])
 def test_unit_op_bf16_bounds(fn, shape, want):
@@ -83,6 +115,8 @@ def test_peaks_and_bound_match_the_published_h100():
     assert roofline.bound(3.35e9 / 2, 0, itemsize=2) == pytest.approx((1.0, "bytes"))
     assert roofline.BF16_FLOPS == 989e12
     assert roofline.bound(1, 67e9 / 2, bf16_flops=989e9 / 2) == pytest.approx(
+        (1.0, "operations"))
+    assert roofline.bound(1, 165e9, f32_peak=roofline.TF32X3_FLOPS) == pytest.approx(
         (1.0, "operations"))
 
 
