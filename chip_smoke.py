@@ -48,11 +48,14 @@ Phases, each of which fails the run (non-zero exit, no result line):
      16 and 64, with the plain unit op beside it at 16, and lists its device
      time by kernel name;
   6. fast eval: holds K5, the whole eval-mode GCN+TCN block, against its
-     plain version at the ten blocks' shapes at batch 64 plus V=25 and a
-     ragged shape (Cin != C), f32 with TF32 off, within rtol 1e-5 and atol
+     plain version at the ten blocks' shapes at batch 64 plus V=25, V=28, a
+     ragged shape (Cin != C) and the tensor-core design's edges (N = 1, T
+     of 13, Cin of 30 and 136, C of 48 and 144, the epilogue at 16 rows and
+     in its wide design), f32 with TF32 off, within rtol 1e-5 and atol
      1e-4*max|plain| (four products in a row, each summing up to 3*C terms in
-     another order), and times it, its plain version and the folded path
-     with K1 and cuBLAS products (use_kernel=False); runs `--phase test
+     another order), two launches bitwise equal, and times it, its plain
+     version and the folded path with K1 and cuBLAS products
+     (use_kernel=False), by events and by a CUDA graph; runs `--phase test
      --fast_eval true` through `__main__.main` at full width (as phase 4)
      and checks that K5 was launched 10 times per batch and K1-K3 never,
      and the logits of one batch against the unfused model on the CPU;
@@ -61,9 +64,10 @@ Phases, each of which fails the run (non-zero exit, no result line):
      by kernel name;
   7. fused-conv3 training and CTRGC: holds K6, the x3 gradient carried
      through conv3's VJP, against its plain version at the l5-l10 shapes at
-     batch 16 plus V=25 and a ragged shape (odd T, Cin != 4k), f32 with TF32
-     off: dx within rtol 1e-5 and atol 1e-4*max|plain| (two products in a
-     row), dw3 and db3 (sums over N*T*V rows) within rtol 1e-4 and atol
+     batch 16 plus V=25, a ragged shape (odd T, Cin != 4k) and the
+     two-phase design's edges (N = 1, Cin = C = 136 at T = 11, V = 32 at
+     R = 32), f32 with TF32 off: dx within rtol 1e-5 and atol
+     1e-4*max|plain| (two products in a row), dw3 and db3 (sums over N*T*V rows) within rtol 1e-4 and atol
      1e-4*max|plain|; two K6 launches must agree bit for bit; times K6, its
      plain version and the unfused composition (K2, two torch.matmul
      products and a sum). Runs `--phase train` for one epoch with
@@ -135,8 +139,9 @@ its times and bound summed over the launches of one eval forward at batch 64
 "device_ms"; K6 with the switch on, with the unfused composition's time
 under "unfused_k2_cublas_ms"), of one scene256 eval forward or train step at
 batch 8 (the joint-tiled K1t, K2t), of one CTRGC
-forward and backward (K4), of one fast-eval forward at batch 64 (K5, with
-the folded path's time under "folded_k1_cublas_ms"; T1 at the ten blocks'
+forward and backward (K4), of one fast-eval forward at batch 64 (K5, its
+CUDA-graph time under "device_ms", the folded path's under
+"folded_k1_cublas_ms" and "folded_k1_cublas_device_ms"; T1 at the ten blocks'
 branch shapes, with the engine composition's time as "library_ms") or of one
 tile-form call at the tools' shape (T2, with one einsum's time as
 "library_ms"), of one bf16 eval forward at batch 64 (K1_bf16) or bf16 train
@@ -184,6 +189,12 @@ K6_EXTRA = [
     ("V=25", (TRAIN_BATCH, 26, 25, 128, 128, 16)),
     ("V=25 R=32", (TRAIN_BATCH, 13, 25, 256, 256, 32)),
     ("ragged", (3, 7, 20, 30, 40, 10)),  # odd T, Cin != 4k, partial tile
+    # the two-phase design's edges: N = 1; rows not a multiple of the
+    # 64-row product tile or the 32-row chunk, Cin and S*C not multiples of
+    # the 64-wide tiles; V = 32 at R = 32 (the joint-tiled x3 gradient)
+    ("N=1", (1, 13, 20, 256, 256, 32)),
+    ("Cin=C=136", (1, 11, 20, 136, 136, 16)),
+    ("V=32 R=32", (2, 9, 32, 64, 128, 32)),
 ]
 # the standalone CTRGC module (N, T, V, Cin, C): its first shape is K4's main
 # path, one forward and backward
@@ -242,6 +253,16 @@ K5_MAIN_PATH = [
 K5_EXTRA = [
     ("V=25", (64, 26, 25, 128, 128, 16)),
     ("ragged", (3, 7, 20, 80, 64, 10)),  # odd T, Cin != C, partial tile
+    # the tensor-core design's edges: N = 1 with T not a multiple of the
+    # 8-frame chunk; Cin not a multiple of 4 or of the 32-channel x chunk, C
+    # and P not multiples of the 64-column pass; V = 28; the epilogue at 16
+    # rows (C 1024) and in its wide design (C 2048)
+    ("N=1", (1, 13, 20, 256, 256, 32)),
+    ("Cin=30 C=48", (3, 7, 20, 30, 48, 10)),
+    ("Cin=136 C=144", (2, 9, 20, 136, 144, 16)),
+    ("V=28", (64, 13, 28, 128, 128, 16)),
+    ("C=1024", (1, 2, 20, 1024, 1024, 8)),
+    ("C=2048", (1, 2, 20, 2048, 2048, 8)),
 ]
 # the same blocks at the training batch, with the launches per train step
 BWD_MAIN_PATH = [(name, (TRAIN_BATCH,) + shape[1:], count)
@@ -406,18 +427,10 @@ def k3_plain(x1s, x2s, x3s, w4s, b4s, alpha, As, g):
 
 
 def k6_bound(shape):
-    from tamgcn_tpu_torch.utils.roofline import bound
+    """K6's bound (utils/roofline.py: its FMAs at the 3xTF32 rate)."""
+    from tamgcn_tpu_torch.utils.roofline import unit_ctr_gc_bwd_conv3_sol
 
-    N, T, V, Cin, C, R = shape
-    S = 3
-    # x1s, x2s, g, x, w3, w4s, b4s, alpha, As in; dx, dw3, db3 out
-    elems = (2 * N * S * V * R + N * T * V * C + 2 * N * T * V * Cin
-             + 2 * Cin * S * C + S * R * C + 2 * S * C + 1 + S * V * V)
-    # FMAs of M and the aggregation (as K2), of dx = dx3s w3^T and dw3 =
-    # x^T dx3s (the JAX cost estimate, ctr_gc.py:1475), and db3's adds
-    flops = (2 * N * S * (V * V * R * C + T * V * V * C)
-             + 4 * N * T * V * S * C * Cin + N * T * V * S * C)
-    return bound(elems, flops)
+    return unit_ctr_gc_bwd_conv3_sol(*shape)
 
 
 def k4_bound(shape):
@@ -460,21 +473,10 @@ def block_inputs(shape, seed: int, device):
 
 
 def k5_bound(shape):
-    """x read and prefix, pw written once, every weight read once; the FMAs of
-    the aggregation and of the five products as the JAX cost estimate counts
-    them (gcn_tcn_block.py:263-266)."""
-    from tamgcn_tpu_torch.utils.roofline import bound
+    """K5's bound (utils/roofline.py: its FMAs at the 3xTF32 rate)."""
+    from tamgcn_tpu_torch.utils.roofline import gcn_tcn_block_sol
 
-    N, T, V, Cin, C, R = shape
-    S, P, BC = 3, 3 * C // 4, C // 4
-    down = Cin != C
-    elems = (N * T * V * (Cin + P + BC) + 2 * N * S * V * R + Cin * S * C + S * C
-             + S * R * C + S * C + 1 + S * V * V + 2 * C + C * C + C + C * P + P
-             + C * BC + BC + (Cin * C + C if down else 0))
-    flops_agg = 2 * N * S * (V * V * R * C + T * V * V * C)
-    flops_mm = 2 * N * T * V * (Cin * S * C + C * C + C * P + C * BC
-                                + (Cin * C if down else 0))
-    return bound(elems, flops_agg + flops_mm)
+    return gcn_tcn_block_sol(*shape)
 
 
 def _within(got, want, rtol, atol_frac):
@@ -582,14 +584,16 @@ def check_kernels(device):
 
 
 def check_k5(device):
-    """K5 against its plain version at every shape, and the times of K5, the
-    plain version and the folded path with K1 and cuBLAS products (the
-    engine's use_kernel=False); returns the rows."""
+    """K5 against its plain version at every shape, two launches bitwise
+    equal, and the times of K5, the plain version and the folded path with
+    K1 and cuBLAS products (the engine's use_kernel=False); returns the
+    rows."""
     import torch
 
     from tamgcn_tpu_torch.ops.aggregation import unit_ctr_gc
     from tamgcn_tpu_torch.ops.cuda.gcn_tcn_block import gcn_tcn_block_fwd
     from tamgcn_tpu_torch.ops.gcn_tcn_block import gcn_tcn_block_plain
+    from tamgcn_tpu_torch.utils.timing import graph_ms
 
     rows = []
     shapes = [(n, s, c) for n, s, c in K5_MAIN_PATH] + [(n, s, 0) for n, s in K5_EXTRA]
@@ -597,8 +601,12 @@ def check_k5(device):
         args = block_inputs(shape, seed=300 + i, device=device)
         with torch.no_grad():
             got = gcn_tcn_block_fwd(**args)
+            again = gcn_tcn_block_fwd(**args)
             want = gcn_tcn_block_plain(**args)
             torch.cuda.synchronize()
+            for part, a, b in zip(("prefix", "pw"), got, again):
+                if not torch.equal(a, b):
+                    raise AssertionError(f"K5 {name} {shape}: two launches differ in {part}")
             errs = [(part,) + _within(a, b, 1e-5, 1e-4)
                     for part, a, b in zip(("prefix", "pw"), got, want)]
             for part, ok, max_err, scale in errs:
@@ -609,17 +617,24 @@ def check_k5(device):
             ms = cuda_ms(lambda: gcn_tcn_block_fwd(**args))
             plain_ms = cuda_ms(lambda: gcn_tcn_block_plain(**args))
             folded_ms = cuda_ms(lambda: gcn_tcn_block_plain(**args, aggregate=unit_ctr_gc))
+            # device time alone, as K6's
+            device_ms = graph_ms(lambda: gcn_tcn_block_fwd(**args))
+            folded_device_ms = graph_ms(
+                lambda: gcn_tcn_block_plain(**args, aggregate=unit_ctr_gc))
         bound_ms, bound_by = k5_bound(shape)
+        check_above_bound(f"K5 {name}", device_ms, bound_ms)
         worst = max(errs, key=lambda e: e[2] / max(e[3], 1e-30))
         rows.append(dict(name=name, shape=dict(zip(("N", "T", "V", "Cin", "C", "R"), shape)),
                          launches_per_step=count, max_abs_err=worst[2],
                          max_abs_plain=worst[3], worst_output=worst[0], ms=ms,
                          plain_ms=plain_ms, folded_k1_cublas_ms=folded_ms,
+                         device_ms=device_ms, folded_k1_cublas_device_ms=folded_device_ms,
                          bound_ms=bound_ms, bound_by=bound_by))
         print(f"K5 {name:9s} N,T,V,Cin,C,R={shape}: max_abs_err {worst[2]:.3e} in "
-              f"{worst[0]} (max|plain| {worst[3]:.3e}) kernel {ms * 1e3:.1f} us, "
-              f"plain {plain_ms * 1e3:.1f} us, folded K1+cuBLAS {folded_ms * 1e3:.1f} "
-              f"us, bound {bound_ms * 1e3:.1f} us ({bound_by})", flush=True)
+              f"{worst[0]} (max|plain| {worst[3]:.3e}) kernel {ms * 1e3:.1f} us "
+              f"(device {device_ms * 1e3:.1f}), plain {plain_ms * 1e3:.1f} us, folded "
+              f"K1+cuBLAS {folded_ms * 1e3:.1f} us (device {folded_device_ms * 1e3:.1f}), "
+              f"bound {bound_ms * 1e3:.1f} us ({bound_by})", flush=True)
     return rows
 
 
@@ -2489,8 +2504,14 @@ def main() -> int:
         kernels[kname]["sources"] = [kernels[kname]["source"],
                                      "tamgcn_tpu_torch/csrc/unit_ctr_gc_common.cuh",
                                      "tamgcn_tpu_torch/csrc/unit_ctr_gc_tiled.cuh"]
-    kernels["K5"]["folded_k1_cublas_ms"] = sum(
-        r["folded_k1_cublas_ms"] * r["launches_per_step"] for r in k5_rows)
+    for key in ("folded_k1_cublas_ms", "folded_k1_cublas_device_ms", "device_ms"):
+        kernels["K5"][key] = sum(r[key] * r["launches_per_step"] for r in k5_rows)
+    kernels["K5"]["sources"] = [kernels["K5"]["source"],
+                                "tamgcn_tpu_torch/csrc/mma_tf32x3.cuh",
+                                "tamgcn_tpu_torch/csrc/unit_ctr_gc_common.cuh"]
+    kernels["K6"]["sources"] = [kernels["K6"]["source"],
+                                "tamgcn_tpu_torch/csrc/mma_tf32x3.cuh",
+                                "tamgcn_tpu_torch/csrc/unit_ctr_gc_dx3.cuh"]
     for key in ("unfused_k2_cublas_ms", "unfused_k2_cublas_device_ms", "device_ms"):
         kernels["K6"][key] = sum(r[key] * r["launches_per_step"] for r in k6_rows)
     # T1's library call: the engine's cuDNN composition; T2's: one einsum

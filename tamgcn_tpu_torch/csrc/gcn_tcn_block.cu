@@ -14,67 +14,360 @@
 //   pw     = h @ Wpw + bpw                        (TCN 1x1 branch, folded)
 //
 // with M_s[n,u,v,c] = (tanh(x1s[n,s,u,:] - x2s[n,s,v,:]) @ w4s[s] + b4s[s,c])
-// * alpha + As[s,u,v]. The refined adjacency M, x3 and h never go to device
-// memory; y does (see phase B).
+// * alpha + As[s,u,v]. The refined adjacency M and h never go to device
+// memory; x3 and y do (see below).
 //
 // What bounds it on this card. At the deep NW-UCLA blocks (N=64, T=13, V=20,
 // Cin=C=256, R=32, P=192, BC=64) it moves ~34 MB (x in, prefix and pw out:
-// ~10 us at 3.35 TB/s) and does ~12.7 GFLOP of f32 FMAs (~190 us at the
-// 67 TFLOP/s f32 peak outside the tensor cores), 86% of them in the five
-// products: the operations bound it at every shape of the model.
+// ~10 us at 3.35 TB/s) and does ~12.7 GFLOP, 86% of it in the five 1x1-conv
+// products (52% in x3 alone): ~77 us at the 165 TFLOP/s of f32 products on
+// the tensor cores as 3xTF32. The operations bound it at every shape of the
+// model. The design before this one ran every product on the CUDA cores and
+// computed x3 inside the channel-tiled phase: one block of 8 warps an SM
+// (M, the x3 chunk and the x chunks fill ~140 KB), its stage 1 and
+// aggregation held by latency at half of K1's occupancy, and its epilogue
+// products held by loads (one read-only-cache load per k).
 //
 // What the design does about it. The TPU kernel keeps M of whole samples for
 // all S*C channels in VMEM (1.2 MB per sample at C=256); a Hopper block has
 // 227 KB, and the epilogue's products mix all C channels of a row, so one
-// block cannot own both a channel tile and a row. Two kernels, one launch of
-// the wrapper:
-//   Phase A, channel-tiled (block_agg_kernel): one block of 256 threads per
-//   (sample, tile of CT=16 channels; 8 where 16 does not fit). It builds M
-//   for the tile and all subsets in shared memory with K1's stage 1
-//   (unit_ctr_gc_common.cuh:build_m), then walks T in chunks of 8 frames.
-//   For each chunk the x3 columns of the tile are a product over chunks of
-//   32 input channels: x (transposed, 4 rows per 16-byte store) and W3 are
-//   staged in shared memory, the next chunk's values already loading into
-//   registers while this one computes; each thread keeps NXT tiles of 4 rows
-//   x 4 columns, all in one column group, in registers over the whole input
-//   depth (per k: one 16-byte weight load and one 16-byte x load per tile
-//   for 16 FMAs each, and no branch, so the loads pipeline). Then the
-//   aggregation is K1's stage 2, and y = agg * gy0 + gy1 goes to device
-//   memory.
-//   Phase B, row-tiled (block_epilogue_kernel): one block per BR rows
-//   (n, t, v) with all C channels (BR = 8192 / C within [32, 128], so the
-//   C x C product has 512 tiles of 4 x 4): res (x, or x @ Wd), res - y,
-//   off, h in shared memory (h overwrites res in place: each element is
-//   read and written by one thread), then prefix and pw straight to device
-//   memory. Its products (block_gemm) give each thread 2 tiles of 4 x 4 in
-//   one column group where the width allows, so one 16-byte weight load
-//   through the read-only cache serves 32 FMAs.
-// y's round trip (N*T*V*C floats written, then read) is the gap to the TPU
-// kernel's single pass. Tensor cores (3xTF32 for f32 accuracy), TMA and a
-// persistent grid are left for later work.
+// block cannot own both a channel tile and a row. Three kernels, one launch
+// of the wrapper, x3 and y passing through the wrapper's scratch:
+//   x3 (block_x3_kernel): x @ W3 + b3 in 64 x 64 output tiles, 4 warps of
+//   32 x 32 on the tensor cores as 3xTF32 with the operands staged by
+//   cp.async (mma_tf32x3.cuh: tile_product, also K6's), several blocks an
+//   SM; written to scratch (N*T*V*S*C floats).
+//   The aggregation (block_agg_kernel): K1's kernels as they are
+//   (unit_ctr_gc_fwd.cuh), under K5's names: a block per (sample, 16
+//   channels) builds M of its tile for all subsets and aggregates every
+//   frame of x3, two blocks an SM; writes y, before the unit_gcn BN.
+//   The epilogue (block_epilogue_kernel): a block per BR rows (n, t, v) with
+//   all C channels, 128 rows at C = 64, else 32 (two blocks an SM up to C ~
+//   360), 16 where 32 do not fit: res (x, or x @ Wd), res - y' (y' = y *
+//   gy0 + gy1), off, h in shared memory (h overwrites res in place), then
+//   prefix and pw, one product of h with [Wp | Wpw], straight to device
+//   memory. Its products run on the tensor cores as 3xTF32 in passes of 64
+//   or 128 columns (8 warps), the A operand from the block's rows in shared
+//   memory, the weights staged by cp.async in chunks of 32 rows, the next
+//   one copied while this one is multiplied, every warp on whole tiles (no
+//   test in the loop). Where even 16 rows of all channels do not fit (C or
+//   Cin past ~1500) the rows-of-4 design with its products on the CUDA
+//   cores runs instead (block_epilogue_wide_kernel).
+// The round trips: x3 (N*T*V*S*C floats written, then read by the
+// aggregation: ~51 MB each way at the deep blocks, ~15 us at 3.35 TB/s each
+// way) and y (~17 MB each way). They stay because a row tile of all channels
+// cannot keep M beside it, and because the first form of this design, x3
+// computed in the channel-tiled phase on the tensor cores, was slower than
+// the earlier kernel at every block (one block an SM): three mma.sync
+// products per f32 product leave the tensor cores' gain over the CUDA cores
+// small, so the products gain only where they stop waiting.
+// Left for later work: wgmma (the way past mma.sync's rate); D and M built
+// once per 16 channels, as K1 builds them (wider channel tiles, and stage
+// 1 and the aggregation on the tensor cores, are K1's redesign, which K5
+// then shares); a persistent grid.
 
 #include <cuda_runtime.h>
 
-#include "unit_ctr_gc_common.cuh"
+#include "mma_tf32x3.cuh"
+#include "unit_ctr_gc_fwd.cuh"
 
 namespace {
 
 using namespace unit_ctr_gc;
+namespace mm = mma_tf32x3;
 
-constexpr int kUU = 5;    // joints u per thread in the aggregation
-constexpr int kTT = 2;    // frames t per thread in the aggregation
-constexpr int kKC = 32;   // input channels per x chunk in phase A
-constexpr int kBRItems = 512;  // 4x4 tiles of a phase B block's C x C product
+constexpr int kMaxV = 28;  // the joints K5 was sized and checked at
+constexpr int kStages = 2;  // weight chunk buffers of phase B's products
+constexpr int kBK = 32;   // weight rows per staged chunk in phase B
+constexpr int kXK = 32;   // input channels per staged chunk of the x3 product
+constexpr int kBRItems = 512;  // 4x4 tiles of the wide phase B block's C x C product
 constexpr int kNI = 2;    // 4x4 output tiles per thread per pass of block_gemm
-constexpr int kXI = 3;    // at most 4x4 x3 tiles per phase A thread (V <= 31)
-constexpr int kXS = 7;    // x float4s a phase A thread stages per chunk (V <= 28)
-constexpr int kWS = 2;    // W3 float4s a phase A thread stages per chunk
 
 __host__ __device__ inline int imin(int a, int b) { return a < b ? a : b; }
+__host__ __device__ inline int round32(int a) { return (a + 31) / 32 * 32; }
 
 __device__ inline float4 ldg4(const float* p) {
   return __ldg(reinterpret_cast<const float4*>(p));
 }
+
+// ---- x3 = x @ W3 + b3: 64 x 64 tiles on the tensor cores ----
+
+// kVec: Cin % 4 == 0 (16-byte copies of x's rows)
+template <bool kVec>
+__global__ void __launch_bounds__(mm::kTileThreads)
+block_x3_kernel(const float* __restrict__ x, const float* __restrict__ w3,
+                const float* __restrict__ b3, float* __restrict__ x3, int NR, int Cin, int SC) {
+  extern __shared__ float4 smem4[];
+  float* Ab = reinterpret_cast<float*>(smem4);
+  float* Bb = Ab + 2 * mm::tile_chunk<kXK>();
+  const int tiles_n = (SC + mm::kTileN - 1) / mm::kTileN;
+  const int m0 = blockIdx.x / tiles_n * mm::kTileM, n0 = blockIdx.x % tiles_n * mm::kTileN;
+  float acc[2][4][4];
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[mt][nt][i] = 0.f;
+  mm::tile_product<kXK, false, kVec, true>(x, Cin, NR, w3, SC, SC, m0, n0, 0, Cin, Ab, Bb, acc,
+                                      [](const float*) {});
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int wm = warp / 2, wn = warp % 2;
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = m0 + 32 * wm + 16 * mt + lane / 4 + 8 * h;
+        const int c = n0 + 32 * wn + 8 * nt + 2 * (lane % 4);
+        if (r < NR && c < SC) {  // SC % 4 == 0: c + 1 < SC too
+          *reinterpret_cast<float2*>(x3 + (size_t)r * SC + c) =
+              make_float2(acc[mt][nt][2 * h] + __ldg(b3 + c), acc[mt][nt][2 * h + 1] + __ldg(b3 + c + 1));
+        }
+      }
+}
+
+// ---- the aggregation: K1's kernels (unit_ctr_gc_fwd.cuh) under K5's names ----
+
+template <int RP>
+__global__ void __launch_bounds__(kThreads)
+block_agg_kernel(const float* __restrict__ x1s, const float* __restrict__ x2s,
+                 const float* __restrict__ x3s, const float* __restrict__ w4s,
+                 const float* __restrict__ b4s, const float* __restrict__ alpha,
+                 const float* __restrict__ As, float* __restrict__ out, int S, int T, int V,
+                 int R, int C, int CT, int VP) {
+  fwd::whole_v<RP, float>(x1s, x2s, x3s, w4s, b4s, alpha, As, out, S, T, V, R, C, CT, VP);
+}
+
+template <int RP, int TF>
+__global__ void __launch_bounds__(kThreads, 1)
+block_agg_kernel_tiled(const float* __restrict__ x1s, const float* __restrict__ x2s,
+                       const float* __restrict__ x3s, const float* __restrict__ w4s,
+                       const float* __restrict__ b4s, const float* __restrict__ alpha,
+                       const float* __restrict__ As, float* __restrict__ out,
+                       const __grid_constant__ CUtensorMap xmap, int S, int T, int V, int R,
+                       int C) {
+  using namespace tiled;
+  constexpr int CT = channel_tile(TF, RP, 4);
+  run<true, RP, TF, CT, float>(x1s, x2s, x3s, w4s, b4s, alpha[0], As, out, &xmap, blockIdx.z, 0,
+                               blockIdx.y * kJ, blockIdx.x * CT, S, T, V, R, C);
+}
+
+struct AggLaunch {
+  template <int RP, typename TA>
+  static int whole(dim3 grid, size_t smem, cudaStream_t st, const TA* x1s, const TA* x2s,
+                   const TA* x3s, const float* w4s, const float* b4s, const float* alpha,
+                   const float* As, TA* out, int S, int T, int V, int R, int C, int CT,
+                   int VP) {
+    cudaError_t err = cudaFuncSetAttribute(block_agg_kernel<RP>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+    block_agg_kernel<RP><<<grid, kThreads, smem, st>>>(x1s, x2s, x3s, w4s, b4s, alpha, As, out,
+                                                        S, T, V, R, C, CT, VP);
+    return cudaGetLastError();
+  }
+  template <int RP, int TF, typename TA>
+  static int tiled(dim3 grid, int smem, cudaStream_t st, const TA* x1s, const TA* x2s,
+                   const TA* x3s, const float* w4s, const float* b4s, const float* alpha,
+                   const float* As, TA* out, const CUtensorMap& xmap, int S, int T, int V,
+                   int R, int C) {
+    cudaError_t err = cudaFuncSetAttribute(block_agg_kernel_tiled<RP, TF>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+    block_agg_kernel_tiled<RP, TF><<<grid, kThreads, smem, st>>>(
+        x1s, x2s, x3s, w4s, b4s, alpha, As, out, xmap, S, T, V, R, C);
+    return cudaGetLastError();
+  }
+};
+
+// ---- the epilogue ----
+
+// out[r][c] = sum_k A[r][k] * W[k][c] for the BR rows of A (shared memory,
+// row stride lda, columns k < round32(K) finite, zero from K on) and the
+// columns c < ncols of W = [W0 | W1] (W0 K x n0, W1 K x (ncols - n0), n0
+// and ncols multiples of 4, both 16-byte aligned, in device memory; W1 =
+// W0 and n0 = ncols for one matrix), on the tensor cores as 3xTF32, in
+// passes of kP (64 or 128) columns; W's chunks of kBK rows, zero past K and
+// ncols, staged in Wb [kStages][kBK][kP + 8] by cp.async, the next one
+// copied while this one is multiplied. The 8 warps
+// are MW x NW over BR rows and a pass (MW = 2, or 1 at BR = 16), each MT m
+// tiles by NT n tiles, all whole: no test in the loop. For each pair of
+// columns c, c + 1 < ncols of row r it calls epi(r, c, value of c, value of
+// c + 1) once the pass is summed; rows past the block's own hold whatever A
+// held there. Starts with a barrier, so Wb may be reused from one call to
+// the next.
+template <int BR, int kP, class Epi>
+__device__ inline void block_product(const float* A, int lda, int K, const float* __restrict__ W0,
+                                     int n0, const float* __restrict__ W1, int ncols, float* Wb,
+                                     Epi epi) {
+  constexpr int kMW = BR >= 32 ? 2 : 1, kNW = 8 / kMW;
+  constexpr int kMT = BR / 16 / kMW, kNT = kP / kNW / 8;
+  constexpr int kLd = kP + 8;  // 8 mod 32: conflict-free fragment loads
+  static_assert(kMT >= 1 && kNT >= 1 && kMW * kMT * 16 == BR, "8 warps over BR rows x kP");
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int wm = warp / kNW, wn = warp % kNW;
+  const int nkc = (K + kBK - 1) / kBK;
+  const int nsteps = (ncols + kP - 1) / kP * nkc;
+  auto stage = [&](int step) {
+    if (step < nsteps) {
+      const int c0 = step / nkc * kP, k0 = step % nkc * kBK;
+      float* wb = Wb + step % kStages * kBK * kLd;
+      for (int i = tid; i < kBK * kP / 4; i += kThreads) {
+        const int k = i / (kP / 4), c = 4 * (i % (kP / 4)), col = c0 + c;
+        const bool ok = k0 + k < K && col < ncols;
+        const float* src = col < n0 ? W0 + (size_t)(k0 + k) * n0 + col
+                                    : W1 + (size_t)(k0 + k) * (ncols - n0) + col - n0;
+        mm::copy16(wb + k * kLd + c, ok ? src : W0, ok);
+      }
+    }
+    mm::commit();
+  };
+  float acc[kMT][kNT][4];
+  __syncthreads();  // the previous call's chunks are consumed
+  for (int step = 0; step < kStages - 1; ++step) stage(step);
+  for (int step = 0; step < nsteps; ++step) {
+    const int kc = step % nkc, c0 = step / nkc * kP;
+    if (kc == 0) {
+#pragma unroll
+      for (int mt = 0; mt < kMT; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < kNT; ++nt)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) acc[mt][nt][i] = 0.f;
+    }
+    mm::wait<kStages - 2>();
+    __syncthreads();  // the step's chunk is in; step - 1's buffer is consumed
+    stage(step + kStages - 1);
+    mm::warp_mma<kMT, kNT, false>(A + wm * kMT * 16 * lda + kc * kBK, lda,
+                                  Wb + step % kStages * kBK * kLd + wn * kNT * 8, kLd, kBK / 8,
+                                  acc);
+    if (kc + 1 < nkc) continue;
+#pragma unroll
+    for (int mt = 0; mt < kMT; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < kNT; ++nt)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int r = (wm * kMT + mt) * 16 + lane / 4 + 8 * h;
+          const int col = c0 + (wn * kNT + nt) * 8 + 2 * (lane % 4);
+          if (col < ncols) epi(r, col, acc[mt][nt][2 * h], acc[mt][nt][2 * h + 1]);
+        }
+  }
+}
+
+// block_product in passes of 128 columns where ncols is a multiple of 128,
+// else of 64 (no wasted pass at C=64 or P=192); always 64 at BR = 128
+template <int BR, class Epi>
+__device__ inline void block_product(const float* A, int lda, int K, const float* __restrict__ W0,
+                                     int n0, const float* __restrict__ W1, int ncols, float* Wb,
+                                     Epi epi) {
+  if constexpr (BR == 128) {  // launched only where every width takes 64-column passes
+    block_product<BR, 64>(A, lda, K, W0, n0, W1, ncols, Wb, epi);
+  } else if (ncols % 128 == 0) {
+    block_product<BR, 128>(A, lda, K, W0, n0, W1, ncols, Wb, epi);
+  } else {
+    block_product<BR, 64>(A, lda, K, W0, n0, W1, ncols, Wb, epi);
+  }
+}
+
+// Phase B's row strides at (Cin, C): Rs [BR][ldr] (res, then h) and Ds
+// [BR][ldd] (x when the residual is a conv, then res - y), 4 mod 32 so that a
+// warp's fragment loads fall in distinct banks; shared memory in bytes.
+__host__ __device__ inline int epi_ldr(int C) { return round32(C) + 4; }
+__host__ __device__ inline int epi_ldd(int Cin, int C) { return round32(imax(Cin, C)) + 4; }
+// The weight chunks' pass width: 128 where a product's width (C, or P + BC
+// for [Wp | Wpw]) is a multiple of 128, else 64 (block_product).
+__host__ __device__ inline int epi_pass(int C, int P, int BC) {
+  return C % 128 == 0 || (P + BC) % 128 == 0 ? 128 : 64;
+}
+__host__ __device__ inline size_t epi_smem(int BR, int Cin, int C, int P, int BC) {
+  return sizeof(float) * ((size_t)BR * (epi_ldr(C) + epi_ldd(Cin, C)) +
+                          kStages * kBK * (epi_pass(C, P, BC) + 8));
+}
+
+template <int BR>
+__global__ void __launch_bounds__(kThreads)
+block_epilogue_kernel(const float* __restrict__ x, const float* __restrict__ y,
+                      const float* __restrict__ gy, const float* __restrict__ wd,
+                      const float* __restrict__ bd,
+                      const float* __restrict__ wo, const float* __restrict__ bo,
+                      const float* __restrict__ wp, const float* __restrict__ bp,
+                      const float* __restrict__ wpw, const float* __restrict__ bpw,
+                      float* __restrict__ prefix, float* __restrict__ pw, int NR, int Cin,
+                      int C, int P, int BC) {
+  extern __shared__ float4 smem4[];
+  const int ldr = epi_ldr(C), ldd = epi_ldd(Cin, C);
+  float* Rs = reinterpret_cast<float*>(smem4);
+  float* Ds = Rs + BR * ldr;
+  float* Wb = Ds + BR * ldd;
+  const int tid = threadIdx.x;
+  const size_t r_base = (size_t)blockIdx.x * BR;
+  const int rows = min(BR, NR - (int)r_base);
+  const float* xb = x + r_base * Cin;
+  const float* yb = y + r_base * C;
+  const int C8 = round32(C);  // the products read k < round32(K): zero past K
+
+  // ---- res ----
+  if (wd == nullptr) {  // identity (Cin == C)
+    for (int i = tid; i < BR * C8; i += kThreads) {
+      const int r = i / C8, k = i % C8;
+      Rs[r * ldr + k] = r < rows && k < C ? xb[(size_t)r * C + k] : 0.f;
+    }
+  } else {
+    const int K8 = round32(Cin);
+    for (int i = tid; i < BR * K8; i += kThreads) {
+      const int r = i / K8, k = i % K8;
+      Ds[r * ldd + k] = r < rows && k < Cin ? xb[(size_t)r * Cin + k] : 0.f;
+    }
+    for (int i = tid; i < BR * (C8 - C); i += kThreads) {
+      Rs[(i / (C8 - C)) * ldr + C + i % (C8 - C)] = 0.f;
+    }
+    __syncthreads();
+    block_product<BR>(Ds, ldd, Cin, wd, C, wd, C, Wb, [&](int r, int c, float v0, float v1) {
+      Rs[r * ldr + c] = v0 + __ldg(bd + c);
+      Rs[r * ldr + c + 1] = v1 + __ldg(bd + c + 1);
+    });
+  }
+  __syncthreads();
+  // ---- res - y ----
+  for (int i = tid; i < BR * C8; i += kThreads) {
+    const int r = i / C8, k = i % C8;
+    Ds[r * ldd + k] = r < rows && k < C
+                          ? Rs[r * ldr + k] - fmaf(yb[(size_t)r * C + k], gy[k], gy[C + k])
+                          : 0.f;
+  }
+  __syncthreads();
+  // ---- off = tanh((res - y) @ Wo + bo); h = relu(y + off + res) into Rs ----
+  block_product<BR>(Ds, ldd, C, wo, C, wo, C, Wb, [&](int r, int c, float v0, float v1) {
+    if (r < rows) {
+      const float2 yv = *reinterpret_cast<const float2*>(yb + (size_t)r * C + c);
+      float* h = Rs + r * ldr + c;
+      h[0] = fmaxf(fmaf(yv.x, __ldg(gy + c), __ldg(gy + C + c)) + tanhf(v0 + __ldg(bo + c)) + h[0],
+                   0.f);
+      h[1] = fmaxf(fmaf(yv.y, __ldg(gy + c + 1), __ldg(gy + C + c + 1)) +
+                       tanhf(v1 + __ldg(bo + c + 1)) + h[1],
+                   0.f);
+    }
+  });
+  __syncthreads();
+  // ---- prefix = relu(h @ Wp + bp), pw = h @ Wpw + bpw: one product of h
+  // with [Wp | Wpw] ----
+  block_product<BR>(Rs, ldr, C, wp, P, wpw, P + BC, Wb, [&](int r, int c, float v0, float v1) {
+    if (r < rows) {
+      if (c < P) {
+        *reinterpret_cast<float2*>(prefix + (r_base + r) * P + c) =
+            make_float2(fmaxf(v0 + __ldg(bp + c), 0.f), fmaxf(v1 + __ldg(bp + c + 1), 0.f));
+      } else {
+        *reinterpret_cast<float2*>(pw + (r_base + r) * BC + c - P) =
+            make_float2(v0 + __ldg(bpw + c - P), v1 + __ldg(bpw + c - P + 1));
+      }
+    }
+  });
+}
+
+// ---- the wide phase B, for C or Cin where 16 rows of all channels do not
+// fit a block: rows of 4, its products on the CUDA cores ----
 
 // out[r, c..c+3] = sum_k A[r, k] * W[k, c..c+3] for the rows r < rows of A
 // (shared memory, row stride lda, at least rows rounded up to 4 rows
@@ -133,237 +426,25 @@ __device__ inline void block_gemm(const float* A, int lda, int rows, int K,
   }
 }
 
-// phase A shared memory, in floats: the D/X region (stage 1's D, then the
-// x3 chunk X [kTC*V][S*CT], the x chunk transposed XS [kKC][kTC*V+4] and
-// the W3 chunk WS [kKC][S*CT]), then M, then E
-__host__ __device__ inline int agg_region0(int V, int S, int CT, int RP) {
-  return round4(imax(V * V * (RP + 1),
-                     kTC * V * S * CT + kKC * (kTC * V + 4) + kKC * S * CT));
-}
-
-// the x3 tiles (4 rows x 4 columns) of phase A's threads: thread t < G2 *
-// ncq owns column group t % ncq of the row quads t / ncq + it * G2, it < NXT
-__host__ __device__ inline int x3_tiles(int V, int S, int CT) {
-  const int G2 = kThreads / (S * CT / 4);
-  return G2 >= 1 ? (kTC * V / 4 + G2 - 1) / G2 : kXI + 1;
-}
-
-__host__ __device__ inline bool x3_tiles_fit(int V, int S, int CT) {
-  return x3_tiles(V, S, CT) <= kXI && kTC * V / 4 * kKC <= kXS * kThreads &&
-         kKC * (S * CT / 4) <= kWS * kThreads;
-}
-
-template <int RP, int NXT>
-__global__ void __launch_bounds__(kThreads)
-block_agg_kernel(const float* __restrict__ x, const float* __restrict__ x1s,
-                 const float* __restrict__ x2s, const float* __restrict__ w3,
-                 const float* __restrict__ b3, const float* __restrict__ w4s,
-                 const float* __restrict__ b4s, const float* __restrict__ alpha,
-                 const float* __restrict__ As, const float* __restrict__ gy,
-                 float* __restrict__ y, int S, int T, int V, int Cin, int R,
-                 int C, int CT, int VP) {
-  extern __shared__ float4 smem4[];
-  float* D = reinterpret_cast<float*>(smem4);
-  const int SCT = S * CT;
-  const int rows = kTC * V;  // (frame, joint) rows of a chunk
-  const int LDX = rows + 4;  // XS's row stride: 16-byte aligned, LDX / 4 odd
-  float* X = D;
-  float* XS = X + rows * SCT;
-  float* WS = XS + kKC * LDX;
-  float* M = D + agg_region0(V, S, CT, RP);
-  float* E = M + S * VP * V * CT;
-
-  const int n = blockIdx.y;
-  const int c0 = blockIdx.x * CT;
-  const int nct = min(CT, C - c0);  // channels of the tile that exist
-  const int tid = threadIdx.x;
-  const float a = alpha[0];
-
-  // ---- stage 1: M_s[u,v,c] for the channel tile, all subsets (K1's) ----
-  build_m<RP>(x1s, x2s, w4s, b4s, a, As, D, E, M, VP * V, V, n, c0, S, V, R,
-              C, CT);
-  for (int i = tid; i < S * (VP - V) * V * CT; i += kThreads) {
-    const int rest = i / (V * CT);  // (s, u - V)
-    M[((rest / (VP - V)) * VP + V + rest % (VP - V)) * V * CT + i % (V * CT)] = 0.f;
-  }
-
-  const int c = tid % CT;  // this thread's channel in the aggregation
-  const int g = tid / CT;
-  const int G = kThreads / CT;
-  const int cg = c0 + c;
-  const float gs = cg < C ? gy[cg] : 0.f;
-  const float gb = cg < C ? gy[C + cg] : 0.f;
-  const int nug = VP / kUU;
-  const int nitems = nug * (kTC / kTT);
-  const size_t SC = (size_t)S * C;
-  // x3 tiles of this thread (x3_tiles_fit): 4 rows x 4 columns of X each,
-  // all in one column group, kept in registers over the whole input depth
-  const int ncq = SCT / 4;
-  const int G2 = kThreads / ncq;
-  const int wcol = 4 * (tid % ncq);  // the tiles' columns
-  // their first rows; a tile past the last computes rows 0..3 again and is
-  // not kept, so that every load of the product loop is unconditional
-  int xrow[NXT];
-  bool keep[NXT];
-#pragma unroll
-  for (int it = 0; it < NXT; ++it) {
-    const int r0 = 4 * (tid / ncq + it * G2);
-    keep[it] = tid < G2 * ncq && r0 < rows;
-    xrow[it] = keep[it] ? r0 : 0;
-  }
-  const float4 bias = wcol % CT < nct
-                          ? ldg4(b3 + (wcol / CT) * C + c0 + wcol % CT)
-                          : make_float4(0.f, 0.f, 0.f, 0.f);
-  // the x and W3 values of chunk (frames tb_.., channels k0_..) that this
-  // thread stages, loaded into registers while the previous chunk computes
-  float4 xv[kXS];  // x[4 rows, one channel]: one 16-byte store into XS
-  float4 wv[kWS];
-  auto load = [&](int tb_, int k0_) {
-    const int kc_ = min(kKC, Cin - k0_);
-    const float* xc = x + ((size_t)n * T + tb_) * V * Cin + k0_;
-    const int valid_rows = min(rows, (T - tb_) * V);
-#pragma unroll
-    for (int b = 0; b < kXS; ++b) {
-      const int i = tid + b * kThreads;
-      const int row = 4 * (i / kKC), kk = i % kKC;
-      const bool on = kk < kc_;
-      const float* p = xc + (size_t)row * Cin + kk;
-      xv[b] = make_float4(on && row < valid_rows ? p[0] : 0.f,
-                          on && row + 1 < valid_rows ? p[Cin] : 0.f,
-                          on && row + 2 < valid_rows ? p[2 * Cin] : 0.f,
-                          on && row + 3 < valid_rows ? p[3 * Cin] : 0.f);
-    }
-#pragma unroll
-    for (int b = 0; b < kWS; ++b) {
-      const int i = tid + b * kThreads;
-      const int kk = i / ncq, j = 4 * (i % ncq), cc = j % CT;
-      wv[b] = (kk < kc_ && cc < nct)
-                  ? ldg4(w3 + (size_t)(k0_ + kk) * SC + (j / CT) * C + c0 + cc)
-                  : make_float4(0.f, 0.f, 0.f, 0.f);
-    }
-  };
-  load(0, 0);
-  for (int tb = 0; tb < T; tb += kTC) {
-    // ---- x3 of the tile: X[row][s*CT + cc] = b3 + x[row] @ W3[:, s*C+c0+cc]
-    float4 xacc[NXT][4];
-#pragma unroll
-    for (int it = 0; it < NXT; ++it) {
-#pragma unroll
-      for (int i = 0; i < 4; ++i) xacc[it][i] = bias;
-    }
-    for (int k0 = 0; k0 < Cin; k0 += kKC) {
-      const int kc = min(kKC, Cin - k0);
-      __syncthreads();  // M is complete; the previous chunk is consumed
-#pragma unroll
-      for (int b = 0; b < kXS; ++b) {
-        // LDX / 4 is odd: the 8 lanes of a quarter warp store to other banks
-        const int i = tid + b * kThreads;
-        if (i < rows / 4 * kKC) {
-          *reinterpret_cast<float4*>(XS + (i % kKC) * LDX + 4 * (i / kKC)) = xv[b];
-        }
-      }
-#pragma unroll
-      for (int b = 0; b < kWS; ++b) {
-        const int i = tid + b * kThreads;
-        if (i < kKC * ncq) {
-          *reinterpret_cast<float4*>(WS + (i / ncq) * SCT + 4 * (i % ncq)) = wv[b];
-        }
-      }
-      __syncthreads();
-      if (k0 + kKC < Cin) {
-        load(tb, k0 + kKC);
-      } else if (tb + kTC < T) {
-        load(tb + kTC, 0);
-      }
-#pragma unroll 4
-      for (int k = 0; k < kc; ++k) {
-        const float4 w = *reinterpret_cast<const float4*>(WS + k * SCT + wcol);
-#pragma unroll
-        for (int it = 0; it < NXT; ++it) {
-          const float4 a = *reinterpret_cast<const float4*>(XS + k * LDX + xrow[it]);
-          xacc[it][0] = fma4(a.x, w, xacc[it][0]);
-          xacc[it][1] = fma4(a.y, w, xacc[it][1]);
-          xacc[it][2] = fma4(a.z, w, xacc[it][2]);
-          xacc[it][3] = fma4(a.w, w, xacc[it][3]);
-        }
-      }
-    }
-    __syncthreads();  // the last chunks are consumed, and the aggregation of
-                      // the previous T chunk is done with X
-#pragma unroll
-    for (int it = 0; it < NXT; ++it) {
-      if (keep[it]) {
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          *reinterpret_cast<float4*>(X + (xrow[it] + i) * SCT + wcol) = xacc[it][i];
-        }
-      }
-    }
-    __syncthreads();
-    // ---- aggregation (K1's stage 2), then the unit_gcn BN affine ----
-    for (int item = g; item < nitems; item += G) {
-      const int u0 = (item % nug) * kUU;
-      const int j0 = (item / nug) * kTT;  // frame within the chunk
-      float acc[kTT][kUU];
-#pragma unroll
-      for (int j = 0; j < kTT; ++j) {
-#pragma unroll
-        for (int i = 0; i < kUU; ++i) acc[j][i] = 0.f;
-      }
-      for (int s = 0; s < S; ++s) {
-#pragma unroll 4
-        for (int v = 0; v < V; ++v) {
-          const float* mrow = M + ((s * VP + u0) * V + v) * CT + c;
-          const float* xrow = X + (j0 * V + v) * SCT + s * CT + c;
-          float m[kUU];
-#pragma unroll
-          for (int i = 0; i < kUU; ++i) m[i] = mrow[i * V * CT];
-          float xv[kTT];
-#pragma unroll
-          for (int j = 0; j < kTT; ++j) xv[j] = xrow[j * V * SCT];
-#pragma unroll
-          for (int j = 0; j < kTT; ++j) {
-#pragma unroll
-            for (int i = 0; i < kUU; ++i) acc[j][i] = fmaf(xv[j], m[i], acc[j][i]);
-          }
-        }
-      }
-      if (cg < C) {
-#pragma unroll
-        for (int j = 0; j < kTT; ++j) {
-          const int t = tb + j0 + j;
-#pragma unroll
-          for (int i = 0; i < kUU; ++i) {
-            const int u = u0 + i;
-            if (t < T && u < V) {
-              y[(((size_t)n * T + t) * V + u) * C + cg] = fmaf(acc[j][i], gs, gb);
-            }
-          }
-        }
-      }
-    }
-  }
-}
-
-// Phase B. Shared memory: Rs [BR][C+4] (res, then h) and Ds
-// [BR][max(Cin+1, C+4)] (x when the residual is a conv, then res - y). The
-// row strides are padded so that the rows a warp reads sit in other banks.
-__host__ __device__ inline int epi_ldr(int C) { return C + 4; }
-__host__ __device__ inline int epi_region(int BR, int Cin, int C) {
-  return BR * (epi_ldr(C) + imax(Cin + 1, epi_ldr(C)));
+// Shared memory: Rs [BR][C+4] (res, then h) and Ds [BR][max(Cin+1, C+4)]
+// (x when the residual is a conv, then res - y). The row strides are padded
+// so that the rows a warp reads sit in other banks.
+__host__ __device__ inline int wide_ldr(int C) { return C + 4; }
+__host__ __device__ inline int wide_region(int BR, int Cin, int C) {
+  return BR * (wide_ldr(C) + imax(Cin + 1, wide_ldr(C)));
 }
 
 __global__ void __launch_bounds__(kThreads)
-block_epilogue_kernel(const float* __restrict__ x, const float* __restrict__ y,
-                      const float* __restrict__ wd, const float* __restrict__ bd,
-                      const float* __restrict__ wo, const float* __restrict__ bo,
-                      const float* __restrict__ wp, const float* __restrict__ bp,
-                      const float* __restrict__ wpw,
-                      const float* __restrict__ bpw, float* __restrict__ prefix,
-                      float* __restrict__ pw, int NR, int Cin, int C, int P,
-                      int BC, int BR) {
+block_epilogue_wide_kernel(const float* __restrict__ x, const float* __restrict__ y,
+                           const float* __restrict__ gy, const float* __restrict__ wd,
+                           const float* __restrict__ bd, const float* __restrict__ wo,
+                           const float* __restrict__ bo, const float* __restrict__ wp,
+                           const float* __restrict__ bp, const float* __restrict__ wpw,
+                           const float* __restrict__ bpw, float* __restrict__ prefix,
+                           float* __restrict__ pw, int NR, int Cin, int C, int P, int BC,
+                           int BR) {
   extern __shared__ float4 smem4[];
-  const int LDR = epi_ldr(C);
+  const int LDR = wide_ldr(C);
   float* Rs = reinterpret_cast<float*>(smem4);
   float* Ds = Rs + BR * LDR;
   const int tid = threadIdx.x;
@@ -396,8 +477,8 @@ block_epilogue_kernel(const float* __restrict__ x, const float* __restrict__ y,
   __syncthreads();
   // ---- res - y ----
   for (int i = tid; i < BR * C; i += kThreads) {
-    const int r = i / C, o = r * LDR + i % C;
-    Ds[o] = r < rows ? Rs[o] - yb[i] : 0.f;
+    const int r = i / C, k = i % C, o = r * LDR + k;
+    Ds[o] = r < rows ? Rs[o] - fmaf(yb[i], gy[k], gy[C + k]) : 0.f;
   }
   __syncthreads();
   // ---- off = tanh((res - y) @ Wo + bo); h = relu(y + off + res) into Rs ----
@@ -406,7 +487,10 @@ block_epilogue_kernel(const float* __restrict__ x, const float* __restrict__ y,
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       if (r0 + i < rows) {
-        const float4 yv = *reinterpret_cast<const float4*>(yb + (r0 + i) * C + c);
+        const float4 yr = *reinterpret_cast<const float4*>(yb + (r0 + i) * C + c);
+        const float4 g0 = ldg4(gy + c), g1 = ldg4(gy + C + c);
+        const float4 yv = make_float4(fmaf(yr.x, g0.x, g1.x), fmaf(yr.y, g0.y, g1.y),
+                                      fmaf(yr.z, g0.z, g1.z), fmaf(yr.w, g0.w, g1.w));
         float4* h = reinterpret_cast<float4*>(Rs + (r0 + i) * LDR + c);
         const float4 r = *h;
         *h = make_float4(fmaxf(yv.x + tanhf(acc[i].x + b.x) + r.x, 0.f),
@@ -441,51 +525,69 @@ block_epilogue_kernel(const float* __restrict__ x, const float* __restrict__ y,
   });
 }
 
-template <int RP, int NXT>
-int launch_one(const float* x, const float* x1s, const float* x2s,
-               const float* w3, const float* b3, const float* w4s,
-               const float* b4s, const float* alpha, const float* As,
-               const float* gy, float* y, int N, int S, int T, int V, int Cin,
-               int R, int C, int CT, int VP, size_t smem, cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(
-      block_agg_kernel<RP, NXT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+
+int launch_x3(const float* x, const float* w3, const float* b3, float* x3, int NR, int Cin,
+              int SC, cudaStream_t stream) {
+  const int blocks = (NR + mm::kTileM - 1) / mm::kTileM * ((SC + mm::kTileN - 1) / mm::kTileN);
+  auto kernel = Cin % 4 == 0 ? block_x3_kernel<true> : block_x3_kernel<false>;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, mm::tile_smem_bytes<kXK>());
   if (err != cudaSuccess) return err;
-  const dim3 grid((C + CT - 1) / CT, N);
-  block_agg_kernel<RP, NXT><<<grid, kThreads, smem, stream>>>(
-      x, x1s, x2s, w3, b3, w4s, b4s, alpha, As, gy, y, S, T, V, Cin, R, C, CT,
-      VP);
+  kernel<<<blocks, mm::kTileThreads, mm::tile_smem_bytes<kXK>(), stream>>>(x, w3, b3, x3, NR,
+                                                                           Cin, SC);
   return cudaGetLastError();
 }
 
-template <int RP>
-int launch_agg(const float* x, const float* x1s, const float* x2s,
-               const float* w3, const float* b3, const float* w4s,
-               const float* b4s, const float* alpha, const float* As,
-               const float* gy, float* y, int N, int S, int T, int V, int Cin,
-               int R, int C, cudaStream_t stream) {
-  const int VP = (V + kUU - 1) / kUU * kUU;
-  auto smem_bytes = [&](int ct) {
-    return sizeof(float) * ((size_t)agg_region0(V, S, ct, RP) +
-                            (size_t)S * VP * V * ct + 2 * V * RP);
-  };
-  // what the block keeps must fit its shared memory, and the x3 tiles of a
-  // chunk its threads' registers
-  auto fits = [&](int ct) {
-    return smem_bytes(ct) <= kSmemLimit && x3_tiles_fit(V, S, ct);
-  };
-  int CT = 16;
-  if (!fits(CT)) CT = 8;
-  if (!fits(CT)) return cudaErrorInvalidValue;
-  const size_t smem = smem_bytes(CT);
-  switch (x3_tiles(V, S, CT)) {
-    case 1:
-      return launch_one<RP, 1>(x, x1s, x2s, w3, b3, w4s, b4s, alpha, As, gy, y, N, S, T, V, Cin, R, C, CT, VP, smem, stream);
-    case 2:
-      return launch_one<RP, 2>(x, x1s, x2s, w3, b3, w4s, b4s, alpha, As, gy, y, N, S, T, V, Cin, R, C, CT, VP, smem, stream);
-    default:
-      return launch_one<RP, kXI>(x, x1s, x2s, w3, b3, w4s, b4s, alpha, As, gy, y, N, S, T, V, Cin, R, C, CT, VP, smem, stream);
+template <int BR>
+int launch_epilogue_one(const float* x, const float* y, const float* gy, const float* wd,
+                        const float* bd,
+                        const float* wo, const float* bo, const float* wp, const float* bp,
+                        const float* wpw, const float* bpw, float* prefix, float* pw, int NR,
+                        int Cin, int C, int P, int BC, cudaStream_t stream) {
+  const size_t smem = epi_smem(BR, Cin, C, P, BC);
+  cudaError_t err = cudaFuncSetAttribute(
+      block_epilogue_kernel<BR>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  block_epilogue_kernel<BR><<<(NR + BR - 1) / BR, kThreads, smem, stream>>>(
+      x, y, gy, wd, bd, wo, bo, wp, bp, wpw, bpw, prefix, pw, NR, Cin, C, P, BC);
+  return cudaGetLastError();
+}
+
+int launch_epilogue(const float* x, const float* y, const float* gy, const float* wd,
+                    const float* bd,
+                    const float* wo, const float* bo, const float* wp, const float* bp,
+                    const float* wpw, const float* bpw, float* prefix, float* pw, int NR,
+                    int Cin, int C, int P, int BC, cudaStream_t stream) {
+  // 128 rows where the passes are 64 columns wide and two blocks fit an SM
+  // (C = 64): fewer blocks, each with more rows between barriers; else 32
+  // (two blocks an SM up to C ~ 360), 16 where 32 do not fit
+  if (epi_pass(C, P, BC) == 64 && 2 * epi_smem(128, Cin, C, P, BC) <= kSmemLimit) {
+    return launch_epilogue_one<128>(x, y, gy, wd, bd, wo, bo, wp, bp, wpw, bpw, prefix, pw, NR, Cin, C, P, BC, stream);
   }
+  if (epi_smem(32, Cin, C, P, BC) <= kSmemLimit) {
+    return launch_epilogue_one<32>(x, y, gy, wd, bd, wo, bo, wp, bp, wpw, bpw, prefix, pw, NR, Cin, C, P, BC, stream);
+  }
+  if (epi_smem(16, Cin, C, P, BC) <= kSmemLimit) {
+    return launch_epilogue_one<16>(x, y, gy, wd, bd, wo, bo, wp, bp, wpw, bpw, prefix, pw, NR, Cin, C, P, BC, stream);
+  }
+  // the wide design: rows per block enough 4x4 tiles in the C x C product
+  // for every thread, and what the block keeps within its shared memory
+  int BR = imax(32, imin(128, kBRItems * 16 / C)) / 4 * 4;
+  while (BR > 4 && sizeof(float) * (size_t)wide_region(BR, Cin, C) > (size_t)kSmemLimit) BR /= 2;
+  const size_t smem = sizeof(float) * (size_t)wide_region(BR, Cin, C);
+  if (smem > (size_t)kSmemLimit) return cudaErrorInvalidValue;
+  cudaError_t e = cudaFuncSetAttribute(
+      block_epilogue_wide_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return e;
+  block_epilogue_wide_kernel<<<(NR + BR - 1) / BR, kThreads, smem, stream>>>(
+      x, y, gy, wd, bd, wo, bo, wp, bp, wpw, bpw, prefix, pw, NR, Cin, C, P, BC, BR);
+  return cudaGetLastError();
+}
+
+// Floats of the scratch y that gcn_tcn_block_f32 needs: x3 (N,T,V,S*C),
+// then y (N,T,V,C).
+size_t scratch_floats(long long NR, int S, int C) {
+  return ((size_t)NR * S * C + 3) / 4 * 4 + (size_t)NR * C;
 }
 
 }  // namespace
@@ -494,9 +596,10 @@ int launch_agg(const float* x, const float* x1s, const float* x2s,
 // x1s, x2s (N,S,V,R); w3 (Cin,S*C); b3 (S*C,); w4s (S,R,C); b4s (S,C);
 // alpha (1,); As (S,V,V); gy (2,C); wd (Cin,C) and bd (C,), or both null for
 // an identity residual (Cin == C); wo (C,C); bo (C,); wp (C,P); bp (P,);
-// wpw (C,BC); bpw (BC,); y (N,T,V,C), scratch; prefix (N,T,V,P); pw
-// (N,T,V,BC). C, P and BC % 4 == 0, R <= 32. Launches both phases on
-// `stream` and returns the first non-zero cudaGetLastError() (0 = ok).
+// wpw (C,BC); bpw (BC,); y, scratch of N*T*V*(S+1)*C + 3 floats (x3, then
+// the unit op's output); prefix (N,T,V,P); pw (N,T,V,BC). C, P and BC % 4
+// == 0, R <= 32, V <= 28. Launches the three kernels on `stream` and
+// returns the first non-zero cudaGetLastError() (0 = ok).
 extern "C" int gcn_tcn_block_f32(
     const float* x, const float* x1s, const float* x2s, const float* w3,
     const float* b3, const float* w4s, const float* b4s, const float* alpha,
@@ -506,35 +609,19 @@ extern "C" int gcn_tcn_block_f32(
     int N, int S, int T, int V, int Cin, int R, int C, int P, int BC,
     void* stream) {
   const long long NR = (long long)N * T * V;
-  if (N < 1 || N > 65535 || S < 1 || T < 1 || V < 1 || Cin < 1 || R < 1 ||
-      C < 4 || C % 4 != 0 || P < 4 || P % 4 != 0 || BC < 4 || BC % 4 != 0 ||
+  if (N < 1 || N > 65535 || S < 1 || T < 1 || V < 1 || V > kMaxV || Cin < 1 || R < 1 ||
+      R > 32 || C < 4 || C % 4 != 0 || P < 4 || P % 4 != 0 || BC < 4 || BC % 4 != 0 ||
       (wd == nullptr) != (bd == nullptr) || (wd == nullptr && Cin != C) ||
-      NR > 0x7fffffffLL - 1024) {
+      NR * S * C > 0x7fffffffLL) {
     return cudaErrorInvalidValue;
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  int err = cudaErrorInvalidValue;
-  if (R <= 8) {
-    err = launch_agg<8>(x, x1s, x2s, w3, b3, w4s, b4s, alpha, As, gy, y, N, S, T, V, Cin, R, C, st);
-  } else if (R <= 16) {
-    err = launch_agg<16>(x, x1s, x2s, w3, b3, w4s, b4s, alpha, As, gy, y, N, S, T, V, Cin, R, C, st);
-  } else if (R <= 32) {
-    err = launch_agg<32>(x, x1s, x2s, w3, b3, w4s, b4s, alpha, As, gy, y, N, S, T, V, Cin, R, C, st);
-  }
+  float* x3 = y;
+  float* agg = y + scratch_floats(NR, S, C) - (size_t)NR * C;
+  int err = launch_x3(x, w3, b3, x3, (int)NR, Cin, S * C, st);
   if (err != cudaSuccess) return err;
-  // rows per block: enough 4x4 tiles in the C x C product for every thread,
-  // and what the block keeps within its shared memory
-  int BR = imax(32, imin(128, kBRItems * 16 / C)) / 4 * 4;
-  while (BR > 4 && sizeof(float) * (size_t)epi_region(BR, Cin, C) > (size_t)kSmemLimit) BR /= 2;
-  const size_t smem = sizeof(float) * (size_t)epi_region(BR, Cin, C);
-  if (smem > (size_t)kSmemLimit) return cudaErrorInvalidValue;
-  cudaError_t e = cudaFuncSetAttribute(
-      block_epilogue_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (e != cudaSuccess) return e;
-  const int blocks = (int)((NR + BR - 1) / BR);
-  block_epilogue_kernel<<<blocks, kThreads, smem, st>>>(
-      x, y, wd, bd, wo, bo, wp, bp, wpw, bpw, prefix, pw, (int)NR, Cin, C, P,
-      BC, BR);
-  return cudaGetLastError();
+  err = fwd::run<AggLaunch, float>(x1s, x2s, x3, w4s, b4s, alpha, As, agg, N, S, T, V, R, C, st);
+  if (err != cudaSuccess) return err;
+  return launch_epilogue(x, agg, gy, wd, bd, wo, bo, wp, bp, wpw, bpw, prefix, pw, (int)NR, Cin,
+                         C, P, BC, st);
 }

@@ -67,6 +67,7 @@
 
 #include <cstdint>
 
+#include "mma_tf32x3.cuh"
 #include "unit_ctr_gc_common.cuh"
 
 namespace unit_ctr_gc {
@@ -194,20 +195,8 @@ __device__ inline float4 unit_load(const __nv_bfloat16* X, int unit) {
   return make_float4(lo.x, lo.y, hi.x, hi.y);
 }
 
-// The TF32 high part of x (round to nearest) and the remainder x - hi
-// (exact in f32; the MMA reads its top 11 bits).
-__device__ inline void split(float x, uint32_t& hi, uint32_t& lo) {
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(hi) : "f"(x));
-  lo = __float_as_uint(x - __uint_as_float(hi));
-}
-
-__device__ inline void mma_tf32(float (&d)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
-  asm(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, "
-      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
+using mma_tf32x3::mma_tf32;  // one m16n8k8 TF32 product (mma_tf32x3.cuh)
+using mma_tf32x3::split;     // an f32 value's TF32 high part and remainder
 
 // bf16 m16n8k8: k slots 2j and 2j+1 of a lane hold the TF32 layout's k = j
 // and j + 4 (the same permutation of k in A and B, so the same sum)

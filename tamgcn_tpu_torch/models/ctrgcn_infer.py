@@ -121,8 +121,8 @@ def _block_prefix_pw(fb: dict, x, x1s, x2s):
 def block_takes_k5(fb: dict) -> bool:
     """Whether the folded block `fb` runs through K5 under the default rule
     (use_kernel=None): K5's launcher takes its shape."""
-    S, R, C = fb["w4s"].shape
-    return k5_takes(fb["A"].shape[-1], fb["w3"].shape[0], C, R, S)
+    _, R, C = fb["w4s"].shape
+    return k5_takes(fb["A"].shape[-1], fb["w3"].shape[0], C, R)
 
 
 def _apply_block(fb: dict, x, use_kernel: bool):

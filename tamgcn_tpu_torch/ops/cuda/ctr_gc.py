@@ -311,16 +311,17 @@ def unit_ctr_gc_bwd_param(x1s, x2s, g, x3s, w4s, b4s, alpha):
 
 def unit_ctr_gc_bwd_conv3(x1s, x2s, g, x, w3, w4s, b4s, alpha, As):
     """K6. The unit op's x3 gradient carried through the packed conv3 that
-    made x3s = x @ w3 + b3, without writing the x3 gradient to device memory:
-    x1s/x2s (N,S,V,R); g (N,T,V,C), the gradient of the output; x
-    (N,T,V,Cin), conv3's input; w3 (Cin,S*C), conv3's weight transposed (a
-    transposed view of the contiguous (S*C,Cin) weight, as
-    `conv3.weight.t()`, is taken as it is; any other w3 is copied into that
-    layout); w4s (S,R,C); b4s (S,C); alpha (1,); As (S,V,V); all float32 on
-    one CUDA device, contiguous, with R <= 32 and C % 4 == 0 -> (dx, dw3,
-    db3) shaped as x, w3 and (S*C,). dw3 is a transposed view of a
-    contiguous (S*C,Cin) tensor. Its sums over rows run in a fixed order:
-    two calls on the same inputs give bitwise equal results."""
+    made x3s = x @ w3 + b3 (the x3 gradient passes between the kernel's two
+    phases through scratch that the wrapper allocates): x1s/x2s (N,S,V,R);
+    g (N,T,V,C), the gradient of the output; x (N,T,V,Cin), conv3's input;
+    w3 (Cin,S*C), conv3's weight transposed (a transposed view of the
+    contiguous (S*C,Cin) weight, as `conv3.weight.t()`, is taken as it is;
+    any other w3 is copied into that layout); w4s (S,R,C); b4s (S,C); alpha
+    (1,); As (S,V,V); all float32 on one CUDA device, contiguous, with R <=
+    32 and C % 4 == 0 -> (dx, dw3, db3) shaped as x, w3 and (S*C,). dw3 is
+    a transposed view of a contiguous (S*C,Cin) tensor. Its sums over rows
+    run in a fixed order: two calls on the same inputs give bitwise equal
+    results."""
     global bwd_conv3_launches
     N, S, T, V, R, C = _unit_dims(x1s, g, w4s)
     Cin = x.shape[-1]
@@ -345,21 +346,22 @@ def unit_ctr_gc_bwd_conv3(x1s, x2s, g, x, w3, w4s, b4s, alpha, As):
         raise ValueError(
             "unit_ctr_gc_bwd_conv3 does not take "
             + " ".join(f"{k}={v}" for k, v in dims.items())
-            + ": a block's frames of x and what it keeps of the refined "
-            "adjacency must fit in its shared memory (V = 20 and V = 25 fit "
-            "at every R <= 32 for Cin <= 256)")
+            + ": its x3 gradient scratch (N*T*V*S*C floats) must hold fewer "
+            "than 2**31 values")
 
     def empty(*shape):
         return torch.empty(shape, device=device, dtype=torch.float32)
 
     dx, dw3t, db3 = empty(N, T, V, Cin), empty(S * C, Cin), empty(S * C)
-    partials = empty(floats)
+    # the x3 gradient (N,T,V,S*C), which passes between the kernel's two
+    # phases, and the partial sums of dw3 and db3 over fixed groups of rows
+    scratch = empty(floats)
     _launch(
         _kernel("unit_ctr_gc_bwd_conv3_f32"), device, dims,
         x1s.data_ptr(), x2s.data_ptr(), g.data_ptr(), w4s.data_ptr(),
         b4s.data_ptr(), alpha.data_ptr(), As.data_ptr(), x.data_ptr(),
         w3t.data_ptr(), dx.data_ptr(), dw3t.data_ptr(), db3.data_ptr(),
-        partials.data_ptr(), N, S, T, V, R, C, Cin,
+        scratch.data_ptr(), N, S, T, V, R, C, Cin, refused=_UNIT_REFUSED,
     )
     bwd_conv3_launches += 1
     return dx, dw3t.t(), db3

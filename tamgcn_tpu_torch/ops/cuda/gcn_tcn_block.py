@@ -4,10 +4,10 @@
 
 Counterpart of tamgcn_tpu/ops/pallas/gcn_tcn_block.py:gcn_tcn_block_fused; its
 plain version is ops/gcn_tcn_block.py:gcn_tcn_block_plain. The wrapper checks
-its inputs, allocates the outputs and the scratch y (the unit_gcn output
-after its BN, which passes through device memory between the kernel's two
-phases), and launches both phases on the current stream as one call; it
-never falls back to the plain version.
+its inputs, allocates the outputs and the scratch (x3, then the unit op's
+output y, which pass through device memory between the kernel's three
+phases), and launches them on the current stream as one call; it never
+falls back to the plain version.
 """
 from __future__ import annotations
 
@@ -24,11 +24,20 @@ SOURCE = "gcn_tcn_block.cu"
 launches = 0
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
+# the C entry point gcn_tcn_block_f32's argument types
+ARGTYPES = [_P] * 21 + [_I] * 9 + [_P]
+# what the launcher refuses once the wrapper's checks pass
+REFUSED = ("K5 takes V <= 28 (wider blocks take the folded path), N * T * V * S * C < "
+           "2**31, and rows of all C channels in a block's shared memory")
 
 
 def _kernel():
-    return build.entry(SOURCE, "gcn_tcn_block_f32", [_P] * 21 + [_I] * 9 + [_P],
-                       ctypes.c_int)
+    return build.entry(SOURCE, "gcn_tcn_block_f32", ARGTYPES, ctypes.c_int)
+
+
+def scratch_floats(N: int, T: int, V: int, S: int, C: int) -> int:
+    """Floats of K5's scratch: x3, rounded up to 4 floats, then y."""
+    return (N * T * V * S * C + 3) // 4 * 4 + N * T * V * C
 
 
 def gcn_tcn_block_fwd(x, x1s, x2s, w3, b3, w4s, b4s, alpha, As, gy, wo, bo,
@@ -68,12 +77,15 @@ def gcn_tcn_block_fwd(x, x1s, x2s, w3, b3, w4s, b4s, alpha, As, gy, wo, bo,
     def empty(*shape):
         return torch.empty(shape, device=device, dtype=torch.float32)
 
-    y, prefix, pw = empty(N, T, V, C), empty(N, T, V, P), empty(N, T, V, BC)
+    # scratch: x3 (N,T,V,S*C), rounded to 4 floats, then the unit op's output
+    # (N,T,V,C), which pass between the kernel's phases
+    y = empty(scratch_floats(N, T, V, S, C))
+    prefix, pw = empty(N, T, V, P), empty(N, T, V, BC)
     ptrs = [t.data_ptr() for t in (x, x1s, x2s, w3, b3, w4s, b4s, alpha, As, gy)]
     ptrs += [None, None] if wd is None else [wd.data_ptr(), bd.data_ptr()]
     ptrs += [t.data_ptr() for t in (wo, bo, wp, bp, wpw, bpw, y, prefix, pw)]
     _launch(_kernel(), device,
             dict(N=N, S=S, T=T, V=V, Cin=Cin, R=R, C=C, P=P, BC=BC),
-            *ptrs, N, S, T, V, Cin, R, C, P, BC)
+            *ptrs, N, S, T, V, Cin, R, C, P, BC, refused=REFUSED)
     launches += 1
     return prefix, pw

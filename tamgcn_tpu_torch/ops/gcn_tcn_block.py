@@ -45,27 +45,11 @@ def gcn_tcn_block_plain(x, x1s, x2s, w3, b3, w4s, b4s, alpha, As, gy, wo, bo,
 
 
 # K5's launcher limits (csrc/gcn_tcn_block.cu), copied so that the CPU can
-# read the rule without a build: phase A's block keeps M of a tile of 16 (or
-# 8) channels for all V x V pairs and stages frames of x in registers, phase
-# B keeps rows of all C channels
+# read the rule without a build: its aggregation is K1's, which takes any V
+# in one of its two designs, and K5 takes V up to 28 (the widths it was
+# sized and checked at); its epilogue phase keeps rows of all C channels
 _SMEM_LIMIT = 232448  # bytes a block may use on sm_90
-_THREADS, _TC, _KC, _XI, _XS, _WS, _UU = 256, 8, 32, 3, 7, 2, 5
-
-
-def _round4(a: int) -> int:
-    return (a + 3) // 4 * 4
-
-
-def _phase_a_fits(V: int, S: int, CT: int, RP: int) -> bool:
-    VP = (V + _UU - 1) // _UU * _UU
-    region0 = _round4(max(V * V * (RP + 1),
-                          _TC * V * S * CT + _KC * (_TC * V + 4) + _KC * S * CT))
-    smem = 4 * (region0 + S * VP * V * CT + 2 * V * RP)
-    ncq = S * CT // 4
-    g2 = _THREADS // ncq
-    tiles = (_TC * V // 4 + g2 - 1) // g2 if g2 >= 1 else _XI + 1
-    return (smem <= _SMEM_LIMIT and tiles <= _XI
-            and _TC * V // 4 * _KC <= _XS * _THREADS and _KC * ncq <= _WS * _THREADS)
+_MAX_V = 28
 
 
 def _phase_b_fits(Cin: int, C: int) -> bool:
@@ -78,17 +62,15 @@ def _phase_b_fits(Cin: int, C: int) -> bool:
     return smem(br) <= _SMEM_LIMIT
 
 
-def k5_takes(V: int, Cin: int, C: int, R: int, S: int = 3) -> bool:
+def k5_takes(V: int, Cin: int, C: int, R: int) -> bool:
     """Whether K5's launcher takes a block of V joints, Cin input and C output
     channels and R = the embedding width (C % 4 == 0, R <= 32 as the wrapper
-    checks): both of its phases fit a block. Read from the shape alone, with
-    no build and no launch; tests/test_torch_cuda.py holds it to the
-    launcher."""
+    checks): V <= 28 and rows of all channels fit its epilogue's block. Read
+    from the shape alone, with no build and no launch;
+    tests/test_torch_cuda.py holds it to the launcher."""
     if C < 4 or C % 4 or not 1 <= R <= 32 or V < 1 or Cin < 1:
         return False
-    RP = 8 if R <= 8 else 16 if R <= 16 else 32
-    return (any(_phase_a_fits(V, S, ct, RP) for ct in (16, 8))
-            and _phase_b_fits(Cin, C))
+    return V <= _MAX_V and _phase_b_fits(Cin, C)
 
 
 def gcn_tcn_block_fused(x, x1s, x2s, w3, b3, w4s, b4s, alpha, As, gy, wo, bo,

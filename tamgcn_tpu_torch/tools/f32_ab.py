@@ -1,6 +1,6 @@
-"""The f32 forms of K1, K2 and K3 of this checkout against the same kernels
-built from another directory of sources with the same C interface, such as
-an earlier commit's csrc/, on one card:
+"""The one A/B tool of the port's f32 kernels: K1, K2, K3, K5 and K6 of this
+checkout against the same kernels built from another directory of sources
+with the same C interface, such as an earlier commit's csrc/, on one card:
 
     mkdir -p work_dir/other && git archive <commit> tamgcn_tpu_torch/csrc | tar -x -C work_dir/other
     python -m tamgcn_tpu_torch.tools.f32_ab --other work_dir/other/tamgcn_tpu_torch/csrc
@@ -8,19 +8,25 @@ an earlier commit's csrc/, on one card:
 At the unit-op shapes of the NW-UCLA CTR-GCN at full width (K1 at the eval
 batch 64, K2 and K3 at the training batch 16), of configs/scene256.yaml's
 five blocks (V=256, batch 8: the joint-tiled K1t and K2t) and at a ragged
-V=37, each kernel of this checkout and of the other sources runs on the
-same inputs. The whole-V K1 and K2 and K3 must match the other sources bit
-for bit; K1t and K2t (the shapes where the launchers take the joint-tiled
-design) are held instead to their plain versions at chip_smoke.py's phase-3
-tolerance (rtol 1e-5, atol 1e-5 * max|plain|), in this checkout and in the
-other. Both are timed by utils/timing.py:graph_ms in turns this, other,
+V=37, at the fast-eval forward's blocks (K5, batch 64, chip_smoke.py's
+K5_MAIN_PATH) and at the fused-conv3 train step's (K6, batch 16,
+K6_MAIN_PATH), each kernel of this checkout and of the other sources runs
+on the same inputs. The whole-V K1 and K2 and K3 must match the other
+sources bit for bit; K1t and K2t (the shapes where the launchers take the
+joint-tiled design) are held instead to their plain versions at
+chip_smoke.py's phase-3 tolerance (rtol 1e-5, atol 1e-5 * max|plain|), K5 at
+phase 6's (rtol 1e-5, atol 1e-4 * max|plain|) and K6 at phase 7's (dx rtol
+1e-5, dw3 and db3 rtol 1e-4, atol 1e-4 * max|plain|), in this checkout and
+in the other, and two launches of this checkout's K5 and K6 must agree bit
+for bit. All are timed by utils/timing.py:graph_ms in turns this, other,
 other, this, and summed per path with the launches of each block shape: K1
 per NW-UCLA eval forward, K2 and K3 per NW-UCLA train step, K1t per
-scene256 eval forward, K2t per scene256 train step. Prints a line per
-kernel and shape to stderr and one JSON line with every number to stdout;
-exits 1 if any check fails. Needs CUDA and nvcc. tools/k3_ab.py --ablate
-builds K3 variants with build_entries and times them with this module's
-inputs and launchers.
+scene256 eval forward, K2t per scene256 train step, K5 per fast-eval forward,
+K6 per train step with TAMGCN_FUSE_CONV3=1. Prints a line per kernel and
+shape to stderr and one JSON line with every number to stdout; exits 1 if
+any check fails. Needs CUDA and nvcc. tools/k3_ab.py --ablate builds K3
+variants with build_entries and times them with this module's inputs and
+launchers.
 """
 from __future__ import annotations
 
@@ -33,8 +39,10 @@ import tempfile
 
 import torch
 
-from ..ops.aggregation import unit_ctr_gc_dx3_plain, unit_ctr_gc_plain
-from ..ops.cuda import build, ctr_gc
+from ..ops.aggregation import (unit_ctr_gc_bwd_conv3_plain, unit_ctr_gc_dx3_plain,
+                               unit_ctr_gc_plain)
+from ..ops.cuda import build, ctr_gc, gcn_tcn_block
+from ..ops.gcn_tcn_block import gcn_tcn_block_plain
 from ..utils.timing import graph_ms
 from . import device_name, log
 
@@ -46,27 +54,47 @@ TRAIN = [(name, (16,) + shape[1:]) for name, shape in EVAL]
 SCENE = [("scene256 l1-l4", (8, 32, 256, 64, 8)), ("scene256 l5", (8, 32, 256, 128, 8)),
          ("scene256 l6-l7", (8, 16, 256, 128, 16)), ("scene256 l8", (8, 16, 256, 256, 16)),
          ("scene256 l9-l10", (8, 8, 256, 256, 32)), ("ragged V=37", (3, 7, 37, 80, 10))]
-SHAPES = {"K1": EVAL + SCENE, "K2": TRAIN + SCENE, "K3": TRAIN + SCENE}
+# (block, (N, T, V, Cin, C, R)) of K5 at the fast-eval batch and of K6 at the
+# training batch (chip_smoke.py's K5_MAIN_PATH and K6_MAIN_PATH)
+K5_SHAPES = [("l1", (64, 52, 20, 3, 64, 8)), ("l2-l4", (64, 52, 20, 64, 64, 8)),
+             ("l5", (64, 52, 20, 64, 128, 8)), ("l6-l7", (64, 26, 20, 128, 128, 16)),
+             ("l8", (64, 26, 20, 128, 256, 16)), ("l9-l10", (64, 13, 20, 256, 256, 32))]
+K6_SHAPES = [("l5", (16, 52, 20, 64, 128, 8)), ("l6-l7", (16, 26, 20, 128, 128, 16)),
+             ("l8", (16, 26, 20, 128, 256, 16)), ("l9-l10", (16, 13, 20, 256, 256, 32))]
+SHAPES = {"K1": EVAL + SCENE, "K2": TRAIN + SCENE, "K3": TRAIN + SCENE, "K5": K5_SHAPES,
+          "K6": K6_SHAPES}
 # launches of each block shape per eval forward or train step, NW-UCLA and
-# scene256
+# scene256 (K1-K3); per fast-eval forward (K5) and fused train step (K6)
 PER_PATH = {"l1-l4": 4, "l5": 1, "l6-l7": 2, "l8": 1, "l9-l10": 2}
+PER_BLOCK = {"K5": {"l1": 1, "l2-l4": 3, "l5": 1, "l6-l7": 2, "l8": 1, "l9-l10": 2},
+             "K6": {"l5": 1, "l6-l7": 2, "l8": 1, "l9-l10": 2}}
 # (sum, kernel, prefix of its shape names)
 PATHS = (("K1 per NW-UCLA eval forward, batch 64", "K1", ""),
          ("K2 per NW-UCLA train step, batch 16", "K2", ""),
          ("K3 per NW-UCLA train step, batch 16", "K3", ""),
          ("K1t per scene256 eval forward, batch 8", "K1", "scene256 "),
          ("K2t per scene256 train step, batch 8", "K2", "scene256 "),
-         ("K3 per scene256 train step, batch 8", "K3", "scene256 "))
+         ("K3 per scene256 train step, batch 8", "K3", "scene256 "),
+         ("K5 per fast-eval forward, batch 64", "K5", ""),
+         ("K6 per fused-conv3 train step, batch 16", "K6", ""))
 TILED_RTOL = 1e-5  # chip_smoke.py phase 3: rtol and atol / max|plain|
+# chip_smoke.py phases 6 and 7: (rtol, atol / max|plain|) per output
+K5_TOL = {"prefix": (1e-5, 1e-4), "pw": (1e-5, 1e-4)}
+K6_TOL = {"dx": (1e-5, 1e-4), "dw3": (1e-4, 1e-4), "db3": (1e-4, 1e-4)}
 ENTRIES = {"K1": ("unit_ctr_gc_fwd_f32",),
            "K2": ("unit_ctr_gc_bwd_dx3_f32",),
-           "K3": ("unit_ctr_gc_bwd_param_scratch_floats", "unit_ctr_gc_bwd_param_f32")}
+           "K3": ("unit_ctr_gc_bwd_param_scratch_floats", "unit_ctr_gc_bwd_param_f32"),
+           "K5": ("gcn_tcn_block_f32",),
+           "K6": ("unit_ctr_gc_bwd_conv3_scratch_floats", "unit_ctr_gc_bwd_conv3_f32")}
+# (source, argument types, return type) of each entry point
+SIGNATURES = dict(ctr_gc._SIGNATURES, gcn_tcn_block_f32=(
+    gcn_tcn_block.SOURCE, gcn_tcn_block.ARGTYPES, ctypes.c_int))
 
 
 def build_entries(source: str, out_dir: str, lib: str, names, include=None) -> dict:
     """{name: ctypes function} of the C entry points `names` of `source`,
     built by nvcc with the port's flags into out_dir/lib, with the argument
-    types of ops/cuda/ctr_gc.py. `include`: a directory of headers besides
+    types of the port's wrappers. `include`: a directory of headers besides
     the source's own."""
     target = os.path.join(out_dir, lib)
     cmd = [build.nvcc_path(), *build.NVCC_FLAGS, *(["-I", include] if include else []),
@@ -77,18 +105,18 @@ def build_entries(source: str, out_dir: str, lib: str, names, include=None) -> d
     so = ctypes.CDLL(target)
     fns = {}
     for name in names:
-        _, argtypes, restype = ctr_gc._SIGNATURES[name]
+        _, argtypes, restype = SIGNATURES[name]
         fns[name] = fn = getattr(so, name)
         fn.argtypes, fn.restype = argtypes, restype
     return fns
 
 
 def load_other(csrc: str, out_dir: str) -> dict:
-    """{entry name: ctypes function} of the other sources' K1, K2 and K3
-    (each source includes its own directory's headers)."""
+    """{entry name: ctypes function} of the other sources' K1, K2, K3, K5 and
+    K6 (each source includes its own directory's headers)."""
     fns = {}
     for kname, names in ENTRIES.items():
-        source = os.path.join(csrc, ctr_gc._SIGNATURES[names[-1]][0])
+        source = os.path.join(csrc, SIGNATURES[names[-1]][0])
         fns.update(build_entries(source, out_dir, f"lib{kname}_other.so", names))
     return fns
 
@@ -108,7 +136,58 @@ def inputs(shape, seed, device):
             torch.rand((S, V, V), generator=gen).to(device), randn(N, T, V, C))
 
 
+def block_inputs(shape, seed, device):
+    """K5's inputs as keywords, as chip_smoke.py:block_inputs makes them:
+    alpha != 0, b4 != 0, a non-symmetric A, a BN affine far from (1, 0),
+    P = 3C/4, BC = C/4, a down conv where Cin != C."""
+    N, T, V, Cin, C, R = shape
+    S, P, BC = 3, 3 * C // 4, C // 4
+    gen = torch.Generator().manual_seed(seed)
+
+    def w(*s, fan=4):
+        return torch.randn(s, generator=gen) / fan ** 0.5
+
+    args = dict(
+        x=torch.randn((N, T, V, Cin), generator=gen),
+        x1s=torch.randn((N, S, V, R), generator=gen),
+        x2s=torch.randn((N, S, V, R), generator=gen),
+        w3=w(Cin, S * C, fan=Cin), b3=w(S * C), w4s=w(S, R, C, fan=R), b4s=w(S, C),
+        alpha=torch.tensor([0.7]), As=torch.rand((S, V, V), generator=gen),
+        gy=torch.stack([1.0 + 0.5 * torch.randn(C, generator=gen),
+                        0.3 * torch.randn(C, generator=gen)]),
+        wo=w(C, C, fan=C), bo=w(C), wp=w(C, P, fan=C), bp=w(P), wpw=w(C, BC, fan=C),
+        bpw=w(BC), wd=None if Cin == C else w(Cin, C, fan=Cin),
+        bd=None if Cin == C else w(C))
+    return {k: None if a is None else a.to(device) for k, a in args.items()}
+
+
+def conv3_inputs(shape, seed, device):
+    """K6's inputs (x1s, x2s, g, x, w3, w4s, b4s, alpha, As): the unit op's,
+    conv3's input x and its weight w3 (Cin, S*C), a transposed view of a
+    contiguous (S*C, Cin) tensor as in the model."""
+    N, T, V, Cin, C, R = shape
+    x1s, x2s, _, w4s, b4s, alpha, As, g = inputs((N, T, V, C, R), seed, device)
+    gen = torch.Generator().manual_seed(seed + 1)
+    x = torch.randn((N, T, V, Cin), generator=gen).to(device)
+    w3 = (torch.randn((3 * C, Cin), generator=gen) / Cin ** 0.5).to(device).t()
+    return x1s, x2s, g, x, w3, w4s, b4s, alpha, As
+
+
+def kernel_inputs(kname, shape, seed, device):
+    if kname == "K5":
+        return block_inputs(shape, seed, device)
+    if kname == "K6":
+        return conv3_inputs(shape, seed, device)
+    return inputs(shape, seed, device)
+
+
 def this(kname, a):
+    """This checkout's kernel on the inputs, through its wrapper: a tuple of
+    outputs."""
+    if kname == "K5":
+        return gcn_tcn_block.gcn_tcn_block_fwd(**a)
+    if kname == "K6":
+        return ctr_gc.unit_ctr_gc_bwd_conv3(*a)
     x1s, x2s, x3s, w4s, b4s, alpha, As, g = a
     if kname == "K1":
         return (ctr_gc.unit_ctr_gc_fwd(x1s, x2s, x3s, w4s, b4s, alpha, As),)
@@ -118,66 +197,136 @@ def this(kname, a):
 
 
 def plain(kname, a):
-    """K1's or K2's plain version on the inputs."""
+    """The plain version of K1, K2, K5 or K6 on the inputs: a tuple."""
+    if kname == "K5":
+        return gcn_tcn_block_plain(**a)
+    if kname == "K6":
+        return unit_ctr_gc_bwd_conv3_plain(*a)
     x1s, x2s, x3s, w4s, b4s, alpha, As, g = a
     if kname == "K1":
-        return unit_ctr_gc_plain(x1s, x2s, x3s, w4s, b4s, alpha, As)
-    return unit_ctr_gc_dx3_plain(x1s, x2s, g, w4s, b4s, alpha, As)
+        return (unit_ctr_gc_plain(x1s, x2s, x3s, w4s, b4s, alpha, As),)
+    return (unit_ctr_gc_dx3_plain(x1s, x2s, g, w4s, b4s, alpha, As),)
 
 
-def within_plain(out, want) -> bool:
+def within(out, want, rtol, atol_frac) -> bool:
     err = (out - want).abs()
     return bool(torch.isfinite(out).all()) and not bool(
-        (err > TILED_RTOL * want.abs() + TILED_RTOL * want.abs().max()).any())
+        (err > rtol * want.abs() + atol_frac * want.abs().max()).any())
+
+
+def within_plain(kname, outs, wants) -> bool:
+    """Each output within the kernel's tolerance of its plain version."""
+    tols = {"K5": list(K5_TOL.values()), "K6": list(K6_TOL.values())}.get(
+        kname, [(TILED_RTOL, TILED_RTOL)])
+    return all(within(o, w, *tol) for o, w, tol in zip(outs, wants, tols))
 
 
 def tiled(kname, shape) -> bool:
     """Whether K1 (K2) takes its joint-tiled design at shape (N, T, V, C, R)."""
+    if kname not in ("K1", "K2"):
+        return False
     V, R = shape[2], shape[4]
     if kname == "K1":
         return ctr_gc.fwd_variant(3, V, R) == "tiled"
-    return kname == "K2" and ctr_gc.dx3_variant(3, V, R) == "tiled"
+    return ctr_gc.dx3_variant(3, V, R) == "tiled"
 
 
 def other(fns, kname, a):
     """The other kernel on the inputs, allocated and launched as the port's
     wrapper allocates and launches its own."""
-    x1s, x2s, x3s, w4s, b4s, alpha, As, g = a
-    N, S, V, R = x1s.shape
-    T, C = g.shape[1], w4s.shape[-1]
-    dev = g.device
-    stream = torch.cuda.current_stream(dev).cuda_stream
-
     def empty(*shape):
         return torch.empty(shape, device=dev, dtype=torch.float32)
 
-    if kname == "K1":
-        outs = (empty(N, T, V, C),)
-        ptrs = (x1s, x2s, x3s, w4s, b4s, alpha, As, *outs)
-        err = fns["unit_ctr_gc_fwd_f32"](*[t.data_ptr() for t in ptrs], N, S, T, V, R, C,
-                                         stream)
-    elif kname == "K2":
-        outs = (empty(N, T, V, S * C),)
-        ptrs = (x1s, x2s, g, w4s, b4s, alpha, As, *outs)
-        err = fns["unit_ctr_gc_bwd_dx3_f32"](*[t.data_ptr() for t in ptrs], N, S, T, V, R,
-                                             C, stream)
+    if kname == "K5":
+        x = a["x"]
+        dev = x.device
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        N, T, V, Cin = x.shape
+        S, R = a["x1s"].shape[1], a["x1s"].shape[-1]
+        C, P, BC = a["w4s"].shape[-1], a["wp"].shape[-1], a["wpw"].shape[-1]
+        # the scratch of this tree's K5, which holds the earlier one's y
+        y = empty(gcn_tcn_block.scratch_floats(N, T, V, S, C))
+        outs = (empty(N, T, V, P), empty(N, T, V, BC))
+        ptrs = [a[k].data_ptr() for k in ("x", "x1s", "x2s", "w3", "b3", "w4s", "b4s",
+                                          "alpha", "As", "gy")]
+        ptrs += [None, None] if a["wd"] is None else [a["wd"].data_ptr(), a["bd"].data_ptr()]
+        ptrs += [a[k].data_ptr() for k in ("wo", "bo", "wp", "bp", "wpw", "bpw")]
+        ptrs += [y.data_ptr(), outs[0].data_ptr(), outs[1].data_ptr()]
+        err = fns["gcn_tcn_block_f32"](*ptrs, N, S, T, V, Cin, R, C, P, BC, stream)
+    elif kname == "K6":
+        x1s, x2s, g, x, w3, w4s, b4s, alpha, As = a
+        dev = g.device
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        N, S, V, R = x1s.shape
+        T, C, Cin = g.shape[1], w4s.shape[-1], x.shape[-1]
+        w3t = w3.t().contiguous()
+        dx, dw3t, db3 = empty(N, T, V, Cin), empty(S * C, Cin), empty(S * C)
+        scratch = empty(fns["unit_ctr_gc_bwd_conv3_scratch_floats"](N, S, T, V, R, C, Cin))
+        ptrs = (x1s, x2s, g, w4s, b4s, alpha, As, x, w3t, dx, dw3t, db3, scratch)
+        err = fns["unit_ctr_gc_bwd_conv3_f32"](*[t.data_ptr() for t in ptrs], N, S, T, V, R,
+                                               C, Cin, stream)
+        outs = (dx, dw3t.t(), db3)
     else:
-        outs = (empty(N, S, V, R), empty(N, S, V, R), empty(S, R, C), empty(S, C),
-                empty(1), empty(S, V, V))
-        scratch = empty(fns["unit_ctr_gc_bwd_param_scratch_floats"](N, S, V, R, C))
-        ptrs = (x1s, x2s, g, x3s, w4s, b4s, alpha, *outs, scratch)
-        err = fns["unit_ctr_gc_bwd_param_f32"](*[t.data_ptr() for t in ptrs], N, S, T, V,
-                                               R, C, stream)
+        x1s, x2s, x3s, w4s, b4s, alpha, As, g = a
+        N, S, V, R = x1s.shape
+        T, C = g.shape[1], w4s.shape[-1]
+        dev = g.device
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        if kname == "K1":
+            outs = (empty(N, T, V, C),)
+            ptrs = (x1s, x2s, x3s, w4s, b4s, alpha, As, *outs)
+            err = fns["unit_ctr_gc_fwd_f32"](*[t.data_ptr() for t in ptrs], N, S, T, V, R, C,
+                                             stream)
+        elif kname == "K2":
+            outs = (empty(N, T, V, S * C),)
+            ptrs = (x1s, x2s, g, w4s, b4s, alpha, As, *outs)
+            err = fns["unit_ctr_gc_bwd_dx3_f32"](*[t.data_ptr() for t in ptrs], N, S, T, V,
+                                                 R, C, stream)
+        else:
+            outs = (empty(N, S, V, R), empty(N, S, V, R), empty(S, R, C), empty(S, C),
+                    empty(1), empty(S, V, V))
+            scratch = empty(fns["unit_ctr_gc_bwd_param_scratch_floats"](N, S, V, R, C))
+            ptrs = (x1s, x2s, g, x3s, w4s, b4s, alpha, *outs, scratch)
+            err = fns["unit_ctr_gc_bwd_param_f32"](*[t.data_ptr() for t in ptrs], N, S, T,
+                                                   V, R, C, stream)
     if err:
         raise RuntimeError(f"the other {kname} returned CUDA error {err}")
     return outs
+
+
+def check(kname, shape, a, fns):
+    """(design, what was checked, ok) for one kernel at one shape."""
+    mine, theirs = this(kname, a), other(fns, kname, a)
+    torch.cuda.synchronize()
+    if kname in ("K5", "K6"):
+        again = this(kname, a)
+        want = plain(kname, a)
+        ok = (all(torch.equal(m, t) for m, t in zip(mine, again))
+              and within_plain(kname, mine, want) and within_plain(kname, theirs, want))
+        return "whole", "within plain, two launches bitwise equal", ok
+    if tiled(kname, shape):
+        want = plain(kname, a)
+        return "tiled", "within plain", (within_plain(kname, mine, want)
+                                         and within_plain(kname, theirs, want))
+    return "whole", "bitwise equal", all(torch.equal(m, t) for m, t in zip(mine, theirs))
+
+
+def per_path_count(kname, name, prefix):
+    """Launches of the block shape `name` on the path of kname and prefix,
+    0 where the shape is not on it."""
+    if kname in PER_BLOCK:
+        return PER_BLOCK[kname].get(name, 0) if not prefix else 0
+    if not name.startswith(prefix):
+        return 0
+    return PER_PATH.get(name[len(prefix):], 0)
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--other", required=True,
                     help="the other csrc directory (unit_ctr_gc_fwd.cu, "
-                         "unit_ctr_gc_bwd_dx3.cu, unit_ctr_gc_bwd_param.cu and headers)")
+                         "unit_ctr_gc_bwd_dx3.cu, unit_ctr_gc_bwd_param.cu, "
+                         "gcn_tcn_block.cu, unit_ctr_gc_bwd_conv3.cu and headers)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise RuntimeError("f32_ab runs kernels on the card: CUDA is not available")
@@ -192,35 +341,26 @@ def main(argv=None):
         fns = load_other(args.other, tmp)
         for kname, shapes in SHAPES.items():
             for i, (name, shape) in enumerate(shapes):
-                a = inputs(shape, seed=900 + i, device=device)
-                mine, theirs = this(kname, a), other(fns, kname, a)
-                torch.cuda.synchronize()
-                design = "tiled" if tiled(kname, shape) else "whole"
-                if design == "tiled":
-                    want = plain(kname, a)
-                    check = "within plain"
-                    ok = within_plain(mine[0], want) and within_plain(theirs[0], want)
-                else:
-                    check = "bitwise equal"
-                    ok = all(torch.equal(m, t) for m, t in zip(mine, theirs))
+                a = kernel_inputs(kname, shape, seed=900 + i, device=device)
+                design, what, ok = check(kname, shape, a, fns)
                 ms = {"this": [], "other": []}
                 for who in ("this", "other", "other", "this"):
                     fn = (lambda: this(kname, a)) if who == "this" else (
                         lambda: other(fns, kname, a))
                     ms[who].append(graph_ms(fn))
-                row = dict(kernel=kname, name=name, shape=dict(zip("NTVCR", shape)),
-                           design=design, check=check, ok=ok, this_ms=min(ms["this"]),
+                keys = "NTVCR" if len(shape) == 5 else ("N", "T", "V", "Cin", "C", "R")
+                row = dict(kernel=kname, name=name, shape=dict(zip(keys, shape)),
+                           design=design, check=what, ok=ok, this_ms=min(ms["this"]),
                            other_ms=min(ms["other"]))
                 rows.append(row)
-                log(f"{kname} {name:16s} N,T,V,C,R={shape} ({design}): {check} {ok}; "
+                log(f"{kname} {name:16s} {','.join(keys)}={shape} ({design}): {what} {ok}; "
                     f"device this {row['this_ms'] * 1e3:.1f} us, other "
                     f"{row['other_ms'] * 1e3:.1f} us")
     ok = all(r["ok"] for r in rows)
     per_path = {}
     for key, kname, prefix in PATHS:
-        mine = [r for r in rows if r["kernel"] == kname and r["name"].startswith(prefix)
-                and r["name"][len(prefix):] in PER_PATH]
-        per_path[key] = {who: sum(r[who] * PER_PATH[r["name"][len(prefix):]] for r in mine)
+        per_path[key] = {who: sum(r[who] * per_path_count(kname, r["name"], prefix)
+                                  for r in rows if r["kernel"] == kname)
                          for who in ("this_ms", "other_ms")}
         log(f"{key}: this {per_path[key]['this_ms']:.4f} ms, other "
             f"{per_path[key]['other_ms']:.4f} ms")

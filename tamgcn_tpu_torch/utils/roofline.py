@@ -16,7 +16,11 @@ on the tensor cores as 3xTF32 (three TF32 products per f32 product), so
 the f32 work of K1 and K2, in either design since they compute the same
 function, is held to the TF32 tensor-core peak over three: 165 TFLOP/s,
 not the 67 TFLOP/s of the CUDA cores, which would read above what the
-card can do. K3's sums stay at the f32 peak outside the tensor cores.
+card can do. K3's sums stay at the f32 peak outside the tensor cores. K5
+(the whole eval block) and K6 (the x3 gradient through conv3) run their
+1x1-conv products, most of their work, on the tensor cores as 3xTF32
+(csrc/mma_tf32x3.cuh), and the rest of their work is K1's or K2's: all
+their f32 FMAs are held to the same 165 TFLOP/s.
 
 Peaks: NVIDIA's H100 SXM data sheet, dense, at the full 700 W limit: 80 GB
 of HBM3 at 3.35 TB/s, 989 TFLOP/s bf16 and 495 TFLOP/s TF32 on the tensor
@@ -111,3 +115,34 @@ def stage2_sol(n: int, t: int, v: int, l: int, subsets: int = 1, *, itemsize: in
     output joint and channel. Returns bound()'s (ms, by)."""
     elems = v * v * l + n * t * v * l + n * t * v * (l // subsets)
     return bound(elems, 2 * n * t * v * v * l, itemsize=itemsize)
+
+
+def unit_ctr_gc_bwd_conv3_sol(n: int, t: int, v: int, cin: int, c: int, r: int,
+                              s: int = 3):
+    """The x3 gradient through conv3's VJP (K6): x1s, x2s, g, x, w3, w4s,
+    b4s, alpha, As in; dx, dw3, db3 out. FMAs of M and the aggregation (as
+    K2), of dx = dx3s w3^T and dw3 = x^T dx3s (the JAX cost estimate,
+    tamgcn_tpu/ops/pallas/ctr_gc.py:1475), and db3's adds; at the 3xTF32
+    rate. Returns bound()'s (ms, by)."""
+    elems = (2 * n * s * v * r + n * t * v * c + 2 * n * t * v * cin + 2 * cin * s * c
+             + s * r * c + 2 * s * c + 1 + s * v * v)
+    flops = (2 * n * s * (v * v * r * c + t * v * v * c) + 4 * n * t * v * s * c * cin
+             + n * t * v * s * c)
+    return bound(elems, flops, f32_peak=TF32X3_FLOPS)
+
+
+def gcn_tcn_block_sol(n: int, t: int, v: int, cin: int, c: int, r: int, s: int = 3):
+    """The whole eval-mode block (K5) with P = 3c/4 and BC = c/4 as in the
+    model and a folded down conv where cin != c: x read, prefix and pw
+    written once, every weight read once; the FMAs of M, of the aggregation
+    and of the five 1x1-conv products as the JAX cost estimate counts them
+    (tamgcn_tpu/ops/pallas/gcn_tcn_block.py:263-266), at the 3xTF32 rate.
+    Returns bound()'s (ms, by)."""
+    p, bc = 3 * c // 4, c // 4
+    down = cin != c
+    elems = (n * t * v * (cin + p + bc) + 2 * n * s * v * r + cin * s * c + s * c
+             + s * r * c + s * c + 1 + s * v * v + 2 * c + c * c + c + c * p + p
+             + c * bc + bc + (cin * c + c if down else 0))
+    flops = (2 * n * s * (v * v * r * c + t * v * v * c)
+             + 2 * n * t * v * (cin * s * c + c * c + c * p + c * bc + (cin * c if down else 0)))
+    return bound(elems, flops, f32_peak=TF32X3_FLOPS)

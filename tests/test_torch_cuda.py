@@ -11,8 +11,8 @@ another order, so within rtol 1e-4 and atol 1e-4 * max|plain| (dalpha, one
 sum over all N*S*V*V*C terms, within rtol 1e-3). K6's dx within rtol 1e-5
 and atol 1e-4 * max|plain| (two products in a row), its dw3 and db3 (sums
 over N*T*V rows) within rtol 1e-4 and atol 1e-4 * max|plain|. Also the
-wrappers' checks and launch counts, two K3 (and two K6) launches bitwise
-equal, a small CTR-GCN on the card against the same model on the CPU,
+wrappers' checks and launch counts, two K3 (and two K5, two K6) launches
+bitwise equal, a small CTR-GCN on the card against the same model on the CPU,
 forward and gradients, and the standalone CTRGC module through K1 and K2 at
 S = 1 against its plain route. The bf16 forms of K1, K2 and K3 (bf16
 activations, f32 parameters; both designs of K1 and K2) against their bf16
@@ -305,10 +305,14 @@ def test_bf16_kernels_reject_other_dtypes(device):
 
 
 def _kernel_names(fn, reps=5):
-    """The names of the device kernels that calls of fn launch (several
-    calls: torch.profiler can drop the first launches of a short trace)."""
+    """The names of the device kernels that calls of fn launch (warmed up,
+    then several calls: torch.profiler can drop the first launches of a
+    short trace)."""
     from torch.profiler import ProfilerActivity, profile
 
+    for _ in range(2):  # warm up: builds, loads and first launches stay untraced
+        fn()
+    torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA], acc_events=True) as prof:
         for _ in range(reps):
             fn()
@@ -472,11 +476,18 @@ def _block_inputs(n, t, v, cin, c, r, device, seed=0):
     return {k: None if a is None else a.to(device) for k, a in args.items()}
 
 
-# (N, T, V, Cin, C, R): the ten blocks' shapes at a small batch, V=25, ragged
+# (N, T, V, Cin, C, R): the ten blocks' shapes at a small batch, V=25, ragged,
+# and the tensor-core design's edges: N = 1; T not a multiple of the 8-frame
+# chunk; Cin not a multiple of the 32-channel x chunk nor of 4 (4-byte
+# copies) and C, P not multiples of the 64-column pass (Cin 30, C 48; Cin
+# 136, C 144); V = 28; and channel counts whose rows of all channels leave
+# the epilogue 32 rows (C 512), 16 rows (C 1024) or the wide design (C 2048)
 BLOCK_SHAPES = [
     (4, 52, 20, 3, 64, 8), (4, 52, 20, 64, 64, 8), (4, 52, 20, 64, 128, 8),
     (4, 26, 20, 128, 128, 16), (4, 26, 20, 128, 256, 16), (4, 13, 20, 256, 256, 32),
-    (4, 26, 25, 128, 128, 16), (3, 7, 20, 80, 64, 10),
+    (4, 26, 25, 128, 128, 16), (3, 7, 20, 80, 64, 10), (1, 13, 20, 256, 256, 32),
+    (3, 7, 20, 30, 48, 10), (2, 9, 20, 136, 144, 16), (2, 13, 28, 64, 128, 16),
+    (1, 3, 20, 512, 512, 8), (1, 2, 20, 1024, 1024, 8), (1, 2, 20, 2048, 2048, 8),
 ]
 
 
@@ -485,7 +496,7 @@ BLOCK_SHAPES = [
 def test_block_kernel_matches_plain(device, shape):
     """K5 against its plain version within rtol 1e-5 and atol 1e-4 *
     max|plain|: four products in a row, each summing up to 3*C terms in
-    another order."""
+    another order; two launches bitwise equal."""
     from tamgcn_tpu_torch.ops.cuda import gcn_tcn_block as k5
     from tamgcn_tpu_torch.ops.gcn_tcn_block import gcn_tcn_block_fused, gcn_tcn_block_plain
 
@@ -493,11 +504,13 @@ def test_block_kernel_matches_plain(device, shape):
     before = (k5.launches, ctr_gc.launches)
     with torch.no_grad():
         got = gcn_tcn_block_fused(**args)
+        again = gcn_tcn_block_fused(**args)
         want = gcn_tcn_block_plain(**args)
     torch.cuda.synchronize()
-    assert (k5.launches, ctr_gc.launches) == (before[0] + 1, before[1])
-    for a, b in zip(got, want):
-        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-4 * b.abs().max().item())
+    assert (k5.launches, ctr_gc.launches) == (before[0] + 2, before[1])
+    for name, a, b, w in zip(("prefix", "pw"), got, again, want):
+        assert torch.equal(a, b), f"{name}: two launches differ"
+        torch.testing.assert_close(a, w, rtol=1e-5, atol=1e-4 * w.abs().max().item(), msg=name)
 
 
 def test_block_kernel_rejects_what_it_does_not_take(device):
@@ -546,11 +559,16 @@ def test_fast_eval_on_card_matches_cpu(device):
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4 * want.abs().max().item())
 
 
-# (N, T, V, Cin, C, R): l5-l10 at a small batch, V=25, and a ragged shape
+# (N, T, V, Cin, C, R): l5-l10 at a small batch, V=25, a ragged shape, and
+# the two-phase design's edges: N = 1; rows N*T*V not a multiple of the
+# 64-row product tile nor of the 32-row chunk; Cin and S*C not multiples of
+# the 64-wide tiles (Cin 136, C 136; Cin 30 takes 4-byte copies); V = 32 at
+# R = 32, where the x3 gradient takes the joint-tiled design
 CONV3_SHAPES = [
     (4, 52, 20, 64, 128, 8), (4, 26, 20, 128, 128, 16), (4, 26, 20, 128, 256, 16),
     (4, 13, 20, 256, 256, 32), (3, 9, 25, 128, 128, 16), (2, 13, 25, 256, 256, 32),
-    (3, 7, 20, 30, 40, 10),
+    (3, 7, 20, 30, 40, 10), (1, 13, 20, 256, 256, 32), (1, 11, 20, 136, 136, 16),
+    (2, 9, 32, 64, 128, 32),
 ]
 
 
@@ -597,8 +615,8 @@ def test_conv3_kernel_rejects_what_it_does_not_take(device):
         ctr_gc.unit_ctr_gc_bwd_conv3(*args[:4], args[4][:, :-3], *args[5:])
     with pytest.raises(TypeError, match="float32"):
         ctr_gc.unit_ctr_gc_bwd_conv3(*args[:3], args[3].double(), *args[4:])
-    with pytest.raises(ValueError, match="shared memory"):
-        ctr_gc.unit_ctr_gc_bwd_conv3(*_conv3_inputs(1, 4, 20, 4096, 128, 8, device=device))
+    with pytest.raises(ValueError, match="R <= 32"):
+        ctr_gc.unit_ctr_gc_bwd_conv3(*_conv3_inputs(1, 4, 20, 64, 128, 40, device=device))
     assert ctr_gc.bwd_conv3_launches == before
 
 

@@ -137,3 +137,45 @@ def test_ms_tcn_and_stage2_bounds():
     assert ms_ss == pytest.approx(20.7e-3, rel=1e-2)
     ms_bf, by_bf = roofline.stage2_sol(64, 13, 20, 768, itemsize=2)
     assert by_bf == "bytes" and math.isclose(ms_bf, ms / 2)
+
+
+# K6 at the fused-conv3 train step's blocks (N, T, V, Cin, C, R) at batch 16,
+# launches per step; K5 at the fast-eval forward's blocks at batch 64
+K6_STEP = [((16, 52, 20, 64, 128, 8), 1), ((16, 26, 20, 128, 128, 16), 2),
+           ((16, 26, 20, 128, 256, 16), 1), ((16, 13, 20, 256, 256, 32), 2)]
+K5_FORWARD = [((64, 52, 20, 3, 64, 8), 1), ((64, 52, 20, 64, 64, 8), 3),
+              ((64, 52, 20, 64, 128, 8), 1), ((64, 26, 20, 128, 128, 16), 2),
+              ((64, 26, 20, 128, 256, 16), 1), ((64, 13, 20, 256, 256, 32), 2)]
+
+
+@pytest.mark.parametrize("fn,shape,want", [
+    # K6: M and the aggregation as K2, 4*N*T*V*S*C*Cin FLOP of the two
+    # products with w3 and x, at 165 TFLOP/s; l9-l10 3.72 GFLOP (22.5 us)
+    ("unit_ctr_gc_bwd_conv3_sol", (16, 52, 20, 64, 128, 8), 11.740e-3),
+    ("unit_ctr_gc_bwd_conv3_sol", (16, 26, 20, 128, 128, 16), 11.184e-3),
+    ("unit_ctr_gc_bwd_conv3_sol", (16, 26, 20, 128, 256, 16), 22.369e-3),
+    ("unit_ctr_gc_bwd_conv3_sol", (16, 13, 20, 256, 256, 32), 22.528e-3),
+    # K5: M, the aggregation and the five products; l9-l10 12.7 GFLOP
+    ("gcn_tcn_block_sol", (64, 52, 20, 3, 64, 8), 10.804e-3),
+    ("gcn_tcn_block_sol", (64, 52, 20, 64, 64, 8), 20.098e-3),
+    ("gcn_tcn_block_sol", (64, 52, 20, 64, 128, 8), 60.023e-3),
+    ("gcn_tcn_block_sol", (64, 26, 20, 128, 128, 16), 38.051e-3),
+    ("gcn_tcn_block_sol", (64, 26, 20, 128, 256, 16), 115.756e-3),
+    ("gcn_tcn_block_sol", (64, 13, 20, 256, 256, 32), 76.816e-3),
+])
+def test_block_and_conv3_bounds(fn, shape, want):
+    ms, by = getattr(roofline, fn)(*shape)
+    assert by == "operations" and ms == pytest.approx(want, rel=1e-3)
+
+
+def test_fused_step_and_fast_eval_paths_at_the_3xtf32_rate():
+    # K6 per fused-conv3 train step at batch 16: 0.1015 ms at 165 TFLOP/s
+    # (0.2500 at the CUDA cores' 67); K5 per fast-eval forward at batch 64:
+    # 0.4766 ms (1.1737)
+    k6 = sum(k * roofline.unit_ctr_gc_bwd_conv3_sol(*shape)[0] for shape, k in K6_STEP)
+    k5 = sum(k * roofline.gcn_tcn_block_sol(*shape)[0] for shape, k in K5_FORWARD)
+    assert k6 == pytest.approx(0.10153, rel=1e-3)
+    assert k5 == pytest.approx(0.47661, rel=1e-3)
+    # a ragged block with a down conv (Cin != C) reads wd and bd
+    assert roofline.gcn_tcn_block_sol(3, 7, 20, 80, 64, 10)[0] > roofline.gcn_tcn_block_sol(
+        3, 7, 20, 64, 64, 10)[0]
