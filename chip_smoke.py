@@ -9,20 +9,21 @@ Phases, each of which fails the run (non-zero exit, no result line):
   2. build: compiles every CUDA source of the port (one nvcc each, all
      started together) and prints the seconds;
   3. kernels: holds each kernel against its plain PyTorch version on the card
-     at the shapes of the main paths (K1 at the test batch 64, K2 and K3 at
-     the training batch 16, plus V=25 and ragged shapes; the joint-tiled
-     designs K1t and K2t, and K3, at configs/scene256.yaml's blocks (V=256,
-     batch 8), a ragged V=37 and the joint-tiled design's edges: T of 13
-     with C of 80, T of 40, N = 1), f32 with TF32 off, and times both with
-     CUDA events and each kernel also by a CUDA graph (device time; K3 with
-     its block count, at least 132 at every NW-UCLA train-step shape). Each launch must count on the
-     counter of the design the shape takes (the whole-V K1 and K2 at V=20
-     and V=25). K1 and K2 are held within rtol 1e-5 and atol
+     at the shapes of the main paths (K1 at the test batch 64 and at the
+     training batch 16, K2 and K3 at the training batch 16, plus V=24 and
+     ragged shapes; the joint-tiled designs K1t and K2t, and K3, at V=25,
+     configs/scene256.yaml's blocks (V=256, batch 8), a ragged V=37 and the
+     joint-tiled design's edges: T of 13 with C of 80, T of 40, N = 1), f32
+     with TF32 off, and times both with CUDA events and each kernel also by
+     a CUDA graph (device time), with its blocks a launch: K1, K2 and K3 at
+     least 132 at every main-path shape, and the whole-V K1's and K2's
+     launchers as ops/cuda/ctr_gc.py:whole_v_blocks says. Each launch must
+     count on the counter of the design the shape takes (the whole-V K1 and
+     K2 up to V=24). K1 and K2 are held within rtol 1e-5 and atol
      1e-5*max|plain|; K3's outputs are sums of up to N*T*V*V terms taken in
      another order, so each is held within rtol 1e-4 and atol
      1e-4*max|plain| (dalpha, one sum over all N*S*V*V*C terms, within rtol
-     1e-3); two K3 launches, and two of K1t and of K2t, must agree bit for
-     bit;
+     1e-3); two launches of every kernel must agree bit for bit;
   4. test main path: `python -m tamgcn_tpu_torch recognition --phase test`
      run in-process through `__main__.main` at full NW-UCLA width
      (base_channel 64, 10 blocks, T=52, V=20, batch 64, 256 synthetic val
@@ -65,8 +66,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
   7. fused-conv3 training and CTRGC: holds K6, the x3 gradient carried
      through conv3's VJP, against its plain version at the l5-l10 shapes at
      batch 16 plus V=25, a ragged shape (odd T, Cin != 4k) and the
-     two-phase design's edges (N = 1, Cin = C = 136 at T = 11, V = 32 at
-     R = 32), f32 with TF32 off: dx within rtol 1e-5 and atol
+     two-phase design's edges (N = 1, Cin = C = 136 at T = 11, V = 24 and
+     32 at R = 32), f32 with TF32 off: dx within rtol 1e-5 and atol
      1e-4*max|plain| (two products in a row), dw3 and db3 (sums over N*T*V rows) within rtol 1e-4 and atol
      1e-4*max|plain|; two K6 launches must agree bit for bit; times K6, its
      plain version and the unfused composition (K2, two torch.matmul
@@ -80,8 +81,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
      forward and backward on the card (K1 and K2 at S = 1, K4's path) against
      the same module with the plain single-subset op, and ctr_gc_fused
      without b4 against its plain version, at (N=16, T=52, V=20, Cin=64,
-     C=128) and V=25, and times K4's work (K1 and K2 at S = 1) against its
-     plain version.
+     C=128) and V=25 (K1t and K2t there), each launch on the counter of the
+     design the shape takes, and times K4's work (K1 and K2 at S = 1)
+     against its plain version.
   8. experiment kernels T1 and T2: holds T1, the eval multi-scale TCN, against
      its plain version at the ten fast-eval blocks' branch shapes at batch 64
      plus V=25 and a ragged shape (N=3, odd T at stride 2, bc=5), f32 with
@@ -135,7 +137,7 @@ designs at 0 outside phase 9 and the bf16 forms at 0 outside phase 10. The
 last lines are the card line, the
 kernels JSON and the result JSON. The kernels JSON gives, for each kernel,
 its times and bound summed over the launches of one eval forward at batch 64
-(K1), of one train step at batch 16 (K2, K3 with its CUDA-graph time under
+(K1; per train step at batch 16 under "per_train_step"), of one train step at batch 16 (K2, K3 with its CUDA-graph time under
 "device_ms"; K6 with the switch on, with the unfused composition's time
 under "unfused_k2_cublas_ms"), of one scene256 eval forward or train step at
 batch 8 (the joint-tiled K1t, K2t), of one CTRGC
@@ -191,9 +193,11 @@ K6_EXTRA = [
     ("ragged", (3, 7, 20, 30, 40, 10)),  # odd T, Cin != 4k, partial tile
     # the two-phase design's edges: N = 1; rows not a multiple of the
     # 64-row product tile or the 32-row chunk, Cin and S*C not multiples of
-    # the 64-wide tiles; V = 32 at R = 32 (the joint-tiled x3 gradient)
+    # the 64-wide tiles; V = 24 at R = 32 (the whole-V x3 gradient's last V)
+    # and V = 32 at R = 32 (the joint-tiled x3 gradient)
     ("N=1", (1, 13, 20, 256, 256, 32)),
     ("Cin=C=136", (1, 11, 20, 136, 136, 16)),
+    ("V=24 R=32", (2, 9, 24, 64, 128, 32)),
     ("V=32 R=32", (2, 9, 32, 64, 128, 32)),
 ]
 # the standalone CTRGC module (N, T, V, Cin, C): its first shape is K4's main
@@ -237,7 +241,7 @@ K1_MAIN_PATH = [
     ("l9-l10", (64, 13, 20, 256, 32), 2),
 ]
 K1_EXTRA = [
-    ("V=25", (64, 26, 25, 128, 16)),
+    ("V=24", (64, 26, 24, 128, 16)),  # the whole-V design's last V
     ("ragged", (3, 7, 20, 80, 10)),  # odd T, partial channel tile, R < 16
 ]
 # K5 shapes (N, T, V, Cin, C, R), with the launches per fast-eval forward at
@@ -268,8 +272,8 @@ K5_EXTRA = [
 BWD_MAIN_PATH = [(name, (TRAIN_BATCH,) + shape[1:], count)
                  for name, shape, count in K1_MAIN_PATH]
 BWD_EXTRA = [
-    ("V=25", (TRAIN_BATCH, 26, 25, 128, 16)),
-    ("V=25 R=32", (TRAIN_BATCH, 13, 25, 256, 32)),
+    ("V=24", (TRAIN_BATCH, 26, 24, 128, 16)),
+    ("V=24 R=32", (TRAIN_BATCH, 13, 24, 256, 32)),
     ("ragged", (3, 7, 20, 80, 10)),
     ("N=1", (1, 13, 20, 256, 32)),
 ]
@@ -288,6 +292,7 @@ SCENE_MAIN_PATH = [
     ("l9-l10", (SCENE_BATCH, 8, 256, 256, 32), 2),
 ]
 TILED_EXTRA = [
+    ("V=25", (TRAIN_BATCH, 26, 25, 128, 16)),  # NTU's joints, past the whole-V design
     ("ragged V=37", (3, 7, 37, 80, 10)),
     # the joint-tiled design's edges: T not a multiple of the frame tile (13
     # of 16; 40 of 32, a second chunk of 8) with C not a multiple of the
@@ -300,6 +305,9 @@ TILED_EXTRA = [
 # held and timed beside the NW-UCLA train step's shapes
 K3_EXTRA = BWD_EXTRA + [(name, shape) for name, shape, _ in SCENE_MAIN_PATH] + TILED_EXTRA
 K3_MIN_BLOCKS = 132  # one block per SM at least, at every BWD_MAIN_PATH shape
+# K1 and K2 at every shape of K1_MAIN_PATH and BWD_MAIN_PATH: a block per SM
+# at least (the whole-V design's blocks hold 8 warps, two or three an SM)
+UNIT_MIN_BLOCKS = 132
 # phase 10 (bf16): a bf16 output within one rounding of its max |value| of
 # its plain version and equal to it in all but 1% of its elements (the
 # kernels and the plain versions differ only in f32 sum order before one
@@ -491,26 +499,31 @@ def _within(got, want, rtol, atol_frac):
 
 
 def check_kernels(device):
-    """K1, K2 (each in its whole-V and its joint-tiled design: K1t, K2t) and
-    K3 against their plain versions at every shape, two launches of K1t, K2t
-    and K3 bitwise equal; each launch must count on
-    the counter of the design the shape takes, and K3 must launch at least
-    K3_MIN_BLOCKS blocks at every BWD_MAIN_PATH shape. Returns {'K1': rows,
-    'K1t': rows, 'K2': rows, 'K2t': rows, 'K3': rows}."""
+    """K1 (at the eval and the training batch), K2 (each in its whole-V and
+    its joint-tiled design: K1t, K2t) and K3 against their plain versions at
+    every shape, two launches of each bitwise equal; each launch must count
+    on the counter of the design the shape takes, and K1, K2 and K3 must
+    launch at least UNIT_MIN_BLOCKS (K3_MIN_BLOCKS) blocks at every main-path
+    shape. Returns {'K1': rows, 'K1_train': rows, 'K1t': rows, 'K2': rows,
+    'K2t': rows, 'K3': rows}."""
     import torch
 
     from tamgcn_tpu_torch.ops.cuda import ctr_gc
     from tamgcn_tpu_torch.utils.timing import graph_ms
 
+    # (label, kernel, its call, plain version, bound, main path, extra shapes)
     plan = [
-        ("K1", k1, k1_plain, k1_bound, K1_MAIN_PATH, K1_EXTRA),
-        ("K1t", k1, k1_plain, k1_bound, SCENE_MAIN_PATH, TILED_EXTRA),
-        ("K2", k2, k2_plain, k2_bound, BWD_MAIN_PATH, BWD_EXTRA),
-        ("K2t", k2, k2_plain, k2_bound, SCENE_MAIN_PATH, TILED_EXTRA),
-        ("K3", k3, k3_plain, k3_bound, BWD_MAIN_PATH, K3_EXTRA),
+        ("K1", "K1", k1, k1_plain, k1_bound, K1_MAIN_PATH, K1_EXTRA),
+        ("K1_train", "K1", k1, k1_plain, k1_bound, BWD_MAIN_PATH, []),
+        ("K1t", "K1t", k1, k1_plain, k1_bound, SCENE_MAIN_PATH, TILED_EXTRA),
+        ("K2", "K2", k2, k2_plain, k2_bound, BWD_MAIN_PATH, BWD_EXTRA),
+        ("K2t", "K2t", k2, k2_plain, k2_bound, SCENE_MAIN_PATH, TILED_EXTRA),
+        ("K3", "K3", k3, k3_plain, k3_bound, BWD_MAIN_PATH, K3_EXTRA),
     ]
+    blocks_of = {"K1": ctr_gc.fwd_blocks, "K1t": ctr_gc.fwd_blocks,
+                 "K2": ctr_gc.dx3_blocks, "K2t": ctr_gc.dx3_blocks}
     out = {}
-    for kname, fn, plain, bound_fn, main_path, extra in plan:
+    for label, kname, fn, plain, bound_fn, main_path, extra in plan:
         rows = []
         shapes = [(n, s, c) for n, s, c in main_path] + [(n, s, 0) for n, s in extra]
         for i, (name, shape, count) in enumerate(shapes):
@@ -523,10 +536,9 @@ def check_kernels(device):
                     raise AssertionError(f"{kname} {name} {shape}: launches {launched}, "
                                          f"expected {kname} once")
                 want = plain(*args)
+                again = fn(*args)
                 torch.cuda.synchronize()
                 if kname == "K3":
-                    again = fn(*args)
-                    torch.cuda.synchronize()
                     for part, a, b in zip(K3_OUTPUTS, got, again):
                         if not torch.equal(a, b):
                             raise AssertionError(
@@ -535,11 +547,8 @@ def check_kernels(device):
                                                       else (1e-4, 1e-4)))
                             for part, a, b in zip(K3_OUTPUTS, got, want)]
                 else:
-                    if kname in ("K1t", "K2t"):
-                        again = fn(*args)
-                        torch.cuda.synchronize()
-                        if not torch.equal(got, again):
-                            raise AssertionError(f"{kname} {name} {shape}: two launches differ")
+                    if not torch.equal(got, again):
+                        raise AssertionError(f"{kname} {name} {shape}: two launches differ")
                     rtol = 1e-5
                     errs = [("out",) + _within(got, want, rtol, rtol)]
                 for part, ok, max_err, scale in errs:
@@ -551,13 +560,22 @@ def check_kernels(device):
                 ms = cuda_ms(lambda: fn(*args))
                 plain_ms = cuda_ms(lambda: plain(*args))
                 extra_row = dict(device_ms=graph_ms(lambda: fn(*args)))
+                N, T, V, C, R = shape
                 if kname == "K3":
-                    N, T, V, C, R = shape
                     blocks = ctr_gc.bwd_param_blocks(N, 3, V, C)
-                    if count and blocks < K3_MIN_BLOCKS:
-                        raise AssertionError(f"K3 {name} {shape}: {blocks} blocks, "
-                                             f"fewer than {K3_MIN_BLOCKS}")
-                    extra_row["blocks"] = blocks
+                    floor = K3_MIN_BLOCKS
+                else:
+                    blocks = blocks_of[kname](N, 3, T, V, R, C)
+                    floor = UNIT_MIN_BLOCKS
+                    if kname in ("K1", "K2") and blocks != ctr_gc.whole_v_blocks(
+                            N, 3, T, C, fwd=kname == "K1"):
+                        raise AssertionError(
+                            f"{kname} {name} {shape}: the launcher's {blocks} blocks are "
+                            "not ops/cuda/ctr_gc.py:whole_v_blocks'")
+                if count and kname in ("K1", "K2", "K3") and blocks < floor:
+                    raise AssertionError(f"{kname} {name} {shape}: {blocks} blocks, "
+                                         f"fewer than {floor}")
+                extra_row["blocks"] = blocks
             bound_ms, bound_by = bound_fn(shape)
             check_above_bound(f"{kname} {name}", extra_row["device_ms"], bound_ms)
             # the worst output relative to its own scale
@@ -567,19 +585,22 @@ def check_kernels(device):
                              max_abs_plain=worst[3], worst_output=worst[0],
                              ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                              bound_by=bound_by, **extra_row))
-            more = f", device {extra_row['device_ms'] * 1e3:.1f} us" + (
-                f" in {extra_row['blocks']} blocks" if "blocks" in extra_row else "")
             print(f"{kname:3s} {name:11s} N,T,V,C,R={shape}: max_abs_err "
                   f"{worst[2]:.3e} in {worst[0]} (max|plain| {worst[3]:.3e}) "
-                  f"kernel {ms * 1e3:.1f} us{more}, plain {plain_ms * 1e3:.1f} us, "
+                  f"kernel {ms * 1e3:.1f} us, device {extra_row['device_ms'] * 1e3:.1f} "
+                  f"us in {blocks} blocks, plain {plain_ms * 1e3:.1f} us, "
                   f"bound {bound_ms * 1e3:.1f} us ({bound_by})", flush=True)
-        out[kname] = rows
-    k3_sum = kernel_summary(out["K3"], "train step, batch 16")
-    device_ms = sum(r["device_ms"] * r["launches_per_step"] for r in out["K3"])
-    print(f"K3 per train step at batch {TRAIN_BATCH}: {k3_sum['ms']:.4f} ms by events, "
-          f"{device_ms:.4f} ms device (graph), bound {k3_sum['bound_ms']:.4f} ms; at least "
-          f"{min(r['blocks'] for r in out['K3'] if r['launches_per_step'])} blocks a "
-          "launch", flush=True)
+        out[label] = rows
+    for label, what in (("K1", f"eval forward at batch {BATCH}"),
+                        ("K1_train", f"train step at batch {TRAIN_BATCH}"),
+                        ("K2", f"train step at batch {TRAIN_BATCH}"),
+                        ("K3", f"train step at batch {TRAIN_BATCH}")):
+        summ = kernel_summary(out[label], what)
+        device_ms = sum(r["device_ms"] * r["launches_per_step"] for r in out[label])
+        print(f"{label[:2]} per {what}: {summ['ms']:.4f} ms by events, {device_ms:.4f} ms "
+              f"device (graph), bound {summ['bound_ms']:.4f} ms; at least "
+              f"{min(r['blocks'] for r in out[label] if r['launches_per_step'])} blocks a "
+              "launch", flush=True)
     return out
 
 
@@ -1354,11 +1375,15 @@ def check_ctrgc(device):
         got = run()
         torch.cuda.synchronize()
         launches = read_launches()
-        if launches != only(K1=1, K2=1):
-            raise AssertionError(f"CTRGC {name}: launches {launches}, expected K1 "
-                                 "and K2 once each")
+        # the designs the launchers take at S = 1 (whole-V up to V = 24)
+        R = module.conv4_kernel.shape[2]
+        k1, k2 = (("K1", "K2") if ctr_gc.fwd_variant(1, V, R) == "whole" else ("K1t", "K2t"))
+        if ctr_gc.dx3_variant(1, V, R) != ctr_gc.fwd_variant(1, V, R) or launches != only(
+                **{k1: 1, k2: 1}):
+            raise AssertionError(f"CTRGC {name}: launches {launches}, expected {k1} "
+                                 f"and {k2} once each")
         if main_launches is None:
-            main_launches = launches["K1"] + launches["K2"]
+            main_launches = launches[k1] + launches[k2]
         with mock.patch.object(ctrgcn, "ctr_gc_fused", agg.ctr_gc_fused_plain):
             want = run()
         names = ["out", "x", "A", "alpha"] + [k for k, _ in module.named_parameters()]
@@ -2497,21 +2522,33 @@ def main() -> int:
     for kname in ("K1t", "K2t"):
         kernels[kname]["sources"] = [kernels[kname]["source"],
                                      "tamgcn_tpu_torch/csrc/unit_ctr_gc_tiled.cuh"]
+    for kname in ("K1", "K2"):
+        kernels[kname]["sources"] = [kernels[kname]["source"],
+                                     "tamgcn_tpu_torch/csrc/unit_ctr_gc_whole.cuh"]
     for kname in ("K1", "K1t", "K2", "K2t", "K3", "K1_bf16", "K2_bf16", "K3_bf16"):
         kernels[kname]["device_ms"] = sum(r["device_ms"] * r["launches_per_step"]
                                           for r in rows[kname])
+    # K1 on the train path: its batch-16 shapes, summed per train step
+    train_rows = [dict(r, path=f"train step, batch {TRAIN_BATCH}") for r in rows["K1_train"]]
+    kernels["K1"]["per_train_step"] = dict(
+        kernel_summary(train_rows, f"train step, batch {TRAIN_BATCH}"),
+        device_ms=sum(r["device_ms"] * r["launches_per_step"] for r in train_rows),
+        launches=train["train"]["launches"]["K1"])
+    kernels["K1"]["shapes"] = rows["K1"] + train_rows
+    kernels["K1"]["max_abs_err"] = max(r["max_abs_err"] for r in kernels["K1"]["shapes"])
     for kname in ("K1_bf16", "K2_bf16", "K3_bf16"):
         kernels[kname]["sources"] = [kernels[kname]["source"],
                                      "tamgcn_tpu_torch/csrc/unit_ctr_gc_common.cuh",
+                                     "tamgcn_tpu_torch/csrc/unit_ctr_gc_whole.cuh",
                                      "tamgcn_tpu_torch/csrc/unit_ctr_gc_tiled.cuh"]
     for key in ("folded_k1_cublas_ms", "folded_k1_cublas_device_ms", "device_ms"):
         kernels["K5"][key] = sum(r[key] * r["launches_per_step"] for r in k5_rows)
     kernels["K5"]["sources"] = [kernels["K5"]["source"],
                                 "tamgcn_tpu_torch/csrc/mma_tf32x3.cuh",
-                                "tamgcn_tpu_torch/csrc/unit_ctr_gc_common.cuh"]
+                                "tamgcn_tpu_torch/csrc/unit_ctr_gc_whole.cuh"]
     kernels["K6"]["sources"] = [kernels["K6"]["source"],
                                 "tamgcn_tpu_torch/csrc/mma_tf32x3.cuh",
-                                "tamgcn_tpu_torch/csrc/unit_ctr_gc_dx3.cuh"]
+                                "tamgcn_tpu_torch/csrc/unit_ctr_gc_whole.cuh"]
     for key in ("unfused_k2_cublas_ms", "unfused_k2_cublas_device_ms", "device_ms"):
         kernels["K6"][key] = sum(r[key] * r["launches_per_step"] for r in k6_rows)
     # T1's library call: the engine's cuDNN composition; T2's: one einsum

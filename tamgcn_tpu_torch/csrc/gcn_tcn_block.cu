@@ -38,9 +38,10 @@
 //   cp.async (mma_tf32x3.cuh: tile_product, also K6's), several blocks an
 //   SM; written to scratch (N*T*V*S*C floats).
 //   The aggregation (block_agg_kernel): K1's kernels as they are
-//   (unit_ctr_gc_fwd.cuh), under K5's names: a block per (sample, 16
-//   channels) builds M of its tile for all subsets and aggregates every
-//   frame of x3, two blocks an SM; writes y, before the unit_gcn BN.
+//   (unit_ctr_gc_fwd.cuh, unit_ctr_gc_whole.cuh), under K5's names: a block
+//   per (sample, 16 channels, tile of <= 16 frames) builds M_s of its
+//   channels for each subset in turn and aggregates its frames of x3, both
+//   on the tensor cores; writes y, before the unit_gcn BN.
 //   The epilogue (block_epilogue_kernel): a block per BR rows (n, t, v) with
 //   all C channels, 128 rows at C = 64, else 32 (two blocks an SM up to C ~
 //   360), 16 where 32 do not fit: res (x, or x @ Wd), res - y' (y' = y *
@@ -61,10 +62,8 @@
 // the earlier kernel at every block (one block an SM): three mma.sync
 // products per f32 product leave the tensor cores' gain over the CUDA cores
 // small, so the products gain only where they stop waiting.
-// Left for later work: wgmma (the way past mma.sync's rate); D and M built
-// once per 16 channels, as K1 builds them (wider channel tiles, and stage
-// 1 and the aggregation on the tensor cores, are K1's redesign, which K5
-// then shares); a persistent grid.
+// Left for later work: wgmma (the way past mma.sync's rate); a persistent
+// grid.
 
 #include <cuda_runtime.h>
 
@@ -130,14 +129,14 @@ block_x3_kernel(const float* __restrict__ x, const float* __restrict__ w3,
 
 // ---- the aggregation: K1's kernels (unit_ctr_gc_fwd.cuh) under K5's names ----
 
-template <int RP>
-__global__ void __launch_bounds__(kThreads)
+template <int RP, int JT>
+__global__ void __launch_bounds__(kThreads, 2)
 block_agg_kernel(const float* __restrict__ x1s, const float* __restrict__ x2s,
                  const float* __restrict__ x3s, const float* __restrict__ w4s,
                  const float* __restrict__ b4s, const float* __restrict__ alpha,
                  const float* __restrict__ As, float* __restrict__ out, int S, int T, int V,
-                 int R, int C, int CT, int VP) {
-  fwd::whole_v<RP, float>(x1s, x2s, x3s, w4s, b4s, alpha, As, out, S, T, V, R, C, CT, VP);
+                 int R, int C) {
+  whole::run<true, RP, JT, float>(x1s, x2s, x3s, w4s, b4s, alpha, As, out, S, T, V, R, C);
 }
 
 template <int RP, int TF>
@@ -155,16 +154,15 @@ block_agg_kernel_tiled(const float* __restrict__ x1s, const float* __restrict__ 
 }
 
 struct AggLaunch {
-  template <int RP, typename TA>
+  template <int RP, int JT, typename TA>
   static int whole(dim3 grid, size_t smem, cudaStream_t st, const TA* x1s, const TA* x2s,
                    const TA* x3s, const float* w4s, const float* b4s, const float* alpha,
-                   const float* As, TA* out, int S, int T, int V, int R, int C, int CT,
-                   int VP) {
-    cudaError_t err = cudaFuncSetAttribute(block_agg_kernel<RP>,
+                   const float* As, TA* out, int S, int T, int V, int R, int C) {
+    cudaError_t err = cudaFuncSetAttribute(block_agg_kernel<RP, JT>,
                                            cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
-    block_agg_kernel<RP><<<grid, kThreads, smem, st>>>(x1s, x2s, x3s, w4s, b4s, alpha, As, out,
-                                                        S, T, V, R, C, CT, VP);
+    block_agg_kernel<RP, JT><<<grid, kThreads, smem, st>>>(x1s, x2s, x3s, w4s, b4s, alpha, As,
+                                                            out, S, T, V, R, C);
     return cudaGetLastError();
   }
   template <int RP, int TF, typename TA>

@@ -31,10 +31,10 @@
 // call, with dx3s passing through device scratch (13 MB at the deep shape,
 // written once and read twice, mostly from the 50 MB L2).
 //   Phase A, channel-tiled: K2's kernels as they are (unit_ctr_gc_dx3.cuh),
-//   under this source's names: a block per (sample, 16 channels; 8 where 16
-//   would give fewer than 132 blocks, as at C=128 and N=16) builds M of its
-//   tile for all subsets once and aggregates every frame (the joint-tiled
-//   design where M of 8 channels does not fit, V > ~30 at R = 32).
+//   under this source's names: a block per (sample, subset, 16 channels,
+//   tile of <= 16 frames) builds M_s of its channels and aggregates its
+//   frames, both on the tensor cores (unit_ctr_gc_whole.cuh; the joint-tiled
+//   design past V = 24).
 //   Phase B, the products, one launch of 128-thread blocks, each a 64 x 64
 //   output tile of one of two products:
 //     dx tiles (rows x Cin): dx3s @ w3^T over k = S*C;
@@ -50,8 +50,7 @@
 //   floats, 4-7 MB at the NW-UCLA shapes.
 //   A last launch sums the G partials in group order. Nothing uses atomics,
 //   so two launches give bitwise equal gradients.
-// What it leaves: phase A runs stage 1 and the aggregation on the CUDA
-// cores, as K2; dx3s's round trip through L2; mma.sync, not wgmma.
+// What it leaves: dx3s's round trip through L2; mma.sync, not wgmma.
 
 #include <cuda_runtime.h>
 
@@ -65,14 +64,14 @@ namespace mm = mma_tf32x3;
 
 // ---- phase A: K2's kernels under K6's names ----
 
-template <int RP>
-__global__ void __launch_bounds__(kThreads)
+template <int RP, int JT>
+__global__ void __launch_bounds__(kThreads, 2)
 unit_ctr_gc_bwd_conv3_kernel(const float* __restrict__ x1s, const float* __restrict__ x2s,
                              const float* __restrict__ g, const float* __restrict__ w4s,
                              const float* __restrict__ b4s, const float* __restrict__ alpha,
                              const float* __restrict__ As, float* __restrict__ dx3s, int S,
-                             int T, int V, int R, int C, int CT, int VP) {
-  dx3::whole_v<RP, float>(x1s, x2s, g, w4s, b4s, alpha, As, dx3s, S, T, V, R, C, CT, VP);
+                             int T, int V, int R, int C) {
+  whole::run<false, RP, JT, float>(x1s, x2s, g, w4s, b4s, alpha, As, dx3s, S, T, V, R, C);
 }
 
 template <int RP, int TF>
@@ -94,16 +93,15 @@ unit_ctr_gc_bwd_conv3_kernel_tiled(const float* __restrict__ x1s,
 }
 
 struct PhaseA {
-  template <int RP, typename TA>
+  template <int RP, int JT, typename TA>
   static int whole(dim3 grid, size_t smem, cudaStream_t st, const TA* x1s, const TA* x2s,
                    const TA* g, const float* w4s, const float* b4s, const float* alpha,
-                   const float* As, TA* dx3s, int S, int T, int V, int R, int C, int CT,
-                   int VP) {
-    cudaError_t err = cudaFuncSetAttribute(unit_ctr_gc_bwd_conv3_kernel<RP>,
+                   const float* As, TA* dx3s, int S, int T, int V, int R, int C) {
+    cudaError_t err = cudaFuncSetAttribute(unit_ctr_gc_bwd_conv3_kernel<RP, JT>,
                                            cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
-    unit_ctr_gc_bwd_conv3_kernel<RP><<<grid, kThreads, smem, st>>>(
-        x1s, x2s, g, w4s, b4s, alpha, As, dx3s, S, T, V, R, C, CT, VP);
+    unit_ctr_gc_bwd_conv3_kernel<RP, JT><<<grid, kThreads, smem, st>>>(
+        x1s, x2s, g, w4s, b4s, alpha, As, dx3s, S, T, V, R, C);
     return cudaGetLastError();
   }
   template <int RP, int TF, typename TA>
@@ -126,7 +124,6 @@ constexpr int kPT = mm::kTileThreads;  // threads of a product block
 constexpr int kBM = mm::kTileM, kBN = mm::kTileN;
 constexpr int kBK = 64;             // k per staged chunk (rows of x and dx3s for dw3)
 constexpr int kDwBlocks = 264;      // dw3 blocks a launch aims for: two per SM
-constexpr int kMinBlocks = 132;     // phase A's blocks at least: one per SM
 
 __host__ __device__ inline int cdiv(long long a, int b) { return (int)((a + b - 1) / b); }
 __host__ __device__ inline int imin(int a, int b) { return a < b ? a : b; }
@@ -277,10 +274,8 @@ extern "C" int unit_ctr_gc_bwd_conv3_f32(
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* dx3s = scratch;
   float* partials = scratch + dx3_floats(N, S, T, V, C);
-  // phase A: channel tiles of 8 where those of 16 would leave SMs idle
-  const int max_ct = (C + 15) / 16 * N >= kMinBlocks ? 16 : 8;
   int err = dx3::run<PhaseA, float>(x1s, x2s, g, w4s, b4s, alpha, As, dx3s, N, S, T, V, R, C,
-                                    st, max_ct);
+                                    st);
   if (err != cudaSuccess) return err;
   const int NR = N * T * V, SC = S * C;
   const Groups grp = groups_of(NR, SC, Cin);

@@ -15,34 +15,27 @@
 // swapped: it reads g (C wide), writes dx3s (S*C wide) and sums over the
 // FIRST joint index of M.
 //
-// What bounds it on this card. At the deep NW-UCLA shape (N=16, T=13, V=20,
-// C=256, R=32) the function moves ~17 MB (g in, dx3s out: ~5 us at
-// 3.35 TB/s) and does 2*N*S*(V*V*R*C + T*V*V*C) ~ 0.44 GFLOP of f32 FMAs
-// (~7 us at 67 TFLOP/s): the operations bound it there, the bytes at the
-// wide-T shapes (T=52, C=64). As in the forward, M for one (n, s) is
-// V*V*C*4 B (410 KB at C=256), larger than a block's 227 KB of shared
-// memory.
+// What bounds it on this card. At the NW-UCLA shapes (V=20) the bytes do:
+// g in and dx3s out (e.g. N=16, T=13, C=256: ~17 MB, ~5 us at 3.35 TB/s)
+// against 2*N*S*(V*V*R*C + T*V*V*C) FMAs (~0.44 GFLOP there, ~3 us at the
+// 165 TFLOP/s of f32 products on the tensor cores as 3xTF32). As in the
+// forward, M for one (n, s) is V*V*C*4 B (410 KB at C=256), larger than a
+// block's 227 KB of shared memory.
 //
-// What the design does about it. The forward's: one block of 256 threads per
-// (sample n, tile of CT=16 channels; 8 where 16 does not fit), so M for the
-// tile and all three subsets sits in shared memory, stored [s][u][v][c] with
-// the output joint v padded to a multiple of 5.
-//   Stage 1 builds M with the forward's code (unit_ctr_gc_common.cuh:
-//   build_m): D = tanh(x1_u - x2_v) once per subset in shared memory, then
-//   M_s = D @ w4s[s] with w4s[s,:,4 channels] in registers.
-//   Stage 2 walks T in chunks of 8 frames: the block copies the chunk's g
-//   tile (8 x V x CT) into shared memory with 16-byte loads, all in flight at
-//   once; then each thread owns one channel and, for one subset, a 2 (frames)
-//   x 5 (joints v) register tile of dx3s, and for every u reads 5 values of M
-//   and 2 of g for 10 FMAs.
-// g is read from device memory once per block and dx3s written once.
-//
+// What the design does about it: the forward's (unit_ctr_gc_whole.cuh),
+// with a block per (sample n, subset s, 16 channels, tile of <= 16
+// frames), since each subset's output is its own: it builds M_s of its
+// channels on the tensor cores, with the g tile on its way into registers
+// meanwhile, then adds the product (frames x u) @ M_s per channel on the
+// tensor cores, 3xTF32 in f32. The S blocks of one (n, channels, frames)
+// are launched side by side and read the same g tile, all but the first
+// mostly from L2; dx3s is written once, in whole 64-byte rows.
+
 // bf16 (unit_ctr_gc_bwd_dx3_bf16): x1s, x2s, g and dx3s bf16, the
 // parameters f32; stage 1 as the forward's bf16 form, M and every sum in
 // f32, dx3s rounded to bf16 once (Act<T> in unit_ctr_gc_common.cuh).
 //
-// Where M of even 8 channels for all V x V pairs does not fit a block's
-// shared memory (see unit_ctr_gc_bwd_dx3_variant), the joint-tiled design of
+// Past V = 24 (unit_ctr_gc_bwd_dx3_variant) the joint-tiled design of
 // unit_ctr_gc_tiled.cuh runs instead (K2t), with the forward's roles
 // swapped: a block owns (sample, subset, 16 joints v, 32 or 64 channels),
 // walks the tiles of 16 joints u, builds each M tile stored [v][u][c] on
@@ -51,8 +44,8 @@
 // and what the design does about it: the header's design note (the
 // operations, 82 G FMAs per configs/scene256.yaml train step at batch 8).
 
-// The whole-V body and both designs' launch rules live in
-// unit_ctr_gc_dx3.cuh, which K6 shares.
+// The whole-V body (unit_ctr_gc_whole.cuh) and both designs' launch rules
+// (unit_ctr_gc_dx3.cuh) are shared with K6.
 
 #include <cuda_runtime.h>
 
@@ -62,8 +55,8 @@ namespace {
 
 using namespace unit_ctr_gc;
 
-template <int RP, typename TA>
-__global__ void __launch_bounds__(kThreads)
+template <int RP, int JT, typename TA>
+__global__ void __launch_bounds__(kThreads, 2)
 unit_ctr_gc_bwd_dx3_kernel(const TA* __restrict__ x1s,
                            const TA* __restrict__ x2s,
                            const TA* __restrict__ g,
@@ -72,8 +65,8 @@ unit_ctr_gc_bwd_dx3_kernel(const TA* __restrict__ x1s,
                            const float* __restrict__ alpha,
                            const float* __restrict__ As,
                            TA* __restrict__ dx3s,
-                           int S, int T, int V, int R, int C, int CT, int VP) {
-  dx3::whole_v<RP, TA>(x1s, x2s, g, w4s, b4s, alpha, As, dx3s, S, T, V, R, C, CT, VP);
+                           int S, int T, int V, int R, int C) {
+  whole::run<false, RP, JT, TA>(x1s, x2s, g, w4s, b4s, alpha, As, dx3s, S, T, V, R, C);
 }
 
 template <int RP, int TF, typename TA>
@@ -98,16 +91,15 @@ unit_ctr_gc_bwd_dx3_tiled_kernel(const TA* __restrict__ x1s,
 
 // K2's kernels for dx3::run
 struct Launch {
-  template <int RP, typename TA>
+  template <int RP, int JT, typename TA>
   static int whole(dim3 grid, size_t smem, cudaStream_t st, const TA* x1s, const TA* x2s,
                    const TA* g, const float* w4s, const float* b4s, const float* alpha,
-                   const float* As, TA* dx3s, int S, int T, int V, int R, int C, int CT,
-                   int VP) {
-    cudaError_t err = cudaFuncSetAttribute(unit_ctr_gc_bwd_dx3_kernel<RP, TA>,
+                   const float* As, TA* dx3s, int S, int T, int V, int R, int C) {
+    cudaError_t err = cudaFuncSetAttribute(unit_ctr_gc_bwd_dx3_kernel<RP, JT, TA>,
                                            cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
-    unit_ctr_gc_bwd_dx3_kernel<RP, TA><<<grid, kThreads, smem, st>>>(
-        x1s, x2s, g, w4s, b4s, alpha, As, dx3s, S, T, V, R, C, CT, VP);
+    unit_ctr_gc_bwd_dx3_kernel<RP, JT, TA><<<grid, kThreads, smem, st>>>(
+        x1s, x2s, g, w4s, b4s, alpha, As, dx3s, S, T, V, R, C);
     return cudaGetLastError();
   }
   template <int RP, int TF, typename TA>
@@ -135,11 +127,18 @@ int dx3s_of(const TA* x1s, const TA* x2s, const TA* g, const float* w4s,
 }  // namespace
 
 // Which design unit_ctr_gc_bwd_dx3_f32 and unit_ctr_gc_bwd_dx3_bf16 launch
-// at (S, V, R): 0 the whole-V kernel, 1 the joint-tiled one, -1 neither (R or
-// S or V out of range).
+// at (S, V, R): 0 the whole-V kernel (V <= 24), 1 the joint-tiled one, -1
+// neither (R or S or V out of range).
 extern "C" int unit_ctr_gc_bwd_dx3_variant(int S, int V, int R) {
   if (S < 1 || V < 1 || R < 1 || R > 32) return -1;
-  return dx3::whole_v_ct(S, V, dx3::rp_of(R)) == 0 ? 1 : 0;
+  return whole::takes(V) ? 0 : 1;
+}
+
+// Blocks of unit_ctr_gc_bwd_dx3_f32's launch at the shape; -1 where it does
+// not take it.
+extern "C" long long unit_ctr_gc_bwd_dx3_blocks(int N, int S, int T, int V, int R, int C) {
+  if (!dx3::dims_ok(N, S, T, V, R, C)) return -1;
+  return dx3::blocks(N, S, T, V, R, C);
 }
 
 // All tensors contiguous f32 on the device, 16-byte aligned: x1s, x2s

@@ -9,57 +9,44 @@
 //
 // with the refined adjacency M never written to device memory.
 //
-// What bounds it on this card. At the deep NW-UCLA shape (N=64, T=13, V=20,
-// C=256, R=32) the function moves ~68 MB (x3s in, out back: ~20 us at
-// 3.35 TB/s) and does 2*N*S*(V*V*R*C + T*V*V*C) ~ 1.77 GFLOP of f32 FMAs,
-// ~26 us on the 67 TFLOP/s f32 CUDA cores: the operations bound it, and
-// building M (the V*V*R*C term) is two thirds of them. At the wider-T
-// shapes (T=52, C=64) the bytes bound it. M for one (n, s) is V*V*C*4 B
-// (410 KB at C=256), larger than a block's 227 KB of shared memory.
+// What bounds it on this card. At the NW-UCLA shapes (V=20) the bytes do:
+// x3s in and out back (e.g. N=64, T=13, C=256: ~68 MB, ~20 us at 3.35
+// TB/s) against 2*N*S*(V*V*R*C + T*V*V*C) FMAs (~1.77 GFLOP there, ~11 us
+// at the 165 TFLOP/s of f32 products on the tensor cores as 3xTF32). M for
+// one (n, s) is V*V*C*4 B (410 KB at C=256), larger than a block's 227 KB
+// of shared memory.
 //
-// What the design does about it. One block of 256 threads per (sample n,
-// tile of CT=16 channels; 8 where 16 does not fit), so M for the tile and
-// all three subsets sits in shared memory, and at R <= 16 two blocks share
-// an SM. With so few warps per SM, every loop keeps several independent
-// loads or arithmetic chains in flight per thread.
-//   Stage 1 (unit_ctr_gc_common.cuh:build_m, shared with K2): for each
-//   subset s, the block stages the x1/x2 rows in shared memory and computes
-//   D = tanh(x1_u - x2_v) (V*V*R values, once per block instead of once per
-//   channel). Then M_s = D @ w4s[s] is a small GEMM: each thread holds
-//   w4s[s,:,4 channels] in registers and, per r, reads one value of D (rows
-//   padded to RP+1 floats, so the 8 rows a warp reads sit in different
-//   banks) for 4 FMAs, two (u,v) rows at a time.
-//   Stage 2: the block walks T in chunks of 8 frames. All threads first copy
-//   the chunk's x3s tile (8 x V x S x CT values) into shared memory over D,
-//   with 16-byte loads, consecutive threads on consecutive channels, all of a
-//   thread's loads in flight at once; then each thread owns one channel and
-//   a 2 (frames) x 5 (joints) register tile of out and, for every (s,v),
-//   reads 5 values of M and 2 of x3s from shared memory for 10 FMAs.
-// x3s is read from device memory once per block and out written once.
-// Tensor cores, TMA, double-buffered chunks and a persistent grid are left
-// for later work.
-//
+// What the design does about it (unit_ctr_gc_whole.cuh, whose header says
+// what held the design before it back): a block of 8 warps per (sample n,
+// 16 channels, tile of <= 16 frames), 256-1024 blocks a NW-UCLA launch. It
+// walks the subsets s with the subset sum in registers: builds M_s of its
+// channels in shared memory on the tensor cores (D = tanh(x1_u - x2_v) in
+// registers as the A fragments), then adds the product (frames x v) @ M_s^T
+// per channel on the tensor cores, 3xTF32 in f32, while the next subset's
+// x3s tile and x1/x2 rows are on their way into registers. x3s is read from
+// device memory once and out written once, in whole 64-byte rows.
+
 // bf16 (unit_ctr_gc_fwd_bf16): x1s, x2s, x3s and out are bf16, the
 // parameters f32, as the JAX kernel takes them under bf16 mixed precision.
 // The same kernels run on them (Act<T> in unit_ctr_gc_common.cuh): tanh in
-// f32 from the bf16 x1s and x2s; stage 1 over D and w4s rounded to bf16,
-// accumulated in f32; M in f32 in shared memory; stage 2 in f32; out rounded
-// to bf16 once. The f32 kernels are the same code with nothing rounded.
+// f32 from the bf16 x1s and x2s; stage 1 one bf16 product over D and w4s
+// rounded to bf16, accumulated in f32; M in f32 in shared memory; stage 2
+// in f32 (M's two TF32 parts against the bf16 x3s, exact in TF32); out
+// rounded to bf16 once.
 //
-// Where M of even 8 channels for all V x V pairs does not fit a block's
-// shared memory (V >= 33 at R <= 8; see unit_ctr_gc_fwd_variant), the
-// joint-tiled design of unit_ctr_gc_tiled.cuh runs instead (K1t): a block
-// owns (sample, 16 joints u, 32 or 64 channels), walks the subsets and the
-// tiles of 16 joints v, builds each M tile on the tensor cores with the
-// tanh in registers, and adds M_c @ x3s_c of TF = 8, 16 or 32 frames (from
-// T) on the tensor cores, 3xTF32 in f32, with the next x3s chunk on its way
-// by tensor copy. At configs/scene256.yaml's shapes (V=256) the operations
-// bound it: M costs V*V*R*C FMAs per sample and subset, as many as or more
-// than the aggregation's T*V*V*C; the design note in the header says what
-// held the first design back and what this one does about it.
+// Past V = 24 (unit_ctr_gc_fwd_variant) the joint-tiled design of
+// unit_ctr_gc_tiled.cuh runs instead (K1t): a block owns (sample, 16 joints
+// u, 32 or 64 channels), walks the subsets and the tiles of 16 joints v,
+// builds each M tile on the tensor cores with the tanh in registers, and
+// adds M_c @ x3s_c of TF = 8, 16 or 32 frames (from T) on the tensor cores,
+// 3xTF32 in f32, with the next x3s chunk on its way by tensor copy. At
+// configs/scene256.yaml's shapes (V=256) the operations bound it: M costs
+// V*V*R*C FMAs per sample and subset, as many as or more than the
+// aggregation's T*V*V*C; the design note in the header says what held the
+// first design back and what this one does about it.
 
-// The whole-V body and both designs' launch rules live in
-// unit_ctr_gc_fwd.cuh, which K5 shares.
+// The whole-V body (unit_ctr_gc_whole.cuh) and both designs' launch rules
+// (unit_ctr_gc_fwd.cuh) are shared with K5.
 
 #include <cuda_runtime.h>
 
@@ -69,8 +56,8 @@ namespace {
 
 using namespace unit_ctr_gc;
 
-template <int RP, typename TA>
-__global__ void __launch_bounds__(kThreads)
+template <int RP, int JT, typename TA>
+__global__ void __launch_bounds__(kThreads, 2)
 unit_ctr_gc_fwd_kernel(const TA* __restrict__ x1s,
                        const TA* __restrict__ x2s,
                        const TA* __restrict__ x3s,
@@ -79,8 +66,8 @@ unit_ctr_gc_fwd_kernel(const TA* __restrict__ x1s,
                        const float* __restrict__ alpha,
                        const float* __restrict__ As,
                        TA* __restrict__ out,
-                       int S, int T, int V, int R, int C, int CT, int VP) {
-  fwd::whole_v<RP, TA>(x1s, x2s, x3s, w4s, b4s, alpha, As, out, S, T, V, R, C, CT, VP);
+                       int S, int T, int V, int R, int C) {
+  whole::run<true, RP, JT, TA>(x1s, x2s, x3s, w4s, b4s, alpha, As, out, S, T, V, R, C);
 }
 
 template <int RP, int TF, typename TA>
@@ -104,16 +91,15 @@ unit_ctr_gc_fwd_tiled_kernel(const TA* __restrict__ x1s,
 
 // K1's kernels for fwd::run
 struct Launch {
-  template <int RP, typename TA>
+  template <int RP, int JT, typename TA>
   static int whole(dim3 grid, size_t smem, cudaStream_t st, const TA* x1s, const TA* x2s,
                    const TA* x3s, const float* w4s, const float* b4s, const float* alpha,
-                   const float* As, TA* out, int S, int T, int V, int R, int C, int CT,
-                   int VP) {
-    cudaError_t err = cudaFuncSetAttribute(unit_ctr_gc_fwd_kernel<RP, TA>,
+                   const float* As, TA* out, int S, int T, int V, int R, int C) {
+    cudaError_t err = cudaFuncSetAttribute(unit_ctr_gc_fwd_kernel<RP, JT, TA>,
                                            cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
-    unit_ctr_gc_fwd_kernel<RP, TA><<<grid, kThreads, smem, st>>>(
-        x1s, x2s, x3s, w4s, b4s, alpha, As, out, S, T, V, R, C, CT, VP);
+    unit_ctr_gc_fwd_kernel<RP, JT, TA><<<grid, kThreads, smem, st>>>(
+        x1s, x2s, x3s, w4s, b4s, alpha, As, out, S, T, V, R, C);
     return cudaGetLastError();
   }
   template <int RP, int TF, typename TA>
@@ -141,12 +127,18 @@ int out_of(const TA* x1s, const TA* x2s, const TA* x3s, const float* w4s, const 
 }  // namespace
 
 // Which design unit_ctr_gc_fwd_f32 and unit_ctr_gc_fwd_bf16 launch at
-// (S, V, R): 0 the whole-V kernel, 1 the joint-tiled one, -1 neither (R or S
-// or V out of range). Shared memory holds f32 in either dtype, so the two
-// take the same design.
+// (S, V, R): 0 the whole-V kernel (V <= 24), 1 the joint-tiled one, -1
+// neither (R or S or V out of range). The two dtypes take the same design.
 extern "C" int unit_ctr_gc_fwd_variant(int S, int V, int R) {
   if (S < 1 || V < 1 || R < 1 || R > 32) return -1;
-  return fwd::whole_v_ct(S, V, fwd::rp_of(R)) == 0 ? 1 : 0;
+  return whole::takes(V) ? 0 : 1;
+}
+
+// Blocks of unit_ctr_gc_fwd_f32's launch at the shape; -1 where it does not
+// take it.
+extern "C" long long unit_ctr_gc_fwd_blocks(int N, int S, int T, int V, int R, int C) {
+  if (!fwd::dims_ok(N, S, T, V, R, C)) return -1;
+  return fwd::blocks(N, S, T, V, R, C);
 }
 
 // All tensors contiguous f32 on the device, 16-byte aligned: x1s, x2s

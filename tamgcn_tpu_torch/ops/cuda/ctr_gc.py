@@ -13,12 +13,13 @@ unit_ctr_gc_param_grads_plain and unit_ctr_gc_bwd_conv3_plain. Each wrapper
 checks its inputs, allocates the outputs (and scratch) and launches its
 kernel on the current stream; it never falls back to the plain version.
 
-K1 and K2 each have two designs in their source: the whole-V kernel, which
-keeps M of a channel tile for all V x V joint pairs in shared memory, and
-the joint-tiled kernel (csrc/unit_ctr_gc_tiled.cuh) where that does not fit
-(V = 256). The launcher picks one from the shape; `fwd_variant` and
-`dx3_variant` ask it which, and each design counts its launches on its own
-counter.
+K1 and K2 each have two designs in their source: the whole-V kernel
+(csrc/unit_ctr_gc_whole.cuh, V <= 24), which keeps M of one subset and 16
+channels for all V x V joint pairs in shared memory, and the joint-tiled
+kernel (csrc/unit_ctr_gc_tiled.cuh) past it (V = 256). The launcher picks
+one from the shape; `fwd_variant` and `dx3_variant` ask it which,
+`fwd_blocks` and `dx3_blocks` how many blocks it launches, and each design
+counts its launches on its own counter.
 
 K1, K2 and K3 take their activations (x1s, x2s, x3s, g and the outputs of
 those shapes) in float32 or in bfloat16, the JAX package's bf16 mixed
@@ -61,9 +62,11 @@ _SIGNATURES = {
     "unit_ctr_gc_fwd_f32": (FWD_SOURCE, [_P] * 8 + [_I] * 6 + [_P], ctypes.c_int),
     "unit_ctr_gc_fwd_bf16": (FWD_SOURCE, [_P] * 8 + [_I] * 6 + [_P], ctypes.c_int),
     "unit_ctr_gc_fwd_variant": (FWD_SOURCE, [_I] * 3, ctypes.c_int),
+    "unit_ctr_gc_fwd_blocks": (FWD_SOURCE, [_I] * 6, ctypes.c_longlong),
     "unit_ctr_gc_bwd_dx3_f32": (DX3_SOURCE, [_P] * 8 + [_I] * 6 + [_P], ctypes.c_int),
     "unit_ctr_gc_bwd_dx3_bf16": (DX3_SOURCE, [_P] * 8 + [_I] * 6 + [_P], ctypes.c_int),
     "unit_ctr_gc_bwd_dx3_variant": (DX3_SOURCE, [_I] * 3, ctypes.c_int),
+    "unit_ctr_gc_bwd_dx3_blocks": (DX3_SOURCE, [_I] * 6, ctypes.c_longlong),
     "unit_ctr_gc_bwd_param_f32": (
         PARAM_SOURCE, [_P] * 14 + [_I] * 6 + [_P], ctypes.c_int),
     "unit_ctr_gc_bwd_param_bf16": (
@@ -178,6 +181,33 @@ def fwd_variant(S: int, V: int, R: int) -> str:
 def dx3_variant(S: int, V: int, R: int) -> str:
     """The design K2's launcher takes at (S, V, R <= 32), as fwd_variant."""
     return ("whole", "tiled")[_kernel("unit_ctr_gc_bwd_dx3_variant")(S, V, R)]
+
+
+def fwd_blocks(N: int, S: int, T: int, V: int, R: int, C: int) -> int:
+    """Blocks of K1's launch at the shape, in the design fwd_variant names
+    (f32; -1 where the launcher does not take the shape)."""
+    return _kernel("unit_ctr_gc_fwd_blocks")(N, S, T, V, R, C)
+
+
+def dx3_blocks(N: int, S: int, T: int, V: int, R: int, C: int) -> int:
+    """Blocks of K2's launch at the shape, as fwd_blocks."""
+    return _kernel("unit_ctr_gc_bwd_dx3_blocks")(N, S, T, V, R, C)
+
+
+# the whole-V design's block (csrc/unit_ctr_gc_whole.cuh, V <= 24): 16
+# channels of one sample and, for K1, a tile of at most 16 frames (the
+# frames split into ceil(T / 16) balanced tiles), for K2 one subset (all
+# frames)
+WHOLE_CHANNELS = 16
+WHOLE_FRAMES = 16
+
+
+def whole_v_blocks(N: int, S: int, T: int, C: int, fwd: bool = True) -> int:
+    """Blocks of the whole-V K1 (fwd) or K2 launch at (N, S, T, C): a copy
+    of csrc/unit_ctr_gc_whole.cuh:grid that needs no build, held to
+    fwd_blocks and dx3_blocks by tests/test_torch_cuda.py."""
+    channel_tiles = -(-C // WHOLE_CHANNELS)
+    return channel_tiles * (-(-T // WHOLE_FRAMES) if fwd else S) * N
 
 
 def bwd_param_blocks(N: int, S: int, V: int, C: int) -> int:

@@ -11,6 +11,7 @@ without that flag they raise. Beside them, for the card only:
 
     python -m tamgcn_tpu_torch.tools.f32_ab --other CSRC_DIR  # f32 K1-K3 against other sources
     python -m tamgcn_tpu_torch.tools.k3_ab                    # K3 with each phase skipped
+    python -m tamgcn_tpu_torch.tools.design_ab                # whole-V K1/K2 against joint-tiled
 """
 from __future__ import annotations
 

@@ -6,27 +6,26 @@ with the same C interface, such as an earlier commit's csrc/, on one card:
     python -m tamgcn_tpu_torch.tools.f32_ab --other work_dir/other/tamgcn_tpu_torch/csrc
 
 At the unit-op shapes of the NW-UCLA CTR-GCN at full width (K1 at the eval
-batch 64, K2 and K3 at the training batch 16), of configs/scene256.yaml's
-five blocks (V=256, batch 8: the joint-tiled K1t and K2t) and at a ragged
-V=37, at the fast-eval forward's blocks (K5, batch 64, chip_smoke.py's
-K5_MAIN_PATH) and at the fused-conv3 train step's (K6, batch 16,
-K6_MAIN_PATH), each kernel of this checkout and of the other sources runs
-on the same inputs. The whole-V K1 and K2 and K3 must match the other
-sources bit for bit; K1t and K2t (the shapes where the launchers take the
-joint-tiled design) are held instead to their plain versions at
-chip_smoke.py's phase-3 tolerance (rtol 1e-5, atol 1e-5 * max|plain|), K5 at
-phase 6's (rtol 1e-5, atol 1e-4 * max|plain|) and K6 at phase 7's (dx rtol
-1e-5, dw3 and db3 rtol 1e-4, atol 1e-4 * max|plain|), in this checkout and
-in the other, and two launches of this checkout's K5 and K6 must agree bit
-for bit. All are timed by utils/timing.py:graph_ms in turns this, other,
-other, this, and summed per path with the launches of each block shape: K1
-per NW-UCLA eval forward, K2 and K3 per NW-UCLA train step, K1t per
-scene256 eval forward, K2t per scene256 train step, K5 per fast-eval forward,
-K6 per train step with TAMGCN_FUSE_CONV3=1. Prints a line per kernel and
-shape to stderr and one JSON line with every number to stdout; exits 1 if
-any check fails. Needs CUDA and nvcc. tools/k3_ab.py --ablate builds K3
-variants with build_entries and times them with this module's inputs and
-launchers.
+batch 64 and at the training batch 16, K2 and K3 at the training batch 16),
+of configs/scene256.yaml's five blocks (V=256, batch 8: the joint-tiled K1t
+and K2t) and at a ragged V=37, at the fast-eval forward's blocks (K5, batch
+64, chip_smoke.py's K5_MAIN_PATH) and at the fused-conv3 train step's (K6,
+batch 16, K6_MAIN_PATH), each kernel of this checkout and of the other
+sources runs on the same inputs. K3 must match the other sources bit for
+bit. K1 and K2 (both designs) are held instead to their plain versions at
+chip_smoke.py's phase-3 tolerance (rtol 1e-5, atol 1e-5 * max|plain|), K5
+at phase 6's (rtol 1e-5, atol 1e-4 * max|plain|) and K6 at phase 7's (dx
+rtol 1e-5, dw3 and db3 rtol 1e-4, atol 1e-4 * max|plain|), in this checkout
+and in the other, and two launches of this checkout's K1, K2, K5 and K6
+must agree bit for bit. All are timed by utils/timing.py:graph_ms in turns
+this, other, other, this, and summed per path with the launches of each
+block shape: K1 per NW-UCLA eval forward and per train step, K2 and K3 per
+NW-UCLA train step, K1t per scene256 eval forward, K2t per scene256 train
+step, K5 per fast-eval forward, K6 per train step with TAMGCN_FUSE_CONV3=1.
+Prints a line per kernel and shape to stderr and one JSON line with every
+number to stdout; exits 1 if any check fails. Needs CUDA and nvcc.
+tools/k3_ab.py --ablate builds K3 variants with build_entries and times
+them with this module's inputs and launchers.
 """
 from __future__ import annotations
 
@@ -51,6 +50,8 @@ EVAL = [("l1-l4", (64, 52, 20, 64, 8)), ("l5", (64, 52, 20, 128, 8)),
         ("l6-l7", (64, 26, 20, 128, 16)), ("l8", (64, 26, 20, 256, 16)),
         ("l9-l10", (64, 13, 20, 256, 32))]
 TRAIN = [(name, (16,) + shape[1:]) for name, shape in EVAL]
+# K1 at the training batch, named apart from its eval shapes
+K1_TRAIN = [("train " + name, shape) for name, shape in TRAIN]
 SCENE = [("scene256 l1-l4", (8, 32, 256, 64, 8)), ("scene256 l5", (8, 32, 256, 128, 8)),
          ("scene256 l6-l7", (8, 16, 256, 128, 16)), ("scene256 l8", (8, 16, 256, 256, 16)),
          ("scene256 l9-l10", (8, 8, 256, 256, 32)), ("ragged V=37", (3, 7, 37, 80, 10))]
@@ -61,7 +62,7 @@ K5_SHAPES = [("l1", (64, 52, 20, 3, 64, 8)), ("l2-l4", (64, 52, 20, 64, 64, 8)),
              ("l8", (64, 26, 20, 128, 256, 16)), ("l9-l10", (64, 13, 20, 256, 256, 32))]
 K6_SHAPES = [("l5", (16, 52, 20, 64, 128, 8)), ("l6-l7", (16, 26, 20, 128, 128, 16)),
              ("l8", (16, 26, 20, 128, 256, 16)), ("l9-l10", (16, 13, 20, 256, 256, 32))]
-SHAPES = {"K1": EVAL + SCENE, "K2": TRAIN + SCENE, "K3": TRAIN + SCENE, "K5": K5_SHAPES,
+SHAPES = {"K1": EVAL + K1_TRAIN + SCENE, "K2": TRAIN + SCENE, "K3": TRAIN + SCENE, "K5": K5_SHAPES,
           "K6": K6_SHAPES}
 # launches of each block shape per eval forward or train step, NW-UCLA and
 # scene256 (K1-K3); per fast-eval forward (K5) and fused train step (K6)
@@ -70,6 +71,7 @@ PER_BLOCK = {"K5": {"l1": 1, "l2-l4": 3, "l5": 1, "l6-l7": 2, "l8": 1, "l9-l10":
              "K6": {"l5": 1, "l6-l7": 2, "l8": 1, "l9-l10": 2}}
 # (sum, kernel, prefix of its shape names)
 PATHS = (("K1 per NW-UCLA eval forward, batch 64", "K1", ""),
+         ("K1 per NW-UCLA train step, batch 16", "K1", "train "),
          ("K2 per NW-UCLA train step, batch 16", "K2", ""),
          ("K3 per NW-UCLA train step, batch 16", "K3", ""),
          ("K1t per scene256 eval forward, batch 8", "K1", "scene256 "),
@@ -77,7 +79,7 @@ PATHS = (("K1 per NW-UCLA eval forward, batch 64", "K1", ""),
          ("K3 per scene256 train step, batch 8", "K3", "scene256 "),
          ("K5 per fast-eval forward, batch 64", "K5", ""),
          ("K6 per fused-conv3 train step, batch 16", "K6", ""))
-TILED_RTOL = 1e-5  # chip_smoke.py phase 3: rtol and atol / max|plain|
+UNIT_RTOL = 1e-5  # chip_smoke.py phase 3: rtol and atol / max|plain| of K1, K2
 # chip_smoke.py phases 6 and 7: (rtol, atol / max|plain|) per output
 K5_TOL = {"prefix": (1e-5, 1e-4), "pw": (1e-5, 1e-4)}
 K6_TOL = {"dx": (1e-5, 1e-4), "dw3": (1e-4, 1e-4), "db3": (1e-4, 1e-4)}
@@ -217,7 +219,7 @@ def within(out, want, rtol, atol_frac) -> bool:
 def within_plain(kname, outs, wants) -> bool:
     """Each output within the kernel's tolerance of its plain version."""
     tols = {"K5": list(K5_TOL.values()), "K6": list(K6_TOL.values())}.get(
-        kname, [(TILED_RTOL, TILED_RTOL)])
+        kname, [(UNIT_RTOL, UNIT_RTOL)])
     return all(within(o, w, *tol) for o, w, tol in zip(outs, wants, tols))
 
 
@@ -294,21 +296,27 @@ def other(fns, kname, a):
     return outs
 
 
+def check_mode(kname) -> str:
+    """How kname is held: "bitwise" to the other sources (K3), or "plain":
+    within its tolerance of its plain version in both trees, two launches of
+    this tree bitwise equal (K1, K2, K5, K6: a redesign sums in another
+    order than the tree it replaces)."""
+    return "bitwise" if kname == "K3" else "plain"
+
+
 def check(kname, shape, a, fns):
-    """(design, what was checked, ok) for one kernel at one shape."""
+    """(design, what was checked, ok) for one kernel at one shape, as
+    check_mode says."""
     mine, theirs = this(kname, a), other(fns, kname, a)
     torch.cuda.synchronize()
-    if kname in ("K5", "K6"):
-        again = this(kname, a)
-        want = plain(kname, a)
-        ok = (all(torch.equal(m, t) for m, t in zip(mine, again))
-              and within_plain(kname, mine, want) and within_plain(kname, theirs, want))
-        return "whole", "within plain, two launches bitwise equal", ok
-    if tiled(kname, shape):
-        want = plain(kname, a)
-        return "tiled", "within plain", (within_plain(kname, mine, want)
-                                         and within_plain(kname, theirs, want))
-    return "whole", "bitwise equal", all(torch.equal(m, t) for m, t in zip(mine, theirs))
+    if check_mode(kname) == "bitwise":
+        return "whole", "bitwise equal", all(torch.equal(m, t) for m, t in zip(mine, theirs))
+    again = this(kname, a)
+    want = plain(kname, a)
+    ok = (all(torch.equal(m, t) for m, t in zip(mine, again))
+          and within_plain(kname, mine, want) and within_plain(kname, theirs, want))
+    return ("tiled" if tiled(kname, shape) else "whole",
+            "within plain, two launches bitwise equal", ok)
 
 
 def per_path_count(kname, name, prefix):
@@ -319,6 +327,16 @@ def per_path_count(kname, name, prefix):
     if not name.startswith(prefix):
         return 0
     return PER_PATH.get(name[len(prefix):], 0)
+
+
+def path_table() -> dict:
+    """{path: {shape name: launches on the path}} for every path of PATHS,
+    the shapes that are not on it left out."""
+    table = {}
+    for key, kname, prefix in PATHS:
+        counts = {name: per_path_count(kname, name, prefix) for name, _ in SHAPES[kname]}
+        table[key] = {name: n for name, n in counts.items() if n}
+    return table
 
 
 def main(argv=None):
@@ -358,8 +376,8 @@ def main(argv=None):
                     f"{row['other_ms'] * 1e3:.1f} us")
     ok = all(r["ok"] for r in rows)
     per_path = {}
-    for key, kname, prefix in PATHS:
-        per_path[key] = {who: sum(r[who] * per_path_count(kname, r["name"], prefix)
+    for (key, kname, _), counts in zip(PATHS, path_table().values()):
+        per_path[key] = {who: sum(r[who] * counts.get(r["name"], 0)
                                   for r in rows if r["kernel"] == kname)
                          for who in ("this_ms", "other_ms")}
         log(f"{key}: this {per_path[key]['this_ms']:.4f} ms, other "

@@ -4,8 +4,9 @@
 
 Each kernel against its plain PyTorch version on the same inputs, f32 with
 TF32 off, K1 and K2 in both of their designs (whole-V and joint-tiled, up to
-V=256), with the designs' variant queries and K5's shape rule held to what
-the launchers run and take: K1 and K2 within rtol 1e-5 and atol 1e-5 * max|plain| (the sum
+V=256; the whole-V design also in bf16, two launches bitwise equal, its
+block counts against ops/cuda/ctr_gc.py:whole_v_blocks), with the designs'
+variant queries and K5's shape rule held to what the launchers run and take: K1 and K2 within rtol 1e-5 and atol 1e-5 * max|plain| (the sum
 order differs); K3's gradients are sums of up to N*T*V*V terms taken in
 another order, so within rtol 1e-4 and atol 1e-4 * max|plain| (dalpha, one
 sum over all N*S*V*V*C terms, within rtol 1e-3). K6's dx within rtol 1e-5
@@ -59,12 +60,15 @@ def _inputs(n, t, v, c, r, device, s=3, seed=0):
 ], ids=lambda s: "N{}-T{}-V{}-C{}-R{}".format(*s))
 def test_unit_kernel_matches_plain(device, shape):
     args = _inputs(*shape, device=device)
-    before = ctr_gc.launches
+    n, t, v, c, r = shape
+    # the counter of the design the launcher takes (whole-V up to V = 24)
+    counter = "launches" if ctr_gc.fwd_variant(3, v, r) == "whole" else "launches_tiled"
+    before = getattr(ctr_gc, counter)
     with torch.no_grad():
         got = unit_ctr_gc(*args)
         want = unit_ctr_gc_plain(*args)
     torch.cuda.synchronize()
-    assert ctr_gc.launches == before + 1
+    assert getattr(ctr_gc, counter) == before + 1
     scale = want.abs().max().item()
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5 * scale)
 
@@ -126,11 +130,14 @@ def test_dx3_kernel_matches_plain(device, shape):
     x1s, x2s, _, w4s, b4s, alpha, As = _inputs(*shape, device=device)
     n, t, v, c, _ = shape
     g = torch.randn((n, t, v, c), generator=torch.Generator().manual_seed(9)).to(device)
-    before = ctr_gc.bwd_dx3_launches
+    # the counter of the design the launcher takes (whole-V up to V = 24)
+    counter = ("bwd_dx3_launches" if ctr_gc.dx3_variant(3, v, shape[4]) == "whole"
+               else "bwd_dx3_tiled_launches")
+    before = getattr(ctr_gc, counter)
     got = ctr_gc.unit_ctr_gc_bwd_dx3(x1s, x2s, g, w4s, b4s, alpha, As)
     want = unit_ctr_gc_dx3_plain(x1s, x2s, g, w4s, b4s, alpha, As)
     torch.cuda.synchronize()
-    assert ctr_gc.bwd_dx3_launches == before + 1
+    assert getattr(ctr_gc, counter) == before + 1
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5 * want.abs().max().item())
 
 
@@ -153,14 +160,77 @@ def test_param_kernel_matches_plain(device, shape):
         torch.testing.assert_close(a, w, rtol=rtol, atol=atol, msg=name)
 
 
-# past the whole-V designs' shared memory: a ragged V (partial joint tiles
-# of 16 and of K3's 20), V=64, configs/scene256.yaml's V=256 at its blocks'
-# widths (batch cut to 2), and the joint-tiled design's edges: T not a
-# multiple of the frame tile (13 of 16; 33 and 40 of 32, a second chunk of 1
-# and 8 frames), C not a multiple of the channel tile (80 of 64, 48 of 32),
-# N = 1
+# the whole-V K1 and K2 (csrc/unit_ctr_gc_whole.cuh), (N, T, V, C, R, S): every
+# NW-UCLA block at the training batch 16 and the eval batch 64 (the main
+# paths), one subset (the standalone CTRGC's, K4), V = 24 (the design's last
+# V; V = 25 takes the joint-tiled one: LARGE_V_SHAPES), the ragged shape
+# (odd T, C not a multiple of the 16-channel tile, R < 16) and N = 1
+NUCLA_BLOCKS = [(52, 20, 64, 8), (52, 20, 128, 8), (26, 20, 128, 16), (26, 20, 256, 16),
+                (13, 20, 256, 32)]
+WHOLE_MAIN = [(n,) + b + (3,) for n in (16, 64) for b in NUCLA_BLOCKS]
+WHOLE_SHAPES = WHOLE_MAIN + [(16, 52, 20, 128, 8, 1), (4, 26, 24, 128, 16, 3),
+                             (3, 7, 20, 80, 10, 3), (1, 13, 20, 256, 32, 3)]
+WHOLE_COUNTERS = {torch.float32: ("launches", "bwd_dx3_launches"),
+                  torch.bfloat16: ("launches_bf16", "bwd_dx3_launches_bf16")}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape", WHOLE_SHAPES,
+                         ids=lambda s: "N{}-T{}-V{}-C{}-R{}-S{}".format(*s))
+def test_whole_v_kernels_match_plain(device, shape, dtype):
+    """K1 and K2 in their whole-V design against their plain versions (f32
+    within rtol 1e-5 and atol 1e-5 * max|plain|; bf16 as _bf16_close says),
+    two launches of each bitwise equal, each launch on the whole-V counter of
+    its form."""
+    n, t, v, c, r, s = shape
+    x1s, x2s, x3s, w4s, b4s, alpha, As = _inputs(n, t, v, c, r, device=device, s=s)
+    g = torch.randn((n, t, v, c), generator=torch.Generator().manual_seed(9)).to(device)
+    x1s, x2s, x3s, g = (a.to(dtype) for a in (x1s, x2s, x3s, g))
+    assert ctr_gc.fwd_variant(s, v, r) == ctr_gc.dx3_variant(s, v, r) == "whole"
+    before = _counts()
+    with torch.no_grad():
+        out = ctr_gc.unit_ctr_gc_fwd(x1s, x2s, x3s, w4s, b4s, alpha, As)
+        out2 = ctr_gc.unit_ctr_gc_fwd(x1s, x2s, x3s, w4s, b4s, alpha, As)
+        dx3 = ctr_gc.unit_ctr_gc_bwd_dx3(x1s, x2s, g, w4s, b4s, alpha, As)
+        dx3_2 = ctr_gc.unit_ctr_gc_bwd_dx3(x1s, x2s, g, w4s, b4s, alpha, As)
+        want = unit_ctr_gc_plain(x1s, x2s, x3s, w4s, b4s, alpha, As)
+        want_dx3 = unit_ctr_gc_dx3_plain(x1s, x2s, g, w4s, b4s, alpha, As)
+    torch.cuda.synchronize()
+    moved = {k: m - before[k] for k, m in _counts().items() if m != before[k]}
+    assert moved == dict.fromkeys(WHOLE_COUNTERS[dtype], 2), moved
+    assert torch.equal(out, out2), "two K1 launches differ"
+    assert torch.equal(dx3, dx3_2), "two K2 launches differ"
+    for name, got, w in (("out", out, want), ("dx3s", dx3, want_dx3)):
+        if dtype == torch.bfloat16:
+            _bf16_close(got, w, name)
+        else:
+            torch.testing.assert_close(got, w, rtol=1e-5, atol=1e-5 * w.abs().max().item(),
+                                       msg=name)
+
+
+@pytest.mark.parametrize("shape", WHOLE_SHAPES,
+                         ids=lambda s: "N{}-T{}-V{}-C{}-R{}-S{}".format(*s))
+def test_whole_v_blocks_match_the_launchers(device, shape):
+    """fwd_blocks and dx3_blocks (the launchers' grids) are
+    ops/cuda/ctr_gc.py:whole_v_blocks, at least one block per SM (132) at
+    every main-path shape."""
+    n, t, v, c, r, s = shape
+    k1 = ctr_gc.fwd_blocks(n, s, t, v, r, c)
+    k2 = ctr_gc.dx3_blocks(n, s, t, v, r, c)
+    assert k1 == ctr_gc.whole_v_blocks(n, s, t, c, fwd=True)
+    assert k2 == ctr_gc.whole_v_blocks(n, s, t, c, fwd=False)
+    if shape in WHOLE_MAIN:
+        assert min(k1, k2) >= 132, (k1, k2)
+
+
+# past the whole-V designs (V = 25, NTU's joints, the first V they leave to
+# the joint-tiled ones), a ragged V (partial joint tiles of 16 and of K3's
+# 20), V=64, configs/scene256.yaml's V=256 at its blocks' widths (batch cut
+# to 2), and the joint-tiled design's edges: T not a multiple of the frame
+# tile (13 of 16; 33 and 40 of 32, a second chunk of 1 and 8 frames), C not
+# a multiple of the channel tile (80 of 64, 48 of 32), N = 1
 LARGE_V_SHAPES = [
-    (2, 7, 37, 80, 10), (2, 9, 64, 64, 8), (2, 32, 256, 64, 8),
+    (4, 26, 25, 128, 16), (2, 7, 37, 80, 10), (2, 9, 64, 64, 8), (2, 32, 256, 64, 8),
     (2, 16, 256, 128, 16), (2, 8, 256, 256, 32),
     (2, 13, 37, 80, 10), (2, 40, 256, 64, 8), (2, 33, 48, 48, 16), (1, 16, 256, 128, 16),
 ]
@@ -244,7 +314,7 @@ def test_bf16_kernels_match_plain(device, shape):
     g = torch.randn((n, t, v, c), generator=torch.Generator().manual_seed(9)).to(device)
     x1s, x2s, x3s, g = (a.bfloat16() for a in (x1s, x2s, x3s, g))
     tiled = ctr_gc.fwd_variant(3, v, r) == "tiled"
-    assert tiled == (ctr_gc.dx3_variant(3, v, r) == "tiled") == (v > 28)
+    assert tiled == (ctr_gc.dx3_variant(3, v, r) == "tiled") == (v > 24)
     before = _counts()
     with torch.no_grad():
         out = ctr_gc.unit_ctr_gc_fwd(x1s, x2s, x3s, w4s, b4s, alpha, As)
@@ -562,13 +632,14 @@ def test_fast_eval_on_card_matches_cpu(device):
 # (N, T, V, Cin, C, R): l5-l10 at a small batch, V=25, a ragged shape, and
 # the two-phase design's edges: N = 1; rows N*T*V not a multiple of the
 # 64-row product tile nor of the 32-row chunk; Cin and S*C not multiples of
-# the 64-wide tiles (Cin 136, C 136; Cin 30 takes 4-byte copies); V = 32 at
-# R = 32, where the x3 gradient takes the joint-tiled design
+# the 64-wide tiles (Cin 136, C 136; Cin 30 takes 4-byte copies); V = 24 at
+# R = 32, the whole-V x3 gradient's last V; V = 32 at R = 32, where the x3
+# gradient takes the joint-tiled design
 CONV3_SHAPES = [
     (4, 52, 20, 64, 128, 8), (4, 26, 20, 128, 128, 16), (4, 26, 20, 128, 256, 16),
     (4, 13, 20, 256, 256, 32), (3, 9, 25, 128, 128, 16), (2, 13, 25, 256, 256, 32),
     (3, 7, 20, 30, 40, 10), (1, 13, 20, 256, 256, 32), (1, 11, 20, 136, 136, 16),
-    (2, 9, 32, 64, 128, 32),
+    (2, 9, 32, 64, 128, 32), (2, 9, 24, 64, 128, 32),
 ]
 
 
@@ -683,10 +754,16 @@ def test_ctrgc_module_on_card_matches_plain_route(device, shape, monkeypatch):
         grads.update(zip(("x", "A", "alpha"), (a.grad for a in leaves)))
         return out.detach(), grads
 
-    before = (ctr_gc.launches, ctr_gc.bwd_dx3_launches)
+    # the counters of the designs the launchers take at S = 1 (whole-V up to
+    # V = 24)
+    r = module.conv4_kernel.shape[2]
+    counters = (("launches", "bwd_dx3_launches") if ctr_gc.fwd_variant(1, v, r) == "whole"
+                else ("launches_tiled", "bwd_dx3_tiled_launches"))
+    assert ctr_gc.dx3_variant(1, v, r) == ctr_gc.fwd_variant(1, v, r)
+    before = [getattr(ctr_gc, k) for k in counters]
     out, grads = run()
     torch.cuda.synchronize()
-    assert (ctr_gc.launches, ctr_gc.bwd_dx3_launches) == (before[0] + 1, before[1] + 1)
+    assert [getattr(ctr_gc, k) for k in counters] == [b + 1 for b in before]
     monkeypatch.setattr(ctrgcn, "ctr_gc_fused", ctr_gc_fused_plain)
     want_out, want = run()
     torch.testing.assert_close(out, want_out, rtol=1e-5, atol=1e-5 * want_out.abs().max().item())

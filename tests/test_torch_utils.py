@@ -179,3 +179,107 @@ def test_fused_step_and_fast_eval_paths_at_the_3xtf32_rate():
     # a ragged block with a down conv (Cin != C) reads wd and bd
     assert roofline.gcn_tcn_block_sol(3, 7, 20, 80, 64, 10)[0] > roofline.gcn_tcn_block_sol(
         3, 7, 20, 64, 64, 10)[0]
+
+
+# the NW-UCLA unit-op blocks (N, T, V, C, R) at the training batch, with the
+# launches of K1 (and of K2) per train step
+UNIT_STEP = [((16, 52, 20, 64, 8), 4), ((16, 52, 20, 128, 8), 1),
+             ((16, 26, 20, 128, 16), 2), ((16, 26, 20, 256, 16), 1),
+             ((16, 13, 20, 256, 32), 2)]
+
+
+def test_k1_and_k2_paths_at_the_nucla_batches():
+    # every block is bound by its bytes: K1 per train step at batch 16 and
+    # K2 (the same values, g in and dx3s out) 0.0615 ms; K1 per eval forward
+    # at batch 64 four times that, 0.2457 ms
+    k1 = sum(k * roofline.unit_ctr_gc_sol(*shape)[0] for shape, k in UNIT_STEP)
+    k2 = sum(k * roofline.unit_ctr_gc_dx3_sol(*shape)[0] for shape, k in UNIT_STEP)
+    k1_64 = sum(k * roofline.unit_ctr_gc_sol(64, *shape[1:])[0] for shape, k in UNIT_STEP)
+    assert k1 == pytest.approx(0.06150, rel=1e-3)
+    assert k2 == pytest.approx(0.06150, rel=1e-3)
+    assert k1_64 == pytest.approx(0.24566, rel=1e-3)
+    assert all(roofline.unit_ctr_gc_sol(*shape)[1] == "bytes" for shape, _ in UNIT_STEP)
+
+
+@pytest.mark.parametrize("n,fwd,want", [
+    # by hand: ceil(C / 16) channel tiles x N x, for K1, ceil(T / 16) frame
+    # tiles (l1-l4 4 x 4, l5 8 x 4, l6-l7 8 x 2, l8 16 x 2, l9-l10 16 x 1),
+    # for K2 S = 3 subsets (l1-l4 4 x 3, l5 and l6-l7 8 x 3, l8 and l9-l10
+    # 16 x 3)
+    (16, True, [256, 512, 256, 512, 256]),
+    (64, True, [1024, 2048, 1024, 2048, 1024]),
+    (16, False, [192, 384, 384, 768, 768]),
+], ids=["K1-batch16", "K1-batch64", "K2-batch16"])
+def test_whole_v_blocks_fill_the_card_at_the_main_paths(n, fwd, want):
+    from tamgcn_tpu_torch.ops.cuda import ctr_gc
+
+    got = [ctr_gc.whole_v_blocks(n, 3, t, c, fwd=fwd) for (_, t, _, c, _), _ in UNIT_STEP]
+    assert got == want and min(got) >= 132
+
+
+def test_whole_v_blocks_at_the_edges():
+    from tamgcn_tpu_torch.ops.cuda import ctr_gc
+
+    # the ragged shape: C 80 in 5 tiles, T 7 in one; T 17 and 40 in 2 and 3
+    # balanced frame tiles of K1 (K2's blocks walk the frames); one subset
+    # (the standalone CTRGC)
+    assert ctr_gc.whole_v_blocks(3, 3, 7, 80) == 15
+    assert ctr_gc.whole_v_blocks(3, 3, 7, 80, fwd=False) == 45
+    assert ctr_gc.whole_v_blocks(1, 3, 17, 16) == 2
+    assert ctr_gc.whole_v_blocks(2, 3, 40, 64) == 4 * 3 * 2
+    assert ctr_gc.whole_v_blocks(2, 3, 40, 64, fwd=False) == 4 * 3 * 2
+    assert ctr_gc.whole_v_blocks(16, 1, 52, 128, fwd=False) == 8 * 16
+
+
+def test_f32_ab_paths_and_check_modes():
+    from tamgcn_tpu_torch.tools import f32_ab
+
+    table = f32_ab.path_table()
+    nucla = {"l1-l4": 4, "l5": 1, "l6-l7": 2, "l8": 1, "l9-l10": 2}
+    assert table["K1 per NW-UCLA eval forward, batch 64"] == nucla
+    assert table["K1 per NW-UCLA train step, batch 16"] == {
+        "train " + name: k for name, k in nucla.items()}
+    assert table["K2 per NW-UCLA train step, batch 16"] == nucla
+    assert table["K3 per NW-UCLA train step, batch 16"] == nucla
+    for key in ("K1t per scene256 eval forward, batch 8", "K2t per scene256 train step, batch 8"):
+        assert table[key] == {"scene256 " + name: k for name, k in nucla.items()}
+    assert sum(table["K5 per fast-eval forward, batch 64"].values()) == 10
+    assert sum(table["K6 per fused-conv3 train step, batch 16"].values()) == 6
+    # K1's two NW-UCLA paths at their batches
+    k1 = dict(f32_ab.SHAPES["K1"])
+    assert {k1[name][0] for name in table["K1 per NW-UCLA eval forward, batch 64"]} == {64}
+    assert {k1[name][0] for name in table["K1 per NW-UCLA train step, batch 16"]} == {16}
+    # K3 bitwise to the other tree; the redesigned kernels to their plain versions
+    assert f32_ab.check_mode("K3") == "bitwise"
+    assert {f32_ab.check_mode(k) for k in ("K1", "K2", "K5", "K6")} == {"plain"}
+
+
+def test_design_ab_patches_only_the_whole_v_rule(tmp_path):
+    """tools/design_ab.py builds the whole-V design up to V = 32 and the
+    joint-tiled one at every V from copies of csrc/ that differ from it in
+    csrc/unit_ctr_gc_whole.cuh's rule alone: kMaxV and the launcher's case
+    for 4 joint tiles, or `takes` returning false."""
+    import os
+
+    from tamgcn_tpu_torch.ops.cuda import build
+    from tamgcn_tpu_torch.tools import design_ab
+
+    for design in ("whole", "tiled"):
+        copy = design_ab.patched(build.CSRC, str(tmp_path), design)
+        assert sorted(os.listdir(copy)) == sorted(os.listdir(build.CSRC))
+        for name in os.listdir(build.CSRC):
+            with open(os.path.join(build.CSRC, name)) as f, open(os.path.join(copy, name)) as g:
+                a, b = f.read().splitlines(), g.read().splitlines()
+            if name != "unit_ctr_gc_whole.cuh":
+                assert a == b, name
+                continue
+            added = [line for line in b if line not in a]
+            removed = [line for line in a if line not in b]
+            if design == "tiled":
+                assert len(a) == len(b) and removed == [design_ab.TAKES + " return V >= 1 && V <= kMaxV; }"]
+                assert added == [design_ab.TAKES + " return false; return V >= 1 && V <= kMaxV; }"]
+            else:
+                assert len(b) == len(a) + 1 and len(removed) == 1
+                assert removed[0].startswith(design_ab.MAX_V + "24;")
+                assert added[0].startswith(design_ab.MAX_V + "32;")
+                assert added[1].startswith("    case 4: return L::template whole<RP, 4, TA>(")
