@@ -130,10 +130,34 @@ Phases, each of which fails the run (non-zero exit, no result line):
      and K2-bf16's dx3 zeroed; the bf16 eval forward at
      batch 64 and train step at batch 16 and 64 timed beside the f32 ones;
      tools/bf16_convergence.py in-process for 2 small epochs with a launch
-     check.
-The launch checks of phases 4-10 also require K6 = 0 (except with the
+     check of every counter.
+ 11. bf16 with TAMGCN_FUSE_CONV3=1 and the standalone CTRGC in bf16: holds
+     K6-bf16 (bf16 activations, its x3 gradient f32 inside, bf16 products)
+     against its bf16 plain version at phase 7's shapes (l5-l10 at batch 16,
+     V=25, a ragged shape with odd T and Cin not a multiple of 8, the
+     two-phase design's edges): dx, dw3 and db3 within 2^-7 of their max
+     |plain| and equal in all but 1% of the elements, two launches bitwise
+     equal, timed beside its plain version and the unfused composition
+     (K2-bf16, two bf16 torch.matmul products and a sum); one epoch of
+     `--phase train` through `__main__.main` at full width with
+     `--model_args dtype=bfloat16` and TAMGCN_FUSE_CONV3=1 (set around the
+     call and restored): K1-bf16 10 per step and eval batch, K2-bf16 4,
+     K6-bf16 6 and K3-bf16 10 per step, no f32 kernel, finite losses and
+     f32 checkpoints; check_trajectory_bf16 with the switch on (phase 10's
+     references), which must fail with each of K6-bf16's outputs zeroed;
+     the bf16 train step with the switch at batch 16 and 64 timed beside the
+     bf16 default step, with device time by kernel name; then
+     CTRGC(dtype="bfloat16") forward and backward on the card through
+     K4-bf16 (bf16 x1, x2, x3, f32 output) against the same module with its
+     plain versions at (N=16, T=52, V=20, Cin=64, C=128) and V=25, each
+     launch on the counter of its direction and design, and K4-bf16's
+     forward and transpose on the module's operands within 1e-4 *
+     max|plain|, two launches bitwise equal, timed against its plain
+     version.
+The launch checks of phases 4-11 also require K6 = 0 (except with the
 switch on), T1 = T2 = 0 (except in the tools' runs), the joint-tiled
-designs at 0 outside phase 9 and the bf16 forms at 0 outside phase 10. The
+designs at 0 outside phase 9, the bf16 forms at 0 outside phases 10-11 and
+K6-bf16 and K4-bf16 at 0 outside phase 11. The
 last lines are the card line, the
 kernels JSON and the result JSON. The kernels JSON gives, for each kernel,
 its times and bound summed over the launches of one eval forward at batch 64
@@ -147,7 +171,9 @@ CUDA-graph time under "device_ms", the folded path's under
 branch shapes, with the engine composition's time as "library_ms") or of one
 tile-form call at the tools' shape (T2, with one einsum's time as
 "library_ms"), of one bf16 eval forward at batch 64 (K1_bf16) or bf16 train
-step at batch 16 (K2_bf16, K3_bf16), and each shape's row under "shapes";
+step at batch 16 (K2_bf16, K3_bf16; K6_bf16 with the switch on, the
+composition's time under "unfused_k2_cublas_ms"), of one bf16 CTRGC forward
+and backward (K4_bf16), and each shape's row under "shapes";
 the unit-op kernels' CUDA-graph device time under "device_ms".
 """
 from __future__ import annotations
@@ -710,15 +736,20 @@ def nucla_model_args() -> dict:
 
 
 # each kernel's launch counter in ops/cuda/ctr_gc.py; K1t and K2t are the
-# joint-tiled designs of K1 and K2, the *_bf16 kernels the bf16 forms
+# joint-tiled designs of K1 and K2, the *_bf16 kernels the bf16 forms; K4
+# and K4t the bf16 form of K4 forward in either design, K4dx3 and K4dx3t
+# its transpose (the x3 gradient)
 UNIT_COUNTERS = {"K1": "launches", "K1t": "launches_tiled", "K2": "bwd_dx3_launches",
                  "K2t": "bwd_dx3_tiled_launches", "K3": "bwd_param_launches",
                  "K6": "bwd_conv3_launches", "K1_bf16": "launches_bf16",
                  "K1t_bf16": "launches_tiled_bf16", "K2_bf16": "bwd_dx3_launches_bf16",
                  "K2t_bf16": "bwd_dx3_tiled_launches_bf16",
-                 "K3_bf16": "bwd_param_launches_bf16"}
+                 "K3_bf16": "bwd_param_launches_bf16", "K6_bf16": "bwd_conv3_launches_bf16",
+                 "K4_bf16": "k4_launches_bf16", "K4t_bf16": "k4_tiled_launches_bf16",
+                 "K4dx3_bf16": "k4_t_launches_bf16", "K4dx3t_bf16": "k4_t_tiled_launches_bf16"}
 KERNELS = ("K1", "K1t", "K2", "K2t", "K3", "K5", "K6", "T1", "T2", "K1_bf16", "K1t_bf16",
-           "K2_bf16", "K2t_bf16", "K3_bf16")
+           "K2_bf16", "K2t_bf16", "K3_bf16", "K6_bf16", "K4_bf16", "K4t_bf16", "K4dx3_bf16",
+           "K4dx3t_bf16")
 
 
 def reset_launches():
@@ -827,18 +858,24 @@ def check_logits(work_dir: str, weights: str):
 
 
 # the first kernel each wrapper launches, by its counter's name; a bf16 form
-# is the same template on __nv_bfloat16, so its name holds "bfloat16"
+# is the same template on __nv_bfloat16, so its name holds "bfloat16"; K4's
+# kernels (its bf16 form alone) name their direction, true for the forward
 KERNEL_SYMBOLS = {"K1": "unit_ctr_gc_fwd_kernel", "K1t": "unit_ctr_gc_fwd_tiled_kernel",
                   "K2": "unit_ctr_gc_bwd_dx3_kernel",
                   "K2t": "unit_ctr_gc_bwd_dx3_tiled_kernel",
                   "K3": "unit_ctr_gc_bwd_param_kernel", "K5": "block_agg_kernel",
                   "K6": "unit_ctr_gc_bwd_conv3_kernel", "T1": "ms_tcn_kernel",
-                  "T2": "stage2_kernel"}
+                  "T2": "stage2_kernel", "K4": "ctr_gc_fused_kernel<true",
+                  "K4t": "ctr_gc_fused_tiled_kernel<true",
+                  "K4dx3": "ctr_gc_fused_kernel<false",
+                  "K4dx3t": "ctr_gc_fused_tiled_kernel<false"}
 
 
 def is_kernel(kname: str, event_name: str) -> bool:
     """Whether a profiler event is the first kernel of `kname` (KERNELS)."""
     base, bf16 = kname.removesuffix("_bf16"), kname.endswith("_bf16")
+    if base.startswith("K4"):
+        return KERNEL_SYMBOLS[base] in event_name
     return KERNEL_SYMBOLS[base] in event_name and ("bfloat16" in event_name) == bf16
 
 
@@ -1298,16 +1335,17 @@ def run_fused_train_path(work_dir: str):
     return dict(seconds=seconds, launches=launches, progress=progress.tolist())
 
 
-def time_train_fused(weights: str, device):
+def time_train_fused(weights: str, device, compute=None):
     """Steady-state train step at batch 16 and 64 with TAMGCN_FUSE_CONV3=1
     beside the default step, CUDA events in turns default, fused, fused,
-    default; the fused step's device time by kernel name. Returns {batch:
+    default; the fused step's device time by kernel name; in the compute
+    dtype `compute` (model_args.dtype, float32 by default). Returns {batch:
     dict}."""
     import torch
 
     out = {}
     for batch in (TRAIN_BATCH, 64):
-        model, opt = train_model(weights, device)
+        model, opt = train_model(weights, device, compute=compute)
         (x, y), = train_batches(1, batch)
         x, y = torch.from_numpy(x).to(device), torch.from_numpy(y).to(device)
 
@@ -1329,9 +1367,10 @@ def check_ctrgc(device):
     """The standalone CTRGC module, forward and backward on the card (K1 and
     K2 at S = 1), against the same module with the plain single-subset op;
     ctr_gc_fused without b4 against ctr_gc_fused_plain; and K4's work on the
-    module's operands (K1 and K2 at S = 1) against its plain version, timed.
-    Outputs within rtol 1e-5 and atol 1e-5*max, gradients within rtol 1e-4
-    and atol 1e-4*max (alpha's, one sum over every term, within rtol 1e-3).
+    module's operands (K1 and K2 at S = 1) against its plain version, timed
+    by events and by a CUDA graph. Outputs within rtol 1e-5 and atol
+    1e-5*max, gradients within rtol 1e-4 and atol 1e-4*max (alpha's, one sum
+    over every term, within rtol 1e-3).
     Returns (rows, launches of the first module's forward and backward)."""
     from unittest import mock
 
@@ -1340,6 +1379,7 @@ def check_ctrgc(device):
     from tamgcn_tpu_torch.models import CTRGC, ctrgcn
     from tamgcn_tpu_torch.ops import aggregation as agg
     from tamgcn_tpu_torch.ops.cuda import ctr_gc
+    from tamgcn_tpu_torch.utils.timing import graph_ms
 
     def check(what, got, want, rtol, atol_frac):
         ok, max_err, scale = _within(got, want, rtol, atol_frac)
@@ -1418,18 +1458,21 @@ def check_ctrgc(device):
                     for part, a, b in zip(("out", "dx3"), k4(), k4_plain())]
             ms = cuda_ms(k4)
             plain_ms = cuda_ms(k4_plain)
+            device_ms = graph_ms(k4)
         route_ms = cuda_ms(run)
         bound_ms, bound_by = k4_bound((N, T, V, Cin, C))
+        check_above_bound(f"K4 {name}", device_ms, bound_ms)
         worst = max(errs, key=lambda e: e[1] / max(e[2], 1e-30))
         rows.append(dict(name=name, shape=dict(zip(("N", "T", "V", "Cin", "C"),
                                                    (N, T, V, Cin, C))),
                          launches_per_step=int(i == 0), max_abs_err=worst[1],
                          max_abs_plain=worst[2], worst_output=worst[0], ms=ms,
-                         plain_ms=plain_ms, module_fwd_bwd_ms=route_ms,
+                         plain_ms=plain_ms, device_ms=device_ms, module_fwd_bwd_ms=route_ms,
                          bound_ms=bound_ms, bound_by=bound_by))
         print(f"K4 (CTRGC) {name:9s} N,T,V,Cin,C={(N, T, V, Cin, C)}: module forward and "
               f"backward (K1, K2 at S=1) {route_ms:.3f} ms, launches {launches}; K4's work "
-              f"(forward + x3 gradient) {ms * 1e3:.1f} us, plain {plain_ms * 1e3:.1f} us, "
+              f"(forward + x3 gradient) {ms * 1e3:.1f} us (device {device_ms * 1e3:.1f}), "
+              f"plain {plain_ms * 1e3:.1f} us, "
               f"bound {bound_ms * 1e3:.1f} us ({bound_by}), max_abs_err {worst[1]:.3e} in "
               f"{worst[0]} (max|plain| {worst[2]:.3e})", flush=True)
     return rows, main_launches
@@ -1987,9 +2030,11 @@ def check_bf16_logits(work_dir: str, weights: str, device):
     return rel
 
 
-# the planted faults of check_trajectory_bf16: each of K3's outputs, and K2's
+# the planted faults of check_trajectory_bf16: each of K3's outputs, and K2's;
+# with the switch on, each of K6's
 BF16_FAULTS = [("unit_ctr_gc_bwd_param", K3_OUTPUTS, part) for part in K3_OUTPUTS] + [
     ("unit_ctr_gc_bwd_dx3", ("dx3s",), "dx3s")]
+BF16_FUSED_FAULTS = [("unit_ctr_gc_bwd_conv3", K6_OUTPUTS, part) for part in K6_OUTPUTS]
 
 
 def bf16_trajectory_ratios(run, plain, f32):
@@ -2045,9 +2090,10 @@ def trajectory_spread(runs, ref):
     return out
 
 
-def check_trajectory_bf16(weights: str, device):
+def check_trajectory_bf16(weights: str, device, fused: bool = False, references=None):
     """TRAJ_STEPS SGD steps in bf16 (model_args.dtype) from the same weights
-    on the same batches: on the card with K1-K3's bf16 forms; twice with the
+    on the same batches: on the card with K1-K3's bf16 forms (with `fused`,
+    TAMGCN_FUSE_CONV3=1: K6-bf16 at the six blocks with C >= 128); twice with the
     plain bf16 unit op on the card; and on the card in f32 with the f32
     kernels (phase 5 holds those to the CPU). The kernels and the plain
     versions differ only in f32 sum order before a rounding, bf16 and f32 in
@@ -2063,24 +2109,33 @@ def check_trajectory_bf16(weights: str, device):
     gradient in exact arithmetic, so theirs is rounding noise and they are
     not held; the alphas' gradients (each one sum of every term) are held as
     one vector. The same check with each output of K3's bf16 form, and K2's
-    dx3, zeroed in turn must fail. Returns (worst ratio, its name, the
-    spread per step)."""
+    dx3 (with `fused`: each of K6-bf16's outputs), zeroed in turn must fail.
+    `references` (what an earlier call returned) skips the f32 and plain
+    runs: the plain unit op computes the model's math whichever conv3 path
+    the card takes. Returns (worst ratio, its name, the spread per step,
+    the references)."""
     from unittest import mock
 
     import torch
 
     from tamgcn_tpu_torch.ops.cuda import ctr_gc
 
-    batches = train_batches(TRAJ_STEPS, TRAIN_BATCH)
-    f32 = trajectory(weights, batches, device, torch.float32)
-    with plain_unit_op():
-        plain = trajectory(weights, batches, device, torch.float32, "bfloat16")
-        plain_again = trajectory(weights, batches, device, torch.float32, "bfloat16")
+    if references is None:
+        batches = train_batches(TRAJ_STEPS, TRAIN_BATCH)
+        f32 = trajectory(weights, batches, device, torch.float32)
+        with plain_unit_op():
+            plain = trajectory(weights, batches, device, torch.float32, "bfloat16")
+            plain_again = trajectory(weights, batches, device, torch.float32, "bfloat16")
+        references = batches, f32, plain, plain_again
+    batches, f32, plain, plain_again = references
     reset_launches()
-    card = trajectory(weights, batches, device, torch.float32, "bfloat16")
+    with fuse_conv3(fused):
+        card = trajectory(weights, batches, device, torch.float32, "bfloat16")
     launches = {k: v for k, v in read_launches().items() if v}
     want = {"K1_bf16": 10 * TRAJ_STEPS, "K2_bf16": 10 * TRAJ_STEPS,
             "K3_bf16": 10 * TRAJ_STEPS}
+    if fused:
+        want.update(K2_bf16=4 * TRAJ_STEPS, K6_bf16=6 * TRAJ_STEPS)
     if launches != want:
         raise AssertionError(f"bf16 trajectory: launches {launches}, expected {want}")
     spread = trajectory_spread({"kernels": card, "plain bf16 again": plain_again,
@@ -2093,7 +2148,8 @@ def check_trajectory_bf16(weights: str, device):
               for name, rows in spread.items()), flush=True)
     ratios = bf16_trajectory_ratios(card, plain, f32)
     worst = sorted(ratios.items(), key=lambda kv: -kv[1])
-    print(f"bf16 trajectory, {TRAJ_STEPS} SGD steps at batch {TRAIN_BATCH}: losses card "
+    print(f"bf16 trajectory{' with TAMGCN_FUSE_CONV3=1' if fused else ''}, {TRAJ_STEPS} "
+          f"SGD steps at batch {TRAIN_BATCH}: losses card "
           f"bf16 {card[0]}, card plain bf16 unit op {plain[0]} and {plain_again[0]}, card "
           f"f32 {f32[0]}; tolerance after step 1: |kernels - plain bf16| <= "
           f"{BF16_TRAJ_TIMES} x |f32 - plain bf16| + {TRAJ_LOSS_FLOOR} x |loss| (the loss), "
@@ -2104,7 +2160,7 @@ def check_trajectory_bf16(weights: str, device):
           flush=True)
     if worst[0][1] > 1:
         raise AssertionError("the card's bf16 trajectory left the plain bf16 run's")
-    for wrapper, outputs, part in BF16_FAULTS:
+    for wrapper, outputs, part in BF16_FUSED_FAULTS if fused else BF16_FAULTS:
         real = getattr(ctr_gc, wrapper)
 
         def faulty(*args, real=real, outputs=outputs, part=part):
@@ -2113,7 +2169,7 @@ def check_trajectory_bf16(weights: str, device):
                 return result.zero_()
             return tuple(t.zero_() if name == part else t for name, t in zip(outputs, result))
 
-        with mock.patch.object(ctr_gc, wrapper, faulty):
+        with mock.patch.object(ctr_gc, wrapper, faulty), fuse_conv3(fused):
             f_ratios = bf16_trajectory_ratios(
                 trajectory(weights, batches, device, torch.float32, "bfloat16"), plain, f32)
         beyond = sorted((k for k, v in f_ratios.items() if v > 1), key=lambda k: -f_ratios[k])
@@ -2123,7 +2179,7 @@ def check_trajectory_bf16(weights: str, device):
         if not beyond:
             raise AssertionError(
                 f"the bf16 trajectory check passed with {wrapper}'s {part} zeroed")
-    return worst[0][1], worst[0][0], spread
+    return worst[0][1], worst[0][0], spread, references
 
 
 def time_bf16(weights: str, x, device):
@@ -2167,10 +2223,17 @@ def run_convergence_tool():
     from tamgcn_tpu_torch.tools import bf16_convergence
 
     buf = io.StringIO()
+    reset_launches()
     with contextlib.redirect_stdout(buf):
         bf16_convergence.main(["--epochs", "2", "--samples", "64", "--batch", "16"])
+    launched = read_launches()
     record = json.loads(buf.getvalue().strip().splitlines()[-1])
     steps, evals, epochs = 64 // 16, 64 // 16, 2
+    per_run = dict(K1=10 * epochs * (steps + evals), K2=10 * epochs * steps,
+                   K3=10 * epochs * steps)
+    want = only(**per_run, **{f"{k}_bf16": n for k, n in per_run.items()})
+    if launched != want:
+        raise AssertionError(f"bf16_convergence: launches {launched}, expected {want}")
     for run, suffix in (("f32", ""), ("bf16", "_bf16")):
         want = dict.fromkeys(bf16_convergence.COUNTERS, 0) | {
             "launches" + suffix: 10 * epochs * (steps + evals),
@@ -2250,6 +2313,253 @@ def run_bf16(work_dir: str, weights: str, x, device):
     out["trajectory"] = check_trajectory_bf16(weights, device)
     out["times"] = time_bf16(weights, x, device)
     out["convergence"] = run_convergence_tool()
+    return out
+
+
+def k6_bf16_bound(shape):
+    """K6-bf16's bound (utils/roofline.py: its stage 1 and products at the
+    bf16 peak, its aggregation as two TF32 terms, 2-byte activations)."""
+    from tamgcn_tpu_torch.utils.roofline import unit_ctr_gc_bwd_conv3_bf16_sol
+
+    return unit_ctr_gc_bwd_conv3_bf16_sol(*shape)
+
+
+def check_k6_bf16(device):
+    """Phase 11's K6 checks: K6's bf16 form (bf16 x1s, x2s, g, x, w3; f32
+    parameters) against its bf16 plain version at K6_MAIN_PATH (l5-l10 at
+    batch 16) and K6_EXTRA (V=25, a ragged shape with odd T and Cin not a
+    multiple of 8, the two-phase design's edges): dx, dw3 and db3 within
+    BF16_TOL of their max |plain| and equal in all but BF16_SHARE of the
+    elements, two launches bitwise equal, each launch on the bf16 counter
+    alone; times it, its plain version and the unfused composition it
+    replaces (K2-bf16, two bf16 torch.matmul products and a sum), by events
+    and by a CUDA graph. Returns the rows."""
+    import torch
+
+    from tamgcn_tpu_torch.ops.aggregation import unit_ctr_gc_bwd_conv3_plain as plain
+    from tamgcn_tpu_torch.ops.cuda import ctr_gc
+    from tamgcn_tpu_torch.utils.timing import graph_ms
+
+    k6 = ctr_gc.unit_ctr_gc_bwd_conv3
+
+    def unfused(x1s, x2s, g, x, w3, w4s, b4s, alpha, As):
+        dx3s = ctr_gc.unit_ctr_gc_bwd_dx3(x1s, x2s, g, w4s, b4s, alpha, As)
+        flat = dx3s.reshape(-1, dx3s.shape[-1])
+        return (torch.matmul(dx3s, w3.t()),
+                torch.matmul(x.reshape(-1, x.shape[-1]).t(), flat), flat.sum(dim=0))
+
+    rows = []
+    shapes = [(n, s, c) for n, s, c in K6_MAIN_PATH] + [(n, s, 0) for n, s in K6_EXTRA]
+    for i, (name, shape, count) in enumerate(shapes):
+        x1s, x2s, g, x, w3, w4s, b4s, alpha, As = conv3_inputs(shape, seed=700 + i,
+                                                               device=device)
+        args = [t.bfloat16() for t in (x1s, x2s, g, x, w3)] + [w4s, b4s, alpha, As]
+        with torch.no_grad():
+            reset_launches()
+            got = k6(*args)
+            launched = {k: v for k, v in read_launches().items() if v}
+            if launched != {"K6_bf16": 1}:
+                raise AssertionError(f"K6_bf16 {name} {shape}: launches {launched}, "
+                                     "expected K6_bf16 once")
+            again = k6(*args)
+            want = plain(*args)
+            torch.cuda.synchronize()
+            for part, a, b in zip(K6_OUTPUTS, got, again):
+                if not torch.equal(a, b):
+                    raise AssertionError(f"K6_bf16 {name} {shape}: two launches differ in "
+                                         f"{part}")
+            errs = [(part,) + bf16_within(a, b) for part, a, b in zip(K6_OUTPUTS, got, want)]
+            for part, ok, max_err, scale in errs:
+                if not ok:
+                    raise AssertionError(
+                        f"K6_bf16 {name} {shape} {part}: max |kernel - plain| {max_err:.3e} "
+                        f"(max|plain| {scale:.3e}) beyond the stated tolerance")
+            ms = cuda_ms(lambda: k6(*args))
+            plain_ms = cuda_ms(lambda: plain(*args))
+            unfused_ms = cuda_ms(lambda: unfused(*args))
+            device_ms = graph_ms(lambda: k6(*args))
+            unfused_device_ms = graph_ms(lambda: unfused(*args))
+        bound_ms, bound_by = k6_bf16_bound(shape)
+        check_above_bound(f"K6_bf16 {name}", device_ms, bound_ms)
+        worst = max(errs, key=lambda e: e[2] / max(e[3], 1e-30))
+        rows.append(dict(name=name, shape=dict(zip(("N", "T", "V", "Cin", "C", "R"), shape)),
+                         launches_per_step=count, max_abs_err=worst[2],
+                         max_abs_plain=worst[3], worst_output=worst[0], ms=ms,
+                         plain_ms=plain_ms, unfused_k2_cublas_ms=unfused_ms,
+                         device_ms=device_ms,
+                         unfused_k2_cublas_device_ms=unfused_device_ms,
+                         bound_ms=bound_ms, bound_by=bound_by))
+        print(f"K6_bf16 {name:9s} N,T,V,Cin,C,R={shape}: max_abs_err {worst[2]:.3e} in "
+              f"{worst[0]} (max|plain| {worst[3]:.3e}) kernel {ms * 1e3:.1f} us (device "
+              f"{device_ms * 1e3:.1f}), plain {plain_ms * 1e3:.1f} us, unfused "
+              f"K2_bf16+cuBLAS {unfused_ms * 1e3:.1f} us (device "
+              f"{unfused_device_ms * 1e3:.1f}), bound {bound_ms * 1e3:.1f} us ({bound_by})",
+              flush=True)
+    return rows
+
+
+def run_fused_bf16_train_path(work_dir: str):
+    """One epoch of --phase train with --model_args dtype=bfloat16 and
+    TAMGCN_FUSE_CONV3=1 (set around the call, restored after) through
+    __main__.main: K6-bf16 at the six blocks with C >= 128, K2-bf16 at the
+    other four; checks the launches (no f32 unit-op kernel, no f32 K6), the
+    losses and an f32 checkpoint. Returns a summary dict."""
+    import torch
+
+    steps = TRAIN_SAMPLES // TRAIN_BATCH
+    evals = math.ceil(EVAL_SAMPLES / TRAIN_BATCH)
+    with fuse_conv3():
+        seconds, launches = run_cli(train_argv(work_dir) + [
+            "--num_epoch", "1", "--model_args", "dtype=bfloat16"])
+    want = only(K1_bf16=10 * (steps + evals), K2_bf16=4 * steps, K3_bf16=10 * steps,
+                K6_bf16=6 * steps)
+    if launches != want:
+        raise AssertionError(
+            f"--phase train, bf16, TAMGCN_FUSE_CONV3=1: launches {launches}, expected "
+            f"{want} (per train step of {steps} K1_bf16 10, K2_bf16 4, K6_bf16 6, K3_bf16 "
+            f"10; K1_bf16 also 10 per eval batch of {evals})")
+    progress = check_train_files(work_dir, 1, 1, "bf16, fused conv3")
+    tree = torch.load(os.path.join(work_dir, "checkpoints", "epoch1.pt"), weights_only=True)
+    if any(v.is_floating_point() and v.dtype != torch.float32 for v in tree["model"].values()):
+        raise AssertionError("a bf16 run's checkpoint holds tensors that are not float32")
+    print(f"bf16 train path (TAMGCN_FUSE_CONV3=1): 1 epoch of {steps} steps at batch "
+          f"{TRAIN_BATCH} in {seconds:.2f} s (incl. model build, data and eval), launches "
+          f"{launches}; progress (train loss, test loss, top1, top5) {progress.tolist()}; "
+          "checkpoint tensors float32", flush=True)
+    return dict(seconds=seconds, launches=launches, progress=progress.tolist())
+
+
+def check_ctrgc_bf16(device):
+    """CTRGC(dtype="bfloat16") forward and backward on the card through
+    K4's bf16 form against the same module with K4-bf16's plain versions,
+    at CTRGC_SHAPES (whole-V at V=20, joint-tiled at V=25), each launch on
+    the counter of its direction and of the design the shape takes: the f32
+    output within 1e-4 * max; the gradients behind the kernel's x3 gradient
+    (x, conv3) within BF16_TOL * max (one bf16 rounding of dx3 may flip at a
+    near-tie); the rest, plain PyTorch on the same operands in both, within
+    rtol 1e-4 and atol 1e-4 * max (alpha's within rtol 1e-3). Then K4-bf16's
+    work on the module's operands (the forward and the transpose) against
+    its plain versions, within 1e-4 * max, timed by events and by a CUDA
+    graph. Returns (rows, launches of the first module's forward and
+    backward)."""
+    from unittest import mock
+
+    import torch
+
+    from tamgcn_tpu_torch.models import CTRGC
+    from tamgcn_tpu_torch.ops import aggregation as agg
+    from tamgcn_tpu_torch.ops.cuda import ctr_gc
+    from tamgcn_tpu_torch.utils.roofline import ctr_gc_fused_bf16_sol
+    from tamgcn_tpu_torch.utils.timing import graph_ms
+
+    def check(what, got, want, rtol, atol_frac):
+        ok, max_err, scale = _within(got, want, rtol, atol_frac)
+        if not ok:
+            raise AssertionError(f"CTRGC bf16 {what}: max |kernel - plain| {max_err:.3e} "
+                                 f"(max|plain| {scale:.3e}) beyond the stated tolerance")
+        return max_err, scale
+
+    rows, main_launches = [], None
+    for i, (name, (N, T, V, Cin, C)) in enumerate(CTRGC_SHAPES):
+        gen = torch.Generator().manual_seed(800 + i)
+        module = CTRGC(Cin, C, generator=gen, dtype="bfloat16")
+        with torch.no_grad():
+            module.conv4_bias.normal_(0.0, 0.1, generator=gen)
+        module.to(device)
+        x = torch.randn((N, T, V, Cin), generator=gen).to(device)
+        A = torch.rand((V, V), generator=gen).to(device)
+        alpha = torch.tensor([0.7], device=device)
+        g = torch.randn((N, T, V, C), generator=gen).to(device)
+
+        def run():
+            leaves = [t.detach().clone().requires_grad_() for t in (x, A, alpha)]
+            module.zero_grad(set_to_none=True)
+            out = module(*leaves)
+            out.backward(g)
+            grads = {k: p.grad for k, p in module.named_parameters()}
+            grads.update(zip(("x", "A", "alpha"), (t.grad for t in leaves)))
+            return out.detach(), grads
+
+        reset_launches()
+        out, grads = run()
+        torch.cuda.synchronize()
+        launches = read_launches()
+        R = module.conv4_kernel.shape[2]
+        design = "t" if ctr_gc.fwd_variant(1, V, R) == "tiled" else ""
+        if launches != only(**{f"K4{design}_bf16": 1, f"K4dx3{design}_bf16": 1}):
+            raise AssertionError(f"CTRGC bf16 {name}: launches {launches}, expected "
+                                 f"K4{design}_bf16 and K4dx3{design}_bf16 once each")
+        if main_launches is None:
+            main_launches = sum(launches.values())
+        if out.dtype != torch.float32:
+            raise AssertionError(f"CTRGC bf16 {name}: output {out.dtype}, not float32")
+        with mock.patch.object(agg, "_fused_kernels", lambda device, bf16: (
+                agg.ctr_gc_fused_plain, agg.ctr_gc_fused_dx3_plain)):
+            want_out, want = run()
+        check(f"{name} out", out, want_out, 0.0, 1e-4)
+        for k, w in want.items():
+            check(f"{name} d{k}", grads[k], w,
+                  *((0.0, BF16_TOL) if k in ("x", "conv3.weight", "conv3.bias") else
+                    (1e-3, 0.0) if k == "alpha" else (1e-4, 1e-4)))
+        # K4-bf16's work: the forward and the transpose on the module's operands
+        with torch.no_grad():
+            x1, x2 = module.conv1(x).mean(dim=1), module.conv2(x).mean(dim=1)
+            x3, w4, b4 = module.conv3(x), module.conv4_kernel[0, 0], module.conv4_bias
+
+            def k4():
+                return (ctr_gc.ctr_gc_fused_bf16(x1, x2, x3, w4, b4, alpha, A),
+                        ctr_gc.ctr_gc_fused_t_bf16(x1, x2, g, w4, b4, alpha, A))
+
+            def k4_plain():
+                return (agg.ctr_gc_fused_plain(x1, x2, x3, w4, b4, alpha, A),
+                        agg.ctr_gc_fused_dx3_plain(x1, x2, g, w4, b4, alpha, A))
+
+            first, again = k4(), k4()
+            torch.cuda.synchronize()
+            if not all(torch.equal(a, b) for a, b in zip(first, again)):
+                raise AssertionError(f"K4_bf16 {name}: two launches differ")
+            errs = [(part,) + check(f"{name} K4_bf16 {part}", a, b, 0.0, 1e-4)
+                    for part, a, b in zip(("out", "dx3"), first, k4_plain())]
+            ms = cuda_ms(k4)
+            plain_ms = cuda_ms(k4_plain)
+            device_ms = graph_ms(k4)
+        route_ms = cuda_ms(run)
+        bound_ms, bound_by = ctr_gc_fused_bf16_sol(N, T, V, C, R)
+        check_above_bound(f"K4_bf16 {name}", device_ms, bound_ms)
+        worst = max(errs, key=lambda e: e[1] / max(e[2], 1e-30))
+        rows.append(dict(name=name, shape=dict(zip(("N", "T", "V", "Cin", "C"),
+                                                   (N, T, V, Cin, C))),
+                         launches_per_step=int(i == 0), max_abs_err=worst[1],
+                         max_abs_plain=worst[2], worst_output=worst[0], ms=ms,
+                         plain_ms=plain_ms, device_ms=device_ms, module_fwd_bwd_ms=route_ms,
+                         bound_ms=bound_ms, bound_by=bound_by))
+        print(f"K4_bf16 (CTRGC bf16) {name:9s} N,T,V,Cin,C={(N, T, V, Cin, C)}: module "
+              f"forward and backward {route_ms:.3f} ms, launches "
+              f"{ {k: v for k, v in launches.items() if v} }; K4_bf16's work (forward + "
+              f"transpose) {ms * 1e3:.1f} us (device {device_ms * 1e3:.1f}), plain "
+              f"{plain_ms * 1e3:.1f} us, bound {bound_ms * 1e3:.1f} us ({bound_by}), "
+              f"max_abs_err {worst[1]:.3e} in {worst[0]} (max|plain| {worst[2]:.3e})",
+              flush=True)
+    return rows, main_launches
+
+
+def run_bf16_fused(work_dir: str, weights: str, device, references):
+    """Phase 11: K6's bf16 form (bf16 training with TAMGCN_FUSE_CONV3=1) and
+    K4's (CTRGC(dtype="bfloat16")): the K6-bf16 checks, one bf16 train
+    epoch with the switch through __main__.main, check_trajectory_bf16 with
+    the switch on (its planted faults zero each of K6-bf16's outputs; the
+    references are phase 10's), the bf16 train step with the switch timed
+    beside the bf16 default step, and the bf16 CTRGC checks. Returns a
+    summary."""
+    out = {"k6_rows": check_k6_bf16(device)}
+    print("library_ms: none for K6_bf16 (no single PyTorch call computes it); the "
+          "unfused composition's time is under unfused_k2_cublas_ms", flush=True)
+    out["train"] = run_fused_bf16_train_path(os.path.join(work_dir, "train_bf16_fused"))
+    out["trajectory"] = check_trajectory_bf16(weights, device, fused=True,
+                                              references=references)
+    out["times"] = time_train_fused(weights, device, compute="bfloat16")
+    out["k4_rows"], out["k4_launches"] = check_ctrgc_bf16(device)
+    print("library_ms: none for K4_bf16 (no single PyTorch call computes it)", flush=True)
     return out
 
 
@@ -2386,6 +2696,10 @@ def main() -> int:
         # ---- 10. bf16 mixed precision ----
         phase("10. bf16")
         bf16 = run_bf16(work_dir, weights, x, device)
+
+        # ---- 11. bf16 with TAMGCN_FUSE_CONV3=1 (K6-bf16), CTRGC in bf16 (K4-bf16) ----
+        phase("11. bf16 with the switch, CTRGC in bf16")
+        bf16_fused = run_bf16_fused(work_dir, weights, device, bf16["trajectory"][3])
         phase("end")
     print(f"train step (forward, backward, SGD), batch {TRAIN_BATCH}: "
           f"{t['kernel_ms_16']:.3f} ms ({TRAIN_BATCH / t['kernel_ms_16'] * 1e3:.1f} "
@@ -2434,19 +2748,20 @@ def main() -> int:
               f"device, bound {path(b_rows, 'bound_ms'):.4f} ms; the f32 form "
               f"{path(f_rows, 'device_ms'):.4f} ms, bound {path(f_rows, 'bound_ms'):.4f} ms",
               flush=True)
-    for batch, r in tf.items():
-        print(f"train step, batch {batch}: {r['fused_ms']:.3f} ms with "
-              f"TAMGCN_FUSE_CONV3=1, {r['default_ms']:.3f} ms default (in turns)",
-              flush=True)
-        print_profile(f"train step with TAMGCN_FUSE_CONV3=1, batch {batch},",
-                      r["fused_ms"], r["busy_ms"], r["n_kernels"], r["events"])
-        for kname, prefix in (("K1", "unit_ctr_gc_fwd_kernel"),
-                              ("K2", "unit_ctr_gc_bwd_dx3_kernel"),
-                              ("K3", "unit_ctr_gc_bwd_param"),
-                              ("K6", "unit_ctr_gc_bwd_conv3")):
-            ms = sum(e[1] for e in r["events"] if prefix in e[0])
-            print(f"  {kname}: {ms:.4f} ms per train step at batch {batch}, "
-                  f"{100 * ms / r['busy_ms']:.1f}% of the device time", flush=True)
+    for label, times in (("", tf), ("bf16 ", bf16_fused["times"])):
+        for batch, r in times.items():
+            print(f"{label}train step, batch {batch}: {r['fused_ms']:.3f} ms with "
+                  f"TAMGCN_FUSE_CONV3=1, {r['default_ms']:.3f} ms default (in turns)",
+                  flush=True)
+            print_profile(f"{label}train step with TAMGCN_FUSE_CONV3=1, batch {batch},",
+                          r["fused_ms"], r["busy_ms"], r["n_kernels"], r["events"])
+            for kname, prefix in (("K1", "unit_ctr_gc_fwd_kernel"),
+                                  ("K2", "unit_ctr_gc_bwd_dx3_kernel"),
+                                  ("K3", "unit_ctr_gc_bwd_param"),
+                                  ("K6", "unit_ctr_gc_bwd_conv3")):
+                ms = sum(e[1] for e in r["events"] if prefix in e[0])
+                print(f"  {label}{kname}: {ms:.4f} ms per train step at batch {batch}, "
+                      f"{100 * ms / r['busy_ms']:.1f}% of the device time", flush=True)
 
     sources = {"K1": ("unit_ctr_gc_fwd", "unit_ctr_gc_fwd.cu",
                       "tamgcn_tpu/ops/pallas/ctr_gc.py:367",
@@ -2496,8 +2811,17 @@ def main() -> int:
                            bf16["train"]["launches"]["K2_bf16"], "train step, batch 16, bf16"),
                "K3_bf16": ("unit_ctr_gc_bwd_param_bf16", "unit_ctr_gc_bwd_param.cu",
                            "tamgcn_tpu/ops/pallas/ctr_gc.py:717",
-                           bf16["train"]["launches"]["K3_bf16"], "train step, batch 16, bf16")}
-    rows.update(K4=k4_rows, K5=k5_rows, K6=k6_rows, T1=t1_rows, T2=t2_rows, **bf16["kernels"])
+                           bf16["train"]["launches"]["K3_bf16"], "train step, batch 16, bf16"),
+               "K6_bf16": ("unit_ctr_gc_bwd_conv3_bf16", "unit_ctr_gc_bwd_conv3.cu",
+                           "tamgcn_tpu/ops/pallas/ctr_gc.py:510",
+                           bf16_fused["train"]["launches"]["K6_bf16"],
+                           "train step, batch 16, bf16, TAMGCN_FUSE_CONV3=1"),
+               "K4_bf16": ("ctr_gc_fused_bf16", "ctr_gc_fused.cu",
+                           "tamgcn_tpu/ops/pallas/ctr_gc.py:83", bf16_fused["k4_launches"],
+                           "CTRGC(dtype=bfloat16) forward and backward, N=16, T=52, V=20, "
+                           "Cin=64, C=128 (the forward and the transpose)")}
+    rows.update(K4=k4_rows, K5=k5_rows, K6=k6_rows, T1=t1_rows, T2=t2_rows, **bf16["kernels"],
+                K6_bf16=bf16_fused["k6_rows"], K4_bf16=bf16_fused["k4_rows"])
     kernels = {}
     for kname, (name, source, replaces, count, per) in sources.items():
         kernels[kname] = {
@@ -2510,7 +2834,9 @@ def main() -> int:
             # and its train phase for K2t, the fused-conv3 epoch for K6,
             # the first CTRGC forward and backward for K4, the exp_ms_tcn
             # run for T1, the exp_stage2 run for T2, the bf16 test phase
-            # for K1_bf16 and the bf16 train epoch for K2_bf16 and K3_bf16)
+            # for K1_bf16 and the bf16 train epoch for K2_bf16 and K3_bf16,
+            # the bf16 train epoch with the switch for K6_bf16, the first
+            # bf16 CTRGC forward and backward for K4_bf16)
             "launches": count,
             "max_abs_err": max(r["max_abs_err"] for r in rows[kname]),
             "library_ms": None,
@@ -2549,8 +2875,20 @@ def main() -> int:
     kernels["K6"]["sources"] = [kernels["K6"]["source"],
                                 "tamgcn_tpu_torch/csrc/mma_tf32x3.cuh",
                                 "tamgcn_tpu_torch/csrc/unit_ctr_gc_whole.cuh"]
-    for key in ("unfused_k2_cublas_ms", "unfused_k2_cublas_device_ms", "device_ms"):
-        kernels["K6"][key] = sum(r[key] * r["launches_per_step"] for r in k6_rows)
+    for kname in ("K6", "K6_bf16"):
+        for key in ("unfused_k2_cublas_ms", "unfused_k2_cublas_device_ms", "device_ms"):
+            kernels[kname][key] = sum(r[key] * r["launches_per_step"] for r in rows[kname])
+    kernels["K6_bf16"]["sources"] = [kernels["K6_bf16"]["source"],
+                                     "tamgcn_tpu_torch/csrc/mma_bf16.cuh",
+                                     "tamgcn_tpu_torch/csrc/unit_ctr_gc_whole.cuh",
+                                     "tamgcn_tpu_torch/csrc/unit_ctr_gc_tiled.cuh"]
+    for kname in ("K4", "K4_bf16"):
+        kernels[kname]["device_ms"] = sum(r["device_ms"] * r["launches_per_step"]
+                                          for r in rows[kname])
+    kernels["K4_bf16"]["sources"] = [kernels["K4_bf16"]["source"],
+                                     "tamgcn_tpu_torch/csrc/unit_ctr_gc_common.cuh",
+                                     "tamgcn_tpu_torch/csrc/unit_ctr_gc_whole.cuh",
+                                     "tamgcn_tpu_torch/csrc/unit_ctr_gc_tiled.cuh"]
     # T1's library call: the engine's cuDNN composition; T2's: one einsum
     for kname in ("T1", "T2"):
         for key in ("library_ms", "device_ms", "library_device_ms"):

@@ -89,6 +89,11 @@ unit_ctr_gc_bwd_dx3_tiled_kernel(const TA* __restrict__ x1s,
                              V, R, C);
 }
 
+// the launches of each design (0 whole-V, 1 joint-tiled), counted on the
+// host where a kernel is launched: the witness of the design a call took
+// (unit_ctr_gc_bwd_dx3_launched)
+long long launched[2] = {0, 0};
+
 // K2's kernels for dx3::run
 struct Launch {
   template <int RP, int JT, typename TA>
@@ -100,7 +105,9 @@ struct Launch {
     if (err != cudaSuccess) return err;
     unit_ctr_gc_bwd_dx3_kernel<RP, JT, TA><<<grid, kThreads, smem, st>>>(
         x1s, x2s, g, w4s, b4s, alpha, As, dx3s, S, T, V, R, C);
-    return cudaGetLastError();
+    err = cudaGetLastError();
+    if (err == cudaSuccess) ++launched[0];
+    return err;
   }
   template <int RP, int TF, typename TA>
   static int tiled(dim3 grid, int smem, cudaStream_t st, const TA* x1s, const TA* x2s,
@@ -112,7 +119,9 @@ struct Launch {
     if (err != cudaSuccess) return err;
     unit_ctr_gc_bwd_dx3_tiled_kernel<RP, TF, TA><<<grid, kThreads, smem, st>>>(
         x1s, x2s, g, w4s, b4s, alpha, As, dx3s, xmap, S, T, V, R, C);
-    return cudaGetLastError();
+    err = cudaGetLastError();
+    if (err == cudaSuccess) ++launched[1];
+    return err;
   }
 };
 
@@ -132,6 +141,13 @@ int dx3s_of(const TA* x1s, const TA* x2s, const TA* g, const float* w4s,
 extern "C" int unit_ctr_gc_bwd_dx3_variant(int S, int V, int R) {
   if (S < 1 || V < 1 || R < 1 || R > 32) return -1;
   return whole::takes(V) ? 0 : 1;
+}
+
+// Launches of `design` (0 the whole-V kernel, 1 the joint-tiled one) that
+// unit_ctr_gc_bwd_dx3_f32 and unit_ctr_gc_bwd_dx3_bf16 made so far, counted
+// where they launch the kernel; -1 for any other design.
+extern "C" long long unit_ctr_gc_bwd_dx3_launched(int design) {
+  return design == 0 || design == 1 ? launched[design] : -1;
 }
 
 // Blocks of unit_ctr_gc_bwd_dx3_f32's launch at the shape; -1 where it does

@@ -18,12 +18,17 @@ namespace unit_ctr_gc {
 // The activations (x1s, x2s, x3s, g and the outputs of the same shapes) are
 // float or __nv_bfloat16, bf16 mixed precision; the parameters (w4s, b4s,
 // alpha, As) are float in either. Shared memory, tanh and every sum are f32
-// in both. Act<TA> loads an activation as f32, stores an f32 result rounded
-// once to T, and gives stage 1's product operands: as is in f32; rounded to
-// bf16 in bf16, where the JAX kernels run stage 1 as a bf16 product with f32
-// accumulation (tamgcn_tpu/ops/pallas/ctr_gc.py `mm_dtype`). The product of
-// two bf16 values is exact in f32, so an FMA over rounded operands computes
-// what that product computes, up to the order of the sum.
+// in both. Act<TA> loads an activation as f32 and stores an f32 result
+// rounded once to T. Stage 1's operands follow their own policy (Stage1
+// below): as is in f32; rounded to bf16 in bf16, where the JAX kernels run
+// stage 1 as a bf16 product with f32 accumulation
+// (tamgcn_tpu/ops/pallas/ctr_gc.py `mm_dtype`). The product of two bf16
+// values is exact in f32, so an FMA over rounded operands computes what
+// that product computes, up to the order of the sum. The x3 gradient of K6
+// (unit_ctr_gc_bwd_conv3.cu) reads bf16 activations and writes f32, and
+// K4's bf16 form (ctr_gc_fused.cu) reads bf16 x1/x2 and writes f32: the
+// bodies take the types of x1s/x2s, of the aggregated tensor and of the
+// output apart.
 template <typename T>
 struct Act;
 
@@ -34,7 +39,6 @@ struct Act<float> {
     return *reinterpret_cast<const float4*>(p);
   }
   __device__ static void store(float* p, float v) { *p = v; }
-  __device__ static float operand(float v) { return v; }
 };
 
 template <>
@@ -48,10 +52,46 @@ struct Act<__nv_bfloat16> {
     return make_float4(lo.x, lo.y, hi.x, hi.y);
   }
   __device__ static void store(__nv_bfloat16* p, float v) { *p = __float2bfloat16_rn(v); }
-  __device__ static float operand(float v) {
-    return __bfloat162float(__float2bfloat16_rn(v));
-  }
 };
+
+__device__ inline float bf16_round(float v) { return __bfloat162float(__float2bfloat16_rn(v)); }
+
+// Stage 1's operand policy: how D = tanh(x1 - x2) and w4s enter M's product
+// over r. The designs' bodies take it as a template parameter, stage1_of<TE>
+// (from the type of x1s/x2s) by default.
+//   kF32:  f32 D and w4s, 3xTF32 (three TF32 products a term);
+//   kBf16: D and w4s rounded to bf16, one bf16 product with f32
+//          accumulation (the unit op's bf16 form, the JAX kernels'
+//          `mm_dtype`);
+//   kK4:   the difference and the tanh each rounded to bf16 and w4 kept in
+//          f32, as the JAX K4 (ctr_gc.py:_fused_kernel) computes on bf16
+//          x1/x2: D takes bf16 values, exact in TF32, so D times w4's two
+//          TF32 parts (two products a term) leaves only w4's TF32 remainder
+//          truncated to its top 11 bits, ~2^-22 of each term.
+enum class Stage1 { kF32, kBf16, kK4 };
+
+template <typename TE>
+constexpr Stage1 stage1_of() {
+  return sizeof(TE) == 4 ? Stage1::kF32 : Stage1::kBf16;
+}
+
+// D as stage 1's A operand, from the f32 values of x1 and x2
+template <Stage1 P>
+__device__ inline float stage1_d(float x1, float x2) {
+  if constexpr (P == Stage1::kF32) {
+    return tanhf(x1 - x2);
+  } else if constexpr (P == Stage1::kBf16) {
+    return bf16_round(tanhf(x1 - x2));
+  } else {
+    return bf16_round(tanhf(bf16_round(x1 - x2)));
+  }
+}
+
+// w4s as stage 1's B operand (split into TF32 parts unless kBf16)
+template <Stage1 P>
+__device__ inline float stage1_w(float w) {
+  return P == Stage1::kBf16 ? bf16_round(w) : w;
+}
 
 constexpr int kThreads = 256;
 constexpr int kSmemLimit = 232448;  // bytes a block may use on sm_90

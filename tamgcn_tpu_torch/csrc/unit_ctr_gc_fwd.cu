@@ -28,11 +28,11 @@
 
 // bf16 (unit_ctr_gc_fwd_bf16): x1s, x2s, x3s and out are bf16, the
 // parameters f32, as the JAX kernel takes them under bf16 mixed precision.
-// The same kernels run on them (Act<T> in unit_ctr_gc_common.cuh): tanh in
-// f32 from the bf16 x1s and x2s; stage 1 one bf16 product over D and w4s
-// rounded to bf16, accumulated in f32; M in f32 in shared memory; stage 2
-// in f32 (M's two TF32 parts against the bf16 x3s, exact in TF32); out
-// rounded to bf16 once.
+// The same kernels run on them (Act<T> and Stage1 in
+// unit_ctr_gc_common.cuh): tanh in f32 from the bf16 x1s and x2s; stage 1
+// one bf16 product over D and w4s rounded to bf16, accumulated in f32; M in
+// f32 in shared memory; stage 2 in f32 (M's two TF32 parts against the
+// bf16 x3s, exact in TF32); out rounded to bf16 once.
 //
 // Past V = 24 (unit_ctr_gc_fwd_variant) the joint-tiled design of
 // unit_ctr_gc_tiled.cuh runs instead (K1t): a block owns (sample, 16 joints
@@ -89,6 +89,11 @@ unit_ctr_gc_fwd_tiled_kernel(const TA* __restrict__ x1s,
                             blockIdx.y * kJ, blockIdx.x * CT, S, T, V, R, C);
 }
 
+// the launches of each design (0 whole-V, 1 joint-tiled), counted on the
+// host where a kernel is launched: the witness of the design a call took
+// (unit_ctr_gc_fwd_launched)
+long long launched[2] = {0, 0};
+
 // K1's kernels for fwd::run
 struct Launch {
   template <int RP, int JT, typename TA>
@@ -100,7 +105,9 @@ struct Launch {
     if (err != cudaSuccess) return err;
     unit_ctr_gc_fwd_kernel<RP, JT, TA><<<grid, kThreads, smem, st>>>(
         x1s, x2s, x3s, w4s, b4s, alpha, As, out, S, T, V, R, C);
-    return cudaGetLastError();
+    err = cudaGetLastError();
+    if (err == cudaSuccess) ++launched[0];
+    return err;
   }
   template <int RP, int TF, typename TA>
   static int tiled(dim3 grid, int smem, cudaStream_t st, const TA* x1s, const TA* x2s,
@@ -112,7 +119,9 @@ struct Launch {
     if (err != cudaSuccess) return err;
     unit_ctr_gc_fwd_tiled_kernel<RP, TF, TA><<<grid, kThreads, smem, st>>>(
         x1s, x2s, x3s, w4s, b4s, alpha, As, out, xmap, S, T, V, R, C);
-    return cudaGetLastError();
+    err = cudaGetLastError();
+    if (err == cudaSuccess) ++launched[1];
+    return err;
   }
 };
 
@@ -132,6 +141,13 @@ int out_of(const TA* x1s, const TA* x2s, const TA* x3s, const float* w4s, const 
 extern "C" int unit_ctr_gc_fwd_variant(int S, int V, int R) {
   if (S < 1 || V < 1 || R < 1 || R > 32) return -1;
   return whole::takes(V) ? 0 : 1;
+}
+
+// Launches of `design` (0 the whole-V kernel, 1 the joint-tiled one) that
+// unit_ctr_gc_fwd_f32 and unit_ctr_gc_fwd_bf16 made so far, counted
+// where they launch the kernel; -1 for any other design.
+extern "C" long long unit_ctr_gc_fwd_launched(int design) {
+  return design == 0 || design == 1 ? launched[design] : -1;
 }
 
 // Blocks of unit_ctr_gc_fwd_f32's launch at the shape; -1 where it does not

@@ -5,12 +5,15 @@
 // as unit_ctr_gc_dx3.cuh does for the x3 gradient. Each source defines its
 // own kernels (so that a profile names them apart) and launches them
 // through a class L with two static member templates:
-//   L::whole<RP, JT, TA>(grid, smem, stream, x1s, x2s, x3s, w4s, b4s, alpha,
-//                        As, out, S, T, V, R, C)
-//   L::tiled<RP, TF, TA>(grid, smem, stream, x1s, x2s, x3s, w4s, b4s, alpha,
-//                        As, out, xmap, S, T, V, R, C)
-// each of which sets the kernel's shared memory, launches it and returns
-// cudaGetLastError(). What the designs do and what bounds them:
+//   L::whole<RP, JT>(grid, smem, stream, x1s, x2s, x3s, w4s, b4s, alpha, As,
+//                    out, S, T, V, R, C)
+//   L::tiled<RP, TF>(grid, smem, stream, x1s, x2s, x3s, w4s, b4s, alpha, As,
+//                    out, xmap, S, T, V, R, C)
+// (the element types of x1s/x2s, of the aggregated tensor and of the
+// output deduced from the pointers: the unit op takes one type, K6's x3
+// gradient and K4's bf16 form mix them), each of which sets the kernel's
+// shared memory, launches it and returns cudaGetLastError(). What the
+// designs do and what bounds them:
 // unit_ctr_gc_fwd.cu's header and the two designs' headers.
 #pragma once
 
@@ -25,29 +28,29 @@ namespace fwd {
 
 inline int rp_of(int R) { return R <= 8 ? 8 : R <= 16 ? 16 : 32; }
 
-template <class L, int RP, int TF, typename TA>
-int launch_tiled(const TA* x1s, const TA* x2s, const TA* x3s, const float* w4s,
-                 const float* b4s, const float* alpha, const float* As, TA* out,
+template <class L, int RP, int TF, typename TE, typename TX, typename TO>
+int launch_tiled(const TE* x1s, const TE* x2s, const TX* x3s, const float* w4s,
+                 const float* b4s, const float* alpha, const float* As, TO* out,
                  int N, int S, int T, int V, int R, int C, cudaStream_t stream) {
   using namespace tiled;
-  constexpr int CT = channel_tile(TF, RP, sizeof(TA));
-  constexpr int smem = smem_bytes(TF, CT, RP, sizeof(TA));
+  constexpr int CT = channel_tile(TF, RP, sizeof(TX));
+  constexpr int smem = smem_bytes(TF, CT, RP, sizeof(TX));
   static_assert(smem <= kSmemLimit, "the tiled design's shared memory");
   // the f32 chunks arrive by tensor copies; the bf16 form does not read the map
   CUtensorMap xmap = {};
-  if constexpr (sizeof(TA) == 4) {
+  if constexpr (sizeof(TX) == 4) {
     const cudaError_t err =
         chunk_map(&xmap, reinterpret_cast<const float*>(x3s), N, T, V, S * C, TF);
     if (err != cudaSuccess) return err;
   }
   const dim3 grid((C + CT - 1) / CT, (V + kJ - 1) / kJ, N);
-  return L::template tiled<RP, TF, TA>(grid, smem, stream, x1s, x2s, x3s, w4s, b4s, alpha, As,
-                                       out, xmap, S, T, V, R, C);
+  return L::template tiled<RP, TF>(grid, smem, stream, x1s, x2s, x3s, w4s, b4s, alpha, As,
+                                   out, xmap, S, T, V, R, C);
 }
 
-template <class L, int RP, typename TA>
-int launch(const TA* x1s, const TA* x2s, const TA* x3s, const float* w4s,
-           const float* b4s, const float* alpha, const float* As, TA* out,
+template <class L, int RP, typename TE, typename TX, typename TO>
+int launch(const TE* x1s, const TE* x2s, const TX* x3s, const float* w4s,
+           const float* b4s, const float* alpha, const float* As, TO* out,
            int N, int S, int T, int V, int R, int C, cudaStream_t stream) {
   if (whole::takes(V)) {
     return whole::launch<L, true, RP>(x1s, x2s, x3s, w4s, b4s, alpha, As, out, N, S, T, V, R,
@@ -79,9 +82,9 @@ inline bool dims_ok(int N, int S, int T, int V, int R, int C) {
 
 // out (N,T,V,C) of the unit op through L's kernels, in the design that
 // unit_ctr_gc_fwd_variant names. Returns cudaGetLastError() (0 = ok).
-template <class L, typename TA>
-int run(const TA* x1s, const TA* x2s, const TA* x3s, const float* w4s, const float* b4s,
-        const float* alpha, const float* As, TA* out, int N, int S, int T, int V, int R, int C,
+template <class L, typename TE, typename TX, typename TO>
+int run(const TE* x1s, const TE* x2s, const TX* x3s, const float* w4s, const float* b4s,
+        const float* alpha, const float* As, TO* out, int N, int S, int T, int V, int R, int C,
         cudaStream_t st) {
   if (!dims_ok(N, S, T, V, R, C)) return cudaErrorInvalidValue;
   if (R <= 8) return launch<L, 8>(x1s, x2s, x3s, w4s, b4s, alpha, As, out, N, S, T, V, R, C, st);

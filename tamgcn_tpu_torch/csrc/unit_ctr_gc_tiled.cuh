@@ -213,7 +213,7 @@ __device__ inline uint32_t pack_bf16(float k_lo, float k_hi) {
   return *reinterpret_cast<const uint32_t*>(&p);
 }
 
-// 4 channels rounded once to TA
+// 4 channels rounded once to the output type
 __device__ inline void store4(float* p, float4 v) { *reinterpret_cast<float4*>(p) = v; }
 __device__ inline void store4(__nv_bfloat16* p, float4 v) {
   const __nv_bfloat162 lo = __floats2bfloat162_rn(v.x, v.y);
@@ -229,15 +229,19 @@ __device__ inline void store4(__nv_bfloat16* p, float4 v) {
 // S*C, subset s at s*C), dst out (row stride C). !kFwd (K2): own v (x2
 // rows), summed u (x1 rows), subset s_own, the block walks the u tiles; src
 // g (row stride C), dst dx3s (row stride S*C, subset s at s*C). Row (n, t, j)
-// of src or dst at ((n*T + t)*V + j) * stride.
-template <bool kFwd, int RP, int TF, int CT, typename TA>
-__device__ inline void run(const TA* __restrict__ x1s, const TA* __restrict__ x2s,
-                           const TA* __restrict__ src, const float* __restrict__ w4s,
+// of src or dst at ((n*T + t)*V + j) * stride. x1s/x2s are TE, src TX
+// (its chunks by tensor copy in f32), dst TO, and stage 1 follows kS1, as
+// in unit_ctr_gc_whole.cuh:run.
+template <bool kFwd, int RP, int TF, int CT, typename TE, typename TX = TE, typename TO = TX,
+          Stage1 kS1 = stage1_of<TE>()>
+__device__ inline void run(const TE* __restrict__ x1s, const TE* __restrict__ x2s,
+                           const TX* __restrict__ src, const float* __restrict__ w4s,
                            const float* __restrict__ b4s, float a,
-                           const float* __restrict__ As, TA* __restrict__ dst,
+                           const float* __restrict__ As, TO* __restrict__ dst,
                            const CUtensorMap* xmap, int n, int s_own, int own0, int c0,
                            int S, int T, int V, int R, int C) {
-  constexpr bool kF32 = sizeof(TA) == 4;
+  constexpr bool kF32 = sizeof(TX) == 4;   // src: chunks by tensor copy, split into TF32 parts
+  constexpr bool kEF32 = sizeof(TE) == 4;  // x1s/x2s: rows by cp.async (bf16: registers)
   constexpr int kU = CT / 4;           // units of 4 channels in the tile
   constexpr int kUW = kU / kWarps;     // units a warp owns in stage 2
   constexpr int kNT = TF / 8;          // 8-frame MMA tiles of a chunk
@@ -251,10 +255,10 @@ __device__ inline void run(const TA* __restrict__ x1s, const TA* __restrict__ x2
 
   constexpr int kRS = kU + 1;          // bf16: row stride of a chunk, in units
   constexpr int kFS = frame_units(CT);  // bf16: frame stride of a chunk, in units
-  constexpr int kXB = chunk_bytes(TF, CT, sizeof(TA)) / sizeof(TA);  // one chunk, in TA
+  constexpr int kXB = chunk_bytes(TF, CT, sizeof(TX)) / sizeof(TX);  // one chunk, in TX
 
   extern __shared__ float4 smem4[];
-  TA* Xb = reinterpret_cast<TA*>(reinterpret_cast<char*>(smem4) +
+  TX* Xb = reinterpret_cast<TX*>(reinterpret_cast<char*>(smem4) +
                                  ((1024 - smem_addr(smem4) % 1024) % 1024));  // [2][kXB]
   float* M = reinterpret_cast<float*>(Xb + 2 * kXB);             // [kJ][kJ][CT]
   float2* W = reinterpret_cast<float2*>(M + kJ * kJ * CT);       // [RP][kWS]
@@ -283,25 +287,25 @@ __device__ inline void run(const TA* __restrict__ x1s, const TA* __restrict__ x2
   auto v_of = [&](const Step& st) { return kFwd ? st.sum0 : own0; };
   // value i (row i / RP, r = i % RP) of step st's E: the x1 rows of the u
   // tile, then the x2 rows of the v tile; zero past R and V
-  auto e_src = [&](const Step& st, int i) -> const TA* {
+  auto e_src = [&](const Step& st, int i) -> const TE* {
     const int r = i % RP, row = i / RP;
     const int j = (row < kJ ? u_of(st) : v_of(st)) + row % kJ;
     if (row >= 2 * kJ || r >= R || j >= V) return nullptr;
     return (row < kJ ? x1s : x2s) + (((size_t)n * S + st.s) * V + j) * R + r;
   };
   auto e_value = [&](const Step& st, int i) -> float {
-    const TA* x = e_src(st, i);
-    return x ? Act<TA>::load(x) : 0.f;
+    const TE* x = e_src(st, i);
+    return x ? Act<TE>::load(x) : 0.f;
   };
   auto e_index = [&](int i) { return (i / RP) * kES + i % RP; };
   // step st's copies into buffer buf: the chunk and the A tile [iu][iv] of
-  // As[s]. f32: CT/32 tensor copies of TF frames counted on bar[buf], and
-  // the x1/x2 rows into E[buf] (cp.async). bf16 (rows only 8-byte aligned):
-  // cp.async a unit, frames tb .. tb + 8 * ceil(nf / 8), zero past T, V and
-  // C; its rows go through registers.
+  // As[s]. An f32 chunk: CT/32 tensor copies of TF frames counted on
+  // bar[buf]; a bf16 chunk (rows only 8-byte aligned): cp.async a unit,
+  // frames tb .. tb + 8 * ceil(nf / 8), zero past T, V and C. f32 x1/x2
+  // rows into E[buf] by cp.async; bf16 ones go through registers.
   auto stage = [&](const Step& st, int buf) {
     const int coff = (kFwd ? st.s * C : 0) + c0;
-    TA* X = Xb + buf * kXB;
+    TX* X = Xb + buf * kXB;
     if constexpr (kF32) {
       if (tid == 0) {
         // whole boxes: past T, V and the tensor's width they read as zero;
@@ -311,12 +315,6 @@ __device__ inline void run(const TA* __restrict__ x1s, const TA* __restrict__ x2
         for (int h = 0; h < CT / 32; ++h) {
           tensor_copy(X + h * TF * kJ * 32, xmap, coff + 32 * h, st.sum0, st.tb, n, bar + buf);
         }
-      }
-      for (int i = tid; i < 2 * kJ * RP; i += kThreads) {
-        const float* x = e_src(st, i);
-        asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
-                         smem_addr(E + buf * kE + e_index(i))),
-                     "l"(x ? x : As), "r"(x ? 4 : 0));
       }
     } else {
       const int nf8 = min(TF, (T - st.tb + 7) / 8 * 8);
@@ -330,6 +328,14 @@ __device__ inline void run(const TA* __restrict__ x1s, const TA* __restrict__ x2
         copy_unit(X + 4 * (f * kFS + j * kRS + q), ok ? row_src(f, j) + 4 * q : src, ok);
       }
     }
+    if constexpr (kEF32) {
+      for (int i = tid; i < 2 * kJ * RP; i += kThreads) {
+        const TE* x = e_src(st, i);
+        asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                         smem_addr(E + buf * kE + e_index(i))),
+                     "l"(x ? x : As), "r"(x ? 4 : 0));
+      }
+    }
     const int u = u_of(st) + tid / kJ, v = v_of(st) + tid % kJ;
     const bool ok = u < V && v < V;
     const float* p = ok ? As + ((size_t)st.s * V + u) * V + v : As;
@@ -338,16 +344,16 @@ __device__ inline void run(const TA* __restrict__ x1s, const TA* __restrict__ x2
                  "l"(p), "r"(ok ? 4 : 0));
     copy_commit();
   };
-  // W (RP x CT) of w4s[s] as stage 1's operand, split for 3xTF32 in f32, and
-  // the bias of subset s
+  // W (RP x CT) of w4s[s] as stage 1's operand, split into TF32 parts but
+  // for kBf16, and the bias of subset s
   auto load_w = [&](int s) {
     for (int k = tid; k < RP * CT; k += kThreads) {
       const int r = k / CT, c = k % CT;
       const float w = (r < R && c0 + c < C)
-                          ? Act<TA>::operand(w4s[((size_t)s * R + r) * C + c0 + c])
+                          ? stage1_w<kS1>(w4s[((size_t)s * R + r) * C + c0 + c])
                           : 0.f;
       uint32_t hi = __float_as_uint(w), lo = 0u;
-      if constexpr (kF32) split(w, hi, lo);
+      if constexpr (kS1 != Stage1::kBf16) split(w, hi, lo);
       W[r * kWS + c] = make_float2(__uint_as_float(hi), __uint_as_float(lo));
     }
     for (int c = tid; c < CT; c += kThreads) {
@@ -377,7 +383,7 @@ __device__ inline void run(const TA* __restrict__ x1s, const TA* __restrict__ x2
   {
     const Step st = step_of(0);
     stage(st, 0);
-    if constexpr (!kF32) {
+    if constexpr (!kEF32) {
       for (int i = tid; i < 2 * kJ * RP; i += kThreads) E[e_index(i)] = e_value(st, i);
     }
     load_w(st.s);
@@ -397,7 +403,7 @@ __device__ inline void run(const TA* __restrict__ x1s, const TA* __restrict__ x2
     if (more) {
       nx = step_of(i + 1);
       stage(nx, buf ^ 1);
-      if constexpr (!kF32) {
+      if constexpr (!kEF32) {
 #pragma unroll
         for (int k = 0; k < kEPer; ++k) e_next[k] = e_value(nx, tid + k * kThreads);
       }
@@ -425,22 +431,26 @@ __device__ inline void run(const TA* __restrict__ x1s, const TA* __restrict__ x2
           // A fragment: rows iv = g, g + 8; k = kt*8 + t4, + 4
           const float* x1 = Ex1 + iu * kES + kt * 8 + t4;
           const float* x2 = Ex2 + g * kES + kt * 8 + t4;
-          const float av[4] = {Act<TA>::operand(tanhf(x1[0] - x2[0])),
-                               Act<TA>::operand(tanhf(x1[0] - x2[8 * kES])),
-                               Act<TA>::operand(tanhf(x1[4] - x2[4])),
-                               Act<TA>::operand(tanhf(x1[4] - x2[8 * kES + 4]))};
+          const float av[4] = {stage1_d<kS1>(x1[0], x2[0]), stage1_d<kS1>(x1[0], x2[8 * kES]),
+                               stage1_d<kS1>(x1[4], x2[4]),
+                               stage1_d<kS1>(x1[4], x2[8 * kES + 4])};
           uint32_t ahi[4], alo[4];
-          if constexpr (kF32) {
+          if constexpr (kS1 == Stage1::kF32) {
 #pragma unroll
             for (int k = 0; k < 4; ++k) split(av[k], ahi[k], alo[k]);
+          } else if constexpr (kS1 == Stage1::kK4) {
+#pragma unroll
+            for (int k = 0; k < 4; ++k) ahi[k] = __float_as_uint(av[k]);  // bf16: exact in TF32
           }
 #pragma unroll
           for (int nc = 0; nc < kNC; ++nc) {
             const float2 w0 = W[(kt * 8 + t4) * kWS + nc * 8 + g];
             const float2 w1 = W[(kt * 8 + t4 + 4) * kWS + nc * 8 + g];
-            if constexpr (kF32) {
+            if constexpr (kS1 != Stage1::kBf16) {
               mma_tf32(m[nc], ahi, __float_as_uint(w0.y), __float_as_uint(w1.y));
-              mma_tf32(m[nc], alo, __float_as_uint(w0.x), __float_as_uint(w1.x));
+              if constexpr (kS1 == Stage1::kF32) {
+                mma_tf32(m[nc], alo, __float_as_uint(w0.x), __float_as_uint(w1.x));
+              }
               mma_tf32(m[nc], ahi, __float_as_uint(w0.x), __float_as_uint(w1.x));
             } else {
               mma_bf16(m[nc], pack_bf16(av[0], av[2]), pack_bf16(av[1], av[3]),
@@ -468,7 +478,7 @@ __device__ inline void run(const TA* __restrict__ x1s, const TA* __restrict__ x2
         }
       }
     }
-    if (!kF32 && more) {
+    if (!kEF32 && more) {
       // step i+1's rows, into the E buffer step i-1 read
       float* En = E + (buf ^ 1) * kE;
 #pragma unroll
@@ -484,7 +494,7 @@ __device__ inline void run(const TA* __restrict__ x1s, const TA* __restrict__ x2
     // summed from zero on the tensor cores, then added in f32 ----
     {
       const int nta = min(kNT, (T - st.tb + 7) / 8);  // MMA tiles with a frame < T
-      const TA* X = Xb + buf * kXB;
+      const TX* X = Xb + buf * kXB;
 #pragma unroll
       for (int w = 0; w < kUW; ++w) {
         const int q = warp * kUW + w;
@@ -557,7 +567,7 @@ __device__ inline void run(const TA* __restrict__ x1s, const TA* __restrict__ x2
     }
 
     // the chunk's last step: write its frames < T, own joints < V, channels
-    // < C (4 at a time, rounded once to TA), and start the next chunk at 0
+    // < C (4 at a time, rounded once to TO), and start the next chunk at 0
     if ((i + 1) % spc == 0) {
       const int dst_ld = kFwd ? C : SC;
       const int coff = (kFwd ? 0 : st.s * C) + c0;

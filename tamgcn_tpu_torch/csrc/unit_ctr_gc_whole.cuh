@@ -121,7 +121,7 @@ __device__ inline int m_at(int k, int j, int p) {
   return (k * JP + j) * kPU + (p ^ ((k + 4 * (j >> 1)) & 7));
 }
 
-// two f32 values rounded once to TA
+// two f32 values rounded once to the output type
 __device__ inline void store2(float* p, float2 v) { *reinterpret_cast<float2*>(p) = v; }
 __device__ inline void store2(__nv_bfloat16* p, float2 v) {
   *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(v.x, v.y);
@@ -145,14 +145,17 @@ using mma_tf32x3::copy4;  // one f32 value, zero-filled where `ok` is false
 // stride S*C, subset s at s*C), dst out (row stride C), summed v, own u.
 // !kFwd (K2): src g (row stride C), dst dx3s (row stride S*C, subset s at
 // s*C), summed u, own v. Row (n, t, j) of src or dst at ((n*T + t)*V + j) *
-// stride. V <= 8 * JT.
-template <bool kFwd, int RP, int JT, typename TA>
-__device__ inline void run(const TA* __restrict__ x1s, const TA* __restrict__ x2s,
-                           const TA* __restrict__ src, const float* __restrict__ w4s,
+// stride. V <= 8 * JT. x1s/x2s are TE, src TX, dst TO (each float or bf16;
+// the unit op's forms take one type for all three) and stage 1 follows kS1.
+template <bool kFwd, int RP, int JT, typename TE, typename TX = TE, typename TO = TX,
+          Stage1 kS1 = stage1_of<TE>()>
+__device__ inline void run(const TE* __restrict__ x1s, const TE* __restrict__ x2s,
+                           const TX* __restrict__ src, const float* __restrict__ w4s,
                            const float* __restrict__ b4s, const float* __restrict__ alpha,
-                           const float* __restrict__ As, TA* __restrict__ dst, int S, int T,
+                           const float* __restrict__ As, TO* __restrict__ dst, int S, int T,
                            int V, int R, int C) {
-  constexpr bool kF32 = sizeof(TA) == 4;
+  constexpr bool kF32 = sizeof(TX) == 4;   // src: copied, split into TF32 parts
+  constexpr bool kEF32 = sizeof(TE) == 4;  // x1s/x2s: copied (bf16: through registers)
   constexpr int JP = 8 * JT;
   constexpr int kES = RP + 4;   // row stride of E
   constexpr int kWS = kCT + 4;  // row stride of W, in (hi, lo) pairs
@@ -208,10 +211,10 @@ __device__ inline void run(const TA* __restrict__ x1s, const TA* __restrict__ x2
   // where M is built, E (f32 copied; bf16 into registers), w4s's rows of
   // the tile's channels, the bias and A_s, all copied ----
   uint32_t xr[kF32 ? 1 : kXPer];  // bf16: two channels a unit
-  float er[kF32 ? 1 : kEPer];      // bf16: E, the x1 rows, then the x2 rows
+  float er[kEF32 ? 1 : kEPer];     // bf16: E, the x1 rows, then the x2 rows
   auto fetch_x = [&](int step) {
     const int nr = frames(step) * V;
-    const TA* p = src + ((size_t)(n * T + frame0(step)) * V + r0) * src_ld +
+    const TX* p = src + ((size_t)(n * T + frame0(step)) * V + r0) * src_ld +
                   (kFwd ? step_s(step) * C : 0) + c0 + 2 * up;
     float2* X = Xb + (step & 1) * kXU;
     int t = t_r0, j = j_r0;
@@ -262,11 +265,11 @@ __device__ inline void run(const TA* __restrict__ x1s, const TA* __restrict__ x2
       const int r = i % RP, row = i / RP, j = row % JP;
       if (row < 2 * JP) {
         const bool ok = j < V && r < R;
-        const TA* x = (row < JP ? x1s : x2s) + (((size_t)n * S + s) * V + j) * R + r;
-        if constexpr (kF32) {
+        const TE* x = (row < JP ? x1s : x2s) + (((size_t)n * S + s) * V + j) * R + r;
+        if constexpr (kEF32) {
           copy4(E + row * kES + r, ok ? x : x1s, ok);
         } else {
-          er[k] = ok ? Act<TA>::load(x) : 0.f;
+          er[k] = ok ? Act<TE>::load(x) : 0.f;
         }
       }
     }
@@ -288,9 +291,9 @@ __device__ inline void run(const TA* __restrict__ x1s, const TA* __restrict__ x2
     }
     copy_commit();
   };
-  // W as stage 1's operand (split for 3xTF32 in f32); bf16: E
+  // W as stage 1's operand (split into TF32 parts but for kBf16); bf16: E
   auto put_params = [&]() {
-    if constexpr (!kF32) {
+    if constexpr (!kEF32) {
 #pragma unroll
       for (int k = 0; k < kEPer; ++k) {
         const int i = tid + k * kThreads;
@@ -301,9 +304,9 @@ __device__ inline void run(const TA* __restrict__ x1s, const TA* __restrict__ x2
     for (int k = 0; k < kWPer; ++k) {
       const int i = tid + k * kThreads;
       if (i < RP * kCT) {
-        const float w = Act<TA>::operand(Wc[i]);
+        const float w = stage1_w<kS1>(Wc[i]);
         uint32_t hi = __float_as_uint(w), lo = 0u;
-        if constexpr (kF32) split(w, hi, lo);
+        if constexpr (kS1 != Stage1::kBf16) split(w, hi, lo);
         W[(i / kCT) * kWS + i % kCT] = make_float2(__uint_as_float(hi), __uint_as_float(lo));
       }
     }
@@ -335,22 +338,26 @@ __device__ inline void run(const TA* __restrict__ x1s, const TA* __restrict__ x2
       for (int kt = 0; kt < RP / 8; ++kt) {
         // A fragment: rows p0, p1; k = kt*8 + t4, + 4
         const int r = kt * 8;
-        const float av[4] = {Act<TA>::operand(tanhf(xa[r] - ya[r])),
-                             Act<TA>::operand(tanhf(xb[r] - yb[r])),
-                             Act<TA>::operand(tanhf(xa[r + 4] - ya[r + 4])),
-                             Act<TA>::operand(tanhf(xb[r + 4] - yb[r + 4]))};
+        const float av[4] = {stage1_d<kS1>(xa[r], ya[r]), stage1_d<kS1>(xb[r], yb[r]),
+                             stage1_d<kS1>(xa[r + 4], ya[r + 4]),
+                             stage1_d<kS1>(xb[r + 4], yb[r + 4])};
         uint32_t ahi[4], alo[4];
-        if constexpr (kF32) {
+        if constexpr (kS1 == Stage1::kF32) {
 #pragma unroll
           for (int i = 0; i < 4; ++i) split(av[i], ahi[i], alo[i]);
+        } else if constexpr (kS1 == Stage1::kK4) {
+#pragma unroll
+          for (int i = 0; i < 4; ++i) ahi[i] = __float_as_uint(av[i]);  // bf16: exact in TF32
         }
 #pragma unroll
         for (int nc = 0; nc < kCT / 8; ++nc) {
           const float2 w0 = W[(r + t4) * kWS + nc * 8 + g];
           const float2 w1 = W[(r + t4 + 4) * kWS + nc * 8 + g];
-          if constexpr (kF32) {
+          if constexpr (kS1 != Stage1::kBf16) {
             mma_tf32(m[nc], ahi, __float_as_uint(w0.y), __float_as_uint(w1.y));
-            mma_tf32(m[nc], alo, __float_as_uint(w0.x), __float_as_uint(w1.x));
+            if constexpr (kS1 == Stage1::kF32) {
+              mma_tf32(m[nc], alo, __float_as_uint(w0.x), __float_as_uint(w1.x));
+            }
             mma_tf32(m[nc], ahi, __float_as_uint(w0.x), __float_as_uint(w1.x));
           } else {
             tiled::mma_bf16(m[nc], tiled::pack_bf16(av[0], av[2]),
@@ -455,7 +462,7 @@ __device__ inline void run(const TA* __restrict__ x1s, const TA* __restrict__ x2
 
     // ---- the output of the step's frames: the tile through this step's
     // buffer, then rows of 16 channels (frames < nf, own joints < V,
-    // channels < C), rounded once to TA ----
+    // channels < C), rounded once to TO ----
     __syncthreads();  // the tile is read
 #pragma unroll
     for (int nt = 0; nt < JT; ++nt)
@@ -467,7 +474,7 @@ __device__ inline void run(const TA* __restrict__ x1s, const TA* __restrict__ x2
       }
     __syncthreads();
     const int nr = frames(i) * V;
-    TA* p = dst + ((size_t)(n * T + frame0(i)) * V + r0) * dst_ld +
+    TO* p = dst + ((size_t)(n * T + frame0(i)) * V + r0) * dst_ld +
             (kFwd ? 0 : step_s(i) * C) + c0 + 2 * up;
     int t = t_r0, j = j_r0;
 #pragma unroll
@@ -484,21 +491,21 @@ __device__ inline void run(const TA* __restrict__ x1s, const TA* __restrict__ x2
   }
 }
 
-// Launches the whole-V design through L::whole<RP, JT, TA>(grid, smem,
-// stream, x1s, x2s, src, w4s, b4s, alpha, As, dst, S, T, V, R, C), which
-// sets the kernel's shared memory, launches it and returns
-// cudaGetLastError(). V <= kMaxV.
-template <class L, bool kFwd, int RP, typename TA>
-int launch(const TA* x1s, const TA* x2s, const TA* src, const float* w4s, const float* b4s,
-           const float* alpha, const float* As, TA* dst, int N, int S, int T, int V, int R,
+// Launches the whole-V design through L::whole<RP, JT>(grid, smem,
+// stream, x1s, x2s, src, w4s, b4s, alpha, As, dst, S, T, V, R, C) (the
+// element types deduced from the pointers), which sets the kernel's shared
+// memory, launches it and returns cudaGetLastError(). V <= kMaxV.
+template <class L, bool kFwd, int RP, typename TE, typename TX, typename TO>
+int launch(const TE* x1s, const TE* x2s, const TX* src, const float* w4s, const float* b4s,
+           const float* alpha, const float* As, TO* dst, int N, int S, int T, int V, int R,
            int C, cudaStream_t st) {
   const int JT = joint_tiles(V);
   const dim3 g = grid(kFwd, N, S, T, C);
   const size_t smem = sizeof(float) * (size_t)smem_floats(JT, RP);
   switch (JT) {
-    case 1: return L::template whole<RP, 1, TA>(g, smem, st, x1s, x2s, src, w4s, b4s, alpha, As, dst, S, T, V, R, C);
-    case 2: return L::template whole<RP, 2, TA>(g, smem, st, x1s, x2s, src, w4s, b4s, alpha, As, dst, S, T, V, R, C);
-    case 3: return L::template whole<RP, 3, TA>(g, smem, st, x1s, x2s, src, w4s, b4s, alpha, As, dst, S, T, V, R, C);
+    case 1: return L::template whole<RP, 1>(g, smem, st, x1s, x2s, src, w4s, b4s, alpha, As, dst, S, T, V, R, C);
+    case 2: return L::template whole<RP, 2>(g, smem, st, x1s, x2s, src, w4s, b4s, alpha, As, dst, S, T, V, R, C);
+    case 3: return L::template whole<RP, 3>(g, smem, st, x1s, x2s, src, w4s, b4s, alpha, As, dst, S, T, V, R, C);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -1,7 +1,9 @@
 """NW-UCLA skeleton feeder for the GCN model families.
 
 Numpy copy of tamgcn_tpu/data/feeder_nucla_gcn.py with backend="numpy"
-(reference feeder/feeder_nucla_gcn.py:54-154): JSON skeleton loading
+(reference feeder/feeder_nucla_gcn.py:54-154; "auto" takes it too, and
+"native", the JAX package's C++ augmentation core, raises: the port has no
+native backend yet): JSON skeleton loading
 `<data_path>/<name>/<name>.json`, centring on joint 1 of frame 0, the train
 split's random 3-D view rotation of +-60 degrees and scale U(0.5, 1.5),
 min-max normalisation to [-1, 1], resampling to T=52 (train: sorted random
@@ -40,12 +42,20 @@ class NUCLAFeederGCN:
         seed: int = 0,
         debug: bool = False,
         dtype: str = "float32",
+        backend: str = "auto",  # auto | numpy; native raises
         # reference-config compatibility; accepted and unused, like the
         # reference Feeder's random_choose/random_shift/... args for NUCLA
         **_unused,
     ):
         if modality not in ("joint", "bone", "motion"):
             raise ValueError(f"unknown modality {modality!r}")
+        if backend == "native":
+            raise RuntimeError(
+                "backend='native': the native augmentation backend (the JAX "
+                "package's C++ core, tamgcn_tpu/runtime) is not ported; use "
+                "backend='auto' or 'numpy', which run the numpy path")
+        if backend not in ("auto", "numpy"):
+            raise ValueError(f"unknown backend {backend!r}: auto, numpy or native")
         self.data_path = data_path
         self.split = split
         self.train = split == "train"

@@ -137,23 +137,21 @@ class CTRGC(nn.Module):
     convs with bias; x1 and x2 are conv-then-T-mean as in the JAX module;
     conv4_kernel keeps the Flax layout (1, 1, R, C). The refinement and
     aggregation run through ops.aggregation.ctr_gc_fused (K1 and K2 at S = 1
-    on the card). `UnitGCN` runs the three subsets through the packed unit
-    op instead. Its compute dtype is float32: bfloat16 (the JAX module's
-    `dtype`, whose kernel is K4's bf16 form) raises, and comes with a later
-    slice."""
+    on the card in f32). `dtype` is the compute dtype (compute_dtype): in
+    bfloat16 the three convs compute in bf16 (x1, x2 and x3 bf16, the mean
+    over T in bf16), the parameters stay float32 and the op is K4's bf16
+    form, whose output is float32, as the JAX module's. `UnitGCN` runs the
+    three subsets through the packed unit op instead."""
 
     def __init__(self, in_channels: int, out_channels: int,
                  rel_reduction: int = 8, generator: torch.Generator | None = None,
                  dtype=None):
         super().__init__()
-        if compute_dtype(dtype) is not None:
-            raise NotImplementedError(
-                f"CTRGC with dtype {dtype!r}: the standalone module's bf16 form "
-                "(K4's) comes with a later slice")
+        dt = compute_dtype(dtype)
         R = _rel_channels(in_channels, rel_reduction)
-        self.conv1 = Conv1x1(in_channels, R)
-        self.conv2 = Conv1x1(in_channels, R)
-        self.conv3 = Conv1x1(in_channels, out_channels)
+        self.conv1 = Conv1x1(in_channels, R, dtype=dt)
+        self.conv2 = Conv1x1(in_channels, R, dtype=dt)
+        self.conv3 = Conv1x1(in_channels, out_channels, dtype=dt)
         self.conv4_kernel = nn.Parameter(torch.empty(1, 1, R, out_channels))
         self.conv4_bias = nn.Parameter(torch.zeros(out_channels))
         self.reset_parameters(generator or _default_generator())
@@ -165,7 +163,8 @@ class CTRGC(nn.Module):
         nn.init.zeros_(self.conv4_bias)
 
     def forward(self, x, A, alpha):
-        """x (N,T,V,Cin); A (V,V); alpha (1,) -> (N,T,V,C)."""
+        """x (N,T,V,Cin); A (V,V); alpha (1,) -> (N,T,V,C) float32 (or the
+        dtype of x in f32 compute)."""
         x1 = self.conv1(x).mean(dim=1)  # (N, V, R)
         x2 = self.conv2(x).mean(dim=1)
         x3 = self.conv3(x)  # (N, T, V, C)

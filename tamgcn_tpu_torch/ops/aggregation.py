@@ -23,8 +23,14 @@ use the f32 D and w4s and stay f32; dx1s and dx2s are rounded to bf16.
 `unit_ctr_gc_conv3` spans the packed conv3 that makes x3s as well; with the
 JAX package's switch TAMGCN_FUSE_CONV3=1 it takes `UnitCtrGcConv3`, whose
 backward is K6 (the x3 gradient carried through conv3's VJP on the chip) and
-K3; K6 has no bf16 form yet. `ctr_gc_fused` is the standalone single-subset op of the `CTRGC` module
-(K4 in the JAX package), run through K1 and K2 at S = 1.
+K3, in f32 or bf16; K6's bf16 form follows the JAX kernel's bf16 body: its x3
+gradient stays f32, is rounded to bf16 once as the operand of the dx and dw3
+products (f32 sums, each output rounded once) and enters db3 unrounded.
+
+`ctr_gc_fused` is the standalone single-subset op of the `CTRGC` module (K4
+in the JAX package): in f32 through K1 and K2 at S = 1; on bf16 x1, x2 and
+x3 through K4's bf16 form, which follows the JAX K4 on bf16 operands: D =
+bf16(tanh(bf16(x1 - x2))), w4 and the product f32, the output f32.
 """
 from __future__ import annotations
 
@@ -92,9 +98,14 @@ def unit_ctr_gc_dx3_plain(x1s, x2s, g, w4s, b4s, alpha, As):
     dx3s[n,t,v,s*C+c] = sum_u M_s[n,u,v,c] * g[n,t,u,c].
 
     x1s/x2s (N,S,V,R); g (N,T,V,C); w4s (S,R,C); b4s (S,C); alpha (1,);
-    As (S,V,V) -> (N,T,V,S*C) in the dtype of g.
+    As (S,V,V) -> (N,T,V,S*C) in the dtype of g. Stage 1 follows the dtype
+    of x1s and x2s: on bf16 x1s/x2s with an f32 g, the x3 gradient of
+    K6-bf16, f32 and unrounded.
     """
-    dtype, operand, (x1s, x2s, g) = _widened(x1s, x2s, g)
+    _, operand, (x1s, x2s) = _widened(x1s, x2s)
+    dtype = g.dtype
+    if dtype == torch.bfloat16:
+        g = g.float()
     return torch.cat([
         torch.einsum(
             "nuvc,ntuc->ntvc",
@@ -148,12 +159,24 @@ def unit_ctr_gc_bwd_conv3_plain(x1s, x2s, g, x, w3, w4s, b4s, alpha, As):
         dw3 = x^T dx3s (summed over n, t, v);  db3 = sum_{n,t,v} dx3s
 
     x (N,T,V,Cin); w3 (Cin,S*C); the rest as unit_ctr_gc_dx3_plain ->
-    (dx, dw3, db3) shaped as x, w3 and (S*C,).
+    (dx, dw3, db3) shaped as x, w3 and (S*C,), in the activations' dtype.
+    In bfloat16 (x1s, x2s, g, x and w3), the JAX kernel's bf16 body
+    (tamgcn_tpu/ops/pallas/ctr_gc.py:510-558, the tile branch): dx3s in f32,
+    unrounded; rounded once to bf16 as the operand of both products, which
+    sum in f32 over the bf16 x and w3; db3 summed from the unrounded dx3s;
+    dx, dw3 and db3 each rounded once to bf16.
     """
-    dx3s = unit_ctr_gc_dx3_plain(x1s, x2s, g, w4s, b4s, alpha, As)
-    dx = torch.matmul(dx3s, w3.t())
-    dw3 = torch.einsum("ntvi,ntvo->io", x, dx3s)
-    return dx, dw3, dx3s.sum(dim=(0, 1, 2))
+    dtype = g.dtype
+    if dtype != torch.bfloat16:
+        dx3s = unit_ctr_gc_dx3_plain(x1s, x2s, g, w4s, b4s, alpha, As)
+        dx = torch.matmul(dx3s, w3.t())
+        dw3 = torch.einsum("ntvi,ntvo->io", x, dx3s)
+        return dx, dw3, dx3s.sum(dim=(0, 1, 2))
+    dx3s = unit_ctr_gc_dx3_plain(x1s, x2s, g.float(), w4s, b4s, alpha, As)  # f32
+    operand = dx3s.to(dtype).float()
+    dx = torch.matmul(operand, w3.float().t())
+    dw3 = torch.einsum("ntvi,ntvo->io", x.float(), operand)
+    return dx.to(dtype), dw3.to(dtype), dx3s.sum(dim=(0, 1, 2)).to(dtype)
 
 
 def _kernels(device):
@@ -260,46 +283,102 @@ def unit_ctr_gc_conv3(x, w3, b3, x1s, x2s, w4s, b4s, alpha, As):
     `unit_ctr_gc`. With the JAX package's switch TAMGCN_FUSE_CONV3=1, read
     here and nowhere else, and where the JAX package takes its fused kernel
     (C >= 128, S*C >= 384, V <= 32) it takes `UnitCtrGcConv3` (K6 in the
-    backward on the card), and raises NotImplementedError on bfloat16
-    activations (K6's bf16 form comes with a later slice); everywhere else
-    conv3_matmul + `unit_ctr_gc`. The device of the tensors picks kernels or
-    plain versions in either case."""
+    backward on the card, in f32 or bf16); everywhere else conv3_matmul +
+    `unit_ctr_gc`. The device of the tensors picks kernels or plain
+    versions in either case."""
     S, V = x1s.shape[1], x1s.shape[2]
     C = w3.shape[-1] // S
     fuse = os.environ.get("TAMGCN_FUSE_CONV3", "0") == "1"
     if fuse and C >= 128 and S * C >= 384 and V <= 32:
-        if x.dtype == torch.bfloat16:
-            raise NotImplementedError(
-                "TAMGCN_FUSE_CONV3=1 with bfloat16 activations needs the bf16 form "
-                "of K6 (the x3 gradient through conv3's VJP), which comes with a "
-                "later slice; unset the switch to train in bf16")
         return UnitCtrGcConv3.apply(x, w3, b3, x1s, x2s, w4s, b4s, alpha, As)
     return unit_ctr_gc(x1s, x2s, conv3_matmul(x, w3, b3), w4s, b4s, alpha, As)
+
+
+def _fused_bf16(x1, x2, x3):
+    """Whether the single-subset op takes K4's bf16 form: x1, x2 and x3 all
+    bfloat16 (True) or none of them (False); raises on a mix."""
+    bf16 = [t.dtype == torch.bfloat16 for t in (x1, x2, x3)]
+    if any(bf16) and not all(bf16):
+        raise TypeError(
+            f"x1, x2 and x3 are {x1.dtype}, {x2.dtype} and {x3.dtype}: the single-subset "
+            "op takes them all in bfloat16 (K4's bf16 form) or none of them")
+    return all(bf16)
+
+
+def ctr_gc_fused_adjacency(x1, x2, w4, b4, alpha, A):
+    """M of the single-subset op: ctr_gc_dynamic_adjacency, and on bfloat16
+    x1/x2 K4's bf16 form, as the JAX K4 computes on bf16 operands: the
+    difference and the tanh each rounded to bf16, then w4, b4, alpha and A in
+    f32 -> (N,U,V,C) float32."""
+    if x1.dtype != torch.bfloat16:
+        return ctr_gc_dynamic_adjacency(x1, x2, w4, b4, alpha, A)
+    diff = (x1.float()[:, :, None, :] - x2.float()[:, None, :, :]).bfloat16()
+    d = torch.tanh(diff.float()).bfloat16().float()  # (N, U, V, R)
+    m = torch.matmul(d, w4)
+    if b4 is not None:
+        m = m + b4
+    return m * alpha + A[None, :, :, None]
 
 
 def ctr_gc_fused_plain(x1, x2, x3, w4, b4, alpha, A):
     """Plain single-subset CTR-GC refine + aggregate (counterpart of
     `ctr_gc_fused_xla`): x1/x2 (N,V,R); x3 (N,T,V,C); w4 (R,C); b4 (C,) or
-    None; alpha (1,); A (V,V) -> (N,T,V,C)."""
-    return ctr_gc_aggregate(ctr_gc_dynamic_adjacency(x1, x2, w4, b4, alpha, A), x3)
+    None; alpha (1,); A (V,V) -> (N,T,V,C). On bfloat16 x1, x2 and x3 (f32
+    parameters) the plain version of K4's bf16 form: M of
+    ctr_gc_fused_adjacency, the aggregation in f32, the output float32."""
+    m = ctr_gc_fused_adjacency(x1, x2, w4, b4, alpha, A)
+    return ctr_gc_aggregate(m, x3.float() if _fused_bf16(x1, x2, x3) else x3)
+
+
+def ctr_gc_fused_dx3_plain(x1, x2, g, w4, b4, alpha, A):
+    """Plain version of the single-subset op's x3 gradient (the JAX K4 with
+    `transpose_m`): dx3[n,t,v,c] = sum_u M[n,u,v,c] g[n,t,u,c], with M of
+    ctr_gc_fused_adjacency, in the dtype of g (float32 for bf16 x1/x2)."""
+    return torch.einsum("nuvc,ntuc->ntvc", ctr_gc_fused_adjacency(x1, x2, w4, b4, alpha, A), g)
+
+
+def _fused_kernels(device, bf16):
+    """(forward, x3 gradient) of the single-subset op on `device`: K4's bf16
+    form (ctr_gc_fused_bf16, ctr_gc_fused_t_bf16) or, in f32, K1 and K2 at
+    S = 1 on a CUDA device; their plain versions on the CPU."""
+    if bf16 and device.type == "cuda":
+        from .cuda import ctr_gc
+
+        return ctr_gc.ctr_gc_fused_bf16, ctr_gc.ctr_gc_fused_t_bf16
+    if bf16 and device.type == "cpu":
+        return ctr_gc_fused_plain, ctr_gc_fused_dx3_plain
+    fwd, dx3, _ = _kernels(device)
+
+    def forward(x1, x2, x3, w4, b4, alpha, A):
+        return fwd(x1[:, None], x2[:, None], x3, w4[None], b4[None], alpha, A[None])
+
+    def x3_gradient(x1, x2, g, w4, b4, alpha, A):
+        return dx3(x1[:, None], x2[:, None], g, w4[None], b4[None], alpha, A[None])
+
+    return forward, x3_gradient
 
 
 class CtrGcFused(torch.autograd.Function):
     """The single-subset op with its gradient (counterpart of the JAX
     package's custom_vjp `ctr_gc_fused_pallas`, ops/pallas/ctr_gc.py:193-231,
-    whose kernel is K4): the forward is the unit op at S = 1 (K1 on a CUDA
-    device), the x3 gradient its x3 gradient at S = 1 (K2; the JAX kernel's
-    `transpose_m`), both on views of the operands with a zero b4 where b4 is
-    None; the other gradients are plain PyTorch on both devices, as the JAX
-    `_bwd` computes them outside its kernel. Once differentiable."""
+    whose kernel is K4): in f32 the forward is the unit op at S = 1 (K1 on a
+    CUDA device), the x3 gradient its x3 gradient at S = 1 (K2; the JAX
+    kernel's `transpose_m`), both on views of the operands; on bf16 x1, x2
+    and x3 both are K4's bf16 form (float32 output, the x3 gradient from the
+    f32 g, handed back in bf16). A zero b4 stands in where b4 is None. The
+    other gradients are plain PyTorch on both devices, as the JAX `_bwd`
+    computes them outside its kernel (in bf16 with its dtypes: D in bf16, 1
+    - D^2 rounded to bf16, dm and the products f32), each in its primal's
+    dtype, which is the JAX XLA path's (the JAX Pallas backward hands back
+    f32 for bf16 primals and fails there). Once differentiable."""
 
     @staticmethod
     def forward(ctx, x1, x2, x3, w4, b4, alpha, A):
         ctx.has_b4 = b4 is not None
-        b4v = b4 if ctx.has_b4 else x3.new_zeros(x3.shape[-1])
+        ctx.bf16 = _fused_bf16(x1, x2, x3)
+        b4v = b4 if ctx.has_b4 else w4.new_zeros(x3.shape[-1])
         ctx.save_for_backward(x1, x2, x3, w4, b4v, alpha, A)
-        return _kernels(x3.device)[0](x1[:, None], x2[:, None], x3, w4[None],
-                                      b4v[None], alpha, A[None])
+        return _fused_kernels(x3.device, ctx.bf16)[0](x1, x2, x3, w4, b4v, alpha, A)
 
     @staticmethod
     @once_differentiable
@@ -309,19 +388,23 @@ class CtrGcFused(torch.autograd.Function):
         g = g.contiguous()
         dx3 = None
         if need[2]:
-            dx3 = _kernels(g.device)[1](x1[:, None], x2[:, None], g, w4[None],
-                                        b4v[None], alpha, A[None])
+            dx3 = _fused_kernels(g.device, ctx.bf16)[1](x1, x2, g, w4, b4v, alpha,
+                                                        A).to(x3.dtype)
         dx1 = dx2 = dw4 = db4 = dalpha = dA = None
         if any(need[i] for i in (0, 1, 3, 4, 5, 6)):
-            dm = torch.einsum("ntuc,ntvc->nuvc", g, x3)
+            dm = torch.einsum("ntuc,ntvc->nuvc", g, x3.to(g.dtype))
+            # D and 1 - D^2 in the dtype of x1 and x2 (rounded in bf16, as _bwd
+            # computes them), the rest in the dtype of g
             d = torch.tanh(x1[:, :, None, :] - x2[:, None, :, :])  # (N,U,V,R)
+            d_sq = (1 - d * d).to(g.dtype)
+            d = d.to(g.dtype)
             dA = dm.sum(dim=(0, 3))
             dp = dm * alpha  # the gradient of P = D @ w4 + b4
             dalpha = (dm * (torch.matmul(d, w4) + b4v)).sum().reshape(alpha.shape)
             db4 = dp.sum(dim=(0, 1, 2)) if ctx.has_b4 else None
             dw4 = torch.einsum("nuvr,nuvc->rc", d, dp)
-            dpre = torch.matmul(dp, w4.t()) * (1 - d * d)
-            dx1, dx2 = dpre.sum(dim=2), -dpre.sum(dim=1)
+            dpre = torch.matmul(dp, w4.t()) * d_sq
+            dx1, dx2 = dpre.sum(dim=2).to(x1.dtype), (-dpre.sum(dim=1)).to(x2.dtype)
         grads = (dx1, dx2, dx3, dw4, db4, dalpha, dA)
         return tuple(t if n else None for t, n in zip(grads, need))
 
@@ -329,7 +412,7 @@ class CtrGcFused(torch.autograd.Function):
 def ctr_gc_fused(x1, x2, x3, w4, b4, alpha, A):
     """The single-subset op through `CtrGcFused`, dispatched on the device of
     x3 (counterpart of the JAX package's `ctr_gc_fused`, ops/aggregation.py:
-    287-314): a CPU tensor takes the plain versions, a CUDA tensor K1 and K2,
-    which raise outside their limits (R <= 32, C % 4 == 0, V as K1 takes
-    it); there is no fallback."""
+    287-314): a CPU tensor takes the plain versions, a CUDA tensor K1 and K2
+    (f32) or K4's bf16 form (bf16 x1, x2, x3), which raise outside their
+    limits (R <= 32, C % 4 == 0, V as K1 takes it); there is no fallback."""
     return CtrGcFused.apply(x1, x2, x3, w4, b4, alpha, A)

@@ -40,7 +40,7 @@ WIDTHS = ((16, 52, 64, 8), (16, 26, 128, 16), (16, 13, 256, 32), (64, 26, 128, 1
           (64, 13, 256, 32))
 TAKES = "__host__ __device__ inline bool takes(int V) {"
 MAX_V = "constexpr int kMaxV = "
-CASE3 = "    case 3: return L::template whole<RP, 3, TA>("
+CASE3 = "    case 3: return L::template whole<RP, 3>("
 NAMES = {"K1": ("unit_ctr_gc_fwd.cu", "unit_ctr_gc_fwd_f32"),
          "K2": ("unit_ctr_gc_bwd_dx3.cu", "unit_ctr_gc_bwd_dx3_f32")}
 
@@ -61,7 +61,7 @@ def patched(csrc: str, out_dir: str, design: str) -> str:
             line = MAX_V + "32;" + line[line.index(";") + 1:]
         out.append(line)
         if design == "whole" and line.startswith(CASE3):
-            out.append(line.replace("case 3:", "case 4:").replace("<RP, 3, TA>", "<RP, 4, TA>"))
+            out.append(line.replace("case 3:", "case 4:").replace("<RP, 3>", "<RP, 4>"))
     if out == lines:
         raise RuntimeError(f"{path} has none of the lines design_ab patches")
     with open(path, "w") as f:

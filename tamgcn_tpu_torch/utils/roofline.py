@@ -20,7 +20,15 @@ card can do. K3's sums stay at the f32 peak outside the tensor cores. K5
 (the whole eval block) and K6 (the x3 gradient through conv3) run their
 1x1-conv products, most of their work, on the tensor cores as 3xTF32
 (csrc/mma_tf32x3.cuh), and the rest of their work is K1's or K2's: all
-their f32 FMAs are held to the same 165 TFLOP/s.
+their f32 FMAs are held to the same 165 TFLOP/s. The bf16 forms of K6 and
+K4 hold each product to the rate of the unit that runs it: K6-bf16's two
+1x1-conv products (bf16 x bf16, f32 accumulation, as the JAX kernel's
+bf16 body takes them) and its stage 1 at the bf16 peak, its aggregation (an
+f32 M times a bf16 g, exact in TF32) as two TF32 terms, db3's adds at the
+3xTF32 rate; K4-bf16's stage 1 (a bf16 D, exact in TF32,
+times an f32 w4) and its forward aggregation (an f32 M times a bf16 x3) as
+two TF32 terms, at the TF32 peak over two (247.5 TFLOP/s), its transposed
+aggregation (an f32 M times an f32 g) at the 3xTF32 rate.
 
 Peaks: NVIDIA's H100 SXM data sheet, dense, at the full 700 W limit: 80 GB
 of HBM3 at 3.35 TB/s, 989 TFLOP/s bf16 and 495 TFLOP/s TF32 on the tensor
@@ -36,16 +44,19 @@ HBM_BW = 3.35e12  # bytes/s
 F32_FLOPS = 67e12  # FLOP/s, f32 outside the tensor cores
 BF16_FLOPS = 989e12  # FLOP/s, bf16 on the tensor cores (f32 accumulation)
 TF32X3_FLOPS = 495e12 / 3  # FLOP/s, f32 products on the tensor cores as 3xTF32
+# FLOP/s, products of a bf16 value (exact in TF32) and an f32 value on the
+# tensor cores as two TF32 terms
+TF32X2_FLOPS = 495e12 / 2
 
 
 def bound(elems: int, flops: int, *, itemsize: int = 4, bf16_flops: int = 0,
-          f32_peak: float = F32_FLOPS):
+          f32_peak: float = F32_FLOPS, tf32x2_flops: int = 0):
     """(ms, 'bytes' | 'operations'): `elems` values of `itemsize` bytes over
     the memory rate, or `flops` over `f32_peak` (the f32 peak outside the
     tensor cores unless given) plus `bf16_flops` over the bf16 tensor-core
-    peak, whichever is larger."""
+    peak plus `tf32x2_flops` over TF32X2_FLOPS, whichever is larger."""
     bytes_ms = itemsize * elems / HBM_BW * 1e3
-    ops_ms = (flops / f32_peak + bf16_flops / BF16_FLOPS) * 1e3
+    ops_ms = (flops / f32_peak + bf16_flops / BF16_FLOPS + tf32x2_flops / TF32X2_FLOPS) * 1e3
     return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
 
 
@@ -129,6 +140,35 @@ def unit_ctr_gc_bwd_conv3_sol(n: int, t: int, v: int, cin: int, c: int, r: int,
     flops = (2 * n * s * (v * v * r * c + t * v * v * c) + 4 * n * t * v * s * c * cin
              + n * t * v * s * c)
     return bound(elems, flops, f32_peak=TF32X3_FLOPS)
+
+
+def unit_ctr_gc_bwd_conv3_bf16_sol(n: int, t: int, v: int, cin: int, c: int, r: int,
+                                   s: int = 3):
+    """K6's bf16 form: x1s, x2s, g, x, w3 in and dx, dw3, db3 out in bf16,
+    w4s, b4s, alpha, As in f32. Stage 1 and the products with w3 and x at
+    the bf16 peak; the aggregation (an f32 M times a bf16 g) as two TF32
+    terms; db3's adds at the 3xTF32 rate. Returns bound()'s (ms, by)."""
+    acts = 2 * n * s * v * r + n * t * v * c + 2 * n * t * v * cin + 2 * cin * s * c + s * c
+    params = s * r * c + s * c + 1 + s * v * v
+    bf16_flops = 2 * n * s * v * v * r * c + 4 * n * t * v * s * c * cin
+    return bound(2 * acts + 4 * params, n * t * v * s * c, itemsize=1, bf16_flops=bf16_flops,
+                 f32_peak=TF32X3_FLOPS, tf32x2_flops=2 * n * s * t * v * v * c)
+
+
+def ctr_gc_fused_bf16_sol(n: int, t: int, v: int, c: int, r: int):
+    """K4's bf16 form on one forward and its transposed call (the x3
+    gradient), as a CTRGC forward and backward makes them: x1, x2 (bf16)
+    and w4, b4, alpha, A (f32) read by each, x3 (bf16) in and out (f32) of
+    the forward, g in and dx3 out (f32) of the transpose. M of each call (a
+    bf16 D times an f32 w4) and the forward's aggregation (an f32 M times a
+    bf16 x3) as two TF32 terms, the transpose's aggregation at the 3xTF32
+    rate. Returns bound()'s (ms, by)."""
+    params = r * c + c + 1 + v * v
+    call = 2 * (2 * n * v * r) + 4 * params
+    nbytes = 2 * call + 2 * n * t * v * c + 4 * n * t * v * c + 8 * n * t * v * c
+    stage1, aggregation = 2 * n * v * v * r * c, 2 * n * t * v * v * c
+    return bound(nbytes, aggregation, itemsize=1, f32_peak=TF32X3_FLOPS,
+                 tf32x2_flops=2 * stage1 + aggregation)
 
 
 def gcn_tcn_block_sol(n: int, t: int, v: int, cin: int, c: int, r: int, s: int = 3):

@@ -406,9 +406,12 @@ def test_bf16_fast_eval_follows_the_jax_auto_policy(variables, monkeypatch):
 
 
 def test_bf16_refusals(monkeypatch):
-    """K6's bf16 form (TAMGCN_FUSE_CONV3=1 with bf16 activations, on the CPU
-    as on the card), float16 and other dtypes, mixed or float16 activations
-    of the unit op's kernels, and the standalone CTRGC in bf16."""
+    """What bf16 takes and what it refuses: TAMGCN_FUSE_CONV3=1 with bf16
+    activations takes K6's bf16 form (on the CPU its plain version), whose
+    forward is the unfused one bit for bit; the standalone CTRGC takes bf16
+    (K4's bf16 form, an f32 output). Refused: float16 and other model
+    dtypes, mixed or float16 activations of the unit op's kernels. (K6-bf16
+    and K4-bf16 are held to JAX in tests/test_torch_bf16_forms.py.)"""
     rs = np.random.RandomState(3)
 
     def t(*shape, dtype=torch.bfloat16):
@@ -419,15 +422,24 @@ def test_bf16_refusals(monkeypatch):
     params = (t(3, 8, 128, dtype=torch.float32), t(3, 128, dtype=torch.float32),
               t(1, dtype=torch.float32), t(3, 20, 20, dtype=torch.float32))
     monkeypatch.setenv("TAMGCN_FUSE_CONV3", "1")
-    with pytest.raises(NotImplementedError, match="K6"):
-        port.unit_ctr_gc_conv3(x, w3, b3, x1s, x2s, *params)
+    leaves = [a.clone().requires_grad_() for a in (x, w3, b3)]
+    fused = port.unit_ctr_gc_conv3(*leaves, x1s, x2s, *params)
+    fused.float().sum().backward()
+    assert fused.dtype == torch.bfloat16 and fused.grad_fn.name() == "UnitCtrGcConv3Backward"
+    assert all(a.grad.dtype == torch.bfloat16 and torch.isfinite(a.grad.float()).all()
+               for a in leaves)
     monkeypatch.setenv("TAMGCN_FUSE_CONV3", "0")
-    assert port.unit_ctr_gc_conv3(x, w3, b3, x1s, x2s, *params).dtype == torch.bfloat16
+    unfused = port.unit_ctr_gc_conv3(x, w3, b3, x1s, x2s, *params)
+    assert unfused.dtype == torch.bfloat16 and torch.equal(unfused, fused.detach())
     for dtype in ("float16", "float64"):
         with pytest.raises(NotImplementedError, match="float32 or in bfloat16"):
             get_model("ctrgcn", dtype=dtype, graph="ucla")
-    with pytest.raises(NotImplementedError, match="later slice"):
-        CTRGC(16, 32, dtype="bfloat16")
+    module = CTRGC(16, 32, dtype="bfloat16")
+    assert {p.dtype for p in module.parameters()} == {torch.float32}
+    out = module(t(1, 4, 20, 16, dtype=torch.float32), torch.rand(20, 20), torch.ones(1))
+    assert out.dtype == torch.float32 and out.shape == (1, 4, 20, 32)
+    with pytest.raises(NotImplementedError, match="float32 or bfloat16"):
+        CTRGC(16, 32, dtype="float16")
     named = (("x1s", x1s, None), ("x2s", x2s.half(), None))
     with pytest.raises(TypeError, match="one dtype"):
         ctr_gc._activation_dtype("unit_ctr_gc_fwd", named, ("x1s", "x2s"))

@@ -20,7 +20,14 @@ activations, f32 parameters; both designs of K1 and K2) against their bf16
 plain versions: bf16 outputs within 2^-7 of their max |value| (they differ
 in f32 sum order before one rounding), K3's f32 outputs at the f32
 tolerances, each launch on its own bf16 counter; and the dtypes the
-wrappers refuse (float16, mixed activations, bf16 parameters, K6 in bf16).
+wrappers refuse (float16, mixed activations, bf16 parameters). The bf16
+forms of K6 (bf16 activations, an f32 x3 gradient inside) and of K4 (bf16
+x1, x2, x3, f32 output) against their plain versions: K6-bf16's outputs as
+the bf16 outputs above, K4-bf16's f32 outputs within 1e-4 * max|plain|,
+two launches of each bitwise equal, each launch on its own counter; and the
+standalone CTRGC in bf16 on the card against its plain route. The designs'
+variant queries are held to the launches the C launchers count per design
+where they launch a kernel (a witness that cannot miss a launch).
 This file imports no JAX, so it runs where the port runs.
 """
 import pytest
@@ -346,8 +353,9 @@ def test_bf16_kernels_match_plain(device, shape):
 
 
 def test_bf16_kernels_reject_other_dtypes(device):
-    """K1-K3 take float32 or bfloat16 activations, one dtype for all, with
-    float32 parameters; K6 float32 only. A refused call counts no launch."""
+    """K1-K3 and K6 take float32 or bfloat16 activations, one dtype for all,
+    with float32 parameters; K4's bf16 form bf16 x1, x2 (and x3), an f32 g.
+    A refused call counts no launch."""
     x1s, x2s, x3s, w4s, b4s, alpha, As = _inputs(1, 4, 20, 64, 8, device=device)
     g = torch.randn((1, 4, 20, 64), device=device)
     b = [a.bfloat16() for a in (x1s, x2s, x3s, g)]
@@ -368,49 +376,81 @@ def test_bf16_kernels_reject_other_dtypes(device):
         ctr_gc.unit_ctr_gc_bwd_param(*b[:2], b[3], b[2], w4s, b4s, alpha.bfloat16())
     assert _counts() == before
     args = list(_conv3_inputs(1, 4, 20, 64, 128, 8, device=device))
-    conv3_before = ctr_gc.bwd_conv3_launches
-    with pytest.raises(TypeError, match="float32"):
+    conv3_before = ctr_gc.bwd_conv3_launches, ctr_gc.bwd_conv3_launches_bf16
+    with pytest.raises(TypeError, match="w4s .*float32"):
         ctr_gc.unit_ctr_gc_bwd_conv3(*[a.bfloat16() for a in args])
-    assert ctr_gc.bwd_conv3_launches == conv3_before
-
-
-def _kernel_names(fn, reps=5):
-    """The names of the device kernels that calls of fn launch (warmed up,
-    then several calls: torch.profiler can drop the first launches of a
-    short trace)."""
-    from torch.profiler import ProfilerActivity, profile
-
-    for _ in range(2):  # warm up: builds, loads and first launches stay untraced
-        fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA], acc_events=True) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    return {e.key for e in prof.key_averages() if e.self_device_time_total > 0}
+    with pytest.raises(TypeError, match="one dtype"):
+        ctr_gc.unit_ctr_gc_bwd_conv3(*[a.bfloat16() for a in args[:4]], *args[4:])
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        ctr_gc.unit_ctr_gc_bwd_conv3(*[a.half() for a in args[:5]], *args[5:])
+    assert (ctr_gc.bwd_conv3_launches, ctr_gc.bwd_conv3_launches_bf16) == conv3_before
+    # K4's bf16 form: bf16 x1 and x2, x3 bf16 and g f32, f32 parameters
+    x1, x2, w4, b4, A = x1s[:, 0], x2s[:, 0], w4s[0], b4s[0], As[0]
+    k4_before = ctr_gc.k4_launches_bf16, ctr_gc.k4_t_launches_bf16
+    with pytest.raises(TypeError, match="bfloat16 x1 and x2"):
+        ctr_gc.ctr_gc_fused_bf16(x1, x2, g, w4, b4, alpha, A)
+    with pytest.raises(TypeError, match="one dtype"):
+        ctr_gc.ctr_gc_fused_bf16(x1.bfloat16(), x2.bfloat16(), g, w4, b4, alpha, A)
+    with pytest.raises(TypeError, match="g .*float32"):
+        ctr_gc.ctr_gc_fused_t_bf16(x1.bfloat16(), x2.bfloat16(), b[3], w4, b4, alpha, A)
+    with pytest.raises(TypeError, match="w4 .*float32"):
+        ctr_gc.ctr_gc_fused_t_bf16(x1.bfloat16(), x2.bfloat16(), g, w4.bfloat16(), b4, alpha,
+                                   A)
+    assert (ctr_gc.k4_launches_bf16, ctr_gc.k4_t_launches_bf16) == k4_before
 
 
 @pytest.mark.parametrize("V", [20, 25, 28, 29, 32, 33, 64, 256])
 def test_variant_queries_match_the_launchers(device, V):
-    """fwd_variant and dx3_variant name the kernel that K1's and K2's
-    launchers actually run (read from the profiler's kernel names), at every
-    R tier; ops/gcn_tcn_block.py:k5_takes says whether K5's launcher takes the
-    block (Cin = C = 16 and 256, P = 3C/4, BC = C/4 as in the model)."""
+    """fwd_variant and dx3_variant name the design that K1's and K2's
+    launchers (in f32 and bf16) and K4-bf16's (at S = 1) actually launch, at
+    every R tier: around a real call, the launches that the C launcher
+    counted where it launched a kernel (fwd_launched, dx3_launched,
+    fused_launched) move by one for the queried design and not for the
+    other, as the wrapper's counter of that design does;
+    ops/gcn_tcn_block.py:k5_takes says whether K5's launcher takes the block
+    (Cin = C = 16 and 256, P = 3C/4, BC = C/4 as in the model)."""
     from tamgcn_tpu_torch.ops.cuda import gcn_tcn_block as k5
     from tamgcn_tpu_torch.ops.gcn_tcn_block import k5_takes
 
     for r in (8, 16, 32):
-        x1s, x2s, x3s, w4s, b4s, alpha, As = args = _inputs(1, 2, V, 16, r, device=device)
+        x1s, x2s, x3s, w4s, b4s, alpha, As = _inputs(1, 2, V, 16, r, device=device)
         g = torch.randn((1, 2, V, 16), device=device)
-        for variant, fn, symbol in (
-                (ctr_gc.fwd_variant(3, V, r), lambda: ctr_gc.unit_ctr_gc_fwd(*args),
-                 "unit_ctr_gc_fwd_"),
-                (ctr_gc.dx3_variant(3, V, r),
-                 lambda: ctr_gc.unit_ctr_gc_bwd_dx3(x1s, x2s, g, w4s, b4s, alpha, As),
-                 "unit_ctr_gc_bwd_dx3_")):
-            names = {k for k in _kernel_names(fn) if symbol in k}
-            tiled = {k for k in names if symbol + "tiled_kernel" in k}
-            assert len(names) == 1 and bool(tiled) == (variant == "tiled"), (V, r, names)
+        for dtype, suffix in ((torch.float32, ""), (torch.bfloat16, "_bf16")):
+            a1, a2, a3, ag = (t.to(dtype) for t in (x1s, x2s, x3s, g))
+            for variant, fn, witness, counters in (
+                    (ctr_gc.fwd_variant(3, V, r),
+                     lambda: ctr_gc.unit_ctr_gc_fwd(a1, a2, a3, w4s, b4s, alpha, As),
+                     ctr_gc.fwd_launched, ("launches", "launches_tiled")),
+                    (ctr_gc.dx3_variant(3, V, r),
+                     lambda: ctr_gc.unit_ctr_gc_bwd_dx3(a1, a2, ag, w4s, b4s, alpha, As),
+                     ctr_gc.dx3_launched, ("bwd_dx3_launches", "bwd_dx3_tiled_launches"))):
+                counters = dict(zip(("whole", "tiled"), (c + suffix for c in counters)))
+                before = {d: (witness(d), getattr(ctr_gc, counters[d])) for d in counters}
+                fn()
+                torch.cuda.synchronize()
+                moved = {d: (witness(d) - w, getattr(ctr_gc, counters[d]) - c)
+                         for d, (w, c) in before.items()}
+                other = "tiled" if variant == "whole" else "whole"
+                assert moved == {variant: (1, 1), other: (0, 0)}, (V, r, dtype, moved)
+        # K4-bf16 at S = 1, forward and transpose, on fused_launched
+        k1, k2 = (t[:, 0].contiguous().bfloat16() for t in (x1s, x2s))
+        k3 = x3s[..., :16].contiguous().bfloat16()
+        params = (w4s[0].contiguous(), b4s[0].contiguous(), alpha, As[0].contiguous())
+        for transpose, fn, src, counters in (
+                (False, ctr_gc.ctr_gc_fused_bf16, k3,
+                 ("k4_launches_bf16", "k4_tiled_launches_bf16")),
+                (True, ctr_gc.ctr_gc_fused_t_bf16, g,
+                 ("k4_t_launches_bf16", "k4_t_tiled_launches_bf16"))):
+            variant = (ctr_gc.dx3_variant if transpose else ctr_gc.fwd_variant)(1, V, r)
+            counters = dict(zip(("whole", "tiled"), counters))
+            before = {d: (ctr_gc.fused_launched(d, transpose), getattr(ctr_gc, counters[d]))
+                      for d in counters}
+            fn(k1, k2, src, *params)
+            torch.cuda.synchronize()
+            moved = {d: (ctr_gc.fused_launched(d, transpose) - w, getattr(ctr_gc, counters[d]) - c)
+                     for d, (w, c) in before.items()}
+            other = "tiled" if variant == "whole" else "whole"
+            assert moved == {variant: (1, 1), other: (0, 0)}, (V, r, transpose, moved)
         for C in (16, 256):
             blk = _block_inputs(1, 2, V, C, C, r, device=device)
             if k5_takes(V, C, C, r):
@@ -769,6 +809,124 @@ def test_ctrgc_module_on_card_matches_plain_route(device, shape, monkeypatch):
     torch.testing.assert_close(out, want_out, rtol=1e-5, atol=1e-5 * want_out.abs().max().item())
     for k, w in want.items():
         rtol, atol = (1e-3, 0.0) if k == "alpha" else (1e-4, 1e-4 * w.abs().max().item())
+        torch.testing.assert_close(grads[k], w, rtol=rtol, atol=atol, msg=k)
+
+
+@pytest.mark.parametrize("shape", CONV3_SHAPES,
+                         ids=lambda s: "N{}-T{}-V{}-Cin{}-C{}-R{}".format(*s))
+def test_conv3_bf16_kernel_matches_plain(device, shape):
+    """K6's bf16 form (bf16 x1s, x2s, g, x, w3; its x3 gradient f32 inside,
+    rounded once for the bf16 products) against its bf16 plain version: dx,
+    dw3 and db3 in bf16 as the bf16 outputs above, two launches bitwise
+    equal, each on the bf16 counter alone."""
+    from tamgcn_tpu_torch.ops.aggregation import unit_ctr_gc_bwd_conv3_plain
+
+    x1s, x2s, g, x, w3, w4s, b4s, alpha, As = _conv3_inputs(*shape, device=device)
+    args = [a.bfloat16() for a in (x1s, x2s, g, x, w3)] + [w4s, b4s, alpha, As]
+    before = ctr_gc.bwd_conv3_launches, ctr_gc.bwd_conv3_launches_bf16
+    got = ctr_gc.unit_ctr_gc_bwd_conv3(*args)
+    again = ctr_gc.unit_ctr_gc_bwd_conv3(*args)
+    want = unit_ctr_gc_bwd_conv3_plain(*args)
+    torch.cuda.synchronize()
+    assert (ctr_gc.bwd_conv3_launches, ctr_gc.bwd_conv3_launches_bf16) == (
+        before[0], before[1] + 2)
+    for name, a, b, w in zip(("dx", "dw3", "db3"), got, again, want):
+        assert a.shape == w.shape, name
+        assert torch.equal(a, b), f"{name}: two launches differ"
+        _bf16_close(a, w, name)
+
+
+# K4-bf16 (N, T, V, C, R): CTRGC's l5 widths, V = 24 at R = 32 (the whole-V
+# design's last V), V = 25 and a ragged V = 37 (the joint-tiled design)
+K4_SHAPES = [(4, 52, 20, 128, 8), (2, 13, 24, 64, 32), (3, 9, 25, 64, 16), (1, 7, 37, 40, 10)]
+
+
+@pytest.mark.parametrize("shape", K4_SHAPES, ids=lambda s: "N{}-T{}-V{}-C{}-R{}".format(*s))
+def test_k4_bf16_kernels_match_plain(device, shape):
+    """K4's bf16 form, forward (bf16 x3) and transpose (f32 g), against its
+    plain versions: f32 outputs within 1e-4 * max|plain| (an f32 sum order
+    apart, or a bf16 tie of D rounded another way), two launches bitwise
+    equal, each launch on the counter of its direction and of the design
+    the shape takes."""
+    from tamgcn_tpu_torch.ops.aggregation import ctr_gc_fused_dx3_plain, ctr_gc_fused_plain
+
+    n, t, v, c, r = shape
+    gen = torch.Generator().manual_seed(11)
+    x1, x2 = (torch.randn((n, v, r), generator=gen).bfloat16().to(device) for _ in range(2))
+    x3 = torch.randn((n, t, v, c), generator=gen).bfloat16().to(device)
+    g = torch.randn((n, t, v, c), generator=gen).to(device)
+    params = [(torch.randn((r, c), generator=gen) * 0.1).to(device),
+              (torch.randn(c, generator=gen) * 0.1).to(device),
+              torch.tensor([0.7], device=device), torch.rand((v, v), generator=gen).to(device)]
+    tiled = ctr_gc.fwd_variant(1, v, r) == "tiled"
+    names = ("k4_launches_bf16", "k4_tiled_launches_bf16", "k4_t_launches_bf16",
+             "k4_t_tiled_launches_bf16")
+    before = {k: getattr(ctr_gc, k) for k in names}
+    for fn, plain, src in ((ctr_gc.ctr_gc_fused_bf16, ctr_gc_fused_plain, x3),
+                           (ctr_gc.ctr_gc_fused_t_bf16, ctr_gc_fused_dx3_plain, g)):
+        got, again = fn(x1, x2, src, *params), fn(x1, x2, src, *params)
+        want = plain(x1, x2, src, *params)
+        torch.cuda.synchronize()
+        assert got.dtype == want.dtype == torch.float32
+        assert torch.equal(got, again), f"{fn.__name__}: two launches differ"
+        torch.testing.assert_close(got, want, rtol=0, atol=1e-4 * want.abs().max().item(),
+                                   msg=fn.__name__)
+    moved = {k: getattr(ctr_gc, k) - n for k, n in before.items() if getattr(ctr_gc, k) != n}
+    assert moved == ({"k4_tiled_launches_bf16": 2, "k4_t_tiled_launches_bf16": 2} if tiled
+                     else {"k4_launches_bf16": 2, "k4_t_launches_bf16": 2}), moved
+
+
+@pytest.mark.parametrize("shape", [(4, 52, 20, 64, 128), (3, 9, 25, 32, 64)],
+                         ids=lambda s: "N{}-T{}-V{}-Cin{}-C{}".format(*s))
+def test_ctrgc_bf16_module_on_card_matches_plain_route(device, shape, monkeypatch):
+    """CTRGC(dtype="bfloat16") through K4's bf16 form against the same module
+    with K4-bf16's plain versions, on the card: the f32 output within 1e-4 *
+    max; the gradients behind the kernel's x3 gradient (x, conv3) within
+    2^-7 * max (one bf16 rounding of dx3 may flip at a near-tie), the rest
+    (plain PyTorch on the same operands in both routes) within rtol 1e-4 and
+    atol 1e-4 * max (alpha's within rtol 1e-3)."""
+    from tamgcn_tpu_torch.models import CTRGC
+    from tamgcn_tpu_torch.ops import aggregation as agg
+
+    n, t, v, cin, c = shape
+    gen = torch.Generator().manual_seed(8)
+    module = CTRGC(cin, c, generator=gen, dtype="bfloat16")
+    with torch.no_grad():
+        module.conv4_bias.normal_(0.0, 0.1, generator=gen)
+    module.to(device)
+    x = torch.randn((n, t, v, cin), generator=gen).to(device)
+    A = torch.rand((v, v), generator=gen).to(device)
+    g = torch.randn((n, t, v, c), generator=gen).to(device)
+
+    def run():
+        leaves = [x.clone().requires_grad_(), A.clone().requires_grad_(),
+                  torch.tensor([0.7], device=device, requires_grad=True)]
+        module.zero_grad(set_to_none=True)
+        out = module(*leaves)
+        out.backward(g)
+        grads = {k: p.grad for k, p in module.named_parameters()}
+        grads.update(zip(("x", "A", "alpha"), (a.grad for a in leaves)))
+        return out.detach(), grads
+
+    names = ("k4_launches_bf16", "k4_tiled_launches_bf16", "k4_t_launches_bf16",
+             "k4_t_tiled_launches_bf16", "launches", "launches_tiled", "bwd_dx3_launches",
+             "bwd_dx3_tiled_launches")
+    before = {k: getattr(ctr_gc, k) for k in names}
+    out, grads = run()
+    torch.cuda.synchronize()
+    moved = {k: getattr(ctr_gc, k) - b for k, b in before.items() if getattr(ctr_gc, k) != b}
+    design = "_tiled" if ctr_gc.fwd_variant(1, v, module.conv4_kernel.shape[2]) == "tiled" else ""
+    assert moved == {f"k4{design}_launches_bf16": 1, f"k4_t{design}_launches_bf16": 1}, moved
+    assert out.dtype == torch.float32
+    monkeypatch.setattr(agg, "_fused_kernels", lambda device, bf16: (
+        agg.ctr_gc_fused_plain, agg.ctr_gc_fused_dx3_plain))
+    want_out, want = run()
+    torch.testing.assert_close(out, want_out, rtol=0, atol=1e-4 * want_out.abs().max().item())
+    for k, w in want.items():
+        if k in ("x", "conv3.weight", "conv3.bias"):
+            rtol, atol = 0.0, 2 ** -7 * w.abs().max().item()
+        else:
+            rtol, atol = (1e-3, 0.0) if k == "alpha" else (1e-4, 1e-4 * w.abs().max().item())
         torch.testing.assert_close(grads[k], w, rtol=rtol, atol=atol, msg=k)
 
 

@@ -130,6 +130,30 @@ def test_nucla_train_feeder_identical(nucla_train_dir, modality):
     assert not np.array_equal(ours[0][0], ours[64][0])
 
 
+@pytest.mark.parametrize("backend", ["auto", "numpy"])
+def test_nucla_feeder_backends_run_the_numpy_path(nucla_train_dir, backend):
+    """`backend` "auto" and "numpy" both run the port's numpy path: the
+    samples of the JAX feeder's numpy backend, draw for draw."""
+    kw = dict(split="train", modality="joint", seed=5, debug=True)
+    ours = data.NUCLAFeederGCN(nucla_train_dir, backend=backend, **kw)
+    ref = jax_data.NUCLAFeederGCN(nucla_train_dir, backend="numpy", **kw)
+    for i in (0, 17, 63):
+        np.testing.assert_array_equal(ours[i][0], ref[i][0])
+
+
+@pytest.mark.parametrize("backend,error,match", [
+    ("native", RuntimeError, "native augmentation backend"),
+    ("cpp", ValueError, "unknown backend"),
+], ids=["native", "unknown"])
+def test_nucla_feeder_refuses_what_it_has_no_backend_for(nucla_train_dir, backend, error,
+                                                          match):
+    """backend="native" (the JAX package's C++ augmentation core, which the
+    port lacks) raises, as the JAX feeder does where that core is
+    unavailable, instead of running numpy in its place."""
+    with pytest.raises(error, match=match):
+        data.NUCLAFeederGCN(nucla_train_dir, split="train", debug=True, backend=backend)
+
+
 def test_train_loader_batches_like_jax():
     """Shuffled per epoch from the seed, the last short batch dropped."""
     feeder = data.SyntheticSkeletonFeeder(num_samples=11, split="train", seed=2)

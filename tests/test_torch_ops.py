@@ -119,6 +119,26 @@ def test_cuda_wrapper_rejects_cpu_tensors():
     assert port_cuda.launches == 0
 
 
+@pytest.mark.parametrize("moves", [("tiled",), ("whole",), (), ("whole", "tiled")])
+def test_launch_counted_takes_the_design_the_launcher_counted(monkeypatch, moves):
+    """A wrapper's design counter follows the launch counts the C launcher
+    keeps where it launches a kernel: _launch_counted names the one design
+    whose count the call moved, and raises where none or both moved."""
+    counts = {"whole": 5, "tiled": 7}
+
+    def launch(fn, device, dims, *args, **kwargs):
+        for d in moves:
+            counts[d] += 1
+
+    monkeypatch.setattr(port_cuda, "_launch", launch)
+    fn = port_cuda._launch_counted
+    if len(moves) == 1:
+        assert fn(counts.get, launch, "cpu", {}) == moves[0]
+    else:
+        with pytest.raises(RuntimeError, match="counted launches of"):
+            fn(counts.get, launch, "cpu", {})
+
+
 def test_batchnorm_matches_jax_train_and_eval():
     """Eval uses the running stats; train normalises with the biased batch
     variance and accumulates the unbiased one with momentum 0.1."""

@@ -181,6 +181,45 @@ def test_fused_step_and_fast_eval_paths_at_the_3xtf32_rate():
         3, 7, 20, 64, 64, 10)[0]
 
 
+@pytest.mark.parametrize("shape,want", [
+    # K6-bf16 at l5: stage 1 and the products with w3 and x (1.675 GFLOP) at
+    # the bf16 peak, 1.694 us, plus the aggregation (0.256 GFLOP, an f32 M
+    # times a bf16 g) as two TF32 terms, 1.033 us, and db3's adds at the
+    # 3xTF32 rate, 0.039 us; above the 8.67 MB of bytes (2.59 us)
+    ((16, 52, 20, 64, 128, 8), 2.7651e-3),
+    ((16, 26, 20, 128, 128, 16), 2.2692e-3),
+    ((16, 26, 20, 128, 256, 16), 4.5384e-3),
+    # l9-l10: 3.586 GFLOP at the bf16 peak (3.626 us), the aggregation's
+    # 0.128 as two TF32 terms (0.516 us), above 7.4 MB (2.21 us); the f32
+    # form's bound is 22.5 us
+    ((16, 13, 20, 256, 256, 32), 4.1617e-3),
+])
+def test_conv3_bf16_bounds(shape, want):
+    ms, by = roofline.unit_ctr_gc_bwd_conv3_bf16_sol(*shape)
+    assert by == "operations" and ms == pytest.approx(want, rel=1e-3)
+    assert ms < roofline.unit_ctr_gc_bwd_conv3_sol(*shape)[0]
+
+
+def test_conv3_bf16_path_and_the_k4_bf16_bound():
+    # K6-bf16 per fused-conv3 bf16 train step at batch 16: 0.02017 ms (at
+    # 0.02223 if its aggregation were taken at the 3xTF32 rate)
+    k6 = sum(k * roofline.unit_ctr_gc_bwd_conv3_bf16_sol(*shape)[0] for shape, k in K6_STEP)
+    assert k6 == pytest.approx(0.020165, rel=1e-3)
+    # K4-bf16 on one CTRGC forward and backward at N=16, T=52, V=20, C=128,
+    # R=8: x3 bf16 in, out f32, g f32 in and dx3 f32 out, 14 bytes a value
+    # of (16, 52, 20, 128): 29.85 MB (8.911 us), above M's two products
+    # (2 x 13.1 MFLOP) and the forward's aggregation (85.2 MFLOP) as two
+    # TF32 terms and the transpose's (85.2 MFLOP) at the 3xTF32 rate
+    # (0.97 us)
+    ms, by = roofline.ctr_gc_fused_bf16_sol(16, 52, 20, 128, 8)
+    assert by == "bytes" and ms == pytest.approx(8.9110e-3, rel=1e-3)
+    ms25, by25 = roofline.ctr_gc_fused_bf16_sol(16, 26, 25, 128, 16)
+    assert by25 == "bytes" and ms25 == pytest.approx(5.5852e-3, rel=1e-3)
+    # the two-term TF32 rate: 247.5 TFLOP/s
+    assert roofline.TF32X2_FLOPS == 495e12 / 2
+    assert roofline.bound(1, 0, tf32x2_flops=247.5e9) == pytest.approx((1.0, "operations"))
+
+
 # the NW-UCLA unit-op blocks (N, T, V, C, R) at the training batch, with the
 # launches of K1 (and of K2) per train step
 UNIT_STEP = [((16, 52, 20, 64, 8), 4), ((16, 52, 20, 128, 8), 1),
@@ -282,4 +321,4 @@ def test_design_ab_patches_only_the_whole_v_rule(tmp_path):
                 assert len(b) == len(a) + 1 and len(removed) == 1
                 assert removed[0].startswith(design_ab.MAX_V + "24;")
                 assert added[0].startswith(design_ab.MAX_V + "32;")
-                assert added[1].startswith("    case 4: return L::template whole<RP, 4, TA>(")
+                assert added[1].startswith("    case 4: return L::template whole<RP, 4>(")
