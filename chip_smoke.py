@@ -114,7 +114,10 @@ Phases, each of which fails the run (non-zero exit, no result line):
      versions at the NW-UCLA eval forward's and train step's shapes: bf16
      outputs within 2^-7 of their max |value| and equal in all but 1% of
      their elements, K3's f32 outputs as in phase 3, two K3 launches bitwise
-     equal, each launch on its bf16 counter; `--phase test` (also with
+     equal, each launch on its bf16 counter (K3-bf16, a design of its own in
+     csrc/unit_ctr_gc_bwd_param_bf16.cu, at V = 25, 37 and 256 too; every
+     launch check requires its wrapper's count to be the count its C
+     launcher keeps); `--phase test` (also with
      `--fast_eval true`, which on a bf16 model at V=20 is its own forward:
      the same K1-bf16 launches and the same scores) and one epoch of
      `--phase train` through `__main__.main` at full width with
@@ -132,7 +135,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
      tools/bf16_convergence.py in-process for 2 small epochs with a launch
      check of every counter.
  11. bf16 with TAMGCN_FUSE_CONV3=1 and the standalone CTRGC in bf16: holds
-     K6-bf16 (bf16 activations, its x3 gradient f32 inside, bf16 products)
+     K6-bf16 (bf16 activations, its x3 gradient kept in bf16 inside, bf16
+     products fed by cp.async)
      against its bf16 plain version at phase 7's shapes (l5-l10 at batch 16,
      V=25, a ragged shape with odd T and Cin not a multiple of 8, the
      two-phase design's edges): dx, dw3 and db3 within 2^-7 of their max
@@ -752,18 +756,28 @@ KERNELS = ("K1", "K1t", "K2", "K2t", "K3", "K5", "K6", "T1", "T2", "K1_bf16", "K
            "K4dx3t_bf16")
 
 
+# K3_bf16's count in its C launcher when the wrappers' counts were last reset
+C_COUNT_BASE = {"K3_bf16": 0}
+
+
 def reset_launches():
     from tamgcn_tpu_torch.ops.cuda import ctr_gc, gcn_tcn_block, ms_tcn, stage2
 
     for counter in UNIT_COUNTERS.values():
         setattr(ctr_gc, counter, 0)
     gcn_tcn_block.launches = ms_tcn.launches = stage2.launches = 0
+    C_COUNT_BASE["K3_bf16"] = ctr_gc.param_bf16_launched()
 
 
 def read_launches() -> dict:
-    """Every kernel's count (KERNELS)."""
+    """Every kernel's count (KERNELS); K3_bf16's wrapper count must be the
+    count its C launcher kept since the last reset."""
     from tamgcn_tpu_torch.ops.cuda import ctr_gc, gcn_tcn_block, ms_tcn, stage2
 
+    launched = ctr_gc.param_bf16_launched() - C_COUNT_BASE["K3_bf16"]
+    if launched != ctr_gc.bwd_param_launches_bf16:
+        raise AssertionError(f"K3_bf16: its wrapper counted {ctr_gc.bwd_param_launches_bf16} "
+                             f"launches, its C launcher {launched}")
     counts = {k: getattr(ctr_gc, c) for k, c in UNIT_COUNTERS.items()}
     counts.update(K5=gcn_tcn_block.launches, T1=ms_tcn.launches, T2=stage2.launches)
     return {k: counts[k] for k in KERNELS}
@@ -858,8 +872,9 @@ def check_logits(work_dir: str, weights: str):
 
 
 # the first kernel each wrapper launches, by its counter's name; a bf16 form
-# is the same template on __nv_bfloat16, so its name holds "bfloat16"; K4's
-# kernels (its bf16 form alone) name their direction, true for the forward
+# is the same template on __nv_bfloat16, so its name holds "bfloat16", but
+# K3's, a design of its own, is named here; K4's kernels (its bf16 form
+# alone) name their direction, true for the forward
 KERNEL_SYMBOLS = {"K1": "unit_ctr_gc_fwd_kernel", "K1t": "unit_ctr_gc_fwd_tiled_kernel",
                   "K2": "unit_ctr_gc_bwd_dx3_kernel",
                   "K2t": "unit_ctr_gc_bwd_dx3_tiled_kernel",
@@ -868,12 +883,15 @@ KERNEL_SYMBOLS = {"K1": "unit_ctr_gc_fwd_kernel", "K1t": "unit_ctr_gc_fwd_tiled_
                   "T2": "stage2_kernel", "K4": "ctr_gc_fused_kernel<true",
                   "K4t": "ctr_gc_fused_tiled_kernel<true",
                   "K4dx3": "ctr_gc_fused_kernel<false",
-                  "K4dx3t": "ctr_gc_fused_tiled_kernel<false"}
+                  "K4dx3t": "ctr_gc_fused_tiled_kernel<false",
+                  "K3_bf16": "unit_ctr_gc_bwd_param_bf16_kernel"}
 
 
 def is_kernel(kname: str, event_name: str) -> bool:
     """Whether a profiler event is the first kernel of `kname` (KERNELS)."""
     base, bf16 = kname.removesuffix("_bf16"), kname.endswith("_bf16")
+    if bf16 and kname in KERNEL_SYMBOLS:  # a bf16 form named on its own: K3_bf16
+        return KERNEL_SYMBOLS[kname] in event_name
     if base.startswith("K4"):
         return KERNEL_SYMBOLS[base] in event_name
     return KERNEL_SYMBOLS[base] in event_name and ("bfloat16" in event_name) == bf16
@@ -2809,7 +2827,7 @@ def main() -> int:
                "K2_bf16": ("unit_ctr_gc_bwd_dx3_bf16", "unit_ctr_gc_bwd_dx3.cu",
                            "tamgcn_tpu/ops/pallas/ctr_gc.py:494",
                            bf16["train"]["launches"]["K2_bf16"], "train step, batch 16, bf16"),
-               "K3_bf16": ("unit_ctr_gc_bwd_param_bf16", "unit_ctr_gc_bwd_param.cu",
+               "K3_bf16": ("unit_ctr_gc_bwd_param_bf16", "unit_ctr_gc_bwd_param_bf16.cu",
                            "tamgcn_tpu/ops/pallas/ctr_gc.py:717",
                            bf16["train"]["launches"]["K3_bf16"], "train step, batch 16, bf16"),
                "K6_bf16": ("unit_ctr_gc_bwd_conv3_bf16", "unit_ctr_gc_bwd_conv3.cu",
@@ -2862,11 +2880,15 @@ def main() -> int:
         launches=train["train"]["launches"]["K1"])
     kernels["K1"]["shapes"] = rows["K1"] + train_rows
     kernels["K1"]["max_abs_err"] = max(r["max_abs_err"] for r in kernels["K1"]["shapes"])
-    for kname in ("K1_bf16", "K2_bf16", "K3_bf16"):
+    for kname in ("K1_bf16", "K2_bf16"):
         kernels[kname]["sources"] = [kernels[kname]["source"],
                                      "tamgcn_tpu_torch/csrc/unit_ctr_gc_common.cuh",
                                      "tamgcn_tpu_torch/csrc/unit_ctr_gc_whole.cuh",
                                      "tamgcn_tpu_torch/csrc/unit_ctr_gc_tiled.cuh"]
+    kernels["K3_bf16"]["sources"] = [kernels["K3_bf16"]["source"],
+                                     "tamgcn_tpu_torch/csrc/unit_ctr_gc_param.cuh",
+                                     "tamgcn_tpu_torch/csrc/mma_bf16.cuh",
+                                     "tamgcn_tpu_torch/csrc/mma_tf32x3.cuh"]
     for key in ("folded_k1_cublas_ms", "folded_k1_cublas_device_ms", "device_ms"):
         kernels["K5"][key] = sum(r[key] * r["launches_per_step"] for r in k5_rows)
     kernels["K5"]["sources"] = [kernels["K5"]["source"],

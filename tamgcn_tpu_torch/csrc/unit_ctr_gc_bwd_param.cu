@@ -1,5 +1,6 @@
 // Unit CTR-GC backward, the parameter gradients (K3), for Hopper (sm_90a),
-// f32 and bf16.
+// f32. Its bf16 form is a design of its own (unit_ctr_gc_bwd_param_bf16.cu)
+// on the same block split and partials (unit_ctr_gc_param.cuh).
 //
 // Replaces tamgcn_tpu/ops/pallas/ctr_gc.py:_unit_bwd_param_kernel_flat and
 // its schedule variants _unit_bwd_param_kernel_tile (with _param_phase_c),
@@ -53,68 +54,23 @@
 // launches give bitwise equal gradients. The products run as f32 FFMA on the
 // CUDA cores; tensor cores (3xTF32 for f32 accuracy) are left for later
 // work.
-//
-// bf16 (unit_ctr_gc_bwd_param_bf16): x1s, x2s, g and x3s are read as bf16
-// and dx1s, dx2s written as bf16, rounded once; everything else is the f32
-// kernel's arithmetic on the widened values, with D and w4s in f32 (the JAX
-// kernel's phase C, tamgcn_tpu/ops/pallas/ctr_gc.py:781-797), and dw4s,
-// db4s, dalpha and dAs stay f32 (Act<T> in unit_ctr_gc_common.cuh).
 
 #include <cuda_runtime.h>
 
 #include "unit_ctr_gc_common.cuh"
+#include "unit_ctr_gc_param.cuh"
 
 namespace {
 
 using unit_ctr_gc::Act;
+using namespace unit_ctr_gc::param;
 
 constexpr int kThreads = 256;
-constexpr int kCT = 16;   // channels per block
-constexpr int kJmax = 20;  // joints per tile, at most
-constexpr int kJ5 = 5;    // joints per side of a thread's (u, v) dm tile
 constexpr int kTC = 8;    // frames per g/x3s chunk in shared memory
 constexpr int kBatch = 8;  // loads in flight per thread
 constexpr int kRed = 20;  // P (4 x 4) and sum (4) values a thread keeps
 
-// The joint tiling of V: nt tiles of J joints (the last may be partial),
-// each padded to JP, a multiple of kJ5.
-struct Tiling {
-  int nt, J, JP;
-};
-__host__ __device__ inline Tiling tiling(int V) {
-  const int nt = (V + kJmax - 1) / kJmax;
-  const int J = (V + nt - 1) / nt;
-  return {nt, J, (J + kJ5 - 1) / kJ5 * kJ5};
-}
-
-__host__ __device__ inline int channel_tiles(int C) { return (C + kCT - 1) / kCT; }
-
-// The partials in the scratch buffer, in floats, in this order:
-//   P    [N][S][nt][R*C + C]  P = D^T dm and sum(dm) of one u tile
-//   dA   [N][KC][S][V*V]      sum_c dm of one channel tile
-//   dx1  [N][S][KC][V*R]      sum_v dpre of one channel tile
-//   dx2  [N][S][KC][nt][V*R]  sum_u dpre of one channel tile and u tile
-struct Parts {
-  size_t p, a, x1, x2, end;
-};
-__host__ __device__ inline Parts parts(int N, int S, int V, int R, int C) {
-  const Tiling tl = tiling(V);
-  const size_t KC = channel_tiles(C), NS = (size_t)N * S;
-  Parts o;
-  o.p = 0;
-  o.a = o.p + NS * tl.nt * ((size_t)R * C + C);
-  o.x1 = o.a + NS * KC * V * V;
-  o.x2 = o.x1 + NS * KC * V * R;
-  o.end = o.x2 + NS * KC * tl.nt * V * R;
-  return o;
-}
-
-// the reduce kernel's outputs, one thread each: dx1s, dx2s (N*S*V*R each),
-// dAs (S*V*V), dw4s and db4s (S*(R*C + C))
-__host__ inline size_t reduce_items(int N, int S, int V, int R, int C) {
-  return 2 * (size_t)N * S * V * R + (size_t)S * V * V + (size_t)S * ((size_t)R * C + C);
-}
-
+// the reduce kernel's outputs (reduce_items), one thread each
 __host__ inline int reduce_blocks(int N, int S, int V, int R, int C) {
   return (int)((reduce_items(N, S, V, R, C) + kThreads - 1) / kThreads);
 }
@@ -524,16 +480,15 @@ int param(const TA* x1s, const TA* x2s, const TA* g, const TA* x3s,
 
 }  // namespace
 
-// Floats of device scratch that unit_ctr_gc_bwd_param_f32 and
-// unit_ctr_gc_bwd_param_bf16 need.
+// Floats of device scratch that unit_ctr_gc_bwd_param_f32 needs.
 extern "C" long long unit_ctr_gc_bwd_param_scratch_floats(int N, int S, int V,
                                                           int R, int C) {
   // the partials, the per-block dalpha terms, the ticket counter
   return (long long)parts(N, S, V, R, C).end + reduce_blocks(N, S, V, R, C) + 1;
 }
 
-// Blocks of the first kernel that unit_ctr_gc_bwd_param_f32 and
-// unit_ctr_gc_bwd_param_bf16 launch.
+// Blocks of the first kernel that unit_ctr_gc_bwd_param_f32 (and
+// unit_ctr_gc_bwd_param_bf16.cu's, on the same block split) launches.
 extern "C" long long unit_ctr_gc_bwd_param_blocks(int N, int S, int V, int C) {
   return (long long)tiling(V).nt * channel_tiles(C) * S * N;
 }
@@ -548,18 +503,6 @@ extern "C" int unit_ctr_gc_bwd_param_f32(
     const float* w4s, const float* b4s, const float* alpha, float* dx1s,
     float* dx2s, float* dw4s, float* db4s, float* dalpha, float* dAs,
     float* scratch, int N, int S, int T, int V, int R, int C, void* stream) {
-  return param(x1s, x2s, g, x3s, w4s, b4s, alpha, dx1s, dx2s, dw4s, db4s,
-               dalpha, dAs, scratch, N, S, T, V, R, C, stream);
-}
-
-// As unit_ctr_gc_bwd_param_f32 with x1s, x2s, g, x3s, dx1s and dx2s bf16; the
-// parameters, dw4s, db4s, dalpha, dAs and the scratch f32.
-extern "C" int unit_ctr_gc_bwd_param_bf16(
-    const __nv_bfloat16* x1s, const __nv_bfloat16* x2s, const __nv_bfloat16* g,
-    const __nv_bfloat16* x3s, const float* w4s, const float* b4s,
-    const float* alpha, __nv_bfloat16* dx1s, __nv_bfloat16* dx2s, float* dw4s,
-    float* db4s, float* dalpha, float* dAs, float* scratch, int N, int S, int T,
-    int V, int R, int C, void* stream) {
   return param(x1s, x2s, g, x3s, w4s, b4s, alpha, dx1s, dx2s, dw4s, db4s,
                dalpha, dAs, scratch, N, S, T, V, R, C, stream);
 }

@@ -147,13 +147,17 @@ using mma_tf32x3::copy4;  // one f32 value, zero-filled where `ok` is false
 // s*C), summed u, own v. Row (n, t, j) of src or dst at ((n*T + t)*V + j) *
 // stride. V <= 8 * JT. x1s/x2s are TE, src TX, dst TO (each float or bf16;
 // the unit op's forms take one type for all three) and stage 1 follows kS1.
+// kColSum (K2's body alone, K6-bf16's first phase): the block also sums
+// each of its output columns over all its rows in f32, before the rounding
+// to TO, in a fixed order, into colsum[n * S*C + s*C + c].
 template <bool kFwd, int RP, int JT, typename TE, typename TX = TE, typename TO = TX,
-          Stage1 kS1 = stage1_of<TE>()>
+          Stage1 kS1 = stage1_of<TE>(), bool kColSum = false>
 __device__ inline void run(const TE* __restrict__ x1s, const TE* __restrict__ x2s,
                            const TX* __restrict__ src, const float* __restrict__ w4s,
                            const float* __restrict__ b4s, const float* __restrict__ alpha,
                            const float* __restrict__ As, TO* __restrict__ dst, int S, int T,
-                           int V, int R, int C) {
+                           int V, int R, int C, float* __restrict__ colsum = nullptr) {
+  static_assert(!(kColSum && kFwd), "column sums of K2's output only");
   constexpr bool kF32 = sizeof(TX) == 4;   // src: copied, split into TF32 parts
   constexpr bool kEF32 = sizeof(TE) == 4;  // x1s/x2s: copied (bf16: through registers)
   constexpr int JP = 8 * JT;
@@ -431,6 +435,8 @@ __device__ inline void run(const TE* __restrict__ x1s, const TE* __restrict__ x2
     }
   };
 
+  float2 csum = make_float2(0.f, 0.f);  // kColSum: the unit's column sums over this thread's rows
+
   // ---- the steps: each one's inputs are on their way during the previous
   // one's products, into the other of two tile buffers; every part has one
   // call site, so the register arrays stay registers ----
@@ -479,7 +485,14 @@ __device__ inline void run(const TE* __restrict__ x1s, const TE* __restrict__ x2
     int t = t_r0, j = j_r0;
 #pragma unroll
     for (int k = 0; k < kXPer; ++k) {
-      if (r0 + k * kRows < nr && c_ok) store2(p, X[x_at<JP>(t, j, up)]);
+      if (r0 + k * kRows < nr && c_ok) {
+        const float2 o = X[x_at<JP>(t, j, up)];
+        store2(p, o);
+        if constexpr (kColSum) {
+          csum.x += o.x;
+          csum.y += o.y;
+        }
+      }
       p += (size_t)kRows * dst_ld;
       t += dt;
       j += dj;
@@ -487,6 +500,23 @@ __device__ inline void run(const TE* __restrict__ x1s, const TE* __restrict__ x2
         j -= V;
         ++t;
       }
+    }
+  }
+  if constexpr (kColSum) {
+    // the kRows threads of unit up, in row order, through the tile buffers
+    __syncthreads();  // the last output tile is read
+    Xb[tid] = csum;
+    __syncthreads();
+    if (tid < kPU && c0 + 2 * tid < C) {
+      float2 sum = make_float2(0.f, 0.f);
+      for (int k = 0; k < kRows; ++k) {
+        const float2 v = Xb[k * kPU + tid];
+        sum.x += v.x;
+        sum.y += v.y;
+      }
+      float* out = colsum + (size_t)n * SC + step_s(0) * C + c0 + 2 * tid;
+      out[0] = sum.x;
+      out[1] = sum.y;
     }
   }
 }

@@ -3,6 +3,7 @@
   K1 `unit_ctr_gc_fwd`       csrc/unit_ctr_gc_fwd.cu        forward
   K2 `unit_ctr_gc_bwd_dx3`   csrc/unit_ctr_gc_bwd_dx3.cu    x3 gradient
   K3 `unit_ctr_gc_bwd_param` csrc/unit_ctr_gc_bwd_param.cu  parameter gradients
+                             csrc/unit_ctr_gc_bwd_param_bf16.cu  (its bf16 form)
   K6 `unit_ctr_gc_bwd_conv3` csrc/unit_ctr_gc_bwd_conv3.cu  x3 gradient through
                                                             conv3's VJP
   K4 bf16 `ctr_gc_fused_bf16`, `ctr_gc_fused_t_bf16`
@@ -33,9 +34,11 @@ K1, K2 and K3 take their activations (x1s, x2s, x3s, g and the outputs of
 those shapes) in float32 or in bfloat16, the JAX package's bf16 mixed
 precision, and their parameters (w4s, b4s, alpha, As) in float32 in both
 forms; the wrappers dispatch on the activations' dtype, and each form
-counts its launches on its own counter (the bf16 ones end in `_bf16`). K6
-takes the same two forms: bf16 activations (x1s, x2s, g, x and w3), f32
-scratch for its x3 gradient, the JAX kernel's bf16 body. K4's bf16 form
+counts its launches on its own counter (the bf16 ones end in `_bf16`).
+K3's bf16 form is a design of its own in its own source (its products on
+the tensor cores), whose C launcher counts its launches
+(`param_bf16_launched`). K6 takes the same two forms: bf16 activations
+(x1s, x2s, g, x and w3), the JAX kernel's bf16 body. K4's bf16 form
 takes bf16 x1, x2 and x3 (forward) or an f32 g (transpose) with f32
 parameters and returns f32; its f32 op runs K1 and K2 at S = 1.
 """
@@ -50,6 +53,7 @@ from . import build
 FWD_SOURCE = "unit_ctr_gc_fwd.cu"
 DX3_SOURCE = "unit_ctr_gc_bwd_dx3.cu"
 PARAM_SOURCE = "unit_ctr_gc_bwd_param.cu"
+PARAM_BF16_SOURCE = "unit_ctr_gc_bwd_param_bf16.cu"
 CONV3_SOURCE = "unit_ctr_gc_bwd_conv3.cu"
 FUSED_SOURCE = "ctr_gc_fused.cu"
 # what the launchers return for a shape they do not take
@@ -89,9 +93,12 @@ _SIGNATURES = {
     "unit_ctr_gc_bwd_param_f32": (
         PARAM_SOURCE, [_P] * 14 + [_I] * 6 + [_P], ctypes.c_int),
     "unit_ctr_gc_bwd_param_bf16": (
-        PARAM_SOURCE, [_P] * 14 + [_I] * 6 + [_P], ctypes.c_int),
+        PARAM_BF16_SOURCE, [_P] * 14 + [_I] * 6 + [_P], ctypes.c_int),
     "unit_ctr_gc_bwd_param_scratch_floats": (
         PARAM_SOURCE, [_I] * 5, ctypes.c_longlong),
+    "unit_ctr_gc_bwd_param_bf16_scratch_floats": (
+        PARAM_BF16_SOURCE, [_I] * 5, ctypes.c_longlong),
+    "unit_ctr_gc_bwd_param_bf16_launched": (PARAM_BF16_SOURCE, [], ctypes.c_longlong),
     "unit_ctr_gc_bwd_param_blocks": (PARAM_SOURCE, [_I] * 4, ctypes.c_longlong),
     "unit_ctr_gc_bwd_conv3_f32": (
         CONV3_SOURCE, [_P] * 13 + [_I] * 7 + [_P], ctypes.c_int),
@@ -239,6 +246,12 @@ def fused_launched(design: str, transpose: bool = False) -> int:
     return _kernel("ctr_gc_fused_launched")(int(transpose), _DESIGNS.index(design))
 
 
+def param_bf16_launched() -> int:
+    """Launches of K3's bf16 form that its C launcher counted where it
+    launched the kernel."""
+    return _kernel("unit_ctr_gc_bwd_param_bf16_launched")()
+
+
 def fwd_blocks(N: int, S: int, T: int, V: int, R: int, C: int) -> int:
     """Blocks of K1's launch at the shape, in the design fwd_variant names
     (f32; -1 where the launcher does not take the shape)."""
@@ -359,7 +372,9 @@ def unit_ctr_gc_bwd_param(x1s, x2s, g, x3s, w4s, b4s, alpha):
     -> (dx1s, dx2s, dw4s, db4s, dalpha, dAs) shaped as x1s, x2s,
     w4s, b4s, alpha and (S,V,V), dx1s and dx2s in the activations' dtype and
     the rest float32. The sums over samples run in a fixed order: two calls
-    on the same inputs give bitwise equal results."""
+    on the same inputs give bitwise equal results. bfloat16 activations take
+    the bf16 design (csrc/unit_ctr_gc_bwd_param_bf16.cu), counted where its
+    C launcher moved its count."""
     global bwd_param_launches, bwd_param_launches_bf16
     N, S, T, V, R, C = _unit_dims(x1s, g, w4s)
     device = g.device
@@ -379,16 +394,20 @@ def unit_ctr_gc_bwd_param(x1s, x2s, g, x3s, w4s, b4s, alpha):
 
     dx1s, dx2s = empty(N, S, V, R, dtype=act), empty(N, S, V, R, dtype=act)
     dw4s, db4s, dalpha, dAs = empty(S, R, C), empty(S, C), empty(1), empty(S, V, V)
-    scratch = empty(_kernel("unit_ctr_gc_bwd_param_scratch_floats")(N, S, V, R, C))
+    form = "bf16" if bf16 else "f32"
+    scratch_floats = "unit_ctr_gc_bwd_param_" + ("bf16_" if bf16 else "") + "scratch_floats"
+    scratch = empty(_kernel(scratch_floats)(N, S, V, R, C))
+    before = param_bf16_launched() if bf16 else 0
     _launch(
-        _kernel("unit_ctr_gc_bwd_param_bf16" if bf16 else "unit_ctr_gc_bwd_param_f32"),
-        device, dict(N=N, S=S, T=T, V=V, R=R, C=C),
+        _kernel("unit_ctr_gc_bwd_param_" + form), device, dict(N=N, S=S, T=T, V=V, R=R, C=C),
         x1s.data_ptr(), x2s.data_ptr(), g.data_ptr(), x3s.data_ptr(),
         w4s.data_ptr(), b4s.data_ptr(), alpha.data_ptr(), dx1s.data_ptr(),
         dx2s.data_ptr(), dw4s.data_ptr(), db4s.data_ptr(), dalpha.data_ptr(),
         dAs.data_ptr(), scratch.data_ptr(), N, S, T, V, R, C, refused=_UNIT_REFUSED,
     )
     if bf16:
+        if param_bf16_launched() != before + 1:
+            raise RuntimeError("unit_ctr_gc_bwd_param_bf16 did not count one launch")
         bwd_param_launches_bf16 += 1
     else:
         bwd_param_launches += 1
@@ -398,7 +417,7 @@ def unit_ctr_gc_bwd_param(x1s, x2s, g, x3s, w4s, b4s, alpha):
 def unit_ctr_gc_bwd_conv3(x1s, x2s, g, x, w3, w4s, b4s, alpha, As):
     """K6. The unit op's x3 gradient carried through the packed conv3 that
     made x3s = x @ w3 + b3 (the x3 gradient passes between the kernel's two
-    phases through f32 scratch that the wrapper allocates): x1s/x2s
+    phases through scratch that the wrapper allocates): x1s/x2s
     (N,S,V,R); g (N,T,V,C), the gradient of the output; x (N,T,V,Cin),
     conv3's input; w3 (Cin,S*C), conv3's weight transposed (a transposed
     view of the contiguous (S*C,Cin) weight, as `conv3.weight.t()`, is taken
@@ -408,9 +427,10 @@ def unit_ctr_gc_bwd_conv3(x1s, x2s, g, x, w3, w4s, b4s, alpha, As):
     float32, with R <= 32 and C % 4 == 0 -> (dx, dw3, db3) shaped as x, w3
     and (S*C,) in the activations' dtype. dw3 is a transposed view of a
     contiguous (S*C,Cin) tensor. In bfloat16 the kernel follows the JAX
-    kernel's bf16 body: its x3 gradient stays f32, enters both products
-    rounded to bf16 and db3 unrounded. Its sums over rows run in a fixed
-    order: two calls on the same inputs give bitwise equal results."""
+    kernel's bf16 body: its x3 gradient is f32, enters both products rounded
+    to bf16 (the scratch holds it so) and db3 unrounded. Its sums over rows
+    run in a fixed order: two calls on the same inputs give bitwise equal
+    results."""
     global bwd_conv3_launches, bwd_conv3_launches_bf16
     N, S, T, V, R, C = _unit_dims(x1s, g, w4s)
     Cin = x.shape[-1]
@@ -444,8 +464,8 @@ def unit_ctr_gc_bwd_conv3(x1s, x2s, g, x, w3, w4s, b4s, alpha, As):
 
     dx, dw3t, db3 = empty(N, T, V, Cin), empty(S * C, Cin), empty(S * C)
     # the x3 gradient (N,T,V,S*C), which passes between the kernel's two
-    # phases, and the partial sums of dw3 and db3 over fixed groups of rows,
-    # f32 in both forms
+    # phases (f32, or bf16 in the bf16 form), and the partial sums of dw3
+    # and db3, in one f32 tensor
     scratch = empty(floats, dtype=torch.float32)
     _launch(
         _kernel("unit_ctr_gc_bwd_conv3_bf16" if bf16 else "unit_ctr_gc_bwd_conv3_f32"),

@@ -1,9 +1,11 @@
-"""The one A/B tool of the port's f32 kernels: K1, K2, K3, K5 and K6 of this
-checkout against the same kernels built from another directory of sources
-with the same C interface, such as an earlier commit's csrc/, on one card:
+"""The one A/B tool of the port's unit-op kernels: K1, K2, K3, K5 and K6 in
+f32 and the bf16 forms of K3 and K6 (K3_bf16, K6_bf16) of this checkout
+against the same kernels built from another directory of sources with the
+same C interface, such as an earlier commit's csrc/, on one card:
 
     mkdir -p work_dir/other && git archive <commit> tamgcn_tpu_torch/csrc | tar -x -C work_dir/other
     python -m tamgcn_tpu_torch.tools.f32_ab --other work_dir/other/tamgcn_tpu_torch/csrc
+    [--kernels K3_bf16 K6_bf16]
 
 At the unit-op shapes of the NW-UCLA CTR-GCN at full width (K1 at the eval
 batch 64 and at the training batch 16, K2 and K3 at the training batch 16),
@@ -17,11 +19,20 @@ chip_smoke.py's phase-3 tolerance (rtol 1e-5, atol 1e-5 * max|plain|), K5
 at phase 6's (rtol 1e-5, atol 1e-4 * max|plain|) and K6 at phase 7's (dx
 rtol 1e-5, dw3 and db3 rtol 1e-4, atol 1e-4 * max|plain|), in this checkout
 and in the other, and two launches of this checkout's K1, K2, K5 and K6
-must agree bit for bit. All are timed by utils/timing.py:graph_ms in turns
+must agree bit for bit. K3_bf16 (the NW-UCLA train-step blocks) and
+K6_bf16 (K6's blocks) take bf16 activations and are held to their bf16
+plain versions as chip_smoke.py's phases 10 and 11 hold them (bf16 outputs
+within 2^-7 of their max |plain| and equal in all but 1% of the elements,
+K3's f32 outputs at rtol 1e-4, atol 1e-4 * max|plain|, dalpha rtol 1e-3),
+in both trees, and two launches of this checkout's must agree bit for bit.
+The other tree's K3_bf16 is built from its unit_ctr_gc_bwd_param_bf16.cu,
+or from its unit_ctr_gc_bwd_param.cu where it has no such source (before
+K3's bf16 form had one). All are timed by utils/timing.py:graph_ms in turns
 this, other, other, this, and summed per path with the launches of each
 block shape: K1 per NW-UCLA eval forward and per train step, K2 and K3 per
 NW-UCLA train step, K1t per scene256 eval forward, K2t per scene256 train
-step, K5 per fast-eval forward, K6 per train step with TAMGCN_FUSE_CONV3=1.
+step, K5 per fast-eval forward, K6 per train step with TAMGCN_FUSE_CONV3=1,
+K3_bf16 per bf16 train step, K6_bf16 per bf16 train step with the switch.
 Prints a line per kernel and shape to stderr and one JSON line with every
 number to stdout; exits 1 if any check fails. Needs CUDA and nvcc.
 tools/k3_ab.py --ablate builds K3 variants with build_entries and times
@@ -39,10 +50,10 @@ import tempfile
 import torch
 
 from ..ops.aggregation import (unit_ctr_gc_bwd_conv3_plain, unit_ctr_gc_dx3_plain,
-                               unit_ctr_gc_plain)
+                               unit_ctr_gc_param_grads_plain, unit_ctr_gc_plain)
 from ..ops.cuda import build, ctr_gc, gcn_tcn_block
 from ..ops.gcn_tcn_block import gcn_tcn_block_plain
-from ..utils.timing import graph_ms
+from ..utils.timing import graph_ms, graph_split
 from . import device_name, log
 
 # (block, (N, T, V, C, R)) of each kernel
@@ -63,12 +74,13 @@ K5_SHAPES = [("l1", (64, 52, 20, 3, 64, 8)), ("l2-l4", (64, 52, 20, 64, 64, 8)),
 K6_SHAPES = [("l5", (16, 52, 20, 64, 128, 8)), ("l6-l7", (16, 26, 20, 128, 128, 16)),
              ("l8", (16, 26, 20, 128, 256, 16)), ("l9-l10", (16, 13, 20, 256, 256, 32))]
 SHAPES = {"K1": EVAL + K1_TRAIN + SCENE, "K2": TRAIN + SCENE, "K3": TRAIN + SCENE, "K5": K5_SHAPES,
-          "K6": K6_SHAPES}
+          "K6": K6_SHAPES, "K3_bf16": TRAIN, "K6_bf16": K6_SHAPES}
 # launches of each block shape per eval forward or train step, NW-UCLA and
 # scene256 (K1-K3); per fast-eval forward (K5) and fused train step (K6)
 PER_PATH = {"l1-l4": 4, "l5": 1, "l6-l7": 2, "l8": 1, "l9-l10": 2}
 PER_BLOCK = {"K5": {"l1": 1, "l2-l4": 3, "l5": 1, "l6-l7": 2, "l8": 1, "l9-l10": 2},
              "K6": {"l5": 1, "l6-l7": 2, "l8": 1, "l9-l10": 2}}
+PER_BLOCK["K6_bf16"] = PER_BLOCK["K6"]
 # (sum, kernel, prefix of its shape names)
 PATHS = (("K1 per NW-UCLA eval forward, batch 64", "K1", ""),
          ("K1 per NW-UCLA train step, batch 16", "K1", "train "),
@@ -78,16 +90,30 @@ PATHS = (("K1 per NW-UCLA eval forward, batch 64", "K1", ""),
          ("K2t per scene256 train step, batch 8", "K2", "scene256 "),
          ("K3 per scene256 train step, batch 8", "K3", "scene256 "),
          ("K5 per fast-eval forward, batch 64", "K5", ""),
-         ("K6 per fused-conv3 train step, batch 16", "K6", ""))
+         ("K6 per fused-conv3 train step, batch 16", "K6", ""),
+         ("K3_bf16 per NW-UCLA bf16 train step, batch 16", "K3_bf16", ""),
+         ("K6_bf16 per fused-conv3 bf16 train step, batch 16", "K6_bf16", ""))
 UNIT_RTOL = 1e-5  # chip_smoke.py phase 3: rtol and atol / max|plain| of K1, K2
 # chip_smoke.py phases 6 and 7: (rtol, atol / max|plain|) per output
 K5_TOL = {"prefix": (1e-5, 1e-4), "pw": (1e-5, 1e-4)}
 K6_TOL = {"dx": (1e-5, 1e-4), "dw3": (1e-4, 1e-4), "db3": (1e-4, 1e-4)}
+# the bf16 forms (chip_smoke.py:BF16_TOL and BF16_SHARE): a bf16 output within
+# 2^-7 of its max |plain| and equal in all but 1% of its elements; K3's f32
+# outputs (rtol, atol / max|plain|), dalpha at rtol 1e-3 alone
+BF16_TOL, BF16_SHARE = 2 ** -7, 0.01
+K3_BF16_TOL = {"dx1s": "bf16", "dx2s": "bf16", "dw4s": (1e-4, 1e-4), "db4s": (1e-4, 1e-4),
+               "dalpha": (1e-3, 0.0), "dAs": (1e-4, 1e-4)}
+K6_BF16_TOL = {"dx": "bf16", "dw3": "bf16", "db3": "bf16"}
 ENTRIES = {"K1": ("unit_ctr_gc_fwd_f32",),
            "K2": ("unit_ctr_gc_bwd_dx3_f32",),
            "K3": ("unit_ctr_gc_bwd_param_scratch_floats", "unit_ctr_gc_bwd_param_f32"),
            "K5": ("gcn_tcn_block_f32",),
-           "K6": ("unit_ctr_gc_bwd_conv3_scratch_floats", "unit_ctr_gc_bwd_conv3_f32")}
+           "K6": ("unit_ctr_gc_bwd_conv3_scratch_floats", "unit_ctr_gc_bwd_conv3_f32"),
+           "K3_bf16": ("unit_ctr_gc_bwd_param_bf16_scratch_floats", "unit_ctr_gc_bwd_param_bf16"),
+           "K6_bf16": ("unit_ctr_gc_bwd_conv3_scratch_floats", "unit_ctr_gc_bwd_conv3_bf16")}
+# an earlier tree's K3_bf16: in the f32 source, with the f32 scratch query
+EARLIER_K3_BF16 = (ctr_gc.PARAM_SOURCE,
+                   ("unit_ctr_gc_bwd_param_scratch_floats", "unit_ctr_gc_bwd_param_bf16"))
 # (source, argument types, return type) of each entry point
 SIGNATURES = dict(ctr_gc._SIGNATURES, gcn_tcn_block_f32=(
     gcn_tcn_block.SOURCE, gcn_tcn_block.ARGTYPES, ctypes.c_int))
@@ -113,12 +139,21 @@ def build_entries(source: str, out_dir: str, lib: str, names, include=None) -> d
     return fns
 
 
-def load_other(csrc: str, out_dir: str) -> dict:
-    """{entry name: ctypes function} of the other sources' K1, K2, K3, K5 and
-    K6 (each source includes its own directory's headers)."""
+def other_source(csrc: str, kname: str):
+    """(source path, entry names) of kname in the other sources."""
+    names = ENTRIES[kname]
+    source = os.path.join(csrc, SIGNATURES[names[-1]][0])
+    if kname == "K3_bf16" and not os.path.exists(source):
+        return os.path.join(csrc, EARLIER_K3_BF16[0]), EARLIER_K3_BF16[1]
+    return source, names
+
+
+def load_other(csrc: str, out_dir: str, knames=tuple(ENTRIES)) -> dict:
+    """{entry name: ctypes function} of the other sources' kernels `knames`
+    (each source includes its own directory's headers)."""
     fns = {}
-    for kname, names in ENTRIES.items():
-        source = os.path.join(csrc, SIGNATURES[names[-1]][0])
+    for kname in knames:
+        source, names = other_source(csrc, kname)
         fns.update(build_entries(source, out_dir, f"lib{kname}_other.so", names))
     return fns
 
@@ -176,11 +211,17 @@ def conv3_inputs(shape, seed, device):
 
 
 def kernel_inputs(kname, shape, seed, device):
+    """The inputs of kname at shape; the bf16 forms' activations in bf16
+    (K3_bf16: x1s, x2s, x3s, g; K6_bf16: x1s, x2s, g, x, w3)."""
     if kname == "K5":
         return block_inputs(shape, seed, device)
-    if kname == "K6":
-        return conv3_inputs(shape, seed, device)
-    return inputs(shape, seed, device)
+    if kname.startswith("K6"):
+        a = conv3_inputs(shape, seed, device)
+        return a if kname == "K6" else tuple(t.bfloat16() for t in a[:5]) + a[5:]
+    a = inputs(shape, seed, device)
+    if kname == "K3_bf16":
+        a = tuple(t.bfloat16() if i in (0, 1, 2, 7) else t for i, t in enumerate(a))
+    return a
 
 
 def this(kname, a):
@@ -188,7 +229,7 @@ def this(kname, a):
     outputs."""
     if kname == "K5":
         return gcn_tcn_block.gcn_tcn_block_fwd(**a)
-    if kname == "K6":
+    if kname.startswith("K6"):
         return ctr_gc.unit_ctr_gc_bwd_conv3(*a)
     x1s, x2s, x3s, w4s, b4s, alpha, As, g = a
     if kname == "K1":
@@ -199,12 +240,14 @@ def this(kname, a):
 
 
 def plain(kname, a):
-    """The plain version of K1, K2, K5 or K6 on the inputs: a tuple."""
+    """The plain version of kname (but K3) on the inputs: a tuple."""
     if kname == "K5":
         return gcn_tcn_block_plain(**a)
-    if kname == "K6":
+    if kname.startswith("K6"):
         return unit_ctr_gc_bwd_conv3_plain(*a)
     x1s, x2s, x3s, w4s, b4s, alpha, As, g = a
+    if kname == "K3_bf16":
+        return unit_ctr_gc_param_grads_plain(x1s, x2s, g, x3s, w4s, b4s, alpha)
     if kname == "K1":
         return (unit_ctr_gc_plain(x1s, x2s, x3s, w4s, b4s, alpha, As),)
     return (unit_ctr_gc_dx3_plain(x1s, x2s, g, w4s, b4s, alpha, As),)
@@ -216,11 +259,22 @@ def within(out, want, rtol, atol_frac) -> bool:
         (err > rtol * want.abs() + atol_frac * want.abs().max()).any())
 
 
+def bf16_within(out, want) -> bool:
+    """A bf16 output within BF16_TOL of max |want|, equal in all but
+    BF16_SHARE of its elements."""
+    err = (out.float() - want.float()).abs()
+    return (out.dtype == want.dtype == torch.bfloat16 and bool(torch.isfinite(out).all())
+            and err.max().item() <= BF16_TOL * want.float().abs().max().item()
+            and (out != want).float().mean().item() <= BF16_SHARE)
+
+
 def within_plain(kname, outs, wants) -> bool:
     """Each output within the kernel's tolerance of its plain version."""
-    tols = {"K5": list(K5_TOL.values()), "K6": list(K6_TOL.values())}.get(
+    tols = {"K5": list(K5_TOL.values()), "K6": list(K6_TOL.values()),
+            "K3_bf16": list(K3_BF16_TOL.values()), "K6_bf16": list(K6_BF16_TOL.values())}.get(
         kname, [(UNIT_RTOL, UNIT_RTOL)])
-    return all(within(o, w, *tol) for o, w, tol in zip(outs, wants, tols))
+    return all(bf16_within(o, w) if tol == "bf16" else within(o, w, *tol)
+               for o, w, tol in zip(outs, wants, tols))
 
 
 def tiled(kname, shape) -> bool:
@@ -236,8 +290,8 @@ def tiled(kname, shape) -> bool:
 def other(fns, kname, a):
     """The other kernel on the inputs, allocated and launched as the port's
     wrapper allocates and launches its own."""
-    def empty(*shape):
-        return torch.empty(shape, device=dev, dtype=torch.float32)
+    def empty(*shape, dtype=torch.float32):
+        return torch.empty(shape, device=dev, dtype=dtype)
 
     if kname == "K5":
         x = a["x"]
@@ -255,18 +309,19 @@ def other(fns, kname, a):
         ptrs += [a[k].data_ptr() for k in ("wo", "bo", "wp", "bp", "wpw", "bpw")]
         ptrs += [y.data_ptr(), outs[0].data_ptr(), outs[1].data_ptr()]
         err = fns["gcn_tcn_block_f32"](*ptrs, N, S, T, V, Cin, R, C, P, BC, stream)
-    elif kname == "K6":
+    elif kname.startswith("K6"):
         x1s, x2s, g, x, w3, w4s, b4s, alpha, As = a
         dev = g.device
         stream = torch.cuda.current_stream(dev).cuda_stream
         N, S, V, R = x1s.shape
         T, C, Cin = g.shape[1], w4s.shape[-1], x.shape[-1]
         w3t = w3.t().contiguous()
-        dx, dw3t, db3 = empty(N, T, V, Cin), empty(S * C, Cin), empty(S * C)
+        dx, dw3t, db3 = (empty(N, T, V, Cin, dtype=g.dtype), empty(S * C, Cin, dtype=g.dtype),
+                         empty(S * C, dtype=g.dtype))
         scratch = empty(fns["unit_ctr_gc_bwd_conv3_scratch_floats"](N, S, T, V, R, C, Cin))
         ptrs = (x1s, x2s, g, w4s, b4s, alpha, As, x, w3t, dx, dw3t, db3, scratch)
-        err = fns["unit_ctr_gc_bwd_conv3_f32"](*[t.data_ptr() for t in ptrs], N, S, T, V, R,
-                                               C, Cin, stream)
+        err = fns["unit_ctr_gc_bwd_conv3_" + ("f32" if kname == "K6" else "bf16")](
+            *[t.data_ptr() for t in ptrs], N, S, T, V, R, C, Cin, stream)
         outs = (dx, dw3t.t(), db3)
     else:
         x1s, x2s, x3s, w4s, b4s, alpha, As, g = a
@@ -285,12 +340,16 @@ def other(fns, kname, a):
             err = fns["unit_ctr_gc_bwd_dx3_f32"](*[t.data_ptr() for t in ptrs], N, S, T, V,
                                                  R, C, stream)
         else:
-            outs = (empty(N, S, V, R), empty(N, S, V, R), empty(S, R, C), empty(S, C),
-                    empty(1), empty(S, V, V))
-            scratch = empty(fns["unit_ctr_gc_bwd_param_scratch_floats"](N, S, V, R, C))
+            outs = (empty(N, S, V, R, dtype=g.dtype), empty(N, S, V, R, dtype=g.dtype),
+                    empty(S, R, C), empty(S, C), empty(1), empty(S, V, V))
+            # K3_bf16's scratch query: its own source's, or an earlier tree's f32 one
+            query = (fns.get("unit_ctr_gc_bwd_param_bf16_scratch_floats")
+                     if kname == "K3_bf16" else None)
+            query = query or fns["unit_ctr_gc_bwd_param_scratch_floats"]
+            scratch = empty(query(N, S, V, R, C))
             ptrs = (x1s, x2s, g, x3s, w4s, b4s, alpha, *outs, scratch)
-            err = fns["unit_ctr_gc_bwd_param_f32"](*[t.data_ptr() for t in ptrs], N, S, T,
-                                                   V, R, C, stream)
+            err = fns["unit_ctr_gc_bwd_param_" + ("f32" if kname == "K3" else "bf16")](
+                *[t.data_ptr() for t in ptrs], N, S, T, V, R, C, stream)
     if err:
         raise RuntimeError(f"the other {kname} returned CUDA error {err}")
     return outs
@@ -299,8 +358,8 @@ def other(fns, kname, a):
 def check_mode(kname) -> str:
     """How kname is held: "bitwise" to the other sources (K3), or "plain":
     within its tolerance of its plain version in both trees, two launches of
-    this tree bitwise equal (K1, K2, K5, K6: a redesign sums in another
-    order than the tree it replaces)."""
+    this tree bitwise equal (K1, K2, K5, K6 and the bf16 forms: a redesign
+    sums in another order than the tree it replaces)."""
     return "bitwise" if kname == "K3" else "plain"
 
 
@@ -345,6 +404,11 @@ def main(argv=None):
                     help="the other csrc directory (unit_ctr_gc_fwd.cu, "
                          "unit_ctr_gc_bwd_dx3.cu, unit_ctr_gc_bwd_param.cu, "
                          "gcn_tcn_block.cu, unit_ctr_gc_bwd_conv3.cu and headers)")
+    ap.add_argument("--kernels", nargs="+", choices=list(SHAPES), default=list(SHAPES),
+                    help="the kernels to compare (all by default)")
+    ap.add_argument("--split", action="store_true",
+                    help="also each shape's device time by kernel of this tree's call "
+                         "(utils/timing.py:graph_split), e.g. K6's phase A and phase B")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise RuntimeError("f32_ab runs kernels on the card: CUDA is not available")
@@ -356,9 +420,9 @@ def main(argv=None):
     log(f"device={device} {device_name(device)}; card: {card}")
     rows = []
     with tempfile.TemporaryDirectory(prefix="f32_ab_") as tmp, torch.no_grad():
-        fns = load_other(args.other, tmp)
-        for kname, shapes in SHAPES.items():
-            for i, (name, shape) in enumerate(shapes):
+        fns = load_other(args.other, tmp, args.kernels)
+        for kname in args.kernels:
+            for i, (name, shape) in enumerate(SHAPES[kname]):
                 a = kernel_inputs(kname, shape, seed=900 + i, device=device)
                 design, what, ok = check(kname, shape, a, fns)
                 ms = {"this": [], "other": []}
@@ -370,6 +434,10 @@ def main(argv=None):
                 row = dict(kernel=kname, name=name, shape=dict(zip(keys, shape)),
                            design=design, check=what, ok=ok, this_ms=min(ms["this"]),
                            other_ms=min(ms["other"]))
+                if args.split:
+                    row["split_ms"] = graph_split(lambda: this(kname, a))
+                    log(f"{kname} {name}: device ms per call by kernel "
+                        + json.dumps({k[:60]: round(v, 5) for k, v in row["split_ms"].items()}))
                 rows.append(row)
                 log(f"{kname} {name:16s} {','.join(keys)}={shape} ({design}): {what} {ok}; "
                     f"device this {row['this_ms'] * 1e3:.1f} us, other "
@@ -377,6 +445,8 @@ def main(argv=None):
     ok = all(r["ok"] for r in rows)
     per_path = {}
     for (key, kname, _), counts in zip(PATHS, path_table().values()):
+        if kname not in args.kernels:
+            continue
         per_path[key] = {who: sum(r[who] * counts.get(r["name"], 0)
                                   for r in rows if r["kernel"] == kname)
                          for who in ("this_ms", "other_ms")}

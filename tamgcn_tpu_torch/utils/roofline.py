@@ -6,17 +6,21 @@ must move (each input read once, each output written once) over the card's
 memory rate, and the operations it does (an FMA counts two) over the peak
 rate for their type. The unit op's bounds take the activations' item size
 (`act_bytes`: 4 in f32, 2 in bf16; the parameters and K3's parameter
-gradients stay f32). The type of an operation is the one the JAX kernel
-computes it in, whatever instructions the port uses: in bf16, stage 1 of
-K1 and K2 (the (V*V, R) @ (R, C) product that builds M) is a bf16 x bf16
-product with f32 accumulation (tamgcn_tpu/ops/pallas/ctr_gc.py:401-404),
-held to the bf16 tensor-core peak; the rest of K1 and K2 is f32 work. The
-joint-tiled K1 and K2 (csrc/unit_ctr_gc_tiled.cuh) run those f32 products
+gradients stay f32). Each product is held to the rate of the unit that runs
+it on the card. In bf16, stage 1 of K1 and K2 (the (V*V, R) @ (R, C)
+product that builds M) is a bf16 x bf16 product with f32 accumulation
+(tamgcn_tpu/ops/pallas/ctr_gc.py:401-404), held to the bf16 tensor-core
+peak, and their aggregation (an f32 M times a bf16 operand, exact in TF32:
+two TF32 terms, csrc/unit_ctr_gc_whole.cuh and unit_ctr_gc_tiled.cuh) to
+the TF32 peak over two. In f32 both designs of K1 and K2 run their products
 on the tensor cores as 3xTF32 (three TF32 products per f32 product), so
 the f32 work of K1 and K2, in either design since they compute the same
 function, is held to the TF32 tensor-core peak over three: 165 TFLOP/s,
 not the 67 TFLOP/s of the CUDA cores, which would read above what the
-card can do. K3's sums stay at the f32 peak outside the tensor cores. K5
+card can do. The f32 K3's sums stay at the f32 peak outside the tensor
+cores, where its design runs them; K3's bf16 form runs dm = sum_t g x3s (a
+bf16 x bf16 product) at the bf16 peak and P = D^T dm, DD = dm w4^T (f32
+products) as 3xTF32 (csrc/unit_ctr_gc_bwd_param_bf16.cu). K5
 (the whole eval block) and K6 (the x3 gradient through conv3) run their
 1x1-conv products, most of their work, on the tensor cores as 3xTF32
 (csrc/mma_tf32x3.cuh), and the rest of their work is K1's or K2's: all
@@ -60,28 +64,28 @@ def bound(elems: int, flops: int, *, itemsize: int = 4, bf16_flops: int = 0,
     return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
 
 
-def _act_bound(act_elems: int, param_elems: int, flops: int, act_bytes: int,
-               stage1_flops: int = 0, f32_peak: float = F32_FLOPS):
-    """bound() of act_elems activations of act_bytes bytes and param_elems
-    f32 values; `stage1_flops` at the bf16 peak where act_bytes is 2, else
-    at `f32_peak` beside `flops`."""
+def _unit_bound(act_elems: int, param_elems: int, aggregation: int, stage1: int,
+                act_bytes: int):
+    """bound() of K1 or K2: act_elems activations of act_bytes bytes and
+    param_elems f32 values; in bf16 the `stage1` FLOPs at the bf16 peak and
+    the `aggregation` FLOPs as two TF32 terms, in f32 both at the 3xTF32
+    rate."""
+    nbytes = act_bytes * act_elems + 4 * param_elems
     if act_bytes == 2:
-        return bound(act_bytes * act_elems + 4 * param_elems, flops, itemsize=1,
-                     bf16_flops=stage1_flops, f32_peak=f32_peak)
-    return bound(act_bytes * act_elems + 4 * param_elems, flops + stage1_flops, itemsize=1,
-                 f32_peak=f32_peak)
+        return bound(nbytes, 0, itemsize=1, bf16_flops=stage1, tf32x2_flops=aggregation)
+    return bound(nbytes, aggregation + stage1, itemsize=1, f32_peak=TF32X3_FLOPS)
 
 
 def unit_ctr_gc_sol(n: int, t: int, v: int, c: int, r: int, s: int = 3, *,
                     act_bytes: int = 4):
     """The unit CTR-GC forward (K1): x1s, x2s, x3s, w4s, b4s, alpha, As in,
-    (n,t,v,c) out; the FMAs of M (stage 1, v*v*r*c per sample and subset;
-    bf16 in bf16) and of the aggregation (stage 2, t*v*v*c, f32), the f32
-    ones at the 3xTF32 rate. Returns bound()'s (ms, by)."""
+    (n,t,v,c) out; the FMAs of M (stage 1, v*v*r*c per sample and subset)
+    and of the aggregation (stage 2, t*v*v*c), at the rates _unit_bound
+    gives them. Returns bound()'s (ms, by)."""
     acts = 2 * n * s * v * r + n * t * v * s * c + n * t * v * c
     params = s * r * c + s * c + 1 + s * v * v
-    return _act_bound(acts, params, 2 * n * s * t * v * v * c, act_bytes,
-                      2 * n * s * v * v * r * c, TF32X3_FLOPS)
+    return _unit_bound(acts, params, 2 * n * s * t * v * v * c, 2 * n * s * v * v * r * c,
+                       act_bytes)
 
 
 def unit_ctr_gc_dx3_sol(n: int, t: int, v: int, c: int, r: int, s: int = 3, *,
@@ -90,8 +94,8 @@ def unit_ctr_gc_dx3_sol(n: int, t: int, v: int, c: int, r: int, s: int = 3, *,
     (n,t,v,s*c) out; the FMAs of M and of the aggregation, as K1's."""
     acts = 2 * n * s * v * r + n * t * v * c + n * t * v * s * c
     params = s * r * c + s * c + 1 + s * v * v
-    return _act_bound(acts, params, 2 * n * s * t * v * v * c, act_bytes,
-                      2 * n * s * v * v * r * c, TF32X3_FLOPS)
+    return _unit_bound(acts, params, 2 * n * s * t * v * v * c, 2 * n * s * v * v * r * c,
+                       act_bytes)
 
 
 def unit_ctr_gc_param_sol(n: int, t: int, v: int, c: int, r: int, s: int = 3, *,
@@ -102,11 +106,17 @@ def unit_ctr_gc_param_sol(n: int, t: int, v: int, c: int, r: int, s: int = 3, *,
     g x3 (t*v*v*c per sample and subset), then D^T dm and dm w4^T (v*v*r*c
     each); dalpha reuses P = D^T dm as sum w4*P + b4*sum(dm), so it needs no
     third v*v*r*c product (the JAX estimate counts one). g, x3s, x1s, x2s,
-    dx1s and dx2s are activations. Returns bound()'s (ms, by)."""
+    dx1s and dx2s are activations. In f32 every FMA at the f32 peak (the f32
+    design's FFMA); in bf16 dm at the bf16 peak and D^T dm, dm w4^T at the
+    3xTF32 rate (the bf16 design's tensor-core products). Returns bound()'s
+    (ms, by)."""
     acts = n * t * v * c + n * t * v * s * c + 4 * n * s * v * r
     params = 2 * (s * r * c + s * c + 1) + s * v * v
-    return _act_bound(acts, params, 2 * n * s * t * v * v * c + 4 * n * s * v * v * r * c,
-                      act_bytes)
+    dm, p_dd = 2 * n * s * t * v * v * c, 4 * n * s * v * v * r * c
+    nbytes = act_bytes * acts + 4 * params
+    if act_bytes == 2:
+        return bound(nbytes, p_dd, itemsize=1, bf16_flops=dm, f32_peak=TF32X3_FLOPS)
+    return bound(nbytes, dm + p_dd, itemsize=1)
 
 
 def ms_tcn_sol(n: int, t: int, v: int, bc: int, stride: int = 1):

@@ -81,11 +81,8 @@ def time_chained(fn: Callable, feedback: Callable, args: tuple, *,
     return (time.perf_counter() - t0) / (iters * chain)
 
 
-def graph_ms(fn) -> float:
-    """Device time per call of fn with no host time between its launches:
-    20 calls captured in one CUDA graph, replayed 5 times between two CUDA
-    events. fn launches on the current stream."""
-    reps, replays = 20, 5
+def _graph(fn, reps: int):
+    """A CUDA graph of `reps` calls of fn (warmed up first), replayed once."""
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
@@ -97,6 +94,31 @@ def graph_ms(fn) -> float:
         for _ in range(reps):
             fn()
     graph.replay()
+    return graph
+
+
+def graph_split(fn) -> dict:
+    """{kernel name: device ms per call} of fn's kernels: torch.profiler over
+    a replay of a CUDA graph of 20 calls (no host time between launches),
+    each kernel's device time summed by name."""
+    from torch.profiler import ProfilerActivity, profile
+
+    reps = 20
+    graph = _graph(fn, reps)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        graph.replay()
+        torch.cuda.synchronize()
+    return {e.key: e.self_device_time_total / reps / 1e3 for e in prof.key_averages()
+            if e.self_device_time_total > 0}
+
+
+def graph_ms(fn) -> float:
+    """Device time per call of fn with no host time between its launches:
+    20 calls captured in one CUDA graph, replayed 5 times between two CUDA
+    events. fn launches on the current stream."""
+    reps, replays = 20, 5
+    graph = _graph(fn, reps)
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()

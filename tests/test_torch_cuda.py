@@ -19,10 +19,11 @@ S = 1 against its plain route. The bf16 forms of K1, K2 and K3 (bf16
 activations, f32 parameters; both designs of K1 and K2) against their bf16
 plain versions: bf16 outputs within 2^-7 of their max |value| (they differ
 in f32 sum order before one rounding), K3's f32 outputs at the f32
-tolerances, each launch on its own bf16 counter; and the dtypes the
-wrappers refuse (float16, mixed activations, bf16 parameters). The bf16
-forms of K6 (bf16 activations, an f32 x3 gradient inside) and of K4 (bf16
-x1, x2, x3, f32 output) against their plain versions: K6-bf16's outputs as
+tolerances, each launch on its own bf16 counter (K3-bf16's also on the
+count its C launcher keeps); and the dtypes the wrappers refuse (float16,
+mixed activations, bf16 parameters). The bf16 forms of K6 (bf16
+activations, its x3 gradient rounded once inside) and of K4 (bf16 x1, x2,
+x3, f32 output) against their plain versions: K6-bf16's outputs as
 the bf16 outputs above, K4-bf16's f32 outputs within 1e-4 * max|plain|,
 two launches of each bitwise equal, each launch on its own counter; and the
 standalone CTRGC in bf16 on the card against its plain route. The designs'
@@ -348,6 +349,47 @@ def test_bf16_kernels_match_plain(device, shape):
             _bf16_close(a, w, name)
             continue
         assert a.dtype == torch.float32, name
+        rtol, atol = (1e-3, 0.0) if name == "dalpha" else (1e-4, 1e-4 * w.abs().max().item())
+        torch.testing.assert_close(a, w, rtol=rtol, atol=atol, msg=name)
+
+
+# K3-bf16 (csrc/unit_ctr_gc_bwd_param_bf16.cu, N, T, V, C, R): the NW-UCLA
+# train step's blocks at batch 16, and its design's edges: joint tiles of 16
+# (one m16 tile of u) and 17 joints, V = 21 in two tiles, 25, 37 and 256;
+# C not a multiple of 8 (the staging's one-value loads) and odd; T of one
+# frame and past a chunk of 16; N = 1
+K3_BF16_SHAPES = [(16, 52, 20, 64, 8), (16, 52, 20, 128, 8), (16, 26, 20, 128, 16),
+                  (16, 26, 20, 256, 16), (16, 13, 20, 256, 32), (2, 9, 16, 64, 32),
+                  (2, 9, 17, 64, 32), (2, 5, 21, 48, 16), (3, 9, 25, 128, 16),
+                  (2, 7, 37, 80, 10), (1, 8, 256, 256, 32), (2, 17, 20, 20, 8),
+                  (2, 3, 20, 10, 5), (2, 1, 20, 64, 8), (1, 33, 20, 256, 32)]
+
+
+@pytest.mark.parametrize("shape", K3_BF16_SHAPES,
+                         ids=lambda s: "N{}-T{}-V{}-C{}-R{}".format(*s))
+def test_param_bf16_kernel_matches_plain(device, shape):
+    """K3-bf16 against its bf16 plain version at the tolerances of
+    test_bf16_kernels_match_plain: each call one launch that its C launcher
+    counted (ctr_gc.param_bf16_launched) and the wrapper's bf16 counter
+    alone; two launches bitwise equal."""
+    x1s, x2s, x3s, w4s, b4s, alpha, _ = _inputs(*shape, device=device)
+    n, t, v, c, r = shape
+    g = torch.randn((n, t, v, c), generator=torch.Generator().manual_seed(9)).to(device)
+    x1s, x2s, x3s, g = (a.bfloat16() for a in (x1s, x2s, x3s, g))
+    before, launched = _counts(), ctr_gc.param_bf16_launched()
+    with torch.no_grad():
+        grads = ctr_gc.unit_ctr_gc_bwd_param(x1s, x2s, g, x3s, w4s, b4s, alpha)
+        again = ctr_gc.unit_ctr_gc_bwd_param(x1s, x2s, g, x3s, w4s, b4s, alpha)
+        want = unit_ctr_gc_param_grads_plain(x1s, x2s, g, x3s, w4s, b4s, alpha)
+    torch.cuda.synchronize()
+    assert ctr_gc.param_bf16_launched() == launched + 2
+    moved = {k: n - before[k] for k, n in _counts().items() if n != before[k]}
+    assert moved == {"bwd_param_launches_bf16": 2}, moved
+    for name, a, b, w in zip(K3_OUTPUTS, grads, again, want):
+        assert torch.equal(a, b), f"{name}: two launches differ"
+        if name in ("dx1s", "dx2s"):
+            _bf16_close(a, w, name)
+            continue
         rtol, atol = (1e-3, 0.0) if name == "dalpha" else (1e-4, 1e-4 * w.abs().max().item())
         torch.testing.assert_close(a, w, rtol=rtol, atol=atol, msg=name)
 
@@ -812,13 +854,22 @@ def test_ctrgc_module_on_card_matches_plain_route(device, shape, monkeypatch):
         torch.testing.assert_close(grads[k], w, rtol=rtol, atol=atol, msg=k)
 
 
-@pytest.mark.parametrize("shape", CONV3_SHAPES,
+# K6-bf16 besides CONV3_SHAPES: its four train-step blocks at batch 16, a
+# Cin that is not a multiple of 8 with S*C = 60 (8-byte copies of the x3
+# gradient), in the whole-V and the joint-tiled phase A
+K6_BF16_SHAPES = [(16, 52, 20, 64, 128, 8), (16, 26, 20, 128, 128, 16),
+                  (16, 26, 20, 128, 256, 16), (16, 13, 20, 256, 256, 32),
+                  (2, 9, 20, 61, 20, 8), (2, 9, 25, 61, 20, 8)]
+
+
+@pytest.mark.parametrize("shape", CONV3_SHAPES + K6_BF16_SHAPES,
                          ids=lambda s: "N{}-T{}-V{}-Cin{}-C{}-R{}".format(*s))
 def test_conv3_bf16_kernel_matches_plain(device, shape):
-    """K6's bf16 form (bf16 x1s, x2s, g, x, w3; its x3 gradient f32 inside,
-    rounded once for the bf16 products) against its bf16 plain version: dx,
-    dw3 and db3 in bf16 as the bf16 outputs above, two launches bitwise
-    equal, each on the bf16 counter alone."""
+    """K6's bf16 form (bf16 x1s, x2s, g, x, w3; its x3 gradient computed in
+    f32 and kept rounded to bf16 for the bf16 products, db3 from the
+    unrounded values) against its bf16 plain version: dx, dw3 and db3 in
+    bf16 as the bf16 outputs above, two launches bitwise equal, each on the
+    bf16 counter alone."""
     from tamgcn_tpu_torch.ops.aggregation import unit_ctr_gc_bwd_conv3_plain
 
     x1s, x2s, g, x, w3, w4s, b4s, alpha, As = _conv3_inputs(*shape, device=device)

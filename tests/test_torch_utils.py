@@ -73,15 +73,24 @@ def test_scene256_paths_at_the_3xtf32_rate():
     assert roofline.TF32X3_FLOPS == pytest.approx(165e12)
 
 
-@pytest.mark.parametrize("shape,want", [
+@pytest.mark.parametrize("shape,act_bytes,want", [
     # K3 at l1, batch 16: 4.30 M f32 values, 17.2 MB (5.13 us), above 0.167
     # GFLOP (2.49 us)
-    ((16, 52, 20, 64, 8), (5.129e-3, "bytes")),
+    ((16, 52, 20, 64, 8), 4, (5.129e-3, "bytes")),
     # K3 at l9, batch 16: dm 0.128 and D^T dm, dm w4^T 0.629 GFLOP (11.30 us)
-    ((16, 13, 20, 256, 32), (11.297e-3, "operations")),
+    # at the f32 peak, where the f32 design's FFMA runs them
+    ((16, 13, 20, 256, 32), 4, (11.297e-3, "operations")),
+    # K3-bf16 at l9, batch 16: dm 0.128 GFLOP at the bf16 peak (0.13 us) and
+    # D^T dm, dm w4^T 0.629 GFLOP at the 3xTF32 rate (3.81 us), above 8.97
+    # MB (2.68 us); the bf16 design's tensor-core products (11.30 us at the
+    # f32 peak before its redesign)
+    ((16, 13, 20, 256, 32), 2, (3.942e-3, "operations")),
+    # K3-bf16 at l8, batch 16: 17.3 MB of bf16 activations (5.16 us) above
+    # 0.51 GFLOP (2.57 us)
+    ((16, 26, 20, 256, 16), 2, (5.156e-3, "bytes")),
 ])
-def test_unit_ctr_gc_param_sol(shape, want):
-    ms, by = roofline.unit_ctr_gc_param_sol(*shape)
+def test_unit_ctr_gc_param_sol(shape, act_bytes, want):
+    ms, by = roofline.unit_ctr_gc_param_sol(*shape, act_bytes=act_bytes)
     assert by == want[1] and ms == pytest.approx(want[0], rel=1e-3)
 
 
@@ -93,12 +102,21 @@ def test_unit_ctr_gc_param_sol(shape, want):
     # K2 bf16 at l1, batch 16: 4.28 M activations, 8.56 MB (2.556 us)
     ("unit_ctr_gc_dx3_sol", (16, 52, 20, 64, 8), (2.556e-3, "bytes")),
     # K3 bf16 at l1, batch 16: 4.29 M activations and 4658 f32 values, 8.60
-    # MB (2.567 us), above 0.167 GFLOP (2.494 us)
+    # MB (2.567 us), above dm's 0.128 GFLOP at the bf16 peak and D^T dm, dm
+    # w4^T's 0.039 GFLOP at the 3xTF32 rate (0.37 us)
     ("unit_ctr_gc_param_sol", (16, 52, 20, 64, 8), (2.567e-3, "bytes")),
     # K1 bf16 at l9, batch 16: stage 1 (0.315 GFLOP) at the bf16 tensor-core
-    # peak and stage 2 (0.128 GFLOP) at the 3xTF32 rate take 1.1 us, below
+    # peak and stage 2 (0.128 GFLOP) as two TF32 terms take 0.84 us, below
     # the 8.75 MB (2.612 us)
     ("unit_ctr_gc_sol", (16, 13, 20, 256, 32), (2.612e-3, "bytes")),
+    # K1t bf16 at scene256's l1-l4 (V=256, batch 8): stage 1 1.61 GFLOP at
+    # the bf16 peak (1.63 us) and the aggregation 6.44 GFLOP as two TF32
+    # terms (26.03 us), above 33.8 MB (10.1 us); 40.67 us with the
+    # aggregation at the 3xTF32 rate, before its bound followed the card
+    ("unit_ctr_gc_sol", (8, 32, 256, 64, 8), (27.659e-3, "operations")),
+    # K2t bf16 at scene256's l9-l10: stage 1 25.8 GFLOP (26.06 us) and the
+    # aggregation 6.44 GFLOP (26.03 us); 65.10 us before
+    ("unit_ctr_gc_dx3_sol", (8, 8, 256, 256, 32), (52.087e-3, "operations")),
 ])
 def test_unit_op_bf16_bounds(fn, shape, want):
     ms, by = getattr(roofline, fn)(*shape, act_bytes=2)
@@ -270,7 +288,9 @@ def test_whole_v_blocks_at_the_edges():
     assert ctr_gc.whole_v_blocks(16, 1, 52, 128, fwd=False) == 8 * 16
 
 
-def test_f32_ab_paths_and_check_modes():
+def test_f32_ab_paths_and_check_modes(tmp_path):
+    import os
+
     from tamgcn_tpu_torch.tools import f32_ab
 
     table = f32_ab.path_table()
@@ -288,9 +308,42 @@ def test_f32_ab_paths_and_check_modes():
     k1 = dict(f32_ab.SHAPES["K1"])
     assert {k1[name][0] for name in table["K1 per NW-UCLA eval forward, batch 64"]} == {64}
     assert {k1[name][0] for name in table["K1 per NW-UCLA train step, batch 16"]} == {16}
-    # K3 bitwise to the other tree; the redesigned kernels to their plain versions
+    # the bf16 forms of K3 and K6 at the NW-UCLA train step's blocks, batch 16
+    assert table["K3_bf16 per NW-UCLA bf16 train step, batch 16"] == nucla
+    assert table["K6_bf16 per fused-conv3 bf16 train step, batch 16"] == table[
+        "K6 per fused-conv3 train step, batch 16"]
+    assert {s[0] for _, s in f32_ab.SHAPES["K3_bf16"] + f32_ab.SHAPES["K6_bf16"]} == {16}
+    # K3 bitwise to the other tree; the redesigned kernels, the bf16 forms of
+    # K3 and K6 among them, to their plain versions
     assert f32_ab.check_mode("K3") == "bitwise"
-    assert {f32_ab.check_mode(k) for k in ("K1", "K2", "K5", "K6")} == {"plain"}
+    assert {f32_ab.check_mode(k) for k in ("K1", "K2", "K5", "K6", "K3_bf16", "K6_bf16")} == {
+        "plain"}
+    # the bf16 tolerances: bf16 outputs against 2^-7 of max |plain| and a 1%
+    # share; K3's f32 outputs as in f32, dalpha at rtol 1e-3
+    want = torch.tensor([1.0, -2.0, 0.5, 4.0] * 50).bfloat16()
+    near = want.clone()
+    near[0] = want[0].float() + 2 ** -7  # one element (0.5%) one bf16 step off
+    assert f32_ab.within_plain("K6_bf16", [near] * 3, [want] * 3)
+    far = want.float().add(0.05).bfloat16()
+    assert not f32_ab.within_plain("K6_bf16", [far, want, want], [want] * 3)
+    flipped = want.clone()
+    flipped[:4] = -want[:4]  # 2% of the elements
+    assert not f32_ab.within_plain("K6_bf16", [flipped, want, want], [want] * 3)
+    f32 = torch.linspace(-1.0, 1.0, 64)
+    grads = [want, want, f32, f32, torch.tensor([2.0]), f32]
+    assert f32_ab.within_plain("K3_bf16", grads, grads)
+    assert not f32_ab.within_plain(
+        "K3_bf16", grads[:2] + [f32 + 1e-3] + grads[3:], grads)
+    assert f32_ab.within_plain(
+        "K3_bf16", grads[:4] + [torch.tensor([2.0015])] + grads[5:], grads)
+    # an earlier tree's K3_bf16 lives in its f32 source
+    csrc = str(tmp_path)
+    assert f32_ab.other_source(csrc, "K3_bf16") == (
+        os.path.join(csrc, "unit_ctr_gc_bwd_param.cu"),
+        ("unit_ctr_gc_bwd_param_scratch_floats", "unit_ctr_gc_bwd_param_bf16"))
+    open(os.path.join(csrc, "unit_ctr_gc_bwd_param_bf16.cu"), "w").close()
+    assert f32_ab.other_source(csrc, "K3_bf16") == (
+        os.path.join(csrc, "unit_ctr_gc_bwd_param_bf16.cu"), f32_ab.ENTRIES["K3_bf16"])
 
 
 def test_design_ab_patches_only_the_whole_v_rule(tmp_path):
