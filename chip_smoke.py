@@ -86,19 +86,26 @@ Phases, each of which fails the run (non-zero exit, no result line):
      against its plain version.
   8. experiment kernels T1 and T2: holds T1, the eval multi-scale TCN, against
      its plain version at the ten fast-eval blocks' branch shapes at batch 64
-     plus V=25 and a ragged shape (N=3, odd T at stride 2, bc=5), f32 with
-     TF32 off, within rtol 1e-5 and atol 1e-4*max|plain| (each output sums
-     up to 5*bc terms in another order than cuDNN's), two launches bitwise
-     equal, and times it beside its plain version and the engine's cuDNN
-     composition; runs T1 on the ten folded blocks of the phase-4 model with
-     prefixes from its K5 blocks (ms_tcn_operands); holds T2 in every form
-     (tile, win, floor, flat with and without the subset sum, f32; tile on
-     bf16 operands) against its plain version at the tools' shape (N=64,
-     T=13, V=20, C=256, S=3), V=25 and a ragged shape, f32 within rtol 1e-5
-     and atol 1e-5*max|plain|, bf16 within one rounding of the output (rtol
-     2^-7), two launches bitwise equal, timed beside its plain version and one
-     torch.einsum call; then runs the three port tools (exp_ms_tcn,
-     exp_stage2, exp_stage2b) in-process and checks each one's launches.
+     plus V=25, a ragged shape (N=3, odd T at stride 2, bc=5) and the
+     tensor-core design's edges (bc=128 at stride 1 and, with odd T, at
+     stride 2; bc=5 at stride 1; bc=200; V=600), f32 with TF32 off, within
+     rtol 1e-5 and atol 1e-4*max|plain| (each output sums up to 5*bc terms
+     in another order than cuDNN's), two launches bitwise equal, and times
+     it beside its plain version and the engine's cuDNN composition; runs
+     T1 on the ten folded blocks of the phase-4 model with prefixes from its
+     K5 blocks (ms_tcn_operands); holds T2 in every form (tile, win, floor,
+     flat with and without the subset sum, f32; tile on bf16 operands)
+     against its plain version at the tools' shape (N=64, T=13, V=20,
+     C=256, S=3), V=25 and a ragged shape, and at the streaming design's
+     edges (V=32, V=1, L=10, N*T=21; there also the floor form in bf16, with
+     and without the subset sum), f32 within rtol 1e-5 and atol
+     1e-5*max|plain|, bf16 within one rounding of the output (rtol 2^-7), two
+     launches bitwise equal, timed beside its plain version and one
+     torch.einsum call (a line per f32 form at the tools' shape and V=25
+     says which is faster), and on m and x3 views 4- but not 16-byte aligned
+     and, in bf16, 2-byte aligned; then runs the three port tools
+     (exp_ms_tcn, exp_stage2, exp_stage2b) in-process and checks each one's
+     launches.
   9. scene256: `python -m tamgcn_tpu_torch recognition -c
      configs/scene256.yaml` (V=256, the synthetic random-tree graph, batch 8)
      in-process: --phase train for 2 epochs of 8 steps, then --phase test and
@@ -249,6 +256,14 @@ T1_TOOL_SHAPES = [
 ]
 T1_EXTRA = [
     ("ragged", (3, 7, 20, 5, 2)),  # odd T at stride 2, bc not a multiple of 4
+    # the tensor-core design's edges: two channel slices (bc = 128), with odd
+    # T at stride 2; bc = 5 at stride 1; slices of 32 channels and blocks of
+    # fewer joints than V (bc = 200); joint tiles (V = 600)
+    ("bc=128", (4, 13, 20, 128, 1)),
+    ("bc=128 s=2", (2, 11, 25, 128, 2)),
+    ("bc=5 s=1", (2, 9, 20, 5, 1)),
+    ("bc=200", (2, 9, 20, 200, 1)),
+    ("V=600", (1, 7, 600, 16, 2)),
 ]
 # T2 shapes (N, T, V, C, S): the stage-2 tools' shape, V=25, a ragged one;
 # and the cases (form, subset sum, operand type) held at each
@@ -260,6 +275,20 @@ T2_SHAPES = [
 T2_CASES = [("tile", False, "float32"), ("tile", False, "bfloat16"),
             ("win", False, "float32"), ("floor", False, "float32"),
             ("flat", False, "float32"), ("flat", True, "float32")]
+# the streaming design's edges, in those cases and the floor rule in bf16:
+# V = 32, V = 1, L = 10 (4-byte copies), N*T = 21 (not a multiple of a
+# warp's row group)
+T2_EXTRA = [
+    ("V=32", (2, 7, 32, 64, 3)),
+    ("V=1", (3, 5, 1, 16, 3)),
+    ("L=10", (2, 3, 20, 10, 1)),
+    ("N*T=21", (3, 7, 20, 64, 3)),
+]
+T2_EXTRA_CASES = T2_CASES + [("floor", False, "bfloat16"), ("floor", True, "bfloat16")]
+# views whose data_ptr is offset from their storage by a number of elements:
+# 4-byte but not 16-byte aligned (f32 by 1, bf16 by 2), 2-byte (bf16 by 1)
+T2_UNALIGNED = [("tile", "float32", 1), ("floor", "float32", 1), ("win", "bfloat16", 2),
+                ("floor", "bfloat16", 2), ("tile", "bfloat16", 1), ("floor", "bfloat16", 1)]
 
 # unit op shapes (N, T, V, C, R), with the launches per eval forward at N=64
 K1_MAIN_PATH = [
@@ -1675,10 +1704,11 @@ def t2_library(m, x3, form: str, S: int, subset_sum: bool):
 def check_t2(device):
     """T2 in every form against its plain version at every shape, f32 within
     rtol 1e-5 + atol 1e-5*max|plain| (sums of V terms, S*V with the subset
-    sum, in another order); the tile form also on bf16 operands, within one
-    rounding of the output (rtol 2^-7, a bf16 ulp, + atol 1e-5*max|plain|);
-    two launches bitwise equal; times of T2, its plain version and one
-    einsum call. Returns the rows."""
+    sum, in another order); the tile form (at the edge shapes also the floor
+    form) on bf16 operands, within one rounding of the output (rtol 2^-7, a
+    bf16 ulp, + atol 1e-5*max|plain|); two launches bitwise equal; times of
+    T2, its plain version and one einsum call. Then T2 on unaligned views
+    (check_t2_unaligned). Returns the rows."""
     import torch
 
     from tamgcn_tpu_torch.utils.timing import graph_ms
@@ -1695,54 +1725,98 @@ def check_t2(device):
         weights[form, False] = weights.get((form, False), 0) + 1
     rows = []
     k = 0
-    for name, shape in T2_SHAPES:
-        for form, subset_sum, dtype_name in T2_CASES:
-            dtype = getattr(torch, dtype_name)
-            k += 1
-            N, T, V, C, S = shape
-            m, x3 = t2_inputs(shape, form, dtype, seed=900 + k, device=device)
-            library = t2_library(m, x3, form, S, subset_sum)
+    cases = [(name, shape, case) for name, shape in T2_SHAPES for case in T2_CASES]
+    cases += [(name, shape, case) for name, shape in T2_EXTRA for case in T2_EXTRA_CASES]
+    for name, shape, (form, subset_sum, dtype_name) in cases:
+        dtype = getattr(torch, dtype_name)
+        k += 1
+        N, T, V, C, S = shape
+        m, x3 = t2_inputs(shape, form, dtype, seed=900 + k, device=device)
+        library = t2_library(m, x3, form, S, subset_sum)
+        with torch.no_grad():
+            before = t2.launches
+            got = stage2_aggregate(m, x3, form, S, subset_sum)
+            again = stage2_aggregate(m, x3, form, S, subset_sum)
+            if t2.launches != before + 2:
+                raise AssertionError(f"T2 {form}: the dispatcher did not launch T2")
+            want = stage2_plain(m, x3, form, S, subset_sum)
+            torch.cuda.synchronize()
+            if not torch.equal(got, again):
+                raise AssertionError(f"T2 {name} {form}: two launches differ")
+            rtol = 2.0 ** -7 if dtype == torch.bfloat16 else 1e-5
+            ok, max_err, scale = _within(got.float(), want.float(), rtol, 1e-5)
+            if not ok:
+                raise AssertionError(
+                    f"T2 {name} {shape} {form} subset_sum={subset_sum} {dtype}: max "
+                    f"|kernel - plain| {max_err:.3e} (max|plain| {scale:.3e}) beyond "
+                    "the stated tolerance")
+            ms = cuda_ms(lambda: stage2_aggregate(m, x3, form, S, subset_sum))
+            plain_ms = cuda_ms(lambda: stage2_plain(m, x3, form, S, subset_sum))
+            library_ms = cuda_ms(library)
+            device_ms = graph_ms(lambda: stage2_aggregate(m, x3, form, S, subset_sum))
+            library_device_ms = graph_ms(library)
+        bound_ms, bound_by = stage2_sol(N, T, V, S * C, S if subset_sum else 1,
+                                        itemsize=x3.element_size())
+        case = f"{form}{' ss' if subset_sum else ''} {str(dtype)[6:]}"
+        check_above_bound(f"T2 {name} {case}", device_ms, bound_ms)
+        weight = weights.get((form, subset_sum), 0) \
+            if name == "tool shape" and dtype == torch.float32 else 0
+        rows.append(dict(name=f"{name} {case}", shape=dict(zip("NTVCS", shape)),
+                         form=form, subset_sum=subset_sum, dtype=str(dtype),
+                         launches_per_step=weight, max_abs_err=max_err,
+                         max_abs_plain=scale, ms=ms, plain_ms=plain_ms,
+                         library_ms=library_ms, device_ms=device_ms,
+                         library_device_ms=library_device_ms, bound_ms=bound_ms,
+                         bound_by=bound_by))
+        print(f"T2 {name:10s} N,T,V,C,S={shape} {case:16s}: max_abs_err {max_err:.3e} "
+              f"(max|plain| {scale:.3e}) kernel {ms * 1e3:.1f} us (device "
+              f"{device_ms * 1e3:.1f}), plain {plain_ms * 1e3:.1f} us, einsum "
+              f"{library_ms * 1e3:.1f} us (device {library_device_ms * 1e3:.1f}), bound "
+              f"{bound_ms * 1e3:.1f} us ({bound_by})", flush=True)
+    for r in rows:
+        if r["dtype"] == "torch.float32" and r["shape"]["C"] == 256:
+            faster = "faster" if r["device_ms"] <= r["library_device_ms"] else "SLOWER"
+            print(f"T2 {r['name']}: device {r['device_ms'] * 1e3:.1f} us, one einsum "
+                  f"{r['library_device_ms'] * 1e3:.1f} us: the kernel is {faster}", flush=True)
+    check_t2_unaligned(device)
+    return rows
+
+
+def check_t2_unaligned(device):
+    """T2 on m and x3 views offset from their storage (T2_UNALIGNED), with
+    and without the subset sum, against the plain version on the same values
+    at check_t2's tolerances, two launches bitwise equal."""
+    import torch
+
+    from tamgcn_tpu_torch.ops.stage2 import stage2_aggregate, stage2_plain
+
+    N, T, V, C, S = 3, 5, 20, 12, 3
+    g = torch.Generator().manual_seed(990)
+    for form, dtype_name, offset in T2_UNALIGNED:
+        dtype = getattr(torch, dtype_name)
+
+        def view(shape, scale):
+            n = math.prod(shape)
+            return (scale * torch.randn(n + offset, generator=g)).to(device, dtype)[offset:].view(
+                shape)
+
+        m, x3 = view((V, V, S * C), 0.05), view((N, T, V, S * C), 1.0)
+        for subset_sum in (False, True):
             with torch.no_grad():
-                before = t2.launches
                 got = stage2_aggregate(m, x3, form, S, subset_sum)
                 again = stage2_aggregate(m, x3, form, S, subset_sum)
-                if t2.launches != before + 2:
-                    raise AssertionError(f"T2 {form}: the dispatcher did not launch T2")
                 want = stage2_plain(m, x3, form, S, subset_sum)
-                torch.cuda.synchronize()
-                if not torch.equal(got, again):
-                    raise AssertionError(f"T2 {name} {form}: two launches differ")
-                rtol = 2.0 ** -7 if dtype == torch.bfloat16 else 1e-5
-                ok, max_err, scale = _within(got.float(), want.float(), rtol, 1e-5)
-                if not ok:
-                    raise AssertionError(
-                        f"T2 {name} {shape} {form} subset_sum={subset_sum} {dtype}: max "
-                        f"|kernel - plain| {max_err:.3e} (max|plain| {scale:.3e}) beyond "
-                        "the stated tolerance")
-                ms = cuda_ms(lambda: stage2_aggregate(m, x3, form, S, subset_sum))
-                plain_ms = cuda_ms(lambda: stage2_plain(m, x3, form, S, subset_sum))
-                library_ms = cuda_ms(library)
-                device_ms = graph_ms(lambda: stage2_aggregate(m, x3, form, S, subset_sum))
-                library_device_ms = graph_ms(library)
-            bound_ms, bound_by = stage2_sol(N, T, V, S * C, S if subset_sum else 1,
-                                            itemsize=x3.element_size())
-            case = f"{form}{' ss' if subset_sum else ''} {str(dtype)[6:]}"
-            check_above_bound(f"T2 {name} {case}", device_ms, bound_ms)
-            weight = weights.get((form, subset_sum), 0) \
-                if name == "tool shape" and dtype == torch.float32 else 0
-            rows.append(dict(name=f"{name} {case}", shape=dict(zip("NTVCS", shape)),
-                             form=form, subset_sum=subset_sum, dtype=str(dtype),
-                             launches_per_step=weight, max_abs_err=max_err,
-                             max_abs_plain=scale, ms=ms, plain_ms=plain_ms,
-                             library_ms=library_ms, device_ms=device_ms,
-                             library_device_ms=library_device_ms, bound_ms=bound_ms,
-                             bound_by=bound_by))
-            print(f"T2 {name:10s} N,T,V,C,S={shape} {case:16s}: max_abs_err {max_err:.3e} "
-                  f"(max|plain| {scale:.3e}) kernel {ms * 1e3:.1f} us (device "
-                  f"{device_ms * 1e3:.1f}), plain {plain_ms * 1e3:.1f} us, einsum "
-                  f"{library_ms * 1e3:.1f} us (device {library_device_ms * 1e3:.1f}), bound "
-                  f"{bound_ms * 1e3:.1f} us ({bound_by})", flush=True)
-    return rows
+            torch.cuda.synchronize()
+            what = (f"T2 {form} {dtype_name} subset_sum={subset_sum} on views offset by "
+                    f"{offset} element(s) (data_ptr % 16 = {x3.data_ptr() % 16})")
+            if not torch.equal(got, again):
+                raise AssertionError(f"{what}: two launches differ")
+            rtol = 2.0 ** -7 if dtype == torch.bfloat16 else 1e-5
+            ok, max_err, scale = _within(got.float(), want.float(), rtol, 1e-5)
+            if not ok:
+                raise AssertionError(f"{what}: max |kernel - plain| {max_err:.3e} (max|plain| "
+                                     f"{scale:.3e}) beyond the stated tolerance")
+            print(f"{what}: max_abs_err {max_err:.3e} (max|plain| {scale:.3e})", flush=True)
 
 
 def run_tools():

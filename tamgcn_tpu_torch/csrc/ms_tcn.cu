@@ -14,216 +14,358 @@
 //
 // What bounds it on this card. At the NW-UCLA shapes at batch 64 it moves
 // 13-26 MB (the prefix in, the output out: 4-8 us at 3.35 TB/s) and does
-// 0.09-0.68 G FMAs (3-20 us at the 67 TFLOP/s f32 peak): the bytes bound it
-// where BC = 16 (l1-l4), the operations where BC = 64 (l8-l10).
+// 0.09-0.68 G FMAs, which run on the tensor cores as 3xTF32 (3-8 us at 165
+// TFLOP/s): the bytes bound it at BC <= 32 and at stride 2, the products
+// at BC = 64 and stride 1 (l9-l10).
 //
-// What the design does about it. The TPU kernel keeps the whole (T, V,
-// 3*BC) slab of a sample in VMEM and computes every frame, dropping every
-// other one at stride 2. Here a block owns (sample, tile of TO output
-// frames, role), role 0/1 a conv branch and role 2 the max-pool; it
-// computes only the frames it keeps. A conv block stages its input frames
-// with their halo of 2*d frames (zero outside [0, T)) in shared memory,
-// transposed to [channel][frame*V + joint] so that the rows a warp reads
-// sit in different banks, and walks the five taps: for each, it stages that
-// tap's (BC, BC) weights and every thread multiplies its RPT rows by its 4
-// output channels, one 16-byte weight load and RPT input loads for 4*RPT
-// FMAs, with the accumulators in registers over all taps. Output channels
-// map to threads, so the stores run along C, which is contiguous in NTVC.
-// The max-pool block needs no weights: one thread per output value, loads
-// along C. Tensor cores, TMA and keeping the slab for all three roles in
-// one block are left for later work.
+// What the design does about it. Each dilated branch is an implicit GEMM:
+// the rows are (output frame, joint), the depth the BC input channels of a
+// tap, summed over the five taps. A block owns (sample, TO output frames,
+// VJ joints, branch, a slice of NC output channels) and stages once, by
+// cp.async (16 bytes where BC % 4 == 0 and the pointers allow, else 4):
+// its input frames with the halo, zero outside [0, T) and for the channels
+// padded to BCP (a multiple of the MMA's k of 8), rows [frame][joint] with
+// a stride of BCP + 4 floats against bank conflicts; at stride 2 the frames
+// split by parity into two planes, so that every tap's A operand is one
+// contiguous row range (tap k reads plane (k*d) % s from row (k*d / s) *
+// VJ); and all five taps' (BCP, NC) weights. A warp takes items of 32
+// output rows and up to 32 columns and runs mma_tf32x3.cuh:warp_mma
+// (m16n8k8, 3xTF32) over the five taps with the accumulators in registers,
+// then writes them with the bias through a shared-memory tile as 16-byte
+// stores along the channels. A block has 8 warps where two fit an SM, 16
+// where its tile fills the SM's shared memory (BC = 64): the MMAs of one
+// warp wait on their operands, so an SM needs 16 warps to keep its tensor
+// cores busy. The copies, the max-pool and the weights take their index
+// arithmetic once per row (for_rows), not once per copy.
+// The max-pool branch needs no product: every conv block takes a share of
+// it (its slice of channels, every other row), float4 along the channels,
+// while its copies are in flight.
 
 #include <cuda_runtime.h>
 
+#include <algorithm>
+#include <cstdint>
+
+#include "mma_tf32x3.cuh"
+
 namespace {
 
-constexpr int kThreads = 256;
+using namespace mma_tf32x3;
+
+constexpr int kMaxThreads = 512;      // 16 warps where one block fills an SM, else 8
 constexpr int kKS = 5;                // taps of the branch convs
-constexpr int kMaxRPT = 8;            // rows per thread in a conv block
 constexpr int kSmemLimit = 232448;    // bytes a block may use on sm_90
+constexpr int kSmemTwo = 113 * 1024;  // two blocks per SM
+constexpr int kSMs = 132;
 
-__host__ __device__ inline int round4(int a) { return (a + 3) / 4 * 4; }
+__host__ __device__ inline int round8(int a) { return (a + 7) / 8 * 8; }
+// row strides (floats) of the staged input (A) and of the weights and the
+// epilogue tile (B): lda % 32 in {4, 12, 20, 28}, ldb % 32 in {8, 24}
+__host__ __device__ inline int lda_of(int BCP) { return BCP + 4; }
+__host__ __device__ inline int ldb_of(int NC) { return NC <= 16 ? 24 : NC + 8; }
 
-__device__ inline float4 fma4(float a, float4 w, float4 acc) {
-  return make_float4(fmaf(a, w.x, acc.x), fmaf(a, w.y, acc.y),
-                     fmaf(a, w.z, acc.z), fmaf(a, w.w, acc.w));
+struct Tiling {
+  int TO = 0, VJ = 0, NC = 0;  // frames, joints and output channels of a block
+  int warps = 8;               // 16 where one block fills an SM's shared memory
+};
+
+// staged rows of one plane: the frames of TO outputs at dilation 2 (the
+// larger halo) times VJ joints, and the rows an item reads past them
+constexpr int kMT = 2;  // 16-row MMA tiles of a warp's item (1 was slower)
+__host__ __device__ inline int plane_rows(int TO, int VJ, int stride) {
+  const int frames = stride == 1 ? TO + 8 : TO + 4;
+  const int rows = TO * VJ, tile = 16 * kMT;
+  return frames * VJ + ((rows + tile - 1) / tile * tile - rows);
 }
 
-// frames a conv block stages for TO output frames at dilation 2 (the larger
-// halo), and the row stride of the transposed input (odd: the staging
-// stores of consecutive channels fall into other banks)
-__host__ __device__ inline int staged_frames(int TO, int stride) {
-  return (TO - 1) * stride + 4 * 2 + 1;
-}
-__host__ __device__ inline int ldx(int TO, int stride, int V) {
-  return staged_frames(TO, stride) * V | 1;
+// the columns of a warp's item (at most 32: NC = 64 is two items a row
+// tile); its epilogue tile holds 8 rows of 16 columns (row stride 24)
+constexpr int kItemCols = 32, kStCols = 16, kLdSt = 24;
+__host__ __device__ inline int item_cols(int NC) { return NC < kItemCols ? NC : kItemCols; }
+
+__host__ __device__ inline size_t smem_bytes(const Tiling& t, int BC, int stride) {
+  const int BCP = round8(BC);
+  return sizeof(float) * ((size_t)stride * plane_rows(t.TO, t.VJ, stride) * lda_of(BCP) +
+                          (size_t)kKS * BCP * ldb_of(t.NC) + (size_t)t.warps * 8 * kLdSt);
 }
 
-template <int RPT>
-__global__ void __launch_bounds__(kThreads, 2)
+// rows x units of work over the block's threads without a division per
+// unit: a thread keeps one unit column (of at most blockDim.x) and walks rows;
+// fn(row, unit)
+template <class Fn>
+__device__ inline void for_rows(int rows, int units, Fn fn) {
+  const int threads = blockDim.x;
+  const int cols = units < threads ? units : threads;
+  const int step = threads / cols;
+  if (threadIdx.x >= step * cols) return;
+  for (int r = threadIdx.x / cols; r < rows; r += step) {
+    for (int c = threadIdx.x % cols; c < units; c += cols) fn(r, c);
+  }
+}
+
+// conv block (sample, frame tile and joint tile, branch and channel slice of
+// NC columns); a warp's item is 16 * kMT rows of NTW * 8 <= 32 columns
+template <int NTW>
+__global__ void __launch_bounds__(kMaxThreads, 1)
 ms_tcn_kernel(const float* __restrict__ prefix, const float* __restrict__ w,
               const float* __restrict__ b, const float* __restrict__ mp,
-              float* __restrict__ out, int T, int V, int BC, int stride,
-              int To, int TO, int LDX) {
-  extern __shared__ float4 smem4[];
+              float* __restrict__ out, int T, int V, int BC, int stride, int To, int TO,
+              int VJ, int vtiles, int NC, int vec) {
+  constexpr int NW = 8 * NTW;  // columns of an item
+  extern __shared__ __align__(16) float smem[];
   const int n = blockIdx.z;
-  const int role = blockIdx.y;
-  const int t0 = blockIdx.x * TO;  // first output frame of the block
-  const int nt = min(TO, To - t0);
-  const int P = 3 * BC;
-  const int tid = threadIdx.x;
+  const int nslices = (BC + NC - 1) / NC;
+  const int branch = blockIdx.y / nslices, o0 = blockIdx.y % nslices * NC;
+  const int t0 = blockIdx.x / vtiles * TO, u0 = blockIdx.x % vtiles * VJ;
+  const int nt = min(TO, To - t0), vj = min(VJ, V - u0);
+  const int d = branch + 1;
+  const int P = 3 * BC, BCP = round8(BC), lda = lda_of(BCP), ldb = ldb_of(NC);
+  constexpr int SC = NW < kStCols ? NW : kStCols;  // columns of the epilogue tile
+  const int prow = plane_rows(TO, VJ, stride);
+  float* planes = smem;                                // [stride][prow][lda]
+  float* Ws = planes + (size_t)stride * prow * lda;    // [5][BCP][ldb]
+  float* St = Ws + (size_t)kKS * BCP * ldb;            // [warps][8][kLdSt]
+  const int warps = blockDim.x / 32, warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int vw = vec ? 4 : 1;  // floats a copy, load or store
 
-  if (role == 2) {
-    // ---- max-pool branch: window 3, stride s, padding 1 (left out) ----
-    const int items = nt * V * BC;
-    for (int idx = tid; idx < items; idx += kThreads) {
-      const int c = idx % BC, r = idx / BC;
-      const int u = r % V, tc = (t0 + r / V) * stride;
-      const float* p = prefix + ((size_t)n * T + tc) * V * P + (size_t)u * P + 2 * BC + c;
-      float m = p[0];
-      if (tc >= 1) m = fmaxf(m, p[-(ptrdiff_t)V * P]);
-      if (tc + 1 < T) m = fmaxf(m, p[(size_t)V * P]);
-      out[(((size_t)n * To + t0) * V + r) * P + 2 * BC + c] = fmaf(m, mp[c], mp[BC + c]);
-    }
-    return;
-  }
-
-  // ---- conv branch role, dilation d ----
-  const int d = role + 1;
-  const int BCP = round4(BC);
-  float* Xs = reinterpret_cast<float*>(smem4);  // [BC][LDX]
-  float* Ws = Xs + round4(BC * LDX);            // [BC][BCP], one tap
-  const int F = (nt - 1) * stride + 4 * d + 1;  // staged input frames
-  const int tlo = t0 * stride - 2 * d;          // frame of staged row 0
-
-  // stage the input frames, transposed, zero outside [0, T)
-  const float* pin = prefix + (size_t)n * T * V * P + role * BC;
-  for (int idx = tid; idx < F * V * BC; idx += kThreads) {
-    const int c = idx % BC, row = idx / BC;  // row = local frame * V + joint
-    const int t = tlo + row / V;
-    Xs[c * LDX + row] =
-        (t >= 0 && t < T) ? pin[((ptrdiff_t)tlo * V + row) * P + c] : 0.f;
-  }
-
-  // this thread's 4 output channels and RPT rows (local frame, joint)
-  const int CG = BCP / 4;
-  const int RG = kThreads / CG;
-  const int cg = tid % CG, rg = tid / CG;
-  const bool active = rg < RG;
-  const int o0 = 4 * cg;
-  const int rows = nt * V;
-  int base[RPT];
-  float4 acc[RPT];
-  const float* brow = b + role * BC;
-  const float4 bias = make_float4(o0 < BC ? brow[o0] : 0.f, o0 + 1 < BC ? brow[o0 + 1] : 0.f,
-                                  o0 + 2 < BC ? brow[o0 + 2] : 0.f,
-                                  o0 + 3 < BC ? brow[o0 + 3] : 0.f);
-#pragma unroll
-  for (int j = 0; j < RPT; ++j) {
-    const int r = rg + j * RG;
-    // a row past the last computes staged row 0 again and is not kept
-    base[j] = r < rows ? (r / V) * stride * V + r % V : 0;
-    acc[j] = bias;
-  }
-
-  for (int k = 0; k < kKS; ++k) {
-    __syncthreads();  // the inputs are staged; the previous tap is consumed
-    const float* wk = w + ((size_t)(role * kKS + k) * BC) * BC;
-    for (int idx = tid; idx < BC * BCP; idx += kThreads) {
-      const int c = idx / BCP, o = idx % BCP;
-      Ws[idx] = o < BC ? wk[c * BC + o] : 0.f;
-    }
-    __syncthreads();
-    if (active) {
-      const float* xk = Xs + k * d * V;
-#pragma unroll 4
-      for (int c = 0; c < BC; ++c) {
-        const float4 wv = *reinterpret_cast<const float4*>(Ws + c * BCP + o0);
-        const float* xc = xk + c * LDX;
-#pragma unroll
-        for (int j = 0; j < RPT; ++j) acc[j] = fma4(xc[base[j]], wv, acc[j]);
-      }
-    }
-  }
-
-  if (!active) return;
-  const bool vec = BC % 4 == 0;  // 16-byte aligned rows of 4 channels
-#pragma unroll
-  for (int j = 0; j < RPT; ++j) {
-    const int r = rg + j * RG;
-    if (r >= rows) continue;
-    float* o = out + (((size_t)n * To + t0) * V + r) * P + role * BC + o0;
+  // ---- copies: the input frames of this branch, plane par holding frames
+  // tlo + stride*q + par, and the five taps' weights of the slice ----
+  const int frames = stride == 1 ? nt + 4 * d : nt + 2 * d;  // per plane
+  const int tlo = t0 * stride - 2 * d;
+  const float* pin = prefix + (size_t)n * T * V * P + branch * BC;
+  for_rows(stride * frames * vj, BCP / vw, [&](int r, int unit) {
+    const int ul = r % vj, pq = r / vj;
+    const int q = pq % frames, par = pq / frames;
+    const int f = tlo + stride * q + par, c = unit * vw;
+    const bool ok = f >= 0 && f < T && c < BC;
+    float* dst = planes + ((size_t)par * prow + q * VJ + ul) * lda + c;
+    const float* src = ok ? pin + ((size_t)f * V + u0 + ul) * P + c : prefix;
     if (vec) {
-      *reinterpret_cast<float4*>(o) = acc[j];
+      copy16(dst, src, ok);
     } else {
-      const float v4[4] = {acc[j].x, acc[j].y, acc[j].z, acc[j].w};
+      copy4(dst, src, ok);
+    }
+  });
+  const float* wb = w + (size_t)branch * kKS * BC * BC;
+  for_rows(kKS * BCP, NC / vw, [&](int kc, int unit) {  // kc = k * BCP + c
+    const int k = kc / BCP, c = kc % BCP, o = unit * vw;
+    const bool ok = c < BC && o0 + o < BC;
+    float* dst = Ws + (size_t)kc * ldb + o;
+    const float* src = ok ? wb + ((size_t)k * BC + c) * BC + o0 + o : w;
+    if (vec) {
+      copy16(dst, src, ok);
+    } else {
+      copy4(dst, src, ok);
+    }
+  });
+  commit();
+
+  // ---- while the copies fly: this block's share of the max-pool branch,
+  // channels o0 .. o0 + NC of the rows r % 2 == branch, kPool rows a thread
+  // with all their loads in flight (placed after the products, it was
+  // slower) ----
+  constexpr int kPool = 4;
+  const ptrdiff_t step = (ptrdiff_t)V * P;
+  for_rows(((nt * VJ + 1 - branch) / 2 + kPool - 1) / kPool, NC / vw, [&](int i, int unit) {
+    const int c = o0 + unit * vw;
+    if (c >= BC) return;
+    float4 m4[kPool];
+    bool keep[kPool];
 #pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        if (o0 + q < BC) o[q] = v4[q];
+    for (int j = 0; j < kPool; ++j) {
+      const int r = 2 * (i * kPool + j) + branch;
+      const int ul = r % VJ, tl = r / VJ;
+      keep[j] = r < nt * VJ && ul < vj;
+      m4[j] = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (!keep[j]) continue;
+      const int tc = (t0 + tl) * stride;
+      const float* p = prefix + (((size_t)n * T + tc) * V + u0 + ul) * P + 2 * BC + c;
+      if (vec) {
+        float4 a = *reinterpret_cast<const float4*>(p);
+        if (tc >= 1) {
+          const float4 e = *reinterpret_cast<const float4*>(p - step);
+          a = make_float4(fmaxf(a.x, e.x), fmaxf(a.y, e.y), fmaxf(a.z, e.z), fmaxf(a.w, e.w));
+        }
+        if (tc + 1 < T) {
+          const float4 e = *reinterpret_cast<const float4*>(p + step);
+          a = make_float4(fmaxf(a.x, e.x), fmaxf(a.y, e.y), fmaxf(a.z, e.z), fmaxf(a.w, e.w));
+        }
+        m4[j] = a;
+      } else {
+        float mv = p[0];
+        if (tc >= 1) mv = fmaxf(mv, p[-step]);
+        if (tc + 1 < T) mv = fmaxf(mv, p[step]);
+        m4[j].x = mv;
       }
+    }
+#pragma unroll
+    for (int j = 0; j < kPool; ++j) {
+      if (!keep[j]) continue;
+      const int r = 2 * (i * kPool + j) + branch;
+      const int ul = r % VJ, tl = r / VJ;
+      float* o = out + (((size_t)n * To + t0 + tl) * V + u0 + ul) * P + 2 * BC + c;
+      if (vec) {
+        const float4 sc = *reinterpret_cast<const float4*>(mp + c);
+        const float4 bi = *reinterpret_cast<const float4*>(mp + BC + c);
+        *reinterpret_cast<float4*>(o) =
+            make_float4(fmaf(m4[j].x, sc.x, bi.x), fmaf(m4[j].y, sc.y, bi.y),
+                        fmaf(m4[j].z, sc.z, bi.z), fmaf(m4[j].w, sc.w, bi.w));
+      } else {
+        o[0] = fmaf(m4[j].x, mp[c], mp[BC + c]);
+      }
+    }
+  });
+  wait<0>();
+  __syncthreads();
+
+  // ---- the branch: items of 16 * MT rows and NW columns, by warp ----
+  constexpr int MT = kMT;
+  const int g = lane / 4, t4 = lane % 4;
+  float* st = St + (size_t)warp * 8 * kLdSt;
+  const int rows = nt * VJ;
+  const int chunks = NC / NW, items = (rows + 16 * MT - 1) / (16 * MT) * chunks;
+  for (int item = warp; item < items; item += warps) {
+    const int r0 = item / chunks * 16 * MT, oc = item % chunks * NW;  // first row, column
+    float acc[MT][NTW][4];
+#pragma unroll
+    for (int i = 0; i < MT; ++i)
+#pragma unroll
+      for (int j = 0; j < NTW; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+#pragma unroll 1
+    for (int k = 0; k < kKS; ++k) {
+      const int kd = k * d;
+      const float* A = planes + ((size_t)(kd % stride) * prow + kd / stride * VJ + r0) * lda;
+      warp_mma<MT, NTW, false>(A, lda, Ws + (size_t)k * BCP * ldb + oc, ldb, BCP / 8, acc);
+    }
+    // epilogue: 8 rows and SC columns at a time through the warp's tile,
+    // with the bias, then 16-byte stores along the channels
+    const float* brow = b + branch * BC + o0 + oc;
+#pragma unroll
+    for (int part = 0; part < 2 * MT * NW / SC; ++part) {
+      // rows 8*half.. of m-tile mi, columns c0..
+      const int half = part % 2, mi = part / 2 % MT, c0 = part / (2 * MT) * SC;
+#pragma unroll
+      for (int j = c0 / 8; j < (c0 + SC) / 8; ++j) {
+        const int col = j * 8 + 2 * t4;
+        const float b0 = o0 + oc + col < BC ? brow[col] : 0.f;
+        const float b1 = o0 + oc + col + 1 < BC ? brow[col + 1] : 0.f;
+        *reinterpret_cast<float2*>(st + g * kLdSt + col - c0) =
+            make_float2(acc[mi][j][2 * half] + b0, acc[mi][j][2 * half + 1] + b1);
+      }
+      __syncwarp();
+      for (int i = lane; i < 8 * SC / 4; i += 32) {
+        const int rl = i / (SC / 4), c = c0 + i % (SC / 4) * 4;
+        const int r = r0 + mi * 16 + half * 8 + rl;
+        const int ul = r % VJ, tl = r / VJ;
+        const int oc4 = o0 + oc + c;  // the slice's channel of the four
+        if (r >= rows || ul >= vj || oc4 >= BC) continue;
+        float* o = out + (((size_t)n * To + t0 + tl) * V + u0 + ul) * P + branch * BC + oc4;
+        const float4 v4 = *reinterpret_cast<const float4*>(st + rl * kLdSt + c - c0);
+        if (vec) {
+          *reinterpret_cast<float4*>(o) = v4;
+        } else {
+          const float e4[4] = {v4.x, v4.y, v4.z, v4.w};
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            if (oc4 + e < BC) o[e] = e4[e];
+          }
+        }
+      }
+      __syncwarp();
     }
   }
 }
 
-template <int RPT>
-int launch(const float* prefix, const float* w, const float* b,
-           const float* mp, float* out, int N, int T, int V, int BC,
-           int stride, int To, int TO, cudaStream_t stream) {
-  const int LDX = ldx(TO, stride, V);
-  const size_t smem = sizeof(float) * ((size_t)round4(BC * LDX) + (size_t)BC * round4(BC));
+// the tiling of (N, T, V, BC, stride): a slice of NC output channels (the
+// smallest of 8, 16, 32, 64 that holds BC, at most 64); the most frames
+// whose block of 8 warps fits two an SM (at least 4 frames, or all), else
+// whose block of 16 warps fits one, with every joint; fewer joints, then
+// narrower slices, where one frame does not fit. At two blocks an SM the
+// frame tiles are then cut further while that fills the waves of blocks
+// better (the bytes bound these shapes); the tiles are evened out. TO = 0
+// where even (1 frame, 1 joint, 8 channels) does not fit.
+inline Tiling tiling(int N, int T, int V, int BC, int stride) {
+  if (T < 1 || V < 1 || BC < 1 || (stride != 1 && stride != 2)) return Tiling{};
+  const int To = (T + stride - 1) / stride;
+  const int BCP = round8(BC);
+  for (int NC = BCP <= 8 ? 8 : BCP <= 16 ? 16 : BCP <= 32 ? 32 : 64; NC >= 8; NC /= 2) {
+    for (int VJ = V; VJ >= 1; VJ = VJ > 1 ? (VJ + 1) / 2 : 0) {
+      for (const int warps : {8, 16}) {
+        const bool two = warps == 8;  // two blocks an SM
+        const size_t budget = two ? kSmemTwo : kSmemLimit;
+        // bytes of a block without frames, then of each frame (the padding
+        // to whole items, at most 31 rows, is left to the loop)
+        const size_t fixed = smem_bytes(Tiling{0, VJ, NC, warps}, BC, stride);
+        const size_t frame = sizeof(float) * stride * lda_of(BCP) * VJ;
+        int TO = budget > fixed ? (int)std::min<size_t>(To, (budget - fixed) / frame) : 0;
+        while (TO >= 1 && smem_bytes(Tiling{TO, VJ, NC, warps}, BC, stride) > budget) --TO;
+        if (TO < 1 || (two && TO < 4 && TO < To)) continue;
+        int tiles = (To + TO - 1) / TO;
+        if (two) {
+          const long long per_tile =
+              (long long)N * ((V + VJ - 1) / VJ) * 2 * ((BC + NC - 1) / NC);
+          const long long slots = 2LL * kSMs;
+          auto fill = [&](int t) {  // the share of the waves' slots the blocks use
+            const long long blocks = per_tile * t;
+            return (double)blocks / ((blocks + slots - 1) / slots * slots);
+          };
+          int best = tiles;
+          for (int t = tiles + 1; t <= 4 * tiles && (To + t - 1) / t >= 4; ++t) {
+            if (fill(t) > fill(best) + 0.05) best = t;
+          }
+          tiles = best;
+        }
+        return Tiling{(To + tiles - 1) / tiles, VJ, NC, warps};
+      }
+    }
+  }
+  return Tiling{};
+}
+
+template <int NTW>
+int launch(const float* prefix, const float* w, const float* b, const float* mp, float* out,
+           int N, int T, int V, int BC, int stride, const Tiling& t, cudaStream_t stream) {
+  const size_t smem = smem_bytes(t, BC, stride);
   cudaError_t err = cudaFuncSetAttribute(
-      ms_tcn_kernel<RPT>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      ms_tcn_kernel<NTW>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((To + TO - 1) / TO, 3, N);
-  ms_tcn_kernel<RPT><<<grid, kThreads, smem, stream>>>(prefix, w, b, mp, out, T, V, BC,
-                                                       stride, To, TO, LDX);
+  const int To = (T + stride - 1) / stride;
+  const int vtiles = (V + t.VJ - 1) / t.VJ;
+  const int vec = BC % 4 == 0 && (uintptr_t)prefix % 16 == 0 && (uintptr_t)w % 16 == 0 &&
+                  (uintptr_t)mp % 16 == 0 && (uintptr_t)out % 16 == 0;
+  const dim3 grid(((To + t.TO - 1) / t.TO) * vtiles, 2 * ((BC + t.NC - 1) / t.NC), N);
+  ms_tcn_kernel<NTW><<<grid, 32 * t.warps, smem, stream>>>(
+      prefix, w, b, mp, out, T, V, BC, stride, To, t.TO, t.VJ, vtiles, t.NC, vec);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// The output frames a conv block owns for (T, V, BC, stride), or 0 where
-// the kernel does not take the shape: a block's rows must fit its threads'
-// registers (V <= 8 * 256 / ceil(BC / 4)) and its staged frames and one
-// tap's weights its shared memory.
+// The output frames a block owns for one sample of (T, V, BC, stride), or
+// 0 where the kernel does not take the shape: one frame of one joint with the halo, the
+// five taps' weights of 8 output channels and the epilogue tiles must fit a
+// block's shared memory (BC <= 336 at stride 1).
 extern "C" int ms_tcn_frames_per_block(int T, int V, int BC, int stride) {
-  if (T < 1 || V < 1 || BC < 1 || (stride != 1 && stride != 2)) return 0;
-  const int CG = round4(BC) / 4;
-  if (CG > kThreads) return 0;
-  const int To = (T + stride - 1) / stride;
-  int TO = kThreads / CG * kMaxRPT / V;
-  if (TO > To) TO = To;
-  auto smem = [&](int to) {
-    return sizeof(float) * ((size_t)round4(BC * ldx(to, stride, V)) + (size_t)BC * round4(BC));
-  };
-  while (TO >= 1 && smem(TO) > (size_t)kSmemLimit) --TO;
-  if (TO < 1) return 0;
-  const int tiles = (To + TO - 1) / TO;
-  return (To + tiles - 1) / tiles;  // the same work in fewer, even tiles
+  return tiling(1, T, V, BC, stride).TO;
 }
 
 // prefix (N,T,V,3*BC), w (2,5,BC,BC) as (in,out), b (2,BC), mp (2,BC) as
 // (scale, bias), out (N,ceil(T/stride),V,3*BC): contiguous f32 on the
-// device, out 16-byte aligned. Launches on `stream` and returns
+// device (16-byte copies and stores where BC % 4 == 0 and the pointers are
+// 16-byte aligned, else 4-byte ones). Launches on `stream` and returns
 // cudaGetLastError() (0 = ok), or cudaErrorInvalidValue for a shape the
 // kernel does not take.
 extern "C" int ms_tcn_f32(const float* prefix, const float* w, const float* b,
-                          const float* mp, float* out, int N, int T, int V,
-                          int BC, int stride, void* stream) {
-  const int TO = ms_tcn_frames_per_block(T, V, BC, stride);
-  if (N < 1 || N > 65535 || TO < 1) return cudaErrorInvalidValue;
-  const int To = (T + stride - 1) / stride;
-  const int CG = round4(BC) / 4;
-  const int RPT = (TO * V + kThreads / CG - 1) / (kThreads / CG);
+                          const float* mp, float* out, int N, int T, int V, int BC,
+                          int stride, void* stream) {
+  const Tiling t = tiling(N, T, V, BC, stride);
+  if (N < 1 || N > 65535 || t.TO < 1) return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (RPT) {
-    case 1: return launch<1>(prefix, w, b, mp, out, N, T, V, BC, stride, To, TO, st);
-    case 2: return launch<2>(prefix, w, b, mp, out, N, T, V, BC, stride, To, TO, st);
-    case 3: return launch<3>(prefix, w, b, mp, out, N, T, V, BC, stride, To, TO, st);
-    case 4: return launch<4>(prefix, w, b, mp, out, N, T, V, BC, stride, To, TO, st);
-    case 5: return launch<5>(prefix, w, b, mp, out, N, T, V, BC, stride, To, TO, st);
-    case 6: return launch<6>(prefix, w, b, mp, out, N, T, V, BC, stride, To, TO, st);
-    case 7: return launch<7>(prefix, w, b, mp, out, N, T, V, BC, stride, To, TO, st);
-    default: return launch<kMaxRPT>(prefix, w, b, mp, out, N, T, V, BC, stride, To, TO, st);
+  switch (item_cols(t.NC)) {
+    case 8: return launch<1>(prefix, w, b, mp, out, N, T, V, BC, stride, t, st);
+    case 16: return launch<2>(prefix, w, b, mp, out, N, T, V, BC, stride, t, st);
+    default: return launch<4>(prefix, w, b, mp, out, N, T, V, BC, stride, t, st);
   }
 }

@@ -22,6 +22,8 @@ SOURCE = "ms_tcn.cu"
 launches = 0
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
+# the argument types of the launcher ms_tcn_f32
+ARGTYPES = [_P] * 5 + [_I] * 5 + [_P]
 
 
 def _entry(name, argtypes):
@@ -45,10 +47,11 @@ def ms_tcn_fwd(prefix, w, b, mp_affine, stride: int = 1):
     if frames < 1 or N > 65535:
         raise ValueError(
             f"ms_tcn_fwd does not take N={N} T={T} V={V} bc={bc} stride={stride}: "
-            "N <= 65535, and a block's frames and one tap's weights must fit its "
-            "shared memory and registers (bc <= 128 at V <= 25)")
+            "N <= 65535, and one frame of one joint with its halo and the five "
+            "taps' weights of 8 output channels must fit a block's shared memory "
+            "(bc <= 336 at stride 1)")
     out = torch.empty((N, -(-T // stride), V, 3 * bc), device=device, dtype=torch.float32)
-    _launch(_entry("ms_tcn_f32", [_P] * 5 + [_I] * 5 + [_P]), device,
+    _launch(_entry("ms_tcn_f32", ARGTYPES), device,
             dict(N=N, T=T, V=V, bc=bc, stride=stride),
             prefix.data_ptr(), w.data_ptr(), b.data_ptr(), mp_affine.data_ptr(),
             out.data_ptr(), N, T, V, bc, stride)

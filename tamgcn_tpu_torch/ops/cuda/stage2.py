@@ -21,9 +21,12 @@ SOURCE = "stage2_aggregate.cu"
 # a path went through the kernel
 launches = 0
 
-_RULES = {"tile": 0, "diag": 1, "floor": 2}
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# the launcher's codes of the index rules and the operand types
+RULE_CODES = {"tile": 0, "diag": 1, "floor": 2}
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _P, _I = ctypes.c_void_p, ctypes.c_int
+# the argument types of the launcher stage2_aggregate
+ARGTYPES = [_P] * 3 + [_I] * 7 + [_P]
 
 
 def _entry(name, argtypes):
@@ -36,8 +39,8 @@ def stage2_aggregate_fwd(m, x3, rule: str, subsets: int = 1):
     V) or 'floor' (v = u); subsets 1, or S > 1 to sum the S subsets of L =
     S*C -> (N,T,V,L/subsets) in the operands' type, accumulated in f32."""
     global launches
-    if rule not in _RULES:
-        raise ValueError(f"unknown rule {rule!r}; one of {tuple(_RULES)}")
+    if rule not in RULE_CODES:
+        raise ValueError(f"unknown rule {rule!r}; one of {tuple(RULE_CODES)}")
     device = x3.device
     if device.type != "cuda":
         raise ValueError(f"stage2_aggregate_fwd takes CUDA tensors, got {device}")
@@ -47,7 +50,7 @@ def stage2_aggregate_fwd(m, x3, rule: str, subsets: int = 1):
     for name, t, shape in (("m", m, (V, V, L)), ("x3", x3, (N, T, V, L))):
         if t.device != device:
             raise ValueError(f"{name} is on {t.device}, expected {device}")
-        if t.dtype not in _DTYPES or t.dtype != x3.dtype:
+        if t.dtype not in DTYPE_CODES or t.dtype != x3.dtype:
             raise TypeError(f"{name} is {t.dtype}; the kernel takes float32 or "
                             "bfloat16, the same for m and x3")
         if tuple(t.shape) != shape:
@@ -60,9 +63,9 @@ def stage2_aggregate_fwd(m, x3, rule: str, subsets: int = 1):
         raise ValueError(f"stage2_aggregate_fwd does not take V={V} (V <= 32): M "
                          "of a channel tile must fit a block's shared memory")
     out = torch.empty((N, T, V, L // subsets), device=device, dtype=x3.dtype)
-    _launch(_entry("stage2_aggregate", [_P] * 3 + [_I] * 7 + [_P]), device,
+    _launch(_entry("stage2_aggregate", ARGTYPES), device,
             dict(N=N, T=T, V=V, L=L, rule=rule, subsets=subsets),
             m.data_ptr(), x3.data_ptr(), out.data_ptr(), N, T, V, L,
-            _RULES[rule], subsets, _DTYPES[x3.dtype])
+            RULE_CODES[rule], subsets, DTYPE_CODES[x3.dtype])
     launches += 1
     return out

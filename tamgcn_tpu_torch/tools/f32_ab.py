@@ -1,11 +1,12 @@
-"""The one A/B tool of the port's unit-op kernels: K1, K2, K3, K5 and K6 in
-f32 and the bf16 forms of K3 and K6 (K3_bf16, K6_bf16) of this checkout
-against the same kernels built from another directory of sources with the
-same C interface, such as an earlier commit's csrc/, on one card:
+"""The one A/B tool of the port's kernels: K1, K2, K3, K5 and K6 in f32, the
+bf16 forms of K3 and K6 (K3_bf16, K6_bf16) and the experiment kernels T1
+and T2 of this checkout against the same kernels built from another
+directory of sources with the same C interface, such as an earlier
+commit's csrc/, on one card:
 
     mkdir -p work_dir/other && git archive <commit> tamgcn_tpu_torch/csrc | tar -x -C work_dir/other
     python -m tamgcn_tpu_torch.tools.f32_ab --other work_dir/other/tamgcn_tpu_torch/csrc
-    [--kernels K3_bf16 K6_bf16]
+    [--kernels T1 T2]
 
 At the unit-op shapes of the NW-UCLA CTR-GCN at full width (K1 at the eval
 batch 64 and at the training batch 16, K2 and K3 at the training batch 16),
@@ -25,6 +26,12 @@ plain versions as chip_smoke.py's phases 10 and 11 hold them (bf16 outputs
 within 2^-7 of their max |plain| and equal in all but 1% of the elements,
 K3's f32 outputs at rtol 1e-4, atol 1e-4 * max|plain|, dalpha rtol 1e-3),
 in both trees, and two launches of this checkout's must agree bit for bit.
+T1 (the eval multi-scale TCN, at exp_ms_tcn's six shapes, and a ragged
+shape and bc=128 beside them) and T2 (the stage-2 aggregation: each form of
+exp_stage2's probes at its shape in f32, then the tile form on bf16
+operands and every f32 form at V=25 beside them) are held likewise, at
+chip_smoke.py's phase-8 tolerances (T1 rtol 1e-5, atol 1e-4 * max|plain|;
+T2 rtol 1e-5, in bf16 2^-7, atol 1e-5 * max|plain|).
 The other tree's K3_bf16 is built from its unit_ctr_gc_bwd_param_bf16.cu,
 or from its unit_ctr_gc_bwd_param.cu where it has no such source (before
 K3's bf16 form had one). All are timed by utils/timing.py:graph_ms in turns
@@ -32,7 +39,10 @@ this, other, other, this, and summed per path with the launches of each
 block shape: K1 per NW-UCLA eval forward and per train step, K2 and K3 per
 NW-UCLA train step, K1t per scene256 eval forward, K2t per scene256 train
 step, K5 per fast-eval forward, K6 per train step with TAMGCN_FUSE_CONV3=1,
-K3_bf16 per bf16 train step, K6_bf16 per bf16 train step with the switch.
+K3_bf16 per bf16 train step, K6_bf16 per bf16 train step with the switch,
+T1 per exp_ms_tcn pass (one call at each of its six shapes), T2 per
+exp_stage2 pass (its twelve probes: tile 7, win 1, floor 2, flat 1, flat
+with the subset sum 1).
 Prints a line per kernel and shape to stderr and one JSON line with every
 number to stdout; exits 1 if any check fails. Needs CUDA and nvcc.
 tools/k3_ab.py --ablate builds K3 variants with build_entries and times
@@ -51,8 +61,10 @@ import torch
 
 from ..ops.aggregation import (unit_ctr_gc_bwd_conv3_plain, unit_ctr_gc_dx3_plain,
                                unit_ctr_gc_param_grads_plain, unit_ctr_gc_plain)
-from ..ops.cuda import build, ctr_gc, gcn_tcn_block
+from ..ops.cuda import build, ctr_gc, gcn_tcn_block, ms_tcn, stage2
 from ..ops.gcn_tcn_block import gcn_tcn_block_plain
+from ..ops.ms_tcn import ms_tcn_plain
+from ..ops.stage2 import RULES, stage2_aggregate, stage2_dims, stage2_plain
 from ..utils.timing import graph_ms, graph_split
 from . import device_name, log
 
@@ -73,14 +85,34 @@ K5_SHAPES = [("l1", (64, 52, 20, 3, 64, 8)), ("l2-l4", (64, 52, 20, 64, 64, 8)),
              ("l8", (64, 26, 20, 128, 256, 16)), ("l9-l10", (64, 13, 20, 256, 256, 32))]
 K6_SHAPES = [("l5", (16, 52, 20, 64, 128, 8)), ("l6-l7", (16, 26, 20, 128, 128, 16)),
              ("l8", (16, 26, 20, 128, 256, 16)), ("l9-l10", (16, 13, 20, 256, 256, 32))]
+# T1 (N, T, V, bc, stride): exp_ms_tcn's six shapes (bc = C/4), then two
+# beside them (odd T at stride 2 with bc = 5; bc = 128)
+T1_SHAPES = [("l1-l4", (64, 52, 20, 16, 1)), ("l5", (64, 52, 20, 32, 2)),
+             ("l6-l7", (64, 26, 20, 32, 1)), ("l8", (64, 26, 20, 64, 2)),
+             ("l9-l10", (64, 13, 20, 64, 1)), ("V=25", (32, 64, 25, 16, 1)),
+             ("ragged", (3, 7, 20, 5, 2)), ("bc=128", (8, 13, 20, 128, 1))]
+# T2 (N, T, V, C, S, form, subset sum, dtype): each form of exp_stage2's
+# probes at its shape in f32, then the tile form on bf16 operands and every
+# f32 form at V=25
+T2_FORMS = [("tile", False), ("win", False), ("floor", False), ("flat", False),
+            ("flat", True)]
+T2_SHAPES = ([(f"{f}{' ss' if ss else ''}", (64, 13, 20, 256, 3, f, ss, "float32"))
+              for f, ss in T2_FORMS]
+             + [("tile bf16", (64, 13, 20, 256, 3, "tile", False, "bfloat16"))]
+             + [(f"V=25 {f}{' ss' if ss else ''}", (64, 13, 25, 256, 3, f, ss, "float32"))
+                for f, ss in T2_FORMS])
 SHAPES = {"K1": EVAL + K1_TRAIN + SCENE, "K2": TRAIN + SCENE, "K3": TRAIN + SCENE, "K5": K5_SHAPES,
-          "K6": K6_SHAPES, "K3_bf16": TRAIN, "K6_bf16": K6_SHAPES}
+          "K6": K6_SHAPES, "K3_bf16": TRAIN, "K6_bf16": K6_SHAPES, "T1": T1_SHAPES,
+          "T2": T2_SHAPES}
 # launches of each block shape per eval forward or train step, NW-UCLA and
 # scene256 (K1-K3); per fast-eval forward (K5) and fused train step (K6)
 PER_PATH = {"l1-l4": 4, "l5": 1, "l6-l7": 2, "l8": 1, "l9-l10": 2}
 PER_BLOCK = {"K5": {"l1": 1, "l2-l4": 3, "l5": 1, "l6-l7": 2, "l8": 1, "l9-l10": 2},
              "K6": {"l5": 1, "l6-l7": 2, "l8": 1, "l9-l10": 2}}
 PER_BLOCK["K6_bf16"] = PER_BLOCK["K6"]
+# one call at each exp_ms_tcn shape; exp_stage2's twelve probes by form
+PER_BLOCK["T1"] = {name: 1 for name, _ in T1_SHAPES[:6]}
+PER_BLOCK["T2"] = {"tile": 7, "win": 1, "floor": 2, "flat": 1, "flat ss": 1}
 # (sum, kernel, prefix of its shape names)
 PATHS = (("K1 per NW-UCLA eval forward, batch 64", "K1", ""),
          ("K1 per NW-UCLA train step, batch 16", "K1", "train "),
@@ -92,7 +124,9 @@ PATHS = (("K1 per NW-UCLA eval forward, batch 64", "K1", ""),
          ("K5 per fast-eval forward, batch 64", "K5", ""),
          ("K6 per fused-conv3 train step, batch 16", "K6", ""),
          ("K3_bf16 per NW-UCLA bf16 train step, batch 16", "K3_bf16", ""),
-         ("K6_bf16 per fused-conv3 bf16 train step, batch 16", "K6_bf16", ""))
+         ("K6_bf16 per fused-conv3 bf16 train step, batch 16", "K6_bf16", ""),
+         ("T1 per exp_ms_tcn pass, one call at each of its six shapes", "T1", ""),
+         ("T2 per exp_stage2 pass, its twelve probes", "T2", ""))
 UNIT_RTOL = 1e-5  # chip_smoke.py phase 3: rtol and atol / max|plain| of K1, K2
 # chip_smoke.py phases 6 and 7: (rtol, atol / max|plain|) per output
 K5_TOL = {"prefix": (1e-5, 1e-4), "pw": (1e-5, 1e-4)}
@@ -104,19 +138,25 @@ BF16_TOL, BF16_SHARE = 2 ** -7, 0.01
 K3_BF16_TOL = {"dx1s": "bf16", "dx2s": "bf16", "dw4s": (1e-4, 1e-4), "db4s": (1e-4, 1e-4),
                "dalpha": (1e-3, 0.0), "dAs": (1e-4, 1e-4)}
 K6_BF16_TOL = {"dx": "bf16", "dw3": "bf16", "db3": "bf16"}
+# chip_smoke.py phase 8: (rtol, atol / max|plain|) of T1 and of T2 in f32;
+# T2 on bf16 operands within a bf16 rounding (rtol 2^-7)
+T1_TOL, T2_TOL, T2_BF16_TOL = (1e-5, 1e-4), (1e-5, 1e-5), (2 ** -7, 1e-5)
 ENTRIES = {"K1": ("unit_ctr_gc_fwd_f32",),
            "K2": ("unit_ctr_gc_bwd_dx3_f32",),
            "K3": ("unit_ctr_gc_bwd_param_scratch_floats", "unit_ctr_gc_bwd_param_f32"),
            "K5": ("gcn_tcn_block_f32",),
            "K6": ("unit_ctr_gc_bwd_conv3_scratch_floats", "unit_ctr_gc_bwd_conv3_f32"),
            "K3_bf16": ("unit_ctr_gc_bwd_param_bf16_scratch_floats", "unit_ctr_gc_bwd_param_bf16"),
-           "K6_bf16": ("unit_ctr_gc_bwd_conv3_scratch_floats", "unit_ctr_gc_bwd_conv3_bf16")}
+           "K6_bf16": ("unit_ctr_gc_bwd_conv3_scratch_floats", "unit_ctr_gc_bwd_conv3_bf16"),
+           "T1": ("ms_tcn_f32",), "T2": ("stage2_aggregate",)}
 # an earlier tree's K3_bf16: in the f32 source, with the f32 scratch query
 EARLIER_K3_BF16 = (ctr_gc.PARAM_SOURCE,
                    ("unit_ctr_gc_bwd_param_scratch_floats", "unit_ctr_gc_bwd_param_bf16"))
 # (source, argument types, return type) of each entry point
 SIGNATURES = dict(ctr_gc._SIGNATURES, gcn_tcn_block_f32=(
-    gcn_tcn_block.SOURCE, gcn_tcn_block.ARGTYPES, ctypes.c_int))
+    gcn_tcn_block.SOURCE, gcn_tcn_block.ARGTYPES, ctypes.c_int),
+    ms_tcn_f32=(ms_tcn.SOURCE, ms_tcn.ARGTYPES, ctypes.c_int),
+    stage2_aggregate=(stage2.SOURCE, stage2.ARGTYPES, ctypes.c_int))
 
 
 def build_entries(source: str, out_dir: str, lib: str, names, include=None) -> dict:
@@ -210,9 +250,39 @@ def conv3_inputs(shape, seed, device):
     return x1s, x2s, g, x, w3, w4s, b4s, alpha, As
 
 
+def t1_inputs(shape, seed, device):
+    """T1's operands (prefix, w, b, mp_affine, stride), as chip_smoke.py's
+    t1_inputs makes them."""
+    N, T, V, bc, stride = shape
+    gen = torch.Generator().manual_seed(seed)
+    return (torch.randn((N, T, V, 3 * bc), generator=gen).to(device),
+            (torch.randn((2, 5, bc, bc), generator=gen) / (5 * bc) ** 0.5).to(device),
+            (0.1 * torch.randn((2, bc), generator=gen)).to(device),
+            torch.stack([1.0 + 0.5 * torch.randn(bc, generator=gen),
+                         0.3 * torch.randn(bc, generator=gen)]).to(device), stride)
+
+
+def t2_inputs(shape, seed, device):
+    """T2's operands (m, x3, form, S, subset_sum) in the form's layout, as
+    chip_smoke.py's t2_inputs makes them: M (V, V, S*C) and x3 (N, T, V, S*C),
+    flattened for the flat form."""
+    N, T, V, C, S, form, subset_sum, dtype = shape
+    gen = torch.Generator().manual_seed(seed)
+    dtype = getattr(torch, dtype)
+    m = (0.05 * torch.randn((V, V, S * C), generator=gen)).to(device, dtype)
+    x3 = torch.randn((N, T, V, S * C), generator=gen).to(device, dtype)
+    if form == "flat":
+        m, x3 = m.reshape(V, -1), x3.reshape(N, T, -1)
+    return m, x3, form, S, subset_sum
+
+
 def kernel_inputs(kname, shape, seed, device):
     """The inputs of kname at shape; the bf16 forms' activations in bf16
     (K3_bf16: x1s, x2s, x3s, g; K6_bf16: x1s, x2s, g, x, w3)."""
+    if kname == "T1":
+        return t1_inputs(shape, seed, device)
+    if kname == "T2":
+        return t2_inputs(shape, seed, device)
     if kname == "K5":
         return block_inputs(shape, seed, device)
     if kname.startswith("K6"):
@@ -227,6 +297,10 @@ def kernel_inputs(kname, shape, seed, device):
 def this(kname, a):
     """This checkout's kernel on the inputs, through its wrapper: a tuple of
     outputs."""
+    if kname == "T1":
+        return (ms_tcn.ms_tcn_fwd(*a),)
+    if kname == "T2":
+        return (stage2_aggregate(*a),)
     if kname == "K5":
         return gcn_tcn_block.gcn_tcn_block_fwd(**a)
     if kname.startswith("K6"):
@@ -241,6 +315,10 @@ def this(kname, a):
 
 def plain(kname, a):
     """The plain version of kname (but K3) on the inputs: a tuple."""
+    if kname == "T1":
+        return (ms_tcn_plain(*a),)
+    if kname == "T2":
+        return (stage2_plain(*a),)
     if kname == "K5":
         return gcn_tcn_block_plain(**a)
     if kname.startswith("K6"):
@@ -270,7 +348,10 @@ def bf16_within(out, want) -> bool:
 
 def within_plain(kname, outs, wants) -> bool:
     """Each output within the kernel's tolerance of its plain version."""
-    tols = {"K5": list(K5_TOL.values()), "K6": list(K6_TOL.values()),
+    if kname == "T2" and outs[0].dtype == torch.bfloat16:
+        return within(outs[0].float(), wants[0].float(), *T2_BF16_TOL)
+    tols = {"T1": [T1_TOL], "T2": [T2_TOL], "K5": list(K5_TOL.values()),
+            "K6": list(K6_TOL.values()),
             "K3_bf16": list(K3_BF16_TOL.values()), "K6_bf16": list(K6_BF16_TOL.values())}.get(
         kname, [(UNIT_RTOL, UNIT_RTOL)])
     return all(bf16_within(o, w) if tol == "bf16" else within(o, w, *tol)
@@ -293,7 +374,26 @@ def other(fns, kname, a):
     def empty(*shape, dtype=torch.float32):
         return torch.empty(shape, device=dev, dtype=dtype)
 
-    if kname == "K5":
+    if kname == "T1":
+        prefix, w, b, mp, stride = a
+        dev = prefix.device
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        N, T, V, P = prefix.shape
+        outs = (empty(N, -(-T // stride), V, P),)
+        err = fns["ms_tcn_f32"](*[t.data_ptr() for t in (prefix, w, b, mp, *outs)], N, T, V,
+                                P // 3, stride, stream)
+    elif kname == "T2":
+        m, x3, form, S, subset_sum = a
+        mv, xv, N, T, V, L = stage2_dims(m, x3, form, S, subset_sum)
+        dev = x3.device
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        subsets = S if subset_sum else 1
+        out = empty(N, T, V, L // subsets, dtype=x3.dtype)
+        err = fns["stage2_aggregate"](mv.data_ptr(), xv.data_ptr(), out.data_ptr(), N, T, V, L,
+                                      stage2.RULE_CODES[RULES[form]], subsets,
+                                      stage2.DTYPE_CODES[x3.dtype], stream)
+        outs = (out.reshape(N, T, -1) if form == "flat" else out,)
+    elif kname == "K5":
         x = a["x"]
         dev = x.device
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -374,8 +474,8 @@ def check(kname, shape, a, fns):
     want = plain(kname, a)
     ok = (all(torch.equal(m, t) for m, t in zip(mine, again))
           and within_plain(kname, mine, want) and within_plain(kname, theirs, want))
-    return ("tiled" if tiled(kname, shape) else "whole",
-            "within plain, two launches bitwise equal", ok)
+    design = ("tiled" if tiled(kname, shape) else "whole") if kname in ("K1", "K2") else "-"
+    return design, "within plain, two launches bitwise equal", ok
 
 
 def per_path_count(kname, name, prefix):
@@ -403,7 +503,8 @@ def main(argv=None):
     ap.add_argument("--other", required=True,
                     help="the other csrc directory (unit_ctr_gc_fwd.cu, "
                          "unit_ctr_gc_bwd_dx3.cu, unit_ctr_gc_bwd_param.cu, "
-                         "gcn_tcn_block.cu, unit_ctr_gc_bwd_conv3.cu and headers)")
+                         "gcn_tcn_block.cu, unit_ctr_gc_bwd_conv3.cu, ms_tcn.cu, "
+                         "stage2_aggregate.cu and headers)")
     ap.add_argument("--kernels", nargs="+", choices=list(SHAPES), default=list(SHAPES),
                     help="the kernels to compare (all by default)")
     ap.add_argument("--split", action="store_true",
@@ -413,7 +514,9 @@ def main(argv=None):
     if not torch.cuda.is_available():
         raise RuntimeError("f32_ab runs kernels on the card: CUDA is not available")
     device = torch.device("cuda", 0)
-    torch.backends.cuda.matmul.allow_tf32 = False  # the plain versions in full f32
+    # the plain versions in full f32 (T1's runs on cuDNN's convolutions)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
@@ -430,7 +533,9 @@ def main(argv=None):
                     fn = (lambda: this(kname, a)) if who == "this" else (
                         lambda: other(fns, kname, a))
                     ms[who].append(graph_ms(fn))
-                keys = "NTVCR" if len(shape) == 5 else ("N", "T", "V", "Cin", "C", "R")
+                keys = {"T1": ("N", "T", "V", "bc", "stride"),
+                        "T2": ("N", "T", "V", "C", "S", "form", "subset_sum", "dtype")}.get(
+                    kname, "NTVCR" if len(shape) == 5 else ("N", "T", "V", "Cin", "C", "R"))
                 row = dict(kernel=kname, name=name, shape=dict(zip(keys, shape)),
                            design=design, check=what, ok=ok, this_ms=min(ms["this"]),
                            other_ms=min(ms["other"]))
@@ -439,7 +544,7 @@ def main(argv=None):
                     log(f"{kname} {name}: device ms per call by kernel "
                         + json.dumps({k[:60]: round(v, 5) for k, v in row["split_ms"].items()}))
                 rows.append(row)
-                log(f"{kname} {name:16s} {','.join(keys)}={shape} ({design}): {what} {ok}; "
+                log(f"{kname} {name:16s} {','.join(keys)}={tuple(shape)} ({design}): {what} {ok}; "
                     f"device this {row['this_ms'] * 1e3:.1f} us, other "
                     f"{row['other_ms'] * 1e3:.1f} us")
     ok = all(r["ok"] for r in rows)

@@ -32,7 +32,10 @@ f32 M times a bf16 g, exact in TF32) as two TF32 terms, db3's adds at the
 3xTF32 rate; K4-bf16's stage 1 (a bf16 D, exact in TF32,
 times an f32 w4) and its forward aggregation (an f32 M times a bf16 x3) as
 two TF32 terms, at the TF32 peak over two (247.5 TFLOP/s), its transposed
-aggregation (an f32 M times an f32 g) at the 3xTF32 rate.
+aggregation (an f32 M times an f32 g) at the 3xTF32 rate. T1 (the eval
+multi-scale TCN) runs its two dilated branches as implicit GEMMs on the
+tensor cores as 3xTF32, so its FMAs are held to 165 TFLOP/s too; T2 (the
+stage-2 aggregation from a given M) runs its FMAs on the CUDA cores, at 67.
 
 Peaks: NVIDIA's H100 SXM data sheet, dense, at the full 700 W limit: 80 GB
 of HBM3 at 3.35 TB/s, 989 TFLOP/s bf16 and 495 TFLOP/s TF32 on the tensor
@@ -123,11 +126,13 @@ def ms_tcn_sol(n: int, t: int, v: int, bc: int, stride: int = 1):
     """The eval multi-scale TCN (T1) on a prefix (n,t,v,3*bc): the prefix,
     w (2,5,bc,bc), b (2,bc) and the max-pool affine (2,bc) in, (n,ceil(t/
     stride),v,3*bc) out; per output frame and joint 2*5*bc*bc FMAs of the two
-    dilated branches and, per max-pool output, two maxima and one FMA."""
+    dilated branches and, per max-pool output, two maxima and one FMA, all at
+    the 3xTF32 rate: the branches' products, nearly all of the work, run on
+    the tensor cores as 3xTF32 (csrc/ms_tcn.cu)."""
     t_out = math.ceil(t / stride)
     rows = n * t_out * v
     elems = n * t * v * 3 * bc + rows * 3 * bc + 2 * 5 * bc * bc + 4 * bc
-    return bound(elems, 2 * rows * 2 * 5 * bc * bc + 4 * rows * bc)
+    return bound(elems, 2 * rows * 2 * 5 * bc * bc + 4 * rows * bc, f32_peak=TF32X3_FLOPS)
 
 
 def stage2_sol(n: int, t: int, v: int, l: int, subsets: int = 1, *, itemsize: int = 4):

@@ -982,10 +982,15 @@ def test_ctrgc_bf16_module_on_card_matches_plain_route(device, shape, monkeypatc
 
 
 # T1 (N, T, V, bc, stride): the fast-eval blocks' branch halves at batch 64,
-# exp_ms_tcn's NTU-shaped block, and a ragged shape (odd T at stride 2, bc=5)
+# exp_ms_tcn's NTU-shaped block, and a ragged shape (odd T at stride 2, bc=5);
+# the tensor-core design's edges: bc = 128 (two channel slices of 64), odd T
+# at stride 2 with bc = 128 and with bc = 5 at stride 1, bc = 200 (slices of
+# 32 and blocks of fewer joints than V), V = 600 (joint tiles), T = 1
 T1_SHAPES = [
     (64, 52, 20, 16, 1), (64, 52, 20, 32, 2), (64, 26, 20, 32, 1), (64, 26, 20, 64, 2),
     (64, 13, 20, 64, 1), (32, 64, 25, 16, 1), (3, 7, 20, 5, 2),
+    (4, 13, 20, 128, 1), (2, 11, 25, 128, 2), (2, 9, 20, 5, 1), (2, 9, 20, 200, 1),
+    (1, 7, 600, 16, 2), (3, 1, 20, 24, 2),
 ]
 
 
@@ -1037,8 +1042,11 @@ def test_ms_tcn_kernel_rejects_what_it_does_not_take(device):
 
 
 # T2 (N, T, V, C, S): the stage-2 tools' shape, V=25 and a ragged shape;
-# the cases (form, subset sum, dtype)
-T2_SHAPES = [(64, 13, 20, 256, 3), (8, 13, 25, 256, 3), (3, 5, 7, 10, 3)]
+# the streaming design's edges: V = 32, V = 1, L = C*S = 10 (4-byte copies),
+# N*T (21) not a multiple of a warp's row group; the cases (form, subset sum,
+# dtype)
+T2_SHAPES = [(64, 13, 20, 256, 3), (8, 13, 25, 256, 3), (3, 5, 7, 10, 3),
+             (2, 7, 32, 64, 3), (3, 5, 1, 16, 3), (2, 3, 20, 10, 1), (3, 7, 20, 64, 3)]
 T2_CASES = [("tile", False, torch.float32), ("tile", False, torch.bfloat16),
             ("win", False, torch.float32), ("floor", False, torch.float32),
             ("flat", False, torch.float32), ("flat", True, torch.float32),
@@ -1074,6 +1082,47 @@ def test_stage2_kernel_matches_plain(device, shape, case):
     rtol = 2.0 ** -7 if dtype == torch.bfloat16 else 1e-5
     torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
                                atol=1e-5 * want.float().abs().max().item())
+
+
+@pytest.mark.parametrize("case", [("tile", torch.float32, 1), ("floor", torch.float32, 1),
+                                  ("win", torch.bfloat16, 2), ("floor", torch.bfloat16, 2),
+                                  ("tile", torch.bfloat16, 1), ("floor", torch.bfloat16, 1)],
+                         ids=lambda c: f"{c[0]}-{str(c[1])[6:]}-offset{c[2]}")
+def test_stage2_kernel_takes_unaligned_views(device, case):
+    """T2 on m and x3 views whose data_ptr is offset from their storage by
+    `offset` elements (4 bytes in f32 and 2 x 2 in bf16: 4-byte but not
+    16-byte aligned; 2 bytes in bf16: not even 4-byte aligned), against the
+    plain version on the same values and two launches bitwise equal; the
+    subset sum on a subset of 12 channels."""
+    from tamgcn_tpu_torch.ops.cuda import stage2 as t2
+    from tamgcn_tpu_torch.ops.stage2 import stage2_aggregate, stage2_plain
+
+    form, dtype, offset = case
+    n, t, v, c, s = 3, 5, 20, 12, 3
+    g = torch.Generator().manual_seed(11)
+
+    def view(shape, scale):
+        numel = 1
+        for d in shape:
+            numel *= d
+        buf = (scale * torch.randn(numel + offset, generator=g)).to(device, dtype)
+        return buf[offset:].view(shape)
+
+    m, x3 = view((v, v, s * c), 0.05), view((n, t, v, s * c), 1.0)
+    elem = m.element_size()
+    assert m.data_ptr() % 16 == x3.data_ptr() % 16 == offset * elem % 16 != 0
+    before = t2.launches
+    for subset_sum in (False, True):
+        with torch.no_grad():
+            got = stage2_aggregate(m, x3, form, s, subset_sum)
+            again = stage2_aggregate(m, x3, form, s, subset_sum)
+            want = stage2_plain(m, x3, form, s, subset_sum)
+        torch.cuda.synchronize()
+        assert got.dtype == dtype and torch.equal(got, again)
+        rtol = 2.0 ** -7 if dtype == torch.bfloat16 else 1e-5
+        torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
+                                   atol=1e-5 * want.float().abs().max().item())
+    assert t2.launches == before + 4
 
 
 def test_stage2_kernel_rejects_what_it_does_not_take(device):

@@ -139,13 +139,15 @@ def test_peaks_and_bound_match_the_published_h100():
 
 
 def test_ms_tcn_and_stage2_bounds():
-    # T1 at l2-l4: 25.6 MB moved (7.6 us), bytes; at l8 and l9-l10 0.68 G
-    # FMAs (20 us), operations
+    # T1 at l2-l4: 25.6 MB moved (7.6 us), bytes; its 0.68 G FMAs at l8 and
+    # l9-l10 at the 3xTF32 rate (8.3 us): l8 moves 38.5 MB (11.5 us), bytes,
+    # l9-l10 25.7 MB (7.7 us), operations
     ms, by = roofline.ms_tcn_sol(64, 52, 20, 16, 1)
     assert by == "bytes" and ms == pytest.approx(7.63e-3, rel=1e-2)
-    for shape in ((64, 26, 20, 64, 2), (64, 13, 20, 64, 1)):
-        ms, by = roofline.ms_tcn_sol(*shape)
-        assert by == "operations" and ms == pytest.approx(20.4e-3, rel=1e-2)
+    ms, by = roofline.ms_tcn_sol(64, 26, 20, 64, 2)
+    assert by == "bytes" and ms == pytest.approx(11.5e-3, rel=1e-2)
+    ms, by = roofline.ms_tcn_sol(64, 13, 20, 64, 1)
+    assert by == "operations" and ms == pytest.approx(8.29e-3, rel=1e-2)
     assert roofline.ms_tcn_sol(3, 7, 20, 5, 2)[0] > 0
     # T2's tile form at the tools' shape: 103 MB (31 us); with the subset
     # sum 69 MB (21 us); bf16 halves the bytes
@@ -155,6 +157,29 @@ def test_ms_tcn_and_stage2_bounds():
     assert ms_ss == pytest.approx(20.7e-3, rel=1e-2)
     ms_bf, by_bf = roofline.stage2_sol(64, 13, 20, 768, itemsize=2)
     assert by_bf == "bytes" and math.isclose(ms_bf, ms / 2)
+
+
+# exp_ms_tcn's six shapes (N, T, V, bc, stride), one call each per tool pass,
+# with the bound worked by hand: bytes = 4 * (N*T*V*3bc + N*To*V*3bc + 10bc^2
+# + 4bc) over 3.35 TB/s, FMAs 2 * 10 * bc^2 per output row at 165 TFLOP/s
+T1_PASS = [((64, 52, 20, 16, 1), 7.6e-3, "bytes"), ((64, 52, 20, 32, 2), 11.5e-3, "bytes"),
+           ((64, 26, 20, 32, 1), 7.6e-3, "bytes"), ((64, 26, 20, 64, 2), 11.5e-3, "bytes"),
+           ((64, 13, 20, 64, 1), 8.3e-3, "operations"), ((32, 64, 25, 16, 1), 5.9e-3, "bytes")]
+
+
+@pytest.mark.parametrize("shape, ms, by", T1_PASS, ids=lambda x: str(x))
+def test_ms_tcn_bound_per_shape_at_the_3xtf32_rate(shape, ms, by):
+    got, got_by = roofline.ms_tcn_sol(*shape)
+    assert got_by == by and got == pytest.approx(ms, abs=0.05e-3)
+
+
+def test_ms_tcn_bound_per_tool_pass():
+    # 0.076 ms at the CUDA cores' 67 TFLOP/s, 0.052 ms at 3xTF32's 165
+    total = sum(roofline.ms_tcn_sol(*shape)[0] for shape, _, _ in T1_PASS)
+    assert total == pytest.approx(0.052, abs=0.5e-3)
+    ops = 2 * 64 * 13 * 20 * 2 * 5 * 64 * 64 + 4 * 64 * 13 * 20 * 64
+    assert roofline.ms_tcn_sol(64, 13, 20, 64, 1)[0] == pytest.approx(
+        ops / roofline.TF32X3_FLOPS * 1e3)
 
 
 # K6 at the fused-conv3 train step's blocks (N, T, V, Cin, C, R) at batch 16,
@@ -344,6 +369,40 @@ def test_f32_ab_paths_and_check_modes(tmp_path):
     open(os.path.join(csrc, "unit_ctr_gc_bwd_param_bf16.cu"), "w").close()
     assert f32_ab.other_source(csrc, "K3_bf16") == (
         os.path.join(csrc, "unit_ctr_gc_bwd_param_bf16.cu"), f32_ab.ENTRIES["K3_bf16"])
+
+
+def test_f32_ab_t1_t2_passes_and_tolerances():
+    """f32_ab's sums for the experiment kernels are the tools' passes: T1 one
+    call at each of exp_ms_tcn's six shapes, T2 exp_stage2's twelve probes
+    by form at its shape in f32; both held to their plain versions at phase
+    8's tolerances."""
+    from tamgcn_tpu_torch.tools import exp_ms_tcn, exp_stage2, f32_ab
+
+    table = f32_ab.path_table()
+    t1 = table["T1 per exp_ms_tcn pass, one call at each of its six shapes"]
+    shapes = dict(f32_ab.SHAPES["T1"])
+    assert [(n, t, v, 4 * bc, s) for n, t, v, bc, s in (shapes[k] for k in t1)] == list(
+        exp_ms_tcn.SHAPES)
+    assert set(t1.values()) == {1}
+    t2 = table["T2 per exp_stage2 pass, its twelve probes"]
+    assert sum(t2.values()) == len(exp_stage2.PROBES) + 2
+    for form in ("tile", "win", "floor"):
+        assert t2[form] == sum(f == form for _, f in exp_stage2.PROBES)
+    tool = (exp_stage2.N, exp_stage2.T, exp_stage2.V, exp_stage2.C, exp_stage2.S)
+    for name in t2:
+        assert dict(f32_ab.SHAPES["T2"])[name][:5] == tool
+        assert dict(f32_ab.SHAPES["T2"])[name][7] == "float32"
+    assert {f32_ab.check_mode(k) for k in ("T1", "T2")} == {"plain"}
+    want = torch.linspace(-1.0, 1.0, 201)
+    # T1: atol 1e-4 * max|plain|; T2 in f32: 1e-5
+    assert f32_ab.within_plain("T1", [want + 5e-5], [want])
+    assert not f32_ab.within_plain("T1", [want + 3e-4], [want])
+    assert f32_ab.within_plain("T2", [want + 5e-6], [want])
+    assert not f32_ab.within_plain("T2", [want + 5e-5], [want])
+    # T2 on bf16 operands: within a bf16 rounding of each output
+    wb = want.bfloat16()
+    assert f32_ab.within_plain("T2", [wb.float().mul(1 + 2 ** -8).bfloat16()], [wb])
+    assert not f32_ab.within_plain("T2", [wb.float().add(0.02).bfloat16()], [wb])
 
 
 def test_design_ab_patches_only_the_whole_v_rule(tmp_path):
