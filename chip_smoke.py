@@ -165,7 +165,28 @@ Phases, each of which fails the run (non-zero exit, no result line):
      forward and transpose on the module's operands within 1e-4 *
      max|plain|, two launches bitwise equal, timed against its plain
      version.
-The launch checks of phases 4-11 also require K6 = 0 (except with the
+ 12. compiled steps: the trainer runs its train, eval and fast-eval steps
+     as CUDA graphs on the card (tamgcn_tpu_torch/train/graphs.py), so every
+     path of phases 4-11 that goes through the trainer, and every
+     trajectory check with its planted faults, ran graphed; this phase holds
+     the graphed train step (packed state, train/packing.py) to the eager
+     one over 3 steps at batch 16, f32, bf16 and with TAMGCN_FUSE_CONV3=1:
+     losses, parameters, momentum and BatchNorm statistics bit for bit with
+     cuDNN's deterministic algorithms (with its default ones two eager runs
+     already differ, and the distances are printed), and the graphed eval
+     and fast-eval logits at batch 64 to the eager ones bit for bit; shows
+     that eval and fast-eval graphs captured before a train step and a
+     weights load score the new weights; and times the eager and graphed
+     forms in turns (the f32 train step at batch 16 and 64, the bf16 one at
+     16, the eval and fast-eval forward at 64, the scene256 train step at
+     8): wall ms, device-busy ms, idle share, host launches (the launch
+     calls torch.profiler records on the host; a replay is one).
+A kernel launched inside a CUDA-graph capture counts once on its wrapper's
+counter and runs at every replay: every launch check counts the launches
+that ran on the card, the wrappers' counts less what the captures counted
+plus the replays' (train/graphs.py:launches_run), and a run through the
+trainer prints each step's captures, warm-up calls and replays. The launch
+checks of phases 4-11 also require K6 = 0 (except with the
 switch on), T1 = T2 = 0 (except in the tools' runs), the joint-tiled
 designs at 0 outside phase 9, the bf16 forms at 0 outside phases 10-11 and
 K6-bf16 and K4-bf16 at 0 outside phase 11. The
@@ -785,31 +806,79 @@ KERNELS = ("K1", "K1t", "K2", "K2t", "K3", "K5", "K6", "T1", "T2", "K1_bf16", "K
            "K4dx3t_bf16")
 
 
+# each kernel's counter in ops/cuda.launch_counts()
+COUNTER_KEYS = {k: f"ctr_gc.{c}" for k, c in UNIT_COUNTERS.items()} | {
+    "K5": "gcn_tcn_block.launches", "T1": "ms_tcn.launches", "T2": "stage2.launches"}
 # K3_bf16's count in its C launcher when the wrappers' counts were last reset
 C_COUNT_BASE = {"K3_bf16": 0}
 
 
 def reset_launches():
+    """Every launch counter and the CUDA graphs' records (train/graphs.py:
+    captures, warm-ups, replays) to 0."""
     from tamgcn_tpu_torch.ops.cuda import ctr_gc, gcn_tcn_block, ms_tcn, stage2
+    from tamgcn_tpu_torch.train import graphs
 
     for counter in UNIT_COUNTERS.values():
         setattr(ctr_gc, counter, 0)
     gcn_tcn_block.launches = ms_tcn.launches = stage2.launches = 0
+    graphs.reset_stats()
     C_COUNT_BASE["K3_bf16"] = ctr_gc.param_bf16_launched()
 
 
 def read_launches() -> dict:
-    """Every kernel's count (KERNELS); K3_bf16's wrapper count must be the
-    count its C launcher kept since the last reset."""
-    from tamgcn_tpu_torch.ops.cuda import ctr_gc, gcn_tcn_block, ms_tcn, stage2
+    """Every kernel's launches on the card since the last reset (KERNELS):
+    the wrappers' counts, which count a launch inside a CUDA-graph capture
+    once, less what the captures counted plus what the graphs' replays ran
+    (train/graphs.py:launches_run). K3_bf16's wrapper count must be the
+    count its C launcher kept (both count at capture)."""
+    from tamgcn_tpu_torch.ops.cuda import ctr_gc
+    from tamgcn_tpu_torch.train import graphs
 
     launched = ctr_gc.param_bf16_launched() - C_COUNT_BASE["K3_bf16"]
     if launched != ctr_gc.bwd_param_launches_bf16:
         raise AssertionError(f"K3_bf16: its wrapper counted {ctr_gc.bwd_param_launches_bf16} "
                              f"launches, its C launcher {launched}")
-    counts = {k: getattr(ctr_gc, c) for k, c in UNIT_COUNTERS.items()}
-    counts.update(K5=gcn_tcn_block.launches, T1=ms_tcn.launches, T2=stage2.launches)
-    return {k: counts[k] for k in KERNELS}
+    counts = graphs.launches_run()
+    return {k: counts[COUNTER_KEYS[k]] for k in KERNELS}
+
+
+def read_graphs() -> dict:
+    """{step name: (captures, warm-up calls, replays, {kernel: launches its
+    captures counted})} of the CUDA graphs since the last reset."""
+    from tamgcn_tpu_torch.train import graphs
+
+    names = {v: k for k, v in COUNTER_KEYS.items()}
+    return {name: (s.captures, s.warmups, s.replays,
+                   {names[c]: n for c, n in s.captured.items() if n})
+            for name, s in graphs.stats.items()}
+
+
+def graphed(label: str, steps: dict) -> dict:
+    """The launches a run through the trainer's CUDA graphs must have made,
+    after checking its graphs: `steps` {step name ("train", "eval",
+    "fast_eval"): (calls, {kernel: launches a call})}, each step called
+    `calls` times. Each graph of a step holds a call's launches (its
+    capture counted them once), the step's replays are `calls`, and the
+    card ran a call's launches at every replay and at every warm-up call
+    before a capture. Prints the captures and replays."""
+    seen = read_graphs()
+    if set(seen) != set(steps):
+        raise AssertionError(f"{label}: CUDA graphs of {sorted(seen)}, expected {sorted(steps)}")
+    total = {}
+    for name, (calls, per_call) in steps.items():
+        captures, warmups, replays, captured = seen[name]
+        if replays != calls or captures < 1 or captured != {
+                k: n * captures for k, n in per_call.items()}:
+            raise AssertionError(
+                f"{label}: the {name} step's graphs: {captures} captures counting "
+                f"{captured}, {replays} replays; expected {calls} replays of graphs "
+                f"holding {per_call} each")
+        for k, n in per_call.items():
+            total[k] = total.get(k, 0) + n * (calls + warmups)
+        print(f"{label}: {name} step, {captures} CUDA graph(s) captured ({warmups} "
+              f"warm-up calls), {replays} replays of {per_call} each", flush=True)
+    return only(**total)
 
 
 def only(**counts) -> dict:
@@ -930,18 +999,27 @@ def profile_device(fn, reps: int = 5):
     """Device time by kernel name over `reps` calls of fn (torch.profiler):
     (busy_ms, n_kernels, top 10 (name, ms, launches)), all per call. The
     trace must hold every launch of the port's kernels that the wrappers
-    counted while it ran; a partial trace is taken once more, then raises."""
+    counted while it ran; a partial trace is taken once more, then raises.
+    One call of fn runs first in the profiler's warm-up step, whose trace
+    is discarded: a fresh trace can drop its first kernels."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     attempts = 2
     for attempt in range(1, attempts + 1):
-        before = read_launches()
-        with profile(activities=[ProfilerActivity.CUDA], acc_events=True) as prof:
+        with profile(activities=[ProfilerActivity.CUDA], acc_events=True,
+                     schedule=schedule(wait=0, warmup=1, active=1)) as prof:
+            fn()
+            torch.cuda.synchronize()
+            prof.step()
+            time.sleep(0.01)  # the window's edges away from any kernel
+            before = read_launches()
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        launched = {k: n - before[k] for k, n in read_launches().items() if n > before[k]}
+            launched = {k: n - before[k] for k, n in read_launches().items() if n > before[k]}
+            time.sleep(0.01)
+            prof.step()
         averages = prof.key_averages()
         traced = {k: sum(e.count for e in averages if is_kernel(k, e.key))
                   for k in launched}
@@ -1071,13 +1149,14 @@ def run_train_path(work_dir: str):
                                  ("resume", 1, ["--resume", "true"])):
         total = 2 + (label == "resume")
         seconds, launches = run_cli(argv + ["--num_epoch", str(total), *extra])
-        want = only(K1=10 * epochs * (steps + evals), K2=10 * epochs * steps,
-                    K3=10 * epochs * steps)
+        want = graphed(f"--phase train ({label})", {
+            "train": (epochs * steps, dict(K1=10, K2=10, K3=10)),
+            "eval": (epochs * evals, dict(K1=10))})
         if launches != want:
             raise AssertionError(
                 f"--phase train ({label}): launches {launches}, expected {want} "
                 f"(10 per train step of {steps} a epoch, K1 also 10 per eval "
-                f"batch of {evals})")
+                f"batch of {evals}, each also per warm-up call)")
         progress = check_train_files(work_dir, total, epochs, label)
         if label == "train" and (progress[:, 2].max() > 0) != os.path.isfile(
                 os.path.join(ckpt, "best.pt")):
@@ -1105,47 +1184,51 @@ def train_batches(n: int, batch: int):
     return out
 
 
-def train_model(weights: str, device, dtype=None, compute=None):
+def train_model(weights: str, device, dtype=None, compute=None, capture=None,
+                model_args=None):
     """The NW-UCLA model on `weights`, its parameters in `dtype` (float32
-    by default) and its compute dtype `compute` (model_args.dtype), with
-    the SGD optimizer of the train phase."""
+    by default) and its compute dtype `compute` (model_args.dtype), with the
+    train phase's packed state (train/packing.py: SGD, Nesterov, lr 0.05,
+    weight decay 1e-4): (model, state, step), `step(x, y) -> (loss, hits)`
+    the fused train step, on the card as CUDA graphs (train/graphs.py, the
+    trainer's form) unless `capture` is False (the eager step). `model_args`
+    other than NW-UCLA's make another model (scene256's)."""
     import torch
 
     from tamgcn_tpu_torch.models import get_model
     from tamgcn_tpu_torch.train.checkpoint import load_weights
-    from tamgcn_tpu_torch.train.optim import make_optimizer
+    from tamgcn_tpu_torch.train.graphs import GraphedStep
+    from tamgcn_tpu_torch.train.packing import PackedTrainState, make_fused_train_step
 
-    model = get_model("ctrgcn", **nucla_model_args(), dtype=compute)
+    model = get_model("ctrgcn", **(model_args or nucla_model_args()), dtype=compute)
     model.load_state_dict(load_weights(weights))
     model.to(device, dtype or torch.float32).train()
-    opt = make_optimizer("SGD", model.parameters(), 0.05, weight_decay=1e-4)
-    return model, opt
-
-
-def train_step(model, opt, x, y):
-    import torch.nn.functional as F
-
-    opt.zero_grad(set_to_none=True)
-    loss = F.cross_entropy(model(x), y)
-    loss.backward()
-    opt.step()
-    return loss
+    state = PackedTrainState(model, "SGD", weight_decay=1e-4)
+    state.set_lr(0.05)
+    step = make_fused_train_step(state)
+    if capture is None:
+        capture = torch.device(device).type == "cuda"
+    if capture:
+        step = GraphedStep(step, "train", state.tensors())
+    return model, state, step
 
 
 def trajectory(weights: str, batches, where, dtype, compute=None):
-    """SGD steps from `weights`, one on each of `batches`: (losses, [state
-    before the first step, after each step], each {name: f64 CPU tensor})."""
+    """SGD steps from `weights`, one on each of `batches`, through the fused
+    train step (on the card its CUDA graph, as the trainer runs it):
+    (losses, [state before the first step, after each step], each {name:
+    f64 CPU tensor})."""
     import torch
 
     def state():
         return {k: v.detach().cpu().double().clone()
                 for k, v in model.state_dict().items()}
 
-    model, opt = train_model(weights, where, dtype, compute)
+    model, _, step = train_model(weights, where, dtype, compute)
     losses, states = [], [state()]
     for x, y in batches:
-        losses.append(train_step(model, opt, torch.from_numpy(x).to(where, dtype),
-                                 torch.from_numpy(y).to(where)).item())
+        loss, _ = step(torch.from_numpy(x).to(where, dtype), torch.from_numpy(y).to(where))
+        losses.append(loss.item())
         states.append(state())
     return losses, states
 
@@ -1264,12 +1347,12 @@ def time_train(weights: str, device):
 
     out = {}
     for batch in (TRAIN_BATCH, 64):
-        model, opt = train_model(weights, device)
+        _, _, eager = train_model(weights, device, capture=False)
         (x, y), = train_batches(1, batch)
         x, y = torch.from_numpy(x).to(device), torch.from_numpy(y).to(device)
 
         def step():
-            train_step(model, opt, x, y)
+            eager(x, y)
 
         out[f"kernel_ms_{batch}"] = cuda_ms(step, iters=10)
         if batch == TRAIN_BATCH:
@@ -1368,7 +1451,8 @@ def run_fused_train_path(work_dir: str):
     evals = math.ceil(EVAL_SAMPLES / TRAIN_BATCH)
     with fuse_conv3():
         seconds, launches = run_cli(train_argv(work_dir) + ["--num_epoch", "1"])
-    want = only(K1=10 * (steps + evals), K2=4 * steps, K3=10 * steps, K6=6 * steps)
+    want = graphed("--phase train with TAMGCN_FUSE_CONV3=1", {
+        "train": (steps, dict(K1=10, K2=4, K3=10, K6=6)), "eval": (evals, dict(K1=10))})
     if launches != want:
         raise AssertionError(
             f"--phase train with TAMGCN_FUSE_CONV3=1: launches {launches}, "
@@ -1392,12 +1476,12 @@ def time_train_fused(weights: str, device, compute=None):
 
     out = {}
     for batch in (TRAIN_BATCH, 64):
-        model, opt = train_model(weights, device, compute=compute)
+        _, _, eager = train_model(weights, device, compute=compute, capture=False)
         (x, y), = train_batches(1, batch)
         x, y = torch.from_numpy(x).to(device), torch.from_numpy(y).to(device)
 
         def step():
-            train_step(model, opt, x, y)
+            eager(x, y)
 
         ms = {False: [], True: []}
         for fused in (False, True, True, False):
@@ -1916,14 +2000,15 @@ def run_scene256(work_dir: str, device):
     from tamgcn_tpu_torch.models import get_model
     from tamgcn_tpu_torch.models.ctrgcn_infer import make_fast_eval
     from tamgcn_tpu_torch.train.checkpoint import load_weights
-    from tamgcn_tpu_torch.train.optim import make_optimizer
+    from tamgcn_tpu_torch.train.packing import PackedTrainState, make_fused_train_step
 
     out = {}
     train_dir = os.path.join(work_dir, "scene256_train")
     seconds, launches = run_cli(scene_argv(train_dir, "train", "--num_epoch", "2",
                                            "--save_interval", "1"))
     steps, evals = SCENE_TRAIN_STEPS, SCENE_EVALS
-    want = only(K1t=10 * 2 * (steps + evals), K2t=10 * 2 * steps, K3=10 * 2 * steps)
+    want = graphed("scene256 --phase train", {
+        "train": (2 * steps, dict(K1t=10, K2t=10, K3=10)), "eval": (2 * evals, dict(K1t=10))})
     if launches != want:
         raise AssertionError(f"scene256 --phase train: launches {launches}, expected "
                              f"{want} (10 per train step of {steps} an epoch, K1t "
@@ -1942,11 +2027,12 @@ def run_scene256(work_dir: str, device):
         test_dir = os.path.join(work_dir, f"scene256_{label}")
         seconds, launches = run_cli(scene_argv(test_dir, "test", "--weights", weights,
                                                "--save_result", "true", *extra))
-        if launches != only(K1t=10 * evals):
+        if launches != graphed(f"scene256 --phase test {' '.join(extra)}", {
+                "fast_eval" if extra else "eval": (evals, dict(K1t=10))}):
             raise AssertionError(
                 f"scene256 --phase test {' '.join(extra)}: launches {launches}, expected "
-                f"the joint-tiled K1 10 x {evals} batches and no other kernel (no block "
-                "of V=256 takes K5)")
+                f"the joint-tiled K1 10 x {evals} batches and warm-up calls and no other "
+                "kernel (no block of V=256 takes K5)")
         rel, x = check_scene_logits(test_dir, weights, device)
         out[label] = dict(seconds=seconds, launches=launches, logit_rel_err=rel)
         print(f"scene256 {label}: {evals} batches of {SCENE_BATCH} in {seconds:.2f} s, "
@@ -1967,11 +2053,13 @@ def run_scene256(work_dir: str, device):
             print_profile(f"scene256 {way}, batch {SCENE_BATCH}: {ms:.3f} ms;", ms,
                           *out[way][1:])
     model.train()
-    opt = make_optimizer("SGD", model.parameters(), 0.05, weight_decay=1e-4)
+    state = PackedTrainState(model, "SGD", weight_decay=1e-4)
+    state.set_lr(0.05)
+    eager = make_fused_train_step(state)
     y = torch.zeros(SCENE_BATCH, dtype=torch.long, device=device)
 
     def step():
-        train_step(model, opt, xb, y)
+        eager(xb, y)
 
     ms = cuda_ms(step, iters=5, warmup=2)
     out["train step"] = (ms,) + profile_device(step, reps=3)
@@ -2223,11 +2311,11 @@ def check_trajectory_bf16(weights: str, device, fused: bool = False, references=
     reset_launches()
     with fuse_conv3(fused):
         card = trajectory(weights, batches, device, torch.float32, "bfloat16")
-    launches = {k: v for k, v in read_launches().items() if v}
-    want = {"K1_bf16": 10 * TRAJ_STEPS, "K2_bf16": 10 * TRAJ_STEPS,
-            "K3_bf16": 10 * TRAJ_STEPS}
+    launches = read_launches()
+    per_step = dict(K1_bf16=10, K2_bf16=10, K3_bf16=10)
     if fused:
-        want.update(K2_bf16=4 * TRAJ_STEPS, K6_bf16=6 * TRAJ_STEPS)
+        per_step.update(K2_bf16=4, K6_bf16=6)
+    want = graphed("bf16 trajectory", {"train": (TRAJ_STEPS, per_step)})
     if launches != want:
         raise AssertionError(f"bf16 trajectory: launches {launches}, expected {want}")
     spread = trajectory_spread({"kernels": card, "plain bf16 again": plain_again,
@@ -2292,12 +2380,12 @@ def time_bf16(weights: str, x, device):
         ms = cuda_ms(lambda: model(xb))
         out[f"eval forward, batch {BATCH}"] = (ms,) + profile_device(lambda: model(xb))
     for batch in (TRAIN_BATCH, 64):
-        model, opt = train_model(weights, device, compute="bfloat16")
+        _, _, eager = train_model(weights, device, compute="bfloat16", capture=False)
         (xt, yt), = train_batches(1, batch)
         xt, yt = torch.from_numpy(xt).to(device), torch.from_numpy(yt).to(device)
 
         def step():
-            train_step(model, opt, xt, yt)
+            eager(xt, yt)
 
         ms = cuda_ms(step, iters=10)
         out[f"train step, batch {batch}"] = (ms,) + profile_device(step)
@@ -2308,7 +2396,8 @@ def run_convergence_tool():
     """tamgcn_tpu_torch/tools/bf16_convergence.py in-process at a small size
     (2 epochs of 64 samples in batches of 16, full width): each run finite,
     the f32 run through the f32 kernels only and the bf16 run through the
-    bf16 forms only, 10 launches per train step (K1 also per eval batch).
+    bf16 forms only, 10 launches per train step (K1 also per eval batch),
+    each run's steps through one train and one eval CUDA graph.
     Returns the tool's record."""
     import io
 
@@ -2318,19 +2407,27 @@ def run_convergence_tool():
     reset_launches()
     with contextlib.redirect_stdout(buf):
         bf16_convergence.main(["--epochs", "2", "--samples", "64", "--batch", "16"])
+    from tamgcn_tpu_torch.train.graphs import WARMUP
+
     launched = read_launches()
+    graphs = read_graphs()
     record = json.loads(buf.getvalue().strip().splitlines()[-1])
     steps, evals, epochs = 64 // 16, 64 // 16, 2
-    per_run = dict(K1=10 * epochs * (steps + evals), K2=10 * epochs * steps,
-                   K3=10 * epochs * steps)
+    # each run captures one train and one eval graph, each after WARMUP calls
+    want_graphs = {"train": (2, 2 * WARMUP, 2 * epochs * steps),
+                   "eval": (2, 2 * WARMUP, 2 * epochs * evals)}
+    if {k: v[:3] for k, v in graphs.items()} != want_graphs:
+        raise AssertionError(f"bf16_convergence: CUDA graphs {graphs}")
+    per_run = dict(K1=10 * (epochs * (steps + evals) + 2 * WARMUP),
+                   K2=10 * (epochs * steps + WARMUP), K3=10 * (epochs * steps + WARMUP))
     want = only(**per_run, **{f"{k}_bf16": n for k, n in per_run.items()})
     if launched != want:
         raise AssertionError(f"bf16_convergence: launches {launched}, expected {want}")
     for run, suffix in (("f32", ""), ("bf16", "_bf16")):
         want = dict.fromkeys(bf16_convergence.COUNTERS, 0) | {
-            "launches" + suffix: 10 * epochs * (steps + evals),
-            "bwd_dx3_launches" + suffix: 10 * epochs * steps,
-            "bwd_param_launches" + suffix: 10 * epochs * steps}
+            "launches" + suffix: per_run["K1"],
+            "bwd_dx3_launches" + suffix: per_run["K2"],
+            "bwd_param_launches" + suffix: per_run["K3"]}
         if record[run]["launches"] != want:
             raise AssertionError(f"bf16_convergence, {run} run: launches "
                                  f"{record[run]['launches']}, expected {want}")
@@ -2359,9 +2456,9 @@ def run_bf16(work_dir: str, weights: str, x, device):
     batches = math.ceil(N_SAMPLES / BATCH)
     test_dir = os.path.join(work_dir, "test_bf16")
     seconds, launches = run_test_path(test_dir, weights, "--model_args", "dtype=bfloat16")
-    if launches != only(K1_bf16=10 * batches):
+    if launches != graphed("bf16 --phase test", {"eval": (batches, dict(K1_bf16=10))}):
         raise AssertionError(f"the bf16 test phase launched {launches}, expected the bf16 "
-                             f"K1 10 x {batches} batches and no other kernel")
+                             f"K1 10 x {batches} batches and warm-up calls and no other kernel")
     rel = check_bf16_logits(test_dir, weights, device)
     out["test"] = dict(seconds=seconds, launches=launches, logit_rel_err=rel)
     print(f"bf16 test path: {batches} batches of {BATCH} in {seconds:.2f} s, launches "
@@ -2373,9 +2470,11 @@ def run_bf16(work_dir: str, weights: str, x, device):
     fast_dir = os.path.join(work_dir, "fast_eval_bf16")
     seconds, launches = run_test_path(fast_dir, weights, "--fast_eval", "true",
                                       "--model_args", "dtype=bfloat16")
-    if launches != only(K1_bf16=10 * batches):
+    if launches != graphed("bf16 --phase test --fast_eval true",
+                           {"fast_eval": (batches, dict(K1_bf16=10))}):
         raise AssertionError(f"the bf16 fast-eval test phase launched {launches}, expected "
-                             f"the bf16 K1 10 x {batches} batches and no other kernel")
+                             f"the bf16 K1 10 x {batches} batches and warm-up calls and no other "
+                             "kernel")
     scores = []
     for d in (test_dir, fast_dir):
         with open(os.path.join(d, "test_result.pkl"), "rb") as f:
@@ -2390,7 +2489,9 @@ def run_bf16(work_dir: str, weights: str, x, device):
     train_dir = os.path.join(work_dir, "train_bf16")
     seconds, launches = run_cli(train_argv(train_dir) + [
         "--num_epoch", "1", "--model_args", "dtype=bfloat16"])
-    want = only(K1_bf16=10 * (steps + evals), K2_bf16=10 * steps, K3_bf16=10 * steps)
+    want = graphed("bf16 --phase train", {
+        "train": (steps, dict(K1_bf16=10, K2_bf16=10, K3_bf16=10)),
+        "eval": (evals, dict(K1_bf16=10))})
     if launches != want:
         raise AssertionError(f"the bf16 train phase launched {launches}, expected {want}")
     progress = check_train_files(train_dir, 1, 1, "bf16")
@@ -2503,8 +2604,9 @@ def run_fused_bf16_train_path(work_dir: str):
     with fuse_conv3():
         seconds, launches = run_cli(train_argv(work_dir) + [
             "--num_epoch", "1", "--model_args", "dtype=bfloat16"])
-    want = only(K1_bf16=10 * (steps + evals), K2_bf16=4 * steps, K3_bf16=10 * steps,
-                K6_bf16=6 * steps)
+    want = graphed("bf16 --phase train with TAMGCN_FUSE_CONV3=1", {
+        "train": (steps, dict(K1_bf16=10, K2_bf16=4, K3_bf16=10, K6_bf16=6)),
+        "eval": (evals, dict(K1_bf16=10))})
     if launches != want:
         raise AssertionError(
             f"--phase train, bf16, TAMGCN_FUSE_CONV3=1: launches {launches}, expected "
@@ -2655,6 +2757,288 @@ def run_bf16_fused(work_dir: str, weights: str, device, references):
     return out
 
 
+# phase 12: the CUDA runtime calls that launch work on the card, counted per
+# call by torch.profiler (one graph replay is one cudaGraphLaunch)
+LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel", "cuLaunchKernelEx",
+                "cudaGraphLaunch", "cudaMemcpyAsync", "cudaMemsetAsync")
+# the cases phase 12 holds the graphed train step to the eager one in:
+# (label, the model's compute dtype, TAMGCN_FUSE_CONV3)
+EQUAL_CASES = (("f32", None, False), ("bf16", "bfloat16", False),
+               ("f32, TAMGCN_FUSE_CONV3=1", None, True))
+
+
+def host_launches(fn, reps: int = 1) -> tuple:
+    """(launches, {runtime call: count}) per call of fn (warmed up, so no
+    capture falls in the trace): the `cuda*` and `cu*` launch calls of
+    LAUNCH_CALLS that torch.profiler records on the host."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 acc_events=True) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    calls = {e.key: e.count / reps for e in prof.key_averages() if e.key in LAUNCH_CALLS}
+    if not calls:
+        raise AssertionError("torch.profiler recorded no launch call on the host")
+    return sum(calls.values()), calls
+
+
+@contextlib.contextmanager
+def deterministic_cudnn():
+    """torch.backends.cudnn.deterministic on, restored after."""
+    import torch
+
+    was = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = was
+
+
+def packed_run(weights: str, batches, device, compute, capture: bool):
+    """TRAJ_STEPS train steps from `weights` on `batches` through the fused
+    step, eager or as CUDA graphs: ([loss tensor of each step], {flat
+    buffer: tensor} of the state after the last: parameters, momentum,
+    BatchNorm statistics)."""
+    import torch
+
+    _, state, step = train_model(weights, device, compute=compute, capture=capture)
+    losses = [step(torch.from_numpy(x).to(device), torch.from_numpy(y).to(device))[0]
+              for x, y in batches]
+    flats = {"parameters": state.params.flats, "momentum":
+             state.optimizer.state["momentum_buffer"], "statistics": state.stats.flats}
+    return losses, {k: torch.cat([f.reshape(-1) for f in v]) for k, v in flats.items()}
+
+
+def differences(a, b) -> dict:
+    """{what: max |a - b|} over the losses of each step and each flat buffer;
+    an empty dict where a and b are equal bit for bit."""
+    out = {f"loss of step {i}": abs(float(u) - float(v))
+           for i, (u, v) in enumerate(zip(a[0], b[0])) if not bool((u == v).all())}
+    out.update({k: float((a[1][k].double() - b[1][k].double()).abs().max())
+                for k in a[1] if not a[1][k].equal(b[1][k])})
+    return out
+
+
+def check_graphed_equals_eager(weights: str, x, device):
+    """The graphed train step against the eager one over TRAJ_STEPS steps at
+    batch 16, f32, bf16 and with TAMGCN_FUSE_CONV3=1: the loss of every step,
+    every parameter, the momentum and the BatchNorm statistics bit for bit
+    with cuDNN's deterministic algorithms; with cuDNN's default algorithm
+    choice two eager runs already differ (its convolution backward sums in no
+    fixed order), so there the f32 distances are printed and the graphed
+    step is held to the check_trajectory limits (phases 5, 7, 10 and 11 run
+    those checks on the graphed step). Then the graphed eval and fast-eval forward
+    at batch 64 against their eager forms, bit for bit (no backward, no
+    nondeterminism). Returns {case: distances}."""
+    import torch
+
+    from tamgcn_tpu_torch.models import get_model
+    from tamgcn_tpu_torch.models.ctrgcn_infer import make_eval_step, make_fast_eval_step
+    from tamgcn_tpu_torch.train.checkpoint import load_weights
+    from tamgcn_tpu_torch.train.graphs import GraphedStep
+
+    batches = train_batches(TRAJ_STEPS, TRAIN_BATCH)
+    out = {}
+    for label, compute, fused in EQUAL_CASES:
+        with fuse_conv3(fused):
+            with deterministic_cudnn():
+                eager = packed_run(weights, batches, device, compute, False)
+                graphed_ = packed_run(weights, batches, device, compute, True)
+            # the default algorithms once, in f32: what names the op
+            default = ([packed_run(weights, batches, device, compute, capture)
+                        for capture in (False, False, True)] if label == "f32" else None)
+        bitwise = differences(graphed_, eager)
+        out[label] = dict(deterministic=bitwise)
+        line = (f"compiled steps, {label} train step, batch {TRAIN_BATCH}, {TRAJ_STEPS} "
+                f"steps: graphed vs eager with deterministic cuDNN: "
+                f"{'equal bit for bit' if not bitwise else bitwise}")
+        if default:
+            out[label].update(eager_vs_eager=differences(default[1], default[0]),
+                              graphed_vs_eager=differences(default[2], default[0]))
+            line += (f"; with cuDNN's default algorithms, eager vs eager "
+                     f"{out[label]['eager_vs_eager'] or 'equal'}, graphed vs eager "
+                     f"{out[label]['graphed_vs_eager'] or 'equal'}")
+        print(line, flush=True)
+        if bitwise:
+            raise AssertionError(f"the graphed {label} train step differs from the eager one "
+                                 f"with deterministic cuDNN: {bitwise}")
+
+    model = get_model("ctrgcn", **nucla_model_args())
+    model.load_state_dict(load_weights(weights))
+    model.to(device).eval()
+    xb = torch.from_numpy(x).to(device)
+    yb = torch.arange(len(x), device=device) % 10
+
+    with torch.inference_mode():
+        for name, fn in (("eval", make_eval_step(model)),
+                         ("fast_eval", make_fast_eval_step(model))):
+            want = fn(xb, yb)
+            got = GraphedStep(fn, name)(xb, yb)
+            if not (got[0].equal(want[0]) and got[1].equal(want[1])):
+                raise AssertionError(
+                    f"the graphed {name} step differs from the eager one: max |d logits| "
+                    f"{float((got[1] - want[1]).abs().max())}")
+            print(f"compiled steps, {name} forward, batch {len(x)}: graphed logits and loss "
+                  "equal to the eager ones bit for bit", flush=True)
+    return out
+
+
+def check_graphs_see_new_weights(weights: str, x, device):
+    """Eval and fast-eval CUDA graphs captured first, then a graphed train
+    step, then the weights file loaded into the model (what --weights and
+    --resume do, in place): after each, the graphs' logits equal an eager
+    evaluation of the weights the model holds, bit for bit, and they moved."""
+    import torch
+
+    from tamgcn_tpu_torch.models.ctrgcn_infer import (make_eval_step, make_fast_eval,
+                                                      make_fast_eval_step)
+    from tamgcn_tpu_torch.train.checkpoint import load_weights
+    from tamgcn_tpu_torch.train.graphs import GraphedStep
+
+    model, state, train = train_model(weights, device)
+    xb = torch.from_numpy(x).to(device)
+    yb = torch.arange(len(x), device=device) % 10
+
+    graphs = {"eval": GraphedStep(make_eval_step(model), "eval"),
+              "fast_eval": GraphedStep(make_fast_eval_step(model), "fast_eval")}
+    eager = {"eval": lambda: model(xb), "fast_eval": lambda: make_fast_eval(model)(xb)}
+
+    def scores(when, before=None):
+        model.eval()
+        out = {}
+        with torch.inference_mode():
+            for name, graph in graphs.items():
+                got, want = graph(xb, yb)[1], eager[name]()
+                if not got.equal(want):
+                    raise AssertionError(f"{when}: the {name} graph's logits differ from an "
+                                         f"eager evaluation by {float((got - want).abs().max())}")
+                if before is not None and got.equal(before[name]):
+                    raise AssertionError(f"{when}: the {name} graph's logits did not move")
+                out[name] = got
+        model.train()
+        return out
+
+    first = scores("at capture")
+    (xt, yt), = train_batches(1, TRAIN_BATCH)
+    train(torch.from_numpy(xt).to(device), torch.from_numpy(yt).to(device))
+    trained = scores("after a graphed train step", first)
+    model.load_state_dict(load_weights(weights))
+    reloaded = scores("after loading the weights file", trained)
+    for name in graphs:
+        if not reloaded[name].equal(first[name]):
+            raise AssertionError(f"the {name} graph on the reloaded weights differs from its "
+                                 "first scores")
+    print("compiled steps: eval and fast-eval graphs captured before a train step and a "
+          "weights load score the weights the model holds after each, bit for bit "
+          f"(CUDA graphs {read_graphs_brief()})", flush=True)
+
+
+def read_graphs_brief() -> str:
+    return ", ".join(f"{name}: {c} captured, {r} replays"
+                     for name, (c, _, r, _) in read_graphs().items())
+
+
+def time_compiled(weights: str, scene_weights: str, x, device) -> dict:
+    """Each step eager and as CUDA graphs, timed in turns eager, graphed,
+    graphed, eager (CUDA events, ms a call): the f32 train step at batch 16
+    and 64, the bf16 train step at 16, the eval and fast-eval forward at 64
+    and the scene256 train step at 8; for each form the device-busy ms and
+    kernels (profile_device, a run of its own under the profiler: where the
+    card is never idle it can read a little above the wall time), the idle
+    share of the wall time and the host launches (host_launches). Returns
+    {path: {form: dict}}."""
+    import torch
+
+    from tamgcn_tpu_torch.models import get_model
+    from tamgcn_tpu_torch.models.ctrgcn_infer import make_eval_step, make_fast_eval_step
+    from tamgcn_tpu_torch.train.checkpoint import load_weights
+    from tamgcn_tpu_torch.train.graphs import GraphedStep
+
+    def train_forms(w, batch, compute=None, model_args=None, feeder=None):
+        (xt, yt), = (feeder or train_batches)(1, batch)
+        xt, yt = torch.from_numpy(xt).to(device), torch.from_numpy(yt).to(device)
+        forms = {}
+        for form, capture in (("eager", False), ("graphed", True)):
+            step = train_model(w, device, compute=compute, capture=capture,
+                               model_args=model_args)[2]
+            forms[form] = (lambda step=step: step(xt, yt))
+        return forms
+
+    def eval_forms():
+        model = get_model("ctrgcn", **nucla_model_args())
+        model.load_state_dict(load_weights(weights))
+        model.to(device).eval()
+        xb = torch.from_numpy(x).to(device)
+        yb = torch.arange(len(x), device=device) % 10
+
+        out = {}
+        for name, fn in (("eval", make_eval_step(model)),
+                         ("fast_eval", make_fast_eval_step(model))):
+            graph = GraphedStep(fn, name)
+            out[name] = {"eager": lambda fn=fn: fn(xb, yb),
+                         "graphed": lambda graph=graph: graph(xb, yb)}
+        return out
+
+    def scene_batches(n, batch):
+        del n
+        g = torch.Generator().manual_seed(SEED)
+        return [(torch.randn(batch, 3, 32, 256, 1, generator=g).numpy(),
+                 (torch.arange(batch) % 10).numpy())]
+
+    evals = eval_forms()
+    paths = {
+        f"f32 train step, batch {TRAIN_BATCH}": (train_forms(weights, TRAIN_BATCH), False),
+        "f32 train step, batch 64": (train_forms(weights, 64), False),
+        f"bf16 train step, batch {TRAIN_BATCH}": (
+            train_forms(weights, TRAIN_BATCH, "bfloat16"), False),
+        f"eval forward, batch {BATCH}": (evals["eval"], True),
+        f"fast-eval forward, batch {BATCH}": (evals["fast_eval"], True),
+        f"scene256 train step, batch {SCENE_BATCH}": (train_forms(
+            scene_weights, SCENE_BATCH, model_args=scene_model_args(),
+            feeder=scene_batches), False),
+    }
+    out = {}
+    for path, (forms, inference) in paths.items():
+        ctx = torch.inference_mode if inference else contextlib.nullcontext
+        with ctx():
+            ms = {form: [] for form in forms}
+            for form in ("eager", "graphed", "graphed", "eager"):
+                ms[form].append(cuda_ms(forms[form], iters=10))
+            out[path] = {}
+            for form, fn in forms.items():
+                busy, n_kernels, events = profile_device(fn, reps=3)
+                launches, calls = host_launches(fn)
+                wall = min(ms[form])
+                out[path][form] = dict(wall_ms=wall, busy_ms=busy,
+                                       idle=1 - busy / wall, kernels=n_kernels,
+                                       host_launches=launches, calls=calls)
+                print(f"compiled steps, {path}, {form}: {wall:.3f} ms a call, device busy "
+                      f"{busy:.3f} ms ({100 * (1 - busy / wall):.1f}% idle), {n_kernels} "
+                      f"kernels on the card, {launches:.0f} host launches {calls}", flush=True)
+    print(f"compiled steps, CUDA graphs: {read_graphs_brief()}", flush=True)
+    return out
+
+
+def run_compiled_steps(work_dir: str, weights: str, x, device) -> dict:
+    """Phase 12: the trainer's steps as CUDA graphs (train/graphs.py): the
+    graphed train step against the eager one (check_graphed_equals_eager),
+    graphs that see new weights (check_graphs_see_new_weights) and the eager
+    and graphed forms timed (time_compiled). The trajectory checks of phases
+    5, 7, 10 and 11, with their planted faults, ran on the graphed step."""
+    out = {"equal": check_graphed_equals_eager(weights, x, device)}
+    phase("12. compiled steps: new weights")
+    check_graphs_see_new_weights(weights, x, device)
+    phase("12. compiled steps: times")
+    out["times"] = time_compiled(weights, os.path.join(work_dir, "scene256_weights.pt"),
+                                 x, device)
+    return out
+
+
 def kernel_summary(rows, per):
     """Sum of each timing over the launches of one forward / step."""
     used = [r for r in rows if r["launches_per_step"]]
@@ -2716,10 +3100,10 @@ def main() -> int:
         test_dir = os.path.join(work_dir, "test")
         seconds, launches = run_test_path(test_dir, weights)
         batches = math.ceil(N_SAMPLES / BATCH)
-        if launches != only(K1=10 * batches):
+        if launches != graphed("--phase test", {"eval": (batches, dict(K1=10))}):
             raise AssertionError(
                 f"the test phase launched {launches}, expected K1 10 x "
-                f"{batches} batches and no backward kernel")
+                f"{batches} batches and warm-up calls and no backward kernel")
         test_launches = launches["K1"]
         rel, x = check_logits(test_dir, weights)
         kernel_ms, plain_ms, busy_ms, n_kernels, events = time_eval(weights, x, device)
@@ -2745,10 +3129,11 @@ def main() -> int:
               "block)", flush=True)
         fast_dir = os.path.join(work_dir, "fast_eval")
         seconds, launches = run_test_path(fast_dir, weights, "--fast_eval", "true")
-        if launches != only(K5=10 * batches):
+        if launches != graphed("--phase test --fast_eval true",
+                               {"fast_eval": (batches, dict(K5=10))}):
             raise AssertionError(
                 f"the fast-eval test phase launched {launches}, expected K5 10 x "
-                f"{batches} batches and no other kernel")
+                f"{batches} batches and warm-up calls and no other kernel")
         fast_launches = launches["K5"]
         fast_rel, _ = check_logits(fast_dir, weights)
         print(f"fast-eval test path: {batches} batches of {BATCH} in {seconds:.2f} s "
@@ -2792,7 +3177,15 @@ def main() -> int:
         # ---- 11. bf16 with TAMGCN_FUSE_CONV3=1 (K6-bf16), CTRGC in bf16 (K4-bf16) ----
         phase("11. bf16 with the switch, CTRGC in bf16")
         bf16_fused = run_bf16_fused(work_dir, weights, device, bf16["trajectory"][3])
+
+        # ---- 12. the compiled steps: the trainer's steps as CUDA graphs ----
+        phase("12. compiled steps")
+        compiled = run_compiled_steps(work_dir, weights, x, device)
         phase("end")
+    print("compiled steps (phase 12): " + json.dumps({
+        path: {form: {k: r[k] for k in ("wall_ms", "busy_ms", "idle", "kernels",
+                                         "host_launches")} for form, r in forms.items()}
+        for path, forms in compiled["times"].items()}), flush=True)
     print(f"train step (forward, backward, SGD), batch {TRAIN_BATCH}: "
           f"{t['kernel_ms_16']:.3f} ms ({TRAIN_BATCH / t['kernel_ms_16'] * 1e3:.1f} "
           f"samples/s) with K1-K3; {t['plain_ms_16']:.3f} ms with the plain unit "

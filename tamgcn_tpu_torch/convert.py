@@ -15,6 +15,11 @@ port's `l1.gcn1.conv3.weight`. Layouts:
     running_mean/running_var buffers.
 
 It raises on a leaf it does not consume and on a port tensor it leaves unset.
+`flax_param_paths(model)` maps the other way for the parameters: each
+port parameter name to its Flax path (`l1.gcn1.conv3.weight` ->
+`l1/gcn1/conv3/kernel`, a BatchNorm's `weight` -> `scale`), so that a
+parameter-path prefix names the same parameters in both packages
+(train/packing.py:freeze_mask_for).
 """
 from __future__ import annotations
 
@@ -49,6 +54,20 @@ def _to_port_layout(value: np.ndarray, target_ndim: int, is_kernel: bool) -> np.
     if value.ndim == 2 and target_ndim == 2:  # Dense (in, out)
         return value.T
     raise ValueError(f"no layout rule for a kernel {value.shape} -> {target_ndim}-D")
+
+
+def flax_param_paths(model: torch.nn.Module) -> dict[str, str]:
+    """{port parameter name: its "/"-joined Flax path in `params`}."""
+    from .ops.norm import BatchNorm
+
+    out = {}
+    for name, _ in model.named_parameters():
+        owner, _, leaf = name.rpartition(".")
+        if leaf == "weight":
+            is_bn = isinstance(model.get_submodule(owner), BatchNorm)
+            leaf = "scale" if is_bn else "kernel"
+        out[name] = "/".join(owner.split(".") + [leaf]) if owner else leaf
+    return out
 
 
 def from_flax(variables: dict, model: torch.nn.Module) -> dict:

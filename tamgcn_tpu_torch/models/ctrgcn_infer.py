@@ -18,7 +18,13 @@ where K5 does not take the shape), ``use_kernel=False`` every block through
 `_block_prefix_pw`, the comparison path.
 
 Weights change between the evaluations of a training run, so a caller folds
-anew (calls `make_fast_eval` again) after every change.
+anew (calls `make_fast_eval` again) after every change, or takes
+`make_fast_eval_step`, which folds inside the step, as the JAX trainer's
+jitted fast-eval step calls `fast_fn(variables, ...)` inside its jit
+(tamgcn_tpu/train/trainer.py:355-366). Folding reads no value back to the
+host and branches on shapes only, so the step can be captured in a CUDA
+graph (train/graphs.py) that scores whatever weights the model holds at
+each replay.
 
 The engine computes in f32 from the model's f32 parameters whatever the
 model's compute dtype. On a bf16 model (`model_args.dtype: bfloat16`) the
@@ -174,6 +180,12 @@ def fold_model(model: CTRGCN) -> dict:
         }
 
 
+def _own_forward(model: CTRGCN, use_kernel: bool | None) -> bool:
+    """Whether the fast eval is the model's own forward: a bf16 model at
+    num_point <= 20 under the default rule (the module docstring says why)."""
+    return use_kernel is None and model.dtype == torch.bfloat16 and model.num_point <= 20
+
+
 def make_fast_eval_fn(model: CTRGCN, use_kernel: bool | None = None):
     """``fn(folded, x) -> logits`` equal to ``model.eval()(x)``, `folded`
     from `fold_model(model)`; x is (N, C, T, V, M) or the NW-UCLA feeder's
@@ -187,7 +199,7 @@ def make_fast_eval_fn(model: CTRGCN, use_kernel: bool | None = None):
         raise TypeError(
             f"make_fast_eval_fn requires a CTRGCN model, got {type(model).__name__}")
     num_point = model.num_point
-    if use_kernel is None and model.dtype == torch.bfloat16 and num_point <= 20:
+    if _own_forward(model, use_kernel):
         return lambda folded, x: model.eval()(x)
 
     def use_k5(fb):
@@ -216,3 +228,33 @@ def make_fast_eval(model: CTRGCN, use_kernel: bool | None = None):
     fn = make_fast_eval_fn(model, use_kernel=use_kernel)
     folded = fold_model(model)
     return lambda x: fn(folded, x)
+
+
+def make_eval_step(model: torch.nn.Module):
+    """``step(*inputs, label) -> (mean cross-entropy, logits)``: the forward
+    of any model of the registry in the mode it is in (the trainer's eval
+    step, and what `make_fast_eval_step` stands in for); no host read, so a
+    CUDA graph can capture it."""
+
+    def step(*args):
+        *inputs, label = args
+        logits = model(*inputs)
+        return F.cross_entropy(logits, label), logits
+
+    return step
+
+
+def make_fast_eval_step(model: CTRGCN):
+    """``step(*inputs, label) -> (mean cross-entropy, logits)``: the fast
+    eval of `inputs` on the weights the model holds when the step runs,
+    folded inside the step (none where the fast eval is the model's own
+    forward); no host read, so a CUDA graph can capture it."""
+    fn = make_fast_eval_fn(model)
+    own = _own_forward(model, None)
+
+    def step(*args):
+        *inputs, label = args
+        logits = fn(None if own else fold_model(model), *inputs)
+        return F.cross_entropy(logits, label), logits
+
+    return step

@@ -10,9 +10,10 @@ from one seed on the same synthetic data with the same hyperparameters,
 once in float32 and once with `--model_args dtype=bfloat16`, and compares
 the per-epoch loss trajectories and the best and final val top-1. Prints
 one JSON line: both runs' train and test losses and top-1 per epoch, best
-and final top-1, their deltas, the kernel launches of each run (on the
-card, the bf16 run goes through the bf16 forms of K1-K3 and the float32 run
-through the float32 ones), and whether |best top-1 (f32) - best top-1
+and final top-1, their deltas, the kernel launches each run made on the
+card (train/graphs.py:launches_run, the trainer's CUDA graphs' replays
+included; the bf16 run goes through the bf16 forms of K1-K3 and the
+float32 run through the float32 ones), and whether |best top-1 (f32) - best top-1
 (bf16)| <= --tol; exits 1 where it is not. Runs on the card unless
 `--device cpu` is given; without CUDA and without that flag it raises.
 """
@@ -26,7 +27,7 @@ import tempfile
 import numpy as np
 import torch
 
-from ..ops.cuda import ctr_gc
+from ..train.graphs import launches_run
 from . import log
 
 SMOKE = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
@@ -52,11 +53,12 @@ def run_one(dtype: str, args, work_root: str) -> dict:
         "--print_log", "false",
         "--model_args", f"base_channel={args.base_channel}", f"dtype={dtype}",
     ]
-    before = {k: getattr(ctr_gc, k) for k in COUNTERS}
+    before = launches_run()
     rc = main(argv)
     if rc:
         raise SystemExit(f"the {dtype} run failed: main returned {rc}")
-    launches = {k: getattr(ctr_gc, k) - before[k] for k in COUNTERS}
+    after = launches_run()
+    launches = {k: after[f"ctr_gc.{k}"] - before[f"ctr_gc.{k}"] for k in COUNTERS}
     # columns: train loss, test loss, top-1, top-5 (train/session.py)
     rows = np.atleast_2d(np.loadtxt(os.path.join(work_dir, "progress_info.csv"),
                                     delimiter=","))

@@ -7,7 +7,12 @@ Counterpart of tamgcn_tpu/train/checkpoint.py (orbax there):
     checkpoints, whose model state it holds;
   * training checkpoints live under `<work_dir>/checkpoints/`: `best.pt`
     holds `{model, step}`, `epoch{n}.pt` holds `{model, optimizer, step}`,
-    a resume point (train/trainer.py:_save_checkpoint, resume);
+    a resume point (train/trainer.py:_save_checkpoint, resume); the
+    optimizer entry has torch.optim's state_dict layout
+    (train/packing.py:PackedTrainState.optimizer_state_dict);
+  * every tensor is written as a CPU copy in its own storage: a training
+    model's tensors are views of the packed state's flat buffers, and
+    `torch.save` of a view would write its whole buffer;
   * `--ignore_weights` filtering and the partial load with a report of
     missing/unexpected tensors follow the reference (torchlight
     io.py:57-90).
@@ -21,7 +26,7 @@ import torch
 
 
 def _cpu_state(model: torch.nn.Module) -> dict:
-    return {k: v.detach().cpu() for k, v in model.state_dict().items()}
+    return {k: v.detach().to("cpu", copy=True) for k, v in model.state_dict().items()}
 
 
 def save_weights(model: torch.nn.Module, path: str) -> None:
@@ -35,7 +40,7 @@ def load_weights(path: str) -> dict:
         raise NotImplementedError(
             f"--weights {path!r}: the port loads the .pt state dicts and "
             "training checkpoints it saves; orbax checkpoints and reference "
-            ".npz exports come with the slice of bf16 and the weight importers"
+            ".npz exports come with the slice of the weight importers"
         )
     state = torch.load(path, map_location="cpu", weights_only=True)
     if isinstance(state, dict) and isinstance(state.get("model"), dict):
@@ -73,10 +78,12 @@ class Checkpoints:
         return os.path.join(self.directory, f"{name}.pt")
 
     def save(self, name: str, model: torch.nn.Module, step: int,
-             optimizer: torch.optim.Optimizer | None = None) -> None:
+             optimizer: dict | None = None) -> None:
+        """`optimizer`: an optimizer state_dict (CPU tensors), for a resume
+        point."""
         tree = {"model": _cpu_state(model), "step": int(step)}
         if optimizer is not None:
-            tree["optimizer"] = optimizer.state_dict()
+            tree["optimizer"] = optimizer
         # write beside the target and rename: a crash never leaves half a file
         tmp = f"{self.path(name)}.tmp"
         torch.save(tree, tmp)

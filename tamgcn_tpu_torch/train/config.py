@@ -181,11 +181,6 @@ def check_supported(arg) -> None:
         value = getattr(arg, name)
         if value != accepted:
             raise NotImplementedError(f"{why} (got --{name} {value!r})")
-    if arg.phase == "train" and arg.freeze_params:
-        raise NotImplementedError(
-            "--freeze_params (the frozen GCN of the fusion model) comes with "
-            f"the cross-modal slice (got --freeze_params {arg.freeze_params!r})"
-        )
 
 
 def resolve_device(arg):

@@ -6,20 +6,26 @@ recognition_rgb.py train/test/start :48-126) on one device, the one that
 --use_gpu/--device name:
 
   * train phase: a shuffled, drop_last train loader keyed on --seed; per
-    step the lr from the schedule (train/optim.py), a train-mode forward
-    (BatchNorm batch stats), mean cross-entropy, backward (on the card
-    through K1-K3) and a plain per-parameter optimizer step, where the JAX
-    package runs one fused flat-parameter step (train/packing.py, a TPU
-    device) with the same math; the val loader built at the first eval;
-    eval every --eval_interval epochs, the best top-1 with its checkpoint
-    and score pickle, epoch checkpoints every --save_interval, the
-    progress csv and --resume;
+    step the lr from the schedule (train/optim.py) and the fused train step
+    of train/packing.py: a train-mode forward (BatchNorm batch stats), mean
+    cross-entropy, backward (on the card through K1-K3) into the flat
+    gradient and the flat-space optimiser, with the --freeze_params mask on
+    its update; the val loader built at the first eval; eval every
+    --eval_interval epochs, the best top-1 with its checkpoint and score
+    pickle, epoch checkpoints every --save_interval, the progress csv and
+    --resume;
   * test phase: inference over the val split with --weights, mean loss,
     top-k and the per-sample score pickle.
 
-With --fast_eval every evaluation scores its batches through
-models/ctrgcn_infer.py:make_fast_eval (every block through K5 on the card),
-folded anew from the current weights at the start of each evaluation.
+`_build_steps` makes the three steps of the JAX trainer (:278-366): the
+train step, the eval step (logits and mean loss,
+models/ctrgcn_infer.py:make_eval_step) and, with --fast_eval, the fast-eval
+step, which folds the current weights inside the step
+(models/ctrgcn_infer.py:make_fast_eval_step, every block through K5 on the
+card where K5 takes it). On the card each runs as CUDA graphs, one per
+input shape (train/graphs.py), where the JAX trainer jits; on the CPU the
+same step functions run eagerly (train/packing.py:make_fused_train_step and
+make_eval_step are the eager steps, for a comparison on the card).
 
 The flags of features the port lacks raise (train/config.py:check_supported).
 """
@@ -30,16 +36,17 @@ import time
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 from ..data import Loader, feeder_accepts_seed, get_feeder
 from ..data.loader import prefetch
 from ..data.transforms import top_k
 from ..models import get_model
-from ..models.ctrgcn_infer import make_fast_eval
+from ..models.ctrgcn_infer import make_eval_step, make_fast_eval_step
 from .checkpoint import Checkpoints, filter_ignore, load_weights, partial_update
 from .config import check_supported, resolve_device
-from .optim import make_lr_schedule, make_optimizer, set_lr
+from .graphs import GraphedStep
+from .optim import make_lr_schedule
+from .packing import PackedTrainState, make_fused_train_step
 from .session import Session
 
 
@@ -50,6 +57,12 @@ class RecognitionTrainer:
         check_supported(arg)
         self.arg = arg
         self.device = resolve_device(arg)
+        # the steps as CUDA graphs on the card (train/graphs.py), eager on the CPU
+        self.capture = self.device.type == "cuda"
+        if self.capture:
+            torch.cuda.set_device(self.device)  # where the graphs replay
+        self.state = None  # PackedTrainState, built with the steps
+        self.steps = None
         self.session = Session(arg.work_dir, arg.save_log, arg.print_log)
         self.session.save_arg(arg)
         self.print_log = self.session.print_log
@@ -136,11 +149,42 @@ class RecognitionTrainer:
             arg.base_lr, arg.step, arg.lr_decay_rate, self.steps_per_epoch,
             arg.warm_up_epoch,
         )
-        self.optimizer = make_optimizer(
-            arg.optimizer, self.model.parameters(), arg.base_lr,
-            nesterov=arg.nesterov, weight_decay=arg.weight_decay,
-        )
         self.step = 0  # optimizer steps taken; the schedule's counter
+
+    # -- the steps ---------------------------------------------------------------
+
+    def _build_steps(self):
+        """The train step (train phase), the eval step and, with --fast_eval,
+        the fast-eval step in its place; as CUDA graphs on the card.
+        Built at first use, on the model as it is then (where it trains and
+        in the dtype it trains in)."""
+        arg, model = self.arg, self.model
+
+        def graphed(fn, name, preserve=()):
+            return GraphedStep(fn, name, preserve) if self.capture else fn
+
+        steps = {}
+        if arg.phase == "train":
+            # frozen parameters get a zero update (and so no weight decay):
+            # the functional requires_grad=False of the JAX trainer (:266)
+            self.state = PackedTrainState(
+                model, arg.optimizer, nesterov=arg.nesterov,
+                weight_decay=arg.weight_decay,
+                freeze_prefixes=tuple(arg.freeze_params or ()))
+            steps["train"] = graphed(make_fused_train_step(self.state), "train",
+                                     self.state.tensors())
+
+        if arg.fast_eval:
+            steps["eval"] = graphed(make_fast_eval_step(model), "fast_eval")
+        else:
+            steps["eval"] = graphed(make_eval_step(model), "eval")
+        self.steps = steps
+
+    def _ensure_steps(self):
+        if self.steps is None:
+            self._build_steps()
+        elif self.state is not None:
+            self.state.check()
 
     # -- epoch loops -------------------------------------------------------------
 
@@ -155,6 +199,8 @@ class RecognitionTrainer:
         arg = self.arg
         loader = self.loaders["train"]
         loader.set_epoch(epoch)
+        self._ensure_steps()
+        train_step = self.steps["train"]
         self.model.train()
         losses, hits = [], []
         self.session.init_timer("dataloader", "device", "statistics")
@@ -163,17 +209,13 @@ class RecognitionTrainer:
         for it, (inputs, label, label_np) in enumerate(prefetch(iter(loader), self._put)):
             self.session.check_time("dataloader")
             lr = self.schedule(self.step)
-            set_lr(self.optimizer, lr)
-            logits = self.model(*inputs)
-            loss = F.cross_entropy(logits, label)
-            self.optimizer.zero_grad(set_to_none=True)
-            loss.backward()
-            self.optimizer.step()
+            self.state.set_lr(lr)
+            loss, hit = train_step(*inputs, label)
             self.step += 1
             self.session.check_time("device")
             # keep the statistics on the device; one copy at the epoch's end
-            losses.append(loss.detach())
-            hits.append((logits.detach().argmax(-1) == label).sum())
+            losses.append(loss)
+            hits.append(hit)
             nseen += len(label_np)
             if it % arg.log_interval == 0:
                 self.print_log(
@@ -193,19 +235,18 @@ class RecognitionTrainer:
 
     def test_epoch(self):
         self._ensure_test_loader()
+        self._ensure_steps()
+        eval_step = self.steps["eval"]
         loader = self.loaders["test"]
         self.model.eval()
         losses, scores, labels = [], [], []
         n_batches = n_samples = 0
         t0 = time.perf_counter()
         with torch.inference_mode():
-            # folded here, not once at construction: training changes the
-            # weights between evaluations
-            forward = make_fast_eval(self.model) if self.arg.fast_eval else self.model
             for inputs, label, label_np in prefetch(iter(loader), self._put):
-                logits = forward(*inputs)
+                loss, logits = eval_step(*inputs, label)
                 # keep results on the device; one bulk copy below
-                losses.append(F.cross_entropy(logits, label))
+                losses.append(loss)
                 scores.append(logits)
                 labels.append(label_np)
                 n_batches += 1
@@ -239,6 +280,7 @@ class RecognitionTrainer:
     def _train_phase(self):
         arg = self.arg
         start_epoch = arg.start_epoch
+        self._ensure_steps()
         if arg.resume:
             start_epoch = max(start_epoch, self.resume())
         for epoch in range(start_epoch, arg.num_epoch):
@@ -290,19 +332,22 @@ class RecognitionTrainer:
     def _save_checkpoint(self, name: str):
         """best: {model, step}; epoch{n}, a resume point: {model, optimizer,
         step}."""
-        optimizer = self.optimizer if name.startswith("epoch") else None
+        optimizer = (self.state.optimizer_state_dict() if name.startswith("epoch")
+                     else None)
         self.checkpoints.save(name, self.model, self.step, optimizer)
         self.print_log(f"checkpoint saved: {name}")
 
     def resume(self) -> int:
-        """Restore the latest epoch checkpoint if present; returns the epoch
-        to continue from."""
+        """Restore the latest epoch checkpoint if present, in place into the
+        packed state (the captured graphs keep their addresses); returns the
+        epoch to continue from."""
         latest = self.checkpoints.latest_epoch()
         if latest is None:
             return self.arg.start_epoch
         tree = self.checkpoints.load(f"epoch{latest}")
+        self._ensure_steps()
         self.model.load_state_dict(tree["model"])
-        self.optimizer.load_state_dict(tree["optimizer"])
+        self.state.load_optimizer_state_dict(tree["optimizer"])
         self.step = int(tree["step"])
         self.print_log(f"resumed from epoch{latest}")
         return latest

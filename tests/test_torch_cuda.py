@@ -29,6 +29,11 @@ two launches of each bitwise equal, each launch on its own counter; and the
 standalone CTRGC in bf16 on the card against its plain route. The designs'
 variant queries are held to the launches the C launchers count per design
 where they launch a kernel (a witness that cannot miss a launch).
+The trainer's steps as CUDA graphs (train/graphs.py): the graphed fused
+train step equals the eager one bit for bit (deterministic cuDNN), a second
+input shape captures a second graph, weights written after a capture are
+the ones the next replay uses, and a host read inside a step makes the
+capture raise.
 This file imports no JAX, so it runs where the port runs.
 """
 import pytest
@@ -1148,3 +1153,121 @@ def test_stage2_kernel_rejects_what_it_does_not_take(device):
     with pytest.raises(ValueError, match="V <= 32"):
         t2.stage2_aggregate_fwd(big, torch.randn((1, 1, 40, 8), device=device), "tile")
     assert t2.launches == before
+
+
+# -- the trainer's steps as CUDA graphs (train/graphs.py) ------------------------
+
+
+def _packed_model(device, seed=4):
+    from tamgcn_tpu_torch.train.packing import PackedTrainState
+
+    model = create_ctrgcn_nucla(base_channel=16, generator=torch.Generator().manual_seed(seed))
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if name.endswith("gcn1.alpha"):
+                p.fill_(0.5)  # alpha = 0 would hide the aggregation's gradients
+    model.to(device).train()
+    state = PackedTrainState(model, "SGD")
+    state.set_lr(0.05)
+    return model, state
+
+
+def _graph_batch(device, n=4, t=16, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    return (torch.randn(n, 3, t, 20, 1, generator=g).to(device),
+            torch.randint(0, 10, (n,), generator=g).to(device))
+
+
+def test_graphed_train_step_equals_eager_bitwise(device, monkeypatch):
+    """Three fused train steps, eager and as a CUDA graph, from the same
+    weights on the same batches: losses and every flat buffer (parameters,
+    gradients, momentum, BatchNorm statistics) equal bit for bit, with
+    cuDNN's deterministic algorithms (with its default ones two eager runs
+    differ already)."""
+    from tamgcn_tpu_torch.train.graphs import GraphedStep
+    from tamgcn_tpu_torch.train.packing import make_fused_train_step
+
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    batches = [_graph_batch(device, seed=s) for s in range(3)]
+    runs = []
+    for capture in (False, True):
+        model, state = _packed_model(device)
+        step = make_fused_train_step(state)
+        if capture:
+            step = GraphedStep(step, "train", state.tensors())
+        losses = [step(x, y)[0] for x, y in batches]
+        runs.append((losses, [t.clone() for t in state.tensors()]))
+    (eager_l, eager_t), (graph_l, graph_t) = runs
+    assert all(a.equal(b) for a, b in zip(eager_l, graph_l)), (eager_l, graph_l)
+    assert all(a.equal(b) for a, b in zip(eager_t, graph_t))
+
+
+def test_second_input_shape_captures_second_graph(device):
+    from tamgcn_tpu_torch.models.ctrgcn_infer import make_eval_step
+    from tamgcn_tpu_torch.train import graphs
+
+    model, _ = _packed_model(device)
+    model.eval()
+    step = graphs.GraphedStep(make_eval_step(model), "eval_shapes")
+    with torch.inference_mode():
+        for n in (8, 4, 8, 4):
+            x, y = _graph_batch(device, n=n, seed=n)
+            loss, logits = step(x, y)
+            assert logits.shape == (n, 10) and logits.equal(model(x))
+    assert len(step.graphs) == 2
+    s = graphs.stats["eval_shapes"]
+    assert (s.captures, s.replays, s.warmups) == (2, 4, 2 * graphs.WARMUP)
+
+
+def test_weights_loaded_after_capture_are_used(device):
+    """A graph reads the parameters where they live: load_state_dict (what
+    --weights and --resume do) and the optimiser write in place, and the
+    next replay computes with what they wrote."""
+    from tamgcn_tpu_torch.models.ctrgcn_infer import make_fast_eval, make_fast_eval_step
+    from tamgcn_tpu_torch.train.graphs import GraphedStep
+    from tamgcn_tpu_torch.train.packing import make_fused_train_step
+
+    model, state = _packed_model(device)
+    x, y = _graph_batch(device)
+    fast = GraphedStep(make_fast_eval_step(model), "fast_eval_weights")
+    train = GraphedStep(make_fused_train_step(state), "train_weights", state.tensors())
+    other = {k: v + 0.01 * torch.randn_like(v) if v.is_floating_point() else v
+             for k, v in model.state_dict().items()}
+    model.eval()
+    with torch.inference_mode():
+        first = fast(x, y)[1]
+    model.train()
+    train(x, y)
+    model.eval()
+    with torch.inference_mode():
+        trained = fast(x, y)[1]
+        assert trained.equal(make_fast_eval(model)(x)) and not trained.equal(first)
+    pointers = [t.data_ptr() for t in state.tensors()]
+    model.load_state_dict(other)
+    assert [t.data_ptr() for t in state.tensors()] == pointers
+    with torch.inference_mode():
+        loaded = fast(x, y)[1]
+        assert loaded.equal(make_fast_eval(model)(x)) and not loaded.equal(trained)
+
+
+def test_host_read_in_a_step_raises_at_capture(device):
+    """No eager fallback: a step that reads a value back to the host cannot
+    be captured, and the capture raises; a good step captures after it."""
+    from tamgcn_tpu_torch.train.graphs import GraphedStep
+
+    model, _ = _packed_model(device)
+    model.eval()
+    x, y = _graph_batch(device)
+
+    def reads_back(x, y):
+        logits = model(x)
+        if logits.sum().item() > 0:  # a host read
+            return (logits,)
+        return (-logits,)
+
+    with torch.inference_mode():
+        with pytest.raises(RuntimeError):
+            GraphedStep(reads_back, "host_read")(x, y)
+        torch.cuda.synchronize()
+        good = GraphedStep(lambda x, y: (model(x),), "after_host_read")
+        assert good(x, y)[0].equal(model(x))
