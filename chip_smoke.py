@@ -181,6 +181,28 @@ Phases, each of which fails the run (non-zero exit, no result line):
      16, the eval and fast-eval forward at 64, the scene256 train step at
      8): wall ms, device-busy ms, idle share, host launches (the launch
      calls torch.profiler records on the host; a replay is one).
+ 13. the rest of the NW-UCLA skeleton path: writes synthetic NW-UCLA clips
+     in the dataset's layout (<name>/<name>.json, "skeletons" T x 20 x 3)
+     for every name of both split lists, T drawn per clip from a seeded
+     generator; times the assembly of each batch of one epoch of
+     configs/nucla/gcn.yaml's train feeder at batch 16 by both backends
+     (numpy on the loader's thread pool, the native C++ core by name), which
+     must agree bit for bit, beside phase 12's graphed f32 train step; runs
+     gcn.yaml's train phase (one epoch, repeat 5 as shipped, full width)
+     through `__main__.main` with backend="native" for both feeders (K1-K3
+     10 per step and warm-up call, K1 10 per eval batch) and times the train
+     loop (loader, prefetch, graphed step) with each backend, wall and
+     device busy; runs configs/nucla/stgcn.yaml through `__main__.main` for
+     one graphed epoch (repeat cut to 1) and --phase test on the best.pt it
+     wrote (no port kernel launched; the card's logits against a CPU f64 run
+     within 1e-4 * max), times the ST-GCN step eager and graphed, and runs
+     tamgcn_tpu_torch.tools.train_stgcn_importance for one epoch (its
+     label_weights.json normalised to max 1 per class); runs --phase test on
+     phase 4's weights as a .pt, a reference-named .npz and a Flax-layout
+     .npz (equal scores bit for bit); a short train run with --profile_dir
+     (the trace holds K1-K3 and the graph launches); and --debug_nans, which
+     must stop at a NaN planted in l5.tcn1.pw_conv's weight naming that
+     module, with the step timed with the check on and off.
 A kernel launched inside a CUDA-graph capture counts once on its wrapper's
 counter and runs at every replay: every launch check counts the launches
 that ran on the card, the wrappers' counts less what the captures counted
@@ -1185,14 +1207,16 @@ def train_batches(n: int, batch: int):
 
 
 def train_model(weights: str, device, dtype=None, compute=None, capture=None,
-                model_args=None):
+                model_args=None, model_name="ctrgcn", check_finite=False):
     """The NW-UCLA model on `weights`, its parameters in `dtype` (float32
     by default) and its compute dtype `compute` (model_args.dtype), with the
     train phase's packed state (train/packing.py: SGD, Nesterov, lr 0.05,
     weight decay 1e-4): (model, state, step), `step(x, y) -> (loss, hits)`
     the fused train step, on the card as CUDA graphs (train/graphs.py, the
     trainer's form) unless `capture` is False (the eager step). `model_args`
-    other than NW-UCLA's make another model (scene256's)."""
+    other than NW-UCLA's make another model (scene256's); `model_name` another
+    family (ST-GCN: "stgcn"); `check_finite` adds --debug_nans' check (the
+    step returns (loss, hits, finite))."""
     import torch
 
     from tamgcn_tpu_torch.models import get_model
@@ -1200,12 +1224,12 @@ def train_model(weights: str, device, dtype=None, compute=None, capture=None,
     from tamgcn_tpu_torch.train.graphs import GraphedStep
     from tamgcn_tpu_torch.train.packing import PackedTrainState, make_fused_train_step
 
-    model = get_model("ctrgcn", **(model_args or nucla_model_args()), dtype=compute)
+    model = get_model(model_name, **(model_args or nucla_model_args()), dtype=compute)
     model.load_state_dict(load_weights(weights))
     model.to(device, dtype or torch.float32).train()
     state = PackedTrainState(model, "SGD", weight_decay=1e-4)
     state.set_lr(0.05)
-    step = make_fused_train_step(state)
+    step = make_fused_train_step(state, check_finite=check_finite)
     if capture is None:
         capture = torch.device(device).type == "cuda"
     if capture:
@@ -3039,6 +3063,424 @@ def run_compiled_steps(work_dir: str, weights: str, x, device) -> dict:
     return out
 
 
+# ---- phase 13: the rest of the NW-UCLA skeleton path ---------------------------
+
+GCN_YAML = os.path.join(REPO, "configs", "nucla", "gcn.yaml")
+STGCN_YAML = os.path.join(REPO, "configs", "nucla", "stgcn.yaml")
+CLIP_FRAMES = (10, 80)  # each synthetic clip's length T, drawn uniformly
+STGCN_MODEL_ARGS = dict(in_channels=3, num_class=10, num_point=20, num_person=1,
+                        graph="ucla", graph_args={"labeling_mode": "spatial"},
+                        edge_importance_weighting=True)
+LOOP_STEPS = 40  # timed steps of the train loop with its loader
+NAN_MODULE = "l5.tcn1.pw_conv"  # where --debug_nans' planted NaN sits
+
+
+def write_nucla_clips(root: str) -> int:
+    """Synthetic NW-UCLA clips in the dataset's own layout,
+    `<root>/<name>/<name>.json` holding "skeletons" (T, 20, 3), for every
+    name of both split lists, T drawn per clip from a seeded generator over
+    CLIP_FRAMES (the real skeletons are not in the repository). Returns the
+    number of clips."""
+    import numpy as np
+
+    from tamgcn_tpu_torch.data.splits import load_nucla_split
+
+    rng = np.random.default_rng(SEED)
+    n = 0
+    for split in ("train", "val"):
+        for info in load_nucla_split(split):
+            name = info["file_name"]
+            os.makedirs(os.path.join(root, name), exist_ok=True)
+            frames = int(rng.integers(CLIP_FRAMES[0], CLIP_FRAMES[1] + 1))
+            skeleton = rng.normal(size=(frames, 20, 3)).round(4)
+            with open(os.path.join(root, name, f"{name}.json"), "w") as f:
+                json.dump({"skeletons": skeleton.tolist()}, f)
+            n += 1
+    return n
+
+
+def gcn_train_loaders(clips: str, backends=("numpy", "native")) -> dict:
+    """{backend: Loader} of configs/nucla/gcn.yaml's train split (its feeder
+    args, repeat 5) on `clips`, as the trainer builds it (batch 16,
+    shuffled, drop_last, the config's num_worker threads for the numpy
+    path); each feeder asks for its backend by name."""
+    from tamgcn_tpu_torch.data import Loader, NUCLAFeederGCN
+    from tamgcn_tpu_torch.train.config import load_config
+
+    arg = load_config(["-c", GCN_YAML])
+    out = {}
+    for backend in backends:
+        feeder = NUCLAFeederGCN(**dict(arg.train_feeder_args, data_path=clips),
+                                seed=SEED, backend=backend)
+        if feeder.backend != backend:
+            raise AssertionError(f"asked for backend {backend}, got {feeder.backend}")
+        out[backend] = Loader(feeder, batch_size=arg.batch_size, shuffle=True,
+                              drop_last=True, seed=SEED, num_workers=arg.num_worker)
+    return out
+
+
+def time_batch_assembly(clips: str) -> dict:
+    """One epoch of gcn.yaml's train feeder at batch 16, each batch assembled
+    by both backends in turns (numpy: `__getitem__` on the loader's thread
+    pool; native: `get_batch`), host clock; the batches must be equal bit
+    for bit. Returns {backend: (median ms, mean ms)} and the batch count."""
+    import numpy as np
+
+    loaders = gcn_train_loaders(clips)
+    iters = {b: iter(loader) for b, loader in loaders.items()}
+    ms = {b: [] for b in iters}
+    n = len(loaders["native"])
+    for _ in range(n):
+        batch = {}
+        for backend, it in iters.items():
+            t0 = time.perf_counter()
+            batch[backend] = next(it)
+            ms[backend].append(1e3 * (time.perf_counter() - t0))
+        for a, b in zip(batch["native"], batch["numpy"]):
+            if a.dtype != b.dtype or a.shape != b.shape or not np.array_equal(a, b):
+                raise AssertionError("the native batch differs from the numpy batch")
+    return {b: (float(np.median(v)), float(np.mean(v))) for b, v in ms.items()}, n
+
+
+def time_train_loop(weights: str, clips: str, device, backend: str) -> dict:
+    """The trainer's train loop on gcn.yaml's train feeder: the loader with
+    `backend`, the producer thread's host-to-device copy (loader.prefetch)
+    and the graphed f32 train step at batch 16 on `weights`: wall ms a step
+    over LOOP_STEPS steps after the capture (host clock, synchronised at
+    both ends), device-busy ms a step (profile_device over 10 steps of the
+    loop) and the idle share."""
+    import numpy as np
+    import torch
+
+    from tamgcn_tpu_torch.data.loader import prefetch
+
+    loader = gcn_train_loaders(clips, (backend,))[backend]
+    _, _, step = train_model(weights, device)
+
+    def put(batch):
+        return (torch.from_numpy(batch[0]).to(device),
+                torch.from_numpy(batch[1].astype(np.int64)).to(device))
+
+    batches = prefetch(iter(loader), put)
+    step(*next(batches))  # the capture
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(LOOP_STEPS):
+        step(*next(batches))
+    torch.cuda.synchronize()
+    wall = 1e3 * (time.perf_counter() - t0) / LOOP_STEPS
+    busy, n_kernels, _ = profile_device(lambda: step(*next(batches)), reps=10)
+    return dict(wall_ms=wall, busy_ms=busy, idle=1 - busy / wall, kernels=n_kernels)
+
+
+def epoch_samples_per_second(work_dir: str) -> float:
+    """The samples/s of the last train epoch in the run's log."""
+    import re
+
+    with open(os.path.join(work_dir, "log.txt")) as f:
+        rates = re.findall(r"Training loss: .* \| ([0-9.]+) samples/s", f.read())
+    return float(rates[-1])
+
+
+def run_gcn_native(work_dir: str, clips: str) -> dict:
+    """configs/nucla/gcn.yaml's train phase through `__main__.main` on the
+    clips at full width, one epoch (repeat 5 as shipped), backend="native"
+    by name for both feeders; the launches of its graphed steps."""
+    from tamgcn_tpu_torch.data.splits import load_nucla_split
+
+    steps = len(load_nucla_split("train")) * 5 // TRAIN_BATCH
+    evals = math.ceil(len(load_nucla_split("val")) / BATCH)
+    seconds, launches = run_cli([
+        "recognition", "-c", GCN_YAML, "--phase", "train", "--num_epoch", "1",
+        "--work_dir", work_dir, "--use_gpu", "true", "--device", "0", "--seed", str(SEED),
+        "--train_feeder_args", f"data_path={clips}", "backend=native",
+        "--test_feeder_args", f"data_path={clips}", "backend=native"])
+    want = graphed("gcn.yaml --phase train, native", {
+        "train": (steps, dict(K1=10, K2=10, K3=10)), "eval": (evals, dict(K1=10))})
+    if launches != want:
+        raise AssertionError(f"gcn.yaml train phase: launches {launches}, expected {want}")
+    with open(os.path.join(work_dir, "log.txt")) as f:
+        log = f.read()
+    for split in ("train", "test"):
+        if f"{split} feeder: NUCLAFeederGCN, backend native" not in log:
+            raise AssertionError(f"the {split} feeder did not take the native backend")
+    check_train_files(work_dir, 1, 1, "gcn.yaml native")
+    step_ms = 1e3 * TRAIN_BATCH / epoch_samples_per_second(work_dir)
+    return dict(seconds=seconds, steps=steps, step_ms=step_ms, launches=launches)
+
+
+def stgcn_logits_against_cpu(work_dir: str, weights: str, clips: str) -> float:
+    """The card's test-phase scores of the first BATCH val samples against
+    the same weights in f64 on the CPU (the val feeder's numpy path);
+    returns max |card - cpu| / max |cpu|."""
+    import numpy as np
+    import torch
+
+    from tamgcn_tpu_torch.data import NUCLAFeederGCN
+    from tamgcn_tpu_torch.models import get_model
+    from tamgcn_tpu_torch.train.checkpoint import load_weights
+
+    with open(os.path.join(work_dir, "test_result.pkl"), "rb") as f:
+        scores = pickle.load(f)
+    feeder = NUCLAFeederGCN(clips, split="val", backend="numpy")
+    gpu = np.stack([scores[feeder.sample_name[i]] for i in range(BATCH)])
+    x = np.stack([feeder[i][0] for i in range(BATCH)]).astype(np.float64)
+    model = get_model("stgcn", **STGCN_MODEL_ARGS).double()
+    model.load_state_dict(load_weights(weights))
+    with torch.no_grad():
+        cpu = model.eval()(torch.from_numpy(x)).numpy()
+    if gpu.shape != (BATCH, 10) or not np.isfinite(gpu).all():
+        raise AssertionError(f"bad ST-GCN logits: shape {gpu.shape}")
+    rel = float(np.abs(gpu - cpu).max() / np.abs(cpu).max())
+    if rel > LOGIT_RTOL:
+        raise AssertionError(f"ST-GCN card logits differ from the CPU f64 run: {rel:.3e}")
+    return rel
+
+
+def time_stgcn_step(weights: str, clips: str, device) -> dict:
+    """The ST-GCN train step at batch 16 on a batch of the clips, eager and
+    graphed, timed in turns eager, graphed, graphed, eager (CUDA events),
+    with device-busy ms (profile_device)."""
+    import numpy as np
+    import torch
+
+    from tamgcn_tpu_torch.data import NUCLAFeederGCN
+
+    feeder = NUCLAFeederGCN(clips, split="train", backend="native", seed=SEED)
+    x, y, _ = feeder.get_batch(np.arange(TRAIN_BATCH))
+    x, y = torch.from_numpy(x).to(device), torch.from_numpy(y).to(device)
+    steps = {form: train_model(weights, device, capture=capture, model_name="stgcn",
+                               model_args=STGCN_MODEL_ARGS)[2]
+             for form, capture in (("eager", False), ("graphed", True))}
+    ms = {form: [] for form in steps}
+    for form in ("eager", "graphed", "graphed", "eager"):
+        ms[form].append(cuda_ms(lambda: steps[form](x, y), iters=10))
+    out = {}
+    for form, step in steps.items():
+        busy, n_kernels, _ = profile_device(lambda: step(x, y), reps=3)
+        wall = min(ms[form])
+        out[form] = dict(wall_ms=wall, busy_ms=busy, idle=1 - busy / wall, kernels=n_kernels)
+    return out
+
+
+def run_stgcn(work_dir: str, clips: str, device) -> dict:
+    """configs/nucla/stgcn.yaml through `__main__.main` on the clips: one
+    train epoch (repeat cut to 1) graphed, then --phase test on the best.pt
+    it wrote, its logits against a CPU f64 run; the step timed eager and
+    graphed; the importance tool for one epoch."""
+    from tamgcn_tpu_torch.data.splits import load_nucla_split
+    from tamgcn_tpu_torch.tools import train_stgcn_importance
+
+    steps = len(load_nucla_split("train")) // TRAIN_BATCH
+    evals = math.ceil(len(load_nucla_split("val")) / BATCH)
+    train_dir = os.path.join(work_dir, "stgcn_train")
+    base = ["--use_gpu", "true", "--device", "0", "--seed", str(SEED),
+            "--test_feeder_args", f"data_path={clips}", "backend=native"]
+    seconds, launches = run_cli([
+        "recognition", "-c", STGCN_YAML, "--phase", "train", "--num_epoch", "1",
+        "--work_dir", train_dir, "--train_feeder_args", f"data_path={clips}", "repeat=1",
+        "backend=native", *base])
+    graphs_seen = read_graphs()
+    if launches != only() or set(graphs_seen) != {"train", "eval"}:
+        raise AssertionError(f"ST-GCN train phase: launches {launches}, graphs {graphs_seen}")
+    (captures, _, replays, _), (_, _, e_replays, _) = (graphs_seen["train"],
+                                                       graphs_seen["eval"])
+    if replays != steps or captures != 1 or e_replays != evals:
+        raise AssertionError(f"ST-GCN train phase not graphed as expected: {graphs_seen}")
+    check_train_files(train_dir, 1, 1, "stgcn.yaml")
+    best = os.path.join(train_dir, "checkpoints", "best.pt")
+    test_dir = os.path.join(work_dir, "stgcn_test")
+    test_seconds, launches = run_cli([
+        "recognition", "-c", STGCN_YAML, "--phase", "test", "--weights", best,
+        "--work_dir", test_dir, "--save_result", "true", *base])
+    if launches != only() or read_graphs()["eval"][2] != evals:
+        raise AssertionError(f"ST-GCN test phase: launches {launches}, graphs {read_graphs()}")
+    rel = stgcn_logits_against_cpu(test_dir, best, clips)
+    times = time_stgcn_step(best, clips, device)
+
+    tool_dir = os.path.join(work_dir, "stgcn_importance")
+    reset_launches()
+    t0 = time.perf_counter()
+    rc = train_stgcn_importance.main([
+        "--data_path", clips, "--num_epoch", "1", "--samples_per_class", "8",
+        "--train_feeder_args", "repeat=1", "--work_dir", tool_dir, "--use_gpu", "true",
+        "--device", "0", "--seed", str(SEED)])
+    tool_seconds = time.perf_counter() - t0
+    if rc != 0 or read_launches() != only():
+        raise AssertionError(f"the importance tool: rc {rc}, launches {read_launches()}")
+    with open(os.path.join(tool_dir, "label_weights.json")) as f:
+        weights = json.load(f)
+    if sorted(weights, key=int) != [str(g) for g in range(10)]:
+        raise AssertionError(f"label_weights.json classes {sorted(weights)}")
+    for g, parts in weights.items():
+        if max(parts.values()) != 1.0 or min(parts.values()) < 0:
+            raise AssertionError(f"class {g} not normalised to max 1: {parts}")
+    return dict(seconds=seconds, steps=steps, graphs=graphs_seen, test_seconds=test_seconds,
+                rel=rel, times=times, tool_seconds=tool_seconds)
+
+
+def check_weight_forms(work_dir: str, weights: str) -> dict:
+    """One CTR-GCN's weights (phase 4's) as the port's .pt, as a
+    reference-named .npz (tests/_weight_forms.py: the importer's inverse) and
+    as a Flax-layout .npz; --phase test on each (phase 4's run) must give
+    the same scores bit for bit, through K1 as always."""
+    import numpy as np
+
+    sys.path.insert(0, os.path.join(REPO, "tests"))
+    from _weight_forms import to_flax_arrays, to_reference_state
+
+    from tamgcn_tpu_torch.models import get_model
+    from tamgcn_tpu_torch.train.checkpoint import load_weights
+
+    model = get_model("ctrgcn", **nucla_model_args())
+    state = load_weights(weights)
+    paths = {"pt": weights, "reference npz": os.path.join(work_dir, "reference.npz"),
+             "flax npz": os.path.join(work_dir, "flax.npz")}
+    np.savez(paths["reference npz"], **to_reference_state(state, "ctrgcn"))
+    np.savez(paths["flax npz"], **to_flax_arrays(state, model))
+    batches = math.ceil(N_SAMPLES / BATCH)
+    scores, seconds = {}, {}
+    for form, path in paths.items():
+        out = os.path.join(work_dir, "forms", form.replace(" ", "_"))
+        seconds[form], launches = run_test_path(out, path)
+        if launches != graphed(f"--phase test --weights ({form})",
+                               {"eval": (batches, dict(K1=10))}):
+            raise AssertionError(f"--weights ({form}): launches {launches}")
+        with open(os.path.join(out, "log.txt")) as f:
+            if f"({form})" not in f.read():
+                raise AssertionError(f"the log does not name the form {form}")
+        with open(os.path.join(out, "test_result.pkl"), "rb") as f:
+            scores[form] = pickle.load(f)
+    for form in paths:
+        if list(scores[form]) != list(scores["pt"]) or not all(
+                np.array_equal(scores[form][k], scores["pt"][k]) for k in scores["pt"]):
+            raise AssertionError(f"--weights ({form}) scores differ from the .pt's")
+    return seconds
+
+
+def check_profile_dir(work_dir: str) -> dict:
+    """--profile_dir on a short train run (configs/nucla/smoke.yaml, one
+    epoch): the Chrome trace exists and holds the steps' device activity.
+    Returns what it records: kernel events (K1-K3 by name, beside the
+    launches that ran), graph launches, runtime events and the keys of a
+    kernel event's args."""
+    import glob
+
+    prof = os.path.join(work_dir, "profile")
+    seconds, launches = run_cli(train_argv(os.path.join(work_dir, "profiled")) + [
+        "--num_epoch", "1", "--profile_dir", prof])
+    traces = glob.glob(os.path.join(prof, "*.pt.trace.json"))
+    if len(traces) != 1:
+        raise AssertionError(f"--profile_dir wrote {traces}")
+    with open(traces[0]) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    traced = {k: sum(is_kernel(k, e.get("name", "")) for e in kernels)
+              for k in ("K1", "K2", "K3")}
+    graph_launches = sum("GraphLaunch" in e.get("name", "") for e in events
+                         if e.get("cat") in ("cuda_runtime", "cuda_driver"))
+    steps = TRAIN_SAMPLES // TRAIN_BATCH
+    if min(traced.values()) == 0 or graph_launches < steps:
+        raise AssertionError(f"the trace holds no device activity of the steps: kernels "
+                             f"{traced}, graph launches {graph_launches}")
+    return dict(seconds=seconds, size_mb=os.path.getsize(traces[0]) / 2 ** 20,
+                kernels=len(kernels), traced=traced,
+                launched={k: launches[k] for k in traced}, graph_launches=graph_launches,
+                kernel_args=sorted(kernels[0].get("args", {})))
+
+
+def check_debug_nans(work_dir: str, weights: str, device) -> dict:
+    """--debug_nans: a NaN planted in one weight of l5 stops the train phase
+    with FloatingPointError naming that module; on clean weights the graphed
+    train step at batch 16 timed with the check (its flag read on the host
+    after every step, as the trainer does) and without, in turns."""
+    import torch
+
+    from tamgcn_tpu_torch.train.checkpoint import load_weights
+
+    state = load_weights(weights)
+    state[f"{NAN_MODULE}.weight"][0, 0] = float("nan")
+    nan_path = os.path.join(work_dir, "nan_weights.pt")
+    torch.save(state, nan_path)
+    try:
+        run_cli(train_argv(os.path.join(work_dir, "nan")) + [
+            "--num_epoch", "1", "--weights", nan_path, "--debug_nans", "true"])
+    except FloatingPointError as e:
+        message = str(e)
+    else:
+        raise AssertionError("--debug_nans did not stop at the planted NaN")
+    if f"module {NAN_MODULE}," not in message:
+        raise AssertionError(f"--debug_nans named another place: {message}")
+    (x, y), = train_batches(1, TRAIN_BATCH)
+    x, y = torch.from_numpy(x).to(device), torch.from_numpy(y).to(device)
+    off = train_model(weights, device)[2]
+    on = train_model(weights, device, check_finite=True)[2]
+    forms = {"off": lambda: off(x, y), "on": lambda: bool(on(x, y)[2])}
+    ms = {form: [] for form in forms}
+    for form in ("off", "on", "on", "off"):
+        ms[form].append(cuda_ms(forms[form], iters=20))
+    return dict(message=message, off_ms=min(ms["off"]), on_ms=min(ms["on"]))
+
+
+def run_skeleton_path(work_dir: str, weights: str, device, step_ms: float) -> dict:
+    """Phase 13: synthetic NW-UCLA clips, batch assembly per backend beside
+    the graphed step, gcn.yaml's train phase with the native backend (and
+    the train loop with each backend), stgcn.yaml and the importance tool,
+    the three weight forms, --profile_dir and --debug_nans. Each result
+    line ends with the card's name and power limit."""
+    out = {}
+    card = card_line()
+
+    def report(line: str):
+        print(f"phase 13: {line} [{card}]", flush=True)
+
+    clips = os.path.join(work_dir, "nucla_clips")
+    t0 = time.perf_counter()
+    out["clips"] = write_nucla_clips(clips)
+    report(f"{out['clips']} synthetic NW-UCLA clips (T in {CLIP_FRAMES}) written in "
+           f"{time.perf_counter() - t0:.1f} s")
+    out["assembly"], out["batches"] = time_batch_assembly(clips)
+    report(f"batch assembly, gcn.yaml train feeder, batch {TRAIN_BATCH}, one epoch "
+           f"({out['batches']} batches), bit for bit equal: " + ", ".join(
+               f"{b} {med:.3f} ms median ({mean:.3f} mean)"
+               for b, (med, mean) in out["assembly"].items())
+           + f"; the graphed f32 train step in this run (phase 12): {step_ms:.3f} ms")
+
+    phase("13. skeleton path: gcn.yaml train phase, native")
+    out["gcn"] = g = run_gcn_native(os.path.join(work_dir, "gcn_native"), clips)
+    report(f"gcn.yaml train phase, native: {g['steps']} steps in {g['seconds']:.2f} s "
+           f"(incl. model build, data and eval), {g['step_ms']:.3f} ms a step over the epoch")
+    out["loop"] = {b: time_train_loop(weights, clips, device, b) for b in ("native", "numpy")}
+    for b, r in out["loop"].items():
+        report(f"train loop (loader {b}, prefetch, graphed f32 step), batch {TRAIN_BATCH}: "
+               f"{r['wall_ms']:.3f} ms a step, device busy {r['busy_ms']:.3f} ms "
+               f"({100 * r['idle']:.1f}% idle)")
+
+    phase("13. skeleton path: ST-GCN")
+    out["stgcn"] = s = run_stgcn(work_dir, clips, device)
+    report(f"stgcn.yaml train phase: {s['steps']} graphed steps in {s['seconds']:.2f} s; "
+           f"test phase {s['test_seconds']:.2f} s, logits vs CPU f64 max rel err "
+           f"{s['rel']:.3e}; importance tool (1 epoch) {s['tool_seconds']:.2f} s")
+    for form, r in s["times"].items():
+        report(f"ST-GCN train step, batch {TRAIN_BATCH}, {form}: {r['wall_ms']:.3f} ms, "
+               f"device busy {r['busy_ms']:.3f} ms ({100 * r['idle']:.1f}% idle), "
+               f"{r['kernels']} kernels")
+
+    phase("13. skeleton path: weight forms, flags")
+    out["forms"] = check_weight_forms(work_dir, weights)
+    report("--weights as .pt, reference .npz and Flax .npz: test-phase scores equal bit "
+           "for bit; " + ", ".join(f"{k} {v:.2f} s" for k, v in out["forms"].items()))
+    out["profile"] = p = check_profile_dir(work_dir)
+    report(f"--profile_dir trace ({p['size_mb']:.1f} MiB): {p['kernels']} kernel events, "
+           f"K1-K3 traced {p['traced']} of launched {p['launched']}, {p['graph_launches']} "
+           f"graph launches; kernel event args {p['kernel_args']}")
+    out["nans"] = n = check_debug_nans(work_dir, weights, device)
+    report(f"--debug_nans: {n['message']}; graphed f32 train step, batch {TRAIN_BATCH}: "
+           f"{n['off_ms']:.3f} ms without the check, {n['on_ms']:.3f} ms with it (the flag "
+           "read every step)")
+    return out
+
+
 def kernel_summary(rows, per):
     """Sum of each timing over the launches of one forward / step."""
     used = [r for r in rows if r["launches_per_step"]]
@@ -3181,6 +3623,13 @@ def main() -> int:
         # ---- 12. the compiled steps: the trainer's steps as CUDA graphs ----
         phase("12. compiled steps")
         compiled = run_compiled_steps(work_dir, weights, x, device)
+
+        # ---- 13. the rest of the NW-UCLA skeleton path ----
+        phase("13. skeleton path")
+        t13 = time.perf_counter()
+        run_skeleton_path(work_dir, weights, device, compiled["times"][
+            f"f32 train step, batch {TRAIN_BATCH}"]["graphed"]["wall_ms"])
+        print(f"phase 13: {time.perf_counter() - t13:.1f} s [{card}]", flush=True)
         phase("end")
     print("compiled steps (phase 12): " + json.dumps({
         path: {form: {k: r[k] for k in ("wall_ms", "busy_ms", "idle", "kernels",

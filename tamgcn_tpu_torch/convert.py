@@ -1,16 +1,23 @@
-"""Convert the JAX package's CTR-GCN variables into the port's state_dict.
+"""Convert the JAX package's CTR-GCN and ST-GCN variables into the port's
+state_dict.
 
-`from_flax({"params": ..., "batch_stats": ...})` takes the nested dicts of
-numpy arrays that `jax.device_get` returns for a tamgcn_tpu CTR-GCN and
-returns a state_dict for tamgcn_tpu_torch.models.CTRGCN. The two models
-share their module names, so a Flax path `l1/gcn1/conv3/kernel` is the
-port's `l1.gcn1.conv3.weight`. Layouts:
+`from_flax({"params": ..., "batch_stats": ...}, model)` takes the nested
+dicts of numpy arrays that `jax.device_get` returns for a tamgcn_tpu CTR-GCN
+or ST-GCN and returns a state_dict for the port's `model`
+(tamgcn_tpu_torch.models.CTRGCN or STGCN). Each pair of models shares its
+module names, so a Flax path `l1/gcn1/conv3/kernel` is the port's
+`l1.gcn1.conv3.weight`, and `blocks_3/tcn_conv/kernel` is
+`blocks_3.tcn_conv.weight`. Layouts:
 
   * Flax conv kernels are HWIO: a 1x1 kernel (1, 1, in, out) becomes the
-    port's (out, in), a temporal kernel (k, 1, in, out) becomes (out, in, k, 1);
-  * Dense kernels are (in, out) and become (out, in);
+    port's (out, in) (CTR-GCN's 1x1 convs, ST-GCN's `gcn/conv` and
+    `res_conv`), a temporal kernel (k, 1, in, out) becomes (out, in, k, 1)
+    (CTR-GCN's branch convs, ST-GCN's 9x1 `tcn_conv`);
+  * Dense kernels are (in, out) and become (out, in) (CTR-GCN's `fc`,
+    ST-GCN's `fcn` head);
   * packed conv12/conv3 are packed the same way on both sides, and PA,
-    alpha, conv4_kernel (S, R, C) and conv4_bias (S, C) keep their layout;
+    alpha, conv4_kernel (S, R, C), conv4_bias (S, C) and ST-GCN's
+    `edge_importance_i` (K, V, V) keep their layout;
   * BatchNorm scale/bias become weight/bias, the batch_stats mean/var the
     running_mean/running_var buffers.
 
@@ -71,7 +78,7 @@ def flax_param_paths(model: torch.nn.Module) -> dict[str, str]:
 
 
 def from_flax(variables: dict, model: torch.nn.Module) -> dict:
-    """State dict for `model` (a port CTRGCN) from Flax `variables`."""
+    """State dict for `model` (a port CTRGCN or STGCN) from Flax `variables`."""
     target = model.state_dict()
     out: dict[str, torch.Tensor] = {}
     for collection in ("params", "batch_stats"):

@@ -1,9 +1,13 @@
 """NW-UCLA skeleton feeder for the GCN model families.
 
-Numpy copy of tamgcn_tpu/data/feeder_nucla_gcn.py with backend="numpy"
-(reference feeder/feeder_nucla_gcn.py:54-154; "auto" takes it too, and
-"native", the JAX package's C++ augmentation core, raises: the port has no
-native backend yet): JSON skeleton loading
+Copy of tamgcn_tpu/data/feeder_nucla_gcn.py (reference
+feeder/feeder_nucla_gcn.py:54-154) with its two backends: the numpy path of
+`__getitem__`, and the native C++ core (tamgcn_tpu_torch/runtime) behind
+`get_batch`, which assembles a whole batch bit for bit as the numpy path
+would. `backend` "auto" takes native where the core builds and the output
+dtype is float32, else numpy; "native" raises where the core is
+unavailable; "numpy" is numpy (`get_batch` returns None, and the loader
+assembles the batch sample by sample). JSON skeleton loading
 `<data_path>/<name>/<name>.json`, centring on joint 1 of frame 0, the train
 split's random 3-D view rotation of +-60 degrees and scale U(0.5, 1.5),
 min-max normalisation to [-1, 1], resampling to T=52 (train: sorted random
@@ -42,19 +46,14 @@ class NUCLAFeederGCN:
         seed: int = 0,
         debug: bool = False,
         dtype: str = "float32",
-        backend: str = "auto",  # auto | numpy; native raises
+        backend: str = "auto",  # auto | native | numpy
         # reference-config compatibility; accepted and unused, like the
         # reference Feeder's random_choose/random_shift/... args for NUCLA
         **_unused,
     ):
         if modality not in ("joint", "bone", "motion"):
             raise ValueError(f"unknown modality {modality!r}")
-        if backend == "native":
-            raise RuntimeError(
-                "backend='native': the native augmentation backend (the JAX "
-                "package's C++ core, tamgcn_tpu/runtime) is not ported; use "
-                "backend='auto' or 'numpy', which run the numpy path")
-        if backend not in ("auto", "numpy"):
+        if backend not in ("auto", "native", "numpy"):
             raise ValueError(f"unknown backend {backend!r}: auto, numpy or native")
         self.data_path = data_path
         self.split = split
@@ -74,6 +73,18 @@ class NUCLAFeederGCN:
         )
         self.sample_name = [info["file_name"] for info in self.data_dict]
         self._load_data()
+
+        self._native = False
+        if backend in ("auto", "native") and self.dtype == np.float32:
+            # the native core emits float32 only
+            from .. import runtime
+
+            self._native = runtime.available()
+        if backend == "native" and not self._native:
+            raise RuntimeError(
+                "backend='native': the native augmentation backend is unavailable "
+                f"(it needs g++ and dtype float32; dtype {self.dtype})")
+        self.backend = "native" if self._native else "numpy"
 
     def _load_data(self):
         self.data = []
@@ -127,3 +138,25 @@ class NUCLAFeederGCN:
         # (the reference feeder emits f32, reference :154)
         out = data.astype(np.float32).astype(self.dtype)
         return out, label, index
+
+    def get_batch(self, indices):
+        """The batch of `indices` through the native core (skeletons (B, 3,
+        T, 20, 1) float32, labels, sample indices), bit for bit the numpy
+        path's samples stacked; None off the native path."""
+        if not self._native:
+            return None
+        from .. import runtime
+
+        indices = np.asarray(indices, np.int64)
+        base = indices % len(self.data_dict)
+        data = runtime.augment_batch(
+            [self.data[i] for i in base],
+            indices,
+            time_steps=self.time_steps,
+            train=self.train,
+            modality=self.modality,
+            seed=self.seed,
+            epoch=self.epoch,
+        )
+        # labels and indices int64, as the loader's collate of __getitem__
+        return data, self.label[base].astype(np.int64), base.astype(np.int64)

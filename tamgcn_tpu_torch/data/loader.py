@@ -1,8 +1,10 @@
 """Host-side batch loader (numpy copy of tamgcn_tpu/data/loader.py).
 
-A plain numpy pipeline with deterministic per-epoch shuffling, thread-pool
-sample assembly and fixed-shape stacked batches; `prefetch` overlaps the
-next batch's assembly and host->device copy with the current step.
+A plain numpy pipeline with deterministic per-epoch shuffling and
+fixed-shape stacked batches: a dataset's batched `get_batch` first (the
+NW-UCLA feeder's native core), and thread-pool sample assembly where it has
+none or it returns None; `prefetch` overlaps the next batch's assembly and
+host->device copy with the current step.
 """
 from __future__ import annotations
 
@@ -68,9 +70,15 @@ class Loader:
     def __iter__(self) -> Iterator[tuple]:
         idx = self._indices()
         nb = len(self)
+        get_batch = getattr(self.dataset, "get_batch", None)
         with ThreadPoolExecutor(max_workers=max(1, self.num_workers)) as pool:
             for b in range(nb):
                 chunk = idx[b * self.batch_size:(b + 1) * self.batch_size]
+                if get_batch is not None:
+                    batch = get_batch(chunk)
+                    if batch is not None:  # the native fast path
+                        yield batch
+                        continue
                 samples = list(pool.map(self.dataset.__getitem__, chunk))
                 yield _collate(samples)
 

@@ -1,15 +1,16 @@
-"""Model families of the port: TAM/CTR-GCN (ST-GCN and the RGB models come
+"""Model families of the port: TAM/CTR-GCN and ST-GCN (the RGB models come
 with later slices)."""
 from .ctrgcn import CTRGC, CTRGCN, create_ctrgcn_nucla  # noqa: F401
+from .stgcn import STGCN, create_stgcn_nucla, edge_importance_per_joint  # noqa: F401
 
 _REGISTRY = {
     "ctrgcn": CTRGCN,
     # reference config compatibility (config/nucla/*.yaml model: keys)
     "models.ctrgcn.Model": CTRGCN,
+    "stgcn": STGCN,
+    "models.stgcn.Model": STGCN,
 }
 _LATER = {
-    "stgcn": "the ST-GCN slice",
-    "models.stgcn.Model": "the ST-GCN slice",
     "resnet_only": "the RGB slice",
     "models.resnet_only.Model": "the RGB slice",
     "resnet_gcn_attention": "the RGB slice",

@@ -31,6 +31,10 @@ products (f32 sums, each output rounded once) and enters db3 unrounded.
 in the JAX package): in f32 through K1 and K2 at S = 1; on bf16 x1, x2 and
 x3 through K4's bf16 form, which follows the JAX K4 on bf16 operands: D =
 bf16(tanh(bf16(x1 - x2))), w4 and the product f32, the output f32.
+
+`stgcn_aggregate` is ST-GCN's 3-partition spatial aggregation, a plain
+contraction in the JAX package too (no Pallas kernel), so it is one
+`torch.einsum` on every device.
 """
 from __future__ import annotations
 
@@ -416,3 +420,16 @@ def ctr_gc_fused(x1, x2, x3, w4, b4, alpha, A):
     (f32) or K4's bf16 form (bf16 x1, x2, x3), which raise outside their
     limits (R <= 32, C % 4 == 0, V as K1 takes it); there is no fallback."""
     return CtrGcFused.apply(x1, x2, x3, w4, b4, alpha, A)
+
+
+def stgcn_aggregate(x, A):
+    """out[n,t,w,c] = sum_{k,v} x[n,t,v,k,c] * A[k,v,w].
+
+    ST-GCN's 3-partition spatial aggregation (reference models/stgcn.py:62,
+    'nkctv,kvw->nctw'), in NTVC layout with the partition axis k next to the
+    channels; counterpart of tamgcn_tpu/ops/aggregation.py:stgcn_aggregate.
+    Computed and returned in the wider of the two dtypes and float32 (a
+    bf16 x with an f32 A sums in f32, as the JAX einsum's
+    preferred_element_type)."""
+    dtype = torch.promote_types(torch.promote_types(x.dtype, A.dtype), torch.float32)
+    return torch.einsum("ntvkc,kvw->ntwc", x.to(dtype), A.to(dtype))

@@ -5,7 +5,8 @@ conv weights (out, in, kh, kw), 1x1 convs and linears (out, in). Each
 function fills its tensor in place from a `torch.Generator` on the CPU, so
 a model built on the CPU from a seed has the same weights wherever it is
 moved. Semantics mirror reference models/ctrgcn.py:17-49 (conv_init,
-bn_init, weights_init) and models/ctrgcn.py:317 (fc init).
+bn_init, weights_init), models/ctrgcn.py:317 (fc init) and, for ST-GCN,
+PyTorch's default conv init (`torch_conv_default_`).
 """
 from __future__ import annotations
 
@@ -64,3 +65,13 @@ def torch_linear_bias_init_(t, fan_in: int, generator):
 def bn_weights_init_(t, generator):
     """weights_init BN scale: normal(1.0, 0.02) (reference models/ctrgcn.py:45-49)."""
     return _fill_normal(t, 0.02, generator, mean=1.0)
+
+
+def torch_conv_default_(t, generator, fan_in: int | None = None):
+    """PyTorch's Conv2d/Linear default, kaiming_uniform_(a=sqrt(5)) ==
+    U(-1/sqrt(fan_in), 1/sqrt(fan_in)), fan_in = in * prod(kernel dims) of a
+    weight (out, in, ...) unless given (a bias takes its weight's fan_in).
+    The ST-GCN init (tamgcn_tpu/models/stgcn.py: torch_conv_default_*_init)."""
+    if fan_in is None:
+        fan_in = t.shape[1] * _receptive(t.shape)
+    return torch_linear_bias_init_(t, fan_in, generator)

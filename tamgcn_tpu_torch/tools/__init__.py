@@ -5,6 +5,9 @@
     python -m tamgcn_tpu_torch.tools.exp_stage2b   # T2 repeats, f32 and bf16
 
     python -m tamgcn_tpu_torch.tools.bf16_convergence  # bf16 against f32 training
+    python -m tamgcn_tpu_torch.tools.train_stgcn_importance --data_path DIR
+        # ST-GCN training, then per-class body-part importance (the trainer's
+        # flags; --use_gpu false for the CPU)
 
 They run on the card unless `--device cpu` is given; without CUDA and
 without that flag they raise. Beside them, for the card only:

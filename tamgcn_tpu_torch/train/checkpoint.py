@@ -1,10 +1,19 @@
-"""Model weights and training checkpoints as `.pt` files.
+"""Model weights and training checkpoints as `.pt` files; weights from
+elsewhere as `.npz`.
 
 Counterpart of tamgcn_tpu/train/checkpoint.py (orbax there):
 
-  * a weight file is a state dict that the port saved with `torch.save`
-    (for example after `convert.from_flax`), or one of the port's training
-    checkpoints, whose model state it holds;
+  * `load_weights` (--weights) takes three forms (`weights_form`): a `.pt`
+    state dict that the port saved with `torch.save`, or one of the port's
+    training checkpoints, whose model state it holds; a `.npz` of a
+    reference torch state dict (tools/export_torch_weights.py writes it),
+    keys the reference's tensor names, imported for the configured model
+    by utils/torch_import.py; a `.npz` of the JAX package's variables, keys
+    "/"-joined Flax paths under `params/` and `batch_stats/`
+    (tools/export_flax_npz.py writes it from a JAX training checkpoint),
+    mapped by convert.from_flax. A `.npz` that mixes the two key forms
+    raises, and so does a directory (an orbax checkpoint: the port never
+    reads orbax; the bridge script turns one into the Flax `.npz`);
   * training checkpoints live under `<work_dir>/checkpoints/`: `best.pt`
     holds `{model, step}`, `epoch{n}.pt` holds `{model, optimizer, step}`,
     a resume point (train/trainer.py:_save_checkpoint, resume); the
@@ -22,6 +31,7 @@ from __future__ import annotations
 import os
 import re
 
+import numpy as np
 import torch
 
 
@@ -33,15 +43,66 @@ def save_weights(model: torch.nn.Module, path: str) -> None:
     torch.save(_cpu_state(model), path)
 
 
-def load_weights(path: str) -> dict:
-    """The state dict in a `.pt` file (a saved state dict, or the model
-    state of a training checkpoint), on the CPU."""
-    if not path.endswith(".pt"):
-        raise NotImplementedError(
-            f"--weights {path!r}: the port loads the .pt state dicts and "
-            "training checkpoints it saves; orbax checkpoints and reference "
-            ".npz exports come with the slice of the weight importers"
-        )
+FLAX_COLLECTIONS = ("params", "batch_stats")
+
+
+def weights_form(path: str) -> str:
+    """Which form `path` holds: "pt" (the port's state dict or training
+    checkpoint), "reference npz" (reference torch names) or "flax npz"
+    ("/"-joined Flax paths). Raises on a directory, another suffix and a
+    `.npz` that mixes the two key forms."""
+    if os.path.isdir(path):
+        raise ValueError(
+            f"--weights {path!r} is a directory (an orbax checkpoint of the JAX "
+            "trainer?): the port does not read orbax; convert it with "
+            "`python tools/export_flax_npz.py {path} -c CONFIG -o weights.npz` "
+            "and pass the .npz")
+    if path.endswith(".pt"):
+        return "pt"
+    if not path.endswith(".npz"):
+        raise ValueError(f"--weights {path!r}: expected a .pt or a .npz file")
+    with np.load(path) as arrays:
+        keys = list(arrays.files)
+    flax = [k.split("/", 1)[0] in FLAX_COLLECTIONS and "/" in k for k in keys]
+    if all(flax) and keys:
+        return "flax npz"
+    if not any(flax):
+        return "reference npz"
+    raise ValueError(
+        f"{path} mixes Flax-path keys ({keys[flax.index(True)]!r}) with reference "
+        f"torch names ({keys[flax.index(False)]!r})")
+
+
+def flax_tree(arrays) -> dict:
+    """{"params": ..., "batch_stats": ...} nested dicts from "/"-joined keys."""
+    tree: dict = {}
+    for key, value in arrays.items():
+        *parents, leaf = key.split("/")
+        node = tree
+        for k in parents:
+            node = node.setdefault(k, {})
+        node[leaf] = np.asarray(value)
+    return tree
+
+
+def load_weights(path: str, model_name: str | None = None,
+                 model: torch.nn.Module | None = None) -> dict:
+    """The port's state dict from `path`, on the CPU, in any form of
+    `weights_form`; the `.npz` forms are mapped onto `model` (the port's
+    module registered as `model_name`, which a reference `.npz` needs)."""
+    form = weights_form(path)
+    if form != "pt":
+        if model is None:
+            raise ValueError(f"{path}: a .npz is mapped onto a model; pass the model")
+        with np.load(path) as f:
+            arrays = {k: f[k] for k in f.files}
+        if form == "flax npz":
+            from ..convert import from_flax
+
+            return from_flax(flax_tree(arrays), model)
+        from ..utils.torch_import import import_state_dict
+
+        return import_state_dict(model_name, arrays, model)
     state = torch.load(path, map_location="cpu", weights_only=True)
     if isinstance(state, dict) and isinstance(state.get("model"), dict):
         state = state["model"]

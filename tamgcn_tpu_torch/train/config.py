@@ -136,9 +136,12 @@ def base_parser(add_help: bool = False) -> argparse.ArgumentParser:
     p.add_argument("--sequence_parallel", type=str2bool, default=False,
                    help="not ported yet: only false")
     p.add_argument("--profile_dir", default=None,
-                   help="not ported yet: only unset")
+                   help="write a torch.profiler Chrome trace of the train "
+                        "phase (CPU and, on the card, CUDA activity) here")
     p.add_argument("--debug_nans", type=str2bool, default=False,
-                   help="not ported yet: only false")
+                   help="stop at the first non-finite loss, logit, gradient, "
+                        "parameter or BN statistic with a FloatingPointError "
+                        "naming the module that produced it")
     p.add_argument("--distributed", type=str2bool, default=False,
                    help="not ported yet: only false")
     return p
@@ -168,8 +171,6 @@ _NOT_PORTED = {
     "sequence_parallel": (False, "--sequence_parallel is not ported yet"),
     "graph_partition": ("none", "--graph_partition ring is not ported yet"),
     "model_parallel": (1, "--model_parallel > 1 is not ported yet"),
-    "profile_dir": (None, "--profile_dir is not ported yet"),
-    "debug_nans": (False, "--debug_nans is not ported yet"),
     "distributed": (False, "--distributed is not ported yet"),
 }
 

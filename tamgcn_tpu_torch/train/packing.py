@@ -223,13 +223,18 @@ class PackedTrainState:
                 view.copy_(torch.as_tensor(value).reshape(view.shape))
 
 
-def make_fused_train_step(state: PackedTrainState) -> Callable:
+def make_fused_train_step(state: PackedTrainState, check_finite: bool = False) -> Callable:
     """``step(*inputs, label) -> (loss, hits)``: the model's forward (in the
     mode the model is in), the mean cross-entropy, the backward into the
     flat gradient, the optimiser's update of the flat state in place and
     the BatchNorm statistics updated in place; `hits` counts the argmax
     matches. The lr is `state`'s lr tensor (PackedTrainState.set_lr before
-    the step). No host read: a CUDA graph can capture it (train/graphs.py)."""
+    the step). No host read: a CUDA graph can capture it (train/graphs.py).
+    With `check_finite` (--debug_nans) it returns ``(loss, hits, finite)``,
+    `finite` whether the loss, the logits, the flat gradient, parameters and
+    statistics are all finite after the step (train/debug_nans.py)."""
+    from .debug_nans import all_finite
+
     model = state.model
     params = state.params.tensors
 
@@ -242,6 +247,10 @@ def make_fused_train_step(state: PackedTrainState) -> Callable:
         state.gather_grads(grads)
         state.update()
         hits = (logits.detach().argmax(-1) == label).sum()
-        return loss.detach(), hits
+        if not check_finite:
+            return loss.detach(), hits
+        return loss.detach(), hits, all_finite(
+            [loss.detach(), logits.detach(), *state.grads, *state.params.flats,
+             *state.stats.flats])
 
     return train_step

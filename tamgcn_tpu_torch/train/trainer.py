@@ -27,11 +27,18 @@ input shape (train/graphs.py), where the JAX trainer jits; on the CPU the
 same step functions run eagerly (train/packing.py:make_fused_train_step and
 make_eval_step are the eager steps, for a comparison on the card).
 
+--profile_dir wraps the train phase in a torch.profiler trace (CPU and, on
+the card, CUDA activity) written as a Chrome trace under that directory, as
+the JAX trainer wraps it in jax.profiler (:649-679). --debug_nans adds a
+finiteness check to every step and, at the first non-finite value, raises
+FloatingPointError naming the module that made it (train/debug_nans.py).
+
 The flags of features the port lacks raise (train/config.py:check_supported).
 """
 from __future__ import annotations
 
 import os
+import socket
 import time
 
 import numpy as np
@@ -41,9 +48,12 @@ from ..data import Loader, feeder_accepts_seed, get_feeder
 from ..data.loader import prefetch
 from ..data.transforms import top_k
 from ..models import get_model
+from ..models.ctrgcn import CTRGCN
 from ..models.ctrgcn_infer import make_eval_step, make_fast_eval_step
-from .checkpoint import Checkpoints, filter_ignore, load_weights, partial_update
+from .checkpoint import (Checkpoints, filter_ignore, load_weights, partial_update,
+                         weights_form)
 from .config import check_supported, resolve_device
+from .debug_nans import checked, locate_non_finite, non_finite_names
 from .graphs import GraphedStep
 from .optim import make_lr_schedule
 from .packing import PackedTrainState, make_fused_train_step
@@ -90,6 +100,7 @@ class RecognitionTrainer:
             if "seed" not in train_args and feeder_accepts_seed(arg.feeder):
                 train_args["seed"] = arg.seed
             self.train_feeder = get_feeder(arg.feeder, **train_args)
+            self._log_backend("train", self.train_feeder)
             self.loaders["train"] = Loader(
                 self.train_feeder,
                 batch_size=arg.batch_size,
@@ -115,6 +126,7 @@ class RecognitionTrainer:
         if "seed" not in test_args and feeder_accepts_seed(arg.feeder):
             test_args["seed"] = arg.seed
         self.test_feeder = get_feeder(arg.feeder, **test_args)
+        self._log_backend("test", self.test_feeder)
         self.loaders["test"] = Loader(
             self.test_feeder,
             batch_size=arg.test_batch_size,
@@ -123,6 +135,13 @@ class RecognitionTrainer:
             seed=arg.seed,
             num_workers=arg.num_worker,
         )
+
+    def _log_backend(self, split: str, feeder):
+        """Which augmentation backend a feeder took (the NW-UCLA feeder's
+        native core or numpy)."""
+        backend = getattr(feeder, "backend", None)
+        if backend is not None:
+            self.print_log(f"{split} feeder: {type(feeder).__name__}, backend {backend}")
 
     def _load_model(self):
         arg = self.arg
@@ -137,10 +156,14 @@ class RecognitionTrainer:
         self.model.to(self.device).eval()
 
     def _load_weights(self):
+        """--weights in any of its three forms (train/checkpoint.py), then
+        --ignore_weights and the partial load with its report."""
         arg = self.arg
-        self.print_log(f"Load weights from {arg.weights}")
-        state = filter_ignore(load_weights(arg.weights), arg.ignore_weights)
-        partial_update(self.model, state, log=self.print_log)
+        form = weights_form(arg.weights)
+        self.print_log(f"Load weights from {arg.weights} ({form})")
+        state = load_weights(arg.weights, arg.model, self.model)
+        partial_update(self.model, filter_ignore(state, arg.ignore_weights),
+                       log=self.print_log)
 
     def _load_optimizer(self):
         arg = self.arg
@@ -171,13 +194,26 @@ class RecognitionTrainer:
                 model, arg.optimizer, nesterov=arg.nesterov,
                 weight_decay=arg.weight_decay,
                 freeze_prefixes=tuple(arg.freeze_params or ()))
-            steps["train"] = graphed(make_fused_train_step(self.state), "train",
-                                     self.state.tensors())
+            steps["train"] = graphed(
+                make_fused_train_step(self.state, check_finite=arg.debug_nans),
+                "train", self.state.tensors())
+            if arg.debug_nans:
+                # the state each step starts from, for the eager re-run
+                self._nan_backup = [t.clone() for t in self.state.tensors()]
 
-        if arg.fast_eval:
-            steps["eval"] = graphed(make_fast_eval_step(model), "fast_eval")
-        else:
-            steps["eval"] = graphed(make_eval_step(model), "eval")
+        fast = arg.fast_eval and isinstance(model, CTRGCN)
+        if arg.fast_eval and not fast:
+            self.print_log(
+                "WARNING: --fast_eval only applies to CTRGCN models; ignored for "
+                f"{type(model).__name__} (ordinary eval path).")
+        name, step = (("fast_eval", make_fast_eval_step(model)) if fast
+                      else ("eval", make_eval_step(model)))
+        if arg.debug_nans:
+            watched = (self.state.params.flats + self.state.stats.flats
+                       if self.state is not None
+                       else list(model.parameters()) + list(model.buffers()))
+            step = checked(step, watched)
+        steps["eval"] = graphed(step, name)
         self.steps = steps
 
     def _ensure_steps(self):
@@ -210,7 +246,13 @@ class RecognitionTrainer:
             self.session.check_time("dataloader")
             lr = self.schedule(self.step)
             self.state.set_lr(lr)
-            loss, hit = train_step(*inputs, label)
+            if arg.debug_nans:
+                torch._foreach_copy_(self._nan_backup, self.state.tensors())
+                loss, hit, finite = train_step(*inputs, label)
+                if not bool(finite):
+                    self._raise_non_finite("train", epoch, inputs, label)
+            else:
+                loss, hit = train_step(*inputs, label)
             self.step += 1
             self.session.check_time("device")
             # keep the statistics on the device; one copy at the epoch's end
@@ -243,8 +285,10 @@ class RecognitionTrainer:
         n_batches = n_samples = 0
         t0 = time.perf_counter()
         with torch.inference_mode():
-            for inputs, label, label_np in prefetch(iter(loader), self._put):
-                loss, logits = eval_step(*inputs, label)
+            for it, (inputs, label, label_np) in enumerate(prefetch(iter(loader), self._put)):
+                loss, logits, *finite = eval_step(*inputs, label)
+                if finite and not bool(finite[0]):
+                    self._raise_non_finite("eval", None, inputs, label, batch=it)
                 # keep results on the device; one bulk copy below
                 losses.append(loss)
                 scores.append(logits)
@@ -268,6 +312,25 @@ class RecognitionTrainer:
         self.result_labels = labels
         return mean_loss, top1, top5
 
+    def _raise_non_finite(self, kind: str, epoch, inputs, label, batch=None):
+        """--debug_nans: a step made a non-finite value. Re-run it eagerly
+        on the same batch from the state it started from (a train step's
+        state is restored first) and raise FloatingPointError naming where
+        the first non-finite value arose."""
+        after = None
+        if kind == "train":
+            after = non_finite_names(list(self.model.named_parameters())
+                                     + list(self.model.named_buffers()))
+            torch._foreach_copy_(self.state.tensors(), self._nan_backup)
+        where = locate_non_finite(self.model, inputs, label, train=kind == "train")
+        if where is None:
+            where = (f"the optimiser's update of {', '.join(after[:5])}" if after
+                     else "the step's outputs (the eager re-run stayed finite)")
+        when = (f"train step {self.step} (epoch {epoch + 1})" if kind == "train"
+                else f"eval batch {batch}" + (f" (after {self.step} train steps)"
+                                              if self.arg.phase == "train" else ""))
+        raise FloatingPointError(f"--debug_nans: non-finite value in {where}, {when}")
+
     # -- lifecycle ---------------------------------------------------------------
 
     def start(self):
@@ -283,6 +346,35 @@ class RecognitionTrainer:
         self._ensure_steps()
         if arg.resume:
             start_epoch = max(start_epoch, self.resume())
+        profiler = self._start_profiler() if arg.profile_dir else None
+        try:
+            self._epochs(start_epoch)
+        finally:
+            if profiler is not None:
+                self._stop_profiler(profiler)
+
+    def _start_profiler(self):
+        """--profile_dir: a torch.profiler trace of the train phase, CPU and,
+        on the card, CUDA activity."""
+        from torch.profiler import ProfilerActivity, profile
+
+        activities = [ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            activities.append(ProfilerActivity.CUDA)
+        profiler = profile(activities=activities)
+        profiler.start()
+        return profiler
+
+    def _stop_profiler(self, profiler):
+        profiler.stop()
+        os.makedirs(self.arg.profile_dir, exist_ok=True)
+        path = os.path.join(self.arg.profile_dir,
+                            f"train_{socket.gethostname()}_{os.getpid()}.pt.trace.json")
+        profiler.export_chrome_trace(path)
+        self.print_log(f"profile trace written: {path}")
+
+    def _epochs(self, start_epoch: int):
+        arg = self.arg
         for epoch in range(start_epoch, arg.num_epoch):
             self.print_log(f"Training epoch: {epoch + 1}")
             train_loss = float(np.mean(self.train_epoch(epoch)))

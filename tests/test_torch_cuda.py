@@ -33,7 +33,8 @@ The trainer's steps as CUDA graphs (train/graphs.py): the graphed fused
 train step equals the eager one bit for bit (deterministic cuDNN), a second
 input shape captures a second graph, weights written after a capture are
 the ones the next replay uses, and a host read inside a step makes the
-capture raise.
+capture raise; ST-GCN's graphed step equals its eager one bit for bit, and
+--debug_nans' finiteness flag replays inside the train step's graph.
 This file imports no JAX, so it runs where the port runs.
 """
 import pytest
@@ -1271,3 +1272,47 @@ def test_host_read_in_a_step_raises_at_capture(device):
         torch.cuda.synchronize()
         good = GraphedStep(lambda x, y: (model(x),), "after_host_read")
         assert good(x, y)[0].equal(model(x))
+
+
+def test_stgcn_graphed_train_step_equals_eager_bitwise(device, monkeypatch):
+    """ST-GCN (no port kernel: its aggregation is one einsum) through the
+    same packed state and CUDA-graph step: three steps, eager and graphed,
+    losses and every flat buffer equal bit for bit with deterministic cuDNN."""
+    from tamgcn_tpu_torch.models import create_stgcn_nucla
+    from tamgcn_tpu_torch.train.graphs import GraphedStep
+    from tamgcn_tpu_torch.train.packing import PackedTrainState, make_fused_train_step
+
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    batches = [_graph_batch(device, seed=s) for s in range(3)]
+    runs = []
+    for capture in (False, True):
+        model = create_stgcn_nucla(generator=torch.Generator().manual_seed(2))
+        model.to(device).train()
+        state = PackedTrainState(model, "SGD")
+        state.set_lr(0.05)
+        step = make_fused_train_step(state)
+        if capture:
+            step = GraphedStep(step, "stgcn_train", state.tensors())
+        losses = [step(x, y)[0] for x, y in batches]
+        runs.append((losses, [t.clone() for t in state.tensors()]))
+    (eager_l, eager_t), (graph_l, graph_t) = runs
+    assert all(a.equal(b) for a, b in zip(eager_l, graph_l)), (eager_l, graph_l)
+    assert all(a.equal(b) for a, b in zip(eager_t, graph_t))
+
+
+def test_debug_nans_flag_in_a_graphed_step(device):
+    """--debug_nans' finiteness flag is part of the graph: true on clean
+    weights, false on the replay after a NaN is written into a parameter in
+    place; the step without the check returns two outputs."""
+    from tamgcn_tpu_torch.train.graphs import GraphedStep
+    from tamgcn_tpu_torch.train.packing import make_fused_train_step
+
+    model, state = _packed_model(device)
+    x, y = _graph_batch(device)
+    assert len(make_fused_train_step(state)(x, y)) == 2
+    step = GraphedStep(make_fused_train_step(state, check_finite=True), "nan_check",
+                       state.tensors())
+    assert bool(step(x, y)[2])
+    with torch.no_grad():
+        model.l3.tcn1.pw_conv.weight[0, 0] = float("nan")
+    assert not bool(step(x, y)[2])

@@ -132,7 +132,8 @@ def test_nucla_train_feeder_identical(nucla_train_dir, modality):
 
 @pytest.mark.parametrize("backend", ["auto", "numpy"])
 def test_nucla_feeder_backends_run_the_numpy_path(nucla_train_dir, backend):
-    """`backend` "auto" and "numpy" both run the port's numpy path: the
+    """`__getitem__` runs the port's numpy path whatever the backend (the
+    native core serves `get_batch` only, tests/test_torch_runtime.py): the
     samples of the JAX feeder's numpy backend, draw for draw."""
     kw = dict(split="train", modality="joint", seed=5, debug=True)
     ours = data.NUCLAFeederGCN(nucla_train_dir, backend=backend, **kw)
@@ -146,10 +147,14 @@ def test_nucla_feeder_backends_run_the_numpy_path(nucla_train_dir, backend):
     ("cpp", ValueError, "unknown backend"),
 ], ids=["native", "unknown"])
 def test_nucla_feeder_refuses_what_it_has_no_backend_for(nucla_train_dir, backend, error,
-                                                          match):
-    """backend="native" (the JAX package's C++ augmentation core, which the
-    port lacks) raises, as the JAX feeder does where that core is
-    unavailable, instead of running numpy in its place."""
+                                                          match, monkeypatch):
+    """backend="native" where the native core is unavailable (no g++ here,
+    as the patched `runtime.available` says) raises, as the JAX feeder
+    does, instead of running numpy in its place; an unknown backend
+    raises."""
+    from tamgcn_tpu_torch import runtime
+
+    monkeypatch.setattr(runtime, "available", lambda: False)
     with pytest.raises(error, match=match):
         data.NUCLAFeederGCN(nucla_train_dir, split="train", debug=True, backend=backend)
 

@@ -176,8 +176,8 @@ def test_init_schemes_at_full_width():
 
 
 def test_get_model_rejects_what_the_slice_lacks():
-    with pytest.raises(NotImplementedError, match="ST-GCN"):
-        get_model("stgcn", num_class=10)
+    with pytest.raises(NotImplementedError, match="RGB slice"):
+        get_model("resnet_only", num_class=10)
     with pytest.raises(NotImplementedError, match="float16"):
         get_model("ctrgcn", dtype="float16", graph="ucla")
     with pytest.raises(KeyError):

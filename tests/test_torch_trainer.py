@@ -5,9 +5,18 @@ test --use_gpu false` on weights converted from a JAX CTR-GCN (base_channel
 8, with alpha, the TAM offset convs, gcn1/bn and the running stats perturbed
 as in test_torch_model.py) writes a score pickle whose logits equal the JAX
 model's on the same synthetic val samples, within rtol 1e-4 and atol
-1e-4 * max|JAX| (f32, sum order differs). The flags of what the slice lacks
+1e-4 * max|JAX| (f32, sum order differs). The flags of what the port lacks
 raise, and so does --use_gpu true without CUDA.
+
+--profile_dir writes a Chrome trace of the train phase. --debug_nans leaves
+a clean run's losses, scores and weights as they are, and stops at a NaN
+planted in one block's weight with FloatingPointError naming that block, in
+the train phase and in the test phase, where the JAX trainer with
+jax_debug_nans raises FloatingPointError on the same weights (ST-GCN, whose
+reference .npz the JAX trainer imports at its shipped widths).
 """
+import glob
+import json
 import os
 import pickle
 import subprocess
@@ -103,11 +112,23 @@ def test_flag_of_a_later_slice_raises(flag, tmp_path):
 
 
 @pytest.mark.parametrize("weights_path,error", [
-    ("w.npz", NotImplementedError), ("ckpt_dir", NotImplementedError),
+    ("w.npz", ValueError), ("ckpt_dir", ValueError),
 ])
 def test_weights_other_than_pt_raise(weights_path, error, tmp_path):
-    with pytest.raises(error, match="weight importers"):
-        main(_argv(tmp_path, weights_path))
+    """Of the forms other than .pt, a directory (an orbax checkpoint) raises
+    naming the bridge script, and a .npz that mixes the reference's tensor
+    names with Flax paths raises; tests/test_torch_import.py loads the
+    .npz forms."""
+    path = tmp_path / weights_path
+    if weights_path == "ckpt_dir":
+        path.mkdir()
+        match = "tools/export_flax_npz.py"
+    else:
+        np.savez(path, **{"fc.weight": np.zeros((10, 32), np.float32),
+                          "params/fc/bias": np.zeros(10, np.float32)})
+        match = "mixes"
+    with pytest.raises(error, match=match):
+        main(_argv(tmp_path, str(path)))
 
 
 def test_test_phase_needs_weights(tmp_path):
@@ -121,3 +142,66 @@ def test_test_phase_needs_weights(tmp_path):
 def test_rgb_entry_points_raise():
     with pytest.raises(NotImplementedError, match="RGB slice"):
         main(["recognition_rgb_only", "-c", SMOKE])
+
+
+def _train_argv(work_dir, *extra):
+    return ["recognition", "-c", SMOKE, "--use_gpu", "false", "--work_dir", str(work_dir),
+            "--model_args", f"base_channel={BC}", "--num_epoch", "1", "--batch_size", "8",
+            "--test_batch_size", "8", "--train_feeder_args", "num_samples=16",
+            "--test_feeder_args", "num_samples=8", "--num_worker", "1",
+            "--save_interval", "1", *extra]
+
+
+def test_profile_dir_writes_a_trace(tmp_path):
+    assert main(_train_argv(tmp_path / "run", "--profile_dir", str(tmp_path / "prof"))) == 0
+    (trace,) = glob.glob(str(tmp_path / "prof" / "*.pt.trace.json"))
+    with open(trace) as f:
+        events = json.load(f)["traceEvents"]
+    names = {e.get("name", "") for e in events}
+    assert any(n.startswith("aten::") for n in names)
+    assert "aten::convolution_backward" in names  # the train steps ran inside
+
+
+def test_debug_nans_leaves_a_clean_run_unchanged(tmp_path):
+    runs = {}
+    for flag in ("false", "true"):
+        work = tmp_path / flag
+        assert main(_train_argv(work, "--debug_nans", flag, "--save_result", "true")) == 0
+        runs[flag] = (np.loadtxt(work / "progress_info.csv", delimiter=",", ndmin=2),
+                      torch.load(work / "checkpoints" / "epoch1.pt", weights_only=True))
+    np.testing.assert_array_equal(runs["true"][0], runs["false"][0])
+    for k, v in runs["false"][1]["model"].items():
+        assert torch.equal(runs["true"][1]["model"][k], v), k
+
+
+def test_debug_nans_names_the_block_of_a_planted_nan_in_training(weights, tmp_path):
+    state = torch.load(weights[0], weights_only=True)
+    state["l5.tcn1.pw_conv.weight"][0, 0] = float("nan")
+    path = str(tmp_path / "nan.pt")
+    torch.save(state, path)
+    with pytest.raises(FloatingPointError,
+                       match=r"module l5\.tcn1\.pw_conv, train step 0 \(epoch 1\)"):
+        main(_train_argv(tmp_path / "run", "--weights", path, "--debug_nans", "true"))
+    # without the flag the NaN trains on
+    assert main(_train_argv(tmp_path / "off", "--weights", path)) == 0
+
+
+def test_debug_nans_in_the_test_phase_raises_where_jax_does(tmp_path):
+    from _weight_forms import reference_stgcn_state
+    from tamgcn_tpu.train.config import load_config as jax_load_config
+    from tamgcn_tpu.train.trainer import RecognitionTrainer as JaxTrainer
+
+    state = reference_stgcn_state(8)
+    state["st_gcn_networks.3.tcn.2.weight"][0, 0, 0, 0] = np.nan
+    path = str(tmp_path / "nan.npz")
+    np.savez(path, **state)
+    argv = ["-c", SMOKE, "--phase", "test", "--model", "stgcn", "--weights", path,
+            "--test_feeder_args", "num_samples=4", "--test_batch_size", "4",
+            "--num_worker", "1", "--debug_nans", "true"]
+    with pytest.raises(FloatingPointError, match=r"module blocks_3\.tcn_conv, eval batch 0"):
+        main(["recognition", *argv, "--use_gpu", "false", "--work_dir", str(tmp_path / "port")])
+    try:
+        with pytest.raises(FloatingPointError):
+            JaxTrainer(jax_load_config(argv + ["--work_dir", str(tmp_path / "jax")])).start()
+    finally:
+        jax.config.update("jax_debug_nans", False)
