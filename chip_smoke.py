@@ -203,6 +203,39 @@ Phases, each of which fails the run (non-zero exit, no result line):
      (the trace holds K1-K3 and the graph launches); and --debug_nans, which
      must stop at a NaN planted in l5.tcn1.pw_conv's weight naming that
      module, with the step timed with the check on and off.
+ 14. NTU-60, the RGB and the cross-modal families: K1t, K2t and K3 against
+     their plain versions at configs/ntu60.yaml's train-step shapes (N*M =
+     256, T = 64, V = 25, past the whole-V design), K1t also at its eval
+     shapes and K5 at its fast-eval shapes (batch 256, N*M = 512), with
+     phase 3's and phase 6's tolerances; synthetic NTU clips (two persons
+     in the mutual actions A050-A060, one in the rest; 30-300 frames) in the
+     generic skeleton feeder's layout; ntu60.yaml as shipped but for
+     --distributed false through `__main__.main`: 3 graphed train steps at
+     batch 128 and the eval (K1t, K2t, K3 10 per step and warm-up call, K1t
+     10 per eval batch), --phase test on the run's checkpoint directory and
+     --phase test --fast_eval true (K5 10 per batch), the two runs' scores
+     within 1e-4 * max of each other; numpy batch assembly at batch 128
+     (NTU_ASSEMBLY_BATCHES batches after the first) beside the graphed
+     step's wall and busy time and each kernel's device time a step beside
+     its bound. recognition_rgb_only at
+     configs/nucla/resnet.yaml's shapes (224 x 224, batch 16, synthetic
+     images), f32 and bf16: one epoch of 4 graphed steps with its eval and
+     --phase test (no port kernel), the graphed step against the eager one
+     over 3 steps bit for bit with deterministic cuDNN, each step's wall
+     and busy time and kernels. recognition_cross_modal at
+     configs/nucla/cross_modal.yaml's shapes (batch 16, T = 52, 15 x 224 x
+     224) with --weights phase 4's CTR-GCN .pt: one epoch of 3 graphed
+     steps with its eval, K1 10 per step and eval forward and K2 = K3 = 0,
+     the GCN's parameters and BatchNorm statistics after training bit for
+     bit the CTR-GCN's, the fusion model's `gcn` features bit for bit the
+     CTR-GCN's own; on weights with calibrated BatchNorm statistics the
+     test phase's logits against a CPU f64 run within 1e-4 * max |logit|
+     (TF32 off) and, with --model_args dtype=bfloat16 (K1_bf16 10 per
+     batch), within 2^-5 * max of the card's plain bf16 unit op; the
+     graphed step's wall and busy time. Phase 14 times every step twice:
+     with TF32 off, as every numerics check of the run holds, and with the
+     TF32 switches the port's trainer runs with (torch's defaults: cuDNN
+     convolutions in TF32), each step captured under its setting.
 A kernel launched inside a CUDA-graph capture counts once on its wrapper's
 counter and runs at every replay: every launch check counts the launches
 that ran on the card, the wrappers' counts less what the captures counted
@@ -211,7 +244,8 @@ trainer prints each step's captures, warm-up calls and replays. The launch
 checks of phases 4-11 also require K6 = 0 (except with the
 switch on), T1 = T2 = 0 (except in the tools' runs), the joint-tiled
 designs at 0 outside phase 9, the bf16 forms at 0 outside phases 10-11 and
-K6-bf16 and K4-bf16 at 0 outside phase 11. The
+K6-bf16 and K4-bf16 at 0 outside phase 11; phase 14's require every
+kernel its path does not run at 0. The
 last lines are the card line, the
 kernels JSON and the result JSON. The kernels JSON gives, for each kernel,
 its times and bound summed over the launches of one eval forward at batch 64
@@ -228,7 +262,10 @@ tile-form call at the tools' shape (T2, with one einsum's time as
 step at batch 16 (K2_bf16, K3_bf16; K6_bf16 with the switch on, the
 composition's time under "unfused_k2_cublas_ms"), of one bf16 CTRGC forward
 and backward (K4_bf16), and each shape's row under "shapes";
-the unit-op kernels' CUDA-graph device time under "device_ms".
+the unit-op kernels' CUDA-graph device time under "device_ms". K1t, K2t, K3
+and K5 also carry phase 14's NTU-60 rows and sums under "ntu60" (per train
+step at batch 128; K5 per fast-eval forward at batch 256), and K1 the
+cross-modal train epoch's launches under "cross_modal".
 """
 from __future__ import annotations
 
@@ -600,6 +637,90 @@ def _within(got, want, rtol, atol_frac):
     return ok, err.max().item(), scale
 
 
+def check_unit_shapes(kname: str, fn, plain, bound_fn, shapes, seed: int, device,
+                      plain_iters: int = 20) -> list:
+    """`kname` (K1, K1t, K2, K2t or K3: `fn`) against its plain version at
+    each (name, shape (N, T, V, C, R), launches per step) of `shapes`, two
+    launches bitwise equal, each launch on the counter of the design the
+    shape takes, the blocks a launch at a main-path shape (count > 0) at
+    least UNIT_MIN_BLOCKS (K3_MIN_BLOCKS), timed by events and by a CUDA
+    graph beside its bound (the plain version over `plain_iters` calls);
+    returns a row per shape."""
+    import torch
+
+    from tamgcn_tpu_torch.ops.cuda import ctr_gc
+    from tamgcn_tpu_torch.utils.timing import graph_ms
+
+    blocks_of = {"K1": ctr_gc.fwd_blocks, "K1t": ctr_gc.fwd_blocks,
+                 "K2": ctr_gc.dx3_blocks, "K2t": ctr_gc.dx3_blocks}
+    rows = []
+    for i, (name, shape, count) in enumerate(shapes):
+        args = unit_inputs(shape, seed=seed + i, device=device)
+        with torch.no_grad():
+            reset_launches()
+            got = fn(*args)
+            launched = {k: v for k, v in read_launches().items() if v}
+            if launched != {kname: 1}:
+                raise AssertionError(f"{kname} {name} {shape}: launches {launched}, "
+                                     f"expected {kname} once")
+            want = plain(*args)
+            again = fn(*args)
+            torch.cuda.synchronize()
+            if kname == "K3":
+                for part, a, b in zip(K3_OUTPUTS, got, again):
+                    if not torch.equal(a, b):
+                        raise AssertionError(
+                            f"K3 {name} {shape}: two launches differ in {part}")
+                errs = [(part,) + _within(a, b, *((1e-3, 0.0) if part == "dalpha"
+                                                  else (1e-4, 1e-4)))
+                        for part, a, b in zip(K3_OUTPUTS, got, want)]
+            else:
+                if not torch.equal(got, again):
+                    raise AssertionError(f"{kname} {name} {shape}: two launches differ")
+                rtol = 1e-5
+                errs = [("out",) + _within(got, want, rtol, rtol)]
+            for part, ok, max_err, scale in errs:
+                if not ok:
+                    raise AssertionError(
+                        f"{kname} {name} {shape} {part}: max |kernel - plain| "
+                        f"{max_err:.3e} (max|plain| {scale:.3e}) beyond the "
+                        "stated tolerance")
+            ms = cuda_ms(lambda: fn(*args))
+            plain_ms = cuda_ms(lambda: plain(*args), iters=plain_iters)
+            extra_row = dict(device_ms=graph_ms(lambda: fn(*args)))
+            N, T, V, C, R = shape
+            if kname == "K3":
+                blocks = ctr_gc.bwd_param_blocks(N, 3, V, C)
+                floor = K3_MIN_BLOCKS
+            else:
+                blocks = blocks_of[kname](N, 3, T, V, R, C)
+                floor = UNIT_MIN_BLOCKS
+                if kname in ("K1", "K2") and blocks != ctr_gc.whole_v_blocks(
+                        N, 3, T, C, fwd=kname == "K1"):
+                    raise AssertionError(
+                        f"{kname} {name} {shape}: the launcher's {blocks} blocks are "
+                        "not ops/cuda/ctr_gc.py:whole_v_blocks'")
+            if count and kname in ("K1", "K2", "K3") and blocks < floor:
+                raise AssertionError(f"{kname} {name} {shape}: {blocks} blocks, "
+                                     f"fewer than {floor}")
+            extra_row["blocks"] = blocks
+        bound_ms, bound_by = bound_fn(shape)
+        check_above_bound(f"{kname} {name}", extra_row["device_ms"], bound_ms)
+        # the worst output relative to its own scale
+        worst = max(errs, key=lambda e: e[2] / max(e[3], 1e-30))
+        rows.append(dict(name=name, shape=dict(zip("NTVCR", shape)),
+                         launches_per_step=count, max_abs_err=worst[2],
+                         max_abs_plain=worst[3], worst_output=worst[0],
+                         ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                         bound_by=bound_by, **extra_row))
+        print(f"{kname:3s} {name:11s} N,T,V,C,R={shape}: max_abs_err "
+              f"{worst[2]:.3e} in {worst[0]} (max|plain| {worst[3]:.3e}) "
+              f"kernel {ms * 1e3:.1f} us, device {extra_row['device_ms'] * 1e3:.1f} "
+              f"us in {blocks} blocks, plain {plain_ms * 1e3:.1f} us, "
+              f"bound {bound_ms * 1e3:.1f} us ({bound_by})", flush=True)
+    return rows
+
+
 def check_kernels(device):
     """K1 (at the eval and the training batch), K2 (each in its whole-V and
     its joint-tiled design: K1t, K2t) and K3 against their plain versions at
@@ -608,11 +729,6 @@ def check_kernels(device):
     launch at least UNIT_MIN_BLOCKS (K3_MIN_BLOCKS) blocks at every main-path
     shape. Returns {'K1': rows, 'K1_train': rows, 'K1t': rows, 'K2': rows,
     'K2t': rows, 'K3': rows}."""
-    import torch
-
-    from tamgcn_tpu_torch.ops.cuda import ctr_gc
-    from tamgcn_tpu_torch.utils.timing import graph_ms
-
     # (label, kernel, its call, plain version, bound, main path, extra shapes)
     plan = [
         ("K1", "K1", k1, k1_plain, k1_bound, K1_MAIN_PATH, K1_EXTRA),
@@ -622,77 +738,10 @@ def check_kernels(device):
         ("K2t", "K2t", k2, k2_plain, k2_bound, SCENE_MAIN_PATH, TILED_EXTRA),
         ("K3", "K3", k3, k3_plain, k3_bound, BWD_MAIN_PATH, K3_EXTRA),
     ]
-    blocks_of = {"K1": ctr_gc.fwd_blocks, "K1t": ctr_gc.fwd_blocks,
-                 "K2": ctr_gc.dx3_blocks, "K2t": ctr_gc.dx3_blocks}
     out = {}
     for label, kname, fn, plain, bound_fn, main_path, extra in plan:
-        rows = []
         shapes = [(n, s, c) for n, s, c in main_path] + [(n, s, 0) for n, s in extra]
-        for i, (name, shape, count) in enumerate(shapes):
-            args = unit_inputs(shape, seed=100 + i, device=device)
-            with torch.no_grad():
-                reset_launches()
-                got = fn(*args)
-                launched = {k: v for k, v in read_launches().items() if v}
-                if launched != {kname: 1}:
-                    raise AssertionError(f"{kname} {name} {shape}: launches {launched}, "
-                                         f"expected {kname} once")
-                want = plain(*args)
-                again = fn(*args)
-                torch.cuda.synchronize()
-                if kname == "K3":
-                    for part, a, b in zip(K3_OUTPUTS, got, again):
-                        if not torch.equal(a, b):
-                            raise AssertionError(
-                                f"K3 {name} {shape}: two launches differ in {part}")
-                    errs = [(part,) + _within(a, b, *((1e-3, 0.0) if part == "dalpha"
-                                                      else (1e-4, 1e-4)))
-                            for part, a, b in zip(K3_OUTPUTS, got, want)]
-                else:
-                    if not torch.equal(got, again):
-                        raise AssertionError(f"{kname} {name} {shape}: two launches differ")
-                    rtol = 1e-5
-                    errs = [("out",) + _within(got, want, rtol, rtol)]
-                for part, ok, max_err, scale in errs:
-                    if not ok:
-                        raise AssertionError(
-                            f"{kname} {name} {shape} {part}: max |kernel - plain| "
-                            f"{max_err:.3e} (max|plain| {scale:.3e}) beyond the "
-                            "stated tolerance")
-                ms = cuda_ms(lambda: fn(*args))
-                plain_ms = cuda_ms(lambda: plain(*args))
-                extra_row = dict(device_ms=graph_ms(lambda: fn(*args)))
-                N, T, V, C, R = shape
-                if kname == "K3":
-                    blocks = ctr_gc.bwd_param_blocks(N, 3, V, C)
-                    floor = K3_MIN_BLOCKS
-                else:
-                    blocks = blocks_of[kname](N, 3, T, V, R, C)
-                    floor = UNIT_MIN_BLOCKS
-                    if kname in ("K1", "K2") and blocks != ctr_gc.whole_v_blocks(
-                            N, 3, T, C, fwd=kname == "K1"):
-                        raise AssertionError(
-                            f"{kname} {name} {shape}: the launcher's {blocks} blocks are "
-                            "not ops/cuda/ctr_gc.py:whole_v_blocks'")
-                if count and kname in ("K1", "K2", "K3") and blocks < floor:
-                    raise AssertionError(f"{kname} {name} {shape}: {blocks} blocks, "
-                                         f"fewer than {floor}")
-                extra_row["blocks"] = blocks
-            bound_ms, bound_by = bound_fn(shape)
-            check_above_bound(f"{kname} {name}", extra_row["device_ms"], bound_ms)
-            # the worst output relative to its own scale
-            worst = max(errs, key=lambda e: e[2] / max(e[3], 1e-30))
-            rows.append(dict(name=name, shape=dict(zip("NTVCR", shape)),
-                             launches_per_step=count, max_abs_err=worst[2],
-                             max_abs_plain=worst[3], worst_output=worst[0],
-                             ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                             bound_by=bound_by, **extra_row))
-            print(f"{kname:3s} {name:11s} N,T,V,C,R={shape}: max_abs_err "
-                  f"{worst[2]:.3e} in {worst[0]} (max|plain| {worst[3]:.3e}) "
-                  f"kernel {ms * 1e3:.1f} us, device {extra_row['device_ms'] * 1e3:.1f} "
-                  f"us in {blocks} blocks, plain {plain_ms * 1e3:.1f} us, "
-                  f"bound {bound_ms * 1e3:.1f} us ({bound_by})", flush=True)
-        out[label] = rows
+        out[label] = check_unit_shapes(kname, fn, plain, bound_fn, shapes, 100, device)
     for label, what in (("K1", f"eval forward at batch {BATCH}"),
                         ("K1_train", f"train step at batch {TRAIN_BATCH}"),
                         ("K2", f"train step at batch {TRAIN_BATCH}"),
@@ -711,6 +760,14 @@ def check_k5(device):
     equal, and the times of K5, the plain version and the folded path with
     K1 and cuBLAS products (the engine's use_kernel=False); returns the
     rows."""
+    shapes = [(n, s, c) for n, s, c in K5_MAIN_PATH] + [(n, s, 0) for n, s in K5_EXTRA]
+    return check_k5_shapes(shapes, 300, device)
+
+
+def check_k5_shapes(shapes, seed: int, device, plain_iters: int = 20) -> list:
+    """check_k5 at each (name, shape (N, T, V, Cin, C, R), launches per
+    forward) of `shapes`, the plain and folded paths over `plain_iters`
+    calls."""
     import torch
 
     from tamgcn_tpu_torch.ops.aggregation import unit_ctr_gc
@@ -719,9 +776,8 @@ def check_k5(device):
     from tamgcn_tpu_torch.utils.timing import graph_ms
 
     rows = []
-    shapes = [(n, s, c) for n, s, c in K5_MAIN_PATH] + [(n, s, 0) for n, s in K5_EXTRA]
     for i, (name, shape, count) in enumerate(shapes):
-        args = block_inputs(shape, seed=300 + i, device=device)
+        args = block_inputs(shape, seed=seed + i, device=device)
         with torch.no_grad():
             got = gcn_tcn_block_fwd(**args)
             again = gcn_tcn_block_fwd(**args)
@@ -738,8 +794,9 @@ def check_k5(device):
                         f"K5 {name} {shape} {part}: max |kernel - plain| {max_err:.3e} "
                         f"(max|plain| {scale:.3e}) beyond the stated tolerance")
             ms = cuda_ms(lambda: gcn_tcn_block_fwd(**args))
-            plain_ms = cuda_ms(lambda: gcn_tcn_block_plain(**args))
-            folded_ms = cuda_ms(lambda: gcn_tcn_block_plain(**args, aggregate=unit_ctr_gc))
+            plain_ms = cuda_ms(lambda: gcn_tcn_block_plain(**args), iters=plain_iters)
+            folded_ms = cuda_ms(lambda: gcn_tcn_block_plain(**args, aggregate=unit_ctr_gc),
+                                iters=plain_iters)
             # device time alone, as K6's
             device_ms = graph_ms(lambda: gcn_tcn_block_fwd(**args))
             folded_device_ms = graph_ms(
@@ -1207,7 +1264,7 @@ def train_batches(n: int, batch: int):
 
 
 def train_model(weights: str, device, dtype=None, compute=None, capture=None,
-                model_args=None, model_name="ctrgcn", check_finite=False):
+                model_args=None, model_name="ctrgcn", check_finite=False, freeze=()):
     """The NW-UCLA model on `weights`, its parameters in `dtype` (float32
     by default) and its compute dtype `compute` (model_args.dtype), with the
     train phase's packed state (train/packing.py: SGD, Nesterov, lr 0.05,
@@ -1216,7 +1273,8 @@ def train_model(weights: str, device, dtype=None, compute=None, capture=None,
     trainer's form) unless `capture` is False (the eager step). `model_args`
     other than NW-UCLA's make another model (scene256's); `model_name` another
     family (ST-GCN: "stgcn"); `check_finite` adds --debug_nans' check (the
-    step returns (loss, hits, finite))."""
+    step returns (loss, hits, finite)); `freeze` the --freeze_params
+    prefixes."""
     import torch
 
     from tamgcn_tpu_torch.models import get_model
@@ -1227,7 +1285,7 @@ def train_model(weights: str, device, dtype=None, compute=None, capture=None,
     model = get_model(model_name, **(model_args or nucla_model_args()), dtype=compute)
     model.load_state_dict(load_weights(weights))
     model.to(device, dtype or torch.float32).train()
-    state = PackedTrainState(model, "SGD", weight_decay=1e-4)
+    state = PackedTrainState(model, "SGD", weight_decay=1e-4, freeze_prefixes=freeze)
     state.set_lr(0.05)
     step = make_fused_train_step(state, check_finite=check_finite)
     if capture is None:
@@ -3481,6 +3539,533 @@ def run_skeleton_path(work_dir: str, weights: str, device, step_ms: float) -> di
     return out
 
 
+# ---- phase 14: NTU-60 two-person training, the RGB and cross-modal families ----
+
+NTU_YAML = os.path.join(REPO, "configs", "ntu60.yaml")
+RESNET_YAML = os.path.join(REPO, "configs", "nucla", "resnet.yaml")
+CROSS_MODAL_YAML = os.path.join(REPO, "configs", "nucla", "cross_modal.yaml")
+NTU_FRAMES = (30, 300)  # each synthetic NTU clip's length T, drawn uniformly
+NTU_MUTUAL = 50  # NTU-60's actions A050-A060 are the mutual (two-person) ones
+NTU_BATCH, NTU_TEST_BATCH = 128, 256  # configs/ntu60.yaml
+NTU_TRAIN_STEPS = 3
+NTU_ASSEMBLY_BATCHES = 16  # numpy batches timed, after the loader's first
+# the unit op's shapes (N*M, T, V, C, R) in an NTU train step at batch 128
+# (two persons), with the launches per step of the joint-tiled K1 and K2
+# (V = 25 is past the whole-V design) and of K3
+NTU_UNIT_PATH = [
+    ("l1-l4", (2 * NTU_BATCH, 64, 25, 64, 8), 4),
+    ("l5", (2 * NTU_BATCH, 64, 25, 128, 8), 1),
+    ("l6-l7", (2 * NTU_BATCH, 32, 25, 128, 16), 2),
+    ("l8", (2 * NTU_BATCH, 32, 25, 256, 16), 1),
+    ("l9-l10", (2 * NTU_BATCH, 16, 25, 256, 32), 2),
+]
+# the joint-tiled K1's shapes and launches in an eval forward at the test batch
+NTU_EVAL_UNIT_PATH = [(name, (2 * NTU_TEST_BATCH, *shape[1:]), n)
+                      for name, shape, n in NTU_UNIT_PATH]
+# K5's blocks (N*M, T, V, Cin, C, R) in a fast-eval forward at the test batch
+NTU_K5_PATH = [
+    ("l1", (2 * NTU_TEST_BATCH, 64, 25, 3, 64, 8), 1),
+    ("l2-l4", (2 * NTU_TEST_BATCH, 64, 25, 64, 64, 8), 3),
+    ("l5", (2 * NTU_TEST_BATCH, 64, 25, 64, 128, 8), 1),
+    ("l6-l7", (2 * NTU_TEST_BATCH, 32, 25, 128, 128, 16), 2),
+    ("l8", (2 * NTU_TEST_BATCH, 32, 25, 128, 256, 16), 1),
+    ("l9-l10", (2 * NTU_TEST_BATCH, 16, 25, 256, 256, 32), 2),
+]
+PLAIN_ITERS = 3  # the plain versions at NTU's shapes take tens of ms a call
+RGB_SAMPLES, RGB_EVAL = 64, 32  # configs/nucla/resnet.yaml: 4 steps of 16, a test batch of 32
+FUSION_SAMPLES, FUSION_EVAL = 48, 32  # cross_modal.yaml: 3 steps of 16, a test batch of 32
+FUSION_CPU_SAMPLES = 8  # of the first test batch, held to a CPU f64 run
+
+
+def fusion_feeder(split: str, num_samples: int):
+    """The synthetic fusion feeder as the trainer builds it from
+    fusion_argv: its constructor takes no `seed` by name (it passes its
+    keywords on), so the trainer gives it none and it keeps seed 0, in the
+    JAX package too (data/__init__.py:feeder_accepts_seed)."""
+    from tamgcn_tpu_torch.data import SyntheticFusionFeeder
+
+    return SyntheticFusionFeeder(num_samples=num_samples, split=split, image_size=224,
+                                 temporal_rgb_frames=5)
+
+
+def config_args(path: str, *extra):
+    from tamgcn_tpu_torch.train.config import load_config
+
+    return load_config(["-c", path, *extra])
+
+
+def write_ntu_clips(root: str, counts=(NTU_TRAIN_STEPS * NTU_BATCH, NTU_TEST_BATCH)) -> int:
+    """Synthetic NTU-60 clips in the generic skeleton feeder's layout:
+    `<root>/<split>_split.json` ({"file_name", "label" 1..60}) and
+    `<root>/<name>.json` holding "skeletons" (T, 25, 3) for one person or
+    (T, 2, 25, 3) for two (the mutual actions, as in NTU-60: 11 of its 60
+    classes), T drawn per clip from a seeded generator over NTU_FRAMES
+    (NTU-60 is not in the repository; its clips are at most 300 frames, the
+    spread within that is assumed), the
+    coordinates whole millimetres (JSON integers, which write and parse
+    faster than floats; the feeder reads either). Returns the number of
+    clips."""
+    import numpy as np
+
+    rng = np.random.default_rng(SEED)
+    n = 0
+    for split, count in zip(("train", "val"), counts):
+        records = []
+        for i in range(count):
+            action = i % 60 + 1
+            name = f"S{1 + i // 60:03d}C001P{i:03d}R{1 + (split == 'val')}A{action:03d}"
+            frames = int(rng.integers(NTU_FRAMES[0], NTU_FRAMES[1] + 1))
+            persons = (frames, 2, 25, 3) if action >= NTU_MUTUAL else (frames, 25, 3)
+            skeleton = (1000 * rng.normal(size=persons)).round().astype(np.int64)
+            with open(os.path.join(root, f"{name}.json"), "w") as f:
+                # json.dumps encodes in C, json.dump chunk by chunk in Python
+                f.write(json.dumps({"skeletons": skeleton.tolist()}))
+            records.append({"file_name": name, "label": action})
+            n += 1
+        with open(os.path.join(root, f"{split}_split.json"), "w") as f:
+            json.dump(records, f)
+    return n
+
+
+def ntu_argv(work_dir: str, clips: str, *extra) -> list:
+    """configs/ntu60.yaml as shipped on one card: --distributed false, the
+    synthetic clips as its data_path."""
+    return ["recognition", "-c", NTU_YAML, "--distributed", "false", "--work_dir", work_dir,
+            "--use_gpu", "true", "--device", "0", "--seed", str(SEED),
+            "--train_feeder_args", f"data_path={clips}", "--test_feeder_args",
+            f"data_path={clips}", *extra]
+
+
+def read_scores(work_dir: str):
+    import numpy as np
+
+    with open(os.path.join(work_dir, "test_result.pkl"), "rb") as f:
+        scores = pickle.load(f)
+    return list(scores), np.stack(list(scores.values()))
+
+
+def time_step(step, inputs, label: str) -> dict:
+    """A train step (graphed or eager) timed (CUDA events, ms a call) with
+    its device busy time and kernels (profile_device)."""
+    wall = cuda_ms(lambda: step(*inputs), iters=10)
+    busy, n_kernels, events = profile_device(lambda: step(*inputs), reps=3)
+    return dict(wall_ms=wall, busy_ms=busy, idle=1 - busy / wall, kernels=n_kernels,
+                events=events, label=label)
+
+
+TRAINER_TF32 = {}  # main: the TF32 switches as torch starts; the trainer never sets them
+
+
+@contextlib.contextmanager
+def trainer_tf32():
+    """The TF32 switches the port's trainer runs with (TRAINER_TF32),
+    restored after: the run holds its numerics checks with TF32 off."""
+    import torch
+
+    was = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = TRAINER_TF32["matmul"]
+    torch.backends.cudnn.allow_tf32 = TRAINER_TF32["cudnn"]
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = was
+
+
+def time_step_tf32(build, inputs, label: str) -> dict:
+    """time_step of the step that `build()` makes, with TF32 off ("off")
+    and with the trainer's TF32 switches ("trainer"), each built and
+    captured under its setting (a graph keeps the convolutions its capture
+    chose)."""
+    out = {"off": time_step(build(), inputs, label)}
+    with trainer_tf32():
+        out["trainer"] = time_step(build(), inputs, label)
+    return out
+
+
+def step_line(t: dict) -> str:
+    return "; ".join(f"TF32 {tf32}: {r['wall_ms']:.3f} ms, device busy {r['busy_ms']:.3f} ms "
+                     f"({100 * r['idle']:.1f}% idle), {r['kernels']} kernels"
+                     for tf32, r in t.items())
+
+
+def run_ntu(work_dir: str, device, report) -> dict:
+    """configs/ntu60.yaml (full width, batch 128, two persons, V = 25, T =
+    64) with --distributed false through `__main__.main` on synthetic NTU
+    clips: K1t, K2t and K3 against their plain versions at its train step's
+    shapes, K1t (K1t_eval) at its eval shapes and K5 at its fast-eval
+    shapes (batch 256), NTU_TRAIN_STEPS
+    graphed train steps and the eval, --phase test on the checkpoint
+    directory and --phase test --fast_eval true (launch checks; the two
+    test runs' scores agree); numpy batch assembly at batch 128 (the native
+    core takes single-person datasets only) over NTU_ASSEMBLY_BATCHES
+    batches after the first beside the graphed step's wall and busy time
+    (time_step_tf32), and each kernel's device time a step beside its
+    bound."""
+    import numpy as np
+    import torch
+
+    from tamgcn_tpu_torch.data import Loader, SkeletonFeederGCN
+
+    out = {}
+    rows = {}
+    for kname, fn, plain, bound in (("K1t", k1, k1_plain, k1_bound),
+                                    ("K2t", k2, k2_plain, k2_bound),
+                                    ("K3", k3, k3_plain, k3_bound)):
+        rows[kname] = check_unit_shapes(kname, fn, plain, bound, NTU_UNIT_PATH, 700, device,
+                                        plain_iters=PLAIN_ITERS)
+    rows["K1t_eval"] = check_unit_shapes("K1t", k1, k1_plain, k1_bound, NTU_EVAL_UNIT_PATH,
+                                         750, device, plain_iters=PLAIN_ITERS)
+    rows["K5"] = check_k5_shapes(NTU_K5_PATH, 800, device, plain_iters=PLAIN_ITERS)
+    out["kernels"] = rows
+
+    clips = os.path.join(work_dir, "ntu_clips")
+    os.makedirs(clips)
+    t0 = time.perf_counter()
+    n = write_ntu_clips(clips)
+    report(f"ntu60: {n} synthetic NTU clips (two persons in A0{NTU_MUTUAL}-A060, T in {NTU_FRAMES}) written "
+           f"in {time.perf_counter() - t0:.1f} s")
+
+    train_dir = os.path.join(work_dir, "ntu_train")
+    seconds, launches = run_cli(ntu_argv(train_dir, clips, "--phase", "train",
+                                         "--num_epoch", "1"))
+    want = graphed("ntu60.yaml --phase train", {
+        "train": (NTU_TRAIN_STEPS, dict(K1t=10, K2t=10, K3=10)), "eval": (1, dict(K1t=10))})
+    if launches != want:
+        raise AssertionError(f"ntu60.yaml --phase train: launches {launches}, expected {want}")
+    with open(os.path.join(train_dir, "log.txt")) as f:
+        if "train feeder: SkeletonFeederGCN, backend numpy" not in f.read():
+            raise AssertionError("the two-person NTU feeder did not take numpy")
+    check_train_files(train_dir, 1, 1, "ntu60.yaml")
+    out["train"] = dict(seconds=seconds, launches=launches)
+    report(f"ntu60.yaml --phase train: {NTU_TRAIN_STEPS} graphed steps at batch {NTU_BATCH} "
+           f"and the eval in {seconds:.2f} s (incl. model build, data and captures), "
+           f"launches {launches}")
+
+    checkpoints = os.path.join(train_dir, "checkpoints")
+    scores = {}
+    for label, step, kernel, extra in (("test", "eval", "K1t", []),
+                                       ("fast_eval", "fast_eval", "K5", ["--fast_eval", "true"])):
+        test_dir = os.path.join(work_dir, f"ntu_{label}")
+        seconds, launches = run_cli(ntu_argv(test_dir, clips, "--phase", "test", "--weights",
+                                             checkpoints, "--save_result", "true", *extra))
+        if launches != graphed(f"ntu60.yaml --phase test {' '.join(extra)}",
+                               {step: (1, {kernel: 10})}):
+            raise AssertionError(f"ntu60.yaml --phase test {' '.join(extra)}: launches "
+                                 f"{launches}, expected {kernel} 10 per batch and warm-up call")
+        scores[label] = read_scores(test_dir)
+        out[label] = dict(seconds=seconds, launches=launches)
+        report(f"ntu60.yaml --phase test {' '.join(extra)} on the checkpoint directory: "
+               f"{NTU_TEST_BATCH} samples in {seconds:.2f} s, launches {launches}")
+    (names, test), (fast_names, fast) = scores["test"], scores["fast_eval"]
+    rel = float(np.abs(test - fast).max() / np.abs(test).max())
+    if names != fast_names or test.shape != (NTU_TEST_BATCH, 60) or not np.isfinite(
+            test).all() or rel > LOGIT_RTOL:
+        raise AssertionError(f"ntu60.yaml test and fast-eval scores: shape {test.shape}, "
+                             f"max rel difference {rel:.3e}")
+    out["fast_vs_test"] = rel
+    report(f"ntu60.yaml scores, the fast eval (K5) against the test phase (K1t): max rel "
+           f"difference {rel:.3e}")
+
+    arg = config_args(NTU_YAML)
+    # the feeder's `repeat` gives the loader enough distinct samples
+    repeat = -(-(NTU_ASSEMBLY_BATCHES + 1) * NTU_BATCH // (NTU_TRAIN_STEPS * NTU_BATCH))
+    feeder = SkeletonFeederGCN(**dict(arg.train_feeder_args, data_path=clips, repeat=repeat),
+                               seed=SEED)
+    loader = Loader(feeder, batch_size=NTU_BATCH, shuffle=True, drop_last=True, seed=SEED,
+                    num_workers=arg.num_worker)
+    times, batches = [], iter(loader)
+    for _ in range(NTU_ASSEMBLY_BATCHES + 1):
+        t0 = time.perf_counter()
+        x, y, _ = next(batches)
+        times.append(1e3 * (time.perf_counter() - t0))
+    times = times[1:]  # the first batch also starts the loader's thread pool
+    out["assembly_ms"] = dict(median=float(np.median(times)), mean=float(np.mean(times)),
+                              min=float(np.min(times)), max=float(np.max(times)))
+
+    model_args = dict(arg.model_args)
+    weights = os.path.join(checkpoints, "epoch1.pt")
+    inputs = (torch.from_numpy(x).to(device), torch.from_numpy(y.astype(np.int64)).to(device))
+    out["step"] = steps = time_step_tf32(
+        lambda: train_model(weights, device, model_args=model_args)[2], inputs, "ntu60")
+    a = out["assembly_ms"]
+    report(f"ntu60 batch assembly (numpy, {arg.num_worker} threads), batch {NTU_BATCH}, "
+           f"{len(times)} batches after the first: median {a['median']:.3f} ms, mean "
+           f"{a['mean']:.3f}, min {a['min']:.3f}, max {a['max']:.3f}; the graphed train "
+           f"step: {step_line(steps)}")
+    t = steps["trainer"]
+    for kname in ("K1t", "K2t", "K3"):
+        traced = sum(ms for name, ms, _ in t["events"] if is_kernel(kname, name))
+        device_ms = sum(r["device_ms"] * r["launches_per_step"] for r in rows[kname])
+        bound_ms = sum(r["bound_ms"] * r["launches_per_step"] for r in rows[kname])
+        report(f"ntu60 {kname} per train step: {device_ms:.4f} ms device (CUDA graph), "
+               f"bound {bound_ms:.4f} ms; in the step's trace (the trainer's TF32) "
+               f"{traced:.4f} ms, {100 * traced / t['busy_ms']:.1f}% of the device time")
+    device_ms = sum(r["device_ms"] * r["launches_per_step"] for r in rows["K1t_eval"])
+    bound_ms = sum(r["bound_ms"] * r["launches_per_step"] for r in rows["K1t_eval"])
+    report(f"ntu60 K1t per eval forward at batch {NTU_TEST_BATCH}: {device_ms:.4f} ms "
+           f"device (CUDA graph), bound {bound_ms:.4f} ms")
+    device_ms = sum(r["device_ms"] * r["launches_per_step"] for r in rows["K5"])
+    bound_ms = sum(r["bound_ms"] * r["launches_per_step"] for r in rows["K5"])
+    report(f"ntu60 K5 per fast-eval forward at batch {NTU_TEST_BATCH}: {device_ms:.4f} ms "
+           f"device (CUDA graph), bound {bound_ms:.4f} ms")
+    return out
+
+
+def rgb_batches(n: int, batch: int, image_size: int = 224):
+    import numpy as np
+
+    from tamgcn_tpu_torch.data import SyntheticRGBFeeder
+
+    feeder = SyntheticRGBFeeder(num_samples=n * batch, image_size=image_size, split="train",
+                                seed=SEED)
+    return [(np.stack([feeder[i][0] for i in range(b * batch, (b + 1) * batch)]),
+             feeder.label[b * batch:(b + 1) * batch].astype(np.int64)) for b in range(n)]
+
+
+def packed_rgb_run(weights: str, batches, device, compute, capture: bool):
+    """packed_run for ResNetOnly (resnet.yaml's model) on RGB batches."""
+    import torch
+
+    _, state, step = train_model(weights, device, compute=compute, capture=capture,
+                                 model_args=dict(num_class=10), model_name="resnet_only")
+    losses = [step(torch.from_numpy(x).to(device), torch.from_numpy(y).to(device))[0]
+              for x, y in batches]
+    flats = {"parameters": state.params.flats, "momentum":
+             state.optimizer.state["momentum_buffer"], "statistics": state.stats.flats}
+    return losses, {k: torch.cat([f.reshape(-1) for f in v]) for k, v in flats.items()}
+
+
+def rgb_argv(work_dir: str, *extra) -> list:
+    """configs/nucla/resnet.yaml's shapes (224 x 224, batch 16, test batch
+    32) on synthetic class-prototype images (the ST-ROI images are not in
+    the repository)."""
+    return ["recognition_rgb_only", "-c", RESNET_YAML, "--feeder", "synthetic_rgb",
+            "--work_dir", work_dir, "--use_gpu", "true", "--device", "0", "--seed", str(SEED),
+            "--train_feeder_args", f"num_samples={RGB_SAMPLES}", "image_size=224",
+            "--test_feeder_args", f"num_samples={RGB_EVAL}", "image_size=224", *extra]
+
+
+def run_rgb(work_dir: str, device, report) -> dict:
+    """recognition_rgb_only at resnet.yaml's shapes, f32 and bf16: one train
+    epoch (4 graphed steps) with its eval, --phase test on the checkpoint
+    directory (no port kernel launched; finite scores); the graphed train
+    step against the eager one over 3 steps bit for bit with deterministic
+    cuDNN; each step's wall and busy time and kernels, graphed and eager."""
+    import numpy as np
+    import torch
+
+    out = {}
+    steps = RGB_SAMPLES // 16
+    batches = rgb_batches(TRAJ_STEPS, 16)
+    for label, compute in (("f32", None), ("bf16", "bfloat16")):
+        extra = ["--model_args", "dtype=bfloat16"] if compute else []
+        train_dir = os.path.join(work_dir, f"rgb_{label}")
+        seconds, launches = run_cli(rgb_argv(train_dir, "--num_epoch", "1", *extra))
+        if launches != graphed(f"recognition_rgb_only {label}",
+                               {"train": (steps, {}), "eval": (1, {})}):
+            raise AssertionError(f"recognition_rgb_only {label}: launches {launches}")
+        checkpoints = os.path.join(train_dir, "checkpoints")
+        test_dir = os.path.join(work_dir, f"rgb_{label}_test")
+        test_seconds, launches = run_cli(rgb_argv(test_dir, "--phase", "test", "--weights",
+                                                  checkpoints, "--save_result", "true",
+                                                  *extra))
+        if launches != graphed(f"recognition_rgb_only {label} --phase test",
+                               {"eval": (1, {})}):
+            raise AssertionError(f"recognition_rgb_only {label} test: launches {launches}")
+        _, scores = read_scores(test_dir)
+        if scores.shape != (RGB_EVAL, 10) or not np.isfinite(scores).all():
+            raise AssertionError(f"recognition_rgb_only {label}: scores {scores.shape}")
+        weights = os.path.join(checkpoints, "epoch1.pt")
+        with deterministic_cudnn():
+            eager = packed_rgb_run(weights, batches, device, compute, False)
+            graphed_ = packed_rgb_run(weights, batches, device, compute, True)
+        bitwise = differences(graphed_, eager)
+        if bitwise:
+            raise AssertionError(f"the graphed ResNet {label} train step differs from the "
+                                 f"eager one with deterministic cuDNN: {bitwise}")
+        (x, y), = rgb_batches(1, 16)
+        inputs = (torch.from_numpy(x).to(device), torch.from_numpy(y).to(device))
+        forms = {form: time_step_tf32(lambda: train_model(
+            weights, device, compute=compute, capture=capture, model_args=dict(num_class=10),
+            model_name="resnet_only")[2], inputs, form)
+            for form, capture in (("eager", False), ("graphed", True))}
+        out[label] = dict(seconds=seconds, test_seconds=test_seconds, times=forms)
+        report(f"recognition_rgb_only {label}: {steps} graphed steps at batch 16, 224 x 224, "
+               f"with the eval in {seconds:.2f} s, --phase test {test_seconds:.2f} s; no port "
+               f"kernel launched; graphed vs eager over {TRAJ_STEPS} steps with "
+               "deterministic cuDNN: equal bit for bit")
+        for form, t in forms.items():
+            report(f"ResNet-50 {label} train step, batch 16, {form}: {step_line(t)}")
+    return out
+
+
+def fusion_argv(work_dir: str, *extra) -> list:
+    """configs/nucla/cross_modal.yaml's shapes (batch 16, T = 52, 15 x 224 x
+    224, test batch 32) on the synthetic skeleton + RGB pairs."""
+    return ["recognition_cross_modal", "-c", CROSS_MODAL_YAML, "--feeder", "synthetic_fusion",
+            "--work_dir", work_dir, "--use_gpu", "true", "--device", "0", "--seed", str(SEED),
+            "--train_feeder_args", f"num_samples={FUSION_SAMPLES}", "image_size=224",
+            "--test_feeder_args", f"num_samples={FUSION_EVAL}", "image_size=224", *extra]
+
+
+def calibrate_fusion(weights: str, out: str, device) -> None:
+    """The fusion model of `weights` with the running statistics of its
+    ResNet and attention BatchNorms taken from one train-mode pass over a
+    batch of 16 train samples (momentum 1; the frozen GCN keeps its own),
+    so that its eval activations stay O(1) and the card-CPU comparison of
+    the logits tests the port, not conditioning."""
+    import numpy as np
+    import torch
+
+    from tamgcn_tpu_torch.models import get_model
+    from tamgcn_tpu_torch.ops.norm import BatchNorm
+    from tamgcn_tpu_torch.train.checkpoint import load_weights, save_weights
+
+    model = get_model("resnet_gcn_attention", **dict(config_args(CROSS_MODAL_YAML).model_args))
+    model.load_state_dict(load_weights(weights))
+    feeder = fusion_feeder("train", 16)
+    items = [feeder[i] for i in range(16)]
+    xg, xr = (torch.from_numpy(np.stack([it[k] for it in items])).to(device) for k in (0, 1))
+    bns = [m for m in model.modules() if isinstance(m, BatchNorm)]
+    for bn in bns:
+        bn.momentum = 1.0
+    with torch.no_grad():
+        model.to(device).train()(xg, xr)
+    for bn in bns:
+        bn.momentum = 0.1
+    save_weights(model.cpu(), out)
+
+
+def fusion_logits_against_cpu(work_dir: str, weights: str) -> float:
+    """The card's test-phase scores of the first FUSION_CPU_SAMPLES val
+    samples against the same weights in f64 on the CPU."""
+    import numpy as np
+    import torch
+
+    from tamgcn_tpu_torch.models import get_model
+    from tamgcn_tpu_torch.train.checkpoint import load_weights
+
+    names, scores = read_scores(work_dir)
+    feeder = fusion_feeder("val", FUSION_EVAL)
+    if names != feeder.sample_name or scores.shape != (FUSION_EVAL, 10):
+        raise AssertionError(f"fusion scores: {scores.shape} for {len(names)} names")
+    items = [feeder[i] for i in range(FUSION_CPU_SAMPLES)]
+    xg, xr = (torch.from_numpy(np.stack([it[k] for it in items]).astype(np.float64))
+              for k in (0, 1))
+    model = get_model("resnet_gcn_attention", **dict(config_args(CROSS_MODAL_YAML).model_args))
+    model.load_state_dict(load_weights(weights))
+    with torch.no_grad():
+        cpu = model.double().eval()(xg, xr).numpy()
+    gpu = scores[:FUSION_CPU_SAMPLES]
+    rel = float(np.abs(gpu - cpu).max() / np.abs(cpu).max())
+    if not np.isfinite(scores).all() or rel > LOGIT_RTOL:
+        raise AssertionError(f"fusion card logits differ from the CPU f64 run: {rel:.3e}")
+    return rel
+
+
+def run_cross_modal(work_dir: str, weights: str, device, report) -> dict:
+    """recognition_cross_modal at cross_modal.yaml's shapes with --weights
+    the phase-4 CTR-GCN `.pt` (into the frozen `gcn`): one train epoch (3
+    graphed steps) and its eval, K1 10 per step and eval forward and never
+    K2 or K3; the GCN's parameters and BatchNorm statistics after training
+    bit for bit the CTR-GCN's; the fusion model's `gcn` features bit for bit
+    those of the CTR-GCN alone; on calibrated weights the test phase's
+    logits against a CPU f64 run, and in bf16 against the card's plain bf16
+    unit op; the graphed step's wall and busy time."""
+    import numpy as np
+    import torch
+
+    from tamgcn_tpu_torch.models import get_model
+    from tamgcn_tpu_torch.train.checkpoint import load_weights
+
+    out = {}
+    steps = FUSION_SAMPLES // 16
+    train_dir = os.path.join(work_dir, "fusion_train")
+    seconds, launches = run_cli(fusion_argv(train_dir, "--weights", weights, "--num_epoch", "1"))
+    if launches != graphed("recognition_cross_modal --phase train", {
+            "train": (steps, dict(K1=10)), "eval": (1, dict(K1=10))}):
+        raise AssertionError(f"recognition_cross_modal train: launches {launches}, expected "
+                             "K1 10 per step and eval forward, no K2 or K3")
+    trained = load_weights(os.path.join(train_dir, "checkpoints", "epoch1.pt"))
+    ctrgcn = load_weights(weights)
+    moved = [k for k, v in ctrgcn.items() if not k.startswith("fc.")
+             and not torch.equal(trained[f"gcn.{k}"], v)]
+    if moved or len(ctrgcn) - 2 != sum(k.startswith("gcn.") for k in trained):
+        raise AssertionError(f"the frozen GCN moved in training: {moved[:5]}")
+    out["train"] = dict(seconds=seconds, launches=launches)
+    report(f"recognition_cross_modal: {steps} graphed steps at batch 16 (T 52, 15 x 224 x "
+           f"224) and the eval in {seconds:.2f} s, launches {launches}; the GCN's "
+           f"{len(ctrgcn) - 2} parameters and BatchNorm statistics bit for bit the CTR-GCN's")
+
+    args = dict(config_args(CROSS_MODAL_YAML).model_args)
+    fusion = get_model("resnet_gcn_attention", **args)
+    fusion.load_state_dict(trained)
+    alone = get_model("ctrgcn", **nucla_model_args())
+    alone.load_state_dict(ctrgcn)
+    feeder = fusion_feeder("val", 16)
+    xg = torch.from_numpy(np.stack([feeder[i][0] for i in range(16)])).to(device)
+    with torch.inference_mode():
+        mine = fusion.to(device).eval().extract_feature(xg)[0]
+        theirs = alone.to(device).eval().extract_feature(xg)[0]
+    if not torch.equal(mine, theirs):
+        raise AssertionError("the fusion model's gcn features differ from the CTR-GCN's: "
+                             f"{float((mine - theirs).abs().max())}")
+
+    calibrated = os.path.join(work_dir, "fusion_calibrated.pt")
+    calibrate_fusion(os.path.join(train_dir, "checkpoints", "epoch1.pt"), calibrated, device)
+    runs = {}
+    for label, extra, plain, want in (
+            ("f32", [], False, dict(K1=10)),
+            ("bf16", ["--model_args", "dtype=bfloat16"], False, dict(K1_bf16=10)),
+            ("bf16 plain", ["--model_args", "dtype=bfloat16"], True, {})):
+        test_dir = os.path.join(work_dir, f"fusion_test_{label.replace(' ', '_')}")
+        with plain_unit_op() if plain else contextlib.nullcontext():
+            test_seconds, launches = run_cli(fusion_argv(
+                test_dir, "--phase", "test", "--weights", calibrated, "--save_result", "true",
+                *extra))
+        if launches != graphed(f"recognition_cross_modal --phase test ({label})",
+                               {"eval": (1, want)}):
+            raise AssertionError(f"recognition_cross_modal test ({label}): launches {launches}")
+        runs[label] = (test_dir, test_seconds)
+    rel = fusion_logits_against_cpu(runs["f32"][0], calibrated)
+    _, bf16 = read_scores(runs["bf16"][0])
+    _, plain = read_scores(runs["bf16 plain"][0])
+    bf16_rel = float(np.abs(bf16 - plain).max() / np.abs(plain).max())
+    if not np.isfinite(bf16).all() or bf16_rel > BF16_LOGIT_TOL:
+        raise AssertionError(f"fusion bf16 logits against the plain bf16 unit op: {bf16_rel:.3e}")
+    out.update(cpu_rel=rel, bf16_rel=bf16_rel)
+    report(f"recognition_cross_modal --phase test ({FUSION_EVAL} samples, K1 10 per batch): "
+           f"{runs['f32'][1]:.2f} s; the gcn features bit for bit the CTR-GCN's; logits vs "
+           f"a CPU f64 run max rel err {rel:.3e}; bf16 (K1_bf16) vs the card's plain bf16 "
+           f"unit op {bf16_rel:.3e}")
+
+    items = [fusion_feeder("train", 16)[i] for i in range(16)]
+    inputs = tuple(torch.from_numpy(np.stack([it[k] for it in items])).to(device)
+                   for k in (0, 1)) + (torch.arange(16, device=device) % 10,)
+    out["step"] = t = time_step_tf32(lambda: train_model(
+        calibrated, device, model_args=args, model_name="resnet_gcn_attention",
+        freeze=("gcn",))[2], inputs, "cross-modal")
+    report(f"cross-modal graphed train step, batch 16: {step_line(t)}")
+    return out
+
+
+def run_phase14(work_dir: str, weights: str, device) -> dict:
+    """Phase 14: NTU-60 (run_ntu), the RGB family (run_rgb) and the
+    cross-modal fusion (run_cross_modal); each result line ends with the
+    card's name and power limit."""
+    card = card_line()
+
+    def report(line: str):
+        print(f"phase 14: {line} [{card}]", flush=True)
+
+    out = {"ntu": run_ntu(work_dir, device, report)}
+    phase("14. RGB")
+    out["rgb"] = run_rgb(work_dir, device, report)
+    phase("14. cross-modal")
+    out["cross_modal"] = run_cross_modal(work_dir, weights, device, report)
+    return out
+
+
 def kernel_summary(rows, per):
     """Sum of each timing over the launches of one forward / step."""
     used = [r for r in rows if r["launches_per_step"]]
@@ -3514,6 +4099,8 @@ def main() -> int:
     from tamgcn_tpu_torch.ops.cuda import build
 
     device = torch.device("cuda", 0)
+    TRAINER_TF32.update(matmul=torch.backends.cuda.matmul.allow_tf32,
+                        cudnn=torch.backends.cudnn.allow_tf32)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     card = card_line()
@@ -3630,6 +4217,12 @@ def main() -> int:
         run_skeleton_path(work_dir, weights, device, compiled["times"][
             f"f32 train step, batch {TRAIN_BATCH}"]["graphed"]["wall_ms"])
         print(f"phase 13: {time.perf_counter() - t13:.1f} s [{card}]", flush=True)
+
+        # ---- 14. NTU-60 two-person training, the RGB and cross-modal families ----
+        phase("14. NTU-60, RGB, cross-modal")
+        t14 = time.perf_counter()
+        p14 = run_phase14(work_dir, weights, device)
+        print(f"phase 14: {time.perf_counter() - t14:.1f} s [{card}]", flush=True)
         phase("end")
     print("compiled steps (phase 12): " + json.dumps({
         path: {form: {k: r[k] for k in ("wall_ms", "busy_ms", "idle", "kernels",
@@ -3831,6 +4424,33 @@ def main() -> int:
     for kname in ("T1", "T2"):
         for key in ("library_ms", "device_ms", "library_device_ms"):
             kernels[kname][key] = sum(r[key] * r["launches_per_step"] for r in rows[kname])
+    # phase 14's paths: NTU-60's train step (K1t, K2t, K3) and fast eval (K5),
+    # the cross-modal train step and eval forward (K1)
+    ntu = p14["ntu"]
+    for kname, per, launched in (
+            ("K1t", "train step, configs/ntu60.yaml, batch 128 (N*M = 256)", ntu["train"]),
+            ("K2t", "train step, configs/ntu60.yaml, batch 128 (N*M = 256)", ntu["train"]),
+            ("K3", "train step, configs/ntu60.yaml, batch 128 (N*M = 256)", ntu["train"]),
+            ("K5", "fast-eval forward, configs/ntu60.yaml, batch 256 (N*M = 512)",
+             ntu["fast_eval"])):
+        ntu_rows = ntu["kernels"][kname]
+        kernels[kname]["ntu60"] = dict(
+            kernel_summary(ntu_rows, per),
+            device_ms=sum(r["device_ms"] * r["launches_per_step"] for r in ntu_rows),
+            launches=launched["launches"][kname], shapes=ntu_rows)
+        kernels[kname]["max_abs_err"] = max(kernels[kname]["max_abs_err"],
+                                            max(r["max_abs_err"] for r in ntu_rows))
+    eval_rows = ntu["kernels"]["K1t_eval"]
+    kernels["K1t"]["ntu60_eval"] = dict(
+        kernel_summary(eval_rows, "eval forward, configs/ntu60.yaml, batch 256 (N*M = 512)"),
+        device_ms=sum(r["device_ms"] * r["launches_per_step"] for r in eval_rows),
+        launches=ntu["test"]["launches"]["K1t"], shapes=eval_rows)
+    kernels["K1t"]["max_abs_err"] = max(kernels["K1t"]["max_abs_err"],
+                                        max(r["max_abs_err"] for r in eval_rows))
+    kernels["K1"]["cross_modal"] = dict(
+        launches=p14["cross_modal"]["train"]["launches"]["K1"],
+        per="recognition_cross_modal train epoch (3 steps at batch 16, their warm-up calls "
+            "and one eval batch of 32)")
     kernels["T2"]["replaces_also"] = [
         "tools/exp_stage2.py:64", "tools/exp_stage2.py:100", "tools/exp_stage2.py:174",
         "tools/exp_stage2b.py:37"]

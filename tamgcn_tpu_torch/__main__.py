@@ -3,6 +3,10 @@
     python -m tamgcn_tpu_torch recognition -c configs/nucla/gcn.yaml [overrides]
     python -m tamgcn_tpu_torch recognition -c configs/nucla/gcn.yaml \\
         --phase test --weights w.pt [overrides]
+    python -m tamgcn_tpu_torch recognition -c configs/ntu60.yaml --distributed false
+    python -m tamgcn_tpu_torch recognition_rgb_only -c configs/nucla/resnet.yaml
+    python -m tamgcn_tpu_torch recognition_cross_modal -c configs/nucla/cross_modal.yaml
+    python -m tamgcn_tpu_torch recognition_fusion -c configs/nucla/fused.yaml
 
 Runs on cuda:<--device> unless --use_gpu false asks for the CPU.
 """
@@ -10,26 +14,29 @@ from __future__ import annotations
 
 import sys
 
-_LATER = {
-    "recognition_rgb_only": "the RGB slice",
-    "recognition_cross_modal": "the cross-modal slice",
-    "recognition_fusion": "the cross-modal slice",
-}
+
+def _registry() -> dict:
+    """Subcommand -> trainer class, as main.py:17-27."""
+    from tamgcn_tpu_torch.train.trainer import RecognitionTrainer
+    from tamgcn_tpu_torch.train.trainer_cross_modal import CrossModalTrainer
+
+    return {"recognition": RecognitionTrainer,
+            "recognition_rgb_only": RecognitionTrainer,
+            "recognition_cross_modal": CrossModalTrainer,
+            "recognition_fusion": CrossModalTrainer}
 
 
 def main(argv=None) -> int:
     from tamgcn_tpu_torch.train.config import base_parser, load_config
-    from tamgcn_tpu_torch.train.trainer import RecognitionTrainer
 
     argv = list(sys.argv[1:] if argv is None else argv)
-    if argv and argv[0] in _LATER:
-        raise NotImplementedError(f"{argv[0]} comes with {_LATER[argv[0]]}")
-    if not argv or argv[0] != "recognition":
-        print("usage: python -m tamgcn_tpu_torch recognition [-c CONFIG] "
-              "[--phase train | --phase test --weights W.pt] [overrides]")
+    registry = _registry()
+    if not argv or argv[0] not in registry:
+        print(f"usage: python -m tamgcn_tpu_torch {{{','.join(registry)}}} "
+              "[-c CONFIG] [--phase train | --phase test --weights W] [overrides]")
         return 2
     arg = load_config(argv[1:], parser=base_parser(add_help=True))
-    RecognitionTrainer(arg).start()
+    registry[argv[0]](arg).start()
     return 0
 
 

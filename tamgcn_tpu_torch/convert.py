@@ -1,20 +1,23 @@
-"""Convert the JAX package's CTR-GCN and ST-GCN variables into the port's
-state_dict.
+"""Convert the JAX package's model variables into the port's state_dict.
 
 `from_flax({"params": ..., "batch_stats": ...}, model)` takes the nested
-dicts of numpy arrays that `jax.device_get` returns for a tamgcn_tpu CTR-GCN
-or ST-GCN and returns a state_dict for the port's `model`
-(tamgcn_tpu_torch.models.CTRGCN or STGCN). Each pair of models shares its
-module names, so a Flax path `l1/gcn1/conv3/kernel` is the port's
-`l1.gcn1.conv3.weight`, and `blocks_3/tcn_conv/kernel` is
-`blocks_3.tcn_conv.weight`. Layouts:
+dicts of numpy arrays that `jax.device_get` returns for a tamgcn_tpu model
+(CTR-GCN, ST-GCN, ResNet, ResNetOnly, ResNetGCNAttention) and returns a
+state_dict for the port's `model` of the same family. Each pair of models
+shares its module names, so a Flax path `l1/gcn1/conv3/kernel` is the
+port's `l1.gcn1.conv3.weight`, `blocks_3/tcn_conv/kernel` is
+`blocks_3.tcn_conv.weight` and `resnet/layer2_0/downsample_conv/kernel` is
+`resnet.layer2_0.downsample_conv.weight`. Layouts:
 
   * Flax conv kernels are HWIO: a 1x1 kernel (1, 1, in, out) becomes the
     port's (out, in) (CTR-GCN's 1x1 convs, ST-GCN's `gcn/conv` and
     `res_conv`), a temporal kernel (k, 1, in, out) becomes (out, in, k, 1)
-    (CTR-GCN's branch convs, ST-GCN's 9x1 `tcn_conv`);
+    (CTR-GCN's branch convs, ST-GCN's 9x1 `tcn_conv`), and any kh x kw
+    kernel (kh, kw, in, out) becomes (out, in, kh, kw) (the ResNet's convs,
+    its 1x1 ones too, which the port keeps 4-D for `F.conv2d`);
   * Dense kernels are (in, out) and become (out, in) (CTR-GCN's `fc`,
-    ST-GCN's `fcn` head);
+    ST-GCN's `fcn` head, the ResNet's `fc`, the fusion model's attention
+    MLP and classifier);
   * packed conv12/conv3 are packed the same way on both sides, and PA,
     alpha, conv4_kernel (S, R, C), conv4_bias (S, C) and ST-GCN's
     `edge_importance_i` (K, V, V) keep their layout;
@@ -56,7 +59,7 @@ def _to_port_layout(value: np.ndarray, target_ndim: int, is_kernel: bool) -> np.
         if value.shape[:2] != (1, 1):
             raise ValueError(f"expected a 1x1 kernel, got {value.shape}")
         return value[0, 0].T
-    if value.ndim == 4 and target_ndim == 4:  # (k, 1, in, out) -> (out, in, k, 1)
+    if value.ndim == 4 and target_ndim == 4:  # (kh, kw, in, out) -> (out, in, kh, kw)
         return value.transpose(3, 2, 0, 1)
     if value.ndim == 2 and target_ndim == 2:  # Dense (in, out)
         return value.T
@@ -78,7 +81,8 @@ def flax_param_paths(model: torch.nn.Module) -> dict[str, str]:
 
 
 def from_flax(variables: dict, model: torch.nn.Module) -> dict:
-    """State dict for `model` (a port CTRGCN or STGCN) from Flax `variables`."""
+    """State dict for `model` (a port model) from Flax `variables`, which
+    must set every tensor of `model`."""
     target = model.state_dict()
     out: dict[str, torch.Tensor] = {}
     for collection in ("params", "batch_stats"):

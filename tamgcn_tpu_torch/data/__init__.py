@@ -1,31 +1,31 @@
-"""Data pipeline: NW-UCLA feeder (train and val splits), synthetic feeder,
-batch loader."""
+"""Data pipeline: the NW-UCLA skeleton, ST-ROI image and fusion feeders,
+the generic skeleton feeder (NTU), the synthetic feeders, batch loader."""
+from .feeder_nucla_fusion import NUCLAFeederFusion
 from .feeder_nucla_gcn import NUCLAFeederGCN  # noqa: F401
+from .feeder_nucla_resnet import NUCLAFeederResNet
+from .feeder_skeleton_gcn import SkeletonFeederGCN
 from .loader import Loader  # noqa: F401
 from .splits import load_nucla_split  # noqa: F401
-from .synthetic import SyntheticSkeletonFeeder  # noqa: F401
+from .synthetic import (SyntheticFusionFeeder, SyntheticRGBFeeder,  # noqa: F401
+                        SyntheticSkeletonFeeder)
 
+# every name of the JAX package's registry (tamgcn_tpu/data/__init__.py)
 _REGISTRY = {
     "nucla_gcn": NUCLAFeederGCN,
     "feeder.feeder_nucla_gcn.Feeder": NUCLAFeederGCN,
+    "nucla_resnet": NUCLAFeederResNet,
+    "feeder.feeder_nucla_resnet.Feeder": NUCLAFeederResNet,
+    "nucla_fusion": NUCLAFeederFusion,
+    "feeder.feeder_nucla_fusion.Feeder": NUCLAFeederFusion,
+    "skeleton_gcn": SkeletonFeederGCN,
     "synthetic_gcn": SyntheticSkeletonFeeder,
-}
-_LATER = {
-    "skeleton_gcn": "the NTU slice",
-    "nucla_resnet": "the RGB slice",
-    "feeder.feeder_nucla_resnet.Feeder": "the RGB slice",
-    "synthetic_rgb": "the RGB slice",
-    "nucla_fusion": "the cross-modal slice",
-    "feeder.feeder_nucla_fusion.Feeder": "the cross-modal slice",
-    "synthetic_fusion": "the cross-modal slice",
+    "synthetic_fusion": SyntheticFusionFeeder,
+    "synthetic_rgb": SyntheticRGBFeeder,
 }
 
 
 def resolve_feeder(name: str):
-    """Feeder class by registry name. The RGB, fusion and generic skeleton
-    feeders of the JAX package come with later slices and raise."""
-    if name in _LATER:
-        raise NotImplementedError(f"feeder {name!r} comes with {_LATER[name]}")
+    """Feeder class by registry name."""
     try:
         return _REGISTRY[name]
     except KeyError:

@@ -1,12 +1,21 @@
-"""Host-side skeleton preprocessing (numpy).
+"""Host-side skeleton and image preprocessing (numpy).
 
-Copies of the functions of tamgcn_tpu/data/transforms.py that the NW-UCLA
-and synthetic feeders use: view transform, min-max normalisation, train and
-eval resampling, the bone/motion modalities and top-k scoring.
+Copies of the functions of tamgcn_tpu/data/transforms.py that the port's
+feeders use: view transform, min-max normalisation, train and eval
+resampling, the bone/motion modalities with the bone table per joint count,
+the generic (C, T, V, M) tools of the fusion feeder (padding, random crop,
+move and shift), the ST-ROI image loaders and top-k scoring.
+
+Images and Pillow: the reference loaders return black images on ANY error
+(tamgcn_tpu/data/transforms.py:380-388), which on a machine without Pillow
+turns a whole dataset into zeros with no error. Here a missing or unreadable
+image file still gives the black image, but an image file that exists while
+Pillow is not installed raises an ImportError naming Pillow.
 """
 from __future__ import annotations
 
 import math
+import os
 
 import numpy as np
 
@@ -16,6 +25,28 @@ NUCLA_BONES = [
     (10, 9), (11, 10), (12, 11), (13, 1), (14, 13), (15, 14), (16, 15),
     (17, 1), (18, 17), (19, 18), (20, 19),
 ]
+
+# NTU RGB+D bone list: (joint, parent) 1-based, Kinect-v2 25-joint layout
+# (the inward edges of graphs/ntu_rgb_d.py plus the spine-shoulder root)
+NTU_BONES = [
+    (1, 2), (2, 21), (3, 21), (4, 3), (5, 21), (6, 5), (7, 6), (8, 7),
+    (9, 21), (10, 9), (11, 10), (12, 11), (13, 1), (14, 13), (15, 14),
+    (16, 15), (17, 1), (18, 17), (19, 18), (20, 19), (21, 21), (22, 23),
+    (23, 8), (24, 25), (25, 12),
+]
+
+
+def bones_for(num_joint: int) -> list[tuple[int, int]]:
+    """Bone (child, parent) table for a skeleton layout, keyed by joint count."""
+    if num_joint == 20:
+        return NUCLA_BONES
+    if num_joint == 25:
+        return NTU_BONES
+    raise ValueError(f"no bone table for {num_joint}-joint skeletons")
+
+
+IMAGENET_MEAN = np.array([0.485, 0.456, 0.406], np.float32)
+IMAGENET_STD = np.array([0.229, 0.224, 0.225], np.float32)
 
 
 def rand_view_transform(x: np.ndarray, agx: float, agy: float, s: float) -> np.ndarray:
@@ -99,6 +130,158 @@ def to_motion(data: np.ndarray) -> np.ndarray:
     out = np.zeros_like(data)
     out[:-1] = data[1:] - data[:-1]
     return out
+
+
+# ---------------------------------------------------------------------------
+# Generic (C, T, V, M) tools (reference feeder/tools.py)
+# ---------------------------------------------------------------------------
+
+
+def auto_pading(
+    data: np.ndarray, size: int, random_pad: bool = False,
+    rng: np.random.Generator | None = None,
+) -> np.ndarray:
+    """Zero-pad T up to `size` (reference tools.py:39-47)."""
+    C, T, V, M = data.shape
+    if T >= size:
+        return data
+    begin = int(rng.integers(0, size - T + 1)) if (random_pad and rng is not None) else 0
+    out = np.zeros((C, size, V, M), data.dtype)
+    out[:, begin:begin + T] = data
+    return out
+
+
+def random_choose(
+    data: np.ndarray, size: int, rng: np.random.Generator, auto_pad: bool = True
+) -> np.ndarray:
+    """Random temporal crop to `size` frames (reference tools.py:50-62)."""
+    C, T, V, M = data.shape
+    if T == size:
+        return data
+    if T < size:
+        return auto_pading(data, size, random_pad=True, rng=rng) if auto_pad else data
+    begin = int(rng.integers(0, T - size + 1))
+    return data[:, begin:begin + size]
+
+
+_DEFAULT_ANGLES = [
+    -175., -170., -165., -160., -155., -150., -145., -140., -135., -130.,
+    -125., -120., -115., -100., -95., -90., -85., -80., -75., -70., -65.,
+    -60., -55., -50., -45., -40., -35., -30., -25., -20., -15., -10., -5.,
+    0., 5., 10., 15., 20., 25., 30., 35., 40., 45., 50., 55., 60., 65., 70.,
+    75., 80., 85., 90., 95., 100., 115., 120., 125., 130., 135., 140., 145.,
+    150., 155., 160., 165., 170., 175., 180.,
+]
+
+
+def random_move(
+    data: np.ndarray,
+    rng: np.random.Generator,
+    angle_candidate=tuple(_DEFAULT_ANGLES),
+    scale_candidate=(0.9, 1.0, 1.1),
+    transform_candidate=(-0.2, -0.1, 0.0, 0.1, 0.2),
+    move_time_candidate=(1,),
+) -> np.ndarray:
+    """Piecewise-interpolated 2-D rotate/scale/translate (reference tools.py:65-115;
+    the widest angle set, the reference's final choice, tools.py:66-72)."""
+    data = data.copy()
+    C, T, V, M = data.shape
+    move_time = int(rng.choice(np.asarray(move_time_candidate)))
+    node = np.arange(0, T, T * 1.0 / move_time).round().astype(int)
+    node = np.append(node, T)
+    num_node = len(node)
+
+    A = rng.choice(np.asarray(angle_candidate), num_node)
+    S = rng.choice(np.asarray(scale_candidate), num_node)
+    T_x = rng.choice(np.asarray(transform_candidate), num_node)
+    T_y = rng.choice(np.asarray(transform_candidate), num_node)
+
+    a = np.zeros(T)
+    s = np.zeros(T)
+    t_x = np.zeros(T)
+    t_y = np.zeros(T)
+    for i in range(num_node - 1):
+        n0, n1 = node[i], node[i + 1]
+        a[n0:n1] = np.linspace(A[i], A[i + 1], n1 - n0) * np.pi / 180
+        s[n0:n1] = np.linspace(S[i], S[i + 1], n1 - n0)
+        t_x[n0:n1] = np.linspace(T_x[i], T_x[i + 1], n1 - n0)
+        t_y[n0:n1] = np.linspace(T_y[i], T_y[i + 1], n1 - n0)
+
+    theta = np.array(
+        [[np.cos(a) * s, -np.sin(a) * s], [np.sin(a) * s, np.cos(a) * s]]
+    )  # (2, 2, T)
+    for t in range(T):
+        xy = data[0:2, t].reshape(2, -1)
+        new_xy = theta[:, :, t] @ xy
+        new_xy[0] += t_x[t]
+        new_xy[1] += t_y[t]
+        data[0:2, t] = new_xy.reshape(2, V, M)
+    return data
+
+
+def random_shift(data: np.ndarray, rng: np.random.Generator) -> np.ndarray:
+    """Shift the valid-frame span to a random offset (reference tools.py:118-130)."""
+    C, T, V, M = data.shape
+    out = np.zeros_like(data)
+    valid = (data != 0).sum(axis=(0, 2, 3)) > 0
+    begin = int(valid.argmax())
+    end = len(valid) - int(valid[::-1].argmax())
+    size = end - begin
+    bias = int(rng.integers(0, T - size + 1))
+    out[:, bias:bias + size] = data[:, begin:end]
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Images (Pillow; the reference's torchvision Resize+ToTensor+Normalize)
+# ---------------------------------------------------------------------------
+
+
+def load_image_chw(
+    path: str, size: int = 224, normalize: bool = True
+) -> np.ndarray:
+    """Load an RGB image -> float32 (3, size, size), ImageNet-normalised
+    (reference feeder_nucla_resnet.py:25-35, tools.py:216-246; Pillow's
+    bilinear resize). Raises ImportError, naming Pillow, where it is not
+    installed."""
+    try:
+        from PIL import Image
+    except ImportError as e:
+        raise ImportError(
+            f"reading the image {path} needs Pillow (the PIL package), which is "
+            "not installed") from e
+
+    img = Image.open(path).convert("RGB").resize((size, size), Image.BILINEAR)
+    arr = np.asarray(img, np.float32) / 255.0  # (H, W, 3)
+    if normalize:
+        arr = (arr - IMAGENET_MEAN) / IMAGENET_STD
+    return np.transpose(arr, (2, 0, 1))
+
+
+def load_image_or_black(path: str, size: int = 224) -> np.ndarray:
+    """load_image_chw, or the reference's black image (zeros) where the file
+    is missing or unreadable; a missing Pillow raises (module docstring)."""
+    if not os.path.exists(path):
+        return np.zeros((3, size, size), np.float32)
+    try:
+        return load_image_chw(path, size)
+    except ImportError:
+        raise
+    except Exception:
+        return np.zeros((3, size, size), np.float32)
+
+
+def load_rgb_images(
+    rgb_root: str, name: str, temporal_rgb_frames: int, size: int = 224
+) -> np.ndarray:
+    """Replicate one ST-ROI image temporal_rgb_frames x -> (3*F, size, size)
+    (reference feeder/tools.py:216-246, `<name>.png`, else `<name>.jpg`),
+    black where it is missing or unreadable."""
+    img_path = os.path.join(rgb_root, name + ".png")
+    if not os.path.exists(img_path):
+        img_path = os.path.join(rgb_root, name + ".jpg")
+    img = load_image_or_black(img_path, size)
+    return np.concatenate([img] * temporal_rgb_frames, axis=0)
 
 
 def top_k(score: np.ndarray, label: np.ndarray, k: int) -> float:

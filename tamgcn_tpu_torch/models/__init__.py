@@ -1,6 +1,8 @@
-"""Model families of the port: TAM/CTR-GCN and ST-GCN (the RGB models come
-with later slices)."""
+"""Model families of the port: TAM/CTR-GCN, ST-GCN, the ResNet RGB branch
+and the cross-modal fusion model."""
 from .ctrgcn import CTRGC, CTRGCN, create_ctrgcn_nucla  # noqa: F401
+from .resnet_gcn_attention import ResNetGCNAttention
+from .resnet_only import ResNetOnly
 from .stgcn import STGCN, create_stgcn_nucla, edge_importance_per_joint  # noqa: F401
 
 _REGISTRY = {
@@ -9,12 +11,10 @@ _REGISTRY = {
     "models.ctrgcn.Model": CTRGCN,
     "stgcn": STGCN,
     "models.stgcn.Model": STGCN,
-}
-_LATER = {
-    "resnet_only": "the RGB slice",
-    "models.resnet_only.Model": "the RGB slice",
-    "resnet_gcn_attention": "the RGB slice",
-    "models.resnet_gcn_attention.ResNet_GCN_Attention": "the RGB slice",
+    "resnet_only": ResNetOnly,
+    "models.resnet_only.Model": ResNetOnly,
+    "resnet_gcn_attention": ResNetGCNAttention,
+    "models.resnet_gcn_attention.ResNet_GCN_Attention": ResNetGCNAttention,
 }
 
 
@@ -23,8 +23,6 @@ def get_model(name: str, **model_args):
     the parameters; `dtype` (the config's model_args.dtype) is the compute
     dtype, float32 (None) or bfloat16 with float32 parameters, and any other
     raises."""
-    if name in _LATER:
-        raise NotImplementedError(f"model {name!r} comes with {_LATER[name]}")
     dtype = model_args.get("dtype")
     if dtype not in (None, "float32", "bfloat16"):
         raise NotImplementedError(

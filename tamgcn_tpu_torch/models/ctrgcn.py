@@ -57,6 +57,16 @@ def compute_dtype(dtype) -> torch.dtype | None:
         f"compute dtype {dtype!r}: the model computes in float32 or bfloat16")
 
 
+def dropout_unported(flag: str, p: float) -> None:
+    """Dropout in training needs a seeded stream, as the JAX models draw
+    theirs from a dropout rng; nn.Dropout would draw from torch's global
+    generator, and a fresh mask at each replay of a captured CUDA graph
+    needs a check on the card of its own. `flag` names the model argument."""
+    raise NotImplementedError(
+        f"{flag} {p} in training waits for the seeded dropout stream (ROADMAP "
+        f"Queue 1 item 7b); train with {flag} 0")
+
+
 def _cast_linear(x, weight, bias, dtype):
     """A Flax Dense/1x1 Conv with a compute dtype: input, weight and bias
     cast to `dtype`, the product rounded to it, then the bias added."""
@@ -406,14 +416,17 @@ class CTRGCN(nn.Module):
     `torch.Generator`; seed 0 when none is given). `dtype` is the compute
     dtype (None or "float32", or "bfloat16"; the module docstring says what
     bf16 computes); the parameters are float32 in both, and so are the
-    logits.
+    logits. `head=False` leaves out `fc` (and the dropout before it): a
+    model that uses only `extract_feature`, as the cross-modal fusion model
+    does, never initialises them in Flax.
     """
 
     def __init__(self, num_class: int = 60, num_point: int = 25,
                  num_person: int = 2, graph=None, graph_args=None,
                  in_channels: int = 3, drop_out: float = 0.0,
                  adaptive: bool = True, base_channel: int = 64,
-                 generator: torch.Generator | None = None, dtype=None):
+                 generator: torch.Generator | None = None, dtype=None,
+                 head: bool = True):
         super().__init__()
         self.dtype = dt = compute_dtype(dtype)
         if graph is None:
@@ -440,8 +453,8 @@ class CTRGCN(nn.Module):
                 dtype=dt,
             ))
         self.data_bn = BatchNorm(num_person * num_point * in_channels, dtype=dt)
-        self.fc = nn.Linear(4 * bc, num_class)
-        self.dropout = nn.Dropout(drop_out) if drop_out else None
+        self.fc = nn.Linear(4 * bc, num_class) if head else None
+        self.dropout = nn.Dropout(drop_out) if drop_out and head else None
         self.reset_parameters(generator or _default_generator())
 
     @property
@@ -451,8 +464,9 @@ class CTRGCN(nn.Module):
     def reset_parameters(self, generator):
         for blk in self.blocks:
             blk.reset_parameters(generator)
-        inits.fc_init_(self.fc.weight, self.num_class, generator)
-        inits.torch_linear_bias_init_(self.fc.bias, self.fc.in_features, generator)
+        if self.fc is not None:
+            inits.fc_init_(self.fc.weight, self.num_class, generator)
+            inits.torch_linear_bias_init_(self.fc.bias, self.fc.in_features, generator)
 
     def _to_ncvtm(self, x):
         """Accept reference layouts (N,C,T,V,M) or (N,T,V*C) -> (N,C,T,V,M)."""
@@ -483,13 +497,8 @@ class CTRGCN(nn.Module):
         h = self._backbone(h)  # (N*M, T', V, 4*bc)
         h = h.reshape(N, M, -1, h.shape[-1]).mean(dim=2).mean(dim=1)  # (N, C)
         if self.dropout is not None and self.training:
-            # nn.Dropout would draw from torch's global generator, not from a
-            # seeded stream as the JAX model's dropout rng; no shipped GCN
-            # config sets drop_out
-            raise NotImplementedError(
-                "drop_out > 0 in training comes with the RGB slice (the "
-                "seeded dropout of the ResNet block variant)"
-            )
+            # no shipped config sets drop_out
+            dropout_unported("drop_out", self.dropout.p)
         if self.dtype is None:
             return self.fc(h)
         # the head in the compute dtype, its logits widened to float32

@@ -22,7 +22,7 @@ BatchNorm normalises in bf16 (ops/norm.py).
 What this port leaves to later slices: `graph_partition="ring"` (the
 edge-partitioned aggregation over a device mesh) comes with the parallel
 slice; `dropout`/`block_dropout` > 0 in training raise until the seeded
-dropout stream comes with the RGB slice.
+dropout stream (ROADMAP Queue 1 item 7b).
 """
 from __future__ import annotations
 
@@ -35,7 +35,8 @@ from ..graphs import get_graph
 from ..ops import inits
 from ..ops.aggregation import stgcn_aggregate
 from ..ops.norm import BatchNorm
-from .ctrgcn import CTRGCN, Conv1x1, TemporalConv2d, _cast_linear, compute_dtype
+from .ctrgcn import (CTRGCN, Conv1x1, TemporalConv2d, _cast_linear, compute_dtype,
+                     dropout_unported)
 
 # (in channels or None for the model's input, out channels, stride, residual)
 # per block (reference models/stgcn.py:140-150)
@@ -44,12 +45,6 @@ _PLAN = [
     (64, 128, 2, True), (128, 128, 1, True), (128, 128, 1, True),
     (128, 256, 2, True), (256, 256, 1, True), (256, 256, 1, True),
 ]
-
-
-def _dropout_unported(p: float) -> None:
-    raise NotImplementedError(
-        f"dropout {p} in training comes with the RGB slice (the seeded dropout "
-        "stream); train with dropout 0")
 
 
 class ConvTemporalGraphical(nn.Module):
@@ -112,7 +107,7 @@ class STGCNBlock(nn.Module):
         h = F.relu(self.tcn_bn1(self.gcn(x, A)))
         h = self.tcn_bn2(self.tcn_conv(h))
         if self.dropout and self.training:
-            _dropout_unported(self.dropout)
+            dropout_unported("block_dropout", self.dropout)
         if self.res_mode == "none":
             return F.relu(h)
         res = x if self.res_mode == "identity" else self.res_bn(self.res_conv(x))
@@ -219,7 +214,7 @@ class STGCN(nn.Module):
         h = self._backbone(h)  # (N*M, T', V, 256)
         h = h.mean(dim=(1, 2)).reshape(N, M, -1).mean(dim=1)
         if self.dropout and self.training:
-            _dropout_unported(self.dropout)
+            dropout_unported("dropout", self.dropout)
         # logits in float32 (or wider): the loss does not run in bf16
         out = self._head(h)
         return out.to(torch.promote_types(out.dtype, torch.float32))

@@ -75,3 +75,13 @@ def torch_conv_default_(t, generator, fan_in: int | None = None):
     if fan_in is None:
         fan_in = t.shape[1] * _receptive(t.shape)
     return torch_linear_bias_init_(t, fan_in, generator)
+
+
+def lecun_normal_(t, generator):
+    """Flax's default Dense kernel init, lecun_normal: a normal truncated at
+    two standard deviations, variance 1 / fan_in after the truncation
+    (variance_scaling(1, "fan_in", "truncated_normal")); `t` is (out, in)."""
+    std = math.sqrt(1.0 / t.shape[1]) / 0.87962566103423978
+    with torch.no_grad():
+        return torch.nn.init.trunc_normal_(t, std=std, a=-2 * std, b=2 * std,
+                                           generator=generator)

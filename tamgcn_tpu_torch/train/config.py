@@ -121,7 +121,7 @@ def base_parser(add_help: bool = False) -> argparse.ArgumentParser:
                    help="run on cuda:<device> (raises without CUDA); "
                         "false runs on the CPU")
     p.add_argument("--data_parallel", type=int, default=-1,
-                   help="accepted for config compatibility; one device")
+                   help="devices on the data axis: -1 (all) or 1, one device")
     p.add_argument("--model_parallel", type=int, default=1,
                    help="not ported yet: only 1")
     p.add_argument("--graph_partition", default="none",
@@ -163,15 +163,22 @@ def load_config(argv=None, parser: argparse.ArgumentParser | None = None):
     return p
 
 
-# flag -> (the one value the port accepts, why any other raises)
+# flag -> (the values the port accepts, why any other raises)
 _NOT_PORTED = {
-    "use_pallas": (None, "--use_pallas has no meaning in the port: a CUDA "
-                         "tensor runs the CUDA kernels, a CPU tensor the "
-                         "plain versions"),
-    "sequence_parallel": (False, "--sequence_parallel is not ported yet"),
-    "graph_partition": ("none", "--graph_partition ring is not ported yet"),
-    "model_parallel": (1, "--model_parallel > 1 is not ported yet"),
-    "distributed": (False, "--distributed is not ported yet"),
+    "use_pallas": ((None,), "--use_pallas has no meaning in the port: a CUDA "
+                            "tensor runs the CUDA kernels, a CPU tensor the "
+                            "plain versions"),
+    "sequence_parallel": ((False,), "--sequence_parallel is not ported yet"),
+    "graph_partition": (("none",), "--graph_partition ring is not ported yet"),
+    "model_parallel": ((1,), "--model_parallel > 1 is not ported yet"),
+    # -1 (every device) and 1 both mean the one device the port runs on; the
+    # JAX package raises where the value does not match the device count
+    # (tamgcn_tpu/parallel/mesh.py:32-37)
+    "data_parallel": ((-1, 1), "--data_parallel across devices is not ported "
+                               "yet: the port runs on one device (-1 or 1)"),
+    "distributed": ((False,), "--distributed is not ported yet (a config that "
+                              "sets it, such as configs/ntu60.yaml, runs on one "
+                              "device with --distributed false)"),
 }
 
 
@@ -180,7 +187,7 @@ def check_supported(arg) -> None:
     lacks, so that none is ignored quietly."""
     for name, (accepted, why) in _NOT_PORTED.items():
         value = getattr(arg, name)
-        if value != accepted:
+        if value not in accepted:
             raise NotImplementedError(f"{why} (got --{name} {value!r})")
 
 

@@ -50,8 +50,7 @@ from ..data.transforms import top_k
 from ..models import get_model
 from ..models.ctrgcn import CTRGCN
 from ..models.ctrgcn_infer import make_eval_step, make_fast_eval_step
-from .checkpoint import (Checkpoints, filter_ignore, load_weights, partial_update,
-                         weights_form)
+from .checkpoint import Checkpoints, filter_ignore, partial_update, port_state, read_weights
 from .config import check_supported, resolve_device
 from .debug_nans import checked, locate_non_finite, non_finite_names
 from .graphs import GraphedStep
@@ -156,14 +155,21 @@ class RecognitionTrainer:
         self.model.to(self.device).eval()
 
     def _load_weights(self):
-        """--weights in any of its three forms (train/checkpoint.py), then
-        --ignore_weights and the partial load with its report."""
+        """--weights in any of its forms (train/checkpoint.py:read_weights; a
+        directory names its best.pt or latest epoch{n}.pt), then
+        --ignore_weights and the partial load with its report, which raises
+        where most of the target module would stay at init."""
         arg = self.arg
-        form = weights_form(arg.weights)
-        self.print_log(f"Load weights from {arg.weights} ({form})")
-        state = load_weights(arg.weights, arg.model, self.model)
-        partial_update(self.model, filter_ignore(state, arg.ignore_weights),
-                       log=self.print_log)
+        form, contents, path = read_weights(arg.weights)
+        where = arg.weights if path == arg.weights else f"{arg.weights} ({path})"
+        self.print_log(f"Load weights from {where} ({form})")
+        target, state = self._weights_for(form, contents)
+        partial_update(target, filter_ignore(state, arg.ignore_weights),
+                       log=self.print_log, ignore_keys=arg.ignore_weights)
+
+    def _weights_for(self, form: str, contents: dict):
+        """(the module the weights load into, its state dict from them)."""
+        return self.model, port_state(form, contents, self.arg.model, self.model)
 
     def _load_optimizer(self):
         arg = self.arg

@@ -1,8 +1,11 @@
 """Reference PyTorch state dicts -> the port's state dicts.
 
-Copy of the CTR-GCN and ST-GCN parts of tamgcn_tpu/utils/torch_import.py
-(numpy only). The reference checkpoints (models/ctrgcn.py, models/stgcn.py,
-written as `.npz` by tools/export_torch_weights.py) name and lay out their
+Copy of tamgcn_tpu/utils/torch_import.py (numpy only): the CTR-GCN, ST-GCN,
+ResNet (torchvision names, conv1 inflated 3 -> 3k) and cross-modal fusion
+importers. The reference checkpoints (models/ctrgcn.py, models/stgcn.py,
+models/resnet_only.py, models/resnet_gcn_attention.py, torchvision's
+resnet50, written as `.npz` by tools/export_torch_weights.py or saved as a
+`.pt` state dict by torch) name and lay out their
 tensors as the reference modules do; the importers map them onto the JAX
 package's Flax variable tree (`{"params": ..., "batch_stats": ...}`, nested
 dicts keyed by module path), and `convert.from_flax` maps that tree onto the
@@ -16,10 +19,12 @@ Layout conversions into the Flax tree:
   torch BatchNorm weight/bias/running_mean/running_var
       -> Flax BatchNorm scale/bias + batch_stats mean/var
 
-The ResNet and fusion importers of the JAX module come with the RGB slice.
+`reference_named(state)` tells a state dict of reference names from one of
+the port's own names (train/checkpoint.py reads a `.pt` of either).
 """
 from __future__ import annotations
 
+import re
 from typing import Any, Mapping
 
 import numpy as np
@@ -34,6 +39,21 @@ def _conv_w(w: np.ndarray) -> np.ndarray:
 def strip_module_prefix(state: Mapping[str, np.ndarray]) -> dict[str, np.ndarray]:
     """Drop DataParallel 'module.' prefixes (torchlight io.py:65-66)."""
     return {k.removeprefix("module."): np.asarray(v) for k, v in state.items()}
+
+
+# names only the reference's modules have: CTR-GCN's per-subset `convs.i` and
+# the multi-scale TCN's `branches.i` (the port packs both), ST-GCN's
+# `st_gcn_networks.i`, torchvision's `layerN.i` (the port's `layerN_i`) and
+# the fusion model's `attention_transform.i`
+_REFERENCE_NAME = re.compile(
+    r"(^|\.)(convs\.\d+\.|branches\.\d+\.|st_gcn_networks\.|layer\d\.\d+\.|"
+    r"attention_transform\.)")
+
+
+def reference_named(state: Mapping) -> bool:
+    """Whether the tensor names of `state` are the reference's (any name
+    only a reference module has), not the port's."""
+    return any(_REFERENCE_NAME.search(k.removeprefix("module.")) for k in state)
 
 
 class _TreeBuilder:
@@ -220,23 +240,172 @@ def import_stgcn_state_dict(
     return b.variables()
 
 
-def _ctrgcn_variables(state, model):
+# ResNet block counts per torchvision arch name
+_RESNET_LAYERS = {
+    "resnet18": (2, 2, 2, 2),
+    "resnet34": (3, 4, 6, 3),
+    "resnet50": (3, 4, 6, 3),
+    "resnet101": (3, 4, 23, 3),
+    "resnet152": (3, 8, 36, 3),
+}
+
+
+def import_resnet_state_dict(
+    state: Mapping[str, np.ndarray],
+    arch: str = "resnet50",
+    bottleneck: bool = True,
+    in_channels_rgb: int = 3,
+    skip_fc: bool = False,
+) -> dict[str, Tree]:
+    """Map a torchvision-style ResNet state_dict (reference models/resnet.py
+    layout) onto the JAX package's ResNet Flax variables.
+
+    in_channels_rgb > 3 inflates conv1 by channel replication / (k//3)
+    (reference models/resnet_gcn_attention.py:37-52).
+    """
+    sd = strip_module_prefix(state)
+    b = _TreeBuilder()
+
+    w1 = _conv_w(np.asarray(sd["conv1.weight"]))  # (7, 7, 3, 64)
+    if in_channels_rgb != 3:
+        k = in_channels_rgb // 3
+        w1 = np.concatenate([w1] * k, axis=2) / k
+    b._set(b.params, "conv1/kernel", w1)
+    b.bn(sd, "bn1", "bn1")
+
+    layers = _RESNET_LAYERS[arch]
+    n_convs = 3 if bottleneck else 2
+    for li, n in enumerate(layers, start=1):
+        for bi in range(n):
+            t, f = f"layer{li}.{bi}", f"layer{li}_{bi}"
+            for ci in range(1, n_convs + 1):
+                b.conv(sd, f"{t}.conv{ci}", f"{f}/conv{ci}", bias=False)
+                b.bn(sd, f"{t}.bn{ci}", f"{f}/bn{ci}")
+            if f"{t}.downsample.0.weight" in sd:
+                b.conv(sd, f"{t}.downsample.0", f"{f}/downsample_conv", bias=False)
+                b.bn(sd, f"{t}.downsample.1", f"{f}/downsample_bn")
+    if not skip_fc and "fc.weight" in sd:
+        b.dense(sd, "fc", "fc")
+    return b.variables()
+
+
+def _merge_subtree(variables: dict, new: dict, submodule: str | None) -> dict:
+    """Graft `new` {params, batch_stats} under variables[...][submodule]."""
+    out = {k: dict(v) for k, v in variables.items()}
+
+    def merge(dst: dict, src: dict):
+        for k, v in src.items():
+            if isinstance(v, dict) and isinstance(dst.get(k), dict):
+                dst[k] = dict(dst[k])
+                merge(dst[k], v)
+            else:
+                dst[k] = v
+
+    for col in ("params", "batch_stats"):
+        if col not in new:
+            continue
+        root = out.setdefault(col, {})
+        node = root
+        if submodule:
+            for part in submodule.split("/"):
+                node[part] = dict(node.get(part, {}))
+                node = node[part]
+        merge(node, new[col])
+    return out
+
+
+def load_torch_resnet_npz(
+    path: str,
+    variables: dict,
+    arch: str = "resnet50",
+    submodule: str | None = None,
+    skip_fc: bool = True,
+    in_channels_rgb: int = 3,
+) -> dict:
+    """Load an exported torchvision ResNet .npz and merge it into Flax-layout
+    variables (nested dicts of numpy arrays; convert.from_flax maps them
+    onto a port module)."""
+    with np.load(path) as f:
+        state = {k: f[k] for k in f.files}
+    new = import_resnet_state_dict(
+        state, arch=arch, in_channels_rgb=in_channels_rgb, skip_fc=skip_fc
+    )
+    return _merge_subtree(variables, new, submodule)
+
+
+def import_fusion_state_dict(
+    state: Mapping[str, np.ndarray],
+    in_channels: int = 3,
+    base_channel: int = 64,
+) -> dict[str, Tree]:
+    """Map a reference models/resnet_gcn_attention.py state_dict onto the
+    JAX package's ResNetGCNAttention Flax variables (gcn + resnet trunks +
+    attention MLP + classifier; reference :13-70). `base_channel` is the
+    GCN's width (64 in the reference)."""
+    sd = strip_module_prefix(state)
+    gcn_sd = {k[len("gcn."):]: v for k, v in sd.items() if k.startswith("gcn.")}
+    resnet_sd = {
+        k[len("resnet."):]: v for k, v in sd.items() if k.startswith("resnet.")
+    }
+    gcn = import_ctrgcn_state_dict(gcn_sd, in_channels=in_channels,
+                                   base_channel=base_channel)
+    # the fusion model only uses gcn.extract_feature: its fc head is unused
+    # (the reference keeps the dead module)
+    gcn["params"].pop("fc", None)
+    # conv1 already inflated inside the reference model; map 1:1
+    resnet = import_resnet_state_dict(resnet_sd, skip_fc=True)
+
+    b = _TreeBuilder()
+    b.dense(sd, "attention_transform.0", "attention_transform_dense1")
+    b.bn(sd, "attention_transform.1", "attention_transform_bn")
+    b.dense(sd, "attention_transform.3", "attention_transform_dense2")
+    b.dense(sd, "classifier", "classifier")
+    variables = b.variables()
+    variables["params"]["gcn"] = gcn["params"]
+    variables["batch_stats"]["gcn"] = gcn["batch_stats"]
+    variables["params"]["resnet"] = resnet["params"]
+    variables["batch_stats"]["resnet"] = resnet["batch_stats"]
+    return variables
+
+
+def ctrgcn_variables(state, model):
     """import_ctrgcn_state_dict at the widths of the port's `model`."""
     unit = model.l1.gcn1
     return import_ctrgcn_state_dict(state, in_channels=unit.in_channels,
                                     base_channel=unit.out_channels)
 
 
+def _resnet_only_variables(state, model):
+    """A torchvision ResNet-50 state dict (`conv1.weight`, ...) or the
+    reference ResNetOnly's (the same under `model.`) onto the port's
+    ResNetOnly, whose trunk is its `model` (the Flax tree's `model/`)."""
+    sd = strip_module_prefix(state)
+    if all(k.startswith("model.") for k in sd):
+        sd = {k[len("model."):]: v for k, v in sd.items()}
+    net = model.model
+    trunk = import_resnet_state_dict(
+        sd, arch=net.arch, bottleneck=net.bottleneck,
+        in_channels_rgb=net.in_channels)
+    return _merge_subtree({}, trunk, "model")
+
+
+def _fusion_variables(state, model):
+    """import_fusion_state_dict at the GCN widths of the port's `model`."""
+    unit = model.gcn.l1.gcn1
+    return import_fusion_state_dict(state, in_channels=unit.in_channels,
+                                    base_channel=unit.out_channels)
+
+
 # exact model names, as the JAX trainer dispatches (trainer.py:_import_npz)
 _IMPORTERS = {
-    "ctrgcn": _ctrgcn_variables,
-    "models.ctrgcn.Model": _ctrgcn_variables,
+    "ctrgcn": ctrgcn_variables,
+    "models.ctrgcn.Model": ctrgcn_variables,
     "stgcn": lambda state, model: import_stgcn_state_dict(state),
     "models.stgcn.Model": lambda state, model: import_stgcn_state_dict(state),
-}
-_LATER = {
-    "resnet_only": "the RGB slice",
-    "models.resnet_only.Model": "the RGB slice",
+    "resnet_only": _resnet_only_variables,
+    "models.resnet_only.Model": _resnet_only_variables,
+    "resnet_gcn_attention": _fusion_variables,
+    "models.resnet_gcn_attention.ResNet_GCN_Attention": _fusion_variables,
 }
 
 
@@ -248,10 +417,6 @@ def import_state_dict(model_name: str, arrays: Mapping[str, np.ndarray], model) 
     unset (convert.from_flax)."""
     from ..convert import from_flax
 
-    if model_name in _LATER:
-        raise NotImplementedError(
-            f"the reference importer for model {model_name!r} comes with "
-            f"{_LATER[model_name]}")
     try:
         importer = _IMPORTERS[model_name]
     except KeyError:

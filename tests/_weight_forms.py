@@ -2,10 +2,12 @@
 
 numpy and the port only (no JAX), so that chip_smoke.py can write them:
 
-  * `reference_ctrgcn_state` / `reference_stgcn_state`: random state dicts
-    named and shaped as the reference's models/ctrgcn.py and models/stgcn.py
-    (built from the reference layer shapes, independently of the port),
-    with BatchNorm `num_batches_tracked` counters as torch writes them;
+  * `reference_ctrgcn_state` / `reference_stgcn_state` /
+    `reference_resnet_state` / `reference_fusion_state`: random state dicts
+    named and shaped as the reference's models/ctrgcn.py, models/stgcn.py,
+    torchvision's ResNet and models/resnet_gcn_attention.py (built from the
+    reference layer shapes, independently of the port), with BatchNorm
+    `num_batches_tracked` counters as torch writes them;
   * `to_reference_state`: the inverse of the importer, a port state dict
     (CTR-GCN or ST-GCN) under the reference's names and layouts;
   * `to_flax_arrays`: the inverse of convert.from_flax, a port state dict
@@ -109,6 +111,70 @@ def reference_stgcn_state(seed=0, in_channels=3, num_class=10, num_point=20,
             partitions, num_point, num_point)).astype(np.float32)
     r.conv("fcn", num_class, 256)
     return r.sd
+
+
+def reference_resnet_state(seed=0, layers=(3, 4, 6, 3), bottleneck=True, in_channels=3,
+                           num_classes=10, width_per_group=64, prefix=""):
+    """A torchvision ResNet state dict of random arrays (conv1 taking
+    `in_channels`), its names under `prefix`."""
+    r = _Random(seed)
+    w = r.rs
+
+    def conv(name, out, cin, k):
+        r.sd[f"{prefix}{name}.weight"] = (w.randn(out, cin, k, k)
+                                          * np.sqrt(2.0 / (out * k * k))).astype(np.float32)
+
+    def bn(name, c):
+        r.bn(f"{prefix}{name}", c)
+
+    conv("conv1", 64, in_channels, 7)
+    bn("bn1", 64)
+    expansion = 4 if bottleneck else 1
+    inplanes = 64
+    for li, (planes, n, stride) in enumerate(zip((64, 128, 256, 512), layers, (1, 2, 2, 2)),
+                                             start=1):
+        for bi in range(n):
+            t = f"layer{li}.{bi}"
+            s = stride if bi == 0 else 1
+            if bottleneck:
+                width = planes * width_per_group // 64
+                for ci, (o, i_, k) in enumerate(((width, inplanes, 1), (width, width, 3),
+                                                 (planes * 4, width, 1)), start=1):
+                    conv(f"{t}.conv{ci}", o, i_, k)
+                    bn(f"{t}.bn{ci}", o)
+            else:
+                for ci, i_ in enumerate((inplanes, planes), start=1):
+                    conv(f"{t}.conv{ci}", planes, i_, 3)
+                    bn(f"{t}.bn{ci}", planes)
+            if bi == 0 and (s != 1 or inplanes != planes * expansion):
+                conv(f"{t}.downsample.0", planes * expansion, inplanes, 1)
+                bn(f"{t}.downsample.1", planes * expansion)
+            inplanes = planes * expansion
+    r.raw(f"{prefix}fc.weight", num_classes, inplanes, scale=0.02)
+    r.raw(f"{prefix}fc.bias", num_classes, scale=0.02)
+    return r.sd
+
+
+def reference_fusion_state(seed=0, num_class=10, in_channels_rgb=15, base_channel=64,
+                           num_point=20):
+    """A reference models/resnet_gcn_attention.py state dict of random arrays:
+    its CTR-GCN under `gcn.` (with the dead `fc`), ResNet-50 under `resnet.`
+    (conv1 inflated, torchvision's 1000-class `fc`), the attention MLP and
+    the classifier."""
+    sd = {f"gcn.{k}": v for k, v in reference_ctrgcn_state(
+        seed, base_channel=base_channel, num_class=num_class, num_point=num_point).items()}
+    sd.update(reference_resnet_state(seed + 1, in_channels=in_channels_rgb,
+                                     num_classes=1000, prefix="resnet."))
+    r = _Random(seed + 2)
+    gcn_dim = 4 * base_channel
+    for name, (o, i_) in (("attention_transform.0", (1024, gcn_dim)),
+                          ("attention_transform.3", (2048, 1024)),
+                          ("classifier", (num_class, 2048))):
+        r.raw(f"{name}.weight", o, i_, scale=1 / np.sqrt(i_))
+        r.raw(f"{name}.bias", o, scale=0.1)
+    r.bn("attention_transform.1", 1024)
+    sd.update(r.sd)
+    return sd
 
 
 def _np(t):

@@ -35,6 +35,10 @@ input shape captures a second graph, weights written after a capture are
 the ones the next replay uses, and a host read inside a step makes the
 capture raise; ST-GCN's graphed step equals its eager one bit for bit, and
 --debug_nans' finiteness flag replays inside the train step's graph.
+ResNet-50 (the RGB family, no port kernel) graphed equals eager bit for bit;
+the cross-modal fusion model with its GCN frozen launches K1 10 times per
+train step and per eval forward and never K2 or K3, and the GCN's
+parameters and BatchNorm statistics stay bit for bit where they were.
 This file imports no JAX, so it runs where the port runs.
 """
 import pytest
@@ -1316,3 +1320,78 @@ def test_debug_nans_flag_in_a_graphed_step(device):
     with torch.no_grad():
         model.l3.tcn1.pw_conv.weight[0, 0] = float("nan")
     assert not bool(step(x, y)[2])
+
+
+def test_resnet_graphed_train_step_equals_eager_bitwise(device, monkeypatch):
+    """ResNetOnly (ResNet-50 on cuDNN convs, no port kernel) through the
+    packed state and the CUDA-graph step: three steps at 64 x 64, eager and
+    graphed, losses and every flat buffer equal bit for bit with
+    deterministic cuDNN; no port kernel launched."""
+    from tamgcn_tpu_torch.models import get_model
+    from tamgcn_tpu_torch.ops.cuda import launch_counts
+    from tamgcn_tpu_torch.train.graphs import GraphedStep
+    from tamgcn_tpu_torch.train.packing import PackedTrainState, make_fused_train_step
+
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    g = torch.Generator().manual_seed(5)
+    batches = [(torch.randn(4, 3, 64, 64, generator=g).to(device),
+                torch.randint(0, 10, (4,), generator=g).to(device)) for _ in range(3)]
+    before = launch_counts()
+    runs = []
+    for capture in (False, True):
+        model = get_model("resnet_only", num_class=10,
+                          generator=torch.Generator().manual_seed(2))
+        model.to(device).train()
+        state = PackedTrainState(model, "SGD")
+        state.set_lr(0.05)
+        step = make_fused_train_step(state)
+        if capture:
+            step = GraphedStep(step, "resnet_train", state.tensors())
+        losses = [step(x, y)[0] for x, y in batches]
+        runs.append((losses, [t.clone() for t in state.tensors()]))
+    (eager_l, eager_t), (graph_l, graph_t) = runs
+    assert all(a.equal(b) for a, b in zip(eager_l, graph_l)), (eager_l, graph_l)
+    assert all(a.equal(b) for a, b in zip(eager_t, graph_t))
+    assert launch_counts() == before
+
+
+def test_cross_modal_frozen_gcn_launches_k1_only(device):
+    """The fusion model (full-width CTR-GCN, frozen as configs/nucla/
+    cross_modal.yaml freezes it) on the card: a fused train step with the
+    `gcn` freeze mask launches K1 10 times and K2, K3 never; so does an eval
+    forward; after two steps the GCN's parameters and BatchNorm statistics
+    are bit for bit where they started and the rest moved."""
+    from tamgcn_tpu_torch.models import get_model
+    from tamgcn_tpu_torch.ops.cuda import launch_counts
+    from tamgcn_tpu_torch.train.packing import PackedTrainState, make_fused_train_step
+
+    model = get_model("resnet_gcn_attention", num_class=10, num_point=20, num_person=1,
+                      graph="ucla", graph_args={"labeling_mode": "spatial"},
+                      in_channels_rgb=15, generator=torch.Generator().manual_seed(3))
+    model.to(device).train()
+    assert not model.gcn.training
+    state = PackedTrainState(model, "SGD", freeze_prefixes=("gcn",))
+    state.set_lr(0.05)
+    step = make_fused_train_step(state)
+    gcn0 = {k: v.clone() for k, v in model.gcn.state_dict().items()}
+    rest0 = {k: v.clone() for k, v in model.state_dict().items() if not k.startswith("gcn.")}
+    g = torch.Generator().manual_seed(6)
+    keys = ("ctr_gc.launches", "ctr_gc.bwd_dx3_launches", "ctr_gc.bwd_param_launches")
+    for _ in range(2):
+        x = (torch.randn(4, 3, 52, 20, 1, generator=g).to(device),
+             torch.randn(4, 15, 64, 64, generator=g).to(device))
+        y = torch.randint(0, 10, (4,), generator=g).to(device)
+        before = launch_counts()
+        step(*x, y)
+        after = launch_counts()
+        assert [after[k] - before[k] for k in keys] == [10, 0, 0]
+    for k, v in model.gcn.state_dict().items():
+        assert v.equal(gcn0[k]), k
+    assert any(not v.equal(rest0[k]) for k, v in model.state_dict().items()
+               if not k.startswith("gcn."))
+    model.eval()
+    before = launch_counts()
+    with torch.inference_mode():
+        model(*x)
+    after = launch_counts()
+    assert [after[k] - before[k] for k in keys] == [10, 0, 0]

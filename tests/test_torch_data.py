@@ -192,8 +192,16 @@ def test_eval_loader_batches_like_jax():
 def test_feeder_registry():
     assert data.resolve_feeder("feeder.feeder_nucla_gcn.Feeder") is data.NUCLAFeederGCN
     assert data.feeder_accepts_seed("synthetic_gcn")
-    with pytest.raises(NotImplementedError, match="RGB slice"):
-        data.resolve_feeder("nucla_resnet")
+    # every name of the JAX package's registry resolves to the port's feeder
+    for name, cls in (("nucla_resnet", data.NUCLAFeederResNet),
+                      ("feeder.feeder_nucla_resnet.Feeder", data.NUCLAFeederResNet),
+                      ("nucla_fusion", data.NUCLAFeederFusion),
+                      ("feeder.feeder_nucla_fusion.Feeder", data.NUCLAFeederFusion),
+                      ("skeleton_gcn", data.SkeletonFeederGCN),
+                      ("synthetic_rgb", data.SyntheticRGBFeeder),
+                      ("synthetic_fusion", data.SyntheticFusionFeeder)):
+        assert data.resolve_feeder(name) is cls
+        assert jax_data.resolve_feeder(name).__name__ == cls.__name__
     with pytest.raises(KeyError, match="synthetic_gcn"):
         data.resolve_feeder("nope")
 

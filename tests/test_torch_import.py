@@ -31,8 +31,8 @@ from tamgcn_tpu.models import create_ctrgcn_nucla as jax_create
 from tamgcn_tpu.train.checkpoint import Checkpointer
 from tamgcn_tpu.utils.torch_import import import_ctrgcn_state_dict, import_stgcn_state_dict
 from tamgcn_tpu_torch.convert import flax_param_paths, from_flax
-from tamgcn_tpu_torch.models import create_ctrgcn_nucla, create_stgcn_nucla
-from tamgcn_tpu_torch.train.checkpoint import flax_tree, load_weights, weights_form
+from tamgcn_tpu_torch.models import create_ctrgcn_nucla, create_stgcn_nucla, get_model
+from tamgcn_tpu_torch.train.checkpoint import flax_tree, load_weights, read_weights
 from tamgcn_tpu_torch.train.config import load_config
 from tamgcn_tpu_torch.train.trainer import RecognitionTrainer
 from tamgcn_tpu_torch.utils.torch_import import import_state_dict
@@ -93,8 +93,9 @@ def test_import_refuses_unknown_models_and_incomplete_dicts():
     model = create_stgcn_nucla()
     with pytest.raises(ValueError, match="no reference state-dict importer"):
         import_state_dict("stgcn_v2", sd, model)
-    with pytest.raises(NotImplementedError, match="RGB slice"):
-        import_state_dict("resnet_only", sd, model)
+    # an ST-GCN state dict is no ResNet's
+    with pytest.raises(KeyError, match="conv1.weight"):
+        import_state_dict("resnet_only", sd, get_model("resnet_only", num_class=10))
     del sd["fcn.bias"]
     with pytest.raises(KeyError):
         import_state_dict("stgcn", sd, model)
@@ -150,7 +151,7 @@ def test_weights_forms_give_the_same_test_phase(model_name, tmp_path):
     paths = _forms(tmp_path, model_name, want, model)
     scores = {}
     for form, path in paths.items():
-        assert weights_form(path) == form
+        assert read_weights(path)[0] == form
         _equal(load_weights(path, model_name, model), want)
         trainer, scores[form] = _test_phase(tmp_path / form.replace(" ", "_"), path, *extra)
         _equal({k: v for k, v in trainer.model.state_dict().items()}, want)
@@ -211,7 +212,7 @@ def test_orbax_checkpoint_through_the_bridge(tmp_path):
     with np.load(out) as f:
         assert all(k.split("/")[0] in ("params", "batch_stats") for k in f.files)
     model = create_ctrgcn_nucla(base_channel=BC)
-    assert weights_form(out) == "flax npz"
+    assert read_weights(out)[0] == "flax npz"
     model.load_state_dict(load_weights(out, "ctrgcn", model))
     with torch.no_grad():
         got = model.eval()(torch.from_numpy(x)).numpy()

@@ -176,8 +176,11 @@ def test_init_schemes_at_full_width():
 
 
 def test_get_model_rejects_what_the_slice_lacks():
-    with pytest.raises(NotImplementedError, match="RGB slice"):
-        get_model("resnet_only", num_class=10)
+    # dropout in training waits for the seeded dropout stream
+    model = get_model("ctrgcn", drop_out=0.5, graph="ucla", num_point=20, num_person=1,
+                      base_channel=8)
+    with pytest.raises(NotImplementedError, match="Queue 1 item 7b"):
+        model.train()(torch.zeros(2, 3, 8, 20, 1))
     with pytest.raises(NotImplementedError, match="float16"):
         get_model("ctrgcn", dtype="float16", graph="ucla")
     with pytest.raises(KeyError):

@@ -222,7 +222,7 @@ def test_what_the_slice_leaves_out_raises():
         model = create_stgcn_nucla(**kw)
         with torch.no_grad():
             model.eval()(x)  # eval mode runs
-        with pytest.raises(NotImplementedError, match="RGB slice"):
+        with pytest.raises(NotImplementedError, match="Queue 1 item 7b"):
             model.train()(x)
 
 

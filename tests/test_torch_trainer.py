@@ -39,6 +39,7 @@ from test_torch_model import perturbed_variables
 torch.set_num_threads(1)
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SMOKE = os.path.join(REPO, "configs", "nucla", "smoke.yaml")
+SMOKE_RESNET = os.path.join(REPO, "configs", "nucla", "smoke_resnet.yaml")
 BC = 8
 N_VAL = 12  # two batches of 8, the second ragged
 
@@ -100,7 +101,7 @@ def test_use_gpu_without_cuda_raises(weights, tmp_path):
 _OTHER_VALUE = {
     "use_pallas": "true", "sequence_parallel": "true", "graph_partition": "ring",
     "model_parallel": "2", "profile_dir": "/nonexistent", "debug_nans": "true",
-    "distributed": "true",
+    "distributed": "true", "data_parallel": "2",
 }
 
 
@@ -139,9 +140,14 @@ def test_test_phase_needs_weights(tmp_path):
         main(argv)
 
 
-def test_rgb_entry_points_raise():
-    with pytest.raises(NotImplementedError, match="RGB slice"):
-        main(["recognition_rgb_only", "-c", SMOKE])
+def test_rgb_entry_points_raise(tmp_path):
+    """The RGB entry point runs (tests/test_torch_cross_modal.py) and raises
+    on what the port still lacks: block dropout in training."""
+    with pytest.raises(NotImplementedError, match="Queue 1 item 7b"):
+        main(["recognition_rgb_only", "-c", SMOKE_RESNET, "--use_gpu", "false",
+              "--work_dir", str(tmp_path), "--num_worker", "1", "--batch_size", "2",
+              "--train_feeder_args", "num_samples=2", "image_size=32",
+              "--model_args", "block_dropout=0.1"])
 
 
 def _train_argv(work_dir, *extra):
