@@ -236,6 +236,27 @@ Phases, each of which fails the run (non-zero exit, no result line):
      with TF32 off, as every numerics check of the run holds, and with the
      TF32 switches the port's trainer runs with (torch's defaults: cuDNN
      convolutions in TF32), each step captured under its setting.
+ 15. seeded dropout and the serving export: gcn.yaml's CTR-GCN at full
+     width with drop_out 0.5 (ops/dropout.py: masks keyed on the seed and
+     the packed state's device step counter): one train epoch through
+     `__main__.main` (K1-K3 10 per step and warm-up call); two replays of
+     the graphed train step, whose head dropout must each be the seeded mask
+     of the step the counter held, bit for bit, and differ from each other;
+     the mask on the card equal to the CPU's, its kept share within 5 sigma
+     of 1 - p; the graphed step against the eager one over 3 steps and a
+     run resumed from a checkpoint at step 2 against an unbroken one of 4,
+     bit for bit with deterministic cuDNN. Then phase 4's CTR-GCN exported
+     at batch 64 by tamgcn_tpu_torch.tools.export_serving in-process (its
+     eval forward, held on the card and, moved, on the CPU; the --fast_eval
+     engine; a --poly_batch artifact), each reloaded in a process that
+     imports tamgcn_tpu_torch.ops alone: K1 10 launches a call (K5 10 with
+     --fast_eval), the logits within 1e-5 * max |logit| of the live graphed
+     eval and fast-eval forwards (the --poly_batch artifact also at batch
+     17 against the live model), and the check must fail on the logits of
+     the artifact with the unit op's CUDA implementation returning zeros;
+     prints each artifact's bytes, export seconds, ms a call and samples/s
+     (CUDA events), device busy and kernels (torch.profiler) beside the
+     graphed eval forward; serving.entry() on the card (K1 10).
 A kernel launched inside a CUDA-graph capture counts once on its wrapper's
 counter and runs at every replay: every launch check counts the launches
 that ran on the card, the wrappers' counts less what the captures counted
@@ -264,8 +285,9 @@ composition's time under "unfused_k2_cublas_ms"), of one bf16 CTRGC forward
 and backward (K4_bf16), and each shape's row under "shapes";
 the unit-op kernels' CUDA-graph device time under "device_ms". K1t, K2t, K3
 and K5 also carry phase 14's NTU-60 rows and sums under "ntu60" (per train
-step at batch 128; K5 per fast-eval forward at batch 256), and K1 the
-cross-modal train epoch's launches under "cross_modal".
+step at batch 128; K5 per fast-eval forward at batch 256), K1 the
+cross-modal train epoch's launches under "cross_modal", and K1 and K5 the
+launches of one call of phase 15's serving artifacts under "serving".
 """
 from __future__ import annotations
 
@@ -4066,6 +4088,335 @@ def run_phase14(work_dir: str, weights: str, device) -> dict:
     return out
 
 
+# ---- phase 15: seeded dropout in training, the serving export ------------------
+
+DROP_OUT = 0.5  # the head's dropout of gcn.yaml's CTR-GCN in phase 15
+DROPOUT_STEPS = 4  # the unbroken run; the resumed one stops after RESUME_AT
+RESUME_AT = 2
+SERVE_RTOL = 1e-5  # an artifact's logits vs the live graphed forward, x max |logit|
+SERVE_POLY_BATCH = 17  # the --poly_batch artifact's second batch
+SERVE_TIMED = 20  # artifact calls between two CUDA events
+# a process that serves the artifacts: it imports tamgcn_tpu_torch.ops and
+# nothing else of the port, loads each artifact of DIR, runs it on DIR/x.npy
+# (the launches of one call, ms a call by CUDA events, device busy and
+# kernels by torch.profiler), then the unit op's CUDA implementation
+# replaced by one that returns zeros (a planted fault), and prints one JSON
+# line
+SERVE_SCRIPT = r"""
+import json, sys
+import numpy as np
+import torch
+import tamgcn_tpu_torch.ops
+from tamgcn_tpu_torch.ops.cuda import ctr_gc, gcn_tcn_block
+from torch.profiler import ProfilerActivity, profile
+
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+work, timed, poly_batch = sys.argv[1], int(sys.argv[2]), int(sys.argv[3])
+x = torch.from_numpy(np.load(work + "/x.npy")).cuda()
+
+
+def counts():
+    return {"K1": ctr_gc.launches, "K1t": ctr_gc.launches_tiled,
+            "K5": gcn_tcn_block.launches}
+
+
+out = {}
+with torch.inference_mode():
+    for name in ("model", "fast", "poly"):
+        program = torch.export.load(work + "/" + name + ".pt2").module()
+        before = counts()
+        logits = program(x)
+        torch.cuda.synchronize()
+        launched = {k: n - before[k] for k, n in counts().items()}
+        np.save(work + "/" + name + "_logits.npy", logits.cpu().numpy())
+        if name == "poly":
+            np.save(work + "/poly_small_logits.npy", program(x[:poly_batch]).cpu().numpy())
+        for _ in range(3):
+            program(x)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(timed):
+            program(x)
+        end.record()
+        torch.cuda.synchronize()
+        ms = start.elapsed_time(end) / timed
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(5):
+                program(x)
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages() if e.self_device_time_total > 0]
+        out[name] = dict(launches=launched, ms=ms,
+                         busy_ms=sum(e.self_device_time_total for e in events) / 5e3,
+                         kernels=sum(e.count for e in events) // 5)
+    ctr_gc.unit_ctr_gc_fwd = lambda x1s, x2s, x3s, w4s, *rest: torch.zeros(
+        x3s.shape[:3] + (w4s.shape[-1],), device=x3s.device, dtype=x3s.dtype)
+    program = torch.export.load(work + "/model.pt2").module()
+    np.save(work + "/fault_logits.npy", program(x).cpu().numpy())
+out["modules"] = sorted(m for m in sys.modules if m.startswith("tamgcn_tpu_torch"))
+print(json.dumps(out))
+"""
+
+
+def dropout_model_args() -> dict:
+    return nucla_model_args() | {"drop_out": DROP_OUT}
+
+
+def dropout_run(weights: str, batches, device, capture: bool, resume_at=None,
+                checkpoints=None):
+    """Train steps of gcn.yaml's CTR-GCN with drop_out DROP_OUT from
+    `weights`, one on each of `batches`, eager or as CUDA graphs; with
+    `resume_at` k, after k steps the model, the optimiser and the step go to
+    a checkpoint file (train/checkpoint.py, as the trainer saves a resume
+    point) and a new model, packed state and step restored from it, as
+    --resume does, take the rest. Returns what packed_run returns."""
+    import torch
+
+    from tamgcn_tpu_torch.train.checkpoint import Checkpoints
+
+    model, state, step = train_model(weights, device, capture=capture,
+                                     model_args=dropout_model_args())
+    losses = []
+    for i, (x, y) in enumerate(batches):
+        if i == resume_at:
+            store = Checkpoints(checkpoints)
+            store.save(f"epoch{i}", model, i, state.optimizer_state_dict())
+            tree = store.load(f"epoch{i}")
+            model, state, step = train_model(weights, device, capture=capture,
+                                             model_args=dropout_model_args())
+            model.load_state_dict(tree["model"])
+            state.load_optimizer_state_dict(tree["optimizer"])
+            state.set_step(tree["step"])
+        losses.append(step(torch.from_numpy(x).to(device), torch.from_numpy(y).to(device))[0])
+    if int(state.step) != len(batches):
+        raise AssertionError(f"the device step counter reads {int(state.step)} after "
+                             f"{len(batches)} steps")
+    flats = {"parameters": state.params.flats, "momentum":
+             state.optimizer.state["momentum_buffer"], "statistics": state.stats.flats}
+    return losses, {k: torch.cat([f.reshape(-1) for f in v]) for k, v in flats.items()}
+
+
+def five_sigma(kept: int, n: int, q: float) -> bool:
+    return abs(kept - q * n) <= 5 * math.sqrt(n * q * (1 - q))
+
+
+def check_dropout_replays(weights: str, device) -> dict:
+    """Two replays of the graphed train step with drop_out DROP_OUT: a hook
+    on the head's dropout site copies its input and output into buffers the
+    capture records, so each replay leaves its own; each replay's output is
+    the seeded mask of its step (ops/dropout.py:keep_mask with the step the
+    device counter held) applied to its input, bit for bit, and the two
+    replays' masks differ. The mask function on the card equals the CPU's
+    bit for bit, and its kept share lies within 5 sigma of 1 - p."""
+    import torch
+
+    from tamgcn_tpu_torch.ops.dropout import keep_mask
+
+    model, state, step = train_model(weights, device, model_args=dropout_model_args())
+    seen = []
+
+    def hook(module, args, out):
+        if not seen:  # the first warm-up call, before the capture
+            seen.extend([torch.empty_like(args[0]), torch.empty_like(out)])
+        seen[0].copy_(args[0].detach())
+        seen[1].copy_(out.detach())
+
+    model.dropout.register_forward_hook(hook)
+    masks = []
+    for k, (x, y) in enumerate(train_batches(2, TRAIN_BATCH)):
+        step(torch.from_numpy(x).to(device), torch.from_numpy(y).to(device))
+        h, out = seen[0].clone(), seen[1].clone()
+        keep = keep_mask(h.shape, DROP_OUT, state.seed, k, 0, device)
+        if not out.equal(torch.where(keep, h / (1 - DROP_OUT), 0.0)):
+            raise AssertionError(f"replay {k}: the dropout site's output is not the "
+                                 f"seeded mask of step {k} on its input")
+        masks.append(keep)
+    if masks[0].equal(masks[1]) or int(state.step) != 2:
+        raise AssertionError("two replays of the graphed train step drew the same "
+                             f"dropout mask (counter {int(state.step)})")
+    n = 1 << 22
+    big = keep_mask((n,), DROP_OUT, SEED, torch.tensor(7, device=device), 0)
+    if not big.cpu().equal(keep_mask((n,), DROP_OUT, SEED, 7, 0)):
+        raise AssertionError("the dropout mask on the card differs from the CPU's")
+    kept = int(big.sum()) + sum(int(m.sum()) for m in masks)
+    total = n + sum(m.numel() for m in masks)
+    if not five_sigma(kept, total, 1 - DROP_OUT):
+        raise AssertionError(f"dropout kept {kept} of {total} at p {DROP_OUT}")
+    agree = int((masks[0] == masks[1]).sum())
+    return dict(kept_share=kept / total, replay_mask_agreement=agree / masks[0].numel(),
+                elements=total)
+
+
+def run_dropout(work_dir: str, weights: str, device) -> dict:
+    """Phase 15, dropout: gcn.yaml's CTR-GCN (full width, batch 16) with
+    drop_out DROP_OUT; one train epoch through `__main__.main` (K1-K3 10 per
+    step and warm-up call, K1 10 per eval batch), two graph replays' masks
+    (check_dropout_replays), the graphed train step against the eager one
+    over TRAJ_STEPS steps and a run resumed at step RESUME_AT against an
+    unbroken one of DROPOUT_STEPS, both bit for bit with deterministic
+    cuDNN."""
+    steps = TRAIN_SAMPLES // TRAIN_BATCH
+    evals = math.ceil(EVAL_SAMPLES / TRAIN_BATCH)
+    seconds, launches = run_cli(train_argv(os.path.join(work_dir, "train_dropout")) + [
+        "--num_epoch", "1", "--model_args", f"drop_out={DROP_OUT}"])
+    want = graphed("--phase train, drop_out", {
+        "train": (steps, dict(K1=10, K2=10, K3=10)), "eval": (evals, dict(K1=10))})
+    if launches != want:
+        raise AssertionError(f"--phase train with drop_out {DROP_OUT}: launches {launches}, "
+                             f"expected {want}")
+    out = {"cli": dict(seconds=seconds, launches=launches)}
+    out["replays"] = check_dropout_replays(weights, device)
+    batches = train_batches(DROPOUT_STEPS, TRAIN_BATCH)
+    with deterministic_cudnn():
+        eager = dropout_run(weights, batches[:TRAJ_STEPS], device, False)
+        graphed_ = dropout_run(weights, batches[:TRAJ_STEPS], device, True)
+        unbroken = dropout_run(weights, batches, device, True)
+        resumed = dropout_run(weights, batches, device, True, resume_at=RESUME_AT,
+                              checkpoints=os.path.join(work_dir, "dropout_checkpoints"))
+    out["graphed_vs_eager"] = differences(graphed_, eager)
+    out["resumed_vs_unbroken"] = differences(resumed, unbroken)
+    if out["graphed_vs_eager"] or out["resumed_vs_unbroken"]:
+        raise AssertionError(f"dropout: graphed vs eager {out['graphed_vs_eager']}, "
+                             f"resumed vs unbroken {out['resumed_vs_unbroken']}")
+    if not all(a.equal(b) for a, b in zip(unbroken[0], graphed_[0])):
+        raise AssertionError("dropout: the unbroken run's first steps differ from the "
+                             "graphed run's")
+    print(f"dropout, batch {TRAIN_BATCH}, drop_out {DROP_OUT}: graphed vs eager over "
+          f"{TRAJ_STEPS} steps and resumed at step {RESUME_AT} vs unbroken over "
+          f"{DROPOUT_STEPS} steps equal bit for bit (deterministic cuDNN); two replays' "
+          f"masks agree in {out['replays']['replay_mask_agreement']:.4f} of the elements, "
+          f"kept share {out['replays']['kept_share']:.5f}", flush=True)
+    return out
+
+
+def check_serving(got, want, what: str) -> float:
+    """An artifact's logits against the live forward's: the shape, finite,
+    within SERVE_RTOL * max |logit|; returns the max abs difference."""
+    import numpy as np
+
+    if got.shape != want.shape or not np.isfinite(got).all():
+        raise AssertionError(f"{what}: logits of shape {got.shape}, expected {want.shape}")
+    err = float(np.abs(got - want).max())
+    if err > SERVE_RTOL * float(np.abs(want).max()):
+        raise AssertionError(f"{what}: max |d logits| {err:.3e} > {SERVE_RTOL} x "
+                             f"{float(np.abs(want).max()):.3e}")
+    return err
+
+
+def run_serving(work_dir: str, weights: str, x, device) -> dict:
+    """Phase 15, serving: phase 4's CTR-GCN exported at batch 64 by
+    `python -m tamgcn_tpu_torch.tools.export_serving` in-process (its eval
+    forward, held on the card and, moved, on the CPU; its --fast_eval
+    engine; a --poly_batch artifact), each reloaded and run on phase 4's
+    batch in a process that imports tamgcn_tpu_torch.ops alone
+    (SERVE_SCRIPT): K1 10 launches a call (K5 10 with --fast_eval), logits
+    against the live graphed eval and fast-eval forwards within SERVE_RTOL *
+    max |logit|, the --poly_batch artifact also at SERVE_POLY_BATCH against
+    the live model; the check must fail on the logits of the artifact
+    whose unit op returns zeros. Prints and returns the artifacts' bytes,
+    export seconds, ms a call and samples/s beside the graphed eval
+    forward's ms, busy ms and kernels."""
+    import numpy as np
+    import torch
+
+    from tamgcn_tpu_torch.models import get_model
+    from tamgcn_tpu_torch.models.ctrgcn_infer import make_eval_step, make_fast_eval_step
+    from tamgcn_tpu_torch.serving import entry
+    from tamgcn_tpu_torch.tools import export_serving
+    from tamgcn_tpu_torch.train.checkpoint import load_weights
+    from tamgcn_tpu_torch.train.graphs import GraphedStep
+
+    serve = os.path.join(work_dir, "serve")
+    os.makedirs(serve, exist_ok=True)
+    np.save(os.path.join(serve, "x.npy"), x)
+    records = {}
+    for name, extra in (("model", ["--platforms", "cuda,cpu"]), ("fast", ["--fast_eval"]),
+                        ("poly", ["--poly_batch"])):
+        records[name] = export_serving.run([
+            "--out", os.path.join(serve, f"{name}.pt2"), "--weights", weights,
+            "--batch", str(BATCH), *extra, "-c", GCN_YAML])
+        print(f"serving export ({name}): {json.dumps(records[name])}", flush=True)
+    done = subprocess.run(
+        [sys.executable, "-c", SERVE_SCRIPT, serve, str(SERVE_TIMED), str(SERVE_POLY_BATCH)],
+        capture_output=True, text=True, timeout=600, env=dict(os.environ, PYTHONPATH=REPO))
+    if done.returncode:
+        raise AssertionError(f"the serving process failed:\n{done.stderr[-4000:]}")
+    served = json.loads(done.stdout.strip().splitlines()[-1])
+    extra_modules = [m for m in served["modules"] if m != "tamgcn_tpu_torch"
+                     and not m.startswith("tamgcn_tpu_torch.ops")]
+    if extra_modules:
+        raise AssertionError(f"the serving process imported {extra_modules}")
+    for name, want in (("model", dict(K1=10, K1t=0, K5=0)), ("fast", dict(K1=0, K1t=0, K5=10)),
+                       ("poly", dict(K1=10, K1t=0, K5=0))):
+        if served[name]["launches"] != want:
+            raise AssertionError(f"the {name} artifact launched {served[name]['launches']} "
+                                 f"a call, expected {want}")
+
+    model = get_model("ctrgcn", **nucla_model_args())
+    model.load_state_dict(load_weights(weights))
+    model.to(device).eval()
+    xb = torch.from_numpy(x).to(device)
+    yb = torch.arange(len(x), device=device) % 10
+    with torch.inference_mode():
+        graphs = {"eval": GraphedStep(make_eval_step(model), "eval"),
+                  "fast_eval": GraphedStep(make_fast_eval_step(model), "fast_eval")}
+        live = {k: g(xb, yb)[1].cpu().numpy() for k, g in graphs.items()}
+        small = model(xb[:SERVE_POLY_BATCH]).cpu().numpy()
+        eval_ms = cuda_ms(lambda: graphs["eval"](xb, yb))
+        fast_ms = cuda_ms(lambda: graphs["fast_eval"](xb, yb))
+        eval_busy, eval_kernels, _ = profile_device(lambda: graphs["eval"](xb, yb))
+        fn, args = entry()
+        reset_launches()
+        logits = fn(*args)
+        if logits.shape != (8, 10) or not bool(torch.isfinite(logits).all()) or (
+                read_launches() != only(K1=10)):
+            raise AssertionError(f"serving.entry: logits {tuple(logits.shape)}, launches "
+                                 f"{read_launches()}")
+
+    def served_logits(name):
+        return np.load(os.path.join(serve, f"{name}_logits.npy"))
+
+    errors = {"model": check_serving(served_logits("model"), live["eval"], "the artifact"),
+              "fast": check_serving(served_logits("fast"), live["fast_eval"],
+                                    "the --fast_eval artifact"),
+              "poly": check_serving(served_logits("poly"), live["eval"],
+                                    "the --poly_batch artifact"),
+              "poly_small": check_serving(served_logits("poly_small"), small,
+                                          f"the --poly_batch artifact at {SERVE_POLY_BATCH}")}
+    try:
+        check_serving(served_logits("fault"), live["eval"], "the artifact, K1 zeroed")
+    except AssertionError as e:
+        print(f"serving: the planted fault (the unit op's CUDA implementation returns "
+              f"zeros) fails the check, as it must: {e}", flush=True)
+    else:
+        raise AssertionError("the artifact's check passed with its unit op zeroed")
+    card = card_line()
+    for name, label in (("model", "eval forward"), ("fast", "--fast_eval"),
+                        ("poly", "--poly_batch")):
+        r, s = records[name], served[name]
+        print(f"serving artifact ({label}), batch {BATCH}: {r['bytes']} bytes, exported in "
+              f"{r['export_seconds']:.2f} s; {s['ms']:.3f} ms a call "
+              f"({BATCH / s['ms'] * 1e3:.1f} samples/s), device busy {s['busy_ms']:.3f} ms "
+              f"in {s['kernels']} kernels, launches {s['launches']}; logits vs the live "
+              f"forward max |d| {errors[name]:.3e} [{card}]", flush=True)
+    print(f"serving: the graphed eval forward in this run {eval_ms:.3f} ms a batch of "
+          f"{BATCH} ({BATCH / eval_ms * 1e3:.1f} samples/s), device busy {eval_busy:.3f} ms "
+          f"in {eval_kernels} kernels; the graphed fast-eval forward {fast_ms:.3f} ms "
+          f"[{card}]", flush=True)
+    return dict(records=records, served=served, errors=errors, eval_ms=eval_ms,
+                fast_eval_ms=fast_ms, eval_busy_ms=eval_busy)
+
+
+def run_phase15(work_dir: str, weights: str, x, device) -> dict:
+    """Phase 15: seeded dropout in training (run_dropout) and the serving
+    export (run_serving)."""
+    out = {"dropout": run_dropout(work_dir, weights, device)}
+    print(f"phase 15: dropout {json.dumps(out['dropout'])} [{card_line()}]", flush=True)
+    phase("15. serving")
+    out["serving"] = run_serving(work_dir, weights, x, device)
+    return out
+
+
 def kernel_summary(rows, per):
     """Sum of each timing over the launches of one forward / step."""
     used = [r for r in rows if r["launches_per_step"]]
@@ -4223,6 +4574,12 @@ def main() -> int:
         t14 = time.perf_counter()
         p14 = run_phase14(work_dir, weights, device)
         print(f"phase 14: {time.perf_counter() - t14:.1f} s [{card}]", flush=True)
+
+        # ---- 15. seeded dropout in training, the serving export ----
+        phase("15. dropout")
+        t15 = time.perf_counter()
+        p15 = run_phase15(work_dir, weights, x, device)
+        print(f"phase 15: {time.perf_counter() - t15:.1f} s [{card}]", flush=True)
         phase("end")
     print("compiled steps (phase 12): " + json.dumps({
         path: {form: {k: r[k] for k in ("wall_ms", "busy_ms", "idle", "kernels",
@@ -4451,6 +4808,14 @@ def main() -> int:
         launches=p14["cross_modal"]["train"]["launches"]["K1"],
         per="recognition_cross_modal train epoch (3 steps at batch 16, their warm-up calls "
             "and one eval batch of 32)")
+    served = p15["serving"]["served"]
+    for kname, artifact, counter in (("K1", "model", "K1"), ("K5", "fast", "K5")):
+        kernels[kname]["serving"] = dict(
+            launches=served[artifact]["launches"][counter],
+            per=f"one call of the {'--fast_eval ' if artifact == 'fast' else ''}serving "
+                f"artifact at batch {BATCH} (tools/export_serving.py), in a process that "
+                "imports tamgcn_tpu_torch.ops alone",
+            artifact_ms=served[artifact]["ms"], artifact_busy_ms=served[artifact]["busy_ms"])
     kernels["T2"]["replaces_also"] = [
         "tools/exp_stage2.py:64", "tools/exp_stage2.py:100", "tools/exp_stage2.py:174",
         "tools/exp_stage2b.py:37"]

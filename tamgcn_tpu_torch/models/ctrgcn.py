@@ -34,6 +34,7 @@ from torch import nn
 from ..graphs import get_graph
 from ..ops import inits
 from ..ops.aggregation import ctr_gc_fused, unit_ctr_gc_conv3
+from ..ops.dropout import SeededDropout
 from ..ops.norm import BatchNorm
 
 
@@ -55,16 +56,6 @@ def compute_dtype(dtype) -> torch.dtype | None:
         return torch.bfloat16
     raise NotImplementedError(
         f"compute dtype {dtype!r}: the model computes in float32 or bfloat16")
-
-
-def dropout_unported(flag: str, p: float) -> None:
-    """Dropout in training needs a seeded stream, as the JAX models draw
-    theirs from a dropout rng; nn.Dropout would draw from torch's global
-    generator, and a fresh mask at each replay of a captured CUDA graph
-    needs a check on the card of its own. `flag` names the model argument."""
-    raise NotImplementedError(
-        f"{flag} {p} in training waits for the seeded dropout stream (ROADMAP "
-        f"Queue 1 item 7b); train with {flag} 0")
 
 
 def _cast_linear(x, weight, bias, dtype):
@@ -454,7 +445,8 @@ class CTRGCN(nn.Module):
             ))
         self.data_bn = BatchNorm(num_person * num_point * in_channels, dtype=dt)
         self.fc = nn.Linear(4 * bc, num_class) if head else None
-        self.dropout = nn.Dropout(drop_out) if drop_out and head else None
+        # the head's dropout (ops/dropout.py: seeded, the identity in eval)
+        self.dropout = SeededDropout(drop_out) if drop_out and head else None
         self.reset_parameters(generator or _default_generator())
 
     @property
@@ -496,9 +488,8 @@ class CTRGCN(nn.Module):
         h, N, M = self._stem(self._to_ncvtm(x))
         h = self._backbone(h)  # (N*M, T', V, 4*bc)
         h = h.reshape(N, M, -1, h.shape[-1]).mean(dim=2).mean(dim=1)  # (N, C)
-        if self.dropout is not None and self.training:
-            # no shipped config sets drop_out
-            dropout_unported("drop_out", self.dropout.p)
+        if self.dropout is not None:
+            h = self.dropout(h)
         if self.dtype is None:
             return self.fc(h)
         # the head in the compute dtype, its logits widened to float32

@@ -43,6 +43,7 @@ from typing import Any
 
 import torch
 import torch.nn.functional as F
+from torch.utils._pytree import tree_flatten, tree_unflatten
 
 from ..ops.aggregation import unit_ctr_gc
 from ..ops.gcn_tcn_block import gcn_tcn_block_fused, gcn_tcn_block_plain, k5_takes
@@ -228,6 +229,37 @@ def make_fast_eval(model: CTRGCN, use_kernel: bool | None = None):
     fn = make_fast_eval_fn(model, use_kernel=use_kernel)
     folded = fold_model(model)
     return lambda x: fn(folded, x)
+
+
+class FoldedFastEval(torch.nn.Module):
+    """The fast eval of `model` on its weights now, folded once, as a module
+    (``FoldedFastEval(model)(x) == make_fast_eval(model)(x)``) whose folded
+    tensors are buffers: what `torch.export` takes
+    (tools/export_serving.py --fast_eval). Where the fast eval is the
+    model's own forward (a bf16 model at num_point <= 20), that model is
+    its submodule `own` and the forward."""
+
+    def __init__(self, model: CTRGCN, use_kernel: bool | None = None):
+        super().__init__()
+        self.fn = make_fast_eval_fn(model, use_kernel=use_kernel)
+        self.own = model if _own_forward(model, use_kernel) else None
+        # the folded tree's tensors as buffers folded_<i> (copies: a view of a
+        # parameter would save its whole storage), its other leaves as they are
+        self.leaves, self.spec = tree_flatten(
+            None if self.own is not None else fold_model(model))
+        self.tensors = [i for i, leaf in enumerate(self.leaves)
+                        if isinstance(leaf, torch.Tensor)]
+        for i in self.tensors:
+            self.register_buffer(f"folded_{i}", self.leaves[i].clone())
+            self.leaves[i] = None
+
+    def forward(self, x):
+        if self.own is not None:
+            return self.own(x)
+        leaves = list(self.leaves)
+        for i in self.tensors:
+            leaves[i] = getattr(self, f"folded_{i}")
+        return self.fn(tree_unflatten(leaves, self.spec), x)
 
 
 def make_eval_step(model: torch.nn.Module):

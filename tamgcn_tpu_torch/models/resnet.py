@@ -23,9 +23,9 @@ normalises in bf16 (ops/norm.py), the head runs in bf16 and its logits are
 widened to float32 (the JAX model's promote at resnet.py:237-241); the
 parameters and BatchNorm statistics stay float32.
 
-`block_dropout` (the reference's p=0.1 "#Bruce" variant) is identity in
-eval; in training it raises: the seeded dropout stream is a port item of its
-own (ROADMAP Queue 1 item 7b).
+`block_dropout` (the reference's p=0.1 "#Bruce" variant) is a seeded
+dropout site (ops/dropout.py) after each ReLU of a block, as the JAX
+model's nn.Dropout; the identity in eval.
 """
 from __future__ import annotations
 
@@ -36,8 +36,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops import inits
+from ..ops.dropout import SeededDropout
 from ..ops.norm import BatchNorm
-from .ctrgcn import _cast_linear, _default_generator, compute_dtype, dropout_unported
+from .ctrgcn import _cast_linear, _default_generator, compute_dtype
 
 
 class Conv2d(nn.Module):
@@ -64,11 +65,6 @@ class Conv2d(nn.Module):
 
 
 class _Block(nn.Module):
-    def _drop(self, h):
-        if self.block_dropout and self.training:
-            dropout_unported("block_dropout", self.block_dropout)
-        return h
-
     def _residual(self, x):
         if self.downsample_conv is None:
             return x
@@ -89,7 +85,7 @@ class BasicBlock(_Block):
                  downsample: bool = False, block_dropout: float = 0.0, dtype=None):
         super().__init__()
         dt = compute_dtype(dtype)
-        self.block_dropout = block_dropout
+        self.drop = SeededDropout(block_dropout)
         self.conv1 = Conv2d(inplanes, planes, 3, stride, dtype=dt)
         self.bn1 = BatchNorm(planes, dtype=dt)
         self.conv2 = Conv2d(planes, planes, 3, dtype=dt)
@@ -99,9 +95,9 @@ class BasicBlock(_Block):
         self.downsample_bn = BatchNorm(planes, dtype=dt) if downsample else None
 
     def forward(self, x):
-        out = self._drop(F.relu(self.bn1(self.conv1(x))))
+        out = self.drop(F.relu(self.bn1(self.conv1(x))))
         out = self.bn2(self.conv2(out))
-        return self._drop(F.relu(out + self._residual(x)))
+        return self.drop(F.relu(out + self._residual(x)))
 
 
 class Bottleneck(_Block):
@@ -114,7 +110,7 @@ class Bottleneck(_Block):
                  block_dropout: float = 0.0, dtype=None):
         super().__init__()
         dt = compute_dtype(dtype)
-        self.block_dropout = block_dropout
+        self.drop = SeededDropout(block_dropout)
         width = int(planes * (base_width / 64.0))
         out = planes * self.expansion
         self.conv1 = Conv2d(inplanes, width, 1, dtype=dt)
@@ -127,10 +123,10 @@ class Bottleneck(_Block):
         self.downsample_bn = BatchNorm(out, dtype=dt) if downsample else None
 
     def forward(self, x):
-        out = self._drop(F.relu(self.bn1(self.conv1(x))))
-        out = self._drop(F.relu(self.bn2(self.conv2(out))))
+        out = self.drop(F.relu(self.bn1(self.conv1(x))))
+        out = self.drop(F.relu(self.bn2(self.conv2(out))))
         out = self.bn3(self.conv3(out))
-        return self._drop(F.relu(out + self._residual(x)))
+        return self.drop(F.relu(out + self._residual(x)))
 
 
 _ARCH = {(BasicBlock, (2, 2, 2, 2)): "resnet18", (BasicBlock, (3, 4, 6, 3)): "resnet34",

@@ -19,10 +19,11 @@ conv casts its input, weight and bias to bf16 and adds the bias after the
 product; the aggregation sums in f32 (a bf16 input with the f32 adjacency);
 BatchNorm normalises in bf16 (ops/norm.py).
 
-What this port leaves to later slices: `graph_partition="ring"` (the
-edge-partitioned aggregation over a device mesh) comes with the parallel
-slice; `dropout`/`block_dropout` > 0 in training raise until the seeded
-dropout stream (ROADMAP Queue 1 item 7b).
+`dropout` (before the head) and `block_dropout` (in each block, after the
+second temporal BN) are seeded dropout sites (ops/dropout.py), as the JAX
+model's nn.Dropout. What this port leaves to a later slice:
+`graph_partition="ring"` (the edge-partitioned aggregation over a device
+mesh) comes with the parallel slice.
 """
 from __future__ import annotations
 
@@ -34,9 +35,9 @@ from torch import nn
 from ..graphs import get_graph
 from ..ops import inits
 from ..ops.aggregation import stgcn_aggregate
+from ..ops.dropout import SeededDropout
 from ..ops.norm import BatchNorm
-from .ctrgcn import (CTRGCN, Conv1x1, TemporalConv2d, _cast_linear, compute_dtype,
-                     dropout_unported)
+from .ctrgcn import CTRGCN, Conv1x1, TemporalConv2d, _cast_linear, compute_dtype
 
 # (in channels or None for the model's input, out channels, stride, residual)
 # per block (reference models/stgcn.py:140-150)
@@ -79,7 +80,7 @@ class STGCNBlock(nn.Module):
         if len(kernel_size) != 2 or kernel_size[0] % 2 != 1:
             raise ValueError(f"kernel_size (odd temporal, spatial), got {kernel_size}")
         dt = compute_dtype(dtype)
-        self.dropout = dropout
+        self.drop = SeededDropout(dropout)
         self.res_mode = (
             "none" if not residual
             else "identity" if in_channels == out_channels and stride == 1
@@ -105,9 +106,7 @@ class STGCNBlock(nn.Module):
 
     def forward(self, x, A):
         h = F.relu(self.tcn_bn1(self.gcn(x, A)))
-        h = self.tcn_bn2(self.tcn_conv(h))
-        if self.dropout and self.training:
-            dropout_unported("block_dropout", self.dropout)
+        h = self.drop(self.tcn_bn2(self.tcn_conv(h)))
         if self.res_mode == "none":
             return F.relu(h)
         res = x if self.res_mode == "identity" else self.res_bn(self.res_conv(x))
@@ -149,7 +148,7 @@ class STGCN(nn.Module):
         self.num_class = num_class
         self.num_point = num_point
         self.num_person = num_person
-        self.dropout = dropout
+        self.drop = SeededDropout(dropout)
         # the adjacency is a constant of the graph, not part of the weights
         self.register_buffer("A", torch.as_tensor(np.asarray(A, np.float32)),
                              persistent=False)
@@ -212,9 +211,7 @@ class STGCN(nn.Module):
     def forward(self, x):
         h, N, M = self._stem(self._to_ncvtm(x))
         h = self._backbone(h)  # (N*M, T', V, 256)
-        h = h.mean(dim=(1, 2)).reshape(N, M, -1).mean(dim=1)
-        if self.dropout and self.training:
-            dropout_unported("dropout", self.dropout)
+        h = self.drop(h.mean(dim=(1, 2)).reshape(N, M, -1).mean(dim=1))
         # logits in float32 (or wider): the loss does not run in bf16
         out = self._head(h)
         return out.to(torch.promote_types(out.dtype, torch.float32))

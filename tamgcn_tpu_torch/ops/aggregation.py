@@ -10,6 +10,10 @@ time, vertex, channel), as in the JAX package. The unit op
 through `unit_ctr_gc`, the autograd Function `UnitCtrGc`: for CPU tensors the
 plain versions below (forward, x3 gradient, parameter gradients), for CUDA
 tensors the hand-written CUDA kernels K1, K2 and K3 (ops/cuda/ctr_gc.py).
+The forward is the custom op `tamgcn::unit_ctr_gc` (`unit_ctr_gc_op`), so
+that `torch.export` keeps it as one node of an exported graph
+(tools/export_serving.py); training, the CUDA graphs and the export share
+that one route.
 
 The activations of the unit op (x1s, x2s, x3s, its output and their
 gradients) are float32 or, under the JAX package's bf16 mixed precision,
@@ -95,6 +99,32 @@ def unit_ctr_gc_plain(x1s, x2s, x3s, w4s, b4s, alpha, As):
         y = ctr_gc_aggregate(m, x3s[..., s * C:(s + 1) * C])
         out = y if out is None else out + y
     return out.to(dtype)
+
+
+@torch.library.custom_op("tamgcn::unit_ctr_gc", mutates_args=(), device_types="cpu")
+def unit_ctr_gc_op(x1s: torch.Tensor, x2s: torch.Tensor, x3s: torch.Tensor,
+                   w4s: torch.Tensor, b4s: torch.Tensor, alpha: torch.Tensor,
+                   As: torch.Tensor) -> torch.Tensor:
+    """The unit op's forward as the custom op `tamgcn::unit_ctr_gc`, one node
+    of a `torch.export` graph: on the CPU its plain version
+    (unit_ctr_gc_plain), on a CUDA device K1 in either design and form
+    (ops/cuda/ctr_gc.py:unit_ctr_gc_fwd, which counts its launches and
+    raises on what it does not take: no fallback). Shapes as
+    unit_ctr_gc_plain; the output is contiguous."""
+    return unit_ctr_gc_plain(x1s, x2s, x3s, w4s, b4s, alpha, As).contiguous()
+
+
+@unit_ctr_gc_op.register_kernel("cuda")
+def _unit_ctr_gc_cuda(x1s, x2s, x3s, w4s, b4s, alpha, As):
+    from .cuda import ctr_gc
+
+    return ctr_gc.unit_ctr_gc_fwd(x1s, x2s, x3s, w4s, b4s, alpha, As)
+
+
+@unit_ctr_gc_op.register_fake
+def _unit_ctr_gc_fake(x1s, x2s, x3s, w4s, b4s, alpha, As):
+    N, T, V, _ = x3s.shape
+    return x3s.new_empty((N, T, V, w4s.shape[-1]))
 
 
 def unit_ctr_gc_dx3_plain(x1s, x2s, g, w4s, b4s, alpha, As):
@@ -185,14 +215,15 @@ def unit_ctr_gc_bwd_conv3_plain(x1s, x2s, g, x, w3, w4s, b4s, alpha, As):
 
 def _kernels(device):
     """(forward, x3 gradient, parameter gradients) for tensors on `device`:
-    the plain versions on the CPU, the CUDA kernels (which raise on what they
-    do not take; there is no fallback) on a CUDA device."""
+    the forward is the custom op `unit_ctr_gc_op` on both; the gradients are
+    the plain versions on the CPU, the CUDA kernels (which raise on what
+    they do not take; there is no fallback) on a CUDA device."""
     if device.type == "cpu":
-        return unit_ctr_gc_plain, unit_ctr_gc_dx3_plain, unit_ctr_gc_param_grads_plain
+        return unit_ctr_gc_op, unit_ctr_gc_dx3_plain, unit_ctr_gc_param_grads_plain
     if device.type == "cuda":
         from .cuda import ctr_gc
 
-        return (ctr_gc.unit_ctr_gc_fwd, ctr_gc.unit_ctr_gc_bwd_dx3,
+        return (unit_ctr_gc_op, ctr_gc.unit_ctr_gc_bwd_dx3,
                 ctr_gc.unit_ctr_gc_bwd_param)
     raise NotImplementedError(f"unit_ctr_gc on device {device}")
 

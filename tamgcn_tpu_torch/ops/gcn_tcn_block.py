@@ -14,10 +14,14 @@ branches is
     prefix = relu(h @ Wp + bp)                 # TCN entry conv (folded)
     pw     = h @ Wpw + bpw                     # TCN 1x1 branch (folded)
 
-`gcn_tcn_block_fused` runs it: the plain version for CPU tensors, the CUDA
-kernel K5 (ops/cuda/gcn_tcn_block.py) for CUDA tensors, with no fallback.
+`gcn_tcn_block_fused` runs it through the custom op `tamgcn::gcn_tcn_block`
+(one node of a `torch.export` graph): the plain version for CPU tensors,
+the CUDA kernel K5 (ops/cuda/gcn_tcn_block.py) for CUDA tensors, with no
+fallback.
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -73,17 +77,43 @@ def k5_takes(V: int, Cin: int, C: int, R: int) -> bool:
     return V <= _MAX_V and _phase_b_fits(Cin, C)
 
 
+_T = torch.Tensor
+
+
+@torch.library.custom_op("tamgcn::gcn_tcn_block", mutates_args=(), device_types="cpu")
+def gcn_tcn_block_op(x: _T, x1s: _T, x2s: _T, w3: _T, b3: _T, w4s: _T, b4s: _T,
+                     alpha: _T, As: _T, gy: _T, wo: _T, bo: _T, wp: _T, bp: _T,
+                     wpw: _T, bpw: _T, wd: Optional[_T], bd: Optional[_T]
+                     ) -> tuple[_T, _T]:
+    """K5 as the custom op `tamgcn::gcn_tcn_block`: the plain version on the
+    CPU, K5 (ops/cuda/gcn_tcn_block.py:gcn_tcn_block_fwd) on a CUDA device.
+    wd and bd None for an identity residual."""
+    prefix, pw = gcn_tcn_block_plain(x, x1s, x2s, w3, b3, w4s, b4s, alpha, As, gy,
+                                     wo, bo, wp, bp, wpw, bpw, wd, bd)
+    return prefix.contiguous(), pw.contiguous()
+
+
+@gcn_tcn_block_op.register_kernel("cuda")
+def _gcn_tcn_block_cuda(*args):
+    from .cuda import gcn_tcn_block
+
+    return gcn_tcn_block.gcn_tcn_block_fwd(*args)
+
+
+@gcn_tcn_block_op.register_fake
+def _gcn_tcn_block_fake(x, x1s, x2s, w3, b3, w4s, b4s, alpha, As, gy, wo, bo,
+                        wp, bp, wpw, bpw, wd, bd):
+    N, T, V, _ = x.shape
+    return x.new_empty((N, T, V, wp.shape[-1])), x.new_empty((N, T, V, wpw.shape[-1]))
+
+
 def gcn_tcn_block_fused(x, x1s, x2s, w3, b3, w4s, b4s, alpha, As, gy, wo, bo,
                         wp, bp, wpw, bpw, wd=None, bd=None):
-    """One eval-mode block on the device of x: the plain version for a CPU
-    tensor, K5 for a CUDA tensor (which raises on what it does not take;
-    there is no fallback). Shapes as gcn_tcn_block_plain."""
-    args = (x, x1s, x2s, w3, b3, w4s, b4s, alpha, As, gy, wo, bo, wp, bp,
-            wpw, bpw, wd, bd)
-    if x.device.type == "cpu":
-        return gcn_tcn_block_plain(*args)
-    if x.device.type == "cuda":
-        from .cuda.gcn_tcn_block import gcn_tcn_block_fwd
-
-        return gcn_tcn_block_fwd(*args)
-    raise NotImplementedError(f"gcn_tcn_block_fused on device {x.device}")
+    """One eval-mode block on the device of x through `gcn_tcn_block_op`:
+    the plain version for a CPU tensor, K5 for a CUDA tensor (which raises
+    on what it does not take; there is no fallback). Shapes as
+    gcn_tcn_block_plain."""
+    if x.device.type not in ("cpu", "cuda"):
+        raise NotImplementedError(f"gcn_tcn_block_fused on device {x.device}")
+    return gcn_tcn_block_op(x, x1s, x2s, w3, b3, w4s, b4s, alpha, As, gy, wo, bo,
+                            wp, bp, wpw, bpw, wd, bd)

@@ -18,6 +18,13 @@ chain launches several kernels per parameter. So, as the JAX package does:
     and the optimiser (train/optim.py) as a few elementwise passes over the
     flat buffers, with the lr from a 0-d tensor: no host read, so the step
     can be captured whole;
+  * the state holds a device step counter (`step`, 0-d int64) and the run
+    seed: a model with a dropout site (ops/dropout.py) draws each step's
+    masks from (seed, step) inside the step, which then advances the
+    counter, as the JAX step folds `pstate.step` into its dropout rng and
+    increments it (tamgcn_tpu/train/packing.py:187); a CUDA graph of the
+    step reads the counter at each replay, so each replay draws fresh
+    masks. A model without dropout runs the step without the counter;
   * `freeze_mask_for` is the flat 0/1 mask of the parameters named by path
     prefixes, which multiplies the optimiser's update, as JAX's `updates *
     freeze_mask` does: a frozen parameter gets no update and no weight
@@ -38,6 +45,7 @@ import torch
 import torch.nn.functional as F
 
 from ..convert import flax_param_paths
+from ..ops import dropout
 from .optim import make_optimizer
 
 
@@ -119,11 +127,14 @@ class PackedTrainState:
     """The model's parameters, gradients and buffers and the optimiser's
     state (train/optim.py, `optimizer` "SGD" or "Adam") as flat buffers, one
     per dtype; the lr as a 0-d tensor per parameter dtype on their device.
-    `freeze_prefixes` names the frozen parameters (freeze_mask_for)."""
+    `freeze_prefixes` names the frozen parameters (freeze_mask_for). `step`
+    counts the train steps taken on the device (the dropout stream's step,
+    advanced by the step where the model `draws` masks); `seed` keys the
+    stream."""
 
     def __init__(self, model: torch.nn.Module, optimizer: str = "SGD", *,
                  nesterov: bool = True, weight_decay: float = 1e-4,
-                 freeze_prefixes: Sequence[str] = ()):
+                 freeze_prefixes: Sequence[str] = (), seed: int = 0):
         self.model = model
         named = list(model.named_parameters())
         self.param_names = [n for n, _ in named]
@@ -140,6 +151,17 @@ class PackedTrainState:
         self.lrs = [torch.zeros((), dtype=f.dtype, device=f.device)
                     for f in self.params.flats]
         self.lr = None
+        self.seed = seed
+        self.draws = dropout.draws(model)
+        self.step = torch.zeros((), dtype=torch.int64, device=self.params.flats[0].device)
+
+    def set_step(self, step: int) -> None:
+        """Write the train step into the device counter (a resume)."""
+        self.step.fill_(step)
+
+    def dropout_stream(self):
+        """The dropout stream of the step the counter stands at."""
+        return dropout.stream(self.seed, self.step)
 
     def set_lr(self, lr: float) -> None:
         """Write `lr` into the lr tensors (only where it changed: no launch
@@ -151,10 +173,11 @@ class PackedTrainState:
 
     def tensors(self) -> list[torch.Tensor]:
         """Every flat buffer a step writes: parameters, gradients, buffers,
-        optimiser state."""
+        optimiser state, and the step counter where the model draws masks."""
         opt = [t for name in self.optimizer.state_names
                for t in self.optimizer.state[name]]
-        return self.params.flats + self.grads + self.stats.flats + opt
+        step = [self.step] if self.draws else []
+        return self.params.flats + self.grads + self.stats.flats + opt + step
 
     def check(self) -> None:
         """Raise where a parameter, gradient or buffer no longer views its
@@ -240,12 +263,15 @@ def make_fused_train_step(state: PackedTrainState, check_finite: bool = False) -
 
     def train_step(*args):
         *inputs, label = args
-        logits = model(*inputs)
+        with state.dropout_stream():
+            logits = model(*inputs)
         loss = F.cross_entropy(logits, label)
         grads = torch.autograd.grad(loss, params, allow_unused=True,
                                     materialize_grads=True)
         state.gather_grads(grads)
         state.update()
+        if state.draws:
+            state.step.add_(1)
         hits = (logits.detach().argmax(-1) == label).sum()
         if not check_finite:
             return loss.detach(), hits

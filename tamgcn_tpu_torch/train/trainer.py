@@ -13,7 +13,9 @@ recognition_rgb.py train/test/start :48-126) on one device, the one that
     its update; the val loader built at the first eval; eval every
     --eval_interval epochs, the best top-1 with its checkpoint and score
     pickle, epoch checkpoints every --save_interval, the progress csv and
-    --resume;
+    --resume; a model's dropout masks are keyed on --seed and the step
+    (ops/dropout.py), so a resumed run draws the masks an unbroken one
+    draws;
   * test phase: inference over the val split with --weights, mean loss,
     top-k and the per-sample score pickle.
 
@@ -37,6 +39,7 @@ The flags of features the port lacks raise (train/config.py:check_supported).
 """
 from __future__ import annotations
 
+import contextlib
 import os
 import socket
 import time
@@ -199,7 +202,7 @@ class RecognitionTrainer:
             self.state = PackedTrainState(
                 model, arg.optimizer, nesterov=arg.nesterov,
                 weight_decay=arg.weight_decay,
-                freeze_prefixes=tuple(arg.freeze_params or ()))
+                freeze_prefixes=tuple(arg.freeze_params or ()), seed=arg.seed)
             steps["train"] = graphed(
                 make_fused_train_step(self.state, check_finite=arg.debug_nans),
                 "train", self.state.tensors())
@@ -328,7 +331,10 @@ class RecognitionTrainer:
             after = non_finite_names(list(self.model.named_parameters())
                                      + list(self.model.named_buffers()))
             torch._foreach_copy_(self.state.tensors(), self._nan_backup)
-        where = locate_non_finite(self.model, inputs, label, train=kind == "train")
+        # the eager re-run draws the dropout masks the step drew (the
+        # restored counter stands at the step)
+        with self.state.dropout_stream() if kind == "train" else contextlib.nullcontext():
+            where = locate_non_finite(self.model, inputs, label, train=kind == "train")
         if where is None:
             where = (f"the optimiser's update of {', '.join(after[:5])}" if after
                      else "the step's outputs (the eager re-run stayed finite)")
@@ -447,5 +453,7 @@ class RecognitionTrainer:
         self.model.load_state_dict(tree["model"])
         self.state.load_optimizer_state_dict(tree["optimizer"])
         self.step = int(tree["step"])
+        # the dropout stream goes on from the step it stopped at
+        self.state.set_step(self.step)
         self.print_log(f"resumed from epoch{latest}")
         return latest

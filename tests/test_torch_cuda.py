@@ -39,6 +39,10 @@ ResNet-50 (the RGB family, no port kernel) graphed equals eager bit for bit;
 the cross-modal fusion model with its GCN frozen launches K1 10 times per
 train step and per eval forward and never K2 or K3, and the GCN's
 parameters and BatchNorm statistics stay bit for bit where they were.
+The custom ops `tamgcn::unit_ctr_gc` and `tamgcn::gcn_tcn_block` launch K1
+and K5; a serving artifact (tools/export_serving.py) launches them at each
+call; a graphed train step with dropout draws each replay's mask from the
+device step counter.
 This file imports no JAX, so it runs where the port runs.
 """
 import pytest
@@ -1395,3 +1399,114 @@ def test_cross_modal_frozen_gcn_launches_k1_only(device):
         model(*x)
     after = launch_counts()
     assert [after[k] - before[k] for k in keys] == [10, 0, 0]
+
+
+def test_custom_ops_launch_the_kernels(device):
+    """tamgcn::unit_ctr_gc and tamgcn::gcn_tcn_block on CUDA tensors launch
+    K1 and K5, one count each, bit for bit the wrappers' results; on CPU
+    tensors they are the plain versions."""
+    from tamgcn_tpu_torch.ops.cuda import gcn_tcn_block
+    from tamgcn_tpu_torch.ops.gcn_tcn_block import gcn_tcn_block_plain
+
+    args = _inputs(2, 16, 20, 64, 8, device)
+    before = ctr_gc.launches
+    got = torch.ops.tamgcn.unit_ctr_gc(*args)
+    assert ctr_gc.launches == before + 1
+    assert got.equal(ctr_gc.unit_ctr_gc_fwd(*args))
+    cpu = [a.cpu() for a in args]
+    assert torch.ops.tamgcn.unit_ctr_gc(*cpu).equal(unit_ctr_gc_plain(*cpu))
+    block = _block_inputs(2, 16, 20, 64, 128, 8, device)
+    before = gcn_tcn_block.launches
+    prefix, pw = torch.ops.tamgcn.gcn_tcn_block(*block.values())
+    assert gcn_tcn_block.launches == before + 1
+    want = gcn_tcn_block.gcn_tcn_block_fwd(**block)
+    assert prefix.equal(want[0]) and pw.equal(want[1])
+    cpu = {k: None if a is None else a.cpu() for k, a in block.items()}
+    got = torch.ops.tamgcn.gcn_tcn_block(*cpu.values())
+    want = gcn_tcn_block_plain(**cpu)
+    assert got[0].equal(want[0]) and got[1].equal(want[1])
+
+
+@pytest.mark.parametrize("extra,counter", [([], "launches"), (["--fast_eval"], None),
+                                           (["--poly_batch"], "launches")])
+def test_serving_artifact_on_cuda(device, tmp_path, extra, counter):
+    """tools/export_serving.py on the card (held on the CPU too, moved there):
+    a call of the reloaded artifact launches K1 10 times (K5 with
+    --fast_eval) and gives the live model's logits."""
+    import os
+
+    from tamgcn_tpu_torch.models import get_model
+    from tamgcn_tpu_torch.ops.cuda import gcn_tcn_block
+    from tamgcn_tpu_torch.tools import export_serving
+    from tamgcn_tpu_torch.train.config import load_config
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    smoke = os.path.join(repo, "configs", "nucla", "smoke.yaml")
+    out = str(tmp_path / "a.pt2")
+    platforms = "cuda" if extra else "cuda,cpu"
+    record = export_serving.run(["--out", out, "--batch", "4", "--time", "16",
+                                 "--platforms", platforms, *extra, "-c", smoke,
+                                 "--model_args", "base_channel=16"])
+    assert record["roundtrip_max_abs_err"] <= 2e-5
+    assert set(record["platform_max_abs_err"]) == ({"cpu"} if not extra else set())
+    program = torch.export.load(out).module()
+    x = torch.randn(4, 3, 16, 20, 1, device=device)
+    k1, k5 = ctr_gc.launches, gcn_tcn_block.launches
+    with torch.no_grad():
+        got = program(x)
+    torch.cuda.synchronize()
+    if counter:
+        assert (ctr_gc.launches - k1, gcn_tcn_block.launches - k5) == (10, 0)
+    else:
+        assert (ctr_gc.launches - k1, gcn_tcn_block.launches - k5) == (0, 10)
+    arg = load_config(["-c", smoke])
+    model = get_model(arg.model, generator=torch.Generator().manual_seed(arg.seed),
+                      **dict(arg.model_args, base_channel=16)).to(device).eval()
+    with torch.no_grad():
+        want = model(x)
+    assert (got - want).abs().max() <= 1e-4 * want.abs().max()
+
+
+def test_graph_replays_draw_fresh_dropout_masks(device, monkeypatch):
+    """The graphed train step of a model with drop_out: each replay's head
+    dropout is the seeded mask of the step the device counter holds, two
+    replays' masks differ, and the graphed steps equal the eager ones bit
+    for bit (deterministic cuDNN)."""
+    from tamgcn_tpu_torch.ops.dropout import keep_mask
+    from tamgcn_tpu_torch.train.graphs import GraphedStep
+    from tamgcn_tpu_torch.train.packing import PackedTrainState, make_fused_train_step
+
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    batches = [_graph_batch(device, seed=s) for s in range(3)]
+    runs = []
+    for capture in (False, True):
+        model = create_ctrgcn_nucla(base_channel=16, drop_out=0.5,
+                                    generator=torch.Generator().manual_seed(4))
+        model.to(device).train()
+        state = PackedTrainState(model, "SGD", seed=9)
+        state.set_lr(0.05)
+        seen = []
+
+        def hook(module, args, out, seen=seen):
+            # buffers made at the first (warm-up) call, written by every call
+            # and, inside the capture, by every replay
+            if not seen:
+                seen.extend([torch.empty_like(args[0]), torch.empty_like(out)])
+            seen[0].copy_(args[0].detach())
+            seen[1].copy_(out.detach())
+
+        model.dropout.register_forward_hook(hook)
+        step = make_fused_train_step(state)
+        if capture:
+            step = GraphedStep(step, "train", state.tensors())
+        losses, masks = [], []
+        for k, (x, y) in enumerate(batches):
+            losses.append(step(x, y)[0])
+            keep = keep_mask(seen[0].shape, 0.5, 9, k, 0, device)
+            assert seen[1].equal(torch.where(keep, seen[0] / 0.5, 0.0)), (capture, k)
+            masks.append(keep)
+        assert int(state.step) == 3 and not masks[0].equal(masks[1])
+        runs.append((losses, [t.clone() for t in state.tensors()]))
+    (eager_l, eager_t), (graph_l, graph_t) = runs
+    assert all(a.equal(b) for a, b in zip(eager_l, graph_l)), (eager_l, graph_l)
+    assert all(a.equal(b) for a, b in zip(eager_t, graph_t))

@@ -23,6 +23,7 @@ from tamgcn_tpu.models import create_ctrgcn_nucla as jax_create
 from tamgcn_tpu.models.ctrgcn import TCNGCNUnit
 from tamgcn_tpu_torch.convert import from_flax
 from tamgcn_tpu_torch.models import create_ctrgcn_nucla, get_model
+from tamgcn_tpu_torch.ops import dropout
 from tamgcn_tpu_torch.ops.cuda import ctr_gc
 
 torch.set_num_threads(1)
@@ -176,11 +177,20 @@ def test_init_schemes_at_full_width():
 
 
 def test_get_model_rejects_what_the_slice_lacks():
-    # dropout in training waits for the seeded dropout stream
+    # dropout in training draws from the seeded stream (ops/dropout.py): a
+    # training forward outside one raises, inside one it drops
     model = get_model("ctrgcn", drop_out=0.5, graph="ucla", num_point=20, num_person=1,
                       base_channel=8)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7b"):
-        model.train()(torch.zeros(2, 3, 8, 20, 1))
+    x = torch.randn(2, 3, 8, 20, 1)
+    with pytest.raises(RuntimeError, match="seeded stream"):
+        model.train()(x)
+    pooled = []
+    model.dropout.register_forward_hook(lambda m, a, out: pooled.append((a[0], out)))
+    with torch.no_grad(), dropout.stream(0, 0):
+        model(x)
+    h, out = pooled[0]
+    keep = dropout.keep_mask(h.shape, 0.5, 0, 0, 0)
+    assert torch.equal(out, torch.where(keep, h / 0.5, 0.0)) and not keep.all()
     with pytest.raises(NotImplementedError, match="float16"):
         get_model("ctrgcn", dtype="float16", graph="ucla")
     with pytest.raises(KeyError):

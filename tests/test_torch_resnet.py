@@ -19,7 +19,9 @@ convert.from_flax, at 32 x 32:
     order, not the port);
   * the importers (torchvision names, conv1 inflated 3 -> 15, the fusion
     state dict, `load_torch_resnet_npz`) element for element against JAX's;
-  * `block_dropout > 0` raises in training and is the identity in eval.
+  * `block_dropout > 0` is the identity in eval and draws from the seeded
+    dropout stream in training (tests/test_torch_dropout.py holds it to
+    JAX's masks).
 """
 import functools
 
@@ -37,6 +39,7 @@ from tamgcn_tpu.utils import torch_import as jax_import
 from tamgcn_tpu_torch.convert import flax_param_paths, from_flax
 from tamgcn_tpu_torch.models import get_model, resnet
 from tamgcn_tpu_torch.models.resnet_only import ResNetOnly
+from tamgcn_tpu_torch.ops import dropout
 from tamgcn_tpu_torch.utils import torch_import
 
 torch.set_num_threads(2)
@@ -262,6 +265,8 @@ def test_flax_paths_and_init():
 
 
 def test_block_dropout_raises_in_training_only():
+    """block_dropout is the identity in eval; in training it draws from the
+    seeded stream (outside one it raises), two sites a BasicBlock."""
     model = resnet.ResNet(block=resnet.BasicBlock, layers=(1, 1, 1, 1), num_classes=10,
                           block_dropout=0.1)
     x = torch.randn(2, 3, S, S)
@@ -269,5 +274,10 @@ def test_block_dropout_raises_in_training_only():
         plain = resnet.ResNet(block=resnet.BasicBlock, layers=(1, 1, 1, 1), num_classes=10)
         plain.load_state_dict(model.state_dict())
         assert torch.equal(model.eval()(x), plain.eval()(x))
-        with pytest.raises(NotImplementedError, match="Queue 1 item 7b"):
+        with pytest.raises(RuntimeError, match="seeded stream"):
             model.train()(x)
+        with dropout.stream(0, 0) as s:
+            dropped = model(x)
+        with dropout.stream(0, 0):
+            assert torch.equal(model(x), dropped)
+        assert s.sites == 8 and not torch.equal(dropped, plain.train()(x))

@@ -38,6 +38,7 @@ from tamgcn_tpu_torch.__main__ import main
 from tamgcn_tpu_torch.convert import from_flax
 from tamgcn_tpu_torch.models import create_stgcn_nucla, edge_importance_per_joint, get_model
 from tamgcn_tpu_torch.models.stgcn import STGCN
+from tamgcn_tpu_torch.ops import dropout
 from tamgcn_tpu_torch.ops.aggregation import stgcn_aggregate
 
 torch.set_num_threads(1)
@@ -217,13 +218,17 @@ def test_init_follows_pytorch_defaults():
 def test_what_the_slice_leaves_out_raises():
     with pytest.raises(NotImplementedError, match="parallel slice"):
         create_stgcn_nucla(graph_partition="ring")
-    x = torch.zeros(2, 3, 8, 20, 1)
-    for kw in (dict(dropout=0.5), dict(block_dropout=0.5)):
+    # dropout and block_dropout train from the seeded stream (ops/dropout.py)
+    x = torch.randn(2, 3, 8, 20, 1)
+    for kw, sites in ((dict(dropout=0.5), 1), (dict(block_dropout=0.5), 10)):
         model = create_stgcn_nucla(**kw)
         with torch.no_grad():
             model.eval()(x)  # eval mode runs
-        with pytest.raises(NotImplementedError, match="Queue 1 item 7b"):
-            model.train()(x)
+            with pytest.raises(RuntimeError, match="seeded stream"):
+                model.train()(x)
+            with dropout.stream(1, 3) as s:
+                assert torch.isfinite(model(x)).all()
+            assert s.sites == sites
 
 
 def _argv(work_dir, *extra):

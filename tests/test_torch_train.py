@@ -325,10 +325,20 @@ def test_weights_take_a_training_checkpoint(straight, tmp_path):
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5 * np.abs(want).max())
 
 
-def test_dropout_raises_in_training():
+def test_dropout_raises_in_training(tmp_path):
+    """drop_out trains: the CLI train phase with drop_out 0.5 runs, and its
+    trainer's step draws from the seeded stream (a training forward outside
+    one raises)."""
     model = create_ctrgcn_nucla(base_channel=BC, drop_out=0.5)
     x = torch.zeros((2, 3, 8, 20, 1))
     with torch.no_grad():
         assert model.eval()(x).shape == (2, 10)
-    with pytest.raises(NotImplementedError, match="drop_out"):
+    with pytest.raises(RuntimeError, match="seeded stream"):
         model.train()(x)
+    assert main(["recognition", "-c", SMOKE, "--use_gpu", "false", "--work_dir",
+                 str(tmp_path), "--model_args", f"base_channel={BC}", "drop_out=0.5",
+                 "--num_epoch", "1", "--batch_size", "8", "--train_feeder_args",
+                 "num_samples=16", "--test_feeder_args", "num_samples=8",
+                 "--num_worker", "1", "--print_log", "false"]) == 0
+    tree = torch.load(tmp_path / "checkpoints" / "epoch1.pt", weights_only=True)
+    assert tree["step"] == 2 and all(torch.isfinite(v).all() for v in tree["model"].values())

@@ -141,13 +141,16 @@ def test_test_phase_needs_weights(tmp_path):
 
 
 def test_rgb_entry_points_raise(tmp_path):
-    """The RGB entry point runs (tests/test_torch_cross_modal.py) and raises
-    on what the port still lacks: block dropout in training."""
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7b"):
-        main(["recognition_rgb_only", "-c", SMOKE_RESNET, "--use_gpu", "false",
-              "--work_dir", str(tmp_path), "--num_worker", "1", "--batch_size", "2",
-              "--train_feeder_args", "num_samples=2", "image_size=32",
-              "--model_args", "block_dropout=0.1"])
+    """The RGB entry point runs (tests/test_torch_cross_modal.py), block
+    dropout in training included: its masks come from the seeded stream."""
+    assert main(["recognition_rgb_only", "-c", SMOKE_RESNET, "--use_gpu", "false",
+                 "--work_dir", str(tmp_path), "--num_worker", "1", "--batch_size", "2",
+                 "--num_epoch", "1", "--print_log", "false",
+                 "--train_feeder_args", "num_samples=2", "image_size=32",
+                 "--test_feeder_args", "num_samples=2", "image_size=32",
+                 "--model_args", "block_dropout=0.1"]) == 0
+    tree = torch.load(tmp_path / "checkpoints" / "epoch1.pt", weights_only=True)
+    assert tree["step"] == 1
 
 
 def _train_argv(work_dir, *extra):
