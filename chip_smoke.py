@@ -257,6 +257,38 @@ Phases, each of which fails the run (non-zero exit, no result line):
      prints each artifact's bytes, export seconds, ms a call and samples/s
      (CUDA events), device busy and kernels (torch.profiler) beside the
      graphed eval forward; serving.entry() on the card (K1 10).
+ 16. the parallel layer on two gloo ranks sharing the card (NCCL refuses
+     two ranks on one card): one launch of two ranks (parallel/launch.py:
+     run_ranks, each rank phase16_rank) runs tamgcn_tpu_torch.serving's dry
+     run at full width (dryrun_plan(2, full=True)) with phase 5's weights
+     and batches (gcn.yaml's CTR-GCN, base_channel 64, T = 52, global batch
+     16): DP over (2, 1) and the joint ring (k = 2, vb = 10) and SP (T = 52
+     as 26 + 26 frames) for 3 SGD steps, TP of the head for one, the ring at
+     configs/scene256.yaml's widths (V = 256, vb = 128, batch 8), ST-GCN's
+     ring and the TP of cross_modal.yaml's attention MLP (224 x 224 images)
+     for one each, and the ring's unit op, output and VJP, against the
+     dense plain version at each block shape of both CTR-GCNs (the output
+     within 1e-5 of its max, the gradients within 1e-4, alpha's 1e-3); then
+     each planted fault's mode once more with the fault in place. Each
+     mode's first loss within 1e-4 of the single rank's on the card, SP's
+     of DP's (serving.verify_dryrun); DP, the ring, SP and TP held to phase
+     5's f64 CPU run by check_trajectory's rule after every step; scene256's
+     ring, ST-GCN's ring and the fusion TP step held, state and reduced
+     gradients per tensor, to their model's single-rank f64 step on the
+     card with the plain unit op by the same rule (grid_references). The
+     ring with one block skipped, with x2's gradient left unsummed, and
+     scene256's ring with K2t's dx3s or K3's dw4s zeroed must each leave its
+     check. Per rank: K1 = K2 = K3 = 20 a ring train step (whole-V), K1t =
+     K2t = K3 = 20 at scene256 and no whole-V kernel there, 10 a DP or SP
+     step; every step's wall, and the scene256 step's kernel and copy time
+     by torch.profiler beside phase 12's dense step. Then `python -m
+     torch.distributed.run --nproc_per_node 2 -m tamgcn_tpu_torch
+     recognition` (--graph_partition ring --model_parallel 2 --distributed
+     true --device 0 0) trains one short epoch at gcn.yaml's widths, its
+     closing eval on the two ranks writing the scores; one process's
+     --phase test on the epoch's checkpoint gives the same scores within
+     1e-5 * max |score|. The ranks' launches are counted in their own
+     processes.
 A kernel launched inside a CUDA-graph capture counts once on its wrapper's
 counter and runs at every replay: every launch check counts the launches
 that ran on the card, the wrappers' counts less what the captures counted
@@ -4417,6 +4449,338 @@ def run_phase15(work_dir: str, weights: str, x, device) -> dict:
     return out
 
 
+PARALLEL_RANKS = 2  # two gloo ranks share the one card (NCCL refuses that)
+# per rank and train step: each of ten blocks rings its unit op over 2 ranks
+RING_LAUNCHES = 20
+# the one-step modes held to their own single-rank f64 run (grid_references)
+ONE_STEP_MODES = ("scene_ring", "stgcn_ring", "fusion_tp")
+# the planted faults of phase 16: name -> (the mode it runs in, what it plants)
+GRID_FAULTS = {
+    "ring_skip_block": ("ring", "the ring with its second block skipped on every rank"),
+    "ring_x2_unsummed": ("ring", "the ring with x2's gradient unsummed (each rank keeps "
+                                 "the part its own rows make)"),
+    "scene_K2t_zeroed": ("scene_ring", "scene256's ring with K2t's dx3s zeroed"),
+    "scene_K3_zeroed": ("scene_ring", "scene256's ring with K3's dw4s zeroed"),
+}
+
+
+def grid_fault(name: str):
+    """The patch that plants GRID_FAULTS[name] in this process."""
+    from unittest import mock
+
+    from tamgcn_tpu_torch.ops.cuda import ctr_gc
+    from tamgcn_tpu_torch.parallel import graph_parallel
+
+    if name == "ring_skip_block":
+        real, calls = graph_parallel.unit_ctr_gc, [0]
+
+        def skipping(*args):
+            calls[0] += 1
+            out = real(*args)
+            return out * 0 if calls[0] % 2 == 0 else out  # the second of each k = 2 ring
+
+        return mock.patch.object(graph_parallel, "unit_ctr_gc", skipping)
+    if name == "ring_x2_unsummed":
+        enter = graph_parallel._replicated_inputs
+
+        def unsummed(group, *tensors):
+            out = enter(group, *tensors)
+            if len(tensors) == 6:  # ring_unit_ctr_gc: x1, x2, w4, b4, alpha, A
+                out[1] = tensors[1]
+            return out
+
+        return mock.patch.object(graph_parallel, "_replicated_inputs", unsummed)
+    if name == "scene_K2t_zeroed":
+        real_dx3 = ctr_gc.unit_ctr_gc_bwd_dx3
+        return mock.patch.object(ctr_gc, "unit_ctr_gc_bwd_dx3",
+                                 lambda *args: real_dx3(*args).zero_())
+    real_param = ctr_gc.unit_ctr_gc_bwd_param
+    return mock.patch.object(ctr_gc, "unit_ctr_gc_bwd_param", lambda *args: tuple(
+        t.zero_() if part == "dw4s" else t
+        for part, t in zip(K3_OUTPUTS, real_param(*args))))
+
+
+def phase16_rank(mesh_rank: int = 0, world: int = 1, *, plan: dict, device: str) -> dict:
+    """One rank of phase 16 (run by parallel/launch.py:run_ranks): the dry
+    run's modes and unit-op check (serving.py:_dryrun_rank), then the first
+    step of each planted fault's mode with the fault in place."""
+    from tamgcn_tpu_torch.parallel.drive import train_on_grid
+    from tamgcn_tpu_torch.serving import _dryrun_rank
+
+    out = _dryrun_rank(mesh_rank, world, plan=plan, device=device)
+    for name, (mode, _) in GRID_FAULTS.items():
+        spec = dict(plan["modes"][mode], profile=False)
+        spec["batches"] = spec["batches"][:1]
+        with grid_fault(name):
+            out[name] = train_on_grid(mesh_rank, world, device=device, **spec)
+    return out
+
+
+def _as_trajectory(record, steps=None):
+    """(losses, states as f64) of a train_on_grid record, its first
+    `steps` steps."""
+    losses = record["losses"][:steps]
+    states = [{k: v.double() for k, v in st.items()}
+              for st in record["states"][:None if steps is None else steps + 1]]
+    return losses, states
+
+
+def _with_grads(record):
+    """The first step of a train_on_grid record as a trajectory whose state
+    after the step also holds each parameter's reduced gradient ("grad
+    <name>", 0 before the step)."""
+    import torch
+
+    losses, (before, after) = _as_trajectory(record, 1)
+    grads = {f"grad {k}": v.double() for k, v in record["grads"].items()}
+    return losses, [before | {k: torch.zeros_like(v) for k, v in grads.items()},
+                    after | grads]
+
+
+def _first(ref, limits, steps):
+    return ((ref[0][:steps], ref[1][:steps + 1]), (limits[0][:steps], limits[1][:steps]))
+
+
+def _must_fail(what: str, ratios: dict):
+    beyond = sorted((k for k, v in ratios.items() if v > 1), key=lambda k: -ratios[k])
+    print(f"planted fault, {what}: {len(beyond)} of {len(ratios)} beyond their limit, "
+          "worst " + ", ".join(f"{k} {ratios[k]:.3f}" for k in beyond[:3]), flush=True)
+    if not beyond:
+        raise AssertionError(f"the check passed with {what}")
+
+
+def grid_references(plan: dict, device) -> dict:
+    """{mode: (reference, limits)} of each one-step mode of ONE_STEP_MODES:
+    its model's single-rank step on `device` with the plain unit op (the
+    model's math without its kernels, TF32 off) in f64, the reference, and
+    in f32, whose distance from it sets the limits (trajectory_limits, the
+    gradients among the tensors)."""
+    import torch
+
+    from tamgcn_tpu_torch.parallel.drive import train_on_grid
+    from tamgcn_tpu_torch.serving import GRID_ARGS
+
+    out = {}
+    for mode in ONE_STEP_MODES:
+        spec = {k: v for k, v in plan["modes"][mode].items() if k not in GRID_ARGS}
+        spec["profile"] = False
+        with plain_unit_op():
+            f64, f32 = (_with_grads(train_on_grid(device=str(device), dtype=dtype, **spec))
+                        for dtype in (torch.float64, torch.float32))
+        out[mode] = f64, trajectory_limits(f64, [f32])
+    return out
+
+
+def check_grid_trajectories(plan: dict, ranks: list, references, device):
+    """Each grid mode of phase 16 on every rank against an f64 run by
+    check_trajectory's rule (its limits: 10x the f32 references' distance
+    plus floors), per tensor: DP, the ring, SP and TP after every step
+    against phase 5's f64 CPU run; the one-step modes' state and reduced
+    gradients against their own f64 run (grid_references). Every planted
+    fault of GRID_FAULTS must leave its check. Returns {mode: worst ratio}."""
+    _, ref, _, limits = references
+    own = grid_references(plan, device)
+
+    def ratios(rec, mode):
+        if mode in own:
+            want, lims = own[mode]
+            return trajectory_ratios(_with_grads(rec), want, lims)
+        steps = len(rec["losses"])
+        want, lims = _first(ref, limits, steps)
+        return trajectory_ratios(_as_trajectory(rec), want, lims)
+
+    worst = {}
+    for mode in ("dp", "ring", "sp", "tp") + ONE_STEP_MODES:
+        for r in ranks:
+            got = ratios(r[mode], mode)
+            top = max(got, key=got.get)
+            worst[mode] = max(worst.get(mode, 0.0), got[top])
+            if got[top] > 1:
+                raise AssertionError(f"phase 16 {mode}, rank {r[mode]['rank']}: {top} "
+                                     f"{got[top]:.3f} of its limit")
+    for name, (mode, what) in GRID_FAULTS.items():
+        for r in ranks:
+            _must_fail(f"{what}, rank {r[name]['rank']}", ratios(r[name], mode))
+    return worst
+
+
+def check_ranks_agree(ranks: list) -> dict:
+    """Every parameter bit for bit the same on every rank after every step
+    of every mode (the gradient sum makes the replicated ones one over the
+    grid, as JAX's one array is); returns {mode: the largest difference
+    between the ranks of a buffer (the BatchNorm statistics, each rank's
+    own forward), a share of its max}."""
+    import torch
+
+    out = {}
+    for mode in ("dp", "ring", "sp", "tp") + ONE_STEP_MODES:
+        names = ranks[0][mode]["grads"].keys()
+        worst = 0.0
+        for step, states in enumerate(zip(*(r[mode]["states"] for r in ranks))):
+            first = states[0]
+            for other in states[1:]:
+                for k, v in first.items():
+                    if k in names:
+                        if not torch.equal(v, other[k]):
+                            raise AssertionError(
+                                f"phase 16 {mode}: {k} differs between ranks after step "
+                                f"{step}: max |d| {(v - other[k]).abs().max().item():.3e}")
+                    elif v.is_floating_point():
+                        scale = max(v.abs().max().item(), 1e-30)
+                        worst = max(worst, (v - other[k]).abs().max().item() / scale)
+        out[mode] = worst
+    return out
+
+
+def check_grid_launches(ranks: list) -> dict:
+    """The kernels each rank launched per mode: the ring's unit op through
+    K1, K2 and K3 (whole-V at vb = 10) in every ring step, scene256's ring
+    through K1t, K2t and K3 (vb = 128) and no whole-V kernel there."""
+    names = {"K1": "launches", "K1t": "launches_tiled", "K2": "bwd_dx3_launches",
+             "K2t": "bwd_dx3_tiled_launches", "K3": "bwd_param_launches"}
+
+    def count(rec):
+        return {k: rec["launches"].get(f"ctr_gc.{c}", 0) for k, c in names.items()}
+
+    per_rank = []
+    for r in ranks:
+        steps = len(r["ring"]["losses"])
+        want = {"dp": dict(K1=10 * steps, K2=10 * steps, K3=10 * steps, K1t=0, K2t=0),
+                "ring": dict(K1=RING_LAUNCHES * steps, K2=RING_LAUNCHES * steps,
+                             K3=RING_LAUNCHES * steps, K1t=0, K2t=0),
+                "sp": dict(K1=10 * steps, K2=10 * steps, K3=10 * steps, K1t=0, K2t=0),
+                "scene_ring": dict(K1t=RING_LAUNCHES, K2t=RING_LAUNCHES,
+                                   K3=RING_LAUNCHES, K1=0, K2=0)}
+        got = {mode: count(r[mode]) for mode in want}
+        for mode, counts in want.items():
+            if got[mode] != counts:
+                raise AssertionError(f"phase 16 {mode}, rank {r['dp']['rank']}: launches "
+                                     f"{got[mode]}, expected {counts}")
+        per_rank.append(got)
+    return {"per_rank": per_rank}
+
+
+# the 2-rank CLI's learning rate: at smoke.yaml's 0.05 its check measures
+# conditioning (PERF.md, open questions)
+GRID_CLI_LR = 0.001
+
+
+def run_grid_cli(work_dir: str, weights: str, lr: float = GRID_CLI_LR, device: str = "cuda"):
+    """`python -m torch.distributed.run --nproc_per_node 2 -m tamgcn_tpu_torch
+    recognition` at gcn.yaml's widths (base_channel 64, T = 52, batch 16;
+    synthetic clips) with --graph_partition ring --model_parallel 2 on the
+    one card (--device 0 0: gloo): one short train epoch, whose closing eval
+    on the two ranks writes its scores with its best checkpoint; one
+    process's --phase test on that checkpoint gives the same scores within
+    1e-5 x max |score|. TF32 is off on both sides (this process's switches;
+    NVIDIA_TF32_OVERRIDE=0 in the ranks' environment): a TF32 rounding turns
+    the ring's other sum order into differences of 2^-11 of a value. With
+    device="cpu" the ranks and the one process run on the CPU."""
+    import pickle
+
+    import numpy as np
+
+    from tamgcn_tpu_torch.__main__ import main
+    from tamgcn_tpu_torch.parallel.launch import free_port, run_command
+
+    common = ["-c", os.path.join(REPO, "configs", "nucla", "smoke.yaml"),
+              "--train_feeder_args", "num_samples=32", "--test_feeder_args", "num_samples=32",
+              "--num_epoch", "1", "--num_worker", "2", "--print_log", "false",
+              "--base_lr", str(lr)] + (["--use_gpu", "false"] if device == "cpu" else [])
+    train_dir, one_dir = (os.path.join(work_dir, d) for d in ("grid_train", "grid_one"))
+    t0 = time.perf_counter()
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--nproc_per_node",
+           str(PARALLEL_RANKS), "--master_port", str(free_port()), "-m", "tamgcn_tpu_torch",
+           "recognition", *common, "--graph_partition", "ring", "--model_parallel", "2",
+           "--distributed", "true", *(["--device", "0", "0"] if device != "cpu" else []),
+           "--work_dir", train_dir, "--weights", weights]
+    rc, err = run_command(cmd, timeout=300, env=dict(os.environ, NVIDIA_TF32_OVERRIDE="0"))
+    if rc:
+        raise AssertionError(f"{' '.join(cmd[3:])} failed ({rc}):\n{err[-4000:]}")
+    seconds = time.perf_counter() - t0
+    scores = os.path.join(train_dir, "test_result_epoch1.pkl")
+    if not os.path.exists(scores):
+        raise AssertionError("the 2-rank epoch's eval scored no hit: no best checkpoint "
+                             "and no scores to compare")
+    if main(["recognition", *common, "--work_dir", one_dir, "--phase", "test", "--weights",
+             os.path.join(train_dir, "checkpoints", "best.pt"), "--save_result", "true"]):
+        raise AssertionError("one process's test phase failed")
+    with open(scores, "rb") as f:
+        want = pickle.load(f)
+    with open(os.path.join(one_dir, "test_result.pkl"), "rb") as f:
+        got = pickle.load(f)
+    top = max(float(np.abs(v).max()) for v in want.values())
+    err = max(float(np.abs(got[k] - want[k]).max()) for k in want)
+    print(f"grid CLI (ring, model_parallel 2, 2 ranks on {device}, lr {lr}): train epoch "
+          f"and its eval in {seconds:.1f} s; one process's scores on its checkpoint within "
+          f"{err / top:.2e} of max |score| {top:.3e}", flush=True)
+    if sorted(got) != sorted(want) or err > 1e-5 * top:
+        raise AssertionError(f"one process's scores on the grid's checkpoint: max err "
+                             f"{err:.3e} of max |score| {top:.3e}")
+    return {"seconds": seconds, "score_err": err / top}
+
+
+def run_phase16(work_dir: str, weights: str, references, device,
+                scene_dense_ms: float | None = None) -> dict:
+    """Phase 16: the parallel layer on two gloo ranks sharing the card: the
+    dry run of serving.py (dryrun_plan(2, full=True) with phase 5's weights
+    and batches: DP, the joint ring at k = 2 for 3 steps, TP of the head for
+    one, SP for 3, the ring at scene256, ST-GCN's and the fusion model's TP
+    for one; the ring's unit op and its VJP against the dense plain op per
+    block shape of both CTR-GCNs) in one launch whose ranks also run the
+    planted faults (phase16_rank), held by serving.verify_dryrun; every
+    mode's state and gradients held to an f64 run, every fault made to
+    fail, the launch counts per rank (check_grid_trajectories,
+    check_grid_launches); then the CLI on two ranks (run_grid_cli). Two
+    ranks on one card are not a scaling figure: their times show the
+    collectives' cost, beside `scene_dense_ms`, phase 12's graphed scene256
+    step on one rank."""
+    from tamgcn_tpu_torch.parallel.launch import run_ranks
+    from tamgcn_tpu_torch.serving import dryrun_plan, verify_dryrun
+    from tamgcn_tpu_torch.train.checkpoint import load_weights
+
+    t0 = time.perf_counter()
+    plan = dryrun_plan(PARALLEL_RANKS, full=True, weights=load_weights(weights),
+                       batches=references[0])
+    ranks = run_ranks("chip_smoke:phase16_rank", PARALLEL_RANKS,
+                      {"plan": plan, "device": "cuda"}, timeout=600)
+    verify_dryrun(plan, ranks, "cuda")
+    seconds = time.perf_counter() - t0
+    worst = check_grid_trajectories(plan, ranks, references, device)
+    buffers = check_ranks_agree(ranks)
+    launches = check_grid_launches(ranks)
+    card = card_line()
+    for r in ranks:
+        for mode in ("dp", "ring", "sp", "tp") + ONE_STEP_MODES:
+            rec = r[mode]
+            busy = ("not measured" if rec["busy_ms"] is None
+                    else f"{rec['busy_ms']:.3f} ms in kernels, {rec['copy_ms']:.3f} ms "
+                         "in copies")
+            print(f"rank {rec['rank']} {mode}: losses {rec['losses']}, step wall "
+                  f"{', '.join(f'{ms:.1f}' for ms in rec['step_ms'])} ms, last step's "
+                  f"device busy {busy} [{card}]", flush=True)
+    unit = {part: max(e[part] for r in ranks for e in r["unit_errors"])
+            for part in ranks[0]["unit_errors"][0]}
+    scene = ranks[0]["scene_ring"]
+    print(f"scene256 ring train step (2 ranks on one card, gloo): wall "
+          f"{[round(r['scene_ring']['step_ms'][-1], 1) for r in ranks]} ms, kernels "
+          f"{[r['scene_ring']['busy_ms'] for r in ranks]} ms and copies "
+          f"{[r['scene_ring']['copy_ms'] for r in ranks]} ms of device time per "
+          f"rank (the two ranks' kernels time-share the card), beside the "
+          f"dense graphed step's "
+          f"{'(phase 12 not run)' if scene_dense_ms is None else f'{scene_dense_ms:.3f} ms'}"
+          f" in phase 12; not a scaling figure [{card}]", flush=True)
+    print(f"phase 16 dry run: {seconds:.1f} s, trajectories' worst share of their limit "
+          f"{json.dumps(worst)}; the ring unit op against the dense plain op at "
+          f"{len(plan['unit_shapes'])} block shapes, worst share of max |plain| per part "
+          f"{json.dumps(unit)}; every parameter the same on both ranks after every "
+          f"step, the buffers' largest difference between them as a share of their max "
+          f"{json.dumps(buffers)}", flush=True)
+    cli = run_grid_cli(work_dir, weights)
+    return {"ranks": ranks, "launches": launches, "worst": worst, "cli": cli,
+            "unit_errors": unit, "buffers": buffers, "dry_seconds": seconds, "scene_step_ms": scene["step_ms"][-1]}
+
+
 def kernel_summary(rows, per):
     """Sum of each timing over the launches of one forward / step."""
     used = [r for r in rows if r["launches_per_step"]]
@@ -4580,6 +4944,13 @@ def main() -> int:
         t15 = time.perf_counter()
         p15 = run_phase15(work_dir, weights, x, device)
         print(f"phase 15: {time.perf_counter() - t15:.1f} s [{card}]", flush=True)
+
+        # ---- 16. the parallel layer: two gloo ranks on the card ----
+        phase("16. parallel")
+        t16 = time.perf_counter()
+        p16 = run_phase16(work_dir, weights, references, device, compiled["times"][
+            f"scene256 train step, batch {SCENE_BATCH}"]["graphed"]["wall_ms"])
+        print(f"phase 16: {time.perf_counter() - t16:.1f} s [{card}]", flush=True)
         phase("end")
     print("compiled steps (phase 12): " + json.dumps({
         path: {form: {k: r[k] for k in ("wall_ms", "busy_ms", "idle", "kernels",
@@ -4816,6 +5187,21 @@ def main() -> int:
                 f"artifact at batch {BATCH} (tools/export_serving.py), in a process that "
                 "imports tamgcn_tpu_torch.ops alone",
             artifact_ms=served[artifact]["ms"], artifact_busy_ms=served[artifact]["busy_ms"])
+    ring_shapes = {"K1": "gcn.yaml CTR-GCN, batch 16: (N=16, T=52|26|13, V=vb=10, "
+                         "C=64|128|256) per ring step",
+                   "K2": "as K1", "K3": "as K1 (gcn.yaml) and scene256",
+                   "K1t": "scene256, batch 8: (N=8, T=32|16|8, V=vb=128, C=64|128|256) "
+                          "per ring step", "K2t": "as K1t"}
+    for kname, mode in (("K1", "ring"), ("K2", "ring"), ("K3", "ring"),
+                        ("K1t", "scene_ring"), ("K2t", "scene_ring")):
+        kernels[kname]["parallel"] = dict(
+            launches_per_rank=[r[mode][kname] for r in p16["launches"]["per_rank"]],
+            per=f"{'3 train steps' if mode == 'ring' else 'one train step'} of the joint "
+                f"ring over 2 gloo ranks on one card (--graph_partition ring, "
+                f"{'gcn.yaml' if mode == 'ring' else 'configs/scene256.yaml'})",
+            shapes=ring_shapes[kname])
+    kernels["K3"]["parallel"]["scene256_launches_per_rank"] = [
+        r["scene_ring"]["K3"] for r in p16["launches"]["per_rank"]]
     kernels["T2"]["replaces_also"] = [
         "tools/exp_stage2.py:64", "tools/exp_stage2.py:100", "tools/exp_stage2.py:174",
         "tools/exp_stage2b.py:37"]

@@ -5,6 +5,12 @@ fixed-shape stacked batches: a dataset's batched `get_batch` first (the
 NW-UCLA feeder's native core), and thread-pool sample assembly where it has
 none or it returns None; `prefetch` overlaps the next batch's assembly and
 host->device copy with the current step.
+
+Process sharding, as the JAX loader's (:48-80): with process_count > 1
+each process takes its contiguous shard of the (shuffled) indices, n //
+process_count of them (the tail remainder dropped), in batches of
+batch_size // process_count where that divides (the global batch being
+the processes' batches in process order).
 """
 from __future__ import annotations
 
@@ -37,13 +43,22 @@ class Loader:
         drop_last: bool = False,
         seed: int = 0,
         num_workers: int = 4,
+        process_index: int = 0,
+        process_count: int = 1,
     ):
+        if process_count > 1 and batch_size % process_count == 0:
+            # per-process share of the global batch
+            self.local_batch = batch_size // process_count
+        else:
+            self.local_batch = batch_size
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
         self.drop_last = drop_last
         self.seed = seed
         self.num_workers = num_workers
+        self.process_index = process_index
+        self.process_count = process_count
         self.epoch = 0
 
     def set_epoch(self, epoch: int):
@@ -59,13 +74,18 @@ class Loader:
                 np.random.Philox(key=self.seed, counter=[0, 0, self.epoch, 1])
             )
             rng.shuffle(idx)
+        if self.process_count > 1:
+            # equalise shard sizes by dropping the tail remainder
+            per = n // self.process_count
+            start = self.process_index * per
+            idx = idx[start:start + per]
         return idx
 
     def __len__(self) -> int:
-        n = len(self.dataset)
+        n = len(self._indices())
         if self.drop_last:
-            return n // self.batch_size
-        return -(-n // self.batch_size)
+            return n // self.local_batch
+        return -(-n // self.local_batch)
 
     def __iter__(self) -> Iterator[tuple]:
         idx = self._indices()
@@ -73,7 +93,7 @@ class Loader:
         get_batch = getattr(self.dataset, "get_batch", None)
         with ThreadPoolExecutor(max_workers=max(1, self.num_workers)) as pool:
             for b in range(nb):
-                chunk = idx[b * self.batch_size:(b + 1) * self.batch_size]
+                chunk = idx[b * self.local_batch:(b + 1) * self.local_batch]
                 if get_batch is not None:
                     batch = get_batch(chunk)
                     if batch is not None:  # the native fast path

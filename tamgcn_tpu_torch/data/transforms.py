@@ -289,3 +289,24 @@ def top_k(score: np.ndarray, label: np.ndarray, k: int) -> float:
     rank = score.argsort(axis=1)
     hit = [l in rank[i, -k:] for i, l in enumerate(label)]
     return sum(hit) / len(hit)
+
+
+def top_k_by_category(label, score, k) -> list[float]:
+    """Per-class top-k accuracy (reference tools.py:177-191)."""
+    instance_num, class_num = score.shape
+    rank = score.argsort(axis=1)
+    hits: list[list[bool]] = [[] for _ in range(class_num)]
+    for i in range(instance_num):
+        l = label[i]
+        hits[l].append(l in rank[i, -k:])
+    return [sum(h) / len(h) if h else 0.0 for h in hits]
+
+
+def confusion_matrix(label, score) -> np.ndarray:
+    """Counts of (true class, argmax class)."""
+    class_num = score.shape[1]
+    pred = score.argmax(axis=1)
+    cm = np.zeros([class_num, class_num], dtype=np.int64)
+    for l, p in zip(label, pred):
+        cm[l][p] += 1
+    return cm

@@ -21,6 +21,16 @@ the bias in bf16; BatchNorm normalises in bf16 arithmetic (ops/norm.py); the
 unit op takes bf16 activations with its float32 parameters (K1-K3's bf16
 forms on the card); the head's logits are widened to float32. The casts of
 the weights are part of the graph, so the optimizer gets float32 gradients.
+
+Parallelism (parallel/sharded.py:parallelize wires a built model to a grid
+of ranks): `graph_partition="ring"` runs each UnitGCN's conv3 unfused and
+its unit op as the joint ring over the model group
+(parallel/graph_parallel.py:ring_unit_ctr_gc, as the JAX UnitGCN does at
+:190-199); a model built with it raises until it has a group. Under
+sequence parallelism the modules' `seq` context (parallel/sequence.py)
+splits the time axis over the model group: the temporal convs and the
+max-pool take their halo frames, CTR-GC's mean over T and the final pool
+span the clip.
 """
 from __future__ import annotations
 
@@ -33,9 +43,11 @@ from torch import nn
 
 from ..graphs import get_graph
 from ..ops import inits
-from ..ops.aggregation import ctr_gc_fused, unit_ctr_gc_conv3
+from ..ops.aggregation import conv3_matmul, ctr_gc_fused, unit_ctr_gc_conv3
+from ..parallel.graph_parallel import ring_unit_ctr_gc
 from ..ops.dropout import SeededDropout
 from ..ops.norm import BatchNorm
+from ..parallel.sharded import linear
 
 
 def _rel_channels(in_channels: int, rel_reduction: int = 8) -> int:
@@ -70,6 +82,8 @@ class Conv1x1(nn.Module):
     `blocks` independent convs for the init. `dtype` is the compute dtype
     (compute_dtype)."""
 
+    seq = None  # parallel/sequence.py: the time-sharded model's context
+
     def __init__(self, in_channels: int, out_channels: int, stride: int = 1,
                  blocks: int = 1, dtype=None):
         super().__init__()
@@ -88,7 +102,7 @@ class Conv1x1(nn.Module):
 
     def forward(self, x):
         if self.stride != 1:
-            x = x[:, ::self.stride]
+            x = x[:, ::self.stride] if self.seq is None else self.seq.rows(x, self.stride)
         if self.dtype is not None:
             return _cast_linear(x, self.weight, self.bias, self.dtype)
         return F.linear(x, self.weight, self.bias)
@@ -96,13 +110,18 @@ class Conv1x1(nn.Module):
 
 class TemporalConv2d(nn.Module):
     """(k, 1) temporal conv on NTVC with stride and dilation, 'same' padding
-    as the reference: conv2d on the channels_last NCHW view."""
+    as the reference: conv2d on the channels_last NCHW view. Under sequence
+    parallelism (`seq`) it runs unpadded on the rank's frames and their
+    halo (parallel/sequence.py:SequenceContext.window)."""
+
+    seq = None
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
                  stride: int = 1, dilation: int = 1, dtype=None):
         super().__init__()
         self.stride = stride
         self.dilation = dilation
+        self.kernel_size = kernel_size
         self.dtype = compute_dtype(dtype)
         self.pad = (kernel_size + (kernel_size - 1) * (dilation - 1) - 1) // 2
         self.weight = nn.Parameter(
@@ -115,9 +134,15 @@ class TemporalConv2d(nn.Module):
         nn.init.zeros_(self.bias)
 
     def _conv(self, x, weight, bias):
+        pad = self.pad
+        if self.seq is not None:
+            span = self.dilation * (self.kernel_size - 1) + 1
+            x, pad = self.seq.window(x, self.stride, span, self.pad, 0.0), 0
+            if x.shape[1] == 0:  # a rank that holds no output frame
+                return x.new_zeros(x.shape[:3] + (weight.shape[0],)) + 0 * weight.sum()
         y = F.conv2d(
             x.permute(0, 3, 1, 2), weight, bias,
-            stride=(self.stride, 1), padding=(self.pad, 0),
+            stride=(self.stride, 1), padding=(pad, 0),
             dilation=(self.dilation, 1),
         )
         return y.permute(0, 2, 3, 1).contiguous()
@@ -175,11 +200,20 @@ class CTRGC(nn.Module):
 
 class UnitGCN(nn.Module):
     """3-subset CTR-GC layer with adaptive adjacency and the TAM offset branch
-    (reference models/ctrgcn.py:196-263)."""
+    (reference models/ctrgcn.py:196-263). `graph_partition="ring"` runs the
+    unit op as the joint ring over the group `ring` (set by
+    parallel/sharded.py:parallelize)."""
+
+    seq = None
+    ring = None
 
     def __init__(self, in_channels: int, out_channels: int, A: np.ndarray,
-                 adaptive: bool = True, residual: bool = True, dtype=None):
+                 adaptive: bool = True, residual: bool = True, dtype=None,
+                 graph_partition: str = "none"):
         super().__init__()
+        if graph_partition not in ("none", None, "ring"):
+            raise ValueError(f"unknown graph_partition {graph_partition!r}")
+        self.graph_partition = graph_partition or "none"
         self.dtype = dt = compute_dtype(dtype)
         A0 = torch.as_tensor(np.asarray(A, np.float32))
         self.num_subset = S = A0.shape[0]
@@ -222,7 +256,8 @@ class UnitGCN(nn.Module):
         S, R = self.num_subset, self.R
         # conv12 commutes with the T pool (a 1x1 conv is linear), so pooling
         # first does T x less work; same math as conv-then-mean
-        e12 = self.conv12(x.mean(dim=1))  # (N, V, 2*S*R)
+        xm = x.mean(dim=1) if self.seq is None else self.seq.mean(x)
+        e12 = self.conv12(xm)  # (N, V, 2*S*R)
         x1s = e12[..., : S * R].reshape(N, V, S, R).permute(0, 2, 1, 3).contiguous()
         x2s = e12[..., S * R:].reshape(N, V, S, R).permute(0, 2, 1, 3).contiguous()
         # conv3 and the unit op: the unfused conv3_matmul + unit_ctr_gc, or
@@ -231,10 +266,17 @@ class UnitGCN(nn.Module):
         w3, b3 = self.conv3.weight.t(), self.conv3.bias
         if self.dtype is not None:
             x, w3, b3 = x.to(self.dtype), w3.to(self.dtype), b3.to(self.dtype)
-        y = unit_ctr_gc_conv3(
-            x, w3, b3, x1s, x2s,
-            self.conv4_kernel, self.conv4_bias, self.alpha, self.PA,
-        )
+        if self.graph_partition == "ring":
+            if self.ring is None:
+                raise ValueError("graph_partition='ring' requires a mesh "
+                                 "(parallel/sharded.py:parallelize)")
+            y = ring_unit_ctr_gc(x1s, x2s, conv3_matmul(x, w3, b3), self.conv4_kernel,
+                                 self.conv4_bias, self.alpha, self.PA, self.ring)
+        else:
+            y = unit_ctr_gc_conv3(
+                x, w3, b3, x1s, x2s,
+                self.conv4_kernel, self.conv4_bias, self.alpha, self.PA,
+            )
         y = self.bn(y)
         if not self.residual:
             res = 0.0
@@ -274,6 +316,8 @@ class MultiScaleTCN(nn.Module):
     `prefix_conv`, and all branches' output BNs as one `out_bn`, as in the
     JAX model.
     """
+
+    seq = None
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size=3,
                  stride: int = 1, dilations: Sequence[int] = (1, 2, 3, 4),
@@ -328,9 +372,12 @@ class MultiScaleTCN(nn.Module):
             for i in range(self.n_dil)
         ]
         # maxpool branch (reference :113-119)
+        pool_in, pad = prefix[..., self.n_dil * bc:], 1
+        if self.seq is not None:
+            pool_in, pad = self.seq.window(pool_in, self.stride, 3, 1, float("-inf")), 0
         pooled = F.max_pool2d(
-            prefix[..., self.n_dil * bc:].permute(0, 3, 1, 2),
-            kernel_size=(3, 1), stride=(self.stride, 1), padding=(1, 0),
+            pool_in.permute(0, 3, 1, 2),
+            kernel_size=(3, 1), stride=(self.stride, 1), padding=(pad, 0),
         )
         outs.append(pooled.permute(0, 2, 3, 1))
         # plain strided 1x1 branch (reference :121-124)
@@ -367,10 +414,11 @@ class TCNGCNUnit(nn.Module):
     def __init__(self, in_channels: int, out_channels: int, A, stride: int = 1,
                  residual: bool = True, adaptive: bool = True,
                  kernel_size: int = 5, dilations: Sequence[int] = (1, 2),
-                 dtype=None):
+                 dtype=None, graph_partition: str = "none"):
         super().__init__()
+        self.stride = stride
         self.gcn1 = UnitGCN(in_channels, out_channels, A, adaptive=adaptive,
-                            dtype=dtype)
+                            dtype=dtype, graph_partition=graph_partition)
         self.tcn1 = MultiScaleTCN(out_channels, out_channels,
                                   kernel_size=kernel_size, stride=stride,
                                   dilations=dilations, residual=False, dtype=dtype)
@@ -409,15 +457,19 @@ class CTRGCN(nn.Module):
     bf16 computes); the parameters are float32 in both, and so are the
     logits. `head=False` leaves out `fc` (and the dropout before it): a
     model that uses only `extract_feature`, as the cross-modal fusion model
-    does, never initialises them in Flax.
+    does, never initialises them in Flax. `graph_partition` "ring" rings
+    every unit op over the model group that `set_ring` gives
+    (parallel/sharded.py:parallelize).
     """
+
+    seq = None
 
     def __init__(self, num_class: int = 60, num_point: int = 25,
                  num_person: int = 2, graph=None, graph_args=None,
                  in_channels: int = 3, drop_out: float = 0.0,
                  adaptive: bool = True, base_channel: int = 64,
                  generator: torch.Generator | None = None, dtype=None,
-                 head: bool = True):
+                 head: bool = True, graph_partition: str = "none"):
         super().__init__()
         self.dtype = dt = compute_dtype(dtype)
         if graph is None:
@@ -441,7 +493,7 @@ class CTRGCN(nn.Module):
         for i, (cin, cout, stride, residual) in enumerate(plan):
             setattr(self, f"l{i + 1}", TCNGCNUnit(
                 cin, cout, A, stride=stride, residual=residual, adaptive=adaptive,
-                dtype=dt,
+                dtype=dt, graph_partition=graph_partition,
             ))
         self.data_bn = BatchNorm(num_person * num_point * in_channels, dtype=dt)
         self.fc = nn.Linear(4 * bc, num_class) if head else None
@@ -452,6 +504,12 @@ class CTRGCN(nn.Module):
     @property
     def blocks(self) -> list[TCNGCNUnit]:
         return [getattr(self, f"l{i}") for i in range(1, 11)]
+
+    def set_ring(self, group) -> None:
+        """Ring every unit op over `group` (graph_partition="ring")."""
+        for blk in self.blocks:
+            blk.gcn1.graph_partition = "ring"
+            blk.gcn1.ring = group
 
     def reset_parameters(self, generator):
         for blk in self.blocks:
@@ -481,25 +539,37 @@ class CTRGCN(nn.Module):
 
     def _backbone(self, h):
         for blk in self.blocks:
+            layout = self.seq.layout if self.seq is not None else None
             h = blk(h)
+            if layout is not None and blk.stride != 1:
+                self.seq.layout = layout.strided(blk.stride)
         return h
 
     def forward(self, x):
-        h, N, M = self._stem(self._to_ncvtm(x))
+        x = self._to_ncvtm(x)
+        if self.seq is not None:
+            self.seq.start(x.shape[2], x.device)
+        h, N, M = self._stem(x)
         h = self._backbone(h)  # (N*M, T', V, 4*bc)
-        h = h.reshape(N, M, -1, h.shape[-1]).mean(dim=2).mean(dim=1)  # (N, C)
+        h = h.reshape(N, M, -1, h.shape[-1])
+        if self.seq is None:
+            h = h.mean(dim=2).mean(dim=1)  # (N, C)
+        else:  # the mean over the clip's frames on every rank
+            h = self.seq.pool_sum(h.sum(dim=2)).mean(dim=1) / (
+                self.seq.layout.T * self.num_point)
         if self.dropout is not None:
             h = self.dropout(h)
-        if self.dtype is None:
-            return self.fc(h)
         # the head in the compute dtype, its logits widened to float32
-        return _cast_linear(h, self.fc.weight, self.fc.bias, self.dtype).float()
+        out = linear(self.fc, h, self.dtype)
+        return out if self.dtype is None else out.float()
 
     def extract_feature(self, x):
         """Pre-pool features (N, C', T', V, M) — reference models/ctrgcn.py:350-374.
 
         Returns the feature tensor twice, matching the reference signature.
         """
+        if self.seq is not None:
+            raise NotImplementedError("extract_feature of a time-sharded model")
         h, N, M = self._stem(self._to_ncvtm(x))
         h = self._backbone(h)  # (N*M, T', V, C')
         _, Tp, V, Cp = h.shape

@@ -177,7 +177,10 @@ def fold_model(model: CTRGCN) -> dict:
         return {
             "blocks": [_fold_block(blk) for blk in model.blocks],
             "data_bn": fold_bn(model.data_bn),
-            "fc": (model.fc.weight.t().contiguous(), model.fc.bias.detach().clone()),
+            # a head split over a model group (parallel/sharded.py) runs as
+            # itself: its forward gathers the logits
+            "fc": (model.fc if getattr(model.fc, "sharded", False)
+                   else (model.fc.weight.t().contiguous(), model.fc.bias.detach().clone())),
         }
 
 
@@ -218,6 +221,8 @@ def make_fast_eval_fn(model: CTRGCN, use_kernel: bool | None = None):
         for fb in folded["blocks"]:
             h = _apply_block(fb, h, use_k5(fb))
         h = h.reshape(N, M, -1, h.shape[-1]).mean(dim=2).mean(dim=1)
+        if not isinstance(folded["fc"], tuple):
+            return folded["fc"](h)
         fc_w, fc_b = folded["fc"]
         return torch.matmul(h, fc_w) + fc_b
 

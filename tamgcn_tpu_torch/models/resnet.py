@@ -38,7 +38,8 @@ from torch import nn
 from ..ops import inits
 from ..ops.dropout import SeededDropout
 from ..ops.norm import BatchNorm
-from .ctrgcn import _cast_linear, _default_generator, compute_dtype
+from ..parallel.sharded import linear
+from .ctrgcn import _default_generator, compute_dtype
 
 
 class Conv2d(nn.Module):
@@ -205,10 +206,9 @@ class ResNet(nn.Module):
 
     def forward(self, x):
         h = self.features(x).mean(dim=(1, 2))  # AdaptiveAvgPool2d((1,1)) + flatten
-        if self.dtype is None:
-            return self.fc(h)
         # the head in the compute dtype, its logits widened to float32
-        return _cast_linear(h, self.fc.weight, self.fc.bias, self.dtype).float()
+        out = linear(self.fc, h, self.dtype)
+        return out if self.dtype is None else out.float()
 
 
 def resnet18(**kw):

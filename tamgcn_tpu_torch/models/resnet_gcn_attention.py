@@ -41,7 +41,8 @@ from torch import nn
 
 from ..ops import inits
 from ..ops.norm import BatchNorm
-from .ctrgcn import CTRGCN, _cast_linear, _default_generator, compute_dtype
+from ..parallel.sharded import linear
+from .ctrgcn import CTRGCN, _default_generator, compute_dtype
 from .resnet import resnet50
 
 GCN_DIM, RGB_DIM = 256, 2048
@@ -86,9 +87,7 @@ class ResNetGCNAttention(nn.Module):
         return self
 
     def _dense(self, layer, x):
-        if self.dtype is None:
-            return layer(x)
-        return _cast_linear(x, layer.weight, layer.bias, self.dtype)
+        return linear(layer, x, self.dtype)
 
     def forward(self, x_gcn, x_rgb):
         """x_gcn: (N, C, T, V, M) skeletons; x_rgb: (N, 3F, H, W) or NHWC."""

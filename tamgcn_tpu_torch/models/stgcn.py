@@ -21,9 +21,10 @@ BatchNorm normalises in bf16 (ops/norm.py).
 
 `dropout` (before the head) and `block_dropout` (in each block, after the
 second temporal BN) are seeded dropout sites (ops/dropout.py), as the JAX
-model's nn.Dropout. What this port leaves to a later slice:
-`graph_partition="ring"` (the edge-partitioned aggregation over a device
-mesh) comes with the parallel slice.
+model's nn.Dropout. `graph_partition="ring"` aggregates over the joint ring
+of the model group that `set_ring` gives (parallel/graph_parallel.py:
+ring_aggregate_stgcn, the JAX model's :220-233; parallel/sharded.py:
+parallelize calls it); a model built with it raises until it has a group.
 """
 from __future__ import annotations
 
@@ -37,6 +38,7 @@ from ..ops import inits
 from ..ops.aggregation import stgcn_aggregate
 from ..ops.dropout import SeededDropout
 from ..ops.norm import BatchNorm
+from ..parallel.graph_parallel import ring_aggregate_stgcn
 from .ctrgcn import CTRGCN, Conv1x1, TemporalConv2d, _cast_linear, compute_dtype
 
 # (in channels or None for the model's input, out channels, stride, residual)
@@ -50,7 +52,10 @@ _PLAN = [
 
 class ConvTemporalGraphical(nn.Module):
     """Spatial graph conv: out = sum_k conv_k(x) @ A_k (reference :37-63), a
-    1x1 conv to K * out channels and the partition aggregation."""
+    1x1 conv to K * out channels and the partition aggregation (over the
+    joint ring of `ring` where it is set)."""
+
+    ring = None
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
                  dtype=None):
@@ -66,7 +71,10 @@ class ConvTemporalGraphical(nn.Module):
         """x (N,T,V,Cin), A (K,V,V) -> (N,T,V,C) in float32 (or wider)."""
         h = self.conv(x)
         n, t, v, kc = h.shape
-        return stgcn_aggregate(h.reshape(n, t, v, self.kernel_size, kc // self.kernel_size), A)
+        h = h.reshape(n, t, v, self.kernel_size, kc // self.kernel_size)
+        if self.ring is not None:
+            return ring_aggregate_stgcn(h, A, self.ring)
+        return stgcn_aggregate(h, A)
 
 
 class STGCNBlock(nn.Module):
@@ -130,12 +138,9 @@ class STGCN(nn.Module):
                  block_dropout: float = 0.0, dtype=None, graph_partition: str = "none",
                  generator: torch.Generator | None = None):
         super().__init__()
-        if graph_partition == "ring":
-            raise NotImplementedError(
-                "graph_partition='ring' (the edge-partitioned aggregation) comes "
-                "with the parallel slice")
-        if graph_partition not in ("none", None):
+        if graph_partition not in ("none", None, "ring"):
             raise ValueError(f"unknown graph_partition {graph_partition!r}")
+        self.graph_partition = graph_partition or "none"
         if graph is None:
             raise ValueError("graph must be specified")
         if isinstance(graph, np.ndarray):
@@ -179,6 +184,17 @@ class STGCN(nn.Module):
             return [1.0] * len(_PLAN)
         return [getattr(self, f"edge_importance_{i}") for i in range(len(_PLAN))]
 
+    def set_ring(self, group) -> None:
+        """Aggregate over the joint ring of `group` (graph_partition="ring");
+        the group must divide num_point, as in JAX."""
+        if self.num_point % group.size:
+            raise ValueError(
+                f"num_point={self.num_point} not divisible by the model mesh axis "
+                f"({group.size}) for graph_partition='ring'")
+        self.graph_partition = "ring"
+        for blk in self.blocks:
+            blk.gcn.ring = group
+
     def reset_parameters(self, generator):
         for blk in self.blocks:
             blk.reset_parameters(generator)
@@ -199,6 +215,9 @@ class STGCN(nn.Module):
         return h, N, M
 
     def _backbone(self, h):
+        if self.graph_partition == "ring" and self.blocks[0].gcn.ring is None:
+            raise ValueError("graph_partition='ring' requires a mesh "
+                             "(parallel/sharded.py:parallelize)")
         for blk, importance in zip(self.blocks, self.edge_importance):
             h = blk(h, self.A * importance)
         return h

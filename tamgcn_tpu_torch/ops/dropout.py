@@ -24,6 +24,12 @@ checkpoint's step into the counter. torch's global generator and
 `nn.Dropout` are not used: neither is keyed on the step, and their replay
 semantics under `torch.cuda.graph` depend on generator registration.
 
+Under data parallelism each rank holds rows of the global batch: the stream
+of its forward carries the global index of its first sample (`row0`) and
+its sample count (`rows`), and a site's element index is its index in the
+global batch's tensor, so the ranks draw the masks of one process's run
+(a site's tensor holds its samples' elements contiguously, sample-major).
+
 A training forward with a dropout rate > 0 runs under `stream(seed, step)`,
 as a Flax apply in training needs a "dropout" rng; outside one it raises.
 With rate 0, or in eval, `SeededDropout` returns its input and launches
@@ -63,40 +69,50 @@ def _site_key(seed: int, step, site: int):
 
 
 def keep_mask(shape, p: float, seed: int, step, site: int,
-              device=None) -> torch.Tensor:
+              device=None, offset: int = 0) -> torch.Tensor:
     """The bool keep-mask of `shape` at rate `p` for (seed, step, site); on
-    the step tensor's device, else on `device`."""
+    the step tensor's device, else on `device`; its elements are those of
+    flat indices offset, offset + 1, ... of the site's whole tensor."""
     if isinstance(step, torch.Tensor):
         device = step.device
     n = 1
     for d in shape:
         n *= d
-    if n >= 2 ** 32:
-        raise ValueError(f"a dropout mask of {n} elements: the element index is "
-                         "hashed in 32 bits")
+    if offset + n >= 2 ** 32:
+        raise ValueError(f"a dropout mask of {offset + n} elements: the element index "
+                         "is hashed in 32 bits")
     k = _site_key(seed, step, site)
-    idx = torch.arange(n, dtype=torch.int64, device=device)
+    idx = torch.arange(offset, offset + n, dtype=torch.int64, device=device)
     h = _hash32(_hash32((idx + k) & _MASK32) ^ k)
     return (h >= min(int(p * 2 ** 32), _MASK32)).reshape(shape)
 
 
 class _Stream:
-    def __init__(self, seed: int, step, masks):
+    def __init__(self, seed: int, step, masks, row0: int, rows: int | None):
         self.seed = seed
         self.step = step
         self.masks = masks
+        self.row0 = row0
+        self.rows = rows
         self.sites = 0
+
+    def offset(self, x: torch.Tensor) -> int:
+        """The global flat index of x's first element (data parallelism)."""
+        if not self.row0:
+            return 0
+        return self.row0 * (x.numel() // self.rows)
 
 
 @contextlib.contextmanager
-def stream(seed: int, step, masks=None):
+def stream(seed: int, step, masks=None, row0: int = 0, rows: int | None = None):
     """The dropout stream of one training forward: the run seed and the train
     step (an int, or the packed state's 0-d int64 device counter, read where
-    a mask is drawn). `masks`, for tests only: the bool keep-masks of the
-    sites in call order, used in place of the hash (to hold the port
-    against another implementation's masks)."""
+    a mask is drawn); under data parallelism the global index of the rank's
+    first sample `row0` and its sample count `rows`. `masks`, for tests
+    only: the bool keep-masks of the sites in call order, used in place of
+    the hash (to hold the port against another implementation's masks)."""
     prior = getattr(_local, "stream", None)
-    _local.stream = _Stream(seed, step, masks)
+    _local.stream = _Stream(seed, step, masks, row0, rows)
     try:
         yield _local.stream
     finally:
@@ -124,7 +140,7 @@ def dropout(x: torch.Tensor, p: float, training: bool) -> torch.Tensor:
             raise ValueError(f"the mask of dropout site {site} has shape "
                              f"{tuple(keep.shape)}, its input {tuple(x.shape)}")
     else:
-        keep = keep_mask(x.shape, p, s.seed, s.step, site, x.device)
+        keep = keep_mask(x.shape, p, s.seed, s.step, site, x.device, s.offset(x))
     return torch.where(keep, x / (1.0 - p), 0.0)
 
 

@@ -15,12 +15,27 @@ the running stats updated in f32; then the normalisation in bf16
 arithmetic, with mean, variance, eps, scale and bias each rounded to bf16
 first and every operation's result rounded to bf16. In float32 (and
 float64) it is `F.batch_norm`, as before.
+
+Over a group of ranks (`group`, a parallel.comm.Group of more than one rank,
+set by parallel/sharded.py:parallelize): in train mode the statistics are
+those of the group's whole batch, as GSPMD reduces the JAX BatchNorm's
+means over a sharded axis. Each rank sums x, x*x and its count into one
+vector, one all-reduce (parallel/comm.py:all_reduce, whose backward
+all-reduces the gradients of those sums: the sum of dy and of dy*x-hat
+in another form) gives the group's sums, and the variance is the mean of
+squares less the squared mean, at least 0, as the JAX BatchNorm computes
+it (tamgcn_tpu/ops/norm.py:66-92); the running stats update from the
+group's batch with its unbiased variance. torch.nn.SyncBatchNorm is not
+used: it refuses CPU tensors, and under gloo it calls collectives that
+refuse CUDA tensors; one all-reduce runs the same code on both.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from ..parallel import comm
 
 
 class BatchNorm(nn.Module):
@@ -38,8 +53,11 @@ class BatchNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(num_features))
         self.register_buffer("running_mean", torch.zeros(num_features))
         self.register_buffer("running_var", torch.ones(num_features))
+        self.group = comm.SOLO  # the ranks whose batch the statistics span
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.training and self.group.size > 1:
+            return self._forward_group(x)
         if (self.dtype or x.dtype) == torch.bfloat16:
             return self._forward_bf16(x)
         shape = x.shape
@@ -75,6 +93,29 @@ class BatchNorm(nn.Module):
         mul = var.to(dt) + float(torch.tensor(self.eps, dtype=dt))
         mul = torch.rsqrt(mul.float()).to(dt) * self.weight.to(dt)
         return (x.to(dt) - mean.to(dt)) * mul + self.bias.to(dt)
+
+    def _forward_group(self, x: torch.Tensor) -> torch.Tensor:
+        """Train mode over `group`: the group's batch statistics."""
+        dt = self.dtype or x.dtype
+        xf = x.reshape(-1, self.num_features)
+        xf = xf.to(torch.promote_types(xf.dtype, torch.float32))
+        count = torch.full((1,), float(xf.shape[0]), dtype=xf.dtype, device=xf.device)
+        sums = comm.all_reduce(torch.cat([xf.sum(dim=0), (xf * xf).sum(dim=0), count]),
+                               self.group)
+        c = self.num_features
+        n = sums[-1]
+        mean = sums[:c] / n
+        var = torch.clamp_min(sums[c:2 * c] / n - mean * mean, 0.0)
+        with torch.no_grad():
+            m = self.momentum
+            self.running_mean.mul_(1.0 - m).add_(m * mean)
+            self.running_var.mul_(1.0 - m).add_(m * var * (n / torch.clamp_min(n - 1, 1)))
+        if dt == torch.bfloat16:
+            mul = var.to(dt) + float(torch.tensor(self.eps, dtype=dt))
+            mul = torch.rsqrt(mul.float()).to(dt) * self.weight.to(dt)
+            return (x.to(dt) - mean.to(dt)) * mul + self.bias.to(dt)
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        return ((x - mean) * mul + self.bias).to(dt)
 
     def extra_repr(self) -> str:
         return f"{self.num_features}, eps={self.eps}, momentum={self.momentum}"

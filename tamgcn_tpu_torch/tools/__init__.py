@@ -4,13 +4,19 @@
     python -m tamgcn_tpu_torch.tools.exp_stage2    # T2's forms against K1
     python -m tamgcn_tpu_torch.tools.exp_stage2b   # T2 repeats, f32 and bf16
 
-    python -m tamgcn_tpu_torch.tools.bf16_convergence  # bf16 against f32 training
+    python -m tamgcn_tpu_torch.tools.bf16_convergence [--family rgb]  # bf16 against f32
+    python -m tamgcn_tpu_torch.tools.visualize_fusion --weights W  # CTR-GCN intensity figure
+    python -m tamgcn_tpu_torch.tools.ensemble_online_eval --config_a A --weights_a WA \
+        --config_b B --weights_b WB  # two models' scores fused, with figures
     python -m tamgcn_tpu_torch.tools.train_stgcn_importance --data_path DIR
         # ST-GCN training, then per-class body-part importance (the trainer's
         # flags; --use_gpu false for the CPU)
 
-They run on the card unless `--device cpu` is given; without CUDA and
-without that flag they raise. Beside them, for the card only:
+They run on the card unless `--device cpu` is given (ensemble_online_eval:
+`--use_gpu false` among a side's --extra flags); without CUDA and without
+that flag they raise. `python -m tamgcn_tpu_torch.tools.ensemble_eval
+--scores_a A.pkl --scores_b B.pkl` fuses two score pickles (numpy only).
+Beside them, for the card only:
 
     python -m tamgcn_tpu_torch.tools.f32_ab --other CSRC_DIR  # f32 K1-K3 against other sources
     python -m tamgcn_tpu_torch.tools.k3_ab                    # K3 with each phase skipped

@@ -42,8 +42,13 @@ Without the ops registered, `torch.export.load` raises.
     (train/checkpoint.py:read_weights): the port's `.pt`, a checkpoint
     directory (its best.pt, else its latest epoch{n}.pt), a reference
     `.npz` or a Flax `.npz`; omitted, the seeded init;
-  * --data_parallel > 1 raises: a sharded artifact comes with the parallel
-    slice (ROADMAP Queue 1 item 9).
+  * --data_parallel N > 1 (the JAX tool's :177-195): the artifact is
+    exported at the per-rank batch B/N and records N (an extra file of the
+    .pt2, serving.py:artifact_data_parallel); serving.py:serve_sharded runs
+    it on N ranks (gloo), each on its rows of a batch of B, rank 0 gathering
+    the logits, and the tool holds that against the live model on the whole
+    batch. B not divisible by N raises, as does --poly_batch with it (the
+    per-rank batch is fixed at export).
 
 The tool reloads its own artifact and holds it against `ep.module()` of
 the program it saved (rtol = atol = 2e-5, as the JAX tool holds its
@@ -215,7 +220,7 @@ def run(argv=None) -> dict:
     ap.add_argument("--fast_eval", action="store_true",
                     help="export the folded CTR-GCN inference engine (K5)")
     ap.add_argument("--data_parallel", type=int, default=0,
-                    help="a sharded artifact for N devices: not ported yet")
+                    help="export for N ranks, each serving batch / N rows")
     ns, rest = ap.parse_known_args(argv)
     if ns.fast_eval and ns.poly_batch:
         raise SystemExit("--fast_eval artifacts are exported at a fixed batch, as the "
@@ -225,13 +230,13 @@ def run(argv=None) -> dict:
 
     arg = load_config(rest, parser=base_parser(add_help=False))
     batch = ns.batch or arg.test_batch_size
-    if ns.data_parallel > 1:
-        if batch % ns.data_parallel:
-            raise SystemExit(f"batch {batch} must be divisible by "
-                             f"data_parallel={ns.data_parallel}")
-        raise NotImplementedError(
-            "--data_parallel > 1 (a sharded artifact) is not ported yet: it comes "
-            "with the parallel slice (ROADMAP Queue 1 item 9)")
+    ranks = max(1, ns.data_parallel)
+    if ranks > 1:
+        if ns.poly_batch:
+            raise SystemExit("--data_parallel fixes the per-rank batch at export; drop "
+                             "--poly_batch")
+        if batch % ranks:
+            raise SystemExit(f"batch {batch} must be divisible by data_parallel={ranks}")
     platforms = parse_platforms(ns.platforms)
     device = torch.device(platforms[0])
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -241,12 +246,13 @@ def run(argv=None) -> dict:
     module = serving_module(model, ns.fast_eval)
     rs = np.random.RandomState(arg.seed)
     shapes = example_shapes(arg, batch, ns.time)
-    inputs = [torch.from_numpy(rs.randn(*s).astype(np.float32)).to(device) for s in shapes]
+    whole = [torch.from_numpy(rs.randn(*s).astype(np.float32)).to(device) for s in shapes]
+    inputs = [x[:batch // ranks] for x in whole]  # one rank's rows
 
     t0 = time.perf_counter()
     program = export(module, inputs, ns.poly_batch)
     os.makedirs(os.path.dirname(os.path.abspath(ns.out)), exist_ok=True)
-    torch.export.save(program, ns.out)
+    torch.export.save(program, ns.out, extra_files={"data_parallel": str(ranks)})
     export_s = time.perf_counter() - t0
     reloaded = torch.export.load(ns.out)
 
@@ -266,6 +272,15 @@ def run(argv=None) -> dict:
                                               "artifact at batch // 2 vs the live model"))
         half_shape = list(got_half.shape)
 
+    sharded = None
+    if ranks > 1:
+        from ..serving import serve_sharded
+
+        got_all = serve_sharded(ns.out, [x.cpu().numpy() for x in whole], platforms[0])
+        with torch.no_grad():
+            sharded = _close_to_live(got_all, model(*whole),
+                                     f"artifact on {ranks} ranks vs the live model")
+
     held = {}
     for p in platforms[1:]:
         from torch.export.passes import move_to_device_pass
@@ -282,10 +297,11 @@ def run(argv=None) -> dict:
         "platforms": platforms,
         "poly_batch": bool(ns.poly_batch),
         "fast_eval": bool(ns.fast_eval),
-        "input_shapes": [list(s) for s in shapes],
+        "input_shapes": [list(x.shape) for x in inputs],
         "output_shape": list(got.shape),
         "half_batch_output_shape": half_shape,
-        "nr_devices": 1,
+        "nr_devices": ranks,
+        "sharded_max_abs_err": sharded,
         "custom_ops": custom_op_nodes(reloaded),
         "export_seconds": export_s,
         "roundtrip_max_abs_err": roundtrip,

@@ -202,10 +202,13 @@ class Checkpoints:
         return os.path.join(self.directory, f"{name}.pt")
 
     def save(self, name: str, model: torch.nn.Module, step: int,
-             optimizer: dict | None = None) -> None:
+             optimizer: dict | None = None, state: dict | None = None) -> None:
         """`optimizer`: an optimizer state_dict (CPU tensors), for a resume
-        point."""
-        tree = {"model": _cpu_state(model), "step": int(step)}
+        point; `state`: the model's state dict to write in place of its own
+        (a tensor-parallel model's, its shards gathered)."""
+        state = model.state_dict() if state is None else state
+        tree = {"model": {k: v.detach().to("cpu", copy=True) for k, v in state.items()},
+                "step": int(step)}
         if optimizer is not None:
             tree["optimizer"] = optimizer
         # write beside the target and rename: a crash never leaves half a file

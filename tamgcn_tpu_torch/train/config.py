@@ -1,8 +1,11 @@
 """Config/flag system: CLI > YAML > defaults, with unknown-key hard errors.
 
 A copy of tamgcn_tpu/train/config.py with the same flag set, so every
-shipped YAML config parses; `check_supported` rejects the flags of features
-the port does not have yet, and `resolve_device` maps --use_gpu/--device.
+shipped YAML config parses; `check_supported` rejects --use_pallas, which
+has no meaning in the port, and `resolve_device` maps --use_gpu/--device
+for one process. The parallel flags build the grid of ranks
+(parallel/mesh.py, parallel/sharded.py:parallelize); the values and
+combinations the JAX package rejects raise there, naming the flag.
 
 Capability parity with the reference's three-tier precedence (double argparse
 pass with set_defaults, processor/io.py:31-50, unknown-YAML-key assertion
@@ -112,21 +115,24 @@ def base_parser(add_help: bool = False) -> argparse.ArgumentParser:
     p.add_argument("--nesterov", type=str2bool, default=True)
     p.add_argument("--weight_decay", type=float, default=0.0001)
 
-    # device / parallelism. Flags for features the port does not have yet
-    # keep the JAX package's names and defaults so every shipped config
-    # parses; `check_supported` raises when one is set to anything else.
+    # device / parallelism: one process per rank of the (data, model) grid
     p.add_argument("--device", type=int, default=0, nargs="+",
-                   help="CUDA device index (one device)")
+                   help="CUDA device index; with --distributed true one entry "
+                        "per local rank (--device 0 0: two ranks on card 0)")
     p.add_argument("--use_gpu", type=str2bool, default=True,
                    help="run on cuda:<device> (raises without CUDA); "
                         "false runs on the CPU")
     p.add_argument("--data_parallel", type=int, default=-1,
-                   help="devices on the data axis: -1 (all) or 1, one device")
+                   help="ranks on the grid's data axis; -1 = all the model "
+                        "axis leaves")
     p.add_argument("--model_parallel", type=int, default=1,
-                   help="not ported yet: only 1")
+                   help="ranks on the grid's model axis (the joint ring, the "
+                        "tensor-parallel head, the sequence axis)")
     p.add_argument("--graph_partition", default="none",
                    choices=["none", "ring"],
-                   help="not ported yet: only 'none'")
+                   help="'ring': edge-partition the joint axis over the "
+                        "grid's model axis, the unit op of each ring step "
+                        "on the resident joint block (parallel/graph_parallel.py)")
     p.add_argument("--use_pallas", type=str2bool, default=None,
                    help="not ported: kernels are chosen by tensor device")
     p.add_argument("--fast_eval", type=str2bool, default=False,
@@ -134,7 +140,10 @@ def base_parser(add_help: bool = False) -> argparse.ArgumentParser:
                         "whole-block engine (models/ctrgcn_infer.py; the "
                         "CUDA kernel K5 on the card)")
     p.add_argument("--sequence_parallel", type=str2bool, default=False,
-                   help="not ported yet: only false")
+                   help="split the clips' TIME axis over the grid's model "
+                        "axis, train and eval (CTR-GCN; requires "
+                        "model_parallel dividing T; halo exchanges before "
+                        "the temporal convs, parallel/sequence.py)")
     p.add_argument("--profile_dir", default=None,
                    help="write a torch.profiler Chrome trace of the train "
                         "phase (CPU and, on the card, CUDA activity) here")
@@ -143,7 +152,9 @@ def base_parser(add_help: bool = False) -> argparse.ArgumentParser:
                         "parameter or BN statistic with a FloatingPointError "
                         "naming the module that produced it")
     p.add_argument("--distributed", type=str2bool, default=False,
-                   help="not ported yet: only false")
+                   help="start the process group from the launcher's "
+                        "environment (python -m torch.distributed.run); each "
+                        "rank loads its shard of the dataset")
     return p
 
 
@@ -168,32 +179,34 @@ _NOT_PORTED = {
     "use_pallas": ((None,), "--use_pallas has no meaning in the port: a CUDA "
                             "tensor runs the CUDA kernels, a CPU tensor the "
                             "plain versions"),
-    "sequence_parallel": ((False,), "--sequence_parallel is not ported yet"),
-    "graph_partition": (("none",), "--graph_partition ring is not ported yet"),
-    "model_parallel": ((1,), "--model_parallel > 1 is not ported yet"),
-    # -1 (every device) and 1 both mean the one device the port runs on; the
-    # JAX package raises where the value does not match the device count
-    # (tamgcn_tpu/parallel/mesh.py:32-37)
-    "data_parallel": ((-1, 1), "--data_parallel across devices is not ported "
-                               "yet: the port runs on one device (-1 or 1)"),
-    "distributed": ((False,), "--distributed is not ported yet (a config that "
-                              "sets it, such as configs/ntu60.yaml, runs on one "
-                              "device with --distributed false)"),
 }
 
 
 def check_supported(arg) -> None:
-    """Raise NotImplementedError for every flag set to a feature the port
-    lacks, so that none is ignored quietly."""
+    """Raise NotImplementedError for a flag set to what the port has no
+    meaning for, so that none is ignored quietly; and ValueError for the
+    parallel flags' combinations the JAX trainer rejects
+    (tamgcn_tpu/train/trainer.py:52-63, 344-348), naming them."""
     for name, (accepted, why) in _NOT_PORTED.items():
         value = getattr(arg, name)
         if value not in accepted:
             raise NotImplementedError(f"{why} (got --{name} {value!r})")
+    if arg.sequence_parallel and arg.graph_partition != "none":
+        raise ValueError(
+            "--sequence_parallel and --graph_partition are mutually exclusive: both "
+            "shard over the mesh's 'model' axis (sp shards time, the ring shards "
+            "joints). Drop one.")
+    if arg.sequence_parallel and arg.fast_eval:
+        raise ValueError(
+            "--fast_eval and --sequence_parallel are mutually exclusive: the fused "
+            "block kernels have no partitioning spec for a sharded time axis. Drop "
+            "one of the flags.")
 
 
 def resolve_device(arg):
-    """--use_gpu/--device -> torch.device. --use_gpu true without CUDA
-    raises: there is no quiet CPU run."""
+    """--use_gpu/--device -> torch.device of a process that is not a rank
+    of a launched world. --use_gpu true without CUDA raises: there is no
+    quiet CPU run."""
     import torch
 
     if not arg.use_gpu:
@@ -201,8 +214,9 @@ def resolve_device(arg):
     index = arg.device
     if isinstance(index, (list, tuple)):
         if len(index) != 1:
-            raise NotImplementedError(
-                f"--device {index}: the port runs on one device"
+            raise ValueError(
+                f"--device {index}: one process runs on one device; a list takes "
+                "one entry per local rank with --distributed true"
             )
         index = index[0]
     if not torch.cuda.is_available():

@@ -30,6 +30,13 @@ chain launches several kernels per parameter. So, as the JAX package does:
     freeze_mask` does: a frozen parameter gets no update and no weight
     decay, and its momentum still advances.
 
+On a grid of ranks (`mesh`, parallel/mesh.py) the step is the one of the
+global batch: each rank's loss is its rows' mean cross-entropy over the
+data size, `reduce` (parallel/sharded.py:GradientSum) sums the flat
+gradient over the grid after the backward and before the optimiser, the
+reported loss and hits are the global batch's, and the dropout stream
+keys each mask on the sample's global row.
+
 The JAX package pads its flat buffer to a multiple of 1024 (a TPU vreg
 layout); that padding is not ported. Here each slot starts 512-byte
 aligned, as a tensor of its own would (the kernels' wrappers require 16).
@@ -134,8 +141,10 @@ class PackedTrainState:
 
     def __init__(self, model: torch.nn.Module, optimizer: str = "SGD", *,
                  nesterov: bool = True, weight_decay: float = 1e-4,
-                 freeze_prefixes: Sequence[str] = (), seed: int = 0):
+                 freeze_prefixes: Sequence[str] = (), seed: int = 0, mesh=None):
         self.model = model
+        self.mesh = mesh  # the grid of ranks, None for one process
+        self.reduce = None  # the gradient sum over the grid (GradientSum)
         named = list(model.named_parameters())
         self.param_names = [n for n, _ in named]
         self.params = FlatGroup([p for _, p in named])
@@ -159,9 +168,11 @@ class PackedTrainState:
         """Write the train step into the device counter (a resume)."""
         self.step.fill_(step)
 
-    def dropout_stream(self):
-        """The dropout stream of the step the counter stands at."""
-        return dropout.stream(self.seed, self.step)
+    def dropout_stream(self, rows: int | None = None):
+        """The dropout stream of the step the counter stands at, for a
+        forward of `rows` samples (this rank's rows of the global batch)."""
+        row0 = self.mesh.data_index * rows if self.mesh is not None and rows else 0
+        return dropout.stream(self.seed, self.step, row0=row0, rows=rows)
 
     def set_lr(self, lr: float) -> None:
         """Write `lr` into the lr tensors (only where it changed: no launch
@@ -256,23 +267,32 @@ def make_fused_train_step(state: PackedTrainState, check_finite: bool = False) -
     With `check_finite` (--debug_nans) it returns ``(loss, hits, finite)``,
     `finite` whether the loss, the logits, the flat gradient, parameters and
     statistics are all finite after the step (train/debug_nans.py)."""
+    from ..parallel import comm
     from .debug_nans import all_finite
 
     model = state.model
     params = state.params.tensors
+    data = state.mesh.data if state.mesh is not None else comm.SOLO
 
     def train_step(*args):
         *inputs, label = args
-        with state.dropout_stream():
+        with state.dropout_stream(rows=label.shape[0]):
             logits = model(*inputs)
         loss = F.cross_entropy(logits, label)
-        grads = torch.autograd.grad(loss, params, allow_unused=True,
-                                    materialize_grads=True)
+        # each rank's share of the global batch's mean
+        grads = torch.autograd.grad(loss / data.size if data.size > 1 else loss, params,
+                                    allow_unused=True, materialize_grads=True)
         state.gather_grads(grads)
+        if state.reduce is not None:
+            state.reduce(state.grads)
         state.update()
         if state.draws:
             state.step.add_(1)
         hits = (logits.detach().argmax(-1) == label).sum()
+        if data.size > 1:
+            both = comm.all_reduce_(torch.stack([loss.detach() / data.size,
+                                                 hits.to(loss.dtype)]), data)
+            loss, hits = both[0], both[1].round().long()
         if not check_finite:
             return loss.detach(), hits
         return loss.detach(), hits, all_finite(

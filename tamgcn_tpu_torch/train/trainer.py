@@ -2,8 +2,8 @@
 
 Counterpart of tamgcn_tpu/train/trainer.py:RecognitionTrainer (reference
 processor/processor.py lifecycle :27-35 and epoch loop :107-168;
-recognition_rgb.py train/test/start :48-126) on one device, the one that
---use_gpu/--device name:
+recognition_rgb.py train/test/start :48-126), on one device or on each rank
+of a (data, model) grid:
 
   * train phase: a shuffled, drop_last train loader keyed on --seed; per
     step the lr from the schedule (train/optim.py) and the fused train step
@@ -35,7 +35,26 @@ the JAX trainer wraps it in jax.profiler (:649-679). --debug_nans adds a
 finiteness check to every step and, at the first non-finite value, raises
 FloatingPointError naming the module that made it (train/debug_nans.py).
 
-The flags of features the port lacks raise (train/config.py:check_supported).
+The grid (parallel/): --data_parallel and --model_parallel lay the world's
+ranks out (parallel/mesh.py:make_mesh); --distributed true starts the world
+from the launcher's environment (`python -m torch.distributed.run`), and then
+each data rank's loader takes its contiguous shard of the dataset (the JAX
+loader's process sharding); a world started by its caller (the dry run,
+the tests) with --distributed false loads every batch whole and each rank
+takes its rows (parallel/mesh.py:shard_batch), as the JAX trainer splits a
+batch over one process's devices. The model is wired to the grid
+(parallel/sharded.py:parallelize: BatchNorm over the data group, the joint
+ring with --graph_partition ring, the tensor-parallel head where the model
+axis is > 1, the time-sharded model with --sequence_parallel), and each
+step is the step of the global batch: the flat gradient summed over the
+grid before the optimiser (GradientSum), the test batches padded by tiling
+to a multiple of the data size and their padded rows dropped (:579-603),
+the logits gathered. A world of more than one rank runs its steps eagerly
+(under gloo a CUDA graph cannot hold the collectives); rank 0 writes the
+logs, checkpoints (full tensors, the tensor-parallel shards gathered, so one
+process loads them) and score files. --debug_nans on a grid is not ported.
+
+--use_pallas raises (train/config.py:check_supported).
 """
 from __future__ import annotations
 
@@ -53,6 +72,11 @@ from ..data.transforms import top_k
 from ..models import get_model
 from ..models.ctrgcn import CTRGCN
 from ..models.ctrgcn_infer import make_eval_step, make_fast_eval_step
+from ..parallel import comm
+from ..parallel.mesh import data_slice, init_distributed, make_mesh, shard_batch, world
+from ..parallel.sequence import shard_time
+from ..parallel.sharded import (GradientSum, full_optimizer_state, full_state_dict,
+                                load_full_state, parallelize, shard_optimizer_state)
 from .checkpoint import Checkpoints, filter_ignore, partial_update, port_state, read_weights
 from .config import check_supported, resolve_device
 from .debug_nans import checked, locate_non_finite, non_finite_names
@@ -68,17 +92,34 @@ class RecognitionTrainer:
     def __init__(self, arg):
         check_supported(arg)
         self.arg = arg
-        self.device = resolve_device(arg)
-        # the steps as CUDA graphs on the card (train/graphs.py), eager on the CPU
-        self.capture = self.device.type == "cuda"
-        if self.capture:
+        if arg.distributed and world()[1] == 1:
+            self.device = init_distributed(arg.use_gpu, arg.device)
+        else:
+            self.device = resolve_device(arg)
+        self.mesh = make_mesh(arg.data_parallel, arg.model_parallel)
+        self.lead = self.mesh.rank == 0  # writes the logs, checkpoints and scores
+        if arg.debug_nans and self.mesh.size > 1:
+            raise NotImplementedError("--debug_nans on a grid of more than one rank "
+                                      "is not ported")
+        # the steps as CUDA graphs on the card (train/graphs.py), eager on the
+        # CPU and on a grid of more than one rank
+        self.capture = self.device.type == "cuda" and self.mesh.size == 1
+        if self.device.type == "cuda":
             torch.cuda.set_device(self.device)  # where the graphs replay
         self.state = None  # PackedTrainState, built with the steps
         self.steps = None
-        self.session = Session(arg.work_dir, arg.save_log, arg.print_log)
-        self.session.save_arg(arg)
+        self.session = Session(arg.work_dir, arg.save_log and self.lead,
+                               arg.print_log and self.lead)
+        if self.lead:
+            self.session.save_arg(arg)
         self.print_log = self.session.print_log
         self.print_log(f"device: {self.device}")
+        if self.mesh.size > 1:
+            devices = comm.all_gather_objects(str(self.device), self.mesh.world)
+            self.print_log(
+                f"mesh: data={self.mesh.shape['data']} model={self.mesh.shape['model']}, "
+                f"backend {self.mesh.backend}, rank devices {devices}; the steps run "
+                "eagerly (no CUDA graph holds the collectives)")
         self.loaders = {}
         self._load_data()
         self._load_model()
@@ -103,6 +144,10 @@ class RecognitionTrainer:
                 train_args["seed"] = arg.seed
             self.train_feeder = get_feeder(arg.feeder, **train_args)
             self._log_backend("train", self.train_feeder)
+            # --distributed: each data rank loads its shard of the dataset
+            shards = (dict(process_index=self.mesh.data_index,
+                           process_count=self.mesh.shape["data"])
+                      if arg.distributed else {})
             self.loaders["train"] = Loader(
                 self.train_feeder,
                 batch_size=arg.batch_size,
@@ -110,6 +155,7 @@ class RecognitionTrainer:
                 drop_last=True,
                 seed=arg.seed,
                 num_workers=arg.num_worker,
+                **shards,
             )
         else:
             self._ensure_test_loader()
@@ -155,6 +201,10 @@ class RecognitionTrainer:
                        "compute)")
         if arg.weights:
             self._load_weights()
+        partition = (arg.graph_partition if arg.graph_partition != "none"
+                     else dict(arg.model_args).get("graph_partition", "none"))
+        parallelize(self.model, self.mesh, partition,
+                    arg.sequence_parallel and self.mesh.model.size > 1)
         self.model.to(self.device).eval()
 
     def _load_weights(self):
@@ -202,7 +252,11 @@ class RecognitionTrainer:
             self.state = PackedTrainState(
                 model, arg.optimizer, nesterov=arg.nesterov,
                 weight_decay=arg.weight_decay,
-                freeze_prefixes=tuple(arg.freeze_params or ()), seed=arg.seed)
+                freeze_prefixes=tuple(arg.freeze_params or ()), seed=arg.seed,
+                mesh=self.mesh if self.mesh.size > 1 else None)
+            if self.mesh.size > 1:
+                self.state.reduce = GradientSum(self.state, self.mesh,
+                                                self.model.sequence_parallel)
             steps["train"] = graphed(
                 make_fused_train_step(self.state, check_finite=arg.debug_nans),
                 "train", self.state.tensors())
@@ -222,8 +276,23 @@ class RecognitionTrainer:
                        if self.state is not None
                        else list(model.parameters()) + list(model.buffers()))
             step = checked(step, watched)
+        if self.mesh.shape["data"] > 1:
+            step = self._gathered(step)
         steps["eval"] = graphed(step, name)
         self.steps = steps
+
+    def _gathered(self, step):
+        """An eval step on the rank's rows whose logits are gathered over the
+        data group, its loss the mean over the whole (padded) batch."""
+        mesh = self.mesh
+
+        def gathered(*args):
+            *inputs, label = args
+            _, logits = step(*inputs, label[data_slice(len(label), mesh)])
+            logits = comm.all_gather(logits, mesh.data, 0)
+            return torch.nn.functional.cross_entropy(logits, label), logits
+
+        return gathered
 
     def _ensure_steps(self):
         if self.steps is None:
@@ -234,10 +303,36 @@ class RecognitionTrainer:
     # -- epoch loops -------------------------------------------------------------
 
     def _put(self, batch):
-        """Producer-thread host->device copy (loader.prefetch)."""
+        """Producer-thread host->device copy (loader.prefetch) of the rank's
+        part of a train batch: its rows (where it loaded the global batch)
+        and, with --sequence_parallel, its frames."""
         inputs, label = batch[:-2], batch[-2]
-        inputs = tuple(torch.from_numpy(a).to(self.device) for a in inputs)
-        return inputs, torch.from_numpy(label.astype(np.int64)).to(self.device), label
+        if not self.arg.distributed:
+            *inputs, label = shard_batch(self.mesh, *inputs, label)
+        return self._to_device(inputs, label) + (label,)
+
+    def _to_device(self, inputs, label):
+        if self.model.sequence_parallel:
+            inputs = tuple(shard_time(a, self.mesh) if a.ndim in (3, 5) else a
+                           for a in inputs)
+        inputs = tuple(torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+                       for a in inputs)
+        return inputs, torch.from_numpy(label.astype(np.int64)).to(self.device)
+
+    def _put_test(self, batch):
+        """A test batch padded by tiling to a multiple of the data size (JAX
+        trainer :579-603): (the rank's rows of the inputs on the device, the
+        padded labels on the device, the batch's own labels)."""
+        inputs, label = batch[:-2], batch[-2]
+        n, d = len(label), self.mesh.shape["data"]
+        pad = (-n) % d
+        if pad:
+            inputs = tuple(np.concatenate([a, np.resize(a, (pad,) + a.shape[1:])])
+                           for a in inputs)
+            label = np.concatenate([label, np.resize(label, (pad,))])
+        dev_inputs, _ = self._to_device(shard_batch(self.mesh, *inputs), label)
+        full = torch.from_numpy(label.astype(np.int64)).to(self.device)
+        return dev_inputs, full, batch[-2]
 
     def train_epoch(self, epoch: int) -> np.ndarray:
         """One epoch of optimizer steps; returns the loss of each step."""
@@ -267,7 +362,7 @@ class RecognitionTrainer:
             # keep the statistics on the device; one copy at the epoch's end
             losses.append(loss)
             hits.append(hit)
-            nseen += len(label_np)
+            nseen += len(label_np) * (self.mesh.shape["data"] if arg.distributed else 1)
             if it % arg.log_interval == 0:
                 self.print_log(
                     f"\tIter {it}/{len(loader)} | loss: {loss.item():.4f} "
@@ -294,8 +389,11 @@ class RecognitionTrainer:
         n_batches = n_samples = 0
         t0 = time.perf_counter()
         with torch.inference_mode():
-            for it, (inputs, label, label_np) in enumerate(prefetch(iter(loader), self._put)):
+            # on a grid, each rank its rows of the padded batch, the labels whole
+            put = self._put if self.mesh.size == 1 else self._put_test
+            for it, (inputs, label, label_np) in enumerate(prefetch(iter(loader), put)):
                 loss, logits, *finite = eval_step(*inputs, label)
+                logits = logits[:len(label_np)]  # the padded rows dropped
                 if finite and not bool(finite[0]):
                     self._raise_non_finite("eval", None, inputs, label, batch=it)
                 # keep results on the device; one bulk copy below
@@ -407,7 +505,8 @@ class RecognitionTrainer:
                     self._save_scores(f"test_result_epoch{epoch + 1}.pkl")
                 if (epoch + 1) % arg.save_interval == 0 or last:
                     self._save_checkpoint(f"epoch{epoch + 1}")
-        self.session.save_progress_csv(self.progress)
+        if self.lead:
+            self.session.save_progress_csv(self.progress)
         self.print_log(f"Best Top1: {self.best_t1:.2%}")
 
     def _test_phase(self):
@@ -426,7 +525,9 @@ class RecognitionTrainer:
 
     def _save_scores(self, filename: str):
         """Per-sample score pickle keyed by sample name
-        (reference processor.py:162-168)."""
+        (reference processor.py:162-168); rank 0 writes it."""
+        if not self.lead:
+            return
         names = getattr(self.test_feeder, "sample_name", None)
         if names is None:
             names = list(range(len(self.result_scores)))
@@ -438,7 +539,12 @@ class RecognitionTrainer:
         step}."""
         optimizer = (self.state.optimizer_state_dict() if name.startswith("epoch")
                      else None)
-        self.checkpoints.save(name, self.model, self.step, optimizer)
+        # full tensors: the tensor-parallel shards gathered (every rank joins)
+        state = full_state_dict(self.model)
+        if optimizer is not None:
+            optimizer = full_optimizer_state(optimizer, self.model)
+        if self.lead:
+            self.checkpoints.save(name, self.model, self.step, optimizer, state=state)
         self.print_log(f"checkpoint saved: {name}")
 
     def resume(self) -> int:
@@ -450,8 +556,9 @@ class RecognitionTrainer:
             return self.arg.start_epoch
         tree = self.checkpoints.load(f"epoch{latest}")
         self._ensure_steps()
-        self.model.load_state_dict(tree["model"])
-        self.state.load_optimizer_state_dict(tree["optimizer"])
+        load_full_state(self.model, tree["model"])
+        self.state.load_optimizer_state_dict(
+            shard_optimizer_state(tree["optimizer"], self.model))
         self.step = int(tree["step"])
         # the dropout stream goes on from the step it stopped at
         self.state.set_step(self.step)

@@ -1,0 +1,71 @@
+"""Rank functions of the port's CPU tests of the parallel layer, torch only
+(it imports neither JAX nor tamgcn_tpu): each runs in one of the k gloo
+processes that tamgcn_tpu_torch.parallel.launch.run_ranks starts, and
+returns what the pytest process compares with the JAX package.
+
+    run_ranks("tests._torch_dist_worker:ring_ops", k, {"cases": [...]})
+    run_ranks("tamgcn_tpu_torch.parallel.drive:train_on_grid", k, {...})
+"""
+import torch
+
+from tamgcn_tpu_torch.parallel import graph_parallel
+from tamgcn_tpu_torch.parallel.mesh import make_mesh
+
+# ring op name -> the port function
+RING_OPS = {
+    "ring_unit_ctr_gc": graph_parallel.ring_unit_ctr_gc,
+    "ring_aggregate": graph_parallel.ring_aggregate,
+    "ring_aggregate_stgcn": graph_parallel.ring_aggregate_stgcn,
+}
+
+
+def _quiet():
+    torch.set_num_threads(1)
+    # the oneDNN kernels of this CPU torch abort on some train-mode backwards
+    torch.backends.mkldnn.enabled = False
+
+
+def ring_ops(mesh_rank=0, world=1, cases=()):
+    """Each case (op name, inputs, cotangent), numpy f64, through the ring
+    over every rank (a (1, world) grid): the output and the VJP of every
+    input."""
+    _quiet()
+    mesh = make_mesh(1, world)
+    out = []
+    for name, inputs, cotangent in cases:
+        args = [torch.from_numpy(a).requires_grad_() for a in inputs]
+        y = RING_OPS[name](*args, mesh.model)
+        y.backward(torch.from_numpy(cotangent))
+        out.append((y.detach().numpy(), [a.grad.numpy() for a in args]))
+    return out
+
+
+def cli(mesh_rank=0, world=1, argv=()):
+    """`python -m tamgcn_tpu_torch` with `argv` on a rank of a world its
+    launcher started (so --distributed false: each rank loads every batch
+    whole and takes its rows); returns main's exit code."""
+    _quiet()
+    from tamgcn_tpu_torch.__main__ import main
+
+    return main(list(argv))
+
+
+def gradient_sum(mesh_rank=0, world=1, sequence_parallel=False):
+    """GradientSum on a small CTR-GCN over a (1, world) grid, each rank's
+    flat gradients filled with rank + 1: ({parameter: its gradient after the
+    reduction}, the split parameters' names)."""
+    _quiet()
+    from tamgcn_tpu_torch.models import create_ctrgcn_nucla
+    from tamgcn_tpu_torch.parallel.sharded import GradientSum, parallelize, sharded_dims
+    from tamgcn_tpu_torch.train.packing import PackedTrainState
+
+    mesh = make_mesh(1, world)
+    net = create_ctrgcn_nucla(base_channel=8)
+    parallelize(net, mesh, "none", sequence_parallel)
+    state = PackedTrainState(net, "SGD", nesterov=True, weight_decay=1e-4, mesh=mesh)
+    for g in state.grads:
+        g.fill_(mesh_rank + 1)
+    GradientSum(state, mesh, sequence_parallel)(state.grads)
+    grads = {name: state.grads[g][o:o + n].clone()
+             for name, (g, o, n) in zip(state.param_names, state.params.slots)}
+    return grads, sorted(sharded_dims(net))

@@ -42,7 +42,9 @@ parameters and BatchNorm statistics stay bit for bit where they were.
 The custom ops `tamgcn::unit_ctr_gc` and `tamgcn::gcn_tcn_block` launch K1
 and K5; a serving artifact (tools/export_serving.py) launches them at each
 call; a graphed train step with dropout draws each replay's mask from the
-device step counter.
+device step counter. The parallel layer in two gloo processes sharing the
+card: the joint ring of the unit op (K1 in every ring step) against the
+dense op, and a DP step against the single-rank step with its launches.
 This file imports no JAX, so it runs where the port runs.
 """
 import pytest
@@ -1510,3 +1512,52 @@ def test_graph_replays_draw_fresh_dropout_masks(device, monkeypatch):
     (eager_l, eager_t), (graph_l, graph_t) = runs
     assert all(a.equal(b) for a, b in zip(eager_l, graph_l)), (eager_l, graph_l)
     assert all(a.equal(b) for a, b in zip(eager_t, graph_t))
+
+
+def test_ring_unit_op_on_cuda_in_two_gloo_ranks(device):
+    """The joint ring of the unit op (parallel/graph_parallel.py) in two
+    gloo processes sharing the card: every ring step is K1 forward and K2, K3
+    backward on CUDA tensors (gloo reduces them in place and stages the
+    shifts through host memory); the ring's output and VJP against the dense
+    plain version (serving.py:UNIT_RTOL: the output within 1e-5 of its max,
+    the gradients within 1e-4, alpha's 1e-3) at NW-UCLA block shapes, V = 25
+    padded to 26, and scene256's V = 256 (K1t, K2t)."""
+    from tamgcn_tpu_torch.parallel.launch import run_ranks
+    from tamgcn_tpu_torch.serving import UNIT_RTOL
+
+    shapes = [(8, 52, 20, 64, 8), (8, 13, 20, 256, 32), (4, 16, 25, 128, 16),
+              (2, 8, 256, 64, 8)]
+    errors = run_ranks("tamgcn_tpu_torch.serving:ring_unit_errors", 2,
+                       {"shapes": shapes, "model_axis": 2, "device": "cuda"}, timeout=600)
+    for rank_errors in errors:
+        for shape, errs in zip(shapes, rank_errors):
+            assert all(errs[p] <= UNIT_RTOL[p] for p in errs), (shape, errs)
+
+
+def test_data_parallel_step_on_cuda_in_two_gloo_ranks(device):
+    """One DP (2, 1) train step of a small CTR-GCN on the card in two gloo
+    processes equals the single-rank step on the same global batch (loss
+    within 1e-5, the updated fc within 1e-4 of its max), and each rank
+    launches K1, K2 and K3 10 times on its half of the batch."""
+    import numpy as np
+
+    from tamgcn_tpu_torch.parallel.drive import train_on_grid
+    from tamgcn_tpu_torch.parallel.launch import run_ranks
+    from tamgcn_tpu_torch.serving import UCLA, _perturbed
+
+    args = dict(UCLA, base_channel=16)
+    model = create_ctrgcn_nucla(base_channel=16, generator=torch.Generator().manual_seed(1))
+    rs = np.random.RandomState(0)
+    spec = dict(model="ctrgcn", model_args=args, weights=_perturbed(model, 2),
+                batches=[(rs.randn(8, 3, 16, 20, 1).astype(np.float32),
+                          rs.randint(0, 10, 8))], device="cuda")
+    want = train_on_grid(**spec)
+    got = run_ranks("tamgcn_tpu_torch.parallel.drive:train_on_grid", 2,
+                    dict(spec, data_parallel=2), timeout=600)
+    fc = want["states"][1]["fc.weight"]
+    for r in got:
+        assert abs(r["losses"][0] - want["losses"][0]) <= 1e-5 * abs(want["losses"][0])
+        assert (r["states"][1]["fc.weight"] - fc).abs().max() <= 1e-4 * fc.abs().max()
+        for counter in ("ctr_gc.launches", "ctr_gc.bwd_dx3_launches",
+                        "ctr_gc.bwd_param_launches"):
+            assert r["launches"][counter] == 10, (counter, r["launches"])

@@ -36,7 +36,7 @@ from _weight_forms import to_flax_arrays
 from tamgcn_tpu.models import create_ctrgcn_nucla as jax_create
 from tamgcn_tpu_torch.convert import from_flax
 from tamgcn_tpu_torch.models import create_ctrgcn_nucla
-from tamgcn_tpu_torch.serving import entry
+from tamgcn_tpu_torch.serving import artifact_data_parallel, entry
 from tamgcn_tpu_torch.tools import export_serving
 from tamgcn_tpu_torch.train.config import load_config
 
@@ -196,8 +196,14 @@ def test_the_jax_tools_defects_are_avoided(tmp_path):
     # the divisibility message reads the right way round
     with pytest.raises(SystemExit, match="batch 3 must be divisible by data_parallel=2"):
         export_serving.run(["--batch", "3", "--data_parallel", "2", *base])
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        export_serving.run(["--batch", "4", "--data_parallel", "2", *base])
+    # --data_parallel 2: exported at the per-rank batch, N recorded, served on
+    # two ranks each on its rows (rank 0 gathers) as the live model on all 4
+    record = export_serving.run(["--batch", "4", "--data_parallel", "2", *base])
+    assert record["nr_devices"] == 2 and record["input_shapes"][0][0] == 2
+    assert record["sharded_max_abs_err"] is not None  # held within 1e-4 x max|logit|
+    assert artifact_data_parallel(str(tmp_path / "a.pt2")) == 2
+    with pytest.raises(SystemExit, match="drop --poly_batch"):
+        export_serving.run(["--batch", "4", "--data_parallel", "2", "--poly_batch", *base])
     # a --weights directory without a checkpoint names itself (JAX: epochNone)
     empty = tmp_path / "empty"
     empty.mkdir()

@@ -7,9 +7,10 @@
     names what it did not load (--ignore_weights' tensors aside); a
     directory of the port's checkpoints loads its best.pt, else its latest
     epoch{n}.pt, as the JAX trainer takes its checkpoint directory;
-  * --data_parallel takes -1 and 1 (one device) and raises on anything
-    else, naming the flag; configs/ntu60.yaml as shipped (distributed: true)
-    raises naming --distributed.
+  * --data_parallel takes -1 and 1 on one rank and raises on anything
+    else, naming the flag, as the JAX mesh does (a grid larger than one
+    rank needs a process group); configs/ntu60.yaml as shipped
+    (distributed: true) raises without the launcher, naming --distributed.
 """
 import os
 
@@ -21,6 +22,8 @@ from _weight_forms import reference_ctrgcn_state, reference_stgcn_state
 from tamgcn_tpu_torch.models import create_ctrgcn_nucla, create_stgcn_nucla
 from tamgcn_tpu_torch.train.checkpoint import (Checkpoints, load_weights, partial_update,
                                                read_weights)
+from tamgcn_tpu_torch.__main__ import main
+from tamgcn_tpu_torch.parallel.mesh import make_mesh
 from tamgcn_tpu_torch.train.config import check_supported, load_config
 from tamgcn_tpu_torch.train.trainer import RecognitionTrainer
 
@@ -108,15 +111,18 @@ def test_checkpoint_directory_loads_best_else_latest_epoch(tmp_path):
                                       ("8", False), ("0", False)])
 def test_data_parallel_takes_one_device(value, ok):
     arg = load_config(["-c", SMOKE, "--data_parallel", value])
+    check_supported(arg)
     if ok:
-        check_supported(arg)
+        assert make_mesh(arg.data_parallel, arg.model_parallel).size == 1
     else:
-        with pytest.raises(NotImplementedError, match="--data_parallel"):
-            check_supported(arg)
+        with pytest.raises(ValueError, match="data_parallel"):
+            make_mesh(arg.data_parallel, arg.model_parallel)
 
 
-def test_ntu60_as_shipped_names_distributed():
+def test_ntu60_as_shipped_names_distributed(monkeypatch):
     ntu = os.path.join(REPO, "configs", "ntu60.yaml")
-    with pytest.raises(NotImplementedError, match="--distributed"):
-        check_supported(load_config(["-c", ntu]))
+    monkeypatch.delenv("RANK", raising=False)
+    with pytest.raises(RuntimeError, match="--distributed true needs the launcher"):
+        main(["recognition", "-c", ntu])
+    check_supported(load_config(["-c", ntu]))
     check_supported(load_config(["-c", ntu, "--distributed", "false"]))

@@ -1,6 +1,8 @@
 """tamgcn_tpu_torch and chip_smoke.py stand alone: importing the package and
-every submodule loads no JAX and nothing of tamgcn_tpu, no source imports
-them, and the CUDA sources call no library kernel."""
+every submodule (the parallel layer's too) loads no JAX and nothing of
+tamgcn_tpu, no source imports them (nor does tests/_torch_dist_worker.py,
+whose rank functions run in processes of their own), and the CUDA sources
+call no library kernel."""
 import ast
 import json
 import os
@@ -40,6 +42,7 @@ def test_import_loads_no_jax_and_no_tamgcn_tpu():
     out = json.loads(proc.stdout.strip().splitlines()[-1])
     assert "tamgcn_tpu_torch.ops.cuda.ctr_gc" in out["imported"]
     assert "tamgcn_tpu_torch.__main__" in out["imported"]
+    assert "tamgcn_tpu_torch.parallel.graph_parallel" in out["imported"]
     loaded = [m for m in out["modules"] if _forbidden(m)]
     assert loaded == []
 
@@ -56,12 +59,27 @@ def _imports(path: pathlib.Path):
             yield node.args[0].value
 
 
-SOURCES = sorted(PKG.rglob("*.py")) + [REPO / "chip_smoke.py"]
+# the port, chip_smoke.py and the rank functions of the parallel layer's CPU
+# tests (they run in processes of their own, beside no JAX)
+SOURCES = sorted(PKG.rglob("*.py")) + [REPO / "chip_smoke.py",
+                                       REPO / "tests" / "_torch_dist_worker.py"]
 
 
 @pytest.mark.parametrize("path", SOURCES, ids=lambda p: str(p.relative_to(REPO)))
 def test_source_imports_no_jax_and_no_tamgcn_tpu(path):
     assert [m for m in _imports(path) if _forbidden(m)] == []
+
+
+def test_the_rank_worker_loads_no_jax():
+    code = ("import json, sys\n"
+            "import tests._torch_dist_worker\n"
+            "import tamgcn_tpu_torch.parallel.drive, tamgcn_tpu_torch.serving\n"
+            "print(json.dumps(sorted(sys.modules)))\n")
+    env = dict(os.environ, OMP_NUM_THREADS="1")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert [m for m in json.loads(proc.stdout.strip().splitlines()[-1]) if _forbidden(m)] == []
 
 
 def test_cuda_sources_use_no_library_kernel():

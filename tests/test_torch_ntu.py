@@ -181,6 +181,6 @@ def test_ntu60_config_trains_and_tests(ntu_dir, tmp_path):
                           "true")) == 0
     with open(tmp_path / "test" / "log.txt") as f:
         assert f"({best}) (pt)" in f.read()
-    with pytest.raises(NotImplementedError, match="--distributed"):
+    with pytest.raises(RuntimeError, match="--distributed true needs the launcher"):
         main(["recognition", "-c", NTU_YAML, "--use_gpu", "false", "--work_dir",
               str(tmp_path / "refused")])

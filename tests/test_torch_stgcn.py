@@ -216,8 +216,12 @@ def test_init_follows_pytorch_defaults():
 
 
 def test_what_the_slice_leaves_out_raises():
-    with pytest.raises(NotImplementedError, match="parallel slice"):
-        create_stgcn_nucla(graph_partition="ring")
+    # graph_partition="ring" builds, and raises until the model has a ring
+    # (parallel/sharded.py:parallelize; the ring's step is held to JAX in
+    # tests/test_torch_parallel_train.py)
+    ring = create_stgcn_nucla(graph_partition="ring")
+    with pytest.raises(ValueError, match="requires a mesh"):
+        ring(torch.randn(2, 3, 8, 20, 1))
     # dropout and block_dropout train from the seeded stream (ops/dropout.py)
     x = torch.randn(2, 3, 8, 20, 1)
     for kw, sites in ((dict(dropout=0.5), 1), (dict(block_dropout=0.5), 10)):

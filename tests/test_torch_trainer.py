@@ -5,8 +5,8 @@ test --use_gpu false` on weights converted from a JAX CTR-GCN (base_channel
 8, with alpha, the TAM offset convs, gcn1/bn and the running stats perturbed
 as in test_torch_model.py) writes a score pickle whose logits equal the JAX
 model's on the same synthetic val samples, within rtol 1e-4 and atol
-1e-4 * max|JAX| (f32, sum order differs). The flags of what the port lacks
-raise, and so does --use_gpu true without CUDA.
+1e-4 * max|JAX| (f32, sum order differs). The flag values the JAX package
+rejects raise, naming the flag, and so does --use_gpu true without CUDA.
 
 --profile_dir writes a Chrome trace of the train phase. --debug_nans leaves
 a clean run's losses, scores and weights as they are, and stops at a NaN
@@ -33,7 +33,6 @@ from tamgcn_tpu.models import create_ctrgcn_nucla as jax_create
 from tamgcn_tpu_torch.__main__ import main
 from tamgcn_tpu_torch.convert import from_flax
 from tamgcn_tpu_torch.models import create_ctrgcn_nucla
-from tamgcn_tpu_torch.train.config import _NOT_PORTED
 from test_torch_model import perturbed_variables
 
 torch.set_num_threads(1)
@@ -98,17 +97,30 @@ def test_use_gpu_without_cuda_raises(weights, tmp_path):
         main(argv)
 
 
-_OTHER_VALUE = {
-    "use_pallas": "true", "sequence_parallel": "true", "graph_partition": "ring",
-    "model_parallel": "2", "profile_dir": "/nonexistent", "debug_nans": "true",
-    "distributed": "true", "data_parallel": "2",
+# a flag the JAX package rejects in this setting (one process, no process
+# group), with what completes the rejected combination, and the error
+_REJECTED = {
+    "data_parallel": (("--data_parallel", "2"), ValueError),
+    "distributed": (("--distributed", "true"), RuntimeError),
+    "graph_partition": (("--graph_partition", "ring", "--sequence_parallel", "true"),
+                        ValueError),
+    "model_parallel": (("--model_parallel", "2"), ValueError),
+    "sequence_parallel": (("--sequence_parallel", "true", "--fast_eval", "true"),
+                          ValueError),
+    "use_pallas": (("--use_pallas", "true"), NotImplementedError),
 }
 
 
-@pytest.mark.parametrize("flag", sorted(_NOT_PORTED))
-def test_flag_of_a_later_slice_raises(flag, tmp_path):
-    argv = _argv(tmp_path, "unused.pt", f"--{flag}", _OTHER_VALUE[flag])
-    with pytest.raises(NotImplementedError, match=flag):
+@pytest.mark.parametrize("flag", sorted(_REJECTED))
+def test_flag_of_a_later_slice_raises(flag, tmp_path, monkeypatch):
+    """Each parallel flag runs (tests/test_torch_parallel_*.py); what the
+    JAX package rejects raises, naming the flag: a grid larger than one rank
+    without a process group, --distributed without the launcher, the
+    mutually exclusive pairs; --use_pallas has no meaning in the port."""
+    monkeypatch.delenv("RANK", raising=False)
+    extra, error = _REJECTED[flag]
+    argv = _argv(tmp_path, "unused.pt", *extra)
+    with pytest.raises(error, match=flag):
         main(argv)
 
 
