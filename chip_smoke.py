@@ -62,7 +62,12 @@ Phases, each of which fails the run (non-zero exit, no result line):
      and the logits of one batch against the unfused model on the CPU;
      times the forward at batch 64 three ways (fast eval with K5, fast eval
      with use_kernel=False, the unfused model) and lists their device time
-     by kernel name;
+     by kernel name. K5's bf16 form (gcn_tcn_block_bf16: a bf16 x and
+     outputs, the JAX kernel's bf16 body) against its plain bf16 version at
+     the same shapes: at least 95% of each output's elements bit for bit
+     equal and every element within 2^-7 of max |plain|, two launches bit
+     for bit equal, its CUDA-graph time beside its bound (2-byte
+     activations), its plain version and the f32 form on the same values;
   7. fused-conv3 training and CTRGC: holds K6, the x3 gradient carried
      through conv3's VJP, against its plain version at the l5-l10 shapes at
      batch 16 plus V=25, a ragged shape (odd T, Cin != 4k) and the
@@ -105,7 +110,14 @@ Phases, each of which fails the run (non-zero exit, no result line):
      says which is faster), and on m and x3 views 4- but not 16-byte aligned
      and, in bf16, 2-byte aligned; then runs the three port tools
      (exp_ms_tcn, exp_stage2, exp_stage2b) in-process and checks each one's
-     launches.
+     launches. T1's bf16 form (ms_tcn_bf16: a bf16 prefix and output) as
+     K5's in phase 6, at T1's shapes, beside the f32 form and the engine's
+     cuDNN composition on the widened prefix; then the bf16 block path: the
+     ten blocks of a fast-eval forward at batch 64 on bf16 x through
+     gcn_tcn_block_fused and ms_tcn_fused (the ops are the bf16 forms' entry
+     points: JAX's engine takes no bf16 prefix), the counts set to 0 just
+     before and K5_bf16 = T1_bf16 = 10 just after, every output finite
+     bf16.
   9. scene256: `python -m tamgcn_tpu_torch recognition -c
      configs/scene256.yaml` (V=256, the synthetic random-tree graph, batch 8)
      in-process: --phase train for 2 epochs of 8 steps, then --phase test and
@@ -266,16 +278,20 @@ Phases, each of which fails the run (non-zero exit, no result line):
      as 26 + 26 frames) for 3 SGD steps, TP of the head for one, the ring at
      configs/scene256.yaml's widths (V = 256, vb = 128, batch 8), ST-GCN's
      ring and the TP of cross_modal.yaml's attention MLP (224 x 224 images)
-     for one each, and the ring's unit op, output and VJP, against the
+     for one each, the same two models time-sharded (SP: T = 52 as 26 + 26
+     frames; the fusion model's CTR-GCN split, its RGB trunk whole on both
+     ranks) for one each, and the ring's unit op, output and VJP, against the
      dense plain version at each block shape of both CTR-GCNs (the output
      within 1e-5 of its max, the gradients within 1e-4, alpha's 1e-3); then
      each planted fault's mode once more with the fault in place. Each
      mode's first loss within 1e-4 of the single rank's on the card, SP's
      of DP's (serving.verify_dryrun); DP, the ring, SP and TP held to phase
      5's f64 CPU run by check_trajectory's rule after every step; scene256's
-     ring, ST-GCN's ring and the fusion TP step held, state and reduced
-     gradients per tensor, to their model's single-rank f64 step on the
-     card with the plain unit op by the same rule (grid_references). The
+     ring, ST-GCN's ring and SP step and the fusion TP and SP steps held,
+     state and reduced gradients per tensor, to their model's single-rank
+     f64 step on the card with the plain unit op by the same rule
+     (grid_references), every parameter bit for bit alike on both ranks
+     (check_ranks_agree). The
      ring with one block skipped, with x2's gradient left unsummed, and
      scene256's ring with K2t's dx3s or K3's dw4s zeroed must each leave its
      check. Per rank: K1 = K2 = K3 = 20 a ring train step (whole-V), K1t =
@@ -287,8 +303,12 @@ Phases, each of which fails the run (non-zero exit, no result line):
      true --device 0 0) trains one short epoch at gcn.yaml's widths, its
      closing eval on the two ranks writing the scores; one process's
      --phase test on the epoch's checkpoint gives the same scores within
-     1e-5 * max |score|. The ranks' launches are counted in their own
-     processes.
+     1e-5 * max |score|. Then `--debug_nans true` on the two ranks
+     (--sequence_parallel, --model_parallel 2, gcn.yaml's widths) with a NaN
+     planted in the last frame of every clip, the second rank's frames
+     alone: both ranks raise FloatingPointError naming the same module
+     within the launch's timeout. The ranks' launches are counted in their
+     own processes.
 A kernel launched inside a CUDA-graph capture counts once on its wrapper's
 counter and runs at every replay: every launch check counts the launches
 that ran on the card, the wrappers' counts less what the captures counted
@@ -314,7 +334,12 @@ tile-form call at the tools' shape (T2, with one einsum's time as
 "library_ms"), of one bf16 eval forward at batch 64 (K1_bf16) or bf16 train
 step at batch 16 (K2_bf16, K3_bf16; K6_bf16 with the switch on, the
 composition's time under "unfused_k2_cublas_ms"), of one bf16 CTRGC forward
-and backward (K4_bf16), and each shape's row under "shapes";
+and backward (K4_bf16), of one fast-eval forward's blocks at batch 64 on
+bf16 x (K5_bf16, its launches from the bf16 block path) or one call at each
+tool shape on a bf16 prefix (T1_bf16, with the cuDNN composition on the
+widened prefix as "library_ms"), each bf16 form's CUDA-graph time under
+"device_ms" beside its f32 form's on the same values ("f32_device_ms"),
+and each shape's row under "shapes";
 the unit-op kernels' CUDA-graph device time under "device_ms". K1t, K2t, K3
 and K5 also carry phase 14's NTU-60 rows and sums under "ntu60" (per train
 step at batch 128; K5 per fast-eval forward at batch 256), K1 the
@@ -872,6 +897,89 @@ def check_k5_shapes(shapes, seed: int, device, plain_iters: int = 20) -> list:
     return rows
 
 
+# the bf16 forms of K5 and T1 against their plain bf16 versions: at least
+# BF16_FORM_SHARE of each output's elements bit for bit equal and every
+# element within BF16_FORM_TOL of its max |plain| (each sums in another order
+# than the plain version before its one rounding to bf16, which flips a value
+# at a near-tie; a wrong rounding policy leaves 60-80% equal:
+# tests/test_torch_bf16_block.py)
+BF16_FORM_SHARE = 0.95
+BF16_FORM_TOL = 2.0 ** -7
+
+
+def check_bf16_form(what: str, got, again, want) -> tuple:
+    """One bf16 output of a bf16 form against its plain version and a second
+    launch's; raises unless it is bf16, bit for bit the second launch's and
+    within the criterion. Returns (share bit for bit equal, max |got -
+    want|, max |want|)."""
+    import torch
+
+    if got.dtype != torch.bfloat16 or not torch.equal(got, again):
+        raise AssertionError(f"{what}: {got.dtype}, or two launches differ")
+    a, b = got.float(), want.float()
+    share = (a == b).float().mean().item()
+    err, scale = (a - b).abs().max().item(), b.abs().max().item()
+    if not (share >= BF16_FORM_SHARE and err <= BF16_FORM_TOL * scale
+            and bool(torch.isfinite(a).all())):
+        raise AssertionError(f"{what}: {share:.4%} of the elements equal to the plain "
+                             f"version's, max |kernel - plain| {err:.3e} (max |plain| "
+                             f"{scale:.3e}) beyond the stated criterion")
+    return share, err, scale
+
+
+def _bf16_row(parts, **times):
+    """The row of one shape of a bf16 form: its worst output's numbers."""
+    worst = max(parts, key=lambda p: p[2] / max(p[3], 1e-30))
+    return dict(times, max_abs_err=worst[2], max_abs_plain=worst[3],
+                share_equal=min(p[1] for p in parts), worst_output=worst[0])
+
+
+def check_k5_bf16(device, plain_iters: int = 3) -> list:
+    """K5's bf16 form (csrc/gcn_tcn_block.cu: gcn_tcn_block_bf16) on a bf16 x
+    against its plain bf16 version at phase 6's shapes (BF16_FORM_SHARE,
+    BF16_FORM_TOL), two launches bit for bit equal, timed by events and by a
+    CUDA graph beside its bound (2-byte activations), its plain version
+    (over `plain_iters` calls) and the f32 form on the same values; returns
+    the rows."""
+    import torch
+
+    from tamgcn_tpu_torch.ops.cuda.gcn_tcn_block import gcn_tcn_block_fwd
+    from tamgcn_tpu_torch.ops.gcn_tcn_block import gcn_tcn_block_plain
+    from tamgcn_tpu_torch.utils.roofline import gcn_tcn_block_sol
+    from tamgcn_tpu_torch.utils.timing import graph_ms
+
+    shapes = [(n, s, c) for n, s, c in K5_MAIN_PATH] + [(n, s, 0) for n, s in K5_EXTRA]
+    rows = []
+    for i, (name, shape, count) in enumerate(shapes):
+        args = block_inputs(shape, seed=900 + i, device=device)
+        args["x"] = args["x"].to(torch.bfloat16)
+        f32 = dict(args, x=args["x"].float())  # the f32 form on the same values
+        with torch.no_grad():
+            got = gcn_tcn_block_fwd(**args)
+            again = gcn_tcn_block_fwd(**args)
+            want = gcn_tcn_block_plain(**args)
+            torch.cuda.synchronize()
+            parts = [(part,) + check_bf16_form(f"K5_bf16 {name} {shape} {part}", a, b, w)
+                     for part, a, b, w in zip(("prefix", "pw"), got, again, want)]
+            times = dict(ms=cuda_ms(lambda: gcn_tcn_block_fwd(**args)),
+                         plain_ms=cuda_ms(lambda: gcn_tcn_block_plain(**args),
+                                          iters=plain_iters),
+                         device_ms=graph_ms(lambda: gcn_tcn_block_fwd(**args)),
+                         f32_device_ms=graph_ms(lambda: gcn_tcn_block_fwd(**f32)))
+        bound_ms, bound_by = gcn_tcn_block_sol(*shape, act_bytes=2)
+        check_above_bound(f"K5_bf16 {name}", times["device_ms"], bound_ms)
+        rows.append(_bf16_row(parts, name=name, launches_per_step=count,
+                              shape=dict(zip(("N", "T", "V", "Cin", "C", "R"), shape)),
+                              bound_ms=bound_ms, bound_by=bound_by, **times))
+        r = rows[-1]
+        print(f"K5_bf16 {name:9s} N,T,V,Cin,C,R={shape}: {r['share_equal']:.4%} equal, "
+              f"max_abs_err {r['max_abs_err']:.3e} (max|plain| {r['max_abs_plain']:.3e}) "
+              f"kernel {r['ms'] * 1e3:.1f} us (device {r['device_ms'] * 1e3:.1f}), f32 form "
+              f"device {r['f32_device_ms'] * 1e3:.1f} us, plain {r['plain_ms'] * 1e3:.1f} us, "
+              f"bound {bound_ms * 1e3:.1f} us ({bound_by})", flush=True)
+    return rows
+
+
 def make_weights(path: str, seed: int, model_args=None, feeder_args=None,
                  batch: int = BATCH, device="cpu") -> None:
     """The port's seeded init with what hides the kernels moved off its
@@ -936,12 +1044,13 @@ UNIT_COUNTERS = {"K1": "launches", "K1t": "launches_tiled", "K2": "bwd_dx3_launc
                  "K4dx3_bf16": "k4_t_launches_bf16", "K4dx3t_bf16": "k4_t_tiled_launches_bf16"}
 KERNELS = ("K1", "K1t", "K2", "K2t", "K3", "K5", "K6", "T1", "T2", "K1_bf16", "K1t_bf16",
            "K2_bf16", "K2t_bf16", "K3_bf16", "K6_bf16", "K4_bf16", "K4t_bf16", "K4dx3_bf16",
-           "K4dx3t_bf16")
+           "K4dx3t_bf16", "K5_bf16", "T1_bf16")
 
 
 # each kernel's counter in ops/cuda.launch_counts()
 COUNTER_KEYS = {k: f"ctr_gc.{c}" for k, c in UNIT_COUNTERS.items()} | {
-    "K5": "gcn_tcn_block.launches", "T1": "ms_tcn.launches", "T2": "stage2.launches"}
+    "K5": "gcn_tcn_block.launches", "T1": "ms_tcn.launches", "T2": "stage2.launches",
+    "K5_bf16": "gcn_tcn_block.launches_bf16", "T1_bf16": "ms_tcn.launches_bf16"}
 # K3_bf16's count in its C launcher when the wrappers' counts were last reset
 C_COUNT_BASE = {"K3_bf16": 0}
 
@@ -955,6 +1064,7 @@ def reset_launches():
     for counter in UNIT_COUNTERS.values():
         setattr(ctr_gc, counter, 0)
     gcn_tcn_block.launches = ms_tcn.launches = stage2.launches = 0
+    gcn_tcn_block.launches_bf16 = ms_tcn.launches_bf16 = 0
     graphs.reset_stats()
     C_COUNT_BASE["K3_bf16"] = ctr_gc.param_bf16_launched()
 
@@ -1104,8 +1214,9 @@ def check_logits(work_dir: str, weights: str):
 
 # the first kernel each wrapper launches, by its counter's name; a bf16 form
 # is the same template on __nv_bfloat16, so its name holds "bfloat16", but
-# K3's, a design of its own, is named here; K4's kernels (its bf16 form
-# alone) name their direction, true for the forward
+# K3's, a design of its own, and K5's, whose aggregation reads f32 operands
+# in either form, are named here; K4's kernels (its bf16 form alone) name
+# their direction, true for the forward
 KERNEL_SYMBOLS = {"K1": "unit_ctr_gc_fwd_kernel", "K1t": "unit_ctr_gc_fwd_tiled_kernel",
                   "K2": "unit_ctr_gc_bwd_dx3_kernel",
                   "K2t": "unit_ctr_gc_bwd_dx3_tiled_kernel",
@@ -1115,7 +1226,8 @@ KERNEL_SYMBOLS = {"K1": "unit_ctr_gc_fwd_kernel", "K1t": "unit_ctr_gc_fwd_tiled_
                   "K4t": "ctr_gc_fused_tiled_kernel<true",
                   "K4dx3": "ctr_gc_fused_kernel<false",
                   "K4dx3t": "ctr_gc_fused_tiled_kernel<false",
-                  "K3_bf16": "unit_ctr_gc_bwd_param_bf16_kernel"}
+                  "K3_bf16": "unit_ctr_gc_bwd_param_bf16_kernel",
+                  "K5_bf16": "block_agg_bf16_kernel"}
 
 
 def is_kernel(kname: str, event_name: str) -> bool:
@@ -1838,6 +1950,115 @@ def check_t1(device):
               f"{library_ms * 1e3:.1f} us (device {library_device_ms * 1e3:.1f}), bound "
               f"{bound_ms * 1e3:.1f} us ({bound_by})", flush=True)
     return rows
+
+
+def check_t1_bf16(device, plain_iters: int = 5) -> list:
+    """T1's bf16 form (csrc/ms_tcn.cu: ms_tcn_bf16) on a bf16 prefix against
+    its plain bf16 version at phase 8's shapes (BF16_FORM_SHARE,
+    BF16_FORM_TOL), two launches bit for bit equal, timed beside its bound
+    (2-byte activations), its plain version, the f32 form on the same values
+    and the engine's cuDNN composition on the widened prefix (its output
+    rounded to bf16); returns the rows."""
+    import torch
+
+    from tamgcn_tpu_torch.ops.cuda.ms_tcn import ms_tcn_fwd
+    from tamgcn_tpu_torch.ops.ms_tcn import ms_tcn_plain
+    from tamgcn_tpu_torch.utils.roofline import ms_tcn_sol
+    from tamgcn_tpu_torch.utils.timing import graph_ms
+
+    shapes = [(n, s, 1) for n, s in T1_TOOL_SHAPES] + [(n, s, 0) for n, s in T1_EXTRA]
+    rows = []
+    for i, (name, shape, count) in enumerate(shapes):
+        prefix32, w, b, mp = t1_inputs(shape, seed=1800 + i, device=device)
+        prefix = prefix32.to(torch.bfloat16)
+        f32 = prefix.float()  # the f32 form on the same values
+        stride = shape[-1]
+        engine = engine_branches(w, b, mp)
+
+        def library():
+            return engine(prefix.float(), stride).to(torch.bfloat16)
+
+        with torch.no_grad():
+            got = ms_tcn_fwd(prefix, w, b, mp, stride)
+            again = ms_tcn_fwd(prefix, w, b, mp, stride)
+            want = ms_tcn_plain(prefix, w, b, mp, stride)
+            torch.cuda.synchronize()
+            parts = [("out",) + check_bf16_form(f"T1_bf16 {name} {shape}", got, again, want)]
+            times = dict(ms=cuda_ms(lambda: ms_tcn_fwd(prefix, w, b, mp, stride)),
+                         plain_ms=cuda_ms(lambda: ms_tcn_plain(prefix, w, b, mp, stride),
+                                          iters=plain_iters),
+                         library_ms=cuda_ms(library, iters=plain_iters),
+                         device_ms=graph_ms(lambda: ms_tcn_fwd(prefix, w, b, mp, stride)),
+                         f32_device_ms=graph_ms(lambda: ms_tcn_fwd(f32, w, b, mp, stride)),
+                         library_device_ms=graph_ms(library))
+        bound_ms, bound_by = ms_tcn_sol(*shape, act_bytes=2)
+        check_above_bound(f"T1_bf16 {name}", times["device_ms"], bound_ms)
+        rows.append(_bf16_row(parts, name=name, launches_per_step=count,
+                              shape=dict(zip(("N", "T", "V", "bc", "stride"), shape)),
+                              bound_ms=bound_ms, bound_by=bound_by, **times))
+        r = rows[-1]
+        print(f"T1_bf16 {name:9s} N,T,V,bc,s={shape}: {r['share_equal']:.4%} equal, "
+              f"max_abs_err {r['max_abs_err']:.3e} (max|plain| {r['max_abs_plain']:.3e}) "
+              f"kernel {r['ms'] * 1e3:.1f} us (device {r['device_ms'] * 1e3:.1f}), f32 form "
+              f"device {r['f32_device_ms'] * 1e3:.1f} us, plain {r['plain_ms'] * 1e3:.1f} us, "
+              f"cuDNN composition on the widened prefix {r['library_ms'] * 1e3:.1f} us "
+              f"(device {r['library_device_ms'] * 1e3:.1f}), bound {bound_ms * 1e3:.1f} us "
+              f"({bound_by})", flush=True)
+    return rows
+
+
+def run_bf16_block_path(device) -> dict:
+    """The bf16 forms' path: the ten blocks of a fast-eval forward at batch
+    64 (K5_MAIN_PATH), each block's whole eval block and its multi-scale TCN
+    on a bf16 x through the ops' entry points (ops/gcn_tcn_block.py:
+    gcn_tcn_block_fused, then ops/ms_tcn.py:ms_tcn_fused on the block's bf16
+    prefix at the block's stride), as a user calls them: the JAX package
+    feeds K5 and T1 a bf16 input through these ops alone (its fast-eval
+    engine's convolutions refuse a bf16 prefix against f32 weights). The
+    counts are set to 0 just before the run and must read K5_bf16 = T1_bf16
+    = 10 just after; every output bf16, finite and of its shape. Returns
+    {"launches", "seconds"}."""
+    import torch
+
+    from tamgcn_tpu_torch.ops.gcn_tcn_block import gcn_tcn_block_fused
+    from tamgcn_tpu_torch.ops.ms_tcn import ms_tcn_fused
+
+    blocks = []
+    for name, shape, count in K5_MAIN_PATH:
+        N, T, V, Cin, C, R = shape
+        stride = 2 if name in ("l5", "l8") else 1
+        for j in range(count):
+            args = block_inputs(shape, seed=1900 + len(blocks), device=device)
+            args["x"] = args["x"].to(torch.bfloat16)
+            _, w, b, mp = t1_inputs((N, T, V, C // 4, stride), seed=1950 + len(blocks),
+                                    device=device)
+            blocks.append((args, (w, b, mp), stride))
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    outs = []
+    with torch.no_grad():
+        for args, (w, b, mp), stride in blocks:
+            prefix, pw = gcn_tcn_block_fused(**args)
+            outs.append((pw, ms_tcn_fused(prefix, w, b, mp, stride), stride))
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = read_launches()
+    if launches != only(K5_bf16=10, T1_bf16=10):
+        raise AssertionError(f"the bf16 block path launched {launches}, expected K5_bf16 "
+                             "and T1_bf16 10 times each and nothing else")
+    for (args, _, _), (pw, out, stride) in zip(blocks, outs):
+        N, T, V, _ = args["x"].shape
+        want = (N, -(-T // stride), V, 3 * args["wpw"].shape[-1])
+        for t, shape in ((pw, (N, T, V, want[-1] // 3)), (out, want)):
+            if t.dtype != torch.bfloat16 or tuple(t.shape) != shape or not bool(
+                    torch.isfinite(t.float()).all()):
+                raise AssertionError(f"the bf16 block path: an output {t.dtype} "
+                                     f"{tuple(t.shape)}, expected finite bf16 {shape}")
+    print(f"bf16 block path (ten blocks at batch {BATCH} through gcn_tcn_block_fused and "
+          f"ms_tcn_fused on bf16 x): launches {launches['K5_bf16']} K5_bf16, "
+          f"{launches['T1_bf16']} T1_bf16 in {seconds * 1e3:.1f} ms", flush=True)
+    return {"launches": launches, "seconds": seconds}
 
 
 def check_t1_real_weights(weights: str, x, device):
@@ -4452,8 +4673,11 @@ def run_phase15(work_dir: str, weights: str, x, device) -> dict:
 PARALLEL_RANKS = 2  # two gloo ranks share the one card (NCCL refuses that)
 # per rank and train step: each of ten blocks rings its unit op over 2 ranks
 RING_LAUNCHES = 20
-# the one-step modes held to their own single-rank f64 run (grid_references)
-ONE_STEP_MODES = ("scene_ring", "stgcn_ring", "fusion_tp")
+# the one-step modes held to their own single-rank f64 run (grid_references);
+# the time-sharded ST-GCN and fusion model to their model's (SP_MODES: the
+# mode whose single-rank run they share)
+ONE_STEP_MODES = ("scene_ring", "stgcn_ring", "fusion_tp", "stgcn_sp", "fusion_sp")
+SP_MODES = {"stgcn_sp": "stgcn_ring", "fusion_sp": "fusion_tp"}
 # the planted faults of phase 16: name -> (the mode it runs in, what it plants)
 GRID_FAULTS = {
     "ring_skip_block": ("ring", "the ring with its second block skipped on every rank"),
@@ -4554,20 +4778,32 @@ def grid_references(plan: dict, device) -> dict:
     its model's single-rank step on `device` with the plain unit op (the
     model's math without its kernels, TF32 off) in f64, the reference, and
     in f32, whose distance from it sets the limits (trajectory_limits, the
-    gradients among the tensors)."""
+    gradients among the tensors). The time-sharded modes (SP_MODES) are held
+    as phase 5 holds the CTR-GCN's SP step, by check_trajectory's limits:
+    the f32 distances of the card's single-rank step and of the CPU's.
+    Splitting a clip's frames sums each rank's half-clip share of a weight
+    gradient before the shares cancel across the ranks, so the SP step's f32
+    rounding is not the card's one order of the single-rank sums (PERF.md
+    §6)."""
     import torch
 
     from tamgcn_tpu_torch.parallel.drive import train_on_grid
     from tamgcn_tpu_torch.serving import GRID_ARGS
 
-    out = {}
+    runs, out = {}, {}
     for mode in ONE_STEP_MODES:
-        spec = {k: v for k, v in plan["modes"][mode].items() if k not in GRID_ARGS}
+        base = SP_MODES.get(mode, mode)
+        spec = {k: v for k, v in plan["modes"][base].items() if k not in GRID_ARGS}
         spec["profile"] = False
-        with plain_unit_op():
-            f64, f32 = (_with_grads(train_on_grid(device=str(device), dtype=dtype, **spec))
-                        for dtype in (torch.float64, torch.float32))
-        out[mode] = f64, trajectory_limits(f64, [f32])
+        if base not in runs:
+            with plain_unit_op():
+                runs[base] = [_with_grads(train_on_grid(device=str(device), dtype=dtype, **spec))
+                              for dtype in (torch.float64, torch.float32)]
+        f64, f32 = runs[base]
+        refs = [f32]
+        if mode in SP_MODES:
+            refs.append(_with_grads(train_on_grid(device="cpu", dtype=torch.float32, **spec)))
+        out[mode] = f64, trajectory_limits(f64, refs)
     return out
 
 
@@ -4660,9 +4896,109 @@ def check_grid_launches(ranks: list) -> dict:
     return {"per_rank": per_rank}
 
 
-# the 2-rank CLI's learning rate: at smoke.yaml's 0.05 its check measures
-# conditioning (PERF.md, open questions)
+# the 2-rank CLI's learning rate: at smoke.yaml's 0.05 its f32 check
+# measures conditioning, not the ring (grid_cli_f64 holds the ring to one
+# process in f64 at both rates; PERF.md)
 GRID_CLI_LR = 0.001
+GRID_F64_SAMPLES = 32  # run_grid_cli's train and test split sizes, batch 16
+
+
+def grid_f64_rank(mesh_rank: int = 0, world: int = 1, *, weights: dict, batches,
+                  test_x, lr: float, model_args: dict) -> dict:
+    """One rank of grid_cli_f64 (with world 1, the one dense process): SGD
+    steps of the CTR-GCN of `model_args` on `batches` in f64 on the
+    CPU, over the joint ring with the split head on a (1, world) grid, at
+    `lr`, then the eval forward of `test_x`: {"losses", "scores", "state"
+    (full tensors)}."""
+    import torch
+
+    from tamgcn_tpu_torch.models import get_model
+    from tamgcn_tpu_torch.parallel.mesh import make_mesh
+    from tamgcn_tpu_torch.parallel.sharded import GradientSum, full_state_dict, parallelize
+    from tamgcn_tpu_torch.train.packing import PackedTrainState, make_fused_train_step
+
+    torch.set_num_threads(max(1, (os.cpu_count() or 2) // max(world, 2)))
+    mesh = make_mesh(1, world)
+    net = get_model("ctrgcn", **model_args).double()
+    net.load_state_dict({k: v.double() if v.is_floating_point() else v
+                         for k, v in weights.items()})
+    parallelize(net, mesh, "ring" if world > 1 else "none")
+    net.train()
+    state = PackedTrainState(net, "SGD", nesterov=True, weight_decay=1e-4,
+                             mesh=mesh if world > 1 else None)
+    if world > 1:
+        state.reduce = GradientSum(state, mesh, False)
+    step = make_fused_train_step(state)
+    state.set_lr(lr)
+    losses = [float(step(torch.from_numpy(x).double(), torch.from_numpy(y).long())[0])
+              for x, y in batches]
+    net.eval()
+    with torch.no_grad():
+        scores = net(torch.from_numpy(test_x).double())
+    return {"losses": losses, "scores": scores,
+            "state": {k: v.detach().clone() for k, v in full_state_dict(net).items()}}
+
+
+def grid_cli_f64(lrs=(GRID_CLI_LR, 0.05), model_args=None) -> dict:
+    """run_grid_cli's comparison in f64 on the CPU, through the packed step
+    (the CLI computes in f32 or bf16 only), at gcn.yaml's widths unless
+    `model_args` says otherwise: make_weights' calibrated
+    weights, two SGD steps at batch 16 over the joint ring on two gloo
+    ranks (--graph_partition ring --model_parallel 2) at each lr, then the
+    ring's eval scores of GRID_F64_SAMPLES val clips against one dense
+    process's on the ring's final weights (the CLI's check), and the
+    ring's trajectory against one dense process's (losses; each tensor's
+    max |ring - dense| over its max, but BN_FED_BIASES' and the running
+    means, which move by rounding noise alone). Agreement within 1e-9 of max |score|
+    at 0.05 says the f32 CLI's 9.5e-4 there is conditioning; a larger gap
+    is a fault of the port. Prints one JSON line; run it alone:
+    `python3 -c 'import chip_smoke; chip_smoke.grid_cli_f64()'`."""
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, REPO)
+    from tamgcn_tpu_torch.data import SyntheticSkeletonFeeder
+    from tamgcn_tpu_torch.models import get_model
+    from tamgcn_tpu_torch.parallel.launch import run_ranks
+    from tamgcn_tpu_torch.train.checkpoint import load_weights
+
+    model_args = model_args or nucla_model_args()
+    with tempfile.TemporaryDirectory(prefix="grid_f64_") as tmp:
+        path = os.path.join(tmp, "weights.pt")
+        make_weights(path, seed=7, model_args=model_args)
+        weights = load_weights(path)
+    train = SyntheticSkeletonFeeder(num_samples=GRID_F64_SAMPLES, split="train", seed=SEED)
+    val = SyntheticSkeletonFeeder(num_samples=GRID_F64_SAMPLES, split="val", seed=SEED)
+    batches = [(np.stack([train[i][0] for i in range(b, b + 16)]),
+                np.asarray([train[i][1] for i in range(b, b + 16)]))
+               for b in range(0, GRID_F64_SAMPLES, 16)]
+    test_x = np.stack([val[i][0] for i in range(GRID_F64_SAMPLES)])
+    out = {}
+    for lr in lrs:
+        t0 = time.perf_counter()
+        args = dict(weights=weights, batches=batches, test_x=test_x, lr=lr,
+                    model_args=model_args)
+        ring = run_ranks("chip_smoke:grid_f64_rank", PARALLEL_RANKS, args, timeout=1500)
+        one = grid_f64_rank(**args)
+        dense = get_model("ctrgcn", **model_args).double()
+        dense.load_state_dict(ring[0]["state"])
+        with torch.no_grad():
+            on_ring = dense.eval()(torch.from_numpy(test_x).double())
+        top = ring[0]["scores"].abs().max().item()
+        # the biases that feed a train-mode BatchNorm move by rounding noise
+        # alone (their gradient is zero in exact arithmetic), and the running
+        # means of those BatchNorms with them: left out
+        trajectory = max(((v - one["state"][k]).abs().max() / one["state"][k].abs().max()
+                          .clamp_min(1e-300)).item()
+                         for k, v in ring[0]["state"].items()
+                         if v.is_floating_point() and not k.endswith(BN_FED_BIASES)
+                         and not k.endswith("running_mean"))
+        out[str(lr)] = dict(
+            score_err=max((r["scores"] - on_ring).abs().max().item() for r in ring) / top,
+            max_score=top, ring_losses=ring[0]["losses"], one_losses=one["losses"],
+            trajectory_err=trajectory, seconds=time.perf_counter() - t0)
+    print("grid CLI comparison in f64 (CPU, 2 gloo ranks): " + json.dumps(out), flush=True)
+    return out
 
 
 def run_grid_cli(work_dir: str, weights: str, lr: float = GRID_CLI_LR, device: str = "cuda"):
@@ -4718,6 +5054,45 @@ def run_grid_cli(work_dir: str, weights: str, lr: float = GRID_CLI_LR, device: s
         raise AssertionError(f"one process's scores on the grid's checkpoint: max err "
                              f"{err:.3e} of max |score| {top:.3e}")
     return {"seconds": seconds, "score_err": err / top}
+
+
+def debug_nans_rank(mesh_rank: int = 0, world: int = 1, *, argv) -> str | None:
+    """One rank of run_grid_debug_nans: the CPU test's rank function,
+    tests/_torch_dist_worker.py:debug_nans_cli (the CLI with a NaN planted
+    in the last frame of every synthetic clip; the FloatingPointError's
+    message), imported by its path: a package named `tests` elsewhere on
+    the path would shadow the repository's."""
+    sys.path.insert(0, os.path.join(REPO, "tests"))
+    from _torch_dist_worker import debug_nans_cli
+
+    return debug_nans_cli(mesh_rank, world, argv=argv)
+
+
+def run_grid_debug_nans(work_dir: str) -> dict:
+    """`--debug_nans true` on two gloo ranks sharing the card
+    (--sequence_parallel, --model_parallel 2, gcn.yaml's widths) with a NaN
+    planted in the last frame of every clip, the second rank's frames
+    alone (debug_nans_rank): both ranks must raise FloatingPointError
+    naming the same module, within the launch's timeout (a rank that
+    raised alone would leave the other in a collective)."""
+    from tamgcn_tpu_torch.parallel.launch import run_ranks
+
+    argv = ["recognition", "-c", os.path.join(REPO, "configs", "nucla", "smoke.yaml"),
+            "--work_dir", os.path.join(work_dir, "grid_nans"), "--device", "0",
+            "--model_args", "base_channel=64", "--model_parallel", "2",
+            "--sequence_parallel", "true", "--debug_nans", "true", "--num_epoch", "1",
+            "--train_feeder_args", "num_samples=32", "--num_worker", "2",
+            "--print_log", "false"]
+    t0 = time.perf_counter()
+    messages = run_ranks("chip_smoke:debug_nans_rank", PARALLEL_RANKS, {"argv": argv},
+                         timeout=300)
+    seconds = time.perf_counter() - t0
+    if any(m is None for m in messages) or len(set(messages)) != 1 \
+            or "non-finite value in the output of module" not in messages[0]:
+        raise AssertionError(f"--debug_nans on two ranks: {messages}")
+    print(f"--debug_nans on 2 ranks (SP, NaN in rank 1's frames): both raised in "
+          f"{seconds:.1f} s: {messages[0]}", flush=True)
+    return {"seconds": seconds, "message": messages[0]}
 
 
 def run_phase16(work_dir: str, weights: str, references, device,
@@ -4777,7 +5152,8 @@ def run_phase16(work_dir: str, weights: str, references, device,
           f"step, the buffers' largest difference between them as a share of their max "
           f"{json.dumps(buffers)}", flush=True)
     cli = run_grid_cli(work_dir, weights)
-    return {"ranks": ranks, "launches": launches, "worst": worst, "cli": cli,
+    nans = run_grid_debug_nans(work_dir)
+    return {"ranks": ranks, "launches": launches, "worst": worst, "cli": cli, "nans": nans,
             "unit_errors": unit, "buffers": buffers, "dry_seconds": seconds, "scene_step_ms": scene["step_ms"][-1]}
 
 
@@ -4871,6 +5247,10 @@ def main() -> int:
         k5_rows = check_k5(device)
         print("library_ms: none for K5 (no single PyTorch call computes the "
               "block)", flush=True)
+        k5_bf16_rows = check_k5_bf16(device)
+        print("library_ms: none for K5_bf16 (no single PyTorch call computes the "
+              "block); the f32 form's device time on the same values is under "
+              "f32_device_ms", flush=True)
         fast_dir = os.path.join(work_dir, "fast_eval")
         seconds, launches = run_test_path(fast_dir, weights, "--fast_eval", "true")
         if launches != graphed("--phase test --fast_eval true",
@@ -4907,6 +5287,8 @@ def main() -> int:
         phase("8. experiment kernels T1 and T2")
         t1_rows = check_t1(device)
         check_t1_real_weights(weights, x, device)
+        t1_bf16_rows = check_t1_bf16(device)
+        bf16_path = run_bf16_block_path(device)
         t2_rows = check_t2(device)
         tools = run_tools()
 
@@ -5074,9 +5456,20 @@ def main() -> int:
                "K4_bf16": ("ctr_gc_fused_bf16", "ctr_gc_fused.cu",
                            "tamgcn_tpu/ops/pallas/ctr_gc.py:83", bf16_fused["k4_launches"],
                            "CTRGC(dtype=bfloat16) forward and backward, N=16, T=52, V=20, "
-                           "Cin=64, C=128 (the forward and the transpose)")}
+                           "Cin=64, C=128 (the forward and the transpose)"),
+               "K5_bf16": ("gcn_tcn_block_bf16", "gcn_tcn_block.cu",
+                           "tamgcn_tpu/ops/pallas/gcn_tcn_block.py:52",
+                           bf16_path["launches"]["K5_bf16"],
+                           "the ten blocks of a fast-eval forward at batch 64 on bf16 x, "
+                           "through gcn_tcn_block_fused (the bf16 block path)"),
+               "T1_bf16": ("ms_tcn_bf16", "ms_tcn.cu", "tools/exp_ms_tcn.py:44",
+                           bf16_path["launches"]["T1_bf16"],
+                           "one call at each of exp_ms_tcn's six shapes on a bf16 prefix; "
+                           "launches: the bf16 block path's ten blocks through "
+                           "ms_tcn_fused")}
     rows.update(K4=k4_rows, K5=k5_rows, K6=k6_rows, T1=t1_rows, T2=t2_rows, **bf16["kernels"],
-                K6_bf16=bf16_fused["k6_rows"], K4_bf16=bf16_fused["k4_rows"])
+                K6_bf16=bf16_fused["k6_rows"], K4_bf16=bf16_fused["k4_rows"],
+                K5_bf16=k5_bf16_rows, T1_bf16=t1_bf16_rows)
     kernels = {}
     for kname, (name, source, replaces, count, per) in sources.items():
         kernels[kname] = {
@@ -5148,10 +5541,19 @@ def main() -> int:
                                      "tamgcn_tpu_torch/csrc/unit_ctr_gc_common.cuh",
                                      "tamgcn_tpu_torch/csrc/unit_ctr_gc_whole.cuh",
                                      "tamgcn_tpu_torch/csrc/unit_ctr_gc_tiled.cuh"]
-    # T1's library call: the engine's cuDNN composition; T2's: one einsum
-    for kname in ("T1", "T2"):
+    # T1's library call: the engine's cuDNN composition (T1_bf16's on the
+    # widened prefix); T2's: one einsum
+    for kname in ("T1", "T2", "T1_bf16"):
         for key in ("library_ms", "device_ms", "library_device_ms"):
             kernels[kname][key] = sum(r[key] * r["launches_per_step"] for r in rows[kname])
+    # the bf16 forms beside their f32 forms on the same values, per path
+    for kname in ("K5_bf16", "T1_bf16"):
+        for key in ("device_ms", "f32_device_ms"):
+            kernels[kname][key] = sum(r[key] * r["launches_per_step"] for r in rows[kname])
+        kernels[kname]["share_equal"] = min(r["share_equal"] for r in rows[kname])
+        kernels[kname]["sources"] = [kernels[kname]["source"],
+                                     "tamgcn_tpu_torch/csrc/mma_tf32x3.cuh"]
+    kernels["K5_bf16"]["sources"].append("tamgcn_tpu_torch/csrc/unit_ctr_gc_whole.cuh")
     # phase 14's paths: NTU-60's train step (K1t, K2t, K3) and fast eval (K5),
     # the cross-modal train step and eval forward (K1)
     ntu = p14["ntu"]

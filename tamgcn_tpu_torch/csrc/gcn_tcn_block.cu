@@ -64,8 +64,31 @@
 // small, so the products gain only where they stop waiting.
 // Left for later work: wgmma (the way past mma.sync's rate); a persistent
 // grid.
+//
+// The bf16 form (gcn_tcn_block_bf16): x, prefix and pw bf16, every other
+// operand f32, and the JAX kernel's bf16 body (`mm = bf16`,
+// tamgcn_tpu/ops/pallas/gcn_tcn_block.py:52-149): every product takes both
+// operands rounded to bf16 and sums in f32, and the rest stays f32. The same
+// three kernels, templated on x's and the outputs' type:
+//   x3: x read as bf16 and widened as it is staged, w3 rounded to bf16 in
+//   the fragments, one TF32 product a term (a bf16 value is exact in TF32,
+//   so that is the bf16 x bf16 product; mma_tf32x3.cuh Operands::kBf16),
+//   written as f32: the aggregation reads the unrounded x3, as the JAX
+//   kernel's f32 scratch holds it;
+//   the aggregation: K1's bodies on f32 x1s, x2s and x3 with stage 1's bf16
+//   policy (D and w4s rounded to bf16, Stage1::kBf16), under the names
+//   block_agg_bf16_kernel and block_agg_bf16_kernel_tiled (the unit op's
+//   own bf16 form reads a bf16 x3);
+//   the epilogue: the identity residual widened from the bf16 x; the A rows
+//   of the products (x, res - y, h) rounded to bf16 where they are staged
+//   and the weights in the fragments, one TF32 product a term; prefix and pw
+//   rounded once to bf16 as they are stored.
+// Its scratch is the f32 form's (x3 and y f32).
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include <type_traits>
 
 #include "mma_tf32x3.cuh"
 #include "unit_ctr_gc_fwd.cuh"
@@ -74,6 +97,19 @@ namespace {
 
 using namespace unit_ctr_gc;
 namespace mm = mma_tf32x3;
+using bf16 = __nv_bfloat16;
+
+// the products of the epilogue on x's type: 3xTF32 in f32, the bf16 product
+// (both operands rounded to bf16) in bf16
+template <typename TX>
+constexpr mm::Operands kProducts =
+    std::is_same_v<TX, bf16> ? mm::Operands::kBf16 : mm::Operands::kF32;
+
+// a value staged as a product's A operand: rounded to bf16 in the bf16 form
+template <typename TX>
+__device__ inline float operand(float v) {
+  return std::is_same_v<TX, bf16> ? bf16_round(v) : v;
+}
 
 constexpr int kMaxV = 28;  // the joints K5 was sized and checked at
 constexpr int kStages = 2;  // weight chunk buffers of phase B's products
@@ -91,10 +127,11 @@ __device__ inline float4 ldg4(const float* p) {
 
 // ---- x3 = x @ W3 + b3: 64 x 64 tiles on the tensor cores ----
 
-// kVec: Cin % 4 == 0 (16-byte copies of x's rows)
-template <bool kVec>
+// kVec: Cin % 4 == 0 (16-byte copies of x's rows, 8-byte loads in bf16); on
+// a bf16 x the bf16 product (mma_tf32x3.cuh: tile_product)
+template <bool kVec, typename TX>
 __global__ void __launch_bounds__(mm::kTileThreads)
-block_x3_kernel(const float* __restrict__ x, const float* __restrict__ w3,
+block_x3_kernel(const TX* __restrict__ x, const float* __restrict__ w3,
                 const float* __restrict__ b3, float* __restrict__ x3, int NR, int Cin, int SC) {
   extern __shared__ float4 smem4[];
   float* Ab = reinterpret_cast<float*>(smem4);
@@ -153,6 +190,59 @@ block_agg_kernel_tiled(const float* __restrict__ x1s, const float* __restrict__ 
                                blockIdx.y * kJ, blockIdx.x * CT, S, T, V, R, C);
 }
 
+// the bf16 form's aggregation: f32 operands, stage 1's bf16 policy
+template <int RP, int JT>
+__global__ void __launch_bounds__(kThreads, 2)
+block_agg_bf16_kernel(const float* __restrict__ x1s, const float* __restrict__ x2s,
+                      const float* __restrict__ x3s, const float* __restrict__ w4s,
+                      const float* __restrict__ b4s, const float* __restrict__ alpha,
+                      const float* __restrict__ As, float* __restrict__ out, int S, int T,
+                      int V, int R, int C) {
+  whole::run<true, RP, JT, float, float, float, Stage1::kBf16>(x1s, x2s, x3s, w4s, b4s, alpha,
+                                                               As, out, S, T, V, R, C);
+}
+
+template <int RP, int TF>
+__global__ void __launch_bounds__(kThreads, 1)
+block_agg_bf16_kernel_tiled(const float* __restrict__ x1s, const float* __restrict__ x2s,
+                            const float* __restrict__ x3s, const float* __restrict__ w4s,
+                            const float* __restrict__ b4s, const float* __restrict__ alpha,
+                            const float* __restrict__ As, float* __restrict__ out,
+                            const __grid_constant__ CUtensorMap xmap, int S, int T, int V,
+                            int R, int C) {
+  using namespace tiled;
+  constexpr int CT = channel_tile(TF, RP, 4);
+  run<true, RP, TF, CT, float, float, float, Stage1::kBf16>(
+      x1s, x2s, x3s, w4s, b4s, alpha[0], As, out, &xmap, blockIdx.z, 0, blockIdx.y * kJ,
+      blockIdx.x * CT, S, T, V, R, C);
+}
+
+struct AggLaunchBf16 {
+  template <int RP, int JT>
+  static int whole(dim3 grid, size_t smem, cudaStream_t st, const float* x1s, const float* x2s,
+                   const float* x3s, const float* w4s, const float* b4s, const float* alpha,
+                   const float* As, float* out, int S, int T, int V, int R, int C) {
+    cudaError_t err = cudaFuncSetAttribute(block_agg_bf16_kernel<RP, JT>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+    block_agg_bf16_kernel<RP, JT><<<grid, kThreads, smem, st>>>(x1s, x2s, x3s, w4s, b4s, alpha,
+                                                                 As, out, S, T, V, R, C);
+    return cudaGetLastError();
+  }
+  template <int RP, int TF>
+  static int tiled(dim3 grid, int smem, cudaStream_t st, const float* x1s, const float* x2s,
+                   const float* x3s, const float* w4s, const float* b4s, const float* alpha,
+                   const float* As, float* out, const CUtensorMap& xmap, int S, int T, int V,
+                   int R, int C) {
+    cudaError_t err = cudaFuncSetAttribute(block_agg_bf16_kernel_tiled<RP, TF>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+    block_agg_bf16_kernel_tiled<RP, TF><<<grid, kThreads, smem, st>>>(
+        x1s, x2s, x3s, w4s, b4s, alpha, As, out, xmap, S, T, V, R, C);
+    return cudaGetLastError();
+  }
+};
+
 struct AggLaunch {
   template <int RP, int JT, typename TA>
   static int whole(dim3 grid, size_t smem, cudaStream_t st, const TA* x1s, const TA* x2s,
@@ -188,14 +278,15 @@ struct AggLaunch {
 // W0 and n0 = ncols for one matrix), on the tensor cores as 3xTF32, in
 // passes of kP (64 or 128) columns; W's chunks of kBK rows, zero past K and
 // ncols, staged in Wb [kStages][kBK][kP + 8] by cp.async, the next one
-// copied while this one is multiplied. The 8 warps
+// copied while this one is multiplied (kOp: the products a term takes,
+// mma_tf32x3.cuh Operands). The 8 warps
 // are MW x NW over BR rows and a pass (MW = 2, or 1 at BR = 16), each MT m
 // tiles by NT n tiles, all whole: no test in the loop. For each pair of
 // columns c, c + 1 < ncols of row r it calls epi(r, c, value of c, value of
 // c + 1) once the pass is summed; rows past the block's own hold whatever A
 // held there. Starts with a barrier, so Wb may be reused from one call to
 // the next.
-template <int BR, int kP, class Epi>
+template <int BR, int kP, mm::Operands kOp, class Epi>
 __device__ inline void block_product(const float* A, int lda, int K, const float* __restrict__ W0,
                                      int n0, const float* __restrict__ W1, int ncols, float* Wb,
                                      Epi epi) {
@@ -237,7 +328,7 @@ __device__ inline void block_product(const float* A, int lda, int K, const float
     mm::wait<kStages - 2>();
     __syncthreads();  // the step's chunk is in; step - 1's buffer is consumed
     stage(step + kStages - 1);
-    mm::warp_mma<kMT, kNT, false>(A + wm * kMT * 16 * lda + kc * kBK, lda,
+    mm::warp_mma<kMT, kNT, false, kOp>(A + wm * kMT * 16 * lda + kc * kBK, lda,
                                   Wb + step % kStages * kBK * kLd + wn * kNT * 8, kLd, kBK / 8,
                                   acc);
     if (kc + 1 < nkc) continue;
@@ -256,16 +347,16 @@ __device__ inline void block_product(const float* A, int lda, int K, const float
 
 // block_product in passes of 128 columns where ncols is a multiple of 128,
 // else of 64 (no wasted pass at C=64 or P=192); always 64 at BR = 128
-template <int BR, class Epi>
+template <int BR, mm::Operands kOp, class Epi>
 __device__ inline void block_product(const float* A, int lda, int K, const float* __restrict__ W0,
                                      int n0, const float* __restrict__ W1, int ncols, float* Wb,
                                      Epi epi) {
   if constexpr (BR == 128) {  // launched only where every width takes 64-column passes
-    block_product<BR, 64>(A, lda, K, W0, n0, W1, ncols, Wb, epi);
+    block_product<BR, 64, kOp>(A, lda, K, W0, n0, W1, ncols, Wb, epi);
   } else if (ncols % 128 == 0) {
-    block_product<BR, 128>(A, lda, K, W0, n0, W1, ncols, Wb, epi);
+    block_product<BR, 128, kOp>(A, lda, K, W0, n0, W1, ncols, Wb, epi);
   } else {
-    block_product<BR, 64>(A, lda, K, W0, n0, W1, ncols, Wb, epi);
+    block_product<BR, 64, kOp>(A, lda, K, W0, n0, W1, ncols, Wb, epi);
   }
 }
 
@@ -284,16 +375,18 @@ __host__ __device__ inline size_t epi_smem(int BR, int Cin, int C, int P, int BC
                           kStages * kBK * (epi_pass(C, P, BC) + 8));
 }
 
-template <int BR>
+// TX: the type of x, prefix and pw (f32, or bf16 with the bf16 products)
+template <int BR, typename TX>
 __global__ void __launch_bounds__(kThreads)
-block_epilogue_kernel(const float* __restrict__ x, const float* __restrict__ y,
+block_epilogue_kernel(const TX* __restrict__ x, const float* __restrict__ y,
                       const float* __restrict__ gy, const float* __restrict__ wd,
                       const float* __restrict__ bd,
                       const float* __restrict__ wo, const float* __restrict__ bo,
                       const float* __restrict__ wp, const float* __restrict__ bp,
                       const float* __restrict__ wpw, const float* __restrict__ bpw,
-                      float* __restrict__ prefix, float* __restrict__ pw, int NR, int Cin,
+                      TX* __restrict__ prefix, TX* __restrict__ pw, int NR, int Cin,
                       int C, int P, int BC) {
+  constexpr mm::Operands kOp = kProducts<TX>;
   extern __shared__ float4 smem4[];
   const int ldr = epi_ldr(C), ldd = epi_ldd(Cin, C);
   float* Rs = reinterpret_cast<float*>(smem4);
@@ -302,7 +395,7 @@ block_epilogue_kernel(const float* __restrict__ x, const float* __restrict__ y,
   const int tid = threadIdx.x;
   const size_t r_base = (size_t)blockIdx.x * BR;
   const int rows = min(BR, NR - (int)r_base);
-  const float* xb = x + r_base * Cin;
+  const TX* xb = x + r_base * Cin;
   const float* yb = y + r_base * C;
   const int C8 = round32(C);  // the products read k < round32(K): zero past K
 
@@ -310,19 +403,19 @@ block_epilogue_kernel(const float* __restrict__ x, const float* __restrict__ y,
   if (wd == nullptr) {  // identity (Cin == C)
     for (int i = tid; i < BR * C8; i += kThreads) {
       const int r = i / C8, k = i % C8;
-      Rs[r * ldr + k] = r < rows && k < C ? xb[(size_t)r * C + k] : 0.f;
+      Rs[r * ldr + k] = r < rows && k < C ? Act<TX>::load(xb + (size_t)r * C + k) : 0.f;
     }
   } else {
     const int K8 = round32(Cin);
     for (int i = tid; i < BR * K8; i += kThreads) {
       const int r = i / K8, k = i % K8;
-      Ds[r * ldd + k] = r < rows && k < Cin ? xb[(size_t)r * Cin + k] : 0.f;
+      Ds[r * ldd + k] = r < rows && k < Cin ? Act<TX>::load(xb + (size_t)r * Cin + k) : 0.f;
     }
     for (int i = tid; i < BR * (C8 - C); i += kThreads) {
       Rs[(i / (C8 - C)) * ldr + C + i % (C8 - C)] = 0.f;
     }
     __syncthreads();
-    block_product<BR>(Ds, ldd, Cin, wd, C, wd, C, Wb, [&](int r, int c, float v0, float v1) {
+    block_product<BR, kOp>(Ds, ldd, Cin, wd, C, wd, C, Wb, [&](int r, int c, float v0, float v1) {
       Rs[r * ldr + c] = v0 + __ldg(bd + c);
       Rs[r * ldr + c + 1] = v1 + __ldg(bd + c + 1);
     });
@@ -331,34 +424,35 @@ block_epilogue_kernel(const float* __restrict__ x, const float* __restrict__ y,
   // ---- res - y ----
   for (int i = tid; i < BR * C8; i += kThreads) {
     const int r = i / C8, k = i % C8;
-    Ds[r * ldd + k] = r < rows && k < C
-                          ? Rs[r * ldr + k] - fmaf(yb[(size_t)r * C + k], gy[k], gy[C + k])
-                          : 0.f;
+    Ds[r * ldd + k] =
+        r < rows && k < C
+            ? operand<TX>(Rs[r * ldr + k] - fmaf(yb[(size_t)r * C + k], gy[k], gy[C + k]))
+            : 0.f;
   }
   __syncthreads();
   // ---- off = tanh((res - y) @ Wo + bo); h = relu(y + off + res) into Rs ----
-  block_product<BR>(Ds, ldd, C, wo, C, wo, C, Wb, [&](int r, int c, float v0, float v1) {
+  block_product<BR, kOp>(Ds, ldd, C, wo, C, wo, C, Wb, [&](int r, int c, float v0, float v1) {
     if (r < rows) {
       const float2 yv = *reinterpret_cast<const float2*>(yb + (size_t)r * C + c);
       float* h = Rs + r * ldr + c;
-      h[0] = fmaxf(fmaf(yv.x, __ldg(gy + c), __ldg(gy + C + c)) + tanhf(v0 + __ldg(bo + c)) + h[0],
-                   0.f);
-      h[1] = fmaxf(fmaf(yv.y, __ldg(gy + c + 1), __ldg(gy + C + c + 1)) +
-                       tanhf(v1 + __ldg(bo + c + 1)) + h[1],
-                   0.f);
+      h[0] = operand<TX>(fmaxf(
+          fmaf(yv.x, __ldg(gy + c), __ldg(gy + C + c)) + tanhf(v0 + __ldg(bo + c)) + h[0], 0.f));
+      h[1] = operand<TX>(fmaxf(fmaf(yv.y, __ldg(gy + c + 1), __ldg(gy + C + c + 1)) +
+                                   tanhf(v1 + __ldg(bo + c + 1)) + h[1],
+                               0.f));
     }
   });
   __syncthreads();
   // ---- prefix = relu(h @ Wp + bp), pw = h @ Wpw + bpw: one product of h
   // with [Wp | Wpw] ----
-  block_product<BR>(Rs, ldr, C, wp, P, wpw, P + BC, Wb, [&](int r, int c, float v0, float v1) {
+  block_product<BR, kOp>(Rs, ldr, C, wp, P, wpw, P + BC, Wb, [&](int r, int c, float v0, float v1) {
     if (r < rows) {
       if (c < P) {
-        *reinterpret_cast<float2*>(prefix + (r_base + r) * P + c) =
-            make_float2(fmaxf(v0 + __ldg(bp + c), 0.f), fmaxf(v1 + __ldg(bp + c + 1), 0.f));
+        Act<TX>::store2(prefix + (r_base + r) * P + c, fmaxf(v0 + __ldg(bp + c), 0.f),
+                        fmaxf(v1 + __ldg(bp + c + 1), 0.f));
       } else {
-        *reinterpret_cast<float2*>(pw + (r_base + r) * BC + c - P) =
-            make_float2(v0 + __ldg(bpw + c - P), v1 + __ldg(bpw + c - P + 1));
+        Act<TX>::store2(pw + (r_base + r) * BC + c - P, v0 + __ldg(bpw + c - P),
+                        v1 + __ldg(bpw + c - P + 1));
       }
     }
   });
@@ -374,11 +468,18 @@ block_epilogue_kernel(const float* __restrict__ x, const float* __restrict__ y,
 // kNI tiles of 4 x 4 in one pass over k (a tile past the last is computed
 // again as the pass's first and not kept), and for each calls epi(r0, c,
 // acc), acc[i] the 4 values of row r0 + i; rows past `rows` hold whatever A
-// held there.
-template <class Epi>
+// held there. kRound: W's values rounded to bf16 as they are read (the bf16
+// form; its A rows are staged rounded).
+template <bool kRound, class Epi>
 __device__ inline void block_gemm(const float* A, int lda, int rows, int K,
                                   const float* __restrict__ W, int ncols,
                                   Epi epi) {
+  auto wload = [&](const float* p) {
+    const float4 w = ldg4(p);
+    return kRound ? make_float4(bf16_round(w.x), bf16_round(w.y), bf16_round(w.z),
+                                bf16_round(w.w))
+                  : w;
+  };
   const int ncq = ncols / 4;
   const int nitems = (rows + 3) / 4 * ncq;
   for (int base = threadIdx.x; base < nitems; base += kThreads * kNI) {
@@ -397,7 +498,7 @@ __device__ inline void block_gemm(const float* A, int lda, int rows, int K,
       // serves them all
 #pragma unroll 2
       for (int k = 0; k < K; ++k) {
-        const float4 wk = ldg4(W + (size_t)k * ncols + c[0]);
+        const float4 wk = wload(W + (size_t)k * ncols + c[0]);
 #pragma unroll
         for (int it = 0; it < kNI; ++it) {
           const float* a = A + r0[it] * lda + k;
@@ -410,7 +511,7 @@ __device__ inline void block_gemm(const float* A, int lda, int rows, int K,
       for (int k = 0; k < K; ++k) {
 #pragma unroll
         for (int it = 0; it < kNI; ++it) {
-          const float4 wk = ldg4(W + (size_t)k * ncols + c[it]);
+          const float4 wk = wload(W + (size_t)k * ncols + c[it]);
           const float* a = A + r0[it] * lda + k;
 #pragma unroll
           for (int i = 0; i < 4; ++i) acc[it][i] = fma4(a[i * lda], wk, acc[it][i]);
@@ -432,15 +533,17 @@ __host__ __device__ inline int wide_region(int BR, int Cin, int C) {
   return BR * (wide_ldr(C) + imax(Cin + 1, wide_ldr(C)));
 }
 
+template <typename TX>
 __global__ void __launch_bounds__(kThreads)
-block_epilogue_wide_kernel(const float* __restrict__ x, const float* __restrict__ y,
+block_epilogue_wide_kernel(const TX* __restrict__ x, const float* __restrict__ y,
                            const float* __restrict__ gy, const float* __restrict__ wd,
                            const float* __restrict__ bd, const float* __restrict__ wo,
                            const float* __restrict__ bo, const float* __restrict__ wp,
                            const float* __restrict__ bp, const float* __restrict__ wpw,
-                           const float* __restrict__ bpw, float* __restrict__ prefix,
-                           float* __restrict__ pw, int NR, int Cin, int C, int P, int BC,
+                           const float* __restrict__ bpw, TX* __restrict__ prefix,
+                           TX* __restrict__ pw, int NR, int Cin, int C, int P, int BC,
                            int BR) {
+  constexpr bool kRound = std::is_same_v<TX, bf16>;
   extern __shared__ float4 smem4[];
   const int LDR = wide_ldr(C);
   float* Rs = reinterpret_cast<float*>(smem4);
@@ -448,20 +551,20 @@ block_epilogue_wide_kernel(const float* __restrict__ x, const float* __restrict_
   const int tid = threadIdx.x;
   const size_t r_base = (size_t)blockIdx.x * BR;
   const int rows = min(BR, NR - (int)r_base);
-  const float* xb = x + r_base * Cin;
+  const TX* xb = x + r_base * Cin;
   const float* yb = y + r_base * C;
 
   // ---- res ----
   if (wd == nullptr) {  // identity (Cin == C)
     for (int i = tid; i < BR * C; i += kThreads) {
-      Rs[(i / C) * LDR + i % C] = i / C < rows ? xb[i] : 0.f;
+      Rs[(i / C) * LDR + i % C] = i / C < rows ? Act<TX>::load(xb + i) : 0.f;
     }
   } else {
     for (int i = tid; i < BR * Cin; i += kThreads) {
-      Ds[(i / Cin) * (Cin + 1) + i % Cin] = i / Cin < rows ? xb[i] : 0.f;
+      Ds[(i / Cin) * (Cin + 1) + i % Cin] = i / Cin < rows ? Act<TX>::load(xb + i) : 0.f;
     }
     __syncthreads();
-    block_gemm(Ds, Cin + 1, BR, Cin, wd, C,
+    block_gemm<kRound>(Ds, Cin + 1, BR, Cin, wd, C,
                [&](int r0, int c, const float4* acc) {
                  const float4 b = ldg4(bd + c);
 #pragma unroll
@@ -476,11 +579,11 @@ block_epilogue_wide_kernel(const float* __restrict__ x, const float* __restrict_
   // ---- res - y ----
   for (int i = tid; i < BR * C; i += kThreads) {
     const int r = i / C, k = i % C, o = r * LDR + k;
-    Ds[o] = r < rows ? Rs[o] - fmaf(yb[i], gy[k], gy[C + k]) : 0.f;
+    Ds[o] = r < rows ? operand<TX>(Rs[o] - fmaf(yb[i], gy[k], gy[C + k])) : 0.f;
   }
   __syncthreads();
   // ---- off = tanh((res - y) @ Wo + bo); h = relu(y + off + res) into Rs ----
-  block_gemm(Ds, LDR, BR, C, wo, C, [&](int r0, int c, const float4* acc) {
+  block_gemm<kRound>(Ds, LDR, BR, C, wo, C, [&](int r0, int c, const float4* acc) {
     const float4 b = ldg4(bo + c);
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
@@ -491,43 +594,45 @@ block_epilogue_wide_kernel(const float* __restrict__ x, const float* __restrict_
                                       fmaf(yr.z, g0.z, g1.z), fmaf(yr.w, g0.w, g1.w));
         float4* h = reinterpret_cast<float4*>(Rs + (r0 + i) * LDR + c);
         const float4 r = *h;
-        *h = make_float4(fmaxf(yv.x + tanhf(acc[i].x + b.x) + r.x, 0.f),
-                         fmaxf(yv.y + tanhf(acc[i].y + b.y) + r.y, 0.f),
-                         fmaxf(yv.z + tanhf(acc[i].z + b.z) + r.z, 0.f),
-                         fmaxf(yv.w + tanhf(acc[i].w + b.w) + r.w, 0.f));
+        *h = make_float4(operand<TX>(fmaxf(yv.x + tanhf(acc[i].x + b.x) + r.x, 0.f)),
+                         operand<TX>(fmaxf(yv.y + tanhf(acc[i].y + b.y) + r.y, 0.f)),
+                         operand<TX>(fmaxf(yv.z + tanhf(acc[i].z + b.z) + r.z, 0.f)),
+                         operand<TX>(fmaxf(yv.w + tanhf(acc[i].w + b.w) + r.w, 0.f)));
       }
     }
   });
   __syncthreads();
   // ---- prefix = relu(h @ Wp + bp); pw = h @ Wpw + bpw ----
-  block_gemm(Rs, LDR, BR, C, wp, P, [&](int r0, int c, const float4* acc) {
+  block_gemm<kRound>(Rs, LDR, BR, C, wp, P, [&](int r0, int c, const float4* acc) {
     const float4 b = ldg4(bp + c);
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       if (r0 + i < rows) {
-        *reinterpret_cast<float4*>(prefix + (r_base + r0 + i) * P + c) =
-            make_float4(fmaxf(acc[i].x + b.x, 0.f), fmaxf(acc[i].y + b.y, 0.f),
-                        fmaxf(acc[i].z + b.z, 0.f), fmaxf(acc[i].w + b.w, 0.f));
+        Act<TX>::store4(prefix + (r_base + r0 + i) * P + c,
+                        make_float4(fmaxf(acc[i].x + b.x, 0.f), fmaxf(acc[i].y + b.y, 0.f),
+                                    fmaxf(acc[i].z + b.z, 0.f), fmaxf(acc[i].w + b.w, 0.f)));
       }
     }
   });
-  block_gemm(Rs, LDR, BR, C, wpw, BC, [&](int r0, int c, const float4* acc) {
+  block_gemm<kRound>(Rs, LDR, BR, C, wpw, BC, [&](int r0, int c, const float4* acc) {
     const float4 b = ldg4(bpw + c);
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       if (r0 + i < rows) {
-        *reinterpret_cast<float4*>(pw + (r_base + r0 + i) * BC + c) = make_float4(
-            acc[i].x + b.x, acc[i].y + b.y, acc[i].z + b.z, acc[i].w + b.w);
+        Act<TX>::store4(pw + (r_base + r0 + i) * BC + c,
+                        make_float4(acc[i].x + b.x, acc[i].y + b.y, acc[i].z + b.z,
+                                    acc[i].w + b.w));
       }
     }
   });
 }
 
 
-int launch_x3(const float* x, const float* w3, const float* b3, float* x3, int NR, int Cin,
+template <typename TX>
+int launch_x3(const TX* x, const float* w3, const float* b3, float* x3, int NR, int Cin,
               int SC, cudaStream_t stream) {
   const int blocks = (NR + mm::kTileM - 1) / mm::kTileM * ((SC + mm::kTileN - 1) / mm::kTileN);
-  auto kernel = Cin % 4 == 0 ? block_x3_kernel<true> : block_x3_kernel<false>;
+  auto kernel = Cin % 4 == 0 ? block_x3_kernel<true, TX> : block_x3_kernel<false, TX>;
   const cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, mm::tile_smem_bytes<kXK>());
   if (err != cudaSuccess) return err;
@@ -536,25 +641,26 @@ int launch_x3(const float* x, const float* w3, const float* b3, float* x3, int N
   return cudaGetLastError();
 }
 
-template <int BR>
-int launch_epilogue_one(const float* x, const float* y, const float* gy, const float* wd,
+template <int BR, typename TX>
+int launch_epilogue_one(const TX* x, const float* y, const float* gy, const float* wd,
                         const float* bd,
                         const float* wo, const float* bo, const float* wp, const float* bp,
-                        const float* wpw, const float* bpw, float* prefix, float* pw, int NR,
+                        const float* wpw, const float* bpw, TX* prefix, TX* pw, int NR,
                         int Cin, int C, int P, int BC, cudaStream_t stream) {
   const size_t smem = epi_smem(BR, Cin, C, P, BC);
   cudaError_t err = cudaFuncSetAttribute(
-      block_epilogue_kernel<BR>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      block_epilogue_kernel<BR, TX>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  block_epilogue_kernel<BR><<<(NR + BR - 1) / BR, kThreads, smem, stream>>>(
+  block_epilogue_kernel<BR, TX><<<(NR + BR - 1) / BR, kThreads, smem, stream>>>(
       x, y, gy, wd, bd, wo, bo, wp, bp, wpw, bpw, prefix, pw, NR, Cin, C, P, BC);
   return cudaGetLastError();
 }
 
-int launch_epilogue(const float* x, const float* y, const float* gy, const float* wd,
+template <typename TX>
+int launch_epilogue(const TX* x, const float* y, const float* gy, const float* wd,
                     const float* bd,
                     const float* wo, const float* bo, const float* wp, const float* bp,
-                    const float* wpw, const float* bpw, float* prefix, float* pw, int NR,
+                    const float* wpw, const float* bpw, TX* prefix, TX* pw, int NR,
                     int Cin, int C, int P, int BC, cudaStream_t stream) {
   // 128 rows where the passes are 64 columns wide and two blocks fit an SM
   // (C = 64): fewer blocks, each with more rows between barriers; else 32
@@ -575,9 +681,9 @@ int launch_epilogue(const float* x, const float* y, const float* gy, const float
   const size_t smem = sizeof(float) * (size_t)wide_region(BR, Cin, C);
   if (smem > (size_t)kSmemLimit) return cudaErrorInvalidValue;
   cudaError_t e = cudaFuncSetAttribute(
-      block_epilogue_wide_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      block_epilogue_wide_kernel<TX>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return e;
-  block_epilogue_wide_kernel<<<(NR + BR - 1) / BR, kThreads, smem, stream>>>(
+  block_epilogue_wide_kernel<TX><<<(NR + BR - 1) / BR, kThreads, smem, stream>>>(
       x, y, gy, wd, bd, wo, bo, wp, bp, wpw, bpw, prefix, pw, NR, Cin, C, P, BC, BR);
   return cudaGetLastError();
 }
@@ -586,6 +692,33 @@ int launch_epilogue(const float* x, const float* y, const float* gy, const float
 // then y (N,T,V,C).
 size_t scratch_floats(long long NR, int S, int C) {
   return ((size_t)NR * S * C + 3) / 4 * 4 + (size_t)NR * C;
+}
+
+// The three kernels of either form (L: the aggregation's launcher, AggLaunch
+// or AggLaunchBf16), after the launcher's checks.
+template <class L, typename TX>
+int run_block(const TX* x, const float* x1s, const float* x2s, const float* w3,
+              const float* b3, const float* w4s, const float* b4s, const float* alpha,
+              const float* As, const float* gy, const float* wd, const float* bd,
+              const float* wo, const float* bo, const float* wp, const float* bp,
+              const float* wpw, const float* bpw, float* y, TX* prefix, TX* pw, int N, int S,
+              int T, int V, int Cin, int R, int C, int P, int BC, void* stream) {
+  const long long NR = (long long)N * T * V;
+  if (N < 1 || N > 65535 || S < 1 || T < 1 || V < 1 || V > kMaxV || Cin < 1 || R < 1 ||
+      R > 32 || C < 4 || C % 4 != 0 || P < 4 || P % 4 != 0 || BC < 4 || BC % 4 != 0 ||
+      (wd == nullptr) != (bd == nullptr) || (wd == nullptr && Cin != C) ||
+      NR * S * C > 0x7fffffffLL) {
+    return cudaErrorInvalidValue;
+  }
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* x3 = y;
+  float* agg = y + scratch_floats(NR, S, C) - (size_t)NR * C;
+  int err = launch_x3(x, w3, b3, x3, (int)NR, Cin, S * C, st);
+  if (err != cudaSuccess) return err;
+  err = fwd::run<L, float>(x1s, x2s, x3, w4s, b4s, alpha, As, agg, N, S, T, V, R, C, st);
+  if (err != cudaSuccess) return err;
+  return launch_epilogue(x, agg, gy, wd, bd, wo, bo, wp, bp, wpw, bpw, prefix, pw, (int)NR, Cin,
+                         C, P, BC, st);
 }
 
 }  // namespace
@@ -606,20 +739,21 @@ extern "C" int gcn_tcn_block_f32(
     const float* wpw, const float* bpw, float* y, float* prefix, float* pw,
     int N, int S, int T, int V, int Cin, int R, int C, int P, int BC,
     void* stream) {
-  const long long NR = (long long)N * T * V;
-  if (N < 1 || N > 65535 || S < 1 || T < 1 || V < 1 || V > kMaxV || Cin < 1 || R < 1 ||
-      R > 32 || C < 4 || C % 4 != 0 || P < 4 || P % 4 != 0 || BC < 4 || BC % 4 != 0 ||
-      (wd == nullptr) != (bd == nullptr) || (wd == nullptr && Cin != C) ||
-      NR * S * C > 0x7fffffffLL) {
-    return cudaErrorInvalidValue;
-  }
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  float* x3 = y;
-  float* agg = y + scratch_floats(NR, S, C) - (size_t)NR * C;
-  int err = launch_x3(x, w3, b3, x3, (int)NR, Cin, S * C, st);
-  if (err != cudaSuccess) return err;
-  err = fwd::run<AggLaunch, float>(x1s, x2s, x3, w4s, b4s, alpha, As, agg, N, S, T, V, R, C, st);
-  if (err != cudaSuccess) return err;
-  return launch_epilogue(x, agg, gy, wd, bd, wo, bo, wp, bp, wpw, bpw, prefix, pw, (int)NR, Cin,
-                         C, P, BC, st);
+  return run_block<AggLaunch>(x, x1s, x2s, w3, b3, w4s, b4s, alpha, As, gy, wd, bd, wo, bo, wp,
+                              bp, wpw, bpw, y, prefix, pw, N, S, T, V, Cin, R, C, P, BC, stream);
+}
+
+// The bf16 form (the header): x (N,T,V,Cin), prefix and pw bf16, 8-byte
+// aligned; every other tensor and the scratch y as gcn_tcn_block_f32's.
+extern "C" int gcn_tcn_block_bf16(
+    const bf16* x, const float* x1s, const float* x2s, const float* w3,
+    const float* b3, const float* w4s, const float* b4s, const float* alpha,
+    const float* As, const float* gy, const float* wd, const float* bd,
+    const float* wo, const float* bo, const float* wp, const float* bp,
+    const float* wpw, const float* bpw, float* y, bf16* prefix, bf16* pw,
+    int N, int S, int T, int V, int Cin, int R, int C, int P, int BC,
+    void* stream) {
+  return run_block<AggLaunchBf16>(x, x1s, x2s, w3, b3, w4s, b4s, alpha, As, gy, wd, bd, wo, bo,
+                                  wp, bp, wpw, bpw, y, prefix, pw, N, S, T, V, Cin, R, C, P, BC,
+                                  stream);
 }

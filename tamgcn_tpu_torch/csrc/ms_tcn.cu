@@ -40,17 +40,34 @@
 // The max-pool branch needs no product: every conv block takes a share of
 // it (its slice of channels, every other row), float4 along the channels,
 // while its copies are in flight.
+//
+// The bf16 form (ms_tcn_bf16): a bf16 prefix and output, f32 w, b and mp, as
+// the JAX kernel widens a bf16 prefix to f32 and writes the prefix's dtype
+// (tools/exp_ms_tcn.py:51, :69, :78). The same kernel on TP = __nv_bfloat16:
+// the input frames are loaded through registers (8-byte loads of 4 values
+// where the 16-byte copies would run) and stored widened into the same f32
+// planes, so the staged A operand is a bf16 value, exact in TF32, and each
+// term takes two TF32 products (hi*lo + hi*hi, mma_tf32x3.cuh
+// Operands::kAExact) for what 3xTF32 gives in f32; the max-pool reads bf16
+// and every output is rounded once to bf16 as it is stored.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <algorithm>
 #include <cstdint>
+#include <type_traits>
 
 #include "mma_tf32x3.cuh"
+#include "unit_ctr_gc_common.cuh"
 
 namespace {
 
 using namespace mma_tf32x3;
+using bf16 = __nv_bfloat16;
+// a prefix value loaded as f32, a result rounded once to the output type
+template <typename TP>
+using Act = unit_ctr_gc::Act<TP>;
 
 constexpr int kMaxThreads = 512;      // 16 warps where one block fills an SM, else 8
 constexpr int kKS = 5;                // taps of the branch convs
@@ -104,13 +121,15 @@ __device__ inline void for_rows(int rows, int units, Fn fn) {
 }
 
 // conv block (sample, frame tile and joint tile, branch and channel slice of
-// NC columns); a warp's item is 16 * kMT rows of NTW * 8 <= 32 columns
-template <int NTW>
+// NC columns); a warp's item is 16 * kMT rows of NTW * 8 <= 32 columns. TP:
+// the prefix's and the output's type (f32, or bf16: the header)
+template <int NTW, typename TP>
 __global__ void __launch_bounds__(kMaxThreads, 1)
-ms_tcn_kernel(const float* __restrict__ prefix, const float* __restrict__ w,
+ms_tcn_kernel(const TP* __restrict__ prefix, const float* __restrict__ w,
               const float* __restrict__ b, const float* __restrict__ mp,
-              float* __restrict__ out, int T, int V, int BC, int stride, int To, int TO,
+              TP* __restrict__ out, int T, int V, int BC, int stride, int To, int TO,
               int VJ, int vtiles, int NC, int vec) {
+  constexpr bool kF32 = std::is_same_v<TP, float>;
   constexpr int NW = 8 * NTW;  // columns of an item
   extern __shared__ __align__(16) float smem[];
   const int n = blockIdx.z;
@@ -132,18 +151,24 @@ ms_tcn_kernel(const float* __restrict__ prefix, const float* __restrict__ w,
   // tlo + stride*q + par, and the five taps' weights of the slice ----
   const int frames = stride == 1 ? nt + 4 * d : nt + 2 * d;  // per plane
   const int tlo = t0 * stride - 2 * d;
-  const float* pin = prefix + (size_t)n * T * V * P + branch * BC;
+  const TP* pin = prefix + (size_t)n * T * V * P + branch * BC;
   for_rows(stride * frames * vj, BCP / vw, [&](int r, int unit) {
     const int ul = r % vj, pq = r / vj;
     const int q = pq % frames, par = pq / frames;
     const int f = tlo + stride * q + par, c = unit * vw;
     const bool ok = f >= 0 && f < T && c < BC;
     float* dst = planes + ((size_t)par * prow + q * VJ + ul) * lda + c;
-    const float* src = ok ? pin + ((size_t)f * V + u0 + ul) * P + c : prefix;
-    if (vec) {
-      copy16(dst, src, ok);
+    const TP* src = ok ? pin + ((size_t)f * V + u0 + ul) * P + c : prefix;
+    if constexpr (kF32) {
+      if (vec) {
+        copy16(dst, src, ok);
+      } else {
+        copy4(dst, src, ok);
+      }
+    } else if (vec) {  // bf16: through registers, widened
+      *reinterpret_cast<float4*>(dst) = ok ? Act<TP>::load4(src) : make_float4(0.f, 0.f, 0.f, 0.f);
     } else {
-      copy4(dst, src, ok);
+      *dst = ok ? Act<TP>::load(src) : 0.f;
     }
   });
   const float* wb = w + (size_t)branch * kKS * BC * BC;
@@ -179,22 +204,22 @@ ms_tcn_kernel(const float* __restrict__ prefix, const float* __restrict__ w,
       m4[j] = make_float4(0.f, 0.f, 0.f, 0.f);
       if (!keep[j]) continue;
       const int tc = (t0 + tl) * stride;
-      const float* p = prefix + (((size_t)n * T + tc) * V + u0 + ul) * P + 2 * BC + c;
+      const TP* p = prefix + (((size_t)n * T + tc) * V + u0 + ul) * P + 2 * BC + c;
       if (vec) {
-        float4 a = *reinterpret_cast<const float4*>(p);
+        float4 a = Act<TP>::load4(p);
         if (tc >= 1) {
-          const float4 e = *reinterpret_cast<const float4*>(p - step);
+          const float4 e = Act<TP>::load4(p - step);
           a = make_float4(fmaxf(a.x, e.x), fmaxf(a.y, e.y), fmaxf(a.z, e.z), fmaxf(a.w, e.w));
         }
         if (tc + 1 < T) {
-          const float4 e = *reinterpret_cast<const float4*>(p + step);
+          const float4 e = Act<TP>::load4(p + step);
           a = make_float4(fmaxf(a.x, e.x), fmaxf(a.y, e.y), fmaxf(a.z, e.z), fmaxf(a.w, e.w));
         }
         m4[j] = a;
       } else {
-        float mv = p[0];
-        if (tc >= 1) mv = fmaxf(mv, p[-step]);
-        if (tc + 1 < T) mv = fmaxf(mv, p[step]);
+        float mv = Act<TP>::load(p);
+        if (tc >= 1) mv = fmaxf(mv, Act<TP>::load(p - step));
+        if (tc + 1 < T) mv = fmaxf(mv, Act<TP>::load(p + step));
         m4[j].x = mv;
       }
     }
@@ -203,15 +228,14 @@ ms_tcn_kernel(const float* __restrict__ prefix, const float* __restrict__ w,
       if (!keep[j]) continue;
       const int r = 2 * (i * kPool + j) + branch;
       const int ul = r % VJ, tl = r / VJ;
-      float* o = out + (((size_t)n * To + t0 + tl) * V + u0 + ul) * P + 2 * BC + c;
+      TP* o = out + (((size_t)n * To + t0 + tl) * V + u0 + ul) * P + 2 * BC + c;
       if (vec) {
         const float4 sc = *reinterpret_cast<const float4*>(mp + c);
         const float4 bi = *reinterpret_cast<const float4*>(mp + BC + c);
-        *reinterpret_cast<float4*>(o) =
-            make_float4(fmaf(m4[j].x, sc.x, bi.x), fmaf(m4[j].y, sc.y, bi.y),
-                        fmaf(m4[j].z, sc.z, bi.z), fmaf(m4[j].w, sc.w, bi.w));
+        Act<TP>::store4(o, make_float4(fmaf(m4[j].x, sc.x, bi.x), fmaf(m4[j].y, sc.y, bi.y),
+                                       fmaf(m4[j].z, sc.z, bi.z), fmaf(m4[j].w, sc.w, bi.w)));
       } else {
-        o[0] = fmaf(m4[j].x, mp[c], mp[BC + c]);
+        Act<TP>::store(o, fmaf(m4[j].x, mp[c], mp[BC + c]));
       }
     }
   });
@@ -237,7 +261,8 @@ ms_tcn_kernel(const float* __restrict__ prefix, const float* __restrict__ w,
     for (int k = 0; k < kKS; ++k) {
       const int kd = k * d;
       const float* A = planes + ((size_t)(kd % stride) * prow + kd / stride * VJ + r0) * lda;
-      warp_mma<MT, NTW, false>(A, lda, Ws + (size_t)k * BCP * ldb + oc, ldb, BCP / 8, acc);
+      warp_mma<MT, NTW, false, kF32 ? Operands::kF32 : Operands::kAExact>(
+          A, lda, Ws + (size_t)k * BCP * ldb + oc, ldb, BCP / 8, acc);
     }
     // epilogue: 8 rows and SC columns at a time through the warp's tile,
     // with the bias, then 16-byte stores along the channels
@@ -261,15 +286,15 @@ ms_tcn_kernel(const float* __restrict__ prefix, const float* __restrict__ w,
         const int ul = r % VJ, tl = r / VJ;
         const int oc4 = o0 + oc + c;  // the slice's channel of the four
         if (r >= rows || ul >= vj || oc4 >= BC) continue;
-        float* o = out + (((size_t)n * To + t0 + tl) * V + u0 + ul) * P + branch * BC + oc4;
+        TP* o = out + (((size_t)n * To + t0 + tl) * V + u0 + ul) * P + branch * BC + oc4;
         const float4 v4 = *reinterpret_cast<const float4*>(st + rl * kLdSt + c - c0);
         if (vec) {
-          *reinterpret_cast<float4*>(o) = v4;
+          Act<TP>::store4(o, v4);
         } else {
           const float e4[4] = {v4.x, v4.y, v4.z, v4.w};
 #pragma unroll
           for (int e = 0; e < 4; ++e) {
-            if (oc4 + e < BC) o[e] = e4[e];
+            if (oc4 + e < BC) Act<TP>::store(o + e, e4[e]);
           }
         }
       }
@@ -324,21 +349,36 @@ inline Tiling tiling(int N, int T, int V, int BC, int stride) {
   return Tiling{};
 }
 
-template <int NTW>
-int launch(const float* prefix, const float* w, const float* b, const float* mp, float* out,
+template <int NTW, typename TP>
+int launch(const TP* prefix, const float* w, const float* b, const float* mp, TP* out,
            int N, int T, int V, int BC, int stride, const Tiling& t, cudaStream_t stream) {
   const size_t smem = smem_bytes(t, BC, stride);
   cudaError_t err = cudaFuncSetAttribute(
-      ms_tcn_kernel<NTW>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      ms_tcn_kernel<NTW, TP>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const int To = (T + stride - 1) / stride;
   const int vtiles = (V + t.VJ - 1) / t.VJ;
-  const int vec = BC % 4 == 0 && (uintptr_t)prefix % 16 == 0 && (uintptr_t)w % 16 == 0 &&
-                  (uintptr_t)mp % 16 == 0 && (uintptr_t)out % 16 == 0;
+  // 4 values a copy, load or store: 16 bytes of f32, 8 of bf16
+  const uintptr_t align = 4 * sizeof(TP);
+  const int vec = BC % 4 == 0 && (uintptr_t)prefix % align == 0 && (uintptr_t)w % 16 == 0 &&
+                  (uintptr_t)mp % 16 == 0 && (uintptr_t)out % align == 0;
   const dim3 grid(((To + t.TO - 1) / t.TO) * vtiles, 2 * ((BC + t.NC - 1) / t.NC), N);
-  ms_tcn_kernel<NTW><<<grid, 32 * t.warps, smem, stream>>>(
+  ms_tcn_kernel<NTW, TP><<<grid, 32 * t.warps, smem, stream>>>(
       prefix, w, b, mp, out, T, V, BC, stride, To, t.TO, t.VJ, vtiles, t.NC, vec);
   return cudaGetLastError();
+}
+
+template <typename TP>
+int run(const TP* prefix, const float* w, const float* b, const float* mp, TP* out, int N,
+        int T, int V, int BC, int stride, void* stream) {
+  const Tiling t = tiling(N, T, V, BC, stride);
+  if (N < 1 || N > 65535 || t.TO < 1) return cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (item_cols(t.NC)) {
+    case 8: return launch<1>(prefix, w, b, mp, out, N, T, V, BC, stride, t, st);
+    case 16: return launch<2>(prefix, w, b, mp, out, N, T, V, BC, stride, t, st);
+    default: return launch<4>(prefix, w, b, mp, out, N, T, V, BC, stride, t, st);
+  }
 }
 
 }  // namespace
@@ -360,12 +400,14 @@ extern "C" int ms_tcn_frames_per_block(int T, int V, int BC, int stride) {
 extern "C" int ms_tcn_f32(const float* prefix, const float* w, const float* b,
                           const float* mp, float* out, int N, int T, int V, int BC,
                           int stride, void* stream) {
-  const Tiling t = tiling(N, T, V, BC, stride);
-  if (N < 1 || N > 65535 || t.TO < 1) return cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (item_cols(t.NC)) {
-    case 8: return launch<1>(prefix, w, b, mp, out, N, T, V, BC, stride, t, st);
-    case 16: return launch<2>(prefix, w, b, mp, out, N, T, V, BC, stride, t, st);
-    default: return launch<4>(prefix, w, b, mp, out, N, T, V, BC, stride, t, st);
-  }
+  return run(prefix, w, b, mp, out, N, T, V, BC, stride, stream);
+}
+
+// The bf16 form (the header): prefix and out bf16 (8-byte loads and stores
+// where BC % 4 == 0 and they are 8-byte aligned), w, b and mp f32 as
+// ms_tcn_f32's.
+extern "C" int ms_tcn_bf16(const bf16* prefix, const float* w, const float* b,
+                           const float* mp, bf16* out, int N, int T, int V, int BC,
+                           int stride, void* stream) {
+  return run(prefix, w, b, mp, out, N, T, V, BC, stride, stream);
 }

@@ -28,7 +28,9 @@ namespace unit_ctr_gc {
 // (unit_ctr_gc_bwd_conv3.cu) reads bf16 activations and writes f32, and
 // K4's bf16 form (ctr_gc_fused.cu) reads bf16 x1/x2 and writes f32: the
 // bodies take the types of x1s/x2s, of the aggregated tensor and of the
-// output apart.
+// output apart. K5's and T1's bf16 forms (gcn_tcn_block.cu, ms_tcn.cu)
+// store two or four results at once (store2: 8 bytes in f32, 4 in bf16;
+// store4: 16 and 8).
 template <typename T>
 struct Act;
 
@@ -39,6 +41,10 @@ struct Act<float> {
     return *reinterpret_cast<const float4*>(p);
   }
   __device__ static void store(float* p, float v) { *p = v; }
+  __device__ static void store2(float* p, float a, float b) {
+    *reinterpret_cast<float2*>(p) = make_float2(a, b);
+  }
+  __device__ static void store4(float* p, float4 v) { *reinterpret_cast<float4*>(p) = v; }
 };
 
 template <>
@@ -52,6 +58,14 @@ struct Act<__nv_bfloat16> {
     return make_float4(lo.x, lo.y, hi.x, hi.y);
   }
   __device__ static void store(__nv_bfloat16* p, float v) { *p = __float2bfloat16_rn(v); }
+  __device__ static void store2(__nv_bfloat16* p, float a, float b) {
+    *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+  }
+  __device__ static void store4(__nv_bfloat16* p, float4 v) {
+    const __nv_bfloat162 pair[2] = {__floats2bfloat162_rn(v.x, v.y),
+                                    __floats2bfloat162_rn(v.z, v.w)};
+    *reinterpret_cast<uint2*>(p) = *reinterpret_cast<const uint2*>(pair);
+  }
 };
 
 __device__ inline float bf16_round(float v) { return __bfloat162float(__float2bfloat16_rn(v)); }

@@ -567,11 +567,16 @@ class CTRGCN(nn.Module):
         """Pre-pool features (N, C', T', V, M) — reference models/ctrgcn.py:350-374.
 
         Returns the feature tensor twice, matching the reference signature.
+        Under sequence parallelism the whole clip's features on every rank,
+        the ranks' frames gathered along T' (parallel/sequence.py).
         """
+        x = self._to_ncvtm(x)
         if self.seq is not None:
-            raise NotImplementedError("extract_feature of a time-sharded model")
-        h, N, M = self._stem(self._to_ncvtm(x))
+            self.seq.start(x.shape[2], x.device)
+        h, N, M = self._stem(x)
         h = self._backbone(h)  # (N*M, T', V, C')
+        if self.seq is not None:
+            h = self.seq.gather(h)
         _, Tp, V, Cp = h.shape
         h = h.reshape(N, M, Tp, V, Cp).permute(0, 4, 2, 3, 1)  # (N, C', T', V, M)
         return h, h

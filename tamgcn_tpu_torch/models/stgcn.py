@@ -25,6 +25,11 @@ model's nn.Dropout. `graph_partition="ring"` aggregates over the joint ring
 of the model group that `set_ring` gives (parallel/graph_parallel.py:
 ring_aggregate_stgcn, the JAX model's :220-233; parallel/sharded.py:
 parallelize calls it); a model built with it raises until it has a group.
+Under sequence parallelism (`seq`, parallel/sequence.py) each rank holds
+its range of the clip's frames: the (9, 1) temporal convs read their halo
+(`window`), the strided residual convs the rank's frames of the stride's
+phase (`rows`), the pool is the clip's mean over the group and
+`extract_feature` gathers the whole clip's maps.
 """
 from __future__ import annotations
 
@@ -132,6 +137,8 @@ class STGCN(nn.Module):
     (sample, person), the working M == 1 semantics.
     """
 
+    seq = None  # parallel/sequence.py: the time-sharded model's context
+
     def __init__(self, in_channels: int = 3, num_class: int = 4, num_point: int = 20,
                  num_person: int = 1, graph=None, graph_args=None,
                  edge_importance_weighting: bool = True, dropout: float = 0.0,
@@ -219,8 +226,22 @@ class STGCN(nn.Module):
             raise ValueError("graph_partition='ring' requires a mesh "
                              "(parallel/sharded.py:parallelize)")
         for blk, importance in zip(self.blocks, self.edge_importance):
+            layout = self.seq.layout if self.seq is not None else None
             h = blk(h, self.A * importance)
+            stride = blk.tcn_conv.stride
+            if layout is not None and stride != 1:
+                self.seq.layout = layout.strided(stride)
         return h
+
+    def _features(self, x):
+        """(the backbone's features (N*M, T', V, 256) of the rank's frames, N,
+        M), the layout of its frames started first under sequence
+        parallelism."""
+        x = self._to_ncvtm(x)
+        if self.seq is not None:
+            self.seq.start(x.shape[2], x.device)
+        h, N, M = self._stem(x)
+        return self._backbone(h), N, M
 
     def _head(self, h):
         if self.dtype is None:
@@ -228,9 +249,12 @@ class STGCN(nn.Module):
         return _cast_linear(h, self.fcn.weight, self.fcn.bias, self.dtype)
 
     def forward(self, x):
-        h, N, M = self._stem(self._to_ncvtm(x))
-        h = self._backbone(h)  # (N*M, T', V, 256)
-        h = self.drop(h.mean(dim=(1, 2)).reshape(N, M, -1).mean(dim=1))
+        h, N, M = self._features(x)  # (N*M, T', V, 256)
+        if self.seq is None:
+            h = h.mean(dim=(1, 2))
+        else:  # the mean over the clip's frames on every rank
+            h = self.seq.pool_sum(h.sum(dim=1)).mean(dim=1) / self.seq.layout.T
+        h = self.drop(h.reshape(N, M, -1).mean(dim=1))
         # logits in float32 (or wider): the loss does not run in bf16
         out = self._head(h)
         return out.to(torch.promote_types(out.dtype, torch.float32))
@@ -238,9 +262,11 @@ class STGCN(nn.Module):
     def extract_feature(self, x):
         """(output, feature) pre-pool maps, each (N, C', T', V, M) (reference
         models/stgcn.py:200-225): the head applied at every position, and
-        the backbone's features."""
-        h, N, M = self._stem(self._to_ncvtm(x))
-        h = self._backbone(h)  # (N*M, T', V, 256)
+        the backbone's features (the whole clip's on every rank under
+        sequence parallelism)."""
+        h, N, M = self._features(x)  # (N*M, T', V, 256)
+        if self.seq is not None:
+            h = self.seq.gather(h)
         _, t, v, c = h.shape
         feature = h.reshape(N, M, t, v, c).permute(0, 4, 2, 3, 1)
         out = self._head(h)

@@ -81,16 +81,19 @@ def _widened(*activations):
     return dtype, torch.bfloat16, tuple(a.float() for a in activations)
 
 
-def unit_ctr_gc_plain(x1s, x2s, x3s, w4s, b4s, alpha, As):
+def unit_ctr_gc_plain(x1s, x2s, x3s, w4s, b4s, alpha, As, stage1=None):
     """Plain version of the unit op (counterpart of `unit_ctr_gc_xla`; in
     bfloat16, of the JAX kernel's bf16 body, as the module docstring says).
 
     x1s/x2s (N,S,V,R); x3s (N,T,V,S*C); w4s (S,R,C); b4s (S,C); alpha (1,);
-    As (S,V,V) -> (N,T,V,C) in the dtype of x3s.
+    As (S,V,V) -> (N,T,V,C) in the dtype of x3s. `stage1` (bfloat16) rounds
+    stage 1's operands on f32 activations too: the whole block's bf16 form
+    (ops/gcn_tcn_block.py), whose x3 stays f32.
     """
     S = x1s.shape[1]
     C = x3s.shape[-1] // S
     dtype, operand, (x1s, x2s, x3s) = _widened(x1s, x2s, x3s)
+    operand = operand or stage1
     out = None
     for s in range(S):
         m = ctr_gc_dynamic_adjacency(

@@ -18,6 +18,15 @@ branches is
 (one node of a `torch.export` graph): the plain version for CPU tensors,
 the CUDA kernel K5 (ops/cuda/gcn_tcn_block.py) for CUDA tensors, with no
 fallback.
+
+On a bfloat16 x the block follows the JAX kernel's bf16 body
+(tamgcn_tpu/ops/pallas/gcn_tcn_block.py:52-149, `mm = bf16`): every product
+(x @ W3, stage 1's tanh(x1 - x2) @ w4, x @ Wd, (res - y) @ Wo, h @ Wp and
+h @ Wpw) takes both operands rounded to bf16 and sums in f32; x3 stays f32
+and the aggregation is f32 x f32; the epilogue is f32, the identity
+residual x widened; prefix and pw are rounded once to bf16 at the end.
+x1s, x2s and the parameters may be float32 or bfloat16: they are widened
+to f32 (exact), as the JAX kernel widens them.
 """
 from __future__ import annotations
 
@@ -29,16 +38,44 @@ import torch.nn.functional as F
 from .aggregation import unit_ctr_gc_plain
 
 
+def widened(x, *operands):
+    """The operands of one block with every bfloat16 tensor but x widened to
+    float32 where x is bfloat16 (None stays None); as they are otherwise."""
+    if x.dtype != torch.bfloat16:
+        return operands
+    return tuple(t.float() if t is not None and t.dtype == torch.bfloat16 else t
+                 for t in operands)
+
+
+def unit_stage1_bf16(x1s, x2s, x3s, w4s, b4s, alpha, As):
+    """The unit op as the bf16 form of the block computes it: M's product
+    over r on D = tanh(x1 - x2) and w4s rounded to bf16, summed in f32; the
+    aggregation f32 x f32 on the f32 x3s. All inputs f32; -> (N,T,V,C) f32.
+    (unit_ctr_gc_plain's bf16 form takes a bf16 x3s.)"""
+    return unit_ctr_gc_plain(x1s, x2s, x3s, w4s, b4s, alpha, As, stage1=torch.bfloat16)
+
+
+def _bf16_operand(t):
+    """A product's operand in the bf16 form: rounded to bf16, held in f32."""
+    return t.to(torch.bfloat16).float()
+
+
 def gcn_tcn_block_plain(x, x1s, x2s, w3, b3, w4s, b4s, alpha, As, gy, wo, bo,
-                        wp, bp, wpw, bpw, wd=None, bd=None,
-                        aggregate=unit_ctr_gc_plain):
+                        wp, bp, wpw, bpw, wd=None, bd=None, aggregate=None):
     """Plain version of K5. x (N,T,V,Cin); x1s/x2s (N,S,V,R); w3 (Cin,S*C);
     b3 (S*C,); w4s (S,R,C); b4s (S,C); alpha (1,); As (S,V,V); gy (2,C);
     wo (C,C); bo (C,); wp (C,P); bp (P,); wpw (C,BC); bpw (BC,); wd (Cin,C)
     and bd (C,), or None for an identity residual. Returns (prefix
-    (N,T,V,P), pw (N,T,V,BC)), pw at every frame. `aggregate` computes the
-    unit op (ops/aggregation.py:unit_ctr_gc_plain; the folded comparison
-    path passes the dispatcher unit_ctr_gc, K1 on the card)."""
+    (N,T,V,P), pw (N,T,V,BC)) in the dtype of x, pw at every frame; on a
+    bfloat16 x the bf16 form (module docstring). `aggregate` computes the
+    unit op (by default ops/aggregation.py:unit_ctr_gc_plain, in bf16
+    unit_stage1_bf16; the folded comparison path passes the dispatcher
+    unit_ctr_gc, K1 on the card)."""
+    if x.dtype == torch.bfloat16:
+        return _block_plain_bf16(x, *widened(x, x1s, x2s, w3, b3, w4s, b4s, alpha, As, gy,
+                                              wo, bo, wp, bp, wpw, bpw, wd, bd),
+                                 aggregate=aggregate or unit_stage1_bf16)
+    aggregate = aggregate or unit_ctr_gc_plain
     x3 = torch.matmul(x, w3) + b3
     y = aggregate(x1s, x2s, x3, w4s, b4s, alpha, As)
     y = y * gy[0] + gy[1]
@@ -46,6 +83,22 @@ def gcn_tcn_block_plain(x, x1s, x2s, w3, b3, w4s, b4s, alpha, As, gy, wo, bo,
     off = torch.tanh(torch.matmul(res - y, wo) + bo)
     h = F.relu(y + off + res)
     return F.relu(torch.matmul(h, wp) + bp), torch.matmul(h, wpw) + bpw
+
+
+def _block_plain_bf16(x, x1s, x2s, w3, b3, w4s, b4s, alpha, As, gy, wo, bo, wp, bp, wpw,
+                      bpw, wd, bd, aggregate):
+    """gcn_tcn_block_plain's bf16 form (module docstring), its operands
+    other than x float32."""
+    r = _bf16_operand
+    xf = x.float()
+    x3 = torch.matmul(r(xf), r(w3)) + b3
+    y = aggregate(x1s, x2s, x3, w4s, b4s, alpha, As)
+    y = y * gy[0] + gy[1]
+    res = xf if wd is None else torch.matmul(r(xf), r(wd)) + bd
+    off = torch.tanh(torch.matmul(r(res - y), r(wo)) + bo)
+    h = r(F.relu(y + off + res))
+    prefix = F.relu(torch.matmul(h, r(wp)) + bp)
+    return prefix.to(x.dtype), (torch.matmul(h, r(wpw)) + bpw).to(x.dtype)
 
 
 # K5's launcher limits (csrc/gcn_tcn_block.cu), copied so that the CPU can
@@ -112,7 +165,8 @@ def gcn_tcn_block_fused(x, x1s, x2s, w3, b3, w4s, b4s, alpha, As, gy, wo, bo,
     """One eval-mode block on the device of x through `gcn_tcn_block_op`:
     the plain version for a CPU tensor, K5 for a CUDA tensor (which raises
     on what it does not take; there is no fallback). Shapes as
-    gcn_tcn_block_plain."""
+    gcn_tcn_block_plain; on a bfloat16 x, its bf16 form (either side widens
+    the other operands to float32 where they are bfloat16)."""
     if x.device.type not in ("cpu", "cuda"):
         raise NotImplementedError(f"gcn_tcn_block_fused on device {x.device}")
     return gcn_tcn_block_op(x, x1s, x2s, w3, b3, w4s, b4s, alpha, As, gy, wo, bo,

@@ -10,7 +10,10 @@ and the part of the TCN after its entry conv is, on the prefix p
     y_2[n,t',u,c] = max_{j in -1,0,1} p[n, t'*s + j, u, 2*bc+c] * mp[0,c] + mp[1,c]
 
 (frames outside [0, T) are zero for the convs and left out of the max),
-concatenated to (N, ceil(T/s), V, 3*bc). `ms_tcn_fused` runs it: the plain
+concatenated to (N, ceil(T/s), V, 3*bc). On a bfloat16 prefix (the JAX
+kernel's bf16 form) the prefix is widened to f32, everything runs in f32
+against f32 w, b and mp (widened where they are bf16) and the output is
+rounded once to bf16. `ms_tcn_fused` runs it: the plain
 version for CPU tensors, the CUDA kernel T1 (ops/cuda/ms_tcn.py) for CUDA
 tensors, with no fallback. The fast-eval engine (models/ctrgcn_infer.py:
 _apply_block) runs the same math as the plain version does, and keeps it.
@@ -43,8 +46,13 @@ def ms_tcn_plain(prefix, w, b, mp_affine, stride: int = 1):
     """Plain version of T1. prefix (N,T,V,3*bc); w (2,5,bc,bc) as (in,out);
     b (2,bc); mp_affine (2,bc) (scale, bias) -> (N, ceil(T/stride), V,
     3*bc): two F.conv2d with dilation 1 and 2 and padding 2*d, F.max_pool2d
-    (3,1) with padding 1, the affine and torch.cat, as the engine runs them."""
+    (3,1) with padding 1, the affine and torch.cat, as the engine runs them;
+    on a bfloat16 prefix the same on the widened operands, rounded to bf16
+    at the end."""
     _, _, _, bc = ms_tcn_dims(prefix, w, b, mp_affine, stride)
+    if prefix.dtype == torch.bfloat16:
+        return ms_tcn_plain(*(t.float() for t in (prefix, w, b, mp_affine)),
+                            stride).to(torch.bfloat16)
     outs = []
     for i, d in enumerate(DILS):
         seg = prefix[..., i * bc:(i + 1) * bc].permute(0, 3, 1, 2)
@@ -62,7 +70,9 @@ def ms_tcn_plain(prefix, w, b, mp_affine, stride: int = 1):
 def ms_tcn_fused(prefix, w, b, mp_affine, stride: int = 1):
     """T1 on the device of the prefix: the plain version for a CPU tensor,
     the CUDA kernel for a CUDA tensor (which raises on what it does not
-    take; there is no fallback). Shapes as ms_tcn_plain."""
+    take; there is no fallback). Shapes as ms_tcn_plain; on a bfloat16
+    prefix, its bf16 form (either side widens w, b and mp_affine to float32
+    where they are bfloat16)."""
     args = (prefix, w, b, mp_affine, stride)
     if prefix.device.type == "cpu":
         return ms_tcn_plain(*args)

@@ -6,7 +6,7 @@ from a state dict, wires it to the (data, model) grid of the world it runs
 in (parallel/sharded.py:parallelize), packs it with the grid's gradient sum
 (train/packing.py, GradientSum) and takes the packed train step on each
 global batch it is given, its rows and, under sequence parallelism, its
-frames. It returns every step's loss and hit count, the reduced gradient of
+frames (of its skeleton inputs). It returns every step's loss and hit count, the reduced gradient of
 the last step and the state before the first step and after each step
 (every tensor full: the tensor-parallel shards gathered), each step's wall
 time, and on the card the kernel launches the steps made and, with
@@ -108,8 +108,8 @@ def train_on_grid(mesh_rank: int = 0, world: int = 1, *, model: str, model_args:
     before = _launches()
     for i, (x, y) in enumerate(batches):
         *xs, y = shard_batch(mesh, *(x if isinstance(x, tuple) else (x,)), y)
-        if sp:
-            xs = tuple(shard_time(a, mesh) for a in xs)
+        if sp:  # the skeleton inputs' frames; images whole (the JAX trainer's _sp_put)
+            xs = tuple(shard_time(a, mesh) if a.ndim in (3, 5) else a for a in xs)
         xs = [torch.from_numpy(np.ascontiguousarray(a)).to(device, dtype) for a in xs]
         yt = torch.from_numpy(np.asarray(y, np.int64)).to(device)
         if device == "cuda":

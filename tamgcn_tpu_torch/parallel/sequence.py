@@ -1,9 +1,12 @@
-"""Sequence parallelism: the CTR-GCN with its clip's time axis split over
-the model group.
+"""Sequence parallelism: the skeleton networks with their clip's time axis
+split over the model group.
 
 The hand-written counterpart of what GSPMD does for the JAX trainer's
---sequence_parallel (trainer.py:487-507, 534-567): each rank of a model
-group holds a contiguous range of the clip's frames, and
+--sequence_parallel (trainer.py:487-507, 534-567), which places every 5-D
+or 3-D skeleton input time-sharded and every other input data-sharded
+(`_sp_put`): each rank of a model group holds a contiguous range of the
+clip's frames of a skeleton network (the CTR-GCN, ST-GCN, the fusion
+model's `gcn`), and
 
   * every temporal conv and the max-pool branch take the halo frames they
     need from the ranks that hold them before they run (`window`:
@@ -14,11 +17,24 @@ group holds a contiguous range of the clip's frames, and
     centre frame, s * i: a rank holding frames [a, b) makes outputs
     [ceil(a / s), ceil(b / s)), so T = 52 over 2 ranks gives 26 + 26, then
     13 + 13 after l5's stride and 7 + 6 after l8's (`TimeLayout.strided`);
-  * the reductions over time span the whole clip: every BatchNorm over the
-    world (parallel/sharded.py:parallelize), CTR-GC's mean over T that
-    feeds x1 and x2 (`mean`: an all-reduce forward and backward, since each
-    rank's frames use the mean), and the final pool (`pool_sum`: the
-    all-reduced sum, whose gradient each rank already holds whole).
+  * the reductions over time span the whole clip: every BatchNorm of a
+    skeleton network over the world (parallel/sharded.py:parallelize),
+    CTR-GC's mean over T that feeds x1 and x2 (`mean`: an all-reduce
+    forward and backward, since each rank's frames use the mean), and the
+    final pool (`pool_sum`: the all-reduced sum, whose gradient each rank
+    already holds whole);
+  * `extract_feature` returns the whole clip's features, as the JAX global
+    array is (`gather`: the ranks' frames, uneven after the strides,
+    concatenated on every rank; the gradient of the replicated features is
+    the rank's own frames').
+
+What sees the whole batch slice on every rank of the model group (the
+head, the RGB trunk and the fusion's attention MLP and classifier: inputs
+JAX places on the data axis only) is computed whole on each rank: its
+BatchNorms take the data group's statistics and its gradients, which each
+rank holds whole, are averaged over the model group, where the parameters
+of the time-sharded part hold each rank's share and are summed
+(`model.time_sharded` names them; parallel/sharded.py).
 
 The layout of a forward's input comes from the ranks' frame counts (one
 all-reduce); each block's input layout is set on the context before the
@@ -101,19 +117,64 @@ class SequenceContext:
         """x summed over the group (the pooled features, replicated after)."""
         return comm.reduce_from(x, self.group)
 
+    def gather(self, x: torch.Tensor) -> torch.Tensor:
+        """The whole clip's frames (axis 1) on every rank, in frame order;
+        the gradient of the result (one replicated value) is the rank's own
+        frames' part of it."""
+        key = ("gather", self.layout)
+        plan = self._plans.get(key)
+        if plan is None:
+            k, T = self.group.size, self.layout.T
+            plan = self._plans[key] = comm.window_plan(self.layout.starts, [(0, T)] * k)
+        return _Gathered.apply(x, self.group, plan, self.own())
+
+
+class _Gathered(torch.autograd.Function):
+    """SequenceContext.gather: the exchange of every rank's frames to every
+    rank forward, the own frames' slice of the gradient backward."""
+
+    @staticmethod
+    def forward(ctx, x, group, plan, own):
+        ctx.own = own
+        return comm.exchange(x, group, plan, dim=1)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.own
+        return g[:, a:b], None, None, None
+
+
+def _skeleton_nets(model):
+    """(name, network, its head's name) of the networks in `model` whose
+    frames are split: the model itself where it is a CTR-GCN or an ST-GCN,
+    or its submodules that are (the head runs on the pooled features)."""
+    from ..models.ctrgcn import CTRGCN
+    from ..models.stgcn import STGCN
+
+    return [(name, net, "fc" if isinstance(net, CTRGCN) else "fcn")
+            for name, net in model.named_modules() if isinstance(net, (CTRGCN, STGCN))]
+
 
 def enable(model, mesh) -> None:
-    """Split the model's time axis over the mesh's model group."""
-    from ..models.ctrgcn import CTRGCN, Conv1x1, MultiScaleTCN, TemporalConv2d, UnitGCN
+    """Split the time axis of the model's skeleton networks over the mesh's
+    model group, and record in `model.time_sharded` the names of the
+    parameters and BatchNorms (state-dict and module names) that see the
+    time-sharded frames: each network's, but its head's. A model with no
+    skeleton network (the RGB ResNet) computes whole on every rank."""
+    from ..models.ctrgcn import Conv1x1, MultiScaleTCN, TemporalConv2d, UnitGCN
+    from ..ops.norm import BatchNorm
 
-    if not isinstance(model, CTRGCN):
-        raise NotImplementedError(
-            f"--sequence_parallel: the port's time-sharded model is the CTR-GCN, "
-            f"not {type(model).__name__}")
     ctx = SequenceContext(mesh.model)
-    for m in model.modules():
-        if isinstance(m, (CTRGCN, UnitGCN, MultiScaleTCN, TemporalConv2d, Conv1x1)):
-            m.seq = ctx
+    sharded = set()
+    for name, net, head in _skeleton_nets(model):
+        for m in net.modules():
+            if m is net or isinstance(m, (UnitGCN, MultiScaleTCN, TemporalConv2d, Conv1x1)):
+                m.seq = ctx
+        inside = [n for n, m in net.named_modules() if isinstance(m, BatchNorm)]
+        inside += [n for n, _ in net.named_parameters()]
+        sharded |= {f"{name}.{n}" if name else n for n in inside
+                    if n != head and not n.startswith(head + ".")}
+    model.time_sharded = frozenset(sharded)
 
 
 def shard_time(x, mesh):

@@ -23,19 +23,23 @@ device_put does. `full_state_dict` gathers the shards for a checkpoint,
 `parallelize(model, mesh, graph_partition, sequence_parallel)` wires a model
 to the grid, as the JAX trainer does with model_args and shardings
 (trainer.py:152-156, 315-317, 486-507): BatchNorm statistics over the data
-group (over the whole world under --sequence_parallel, where the model group
-holds the clip's other frames), the ring's group in each ring op, the
-rules above where the model size is > 1 (in every mode, as the JAX trainer
-applies them), the time-sharded model under --sequence_parallel
-(parallel/sequence.py).
+group (over the whole world for the BatchNorms that see time-sharded frames
+under --sequence_parallel, where the model group holds the clip's other
+frames), the ring's group in each ring op, the rules above where the model
+size is > 1 (in every mode, as the JAX trainer applies them), the
+time-sharded skeleton networks under --sequence_parallel
+(parallel/sequence.py, which names what sees their frames in
+`model.time_sharded`).
 
 `GradientSum` is the step's reduction: one all-reduce of each flat gradient
 buffer over the data group, the loss being each rank's sum over its rows
 divided by the global batch; where the model group has more than one rank,
 one more, over the model group, of the replicated parameters' gradients
-(all but the split ones): under --sequence_parallel each rank's share, used
-on its frames only, summed; otherwise the mean of the ranks' copies of one
-gradient. Those copies are equal in exact arithmetic, but not bit for bit
+(all but the split ones): where the parameter sees time-sharded frames
+(`model.time_sharded`) each rank's share, used on its frames only, summed;
+otherwise (every parameter outside --sequence_parallel, and under it the
+head, the RGB trunk and the fusion's attention MLP, which see the whole
+batch slice on every rank) the mean of the ranks' copies of one gradient. Those copies are equal in exact arithmetic, but not bit for bit
 where the card's kernels sum in another order on each rank (cuDNN's
 weight gradients, for one), and without the mean each rank's copy of the
 parameters drifts from the others' step by step, as JAX's one replicated
@@ -220,10 +224,6 @@ def parallelize(model: nn.Module, mesh: Mesh, graph_partition: str = "none",
             "--sequence_parallel and --graph_partition are mutually exclusive: both "
             "shard over the mesh's 'model' axis (sp shards time, the ring shards "
             "joints). Drop one.")
-    stats = mesh.world if sequence_parallel else mesh.data
-    for m in model.modules():
-        if isinstance(m, BatchNorm):
-            m.group = stats
     if graph_partition not in ("none", None):
         if not hasattr(model, "set_ring"):
             raise ValueError(f"graph_partition={graph_partition!r}: "
@@ -231,10 +231,14 @@ def parallelize(model: nn.Module, mesh: Mesh, graph_partition: str = "none",
         model.set_ring(mesh.model)
     if mesh.shape[MODEL_AXIS] > 1:
         shard_tensor_parallel(model, mesh.model)
+    model.time_sharded = frozenset()
     if sequence_parallel:
         from .sequence import enable
 
         enable(model, mesh)
+    for name, m in model.named_modules():
+        if isinstance(m, BatchNorm):
+            m.group = mesh.world if name in model.time_sharded else mesh.data
     model.mesh = mesh
     model.sequence_parallel = bool(sequence_parallel)
     return model
@@ -247,26 +251,30 @@ class GradientSum:
     def __init__(self, state, mesh: Mesh, sequence_parallel: bool):
         self.mesh = mesh
         self.data = mesh.data if mesh.data.size > 1 else None
-        self.sequence_parallel = sequence_parallel
-        self.replicated = []
+        self.summed, self.averaged = [], []  # views of the replicated gradients
         if mesh.model.size > 1:
-            # runs of consecutive replicated parameters in each flat buffer
-            split, runs = set(sharded_dims(state.model)), []
+            split = set(sharded_dims(state.model))
+            shares = getattr(state.model, "time_sharded", ()) if sequence_parallel else ()
+            # runs of consecutive replicated parameters of one kind in each
+            # flat buffer: (summed, group, start, end)
+            runs = []
             for name, (g, o, n) in sorted(zip(state.param_names, state.params.slots),
                                           key=lambda item: item[1][:2]):
                 if name in split:
                     continue
-                if runs and runs[-1][0] == g and runs[-1][2] == o:
-                    runs[-1][2] = o + n
+                summed = name in shares
+                if runs and runs[-1][:2] == [summed, g] and runs[-1][3] == o:
+                    runs[-1][3] = o + n
                 else:
-                    runs.append([g, o, o + n])
-            self.replicated = [state.grads[g][a:b] for g, a, b in runs]
+                    runs.append([summed, g, o, o + n])
+            for summed, g, a, b in runs:
+                (self.summed if summed else self.averaged).append(state.grads[g][a:b])
 
     def __call__(self, grads) -> None:
         if self.data is not None:
             for g in grads:
                 comm.all_reduce_(g, self.data)
-        for view in self.replicated:
+        for view in self.summed + self.averaged:
             comm.all_reduce_(view, self.mesh.model)
-            if not self.sequence_parallel:
-                view.mul_(1.0 / self.mesh.model.size)
+        for view in self.averaged:
+            view.mul_(1.0 / self.mesh.model.size)

@@ -14,9 +14,10 @@ Counterparts of `entry()` and `dryrun_multichip()` in `__graft_entry__.py`:
     of CTR-GCN over (n, 1), and over the (n/2, 2) grid (for even n) the
     joint ring of CTR-GCN, of the CTR-GCN at configs/scene256.yaml's widths
     and of ST-GCN, the tensor-parallel head and the fusion model's
-    tensor-parallel attention MLP, and the time-sharded CTR-GCN; the
-    ring's unit op, output and VJP, against the dense plain version at each
-    block's shape of both CTR-GCNs. Each mode is held to the single-rank
+    tensor-parallel attention MLP, and the time-sharded CTR-GCN, ST-GCN and
+    fusion model (its CTR-GCN's frames split, its RGB trunk whole on every
+    rank); the ring's unit op, output and VJP, against the dense plain
+    version at each block's shape of both CTR-GCNs. Each mode is held to the single-rank
     step on the same device and the same global batch (the first step's
     loss within 1e-4 of it, SP's within 1e-4 of DP's as the JAX dry run
     holds them); it prints the JAX dry run's summary line with the port's
@@ -192,6 +193,9 @@ def dryrun_plan(n: int, full: bool = False, weights: dict | None = None,
         "fusion_tp": dict(model="resnet_gcn_attention", model_args=fusion_args,
                           weights=fusion_w, batches=fusion_b, **grid),
     }
+    # the time-sharded ST-GCN and fusion model on their ring's and TP's steps
+    for name, like in (("stgcn_sp", "stgcn_ring"), ("fusion_sp", "fusion_tp")):
+        modes[name] = dict(modes[like], graph_partition="none", sequence_parallel=True)
     for spec in modes.values():
         spec.setdefault("lr", DRYRUN_LR)
     # the unit op of each block at the rank's rows, the ring at the model axis
@@ -268,7 +272,8 @@ def verify_dryrun(plan: dict, ranks: list, device: str) -> dict:
                                                     if k not in GRID_ARGS})
               for name in ("dp", "scene_ring", "stgcn_ring", "fusion_tp")}
     reference = {"dp": "dp", "ring": "dp", "tp": "dp", "sp": "dp", "scene_ring": "scene_ring",
-                 "stgcn_ring": "stgcn_ring", "fusion_tp": "fusion_tp"}
+                 "stgcn_ring": "stgcn_ring", "fusion_tp": "fusion_tp",
+                 "stgcn_sp": "stgcn_ring", "fusion_sp": "fusion_tp"}
     for name, ref in reference.items():
         want = single[ref]["losses"][0]
         for r in ranks:

@@ -266,13 +266,15 @@ def make_fused_train_step(state: PackedTrainState, check_finite: bool = False) -
     the step). No host read: a CUDA graph can capture it (train/graphs.py).
     With `check_finite` (--debug_nans) it returns ``(loss, hits, finite)``,
     `finite` whether the loss, the logits, the flat gradient, parameters and
-    statistics are all finite after the step (train/debug_nans.py)."""
+    statistics are all finite after the step on every rank of the grid
+    (train/debug_nans.py)."""
     from ..parallel import comm
     from .debug_nans import all_finite
 
     model = state.model
     params = state.params.tensors
     data = state.mesh.data if state.mesh is not None else comm.SOLO
+    world = state.mesh.world if state.mesh is not None else comm.SOLO
 
     def train_step(*args):
         *inputs, label = args
@@ -295,8 +297,9 @@ def make_fused_train_step(state: PackedTrainState, check_finite: bool = False) -
             loss, hits = both[0], both[1].round().long()
         if not check_finite:
             return loss.detach(), hits
+        # one verdict on every rank of a grid
         return loss.detach(), hits, all_finite(
             [loss.detach(), logits.detach(), *state.grads, *state.params.flats,
-             *state.stats.flats])
+             *state.stats.flats], world)
 
     return train_step

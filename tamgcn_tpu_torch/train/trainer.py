@@ -52,7 +52,10 @@ to a multiple of the data size and their padded rows dropped (:579-603),
 the logits gathered. A world of more than one rank runs its steps eagerly
 (under gloo a CUDA graph cannot hold the collectives); rank 0 writes the
 logs, checkpoints (full tensors, the tensor-parallel shards gathered, so one
-process loads them) and score files. --debug_nans on a grid is not ported.
+process loads them) and score files. --debug_nans on a grid reduces each
+step's finiteness flag over the world inside the step; at a non-finite
+verdict every rank re-runs the step with the others and raises
+FloatingPointError naming the same module (train/debug_nans.py).
 
 --use_pallas raises (train/config.py:check_supported).
 """
@@ -98,9 +101,6 @@ class RecognitionTrainer:
             self.device = resolve_device(arg)
         self.mesh = make_mesh(arg.data_parallel, arg.model_parallel)
         self.lead = self.mesh.rank == 0  # writes the logs, checkpoints and scores
-        if arg.debug_nans and self.mesh.size > 1:
-            raise NotImplementedError("--debug_nans on a grid of more than one rank "
-                                      "is not ported")
         # the steps as CUDA graphs on the card (train/graphs.py), eager on the
         # CPU and on a grid of more than one rank
         self.capture = self.device.type == "cuda" and self.mesh.size == 1
@@ -271,13 +271,13 @@ class RecognitionTrainer:
                 f"{type(model).__name__} (ordinary eval path).")
         name, step = (("fast_eval", make_fast_eval_step(model)) if fast
                       else ("eval", make_eval_step(model)))
+        if self.mesh.shape["data"] > 1:
+            step = self._gathered(step)
         if arg.debug_nans:
             watched = (self.state.params.flats + self.state.stats.flats
                        if self.state is not None
                        else list(model.parameters()) + list(model.buffers()))
-            step = checked(step, watched)
-        if self.mesh.shape["data"] > 1:
-            step = self._gathered(step)
+            step = checked(step, watched, self.mesh.world)
         steps["eval"] = graphed(step, name)
         self.steps = steps
 
@@ -423,16 +423,21 @@ class RecognitionTrainer:
         """--debug_nans: a step made a non-finite value. Re-run it eagerly
         on the same batch from the state it started from (a train step's
         state is restored first) and raise FloatingPointError naming where
-        the first non-finite value arose."""
+        the first non-finite value arose; on a grid every rank does so
+        together and names the same place."""
+        world = self.mesh.world
         after = None
         if kind == "train":
             after = non_finite_names(list(self.model.named_parameters())
-                                     + list(self.model.named_buffers()))
+                                     + list(self.model.named_buffers()), world)
             torch._foreach_copy_(self.state.tensors(), self._nan_backup)
+        elif self.mesh.shape["data"] > 1:  # the rank's rows of the padded batch
+            label = label[data_slice(len(label), self.mesh)]
         # the eager re-run draws the dropout masks the step drew (the
         # restored counter stands at the step)
         with self.state.dropout_stream() if kind == "train" else contextlib.nullcontext():
-            where = locate_non_finite(self.model, inputs, label, train=kind == "train")
+            where = locate_non_finite(self.model, inputs, label, train=kind == "train",
+                                      group=world)
         if where is None:
             where = (f"the optimiser's update of {', '.join(after[:5])}" if after
                      else "the step's outputs (the eager re-run stayed finite)")

@@ -36,6 +36,12 @@ aggregation (an f32 M times an f32 g) at the 3xTF32 rate. T1 (the eval
 multi-scale TCN) runs its two dilated branches as implicit GEMMs on the
 tensor cores as 3xTF32, so its FMAs are held to 165 TFLOP/s too; T2 (the
 stage-2 aggregation from a given M) runs its FMAs on the CUDA cores, at 67.
+The bf16 forms of K5 and T1 move 2-byte activations (K5's x, prefix and
+pw; T1's prefix and output) and f32 parameters: K5-bf16's stage 1 and its
+five 1x1-conv products are bf16 x bf16 products (the JAX kernel's bf16
+body), at the bf16 peak, its aggregation (f32 M times the f32 x3) at the
+3xTF32 rate; T1-bf16's branches multiply a bf16 prefix (exact in TF32) by
+f32 weights, two TF32 terms, at the TF32 peak over two.
 
 Peaks: NVIDIA's H100 SXM data sheet, dense, at the full 700 W limit: 80 GB
 of HBM3 at 3.35 TB/s, 989 TFLOP/s bf16 and 495 TFLOP/s TF32 on the tensor
@@ -122,17 +128,24 @@ def unit_ctr_gc_param_sol(n: int, t: int, v: int, c: int, r: int, s: int = 3, *,
     return bound(nbytes, dm + p_dd, itemsize=1)
 
 
-def ms_tcn_sol(n: int, t: int, v: int, bc: int, stride: int = 1):
+def ms_tcn_sol(n: int, t: int, v: int, bc: int, stride: int = 1, *, act_bytes: int = 4):
     """The eval multi-scale TCN (T1) on a prefix (n,t,v,3*bc): the prefix,
     w (2,5,bc,bc), b (2,bc) and the max-pool affine (2,bc) in, (n,ceil(t/
     stride),v,3*bc) out; per output frame and joint 2*5*bc*bc FMAs of the two
     dilated branches and, per max-pool output, two maxima and one FMA, all at
     the 3xTF32 rate: the branches' products, nearly all of the work, run on
-    the tensor cores as 3xTF32 (csrc/ms_tcn.cu)."""
+    the tensor cores as 3xTF32 (csrc/ms_tcn.cu). With act_bytes=2 (the bf16
+    form) the prefix and the output take 2 bytes a value, the parameters 4,
+    and the work is held to two TF32 terms a product (a bf16 prefix value is
+    exact in TF32)."""
     t_out = math.ceil(t / stride)
     rows = n * t_out * v
-    elems = n * t * v * 3 * bc + rows * 3 * bc + 2 * 5 * bc * bc + 4 * bc
-    return bound(elems, 2 * rows * 2 * 5 * bc * bc + 4 * rows * bc, f32_peak=TF32X3_FLOPS)
+    acts = n * t * v * 3 * bc + rows * 3 * bc
+    params = 2 * 5 * bc * bc + 4 * bc
+    flops = 2 * rows * 2 * 5 * bc * bc + 4 * rows * bc
+    if act_bytes == 2:
+        return bound(2 * acts + 4 * params, 0, itemsize=1, tf32x2_flops=flops)
+    return bound(acts + params, flops, f32_peak=TF32X3_FLOPS)
 
 
 def stage2_sol(n: int, t: int, v: int, l: int, subsets: int = 1, *, itemsize: int = 4):
@@ -186,18 +199,25 @@ def ctr_gc_fused_bf16_sol(n: int, t: int, v: int, c: int, r: int):
                  tf32x2_flops=2 * stage1 + aggregation)
 
 
-def gcn_tcn_block_sol(n: int, t: int, v: int, cin: int, c: int, r: int, s: int = 3):
+def gcn_tcn_block_sol(n: int, t: int, v: int, cin: int, c: int, r: int, s: int = 3, *,
+                      act_bytes: int = 4):
     """The whole eval-mode block (K5) with P = 3c/4 and BC = c/4 as in the
     model and a folded down conv where cin != c: x read, prefix and pw
     written once, every weight read once; the FMAs of M, of the aggregation
     and of the five 1x1-conv products as the JAX cost estimate counts them
     (tamgcn_tpu/ops/pallas/gcn_tcn_block.py:263-266), at the 3xTF32 rate.
-    Returns bound()'s (ms, by)."""
+    With act_bytes=2 (the bf16 form) x, prefix and pw take 2 bytes a value
+    and the rest 4, stage 1 and the 1x1-conv products are held to the bf16
+    peak and the aggregation to the 3xTF32 rate. Returns bound()'s (ms,
+    by)."""
     p, bc = 3 * c // 4, c // 4
     down = cin != c
-    elems = (n * t * v * (cin + p + bc) + 2 * n * s * v * r + cin * s * c + s * c
-             + s * r * c + s * c + 1 + s * v * v + 2 * c + c * c + c + c * p + p
-             + c * bc + bc + (cin * c + c if down else 0))
-    flops = (2 * n * s * (v * v * r * c + t * v * v * c)
-             + 2 * n * t * v * (cin * s * c + c * c + c * p + c * bc + (cin * c if down else 0)))
-    return bound(elems, flops, f32_peak=TF32X3_FLOPS)
+    acts = n * t * v * (cin + p + bc)
+    params = (2 * n * s * v * r + cin * s * c + s * c + s * r * c + s * c + 1 + s * v * v
+              + 2 * c + c * c + c + c * p + p + c * bc + bc + (cin * c + c if down else 0))
+    stage1, aggregation = 2 * n * s * v * v * r * c, 2 * n * s * t * v * v * c
+    products = 2 * n * t * v * (cin * s * c + c * c + c * p + c * bc + (cin * c if down else 0))
+    if act_bytes == 2:
+        return bound(2 * acts + 4 * params, aggregation, itemsize=1,
+                     bf16_flops=stage1 + products, f32_peak=TF32X3_FLOPS)
+    return bound(acts + params, stage1 + aggregation + products, f32_peak=TF32X3_FLOPS)

@@ -1,7 +1,9 @@
 """Rank functions of the port's CPU tests of the parallel layer, torch only
 (it imports neither JAX nor tamgcn_tpu): each runs in one of the k gloo
 processes that tamgcn_tpu_torch.parallel.launch.run_ranks starts, and
-returns what the pytest process compares with the JAX package.
+returns what the pytest process compares with the JAX package
+(`debug_nans_cli` also runs on the card, in phase 16 of chip_smoke.py,
+which imports this file by its path).
 
     run_ranks("tests._torch_dist_worker:ring_ops", k, {"cases": [...]})
     run_ranks("tamgcn_tpu_torch.parallel.drive:train_on_grid", k, {...})
@@ -69,3 +71,54 @@ def gradient_sum(mesh_rank=0, world=1, sequence_parallel=False):
     grads = {name: state.grads[g][o:o + n].clone()
              for name, (g, o, n) in zip(state.param_names, state.params.slots)}
     return grads, sorted(sharded_dims(net))
+
+
+def sp_features(mesh_rank=0, world=1, weights=None, x=None, cot=None):
+    """extract_feature of a CTR-GCN (base_channel 8, f64, train mode) with
+    its frames split over a (1, world) grid (dense for one rank): (the
+    features, the gradient of sum(features * cot) for this rank's input
+    frames, {parameter: this rank's share of its gradient})."""
+    _quiet()
+    from tamgcn_tpu_torch.models import create_ctrgcn_nucla
+    from tamgcn_tpu_torch.parallel.sequence import shard_time
+    from tamgcn_tpu_torch.parallel.sharded import parallelize
+
+    mesh = make_mesh(1, world)
+    net = create_ctrgcn_nucla(base_channel=8).double()
+    net.load_state_dict(weights)
+    parallelize(net, mesh, "none", world > 1)
+    net.train()
+    xs = torch.from_numpy(shard_time(x, mesh) if world > 1 else x).requires_grad_()
+    feat, _ = net.extract_feature(xs)
+    (feat * torch.from_numpy(cot)).sum().backward()
+    grads = {n: p.grad.clone() for n, p in net.named_parameters() if p.grad is not None}
+    return feat.detach(), xs.grad, grads
+
+
+def debug_nans_cli(mesh_rank=0, world=1, argv=()):
+    """`python -m tamgcn_tpu_torch` with `argv` (--debug_nans true) on a rank
+    of a world its launcher started, a NaN planted in the last frame of every
+    synthetic clip: the FloatingPointError's message, or None where main
+    returned."""
+    _quiet()
+    from unittest import mock
+
+    import numpy as np
+
+    from tamgcn_tpu_torch.__main__ import main
+    from tamgcn_tpu_torch.data.synthetic import SyntheticSkeletonFeeder
+
+    clean = SyntheticSkeletonFeeder.__getitem__
+
+    def planted(self, index):
+        data, label, i = clean(self, index)
+        data = data.copy()
+        data[:, -1] = np.nan
+        return data, label, i
+
+    with mock.patch.object(SyntheticSkeletonFeeder, "__getitem__", planted):
+        try:
+            main(list(argv))
+        except FloatingPointError as e:
+            return str(e)
+    return None

@@ -45,6 +45,10 @@ call; a graphed train step with dropout draws each replay's mask from the
 device step counter. The parallel layer in two gloo processes sharing the
 card: the joint ring of the unit op (K1 in every ring step) against the
 dense op, and a DP step against the single-rank step with its launches.
+The bf16 forms of K5 and T1 (a bf16 x or prefix, bf16 outputs) against
+their plain bf16 versions: at least 95% of each output's elements bit for
+bit equal and every element within 2^-7 of max |plain|, two launches
+bitwise equal, each launch on its bf16 counter.
 This file imports no JAX, so it runs where the port runs.
 """
 import pytest
@@ -1561,3 +1565,51 @@ def test_data_parallel_step_on_cuda_in_two_gloo_ranks(device):
         for counter in ("ctr_gc.launches", "ctr_gc.bwd_dx3_launches",
                         "ctr_gc.bwd_param_launches"):
             assert r["launches"][counter] == 10, (counter, r["launches"])
+
+
+def _bf16_criterion(got, want):
+    """At least 95% of the elements bit for bit equal, every element within
+    2^-7 of max |plain|: the bf16 forms sum in another order than their
+    plain versions before one rounding."""
+    assert got.dtype == want.dtype == torch.bfloat16
+    a, b = got.float(), want.float()
+    assert (a == b).float().mean().item() >= 0.95
+    assert (a - b).abs().max().item() <= 2.0 ** -7 * b.abs().max().item()
+
+
+@pytest.mark.parametrize("shape", BLOCK_SHAPES,
+                         ids=lambda s: "N{}-T{}-V{}-Cin{}-C{}-R{}".format(*s))
+def test_block_kernel_bf16_matches_plain(device, shape):
+    from tamgcn_tpu_torch.ops.cuda import gcn_tcn_block as k5
+    from tamgcn_tpu_torch.ops.gcn_tcn_block import gcn_tcn_block_fused, gcn_tcn_block_plain
+
+    args = _block_inputs(*shape, device=device)
+    args["x"] = args["x"].to(torch.bfloat16)
+    before = (k5.launches, k5.launches_bf16)
+    with torch.no_grad():
+        got = gcn_tcn_block_fused(**args)
+        again = gcn_tcn_block_fused(**args)
+        want = gcn_tcn_block_plain(**args)
+    torch.cuda.synchronize()
+    assert (k5.launches, k5.launches_bf16) == (before[0], before[1] + 2)
+    for a, b, w in zip(got, again, want):
+        assert torch.equal(a, b)
+        _bf16_criterion(a, w)
+
+
+@pytest.mark.parametrize("shape", T1_SHAPES, ids=lambda s: "N{}-T{}-V{}-bc{}-s{}".format(*s))
+def test_ms_tcn_kernel_bf16_matches_plain(device, shape):
+    from tamgcn_tpu_torch.ops.cuda import ms_tcn as t1
+    from tamgcn_tpu_torch.ops.ms_tcn import ms_tcn_fused, ms_tcn_plain
+
+    args, stride = _t1_inputs(*shape[:4], device=device), shape[4]
+    args[0] = args[0].to(torch.bfloat16)
+    before = (t1.launches, t1.launches_bf16)
+    with torch.no_grad():
+        got = ms_tcn_fused(*args, stride)
+        again = ms_tcn_fused(*args, stride)
+        want = ms_tcn_plain(*args, stride)
+    torch.cuda.synchronize()
+    assert (t1.launches, t1.launches_bf16) == (before[0], before[1] + 2)
+    assert got.shape == want.shape and torch.equal(got, again)
+    _bf16_criterion(got, want)
