@@ -934,19 +934,32 @@ def _bf16_row(parts, **times):
                 share_equal=min(p[1] for p in parts), worst_output=worst[0])
 
 
+def kernel_split(split: dict) -> dict:
+    """{short kernel name: device ms a call} of utils/timing.py:graph_split's
+    names (the demangled signature cut to the kernel's name; the instances
+    of one template summed)."""
+    out = {}
+    for name, ms in split.items():
+        short = name.removeprefix("void ").replace("(anonymous namespace)::", "")
+        short = short.split("(")[0].split("<")[0]
+        out[short] = out.get(short, 0.0) + ms
+    return out
+
+
 def check_k5_bf16(device, plain_iters: int = 3) -> list:
     """K5's bf16 form (csrc/gcn_tcn_block.cu: gcn_tcn_block_bf16) on a bf16 x
     against its plain bf16 version at phase 6's shapes (BF16_FORM_SHARE,
     BF16_FORM_TOL), two launches bit for bit equal, timed by events and by a
     CUDA graph beside its bound (2-byte activations), its plain version
-    (over `plain_iters` calls) and the f32 form on the same values; returns
-    the rows."""
+    (over `plain_iters` calls) and the f32 form on the same values, with the
+    device time of each of its four kernels (torch.profiler over a CUDA-graph
+    replay); returns the rows."""
     import torch
 
     from tamgcn_tpu_torch.ops.cuda.gcn_tcn_block import gcn_tcn_block_fwd
     from tamgcn_tpu_torch.ops.gcn_tcn_block import gcn_tcn_block_plain
     from tamgcn_tpu_torch.utils.roofline import gcn_tcn_block_sol
-    from tamgcn_tpu_torch.utils.timing import graph_ms
+    from tamgcn_tpu_torch.utils.timing import graph_ms, graph_split
 
     shapes = [(n, s, c) for n, s, c in K5_MAIN_PATH] + [(n, s, 0) for n, s in K5_EXTRA]
     rows = []
@@ -965,7 +978,8 @@ def check_k5_bf16(device, plain_iters: int = 3) -> list:
                          plain_ms=cuda_ms(lambda: gcn_tcn_block_plain(**args),
                                           iters=plain_iters),
                          device_ms=graph_ms(lambda: gcn_tcn_block_fwd(**args)),
-                         f32_device_ms=graph_ms(lambda: gcn_tcn_block_fwd(**f32)))
+                         f32_device_ms=graph_ms(lambda: gcn_tcn_block_fwd(**f32)),
+                         split_ms=kernel_split(graph_split(lambda: gcn_tcn_block_fwd(**args))))
         bound_ms, bound_by = gcn_tcn_block_sol(*shape, act_bytes=2)
         check_above_bound(f"K5_bf16 {name}", times["device_ms"], bound_ms)
         rows.append(_bf16_row(parts, name=name, launches_per_step=count,
@@ -976,7 +990,9 @@ def check_k5_bf16(device, plain_iters: int = 3) -> list:
               f"max_abs_err {r['max_abs_err']:.3e} (max|plain| {r['max_abs_plain']:.3e}) "
               f"kernel {r['ms'] * 1e3:.1f} us (device {r['device_ms'] * 1e3:.1f}), f32 form "
               f"device {r['f32_device_ms'] * 1e3:.1f} us, plain {r['plain_ms'] * 1e3:.1f} us, "
-              f"bound {bound_ms * 1e3:.1f} us ({bound_by})", flush=True)
+              f"bound {bound_ms * 1e3:.1f} us ({bound_by}); device us by kernel "
+              + ", ".join(f"{k} {v * 1e3:.1f}" for k, v in r["split_ms"].items())
+              + f" (sum {sum(r['split_ms'].values()) * 1e3:.1f})", flush=True)
     return rows
 
 
@@ -5552,8 +5568,10 @@ def main() -> int:
             kernels[kname][key] = sum(r[key] * r["launches_per_step"] for r in rows[kname])
         kernels[kname]["share_equal"] = min(r["share_equal"] for r in rows[kname])
         kernels[kname]["sources"] = [kernels[kname]["source"],
-                                     "tamgcn_tpu_torch/csrc/mma_tf32x3.cuh"]
-    kernels["K5_bf16"]["sources"].append("tamgcn_tpu_torch/csrc/unit_ctr_gc_whole.cuh")
+                                     "tamgcn_tpu_torch/csrc/mma_bf16.cuh"]
+    # K5_bf16's aggregation: K1's body, its products 3xTF32
+    kernels["K5_bf16"]["sources"] += ["tamgcn_tpu_torch/csrc/unit_ctr_gc_whole.cuh",
+                                      "tamgcn_tpu_torch/csrc/mma_tf32x3.cuh"]
     # phase 14's paths: NTU-60's train step (K1t, K2t, K3) and fast eval (K5),
     # the cross-modal train step and eval forward (K1)
     ntu = p14["ntu"]

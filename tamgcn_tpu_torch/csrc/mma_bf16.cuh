@@ -2,8 +2,10 @@
 // m16n8k16 with its fragments read from shared memory by ldmatrix (K3's bf16
 // form, unit_ctr_gc_bwd_param_bf16.cu), and a block's 128 x 64 tile of a
 // product of two bf16 matrices in device memory (tile_product_bf16, K6's
-// bf16 form, unit_ctr_gc_bwd_conv3.cu). A bf16 x bf16 product is exact in
-// f32, so one MMA takes a term where 3xTF32 takes three.
+// bf16 form, unit_ctr_gc_bwd_conv3.cu; also K5's bf16 x3 product,
+// gcn_tcn_block.cu, whose epilogue and T1's bf16 form, ms_tcn.cu, take the
+// fragments and the MMA alone). A bf16 x bf16 product is exact in f32, so
+// one MMA takes a term where 3xTF32 takes three.
 //
 // tile_product_bf16: 8 warps, each 32 x 32 of the tile; the operands arrive
 // by cp.async in chunks of 64 k into a ring of kStages buffers, kStages - 1
@@ -54,6 +56,15 @@ __device__ inline void ldmatrix4(uint32_t (&r)[4], const __nv_bfloat16* p) {
                  : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
                  : "r"(shared_addr(p)));
   }
+}
+
+// the two 8x8 bf16 matrices whose rows lanes 0-15 address (lanes 0-7 the
+// rows of matrix 0, 8-15 of matrix 1), transposed, each lane's share in r[i]:
+// the B fragments (k 0-7, k 8-15) of one n8 tile from a [k][n] tile
+__device__ inline void ldmatrix2_trans(uint32_t (&r)[2], const __nv_bfloat16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0,%1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(shared_addr(p)));
 }
 
 __device__ inline void mma(float (&d)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {

@@ -10,31 +10,13 @@
 // k range from zero and adds it to the caller's accumulators with an f32 add
 // (rounded to nearest): called once per staged chunk of 16 or 32 k, the
 // truncation stays within a chunk.
-//
-// The bf16 forms of K5 and T1 take fewer terms (Operands): a bf16 value is
-// exact in TF32 (its 8 significant bits fit TF32's 11), so its remainder is
-// zero. With A's values bf16 (T1's bf16 prefix, widened) hi*lo + hi*hi are
-// the f32 product; with both operands rounded to bf16 (K5's bf16 products,
-// as the JAX kernel's bf16 body takes them) hi*hi alone is the bf16 x bf16
-// product, exact in f32, summed in f32.
 #pragma once
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
-#include <type_traits>
 
 namespace mma_tf32x3 {
-
-// What warp_mma takes of its two f32 operands: kF32, three TF32 products;
-// kAExact, A's values exact in TF32 (bf16 values), two; kBf16, both rounded
-// to bf16 first, one.
-enum class Operands { kF32, kAExact, kBf16 };
-
-__device__ inline float round_bf16(float x) {
-  return __bfloat162float(__float2bfloat16_rn(x));
-}
 
 // The TF32 high part of x (round to nearest) and the remainder x - hi
 // (exact in f32; the MMA reads its top 11 bits).
@@ -82,8 +64,8 @@ __device__ inline void wait() {
 // 8*nt + 2*t4 + i % 2. Each k step loads and splits every fragment first,
 // then issues the three products term by term, so the MT*NT sums of a term
 // are in flight together; every tile is whole (a test per tile in this loop
-// slows it). kOp: the products a term takes (Operands).
-template <int MT, int NT, bool kAT, Operands kOp = Operands::kF32>
+// slows it).
+template <int MT, int NT, bool kAT>
 __device__ inline void warp_mma(const float* A, int lda, const float* B, int ldb, int ksteps,
                                 float (&acc)[MT][NT][4]) {
   const int lane = threadIdx.x % 32, g = lane / 4, t4 = lane % 4;
@@ -114,37 +96,22 @@ __device__ inline void warp_mma(const float* A, int lda, const float* B, int ldb
         av[3] = a[8 * lda + 4];
       }
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        if constexpr (kOp == Operands::kF32) {
-          split(av[i], ahi[mt][i], alo[mt][i]);
-        } else {  // exact in TF32: its bits are the high part
-          ahi[mt][i] = __float_as_uint(kOp == Operands::kBf16 ? round_bf16(av[i]) : av[i]);
-        }
-      }
+      for (int i = 0; i < 4; ++i) split(av[i], ahi[mt][i], alo[mt][i]);
     }
 #pragma unroll
     for (int nt = 0; nt < NT; ++nt) {
       const float* b = B + (ks * 8 + t4) * ldb + nt * 8 + g;
-      if constexpr (kOp == Operands::kBf16) {
-        bhi[nt][0] = __float_as_uint(round_bf16(b[0]));
-        bhi[nt][1] = __float_as_uint(round_bf16(b[4 * ldb]));
-      } else {
-        split(b[0], bhi[nt][0], blo[nt][0]);
-        split(b[4 * ldb], bhi[nt][1], blo[nt][1]);
-      }
+      split(b[0], bhi[nt][0], blo[nt][0]);
+      split(b[4 * ldb], bhi[nt][1], blo[nt][1]);
     }
-    if constexpr (kOp == Operands::kF32) {
 #pragma unroll
-      for (int mt = 0; mt < MT; ++mt)
+    for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
-        for (int nt = 0; nt < NT; ++nt) mma_tf32(part[mt][nt], alo[mt], bhi[nt][0], bhi[nt][1]);
-    }
-    if constexpr (kOp != Operands::kBf16) {
+      for (int nt = 0; nt < NT; ++nt) mma_tf32(part[mt][nt], alo[mt], bhi[nt][0], bhi[nt][1]);
 #pragma unroll
-      for (int mt = 0; mt < MT; ++mt)
+    for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
-        for (int nt = 0; nt < NT; ++nt) mma_tf32(part[mt][nt], ahi[mt], blo[nt][0], blo[nt][1]);
-    }
+      for (int nt = 0; nt < NT; ++nt) mma_tf32(part[mt][nt], ahi[mt], blo[nt][0], blo[nt][1]);
 #pragma unroll
     for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
@@ -208,19 +175,11 @@ __device__ inline void tile_rows(float* dst, const float* __restrict__ src, int 
 // n_end); zero past the ends. kVecA, kVecB: 16-byte copies (strides, ends
 // and bases multiples of 4 floats; for a row-major A, k_end too). After the
 // warps have multiplied a chunk, hook(A chunk) runs on every thread.
-// A row-major bf16 A (TA = __nv_bfloat16, K5's bf16 x) is loaded through
-// registers and stored widened (kVecA: 8-byte loads of 4 values, lda, k_end
-// and the base multiples of 4 values), and the product is the bf16 one:
-// both operands rounded to bf16, one TF32 product a term (Operands::kBf16).
-template <int KC, bool kAT, bool kVecA, bool kVecB, class Hook, typename TA>
-__device__ inline void tile_product(const TA* __restrict__ A, int lda, int m_end,
+template <int KC, bool kAT, bool kVecA, bool kVecB, class Hook>
+__device__ inline void tile_product(const float* __restrict__ A, int lda, int m_end,
                                     const float* __restrict__ B, int ldb, int n_end, int m0,
                                     int n0, int k_begin, int k_end, float* Ab, float* Bb,
                                     float (&acc)[2][4][4], Hook hook) {
-  constexpr bool kA16 = std::is_same_v<TA, __nv_bfloat16>;
-  static_assert(kA16 || std::is_same_v<TA, float>, "A is f32 or bf16");
-  static_assert(!(kA16 && kAT), "a bf16 A is row-major");
-  constexpr Operands kOp = kA16 ? Operands::kBf16 : Operands::kF32;
   const int tid = threadIdx.x, warp = tid / 32;
   const int wm = warp / 2, wn = warp % 2;
   constexpr int kChunk = tile_chunk<KC>(), kLdA = KC + 4;
@@ -228,25 +187,7 @@ __device__ inline void tile_product(const TA* __restrict__ A, int lda, int m_end
   auto stage = [&](int kc, int buf) {
     const int k0 = k_begin + kc * KC;
     float* a = Ab + buf * kChunk;
-    if constexpr (kA16) {
-      for (int i = tid; i < kTileM * KC / (kVecA ? 4 : 1); i += kTileThreads) {
-        const int r = kVecA ? i / (KC / 4) : i / KC, c = kVecA ? 4 * (i % (KC / 4)) : i % KC;
-        const __nv_bfloat16* src = A + (size_t)(m0 + r) * lda + k0 + c;
-        if (kVecA) {
-          float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-          if (m0 + r < m_end && k0 + c < k_end) {
-            const uint2 raw = *reinterpret_cast<const uint2*>(src);
-            const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.x));
-            const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.y));
-            v = make_float4(lo.x, lo.y, hi.x, hi.y);
-          }
-          *reinterpret_cast<float4*>(a + r * kLdA + c) = v;
-        } else {
-          a[r * kLdA + c] =
-              m0 + r < m_end && k0 + c < k_end ? __bfloat162float(*src) : 0.f;
-        }
-      }
-    } else if (kAT) {
+    if (kAT) {
       tile_rows<KC, kVecA>(a, A, lda, k0, k_end, m0, m_end);
     } else if (kVecA) {
       for (int i = tid; i < kTileM * KC / 4; i += kTileThreads) {
@@ -279,7 +220,7 @@ __device__ inline void tile_product(const TA* __restrict__ A, int lda, int m_end
     if (kAT) {
       warp_mma<2, 4, true>(a + wm * 32, kTileLd, b, kTileLd, KC / 8, acc);
     } else {
-      warp_mma<2, 4, false, kOp>(a + wm * 32 * kLdA, kLdA, b, kTileLd, KC / 8, acc);
+      warp_mma<2, 4, false>(a + wm * 32 * kLdA, kLdA, b, kTileLd, KC / 8, acc);
     }
     hook(a);
     __syncthreads();  // chunk kc is consumed before its buffer is refilled

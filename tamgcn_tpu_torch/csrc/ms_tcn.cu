@@ -43,13 +43,25 @@
 //
 // The bf16 form (ms_tcn_bf16): a bf16 prefix and output, f32 w, b and mp, as
 // the JAX kernel widens a bf16 prefix to f32 and writes the prefix's dtype
-// (tools/exp_ms_tcn.py:51, :69, :78). The same kernel on TP = __nv_bfloat16:
-// the input frames are loaded through registers (8-byte loads of 4 values
-// where the 16-byte copies would run) and stored widened into the same f32
-// planes, so the staged A operand is a bf16 value, exact in TF32, and each
-// term takes two TF32 products (hi*lo + hi*hi, mma_tf32x3.cuh
-// Operands::kAExact) for what 3xTF32 gives in f32; the max-pool reads bf16
-// and every output is rounded once to bf16 as it is stored.
+// (tools/exp_ms_tcn.py:51, :69, :78). The same kernel on TP = __nv_bfloat16.
+// Its bound is the bytes (the prefix and the output at 2 bytes a value), but
+// on an H100 the products took half its time as two TF32 terms on bf16
+// planes (with them left out, the tool's pass ran in 48% of the time;
+// without the copies in 82%, without the max-pool in 89%), so both the
+// staging and the products are redesigned. The input frames are staged as
+// 2-byte values by cp.async (16 bytes, 8 channels, where bc % 8 == 0 and the
+// prefix is 16-byte aligned; else 8 or 2 bytes) into bf16 planes, half the
+// f32 form's. The products are bf16 MMAs (ldmatrix + mma.sync m16n8k16,
+// mma_bf16.cuh) over k = bc rounded up to 16: w is split as it is staged
+// into three bf16 parts, w = hi + mid + lo exactly (8 significant bits
+// each), and a bf16 prefix value times each part is exact in f32, so three
+// MMAs a k16 step give the f32 product where two TF32 terms took four MMAs
+// of k8 and a split per fragment load. The parts take 6 bytes a weight, so
+// they are laid out without padding, each row's 16-byte chunks XOR-swizzled
+// by the row (conflict-free ldmatrix), and the outputs go straight from the
+// accumulators (no epilogue tile): at bc = 64 a block still holds every
+// frame of the tool shapes. The max-pool reads bf16 and every output is
+// rounded once to bf16 as it is stored.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -58,6 +70,7 @@
 #include <cstdint>
 #include <type_traits>
 
+#include "mma_bf16.cuh"
 #include "mma_tf32x3.cuh"
 #include "unit_ctr_gc_common.cuh"
 
@@ -65,6 +78,7 @@ namespace {
 
 using namespace mma_tf32x3;
 using bf16 = __nv_bfloat16;
+
 // a prefix value loaded as f32, a result rounded once to the output type
 template <typename TP>
 using Act = unit_ctr_gc::Act<TP>;
@@ -76,9 +90,19 @@ constexpr int kSmemTwo = 113 * 1024;  // two blocks per SM
 constexpr int kSMs = 132;
 
 __host__ __device__ inline int round8(int a) { return (a + 7) / 8 * 8; }
+__host__ __device__ inline int round16(int a) { return (a + 15) / 16 * 16; }
 // row strides (floats) of the staged input (A) and of the weights and the
 // epilogue tile (B): lda % 32 in {4, 12, 20, 28}, ldb % 32 in {8, 24}
 __host__ __device__ inline int lda_of(int BCP) { return BCP + 4; }
+// the bf16 form's product depth, bc rounded up to an MMA's k of 16, and its
+// planes' row stride (values): 16 mod 128 bytes, so that the 8 rows of an
+// ldmatrix fall in 8 distinct 16-byte bank groups
+__host__ __device__ inline int lda_bf16(int BCK) { return BCK + 8; }
+// bytes of one staged row of a plane, for 4-byte (f32) or 2-byte values
+__host__ __device__ inline int plane_row_bytes(int BC, int act_bytes) {
+  return act_bytes == 4 ? 4 * lda_of(round8(BC)) : 2 * lda_bf16(round16(BC));
+}
+constexpr int kParts = 3;  // the bf16 parts of a weight
 __host__ __device__ inline int ldb_of(int NC) { return NC <= 16 ? 24 : NC + 8; }
 
 struct Tiling {
@@ -100,10 +124,34 @@ __host__ __device__ inline int plane_rows(int TO, int VJ, int stride) {
 constexpr int kItemCols = 32, kStCols = 16, kLdSt = 24;
 __host__ __device__ inline int item_cols(int NC) { return NC < kItemCols ? NC : kItemCols; }
 
-__host__ __device__ inline size_t smem_bytes(const Tiling& t, int BC, int stride) {
+// f32: the planes, the weights [5][BCP][ldb] and the epilogue tiles; bf16:
+// the planes and the weights' parts [3][5][BCK][NC]
+__host__ __device__ inline size_t smem_bytes(const Tiling& t, int BC, int stride,
+                                             int act_bytes) {
+  const size_t planes = (size_t)stride * plane_rows(t.TO, t.VJ, stride) *
+                        plane_row_bytes(BC, act_bytes);
+  if (act_bytes == 2) return planes + 2 * (size_t)kParts * kKS * round16(BC) * t.NC;
   const int BCP = round8(BC);
-  return sizeof(float) * ((size_t)stride * plane_rows(t.TO, t.VJ, stride) * lda_of(BCP) +
-                          (size_t)kKS * BCP * ldb_of(t.NC) + (size_t)t.warps * 8 * kLdSt);
+  return planes +
+         sizeof(float) * ((size_t)kKS * BCP * ldb_of(t.NC) + (size_t)t.warps * 8 * kLdSt);
+}
+
+// the bf16 weights' layout: row R (part, tap, input channel) of NC values,
+// its 16-byte chunk j stored at chunk j ^ ((R >> (3 - log2(NC / 8))) & (NC /
+// 8 - 1)), so that the 8 rows an ldmatrix reads at one chunk fall in 8
+// distinct bank groups
+__device__ inline int wswz(int R, int j, int NC) {
+  const int L = NC / 8, shift = NC == 64 ? 0 : NC == 32 ? 1 : NC == 16 ? 2 : 3;
+  return R * NC + 8 * (j ^ ((R >> shift) & (L - 1)));
+}
+
+// w = hi + mid + lo, each bf16 (8 significant bits, the same exponent range
+// as f32): exact, each remainder exact in f32
+__device__ inline void split3(float w, bf16 (&p)[kParts]) {
+  p[0] = __float2bfloat16_rn(w);
+  const float r1 = w - __bfloat162float(p[0]);
+  p[1] = __float2bfloat16_rn(r1);
+  p[2] = __float2bfloat16_rn(r1 - __bfloat162float(p[1]));
 }
 
 // rows x units of work over the block's threads without a division per
@@ -122,28 +170,34 @@ __device__ inline void for_rows(int rows, int units, Fn fn) {
 
 // conv block (sample, frame tile and joint tile, branch and channel slice of
 // NC columns); a warp's item is 16 * kMT rows of NTW * 8 <= 32 columns. TP:
-// the prefix's and the output's type (f32, or bf16: the header)
+// the prefix's and the output's type, and the planes' (f32, or bf16: the
+// header). vec: 4 values a load, store or weight copy; pv: prefix values a
+// copy into the planes (4 or 1 in f32; 8, 4 or 1 in bf16)
 template <int NTW, typename TP>
 __global__ void __launch_bounds__(kMaxThreads, 1)
 ms_tcn_kernel(const TP* __restrict__ prefix, const float* __restrict__ w,
               const float* __restrict__ b, const float* __restrict__ mp,
               TP* __restrict__ out, int T, int V, int BC, int stride, int To, int TO,
-              int VJ, int vtiles, int NC, int vec) {
+              int VJ, int vtiles, int NC, int vec, int pv) {
   constexpr bool kF32 = std::is_same_v<TP, float>;
   constexpr int NW = 8 * NTW;  // columns of an item
-  extern __shared__ __align__(16) float smem[];
+  extern __shared__ __align__(16) float4 smem4[];
   const int n = blockIdx.z;
   const int nslices = (BC + NC - 1) / NC;
   const int branch = blockIdx.y / nslices, o0 = blockIdx.y % nslices * NC;
   const int t0 = blockIdx.x / vtiles * TO, u0 = blockIdx.x % vtiles * VJ;
   const int nt = min(TO, To - t0), vj = min(VJ, V - u0);
   const int d = branch + 1;
-  const int P = 3 * BC, BCP = round8(BC), lda = lda_of(BCP), ldb = ldb_of(NC);
+  // the product's depth: bc rounded up to 8 (f32) or 16 (bf16)
+  const int P = 3 * BC, BCP = kF32 ? round8(BC) : round16(BC), ldb = ldb_of(NC);
+  const int lda = kF32 ? lda_of(BCP) : lda_bf16(BCP);
   constexpr int SC = NW < kStCols ? NW : kStCols;  // columns of the epilogue tile
   const int prow = plane_rows(TO, VJ, stride);
-  float* planes = smem;                                // [stride][prow][lda]
-  float* Ws = planes + (size_t)stride * prow * lda;    // [5][BCP][ldb]
-  float* St = Ws + (size_t)kKS * BCP * ldb;            // [warps][8][kLdSt]
+  TP* planes = reinterpret_cast<TP*>(smem4);                         // [stride][prow][lda]
+  // f32: [5][BCP][ldb] then St [warps][8][kLdSt]; bf16: Wh [3][5][BCP][NC] swizzled
+  float* Ws = reinterpret_cast<float*>(planes + (size_t)stride * prow * lda);
+  bf16* Wh = reinterpret_cast<bf16*>(Ws);
+  float* St = Ws + (size_t)kKS * BCP * ldb;
   const int warps = blockDim.x / 32, warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int vw = vec ? 4 : 1;  // floats a copy, load or store
 
@@ -152,12 +206,12 @@ ms_tcn_kernel(const TP* __restrict__ prefix, const float* __restrict__ w,
   const int frames = stride == 1 ? nt + 4 * d : nt + 2 * d;  // per plane
   const int tlo = t0 * stride - 2 * d;
   const TP* pin = prefix + (size_t)n * T * V * P + branch * BC;
-  for_rows(stride * frames * vj, BCP / vw, [&](int r, int unit) {
+  for_rows(stride * frames * vj, BCP / pv, [&](int r, int unit) {
     const int ul = r % vj, pq = r / vj;
     const int q = pq % frames, par = pq / frames;
-    const int f = tlo + stride * q + par, c = unit * vw;
+    const int f = tlo + stride * q + par, c = unit * pv;
     const bool ok = f >= 0 && f < T && c < BC;
-    float* dst = planes + ((size_t)par * prow + q * VJ + ul) * lda + c;
+    TP* dst = planes + ((size_t)par * prow + q * VJ + ul) * lda + c;
     const TP* src = ok ? pin + ((size_t)f * V + u0 + ul) * P + c : prefix;
     if constexpr (kF32) {
       if (vec) {
@@ -165,22 +219,46 @@ ms_tcn_kernel(const TP* __restrict__ prefix, const float* __restrict__ w,
       } else {
         copy4(dst, src, ok);
       }
-    } else if (vec) {  // bf16: through registers, widened
-      *reinterpret_cast<float4*>(dst) = ok ? Act<TP>::load4(src) : make_float4(0.f, 0.f, 0.f, 0.f);
+    } else if (pv == 8) {  // bf16: 2-byte values as they are
+      mma_bf16::copy16(dst, src, ok);
+    } else if (pv == 4) {
+      mma_bf16::copy8(dst, src, ok);
     } else {
-      *dst = ok ? Act<TP>::load(src) : 0.f;
+      *dst = ok ? *src : __float2bfloat16(0.f);
     }
   });
   const float* wb = w + (size_t)branch * kKS * BC * BC;
   for_rows(kKS * BCP, NC / vw, [&](int kc, int unit) {  // kc = k * BCP + c
     const int k = kc / BCP, c = kc % BCP, o = unit * vw;
     const bool ok = c < BC && o0 + o < BC;
-    float* dst = Ws + (size_t)kc * ldb + o;
     const float* src = ok ? wb + ((size_t)k * BC + c) * BC + o0 + o : w;
-    if (vec) {
-      copy16(dst, src, ok);
-    } else {
-      copy4(dst, src, ok);
+    if constexpr (kF32) {
+      float* dst = Ws + (size_t)kc * ldb + o;
+      if (vec) {
+        copy16(dst, src, ok);
+      } else {
+        copy4(dst, src, ok);
+      }
+    } else {  // through registers, split into the three parts
+      const float4 v = !ok ? make_float4(0.f, 0.f, 0.f, 0.f)
+                           : vec ? __ldg(reinterpret_cast<const float4*>(src))
+                                 : make_float4(__ldg(src), 0.f, 0.f, 0.f);
+      const float e[4] = {v.x, v.y, v.z, v.w};
+      bf16 parts[4][kParts];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) split3(e[i], parts[i]);
+#pragma unroll
+      for (int p = 0; p < kParts; ++p) {
+        const int R = p * kKS * BCP + kc;
+        bf16* dst = Wh + wswz(R, o / 8, NC) + o % 8;
+        if (vec) {
+          const __nv_bfloat162 pair[2] = {__halves2bfloat162(parts[0][p], parts[1][p]),
+                                          __halves2bfloat162(parts[2][p], parts[3][p])};
+          *reinterpret_cast<uint2*>(dst) = *reinterpret_cast<const uint2*>(pair);
+        } else {
+          *dst = parts[0][p];
+        }
+      }
     }
   });
   commit();
@@ -245,7 +323,6 @@ ms_tcn_kernel(const TP* __restrict__ prefix, const float* __restrict__ w,
   // ---- the branch: items of 16 * MT rows and NW columns, by warp ----
   constexpr int MT = kMT;
   const int g = lane / 4, t4 = lane % 4;
-  float* st = St + (size_t)warp * 8 * kLdSt;
   const int rows = nt * VJ;
   const int chunks = NC / NW, items = (rows + 16 * MT - 1) / (16 * MT) * chunks;
   for (int item = warp; item < items; item += warps) {
@@ -260,13 +337,75 @@ ms_tcn_kernel(const TP* __restrict__ prefix, const float* __restrict__ w,
 #pragma unroll 1
     for (int k = 0; k < kKS; ++k) {
       const int kd = k * d;
-      const float* A = planes + ((size_t)(kd % stride) * prow + kd / stride * VJ + r0) * lda;
-      warp_mma<MT, NTW, false, kF32 ? Operands::kF32 : Operands::kAExact>(
-          A, lda, Ws + (size_t)k * BCP * ldb + oc, ldb, BCP / 8, acc);
+      const TP* A = planes + ((size_t)(kd % stride) * prow + kd / stride * VJ + r0) * lda;
+      if constexpr (kF32) {
+        warp_mma<MT, NTW, false>(A, lda, Ws + (size_t)k * BCP * ldb + oc, ldb, BCP / 8, acc);
+      } else {
+#pragma unroll 2
+        for (int ks = 0; ks < BCP / 16; ++ks) {
+          uint32_t af[MT][4], bfr[kParts][NTW][2];
+#pragma unroll
+          for (int mt = 0; mt < MT; ++mt) {
+            mma_bf16::ldmatrix4<false>(
+                af[mt], A + (mt * 16 + (lane & 15)) * lda + ks * 16 + (lane >> 4) * 8);
+          }
+#pragma unroll
+          for (int p = 0; p < kParts; ++p) {
+            const int R = (p * kKS + k) * BCP + ks * 16 + (lane & 15);
+#pragma unroll
+            for (int np = 0; np < NTW / 2; ++np) {
+              uint32_t r[4];
+              mma_bf16::ldmatrix4<true>(r, Wh + wswz(R, oc / 8 + 2 * np + (lane >> 4), NC));
+              bfr[p][2 * np][0] = r[0];
+              bfr[p][2 * np][1] = r[1];
+              bfr[p][2 * np + 1][0] = r[2];
+              bfr[p][2 * np + 1][1] = r[3];
+            }
+            if constexpr (NTW % 2 == 1) {
+              mma_bf16::ldmatrix2_trans(bfr[p][NTW - 1], Wh + wswz(R, oc / 8 + NTW - 1, NC));
+            }
+          }
+#pragma unroll
+          for (int p = kParts - 1; p >= 0; --p)  // the small parts first
+#pragma unroll
+            for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+              for (int j = 0; j < NTW; ++j) {
+                mma_bf16::mma(acc[mt][j], af[mt], bfr[p][j][0], bfr[p][j][1]);
+              }
+        }
+      }
     }
-    // epilogue: 8 rows and SC columns at a time through the warp's tile,
-    // with the bias, then 16-byte stores along the channels
     const float* brow = b + branch * BC + o0 + oc;
+    if constexpr (!kF32) {
+      // the bias, then straight from the accumulators, each value rounded
+      // once to bf16: pairs of channels (vec) or single values
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int r = r0 + mt * 16 + g + 8 * h;
+          const int ul = r % VJ, tl = r / VJ;
+          if (r >= rows || ul >= vj) continue;
+          TP* orow = out + (((size_t)n * To + t0 + tl) * V + u0 + ul) * P + branch * BC + o0 + oc;
+#pragma unroll
+          for (int j = 0; j < NTW; ++j) {
+            const int col = j * 8 + 2 * t4, ch = o0 + oc + col;
+            if (ch >= BC) continue;
+            const float v0 = acc[mt][j][2 * h] + brow[col];
+            if (vec) {  // bc % 4 == 0: ch + 1 < bc
+              Act<TP>::store2(orow + col, v0, acc[mt][j][2 * h + 1] + brow[col + 1]);
+            } else {
+              Act<TP>::store(orow + col, v0);
+              if (ch + 1 < BC) Act<TP>::store(orow + col + 1, acc[mt][j][2 * h + 1] + brow[col + 1]);
+            }
+          }
+        }
+      continue;
+    }
+    // f32 epilogue: 8 rows and SC columns at a time through the warp's
+    // tile, with the bias, then 16-byte stores along the channels
+    float* st = St + (size_t)warp * 8 * kLdSt;
 #pragma unroll
     for (int part = 0; part < 2 * MT * NW / SC; ++part) {
       // rows 8*half.. of m-tile mi, columns c0..
@@ -310,8 +449,9 @@ ms_tcn_kernel(const TP* __restrict__ prefix, const float* __restrict__ w,
 // narrower slices, where one frame does not fit. At two blocks an SM the
 // frame tiles are then cut further while that fills the waves of blocks
 // better (the bytes bound these shapes); the tiles are evened out. TO = 0
-// where even (1 frame, 1 joint, 8 channels) does not fit.
-inline Tiling tiling(int N, int T, int V, int BC, int stride) {
+// where even (1 frame, 1 joint, 8 channels) does not fit. act_bytes: 4 for
+// the f32 planes, 2 for the bf16 ones.
+inline Tiling tiling(int N, int T, int V, int BC, int stride, int act_bytes) {
   if (T < 1 || V < 1 || BC < 1 || (stride != 1 && stride != 2)) return Tiling{};
   const int To = (T + stride - 1) / stride;
   const int BCP = round8(BC);
@@ -322,10 +462,12 @@ inline Tiling tiling(int N, int T, int V, int BC, int stride) {
         const size_t budget = two ? kSmemTwo : kSmemLimit;
         // bytes of a block without frames, then of each frame (the padding
         // to whole items, at most 31 rows, is left to the loop)
-        const size_t fixed = smem_bytes(Tiling{0, VJ, NC, warps}, BC, stride);
-        const size_t frame = sizeof(float) * stride * lda_of(BCP) * VJ;
+        const size_t fixed = smem_bytes(Tiling{0, VJ, NC, warps}, BC, stride, act_bytes);
+        const size_t frame = (size_t)stride * plane_row_bytes(BC, act_bytes) * VJ;
         int TO = budget > fixed ? (int)std::min<size_t>(To, (budget - fixed) / frame) : 0;
-        while (TO >= 1 && smem_bytes(Tiling{TO, VJ, NC, warps}, BC, stride) > budget) --TO;
+        while (TO >= 1 && smem_bytes(Tiling{TO, VJ, NC, warps}, BC, stride, act_bytes) > budget) {
+          --TO;
+        }
         if (TO < 1 || (two && TO < 4 && TO < To)) continue;
         int tiles = (To + TO - 1) / TO;
         if (two) {
@@ -352,7 +494,7 @@ inline Tiling tiling(int N, int T, int V, int BC, int stride) {
 template <int NTW, typename TP>
 int launch(const TP* prefix, const float* w, const float* b, const float* mp, TP* out,
            int N, int T, int V, int BC, int stride, const Tiling& t, cudaStream_t stream) {
-  const size_t smem = smem_bytes(t, BC, stride);
+  const size_t smem = smem_bytes(t, BC, stride, sizeof(TP));
   cudaError_t err = cudaFuncSetAttribute(
       ms_tcn_kernel<NTW, TP>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
@@ -362,16 +504,21 @@ int launch(const TP* prefix, const float* w, const float* b, const float* mp, TP
   const uintptr_t align = 4 * sizeof(TP);
   const int vec = BC % 4 == 0 && (uintptr_t)prefix % align == 0 && (uintptr_t)w % 16 == 0 &&
                   (uintptr_t)mp % 16 == 0 && (uintptr_t)out % align == 0;
+  // the planes' copies: f32 as vec says; bf16 16 bytes where 8 channels of
+  // a row are 16-byte aligned, else 8 bytes where vec holds, else 2
+  const int pv = sizeof(TP) == 4 ? (vec ? 4 : 1)
+                 : BC % 8 == 0 && (uintptr_t)prefix % 16 == 0 ? 8
+                 : BC % 4 == 0 && (uintptr_t)prefix % 8 == 0 ? 4 : 1;
   const dim3 grid(((To + t.TO - 1) / t.TO) * vtiles, 2 * ((BC + t.NC - 1) / t.NC), N);
   ms_tcn_kernel<NTW, TP><<<grid, 32 * t.warps, smem, stream>>>(
-      prefix, w, b, mp, out, T, V, BC, stride, To, t.TO, t.VJ, vtiles, t.NC, vec);
+      prefix, w, b, mp, out, T, V, BC, stride, To, t.TO, t.VJ, vtiles, t.NC, vec, pv);
   return cudaGetLastError();
 }
 
 template <typename TP>
 int run(const TP* prefix, const float* w, const float* b, const float* mp, TP* out, int N,
         int T, int V, int BC, int stride, void* stream) {
-  const Tiling t = tiling(N, T, V, BC, stride);
+  const Tiling t = tiling(N, T, V, BC, stride, sizeof(TP));
   if (N < 1 || N > 65535 || t.TO < 1) return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (item_cols(t.NC)) {
@@ -383,12 +530,13 @@ int run(const TP* prefix, const float* w, const float* b, const float* mp, TP* o
 
 }  // namespace
 
-// The output frames a block owns for one sample of (T, V, BC, stride), or
-// 0 where the kernel does not take the shape: one frame of one joint with the halo, the
-// five taps' weights of 8 output channels and the epilogue tiles must fit a
-// block's shared memory (BC <= 336 at stride 1).
-extern "C" int ms_tcn_frames_per_block(int T, int V, int BC, int stride) {
-  return tiling(1, T, V, BC, stride).TO;
+// The output frames a block owns for one sample of (T, V, BC, stride) in
+// the f32 form (bf16 = 0) or the bf16 one, or 0 where the kernel does not
+// take the shape: one frame of one joint with the halo, the five taps'
+// weights of 8 output channels and the epilogue tiles must fit a block's
+// shared memory (BC <= 336 at stride 1 in f32).
+extern "C" int ms_tcn_frames_per_block(int T, int V, int BC, int stride, int bf16) {
+  return tiling(1, T, V, BC, stride, bf16 ? 2 : 4).TO;
 }
 
 // prefix (N,T,V,3*BC), w (2,5,BC,BC) as (in,out), b (2,BC), mp (2,BC) as

@@ -11,7 +11,10 @@ phases), and launches them on the current stream as one call; it never
 falls back to the plain version. On a bfloat16 x it launches the bf16 form
 (the JAX kernel's bf16 body: bf16 products, x3 and the epilogue f32, bf16
 outputs), the other operands widened to float32 where they are bfloat16,
-and counts it on `launches_bf16`; its scratch is the f32 form's.
+and counts it on `launches_bf16`; its scratch holds the f32 form's and,
+after it, the weights rounded once to bf16 by the call's first kernel (and
+x padded where its rows are not 16-byte copies): as many floats as the C
+query gcn_tcn_block_bf16_scratch_floats says.
 """
 from __future__ import annotations
 
@@ -41,8 +44,17 @@ def _kernel(form: str = "f32"):
 
 
 def scratch_floats(N: int, T: int, V: int, S: int, C: int) -> int:
-    """Floats of K5's scratch: x3, rounded up to 4 floats, then y."""
+    """Floats of K5's scratch in f32: x3, rounded up to 4 floats, then y."""
     return (N * T * V * S * C + 3) // 4 * 4 + N * T * V * C
+
+
+def scratch_floats_bf16(x_ptr: int, N: int, T: int, V: int, S: int, Cin: int, C: int, P: int,
+                        BC: int) -> int:
+    """Floats of K5's scratch in bf16 for a bf16 x at address x_ptr (whether
+    x is padded depends on its alignment): the C launcher's own count."""
+    query = build.entry(SOURCE, "gcn_tcn_block_bf16_scratch_floats", [_P] + [_I] * 8,
+                        ctypes.c_longlong)
+    return query(x_ptr, N, S, T, V, Cin, C, P, BC)
 
 
 def gcn_tcn_block_fwd(x, x1s, x2s, w3, b3, w4s, b4s, alpha, As, gy, wo, bo,
@@ -90,8 +102,10 @@ def gcn_tcn_block_fwd(x, x1s, x2s, w3, b3, w4s, b4s, alpha, As, gy, wo, bo,
         return torch.empty(shape, device=device, dtype=dtype)
 
     # scratch: x3 (N,T,V,S*C), rounded to 4 floats, then the unit op's output
-    # (N,T,V,C), which pass between the kernel's phases; f32 in both forms
-    y = empty(scratch_floats(N, T, V, S, C))
+    # (N,T,V,C), which pass between the kernel's phases, f32 in both forms;
+    # in bf16 the rounded weights after them
+    y = empty(scratch_floats_bf16(x.data_ptr(), N, T, V, S, Cin, C, P, BC) if bf16
+              else scratch_floats(N, T, V, S, C))
     prefix, pw = empty(N, T, V, P, dtype=act), empty(N, T, V, BC, dtype=act)
     ptrs = [t.data_ptr() for t in (x, x1s, x2s, w3, b3, w4s, b4s, alpha, As, gy)]
     ptrs += [None, None] if wd is None else [wd.data_ptr(), bd.data_ptr()]

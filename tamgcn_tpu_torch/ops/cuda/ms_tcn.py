@@ -6,8 +6,9 @@ Counterpart of tools/exp_ms_tcn.py:ms_tcn_fused; its plain version is
 ops/ms_tcn.py:ms_tcn_plain. The wrapper checks its inputs, allocates the
 output and launches the kernel on the current stream; it never falls back
 to the plain version. On a bfloat16 prefix it launches the bf16 form (the
-prefix widened to f32 inside, f32 w, b and mp, the output rounded once to
-bf16) and counts it on `launches_bf16`.
+prefix staged as bf16, f32 w split into three bf16 parts for bf16 MMAs that
+give the f32 products, f32 b and mp, the output rounded once to bf16) and
+counts it on `launches_bf16`.
 """
 from __future__ import annotations
 
@@ -55,14 +56,14 @@ def ms_tcn_fwd(prefix, w, b, mp_affine, stride: int = 1):
         raise TypeError(f"prefix is {act}; ms_tcn_fwd takes it in float32 or bfloat16")
     for name, t in (("prefix", prefix), ("w", w), ("b", b), ("mp_affine", mp_affine)):
         _check(name, t, t.shape, device, act if name == "prefix" else torch.float32)
-    frames = _entry("ms_tcn_frames_per_block", [_I] * 4)(T, V, bc, stride)
+    bf16 = act == torch.bfloat16
+    frames = _entry("ms_tcn_frames_per_block", [_I] * 5)(T, V, bc, stride, int(bf16))
     if frames < 1 or N > 65535:
         raise ValueError(
             f"ms_tcn_fwd does not take N={N} T={T} V={V} bc={bc} stride={stride}: "
             "N <= 65535, and one frame of one joint with its halo and the five "
             "taps' weights of 8 output channels must fit a block's shared memory "
-            "(bc <= 336 at stride 1)")
-    bf16 = act == torch.bfloat16
+            "(bc <= 336 at stride 1 in float32)")
     out = torch.empty((N, -(-T // stride), V, 3 * bc), device=device, dtype=act)
     _launch(_entry("ms_tcn_bf16" if bf16 else "ms_tcn_f32", ARGTYPES), device,
             dict(N=N, T=T, V=V, bc=bc, stride=stride),

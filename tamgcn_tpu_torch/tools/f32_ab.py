@@ -1,46 +1,54 @@
 """The one A/B tool of the port's kernels: K1, K2, K3, K5 and K6 in f32, the
-bf16 forms of K3 and K6 (K3_bf16, K6_bf16) and the experiment kernels T1
-and T2 of this checkout against the same kernels built from another
-directory of sources with the same C interface, such as an earlier
-commit's csrc/, on one card:
+bf16 forms of K3, K5, K6 and T1 (K3_bf16, K5_bf16, K6_bf16, T1_bf16) and
+the experiment kernels T1 and T2 of this checkout against the same kernels
+built from another directory of sources with the same C interface, such as
+an earlier commit's csrc/, on one card:
 
     mkdir -p work_dir/other && git archive <commit> tamgcn_tpu_torch/csrc | tar -x -C work_dir/other
     python -m tamgcn_tpu_torch.tools.f32_ab --other work_dir/other/tamgcn_tpu_torch/csrc
-    [--kernels T1 T2]
+    [--kernels T1 T2] [--bitwise K3 K5 T1] [--split]
 
 At the unit-op shapes of the NW-UCLA CTR-GCN at full width (K1 at the eval
 batch 64 and at the training batch 16, K2 and K3 at the training batch 16),
 of configs/scene256.yaml's five blocks (V=256, batch 8: the joint-tiled K1t
 and K2t) and at a ragged V=37, at the fast-eval forward's blocks (K5, batch
-64, chip_smoke.py's K5_MAIN_PATH) and at the fused-conv3 train step's (K6,
-batch 16, K6_MAIN_PATH), each kernel of this checkout and of the other
-sources runs on the same inputs. K3 must match the other sources bit for
-bit. K1 and K2 (both designs) are held instead to their plain versions at
-chip_smoke.py's phase-3 tolerance (rtol 1e-5, atol 1e-5 * max|plain|), K5
-at phase 6's (rtol 1e-5, atol 1e-4 * max|plain|) and K6 at phase 7's (dx
-rtol 1e-5, dw3 and db3 rtol 1e-4, atol 1e-4 * max|plain|), in this checkout
-and in the other, and two launches of this checkout's K1, K2, K5 and K6
-must agree bit for bit. K3_bf16 (the NW-UCLA train-step blocks) and
-K6_bf16 (K6's blocks) take bf16 activations and are held to their bf16
-plain versions as chip_smoke.py's phases 10 and 11 hold them (bf16 outputs
-within 2^-7 of their max |plain| and equal in all but 1% of the elements,
-K3's f32 outputs at rtol 1e-4, atol 1e-4 * max|plain|, dalpha rtol 1e-3),
-in both trees, and two launches of this checkout's must agree bit for bit.
-T1 (the eval multi-scale TCN, at exp_ms_tcn's six shapes, and a ragged
-shape and bc=128 beside them) and T2 (the stage-2 aggregation: each form of
-exp_stage2's probes at its shape in f32, then the tile form on bf16
-operands and every f32 form at V=25 beside them) are held likewise, at
-chip_smoke.py's phase-8 tolerances (T1 rtol 1e-5, atol 1e-4 * max|plain|;
-T2 rtol 1e-5, in bf16 2^-7, atol 1e-5 * max|plain|).
-The other tree's K3_bf16 is built from its unit_ctr_gc_bwd_param_bf16.cu,
-or from its unit_ctr_gc_bwd_param.cu where it has no such source (before
-K3's bf16 form had one). All are timed by utils/timing.py:graph_ms in turns
-this, other, other, this, and summed per path with the launches of each
-block shape: K1 per NW-UCLA eval forward and per train step, K2 and K3 per
-NW-UCLA train step, K1t per scene256 eval forward, K2t per scene256 train
-step, K5 per fast-eval forward, K6 per train step with TAMGCN_FUSE_CONV3=1,
-K3_bf16 per bf16 train step, K6_bf16 per bf16 train step with the switch,
-T1 per exp_ms_tcn pass (one call at each of its six shapes), T2 per
+64, chip_smoke.py's K5_MAIN_PATH, and C = 2048 beside them) and at the
+fused-conv3 train step's (K6, batch 16, K6_MAIN_PATH), each kernel of this
+checkout and of the other sources runs on the same inputs. K3 must match
+the other sources bit for bit. K1 and K2 (both designs) are held instead to
+their plain versions at chip_smoke.py's phase-3 tolerance (rtol 1e-5, atol
+1e-5 * max|plain|), K5 at phase 6's (rtol 1e-5, atol 1e-4 * max|plain|) and
+K6 at phase 7's (dx rtol 1e-5, dw3 and db3 rtol 1e-4, atol 1e-4 *
+max|plain|), in this checkout and in the other, and two launches of this
+checkout's K1, K2, K5 and K6 must agree bit for bit. K3_bf16 (the NW-UCLA
+train-step blocks) and K6_bf16 (K6's blocks) take bf16 activations and are
+held to their bf16 plain versions as chip_smoke.py's phases 10 and 11 hold
+them (bf16 outputs within 2^-7 of their max |plain| and equal in all but 1%
+of the elements, K3's f32 outputs at rtol 1e-4, atol 1e-4 * max|plain|,
+dalpha rtol 1e-3), in both trees, and two launches of this checkout's must
+agree bit for bit. K5_bf16 (the fast-eval blocks at batch 64 and C = 2048,
+on a bf16 x) and T1_bf16 (T1's shapes on a bf16 prefix) are held to their
+bf16 plain versions by chip_smoke.py's criterion for the two forms (at
+least 95% of each output's elements bit for bit equal, every element within
+2^-7 of max |plain|), in both trees, two launches of this checkout's bit
+for bit. `--bitwise` names the kernels held bit for bit to the other
+sources in place of their plain versions (K3 by default; K5 and T1 where a
+change leaves their f32 forms as they were). T1 (the eval multi-scale TCN,
+at exp_ms_tcn's six shapes, and a ragged shape and bc=128 beside them) and
+T2 (the stage-2 aggregation: each form of exp_stage2's probes at its shape
+in f32, then the tile form on bf16 operands and every f32 form at V=25
+beside them) are held likewise, at chip_smoke.py's phase-8 tolerances (T1
+rtol 1e-5, atol 1e-4 * max|plain|; T2 rtol 1e-5, in bf16 2^-7, atol 1e-5 *
+max|plain|). The other tree's K3_bf16 is built from its
+unit_ctr_gc_bwd_param_bf16.cu, or from its unit_ctr_gc_bwd_param.cu where
+it has no such source (before K3's bf16 form had one). All are timed by
+utils/timing.py:graph_ms in turns this, other, other, this, and summed per
+path with the launches of each block shape: K1 per NW-UCLA eval forward and
+per train step, K2 and K3 per NW-UCLA train step, K1t per scene256 eval
+forward, K2t per scene256 train step, K5 and K5_bf16 per fast-eval
+forward's blocks, K6 per train step with TAMGCN_FUSE_CONV3=1, K3_bf16 per
+bf16 train step, K6_bf16 per bf16 train step with the switch, T1 and
+T1_bf16 per exp_ms_tcn pass (one call at each of its six shapes), T2 per
 exp_stage2 pass (its twelve probes: tile 7, win 1, floor 2, flat 1, flat
 with the subset sum 1).
 Prints a line per kernel and shape to stderr and one JSON line with every
@@ -101,17 +109,22 @@ T2_SHAPES = ([(f"{f}{' ss' if ss else ''}", (64, 13, 20, 256, 3, f, ss, "float32
              + [("tile bf16", (64, 13, 20, 256, 3, "tile", False, "bfloat16"))]
              + [(f"V=25 {f}{' ss' if ss else ''}", (64, 13, 25, 256, 3, f, ss, "float32"))
                 for f, ss in T2_FORMS])
-SHAPES = {"K1": EVAL + K1_TRAIN + SCENE, "K2": TRAIN + SCENE, "K3": TRAIN + SCENE, "K5": K5_SHAPES,
-          "K6": K6_SHAPES, "K3_bf16": TRAIN, "K6_bf16": K6_SHAPES, "T1": T1_SHAPES,
-          "T2": T2_SHAPES}
+# K5 and K5_bf16 beside the fast-eval blocks: C = 2048 (chip_smoke.py's
+# K5_EXTRA), where the bf16 form lost to the f32 one
+K5_WIDE = [("C=2048", (1, 2, 20, 2048, 2048, 8))]
+SHAPES = {"K1": EVAL + K1_TRAIN + SCENE, "K2": TRAIN + SCENE, "K3": TRAIN + SCENE,
+          "K5": K5_SHAPES + K5_WIDE,
+          "K6": K6_SHAPES, "K3_bf16": TRAIN, "K5_bf16": K5_SHAPES + K5_WIDE,
+          "K6_bf16": K6_SHAPES, "T1": T1_SHAPES, "T1_bf16": T1_SHAPES, "T2": T2_SHAPES}
 # launches of each block shape per eval forward or train step, NW-UCLA and
 # scene256 (K1-K3); per fast-eval forward (K5) and fused train step (K6)
 PER_PATH = {"l1-l4": 4, "l5": 1, "l6-l7": 2, "l8": 1, "l9-l10": 2}
 PER_BLOCK = {"K5": {"l1": 1, "l2-l4": 3, "l5": 1, "l6-l7": 2, "l8": 1, "l9-l10": 2},
              "K6": {"l5": 1, "l6-l7": 2, "l8": 1, "l9-l10": 2}}
 PER_BLOCK["K6_bf16"] = PER_BLOCK["K6"]
+PER_BLOCK["K5_bf16"] = PER_BLOCK["K5"]
 # one call at each exp_ms_tcn shape; exp_stage2's twelve probes by form
-PER_BLOCK["T1"] = {name: 1 for name, _ in T1_SHAPES[:6]}
+PER_BLOCK["T1"] = PER_BLOCK["T1_bf16"] = {name: 1 for name, _ in T1_SHAPES[:6]}
 PER_BLOCK["T2"] = {"tile": 7, "win": 1, "floor": 2, "flat": 1, "flat ss": 1}
 # (sum, kernel, prefix of its shape names)
 PATHS = (("K1 per NW-UCLA eval forward, batch 64", "K1", ""),
@@ -122,10 +135,12 @@ PATHS = (("K1 per NW-UCLA eval forward, batch 64", "K1", ""),
          ("K2t per scene256 train step, batch 8", "K2", "scene256 "),
          ("K3 per scene256 train step, batch 8", "K3", "scene256 "),
          ("K5 per fast-eval forward, batch 64", "K5", ""),
+         ("K5_bf16 per fast-eval forward's blocks on bf16 x, batch 64", "K5_bf16", ""),
          ("K6 per fused-conv3 train step, batch 16", "K6", ""),
          ("K3_bf16 per NW-UCLA bf16 train step, batch 16", "K3_bf16", ""),
          ("K6_bf16 per fused-conv3 bf16 train step, batch 16", "K6_bf16", ""),
          ("T1 per exp_ms_tcn pass, one call at each of its six shapes", "T1", ""),
+         ("T1_bf16 per exp_ms_tcn pass on a bf16 prefix", "T1_bf16", ""),
          ("T2 per exp_stage2 pass, its twelve probes", "T2", ""))
 UNIT_RTOL = 1e-5  # chip_smoke.py phase 3: rtol and atol / max|plain| of K1, K2
 # chip_smoke.py phases 6 and 7: (rtol, atol / max|plain|) per output
@@ -135,6 +150,10 @@ K6_TOL = {"dx": (1e-5, 1e-4), "dw3": (1e-4, 1e-4), "db3": (1e-4, 1e-4)}
 # 2^-7 of its max |plain| and equal in all but 1% of its elements; K3's f32
 # outputs (rtol, atol / max|plain|), dalpha at rtol 1e-3 alone
 BF16_TOL, BF16_SHARE = 2 ** -7, 0.01
+# the bf16 forms of K5 and T1 (chip_smoke.py:BF16_FORM_SHARE, BF16_FORM_TOL):
+# at least 95% of each output's elements bit for bit equal, every element
+# within 2^-7 of max |plain|
+BF16_FORM_SHARE, BF16_FORM_TOL = 0.95, 2 ** -7
 K3_BF16_TOL = {"dx1s": "bf16", "dx2s": "bf16", "dw4s": (1e-4, 1e-4), "db4s": (1e-4, 1e-4),
                "dalpha": (1e-3, 0.0), "dAs": (1e-4, 1e-4)}
 K6_BF16_TOL = {"dx": "bf16", "dw3": "bf16", "db3": "bf16"}
@@ -148,14 +167,17 @@ ENTRIES = {"K1": ("unit_ctr_gc_fwd_f32",),
            "K6": ("unit_ctr_gc_bwd_conv3_scratch_floats", "unit_ctr_gc_bwd_conv3_f32"),
            "K3_bf16": ("unit_ctr_gc_bwd_param_bf16_scratch_floats", "unit_ctr_gc_bwd_param_bf16"),
            "K6_bf16": ("unit_ctr_gc_bwd_conv3_scratch_floats", "unit_ctr_gc_bwd_conv3_bf16"),
-           "T1": ("ms_tcn_f32",), "T2": ("stage2_aggregate",)}
+           "K5_bf16": ("gcn_tcn_block_bf16",), "T1": ("ms_tcn_f32",),
+           "T1_bf16": ("ms_tcn_bf16",), "T2": ("stage2_aggregate",)}
 # an earlier tree's K3_bf16: in the f32 source, with the f32 scratch query
 EARLIER_K3_BF16 = (ctr_gc.PARAM_SOURCE,
                    ("unit_ctr_gc_bwd_param_scratch_floats", "unit_ctr_gc_bwd_param_bf16"))
 # (source, argument types, return type) of each entry point
 SIGNATURES = dict(ctr_gc._SIGNATURES, gcn_tcn_block_f32=(
     gcn_tcn_block.SOURCE, gcn_tcn_block.ARGTYPES, ctypes.c_int),
+    gcn_tcn_block_bf16=(gcn_tcn_block.SOURCE, gcn_tcn_block.ARGTYPES, ctypes.c_int),
     ms_tcn_f32=(ms_tcn.SOURCE, ms_tcn.ARGTYPES, ctypes.c_int),
+    ms_tcn_bf16=(ms_tcn.SOURCE, ms_tcn.ARGTYPES, ctypes.c_int),
     stage2_aggregate=(stage2.SOURCE, stage2.ARGTYPES, ctypes.c_int))
 
 
@@ -278,13 +300,16 @@ def t2_inputs(shape, seed, device):
 
 def kernel_inputs(kname, shape, seed, device):
     """The inputs of kname at shape; the bf16 forms' activations in bf16
-    (K3_bf16: x1s, x2s, x3s, g; K6_bf16: x1s, x2s, g, x, w3)."""
-    if kname == "T1":
-        return t1_inputs(shape, seed, device)
+    (K3_bf16: x1s, x2s, x3s, g; K6_bf16: x1s, x2s, g, x, w3; K5_bf16: x;
+    T1_bf16: the prefix)."""
+    if kname.startswith("T1"):
+        a = t1_inputs(shape, seed, device)
+        return a if kname == "T1" else (a[0].bfloat16(),) + a[1:]
     if kname == "T2":
         return t2_inputs(shape, seed, device)
-    if kname == "K5":
-        return block_inputs(shape, seed, device)
+    if kname.startswith("K5"):
+        a = block_inputs(shape, seed, device)
+        return a if kname == "K5" else dict(a, x=a["x"].bfloat16())
     if kname.startswith("K6"):
         a = conv3_inputs(shape, seed, device)
         return a if kname == "K6" else tuple(t.bfloat16() for t in a[:5]) + a[5:]
@@ -297,11 +322,11 @@ def kernel_inputs(kname, shape, seed, device):
 def this(kname, a):
     """This checkout's kernel on the inputs, through its wrapper: a tuple of
     outputs."""
-    if kname == "T1":
+    if kname.startswith("T1"):
         return (ms_tcn.ms_tcn_fwd(*a),)
     if kname == "T2":
         return (stage2_aggregate(*a),)
-    if kname == "K5":
+    if kname.startswith("K5"):
         return gcn_tcn_block.gcn_tcn_block_fwd(**a)
     if kname.startswith("K6"):
         return ctr_gc.unit_ctr_gc_bwd_conv3(*a)
@@ -315,11 +340,11 @@ def this(kname, a):
 
 def plain(kname, a):
     """The plain version of kname (but K3) on the inputs: a tuple."""
-    if kname == "T1":
+    if kname.startswith("T1"):
         return (ms_tcn_plain(*a),)
     if kname == "T2":
         return (stage2_plain(*a),)
-    if kname == "K5":
+    if kname.startswith("K5"):
         return gcn_tcn_block_plain(**a)
     if kname.startswith("K6"):
         return unit_ctr_gc_bwd_conv3_plain(*a)
@@ -346,8 +371,20 @@ def bf16_within(out, want) -> bool:
             and (out != want).float().mean().item() <= BF16_SHARE)
 
 
+def bf16_form_within(out, want) -> bool:
+    """A bf16 output of K5_bf16 or T1_bf16: at least BF16_FORM_SHARE of its
+    elements bit for bit the plain version's, every one within BF16_FORM_TOL
+    of max |want|."""
+    a, b = out.float(), want.float()
+    return (out.dtype == want.dtype == torch.bfloat16 and bool(torch.isfinite(a).all())
+            and (a == b).float().mean().item() >= BF16_FORM_SHARE
+            and (a - b).abs().max().item() <= BF16_FORM_TOL * b.abs().max().item())
+
+
 def within_plain(kname, outs, wants) -> bool:
     """Each output within the kernel's tolerance of its plain version."""
+    if kname in ("K5_bf16", "T1_bf16"):
+        return all(bf16_form_within(o, w) for o, w in zip(outs, wants))
     if kname == "T2" and outs[0].dtype == torch.bfloat16:
         return within(outs[0].float(), wants[0].float(), *T2_BF16_TOL)
     tols = {"T1": [T1_TOL], "T2": [T2_TOL], "K5": list(K5_TOL.values()),
@@ -374,14 +411,14 @@ def other(fns, kname, a):
     def empty(*shape, dtype=torch.float32):
         return torch.empty(shape, device=dev, dtype=dtype)
 
-    if kname == "T1":
+    if kname.startswith("T1"):
         prefix, w, b, mp, stride = a
         dev = prefix.device
         stream = torch.cuda.current_stream(dev).cuda_stream
         N, T, V, P = prefix.shape
-        outs = (empty(N, -(-T // stride), V, P),)
-        err = fns["ms_tcn_f32"](*[t.data_ptr() for t in (prefix, w, b, mp, *outs)], N, T, V,
-                                P // 3, stride, stream)
+        outs = (empty(N, -(-T // stride), V, P, dtype=prefix.dtype),)
+        err = fns[ENTRIES[kname][0]](*[t.data_ptr() for t in (prefix, w, b, mp, *outs)], N, T,
+                                     V, P // 3, stride, stream)
     elif kname == "T2":
         m, x3, form, S, subset_sum = a
         mv, xv, N, T, V, L = stage2_dims(m, x3, form, S, subset_sum)
@@ -393,22 +430,23 @@ def other(fns, kname, a):
                                       stage2.RULE_CODES[RULES[form]], subsets,
                                       stage2.DTYPE_CODES[x3.dtype], stream)
         outs = (out.reshape(N, T, -1) if form == "flat" else out,)
-    elif kname == "K5":
+    elif kname.startswith("K5"):
         x = a["x"]
         dev = x.device
         stream = torch.cuda.current_stream(dev).cuda_stream
         N, T, V, Cin = x.shape
         S, R = a["x1s"].shape[1], a["x1s"].shape[-1]
         C, P, BC = a["w4s"].shape[-1], a["wp"].shape[-1], a["wpw"].shape[-1]
-        # the scratch of this tree's K5, which holds the earlier one's y
-        y = empty(gcn_tcn_block.scratch_floats(N, T, V, S, C))
-        outs = (empty(N, T, V, P), empty(N, T, V, BC))
+        # the scratch of this tree's K5, which holds the earlier one's
+        y = empty(gcn_tcn_block.scratch_floats_bf16(x.data_ptr(), N, T, V, S, Cin, C, P, BC)
+                  if kname == "K5_bf16" else gcn_tcn_block.scratch_floats(N, T, V, S, C))
+        outs = (empty(N, T, V, P, dtype=x.dtype), empty(N, T, V, BC, dtype=x.dtype))
         ptrs = [a[k].data_ptr() for k in ("x", "x1s", "x2s", "w3", "b3", "w4s", "b4s",
                                           "alpha", "As", "gy")]
         ptrs += [None, None] if a["wd"] is None else [a["wd"].data_ptr(), a["bd"].data_ptr()]
         ptrs += [a[k].data_ptr() for k in ("wo", "bo", "wp", "bp", "wpw", "bpw")]
         ptrs += [y.data_ptr(), outs[0].data_ptr(), outs[1].data_ptr()]
-        err = fns["gcn_tcn_block_f32"](*ptrs, N, S, T, V, Cin, R, C, P, BC, stream)
+        err = fns[ENTRIES[kname][0]](*ptrs, N, S, T, V, Cin, R, C, P, BC, stream)
     elif kname.startswith("K6"):
         x1s, x2s, g, x, w3, w4s, b4s, alpha, As = a
         dev = g.device
@@ -455,20 +493,22 @@ def other(fns, kname, a):
     return outs
 
 
-def check_mode(kname) -> str:
-    """How kname is held: "bitwise" to the other sources (K3), or "plain":
-    within its tolerance of its plain version in both trees, two launches of
-    this tree bitwise equal (K1, K2, K5, K6 and the bf16 forms: a redesign
-    sums in another order than the tree it replaces)."""
-    return "bitwise" if kname == "K3" else "plain"
+def check_mode(kname, bitwise=("K3",)) -> str:
+    """How kname is held: "bitwise" to the other sources (the kernels named
+    in `bitwise`: K3, and the f32 forms of K5 and T1 where a change leaves
+    them as they were), or "plain": within its tolerance of its plain
+    version in both trees, two launches of this tree bitwise equal (K1, K2,
+    K5, K6 and the bf16 forms: a redesign sums in another order than the
+    tree it replaces)."""
+    return "bitwise" if kname in bitwise else "plain"
 
 
-def check(kname, shape, a, fns):
+def check(kname, shape, a, fns, bitwise=("K3",)):
     """(design, what was checked, ok) for one kernel at one shape, as
     check_mode says."""
     mine, theirs = this(kname, a), other(fns, kname, a)
     torch.cuda.synchronize()
-    if check_mode(kname) == "bitwise":
+    if check_mode(kname, bitwise) == "bitwise":
         return "whole", "bitwise equal", all(torch.equal(m, t) for m, t in zip(mine, theirs))
     again = this(kname, a)
     want = plain(kname, a)
@@ -507,6 +547,9 @@ def main(argv=None):
                          "stage2_aggregate.cu and headers)")
     ap.add_argument("--kernels", nargs="+", choices=list(SHAPES), default=list(SHAPES),
                     help="the kernels to compare (all by default)")
+    ap.add_argument("--bitwise", nargs="+", choices=list(SHAPES), default=["K3"],
+                    help="the kernels held bit for bit to the other sources in place of "
+                         "their plain versions (K3 by default)")
     ap.add_argument("--split", action="store_true",
                     help="also each shape's device time by kernel of this tree's call "
                          "(utils/timing.py:graph_split), e.g. K6's phase A and phase B")
@@ -527,7 +570,7 @@ def main(argv=None):
         for kname in args.kernels:
             for i, (name, shape) in enumerate(SHAPES[kname]):
                 a = kernel_inputs(kname, shape, seed=900 + i, device=device)
-                design, what, ok = check(kname, shape, a, fns)
+                design, what, ok = check(kname, shape, a, fns, args.bitwise)
                 ms = {"this": [], "other": []}
                 for who in ("this", "other", "other", "this"):
                     fn = (lambda: this(kname, a)) if who == "this" else (
@@ -535,7 +578,8 @@ def main(argv=None):
                     ms[who].append(graph_ms(fn))
                 keys = {"T1": ("N", "T", "V", "bc", "stride"),
                         "T2": ("N", "T", "V", "C", "S", "form", "subset_sum", "dtype")}.get(
-                    kname, "NTVCR" if len(shape) == 5 else ("N", "T", "V", "Cin", "C", "R"))
+                    kname.removesuffix("_bf16"),
+                    "NTVCR" if len(shape) == 5 else ("N", "T", "V", "Cin", "C", "R"))
                 row = dict(kernel=kname, name=name, shape=dict(zip(keys, shape)),
                            design=design, check=what, ok=ok, this_ms=min(ms["this"]),
                            other_ms=min(ms["other"]))

@@ -212,3 +212,47 @@ def test_bf16_ms_tcn_plain_matches_the_jax_kernel(shape):
     # the output is rounded once: the f32 version on the widened prefix, rounded
     f32 = ms_tcn_plain(args[0].float(), *args[1:], stride)
     assert torch.equal(f32.to(torch.bfloat16), got)
+
+
+def _bf16_parts(w):
+    """w (float32) as three bfloat16 parts hi + mid + lo, each rounded to
+    nearest from the remainder of the ones before: T1's bf16 form splits
+    its weights so as it stages them (csrc/ms_tcn.cu: split3)."""
+    hi = w.to(torch.bfloat16)
+    r1 = w - hi.float()
+    mid = r1.to(torch.bfloat16)
+    lo = (r1 - mid.float()).to(torch.bfloat16)
+    return hi, mid, lo
+
+
+@pytest.mark.parametrize("shape", T1_SHAPES[:2], ids=lambda s: "N{}-T{}-V{}-bc{}-s{}".format(*s))
+def test_t1_bf16_weight_parts_are_exact(shape):
+    """The three bf16 parts of a weight sum back to it exactly, over the
+    weights' range and past it (scaled by 2^-100 to 2^50), and each part
+    times a bf16 prefix value is exact in f32, so T1's bf16 form fed the
+    parts computes the f32 products: the plain version on the three parts'
+    sum is ms_tcn_plain's output bit for bit, and the dilated branches
+    summed part by part in f64, rounded once to bf16, meet the share
+    criterion against it."""
+    n, t, v, bc, stride = shape
+    prefix, w, b, mp = (torch.from_numpy(a) for a in _t1_operands(n, t, v, bc, seed=7))
+    wide = torch.cat([w.flatten(), torch.from_numpy(
+        np.random.RandomState(1).randn(4096).astype(np.float32))
+        * torch.pow(2.0, torch.arange(-100, 100, 50).float()).repeat(1024)])
+    for x in (w.flatten(), wide):
+        hi, mid, lo = _bf16_parts(x)
+        assert torch.equal((hi.double() + mid.double() + lo.double()).float(), x)
+        assert torch.equal(hi.float() + mid.float() + lo.float(), x)
+    pb = prefix.to(torch.bfloat16)
+    want = ms_tcn_plain(pb, w, b, mp, stride)
+    hi, mid, lo = _bf16_parts(w)
+    assert torch.equal(ms_tcn_plain(pb, hi.float() + mid.float() + lo.float(), b, mp, stride),
+                       want)
+    # each part's products exact in f32: the three dilated-branch sums in f64
+    zero = torch.zeros_like(b).double()
+    convs = sum(ms_tcn_plain(pb.double(), part.double(), zero, mp.double(), stride)[..., :2 * bc]
+                for part in (hi, mid, lo))
+    got = (convs + b.double().reshape(-1)).to(torch.bfloat16).float()
+    branches = want[..., :2 * bc].float()
+    assert (got == branches).float().mean().item() >= SHARE
+    assert (got - branches).abs().max().item() <= TOL * branches.abs().max().item()

@@ -48,7 +48,9 @@ dense op, and a DP step against the single-rank step with its launches.
 The bf16 forms of K5 and T1 (a bf16 x or prefix, bf16 outputs) against
 their plain bf16 versions: at least 95% of each output's elements bit for
 bit equal and every element within 2^-7 of max |plain|, two launches
-bitwise equal, each launch on its bf16 counter.
+bitwise equal, each launch on its bf16 counter; also at their copy edges
+(x or the prefix 8-byte but not 16-byte aligned, Cin and bc not multiples
+of 8, K5's epilogue at 16 rows with 64-column passes).
 This file imports no JAX, so it runs where the port runs.
 """
 import pytest
@@ -1612,4 +1614,63 @@ def test_ms_tcn_kernel_bf16_matches_plain(device, shape):
     torch.cuda.synchronize()
     assert (t1.launches, t1.launches_bf16) == (before[0], before[1] + 2)
     assert got.shape == want.shape and torch.equal(got, again)
+    _bf16_criterion(got, want)
+
+
+def _misaligned(t, by: int):
+    """A contiguous copy of t whose data_ptr lies `by` elements past a
+    16-byte boundary of its storage."""
+    buf = torch.empty(t.numel() + by, dtype=t.dtype, device=t.device)
+    view = buf[by:].view(t.shape)
+    view.copy_(t)
+    return view
+
+
+# the bf16 forms' copy edges: (shape, elements x lies past a 16-byte
+# boundary). K5_bf16 pads x in its prologue where its rows are not 16-byte
+# copies (8-byte aligned x, Cin = 24 on a down conv); C = 1088 takes the
+# epilogue at 16 rows with 64-column passes (one n8 tile a warp)
+BF16_EDGE_BLOCKS = [((2, 5, 20, 64, 64, 8), 4), ((2, 7, 20, 24, 64, 8), 4),
+                    ((1, 3, 20, 1088, 1088, 8), 0)]
+# T1_bf16 stages 8-byte copies at bc = 12, and at bc = 16 on a prefix 8-byte
+# but not 16-byte aligned
+BF16_EDGE_T1 = [((2, 9, 20, 12, 1), 0), ((2, 9, 20, 16, 2), 4)]
+
+
+@pytest.mark.parametrize("shape,by", BF16_EDGE_BLOCKS,
+                         ids=lambda p: "x{}".format(p) if isinstance(p, int) else
+                         "N{}-T{}-V{}-Cin{}-C{}-R{}".format(*p))
+def test_block_kernel_bf16_at_its_copy_edges(device, shape, by):
+    from tamgcn_tpu_torch.ops.cuda import gcn_tcn_block as k5
+    from tamgcn_tpu_torch.ops.gcn_tcn_block import gcn_tcn_block_plain
+
+    args = _block_inputs(*shape, device=device)
+    args["x"] = _misaligned(args["x"].to(torch.bfloat16), by)
+    assert args["x"].data_ptr() % 16 == 2 * by
+    with torch.no_grad():
+        got = k5.gcn_tcn_block_fwd(**args)
+        again = k5.gcn_tcn_block_fwd(**args)
+        want = gcn_tcn_block_plain(**args)
+    torch.cuda.synchronize()
+    for a, b, w in zip(got, again, want):
+        assert torch.equal(a, b)
+        _bf16_criterion(a, w)
+
+
+@pytest.mark.parametrize("shape,by", BF16_EDGE_T1,
+                         ids=lambda p: "x{}".format(p) if isinstance(p, int) else
+                         "N{}-T{}-V{}-bc{}-s{}".format(*p))
+def test_ms_tcn_kernel_bf16_at_its_copy_edges(device, shape, by):
+    from tamgcn_tpu_torch.ops.cuda import ms_tcn as t1
+    from tamgcn_tpu_torch.ops.ms_tcn import ms_tcn_plain
+
+    args, stride = _t1_inputs(*shape[:4], device=device), shape[4]
+    args[0] = _misaligned(args[0].to(torch.bfloat16), by)
+    assert args[0].data_ptr() % 16 == 2 * by
+    with torch.no_grad():
+        got = t1.ms_tcn_fwd(*args, stride)
+        again = t1.ms_tcn_fwd(*args, stride)
+        want = ms_tcn_plain(*args, stride)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
     _bf16_criterion(got, want)

@@ -405,6 +405,47 @@ def test_f32_ab_t1_t2_passes_and_tolerances():
     assert not f32_ab.within_plain("T2", [wb.float().add(0.02).bfloat16()], [wb])
 
 
+def test_f32_ab_bf16_forms_of_k5_and_t1():
+    """f32_ab's K5_bf16 and T1_bf16: the fast-eval blocks at batch 64 (and C
+    = 2048 beside them, as K5's) and T1's shapes, summed per path as their
+    f32 forms;
+    bf16 inputs; held to their plain versions by chip_smoke.py's criterion
+    for the two forms (95% of the elements bit for bit, every one within
+    2^-7 of max |plain|); K5 and T1 bit for bit to the other tree on
+    request."""
+    from tamgcn_tpu_torch.tools import f32_ab
+
+    table = f32_ab.path_table()
+    assert table["K5_bf16 per fast-eval forward's blocks on bf16 x, batch 64"] == table[
+        "K5 per fast-eval forward, batch 64"]
+    assert table["T1_bf16 per exp_ms_tcn pass on a bf16 prefix"] == table[
+        "T1 per exp_ms_tcn pass, one call at each of its six shapes"]
+    assert f32_ab.SHAPES["K5_bf16"] == f32_ab.SHAPES["K5"]
+    assert f32_ab.SHAPES["K5"][-1] == ("C=2048", (1, 2, 20, 2048, 2048, 8))
+    assert f32_ab.SHAPES["T1_bf16"] == f32_ab.SHAPES["T1"]
+    block = f32_ab.kernel_inputs("K5_bf16", (2, 3, 20, 3, 16, 4), 0, "cpu")
+    assert block["x"].dtype == torch.bfloat16 and block["w3"].dtype == torch.float32
+    t1 = f32_ab.kernel_inputs("T1_bf16", (2, 5, 20, 8, 2), 0, "cpu")
+    assert t1[0].dtype == torch.bfloat16 and t1[1].dtype == torch.float32 and t1[-1] == 2
+    assert f32_ab.check_mode("K5") == f32_ab.check_mode("T1") == "plain"
+    assert {f32_ab.check_mode(k, ("K3", "K5", "T1")) for k in ("K3", "K5", "T1")} == {
+        "bitwise"}
+    assert {f32_ab.check_mode(k, ("K3", "K5", "T1")) for k in ("K5_bf16", "T1_bf16")} == {
+        "plain"}
+    want = torch.tensor([1.0, -2.0, 0.5, 4.0] * 50).bfloat16()
+    flipped = want.clone()
+    flipped[:8] = want[:8].float().mul(1 + 2 ** -7).bfloat16()  # 4% one bf16 step off
+    assert f32_ab.within_plain("K5_bf16", [flipped, want], [want, want])
+    assert f32_ab.within_plain("T1_bf16", [flipped], [want])
+    more = want.clone()
+    more[:12] = want[:12].float().mul(1 + 2 ** -7).bfloat16()  # 6%
+    assert not f32_ab.within_plain("T1_bf16", [more], [want])
+    far = want.clone()
+    far[0] = 1.25  # a quarter off, beyond 2^-7 of max |plain|
+    assert not f32_ab.within_plain("K5_bf16", [want, far], [want, want])
+    assert not f32_ab.within_plain("T1_bf16", [want.float()], [want])
+
+
 def test_design_ab_patches_only_the_whole_v_rule(tmp_path):
     """tools/design_ab.py builds the whole-V design up to V = 32 and the
     joint-tiled one at every V from copies of csrc/ that differ from it in
