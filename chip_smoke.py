@@ -292,10 +292,15 @@ Phases, each of which fails the run (non-zero exit, no result line):
      f64 step on the card with the plain unit op by the same rule
      (grid_references), every parameter bit for bit alike on both ranks
      (check_ranks_agree). The
-     ring with one block skipped, with x2's gradient left unsummed, and
-     scene256's ring with K2t's dx3s or K3's dw4s zeroed must each leave its
-     check. Per rank: K1 = K2 = K3 = 20 a ring train step (whole-V), K1t =
-     K2t = K3 = 20 at scene256 and no whole-V kernel there, 10 a DP or SP
+     ring with one block skipped, with x2's gradient left unsummed,
+     scene256's ring with K2t's dx3s or K3's dw4s zeroed, and in each SP
+     mode (the CTR-GCN's, ST-GCN's, the fusion model's) every halo frame
+     zeroed, and the time-sharded gradient shares averaged instead of summed
+     (in the fusion model, whose CTR-GCN is frozen, the replicated gradients
+     summed instead of averaged) must each leave its check on both ranks;
+     the phase prints its seconds split into the launch, the dry run, the
+     earlier four faults, the six SP faults and the checks. Per rank: K1 =
+     K2 = K3 = 20 a ring train step (whole-V), K1t = K2t = K3 = 20 at scene256 and no whole-V kernel there, 10 a DP or SP
      step; every step's wall, and the scene256 step's kernel and copy time
      by torch.profiler beside phase 12's dense step. Then `python -m
      torch.distributed.run --nproc_per_node 2 -m tamgcn_tpu_torch
@@ -4701,7 +4706,26 @@ GRID_FAULTS = {
                                  "the part its own rows make)"),
     "scene_K2t_zeroed": ("scene_ring", "scene256's ring with K2t's dx3s zeroed"),
     "scene_K3_zeroed": ("scene_ring", "scene256's ring with K3's dw4s zeroed"),
+    # sequence parallelism, "<mode>_<sp_fault's name>"
+    # (tests/_torch_dist_worker.py:sp_fault): the halo frames zeroed, and
+    # the time-sharded gradient shares averaged instead of summed; the
+    # fusion model's CTR-GCN is frozen (no gradient shares), so there the
+    # replicated gradients are summed instead of averaged
+    "sp_halo_zeroed": ("sp", "SP with every halo frame zeroed"),
+    "stgcn_sp_halo_zeroed": ("stgcn_sp", "ST-GCN's SP with every halo frame zeroed"),
+    "fusion_sp_halo_zeroed": ("fusion_sp", "the fusion SP with every halo frame zeroed"),
+    "sp_shares_averaged": ("sp", "SP with the time-sharded gradient shares averaged"),
+    "stgcn_sp_shares_averaged": ("stgcn_sp", "ST-GCN's SP with the time-sharded gradient "
+                                             "shares averaged"),
+    "fusion_sp_replicated_summed": ("fusion_sp", "the fusion SP with the replicated "
+                                                 "gradients summed"),
 }
+
+
+def _sp_fault(name: str) -> bool:
+    """Whether GRID_FAULTS[name] runs in a sequence-parallel mode."""
+    mode = GRID_FAULTS[name][0]
+    return mode == "sp" or mode in SP_MODES
 
 
 def grid_fault(name: str):
@@ -4711,6 +4735,11 @@ def grid_fault(name: str):
     from tamgcn_tpu_torch.ops.cuda import ctr_gc
     from tamgcn_tpu_torch.parallel import graph_parallel
 
+    if _sp_fault(name):  # the CPU tests' plant, imported by its path
+        sys.path.insert(0, os.path.join(REPO, "tests"))
+        from _torch_dist_worker import sp_fault
+
+        return sp_fault(name.removeprefix(GRID_FAULTS[name][0] + "_"))
     if name == "ring_skip_block":
         real, calls = graph_parallel.unit_ctr_gc, [0]
 
@@ -4743,16 +4772,22 @@ def grid_fault(name: str):
 def phase16_rank(mesh_rank: int = 0, world: int = 1, *, plan: dict, device: str) -> dict:
     """One rank of phase 16 (run by parallel/launch.py:run_ranks): the dry
     run's modes and unit-op check (serving.py:_dryrun_rank), then the first
-    step of each planted fault's mode with the fault in place."""
+    step of each planted fault's mode with the fault in place; the seconds
+    of each under "seconds"."""
     from tamgcn_tpu_torch.parallel.drive import train_on_grid
     from tamgcn_tpu_torch.serving import _dryrun_rank
 
+    t0 = time.perf_counter()
     out = _dryrun_rank(mesh_rank, world, plan=plan, device=device)
+    seconds = {"dry run": time.perf_counter() - t0}
     for name, (mode, _) in GRID_FAULTS.items():
         spec = dict(plan["modes"][mode], profile=False)
         spec["batches"] = spec["batches"][:1]
+        t0 = time.perf_counter()
         with grid_fault(name):
             out[name] = train_on_grid(mesh_rank, world, device=device, **spec)
+        seconds[name] = time.perf_counter() - t0
+    out["seconds"] = seconds
     return out
 
 
@@ -4781,12 +4816,15 @@ def _first(ref, limits, steps):
     return ((ref[0][:steps], ref[1][:steps + 1]), (limits[0][:steps], limits[1][:steps]))
 
 
-def _must_fail(what: str, ratios: dict):
+def _must_fail(what: str, ratios: dict) -> float:
+    """Raises unless a tensor of `ratios` is beyond its limit; the worst
+    ratio."""
     beyond = sorted((k for k, v in ratios.items() if v > 1), key=lambda k: -ratios[k])
     print(f"planted fault, {what}: {len(beyond)} of {len(ratios)} beyond their limit, "
           "worst " + ", ".join(f"{k} {ratios[k]:.3f}" for k in beyond[:3]), flush=True)
     if not beyond:
         raise AssertionError(f"the check passed with {what}")
+    return ratios[beyond[0]]
 
 
 def grid_references(plan: dict, device) -> dict:
@@ -4829,7 +4867,8 @@ def check_grid_trajectories(plan: dict, ranks: list, references, device):
     plus floors), per tensor: DP, the ring, SP and TP after every step
     against phase 5's f64 CPU run; the one-step modes' state and reduced
     gradients against their own f64 run (grid_references). Every planted
-    fault of GRID_FAULTS must leave its check. Returns {mode: worst ratio}."""
+    fault of GRID_FAULTS must leave its check on every rank. Returns
+    ({mode: worst ratio}, {fault: [its worst ratio on each rank]})."""
     _, ref, _, limits = references
     own = grid_references(plan, device)
 
@@ -4850,10 +4889,10 @@ def check_grid_trajectories(plan: dict, ranks: list, references, device):
             if got[top] > 1:
                 raise AssertionError(f"phase 16 {mode}, rank {r[mode]['rank']}: {top} "
                                      f"{got[top]:.3f} of its limit")
-    for name, (mode, what) in GRID_FAULTS.items():
-        for r in ranks:
-            _must_fail(f"{what}, rank {r[name]['rank']}", ratios(r[name], mode))
-    return worst
+    faults = {name: [_must_fail(f"{what}, rank {r[name]['rank']}", ratios(r[name], mode))
+                      for r in ranks]
+              for name, (mode, what) in GRID_FAULTS.items()}
+    return worst, faults
 
 
 def check_ranks_agree(ranks: list) -> dict:
@@ -5119,10 +5158,10 @@ def run_phase16(work_dir: str, weights: str, references, device,
     one, SP for 3, the ring at scene256, ST-GCN's and the fusion model's TP
     for one; the ring's unit op and its VJP against the dense plain op per
     block shape of both CTR-GCNs) in one launch whose ranks also run the
-    planted faults (phase16_rank), held by serving.verify_dryrun; every
-    mode's state and gradients held to an f64 run, every fault made to
-    fail, the launch counts per rank (check_grid_trajectories,
-    check_grid_launches); then the CLI on two ranks (run_grid_cli). Two
+    planted faults (phase16_rank: the rings' four and the SP modes' six),
+    held by serving.verify_dryrun; every mode's state and gradients held to
+    an f64 run, every fault made to fail on every rank, the launch counts
+    per rank (check_grid_trajectories, check_grid_launches); then the CLI on two ranks (run_grid_cli). Two
     ranks on one card are not a scaling figure: their times show the
     collectives' cost, beside `scene_dense_ms`, phase 12's graphed scene256
     step on one rank."""
@@ -5135,11 +5174,14 @@ def run_phase16(work_dir: str, weights: str, references, device,
                        batches=references[0])
     ranks = run_ranks("chip_smoke:phase16_rank", PARALLEL_RANKS,
                       {"plan": plan, "device": "cuda"}, timeout=600)
+    launch_s = time.perf_counter() - t0
     verify_dryrun(plan, ranks, "cuda")
     seconds = time.perf_counter() - t0
-    worst = check_grid_trajectories(plan, ranks, references, device)
+    t0 = time.perf_counter()
+    worst, faults = check_grid_trajectories(plan, ranks, references, device)
     buffers = check_ranks_agree(ranks)
     launches = check_grid_launches(ranks)
+    checks_s = time.perf_counter() - t0
     card = card_line()
     for r in ranks:
         for mode in ("dp", "ring", "sp", "tp") + ONE_STEP_MODES:
@@ -5167,10 +5209,26 @@ def run_phase16(work_dir: str, weights: str, references, device,
           f"{json.dumps(unit)}; every parameter the same on both ranks after every "
           f"step, the buffers' largest difference between them as a share of their max "
           f"{json.dumps(buffers)}", flush=True)
+    print("phase 16 planted faults, each one's worst ratio to its limit on each rank: "
+          + json.dumps(faults), flush=True)
+    in_rank = {k: max(r["seconds"][k] for r in ranks) for k in ranks[0]["seconds"]}
+    split = {"launch of the two ranks": launch_s,
+             "in the ranks: the dry run's modes and unit op": in_rank.pop("dry run"),
+             "in the ranks: the four ring faults": sum(
+                 v for k, v in in_rank.items() if not _sp_fault(k)),
+             "in the ranks: the six SP faults": sum(
+                 v for k, v in in_rank.items() if _sp_fault(k)),
+             "the dry run's checks (verify_dryrun)": seconds - launch_s,
+             "the trajectories' checks (their references included), ranks and launches":
+                 checks_s}
+    print(f"phase 16 seconds: {json.dumps(split)}; each fault in the ranks "
+          f"{json.dumps(in_rank)} [{card}]", flush=True)
     cli = run_grid_cli(work_dir, weights)
     nans = run_grid_debug_nans(work_dir)
-    return {"ranks": ranks, "launches": launches, "worst": worst, "cli": cli, "nans": nans,
-            "unit_errors": unit, "buffers": buffers, "dry_seconds": seconds, "scene_step_ms": scene["step_ms"][-1]}
+    return {"ranks": ranks, "launches": launches, "worst": worst, "faults": faults,
+            "cli": cli, "nans": nans, "unit_errors": unit, "buffers": buffers,
+            "dry_seconds": seconds, "seconds": split,
+            "scene_step_ms": scene["step_ms"][-1]}
 
 
 def kernel_summary(rows, per):

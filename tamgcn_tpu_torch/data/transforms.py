@@ -1,10 +1,12 @@
 """Host-side skeleton and image preprocessing (numpy).
 
-Copies of the functions of tamgcn_tpu/data/transforms.py that the port's
-feeders use: view transform, min-max normalisation, train and eval
-resampling, the bone/motion modalities with the bone table per joint count,
-the generic (C, T, V, M) tools of the fusion feeder (padding, random crop,
-move and shift), the ST-ROI image loaders and top-k scoring.
+Copies of the functions of tamgcn_tpu/data/transforms.py: view transform,
+min-max normalisation, train and eval resampling, the bone/motion
+modalities with the bone table per joint count, the generic (C, T, V, M)
+tools (centralization, downsample, padding, random crop, move and shift,
+multi-person pose matching), the ST-ROI image loaders and the scores
+(top-k, per-class precision and recall, the confusion matrix). The port's
+feeders use some of them; the rest are the public API, as in JAX.
 
 Images and Pillow: the reference loaders return black images on ANY error
 (tamgcn_tpu/data/transforms.py:380-388), which on a machine without Pillow
@@ -137,6 +139,21 @@ def to_motion(data: np.ndarray) -> np.ndarray:
 # ---------------------------------------------------------------------------
 
 
+def centralization(data: np.ndarray) -> np.ndarray:
+    """Subtract frame-0 joint-0 of person 0 from all (reference tools.py:6-11)."""
+    out = data.copy()
+    out[:, :, :, 0] = out[:, :, :, 0] - data[:, 0:1, 0:1, 0]
+    return out
+
+
+def downsample(
+    data: np.ndarray, step: int, rng: np.random.Generator | None = None
+) -> np.ndarray:
+    """Strided temporal downsample with optional random phase (tools.py:13-16)."""
+    begin = int(rng.integers(step)) if rng is not None else 0
+    return data[:, begin::step, :, :]
+
+
 def auto_pading(
     data: np.ndarray, size: int, random_pad: bool = False,
     rng: np.random.Generator | None = None,
@@ -232,6 +249,44 @@ def random_shift(data: np.ndarray, rng: np.random.Generator) -> np.ndarray:
     return out
 
 
+def pose_match(data: np.ndarray) -> np.ndarray:
+    """Track multi-person pose identities across frames (reference
+    feeder/tools.py:133-174 `openpose_match` capability).
+
+    data: (3, T, V, M) with channel 2 = per-joint confidence. Bodies are
+    matched frame-to-frame greedily in descending per-frame confidence
+    order by nearest xy distance, identity chains are strung through time,
+    and the person axis is re-ordered by total trace confidence.
+    """
+    C, T, V, M = data.shape
+    if C != 3:
+        raise ValueError("pose_match expects (3, T, V, M) with confidence in channel 2")
+    xy = data[0:2]                      # (2, T, V, M)
+    conf = data[2].sum(axis=1)          # (T, M) per-frame body confidence
+    # squared xy distance between every body in frame t and frame t+1
+    diff = xy[:, :-1, :, :, None] - xy[:, 1:, :, None, :]   # (2, T-1, V, M, M)
+    dist = (diff ** 2).sum(axis=(0, 2))                      # (T-1, M, M)
+
+    ident = np.zeros((T, M), dtype=int)  # ident[t, m]: body slot of trace m at t
+    ident[0] = np.arange(M)
+    for t in range(T - 1):
+        taken = np.zeros(M, bool)
+        step = np.zeros(M, dtype=int)
+        for b in np.argsort(-conf[t]):   # most confident body first
+            d = dist[t, b].copy()
+            d[taken] = np.inf
+            nxt = int(d.argmin())
+            taken[nxt] = True
+            step[b] = nxt
+        ident[t + 1] = step[ident[t]]
+
+    out = np.zeros_like(data)
+    for t in range(T):
+        out[:, t] = data[:, t, :, ident[t]].transpose(1, 2, 0)
+    order = np.argsort(-out[2].sum(axis=(0, 1)))  # total trace confidence
+    return out[:, :, :, order]
+
+
 # ---------------------------------------------------------------------------
 # Images (Pillow; the reference's torchvision Resize+ToTensor+Normalize)
 # ---------------------------------------------------------------------------
@@ -300,6 +355,23 @@ def top_k_by_category(label, score, k) -> list[float]:
         l = label[i]
         hits[l].append(l in rank[i, -k:])
     return [sum(h) / len(h) if h else 0.0 for h in hits]
+
+
+def calculate_recall_precision(label, score):
+    """Per-class precision/recall from argmax predictions (tools.py:194-214)."""
+    instance_num, class_num = score.shape
+    pred = score.argmax(axis=1)
+    confusion = np.zeros([class_num, class_num])
+    for i in range(instance_num):
+        confusion[label[i]][pred[i]] += 1
+    precision, recall = [], []
+    for i in range(class_num):
+        tp = confusion[i][i]
+        fn = confusion[i, :].sum() - tp
+        fp = confusion[:, i].sum() - tp
+        precision.append(tp / (tp + fp) if (tp + fp) else 0.0)
+        recall.append(tp / (tp + fn) if (tp + fn) else 0.0)
+    return precision, recall
 
 
 def confusion_matrix(label, score) -> np.ndarray:

@@ -2,8 +2,9 @@
 (it imports neither JAX nor tamgcn_tpu): each runs in one of the k gloo
 processes that tamgcn_tpu_torch.parallel.launch.run_ranks starts, and
 returns what the pytest process compares with the JAX package
-(`debug_nans_cli` also runs on the card, in phase 16 of chip_smoke.py,
-which imports this file by its path).
+(`debug_nans_cli` and the sequence-parallel faults of `sp_fault` also run
+on the card, in phase 16 of chip_smoke.py, which imports this file by its
+path).
 
     run_ranks("tests._torch_dist_worker:ring_ops", k, {"cases": [...]})
     run_ranks("tamgcn_tpu_torch.parallel.drive:train_on_grid", k, {...})
@@ -122,3 +123,48 @@ def debug_nans_cli(mesh_rank=0, world=1, argv=()):
         except FloatingPointError as e:
             return str(e)
     return None
+
+
+def sp_fault(name):
+    """The patch that plants a fault of sequence parallelism in this process:
+    "halo_zeroed", every frame a window op reads outside the rank's own
+    frames comes back as zeros (SequenceContext.window); "shares_averaged",
+    the time-sharded parameters' gradient shares averaged over the model
+    group instead of summed, and "replicated_summed", the replicated
+    parameters' gradients summed instead of averaged (GradientSum)."""
+    from unittest import mock
+
+    from tamgcn_tpu_torch.parallel import sequence, sharded
+
+    if name == "halo_zeroed":
+        window = sequence.SequenceContext.window
+
+        def zeroed(self, x, stride, span, pad, fill):
+            out = window(self, x, stride, span, pad, fill)
+            a, b = self.own()
+            first = stride * -(-a // stride) - pad  # the clip's frame of out[:, 0]
+            frame = torch.arange(first, first + out.shape[1], device=out.device)
+            own = ((frame >= a) & (frame < b)).view(1, -1, *[1] * (out.ndim - 2))
+            return torch.where(own, out, torch.zeros((), dtype=out.dtype, device=out.device))
+
+        return mock.patch.object(sequence.SequenceContext, "window", zeroed)
+    reduce = sharded.GradientSum.__call__
+    views = {"shares_averaged": "summed", "replicated_summed": "averaged"}[name]
+
+    def faulted(self, grads):
+        reduce(self, grads)
+        k = self.mesh.model.size
+        for view in getattr(self, views):
+            view.mul_(1.0 / k if views == "summed" else k)
+
+    return mock.patch.object(sharded.GradientSum, "__call__", faulted)
+
+
+def faulted_step(mesh_rank=0, world=1, fault="", spec=None):
+    """parallel/drive.py:train_on_grid(**spec) on this rank with the fault
+    sp_fault(fault) planted (and nothing else changed: the CPU switches of
+    _quiet left as train_on_grid finds them)."""
+    from tamgcn_tpu_torch.parallel.drive import train_on_grid
+
+    with sp_fault(fault):
+        return train_on_grid(mesh_rank, world, **spec)

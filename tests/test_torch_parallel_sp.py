@@ -106,26 +106,36 @@ def x64():
     jax.config.update("jax_enable_x64", False)
 
 
+def _grid_spec(name, model_args, port, xs, y):
+    """train_on_grid's arguments of the port's SP (1, 2) step in f64; xs
+    the tuple of the model's inputs."""
+    return dict(model=name, model_args=model_args,
+                weights={k: v.double() for k, v in port.state_dict().items()},
+                batches=[(xs, y)], model_parallel=2, sequence_parallel=True, lr=LR,
+                weight_decay=WD, dtype=torch.float64)
+
+
 def _sp_step(name, model_args, port, jm, xs, y, **check):
-    """The port's SP (1, 2) step on two gloo ranks against JAX's; xs the
-    tuple of the model's inputs."""
-    weights = {k: v.double() for k, v in port.state_dict().items()}
-    port = port.double()
-    spec = dict(model=name, model_args=model_args, weights=weights, batches=[(xs, y)],
-                model_parallel=2, sequence_parallel=True, lr=LR, weight_decay=WD,
-                dtype=torch.float64)
+    """The port's SP (1, 2) step on two gloo ranks against JAX's."""
+    spec = _grid_spec(name, model_args, port, xs, y)
     mesh = jax_mesh(1, 2, devices=jax.devices()[:2])
     with ThreadPoolExecutor(1) as pool:
         ranks = pool.submit(run_ranks, DRIVE, 2, spec, timeout=240, env=ENV)
-        ref = _reference(port, jm, xs, y, mesh)
-        results = ranks.result()
+        ref = _reference(port.double(), jm, xs, y, mesh)
+        _check_sp(ranks.result(), ref, **check)
+
+
+def _check_sp(results, ref, **check):
     _check(results, *ref, **check)
     # the ranks' copies of every parameter bit for bit alike
     for k, v in results[0]["states"][1].items():
         assert torch.equal(v, results[1]["states"][1][k]), k
 
 
-def test_stgcn_sequence_parallel_step_matches_jax(x64):
+@pytest.fixture(scope="module")
+def stgcn_sp(x64):
+    """(train_on_grid's arguments of ST-GCN's SP (1, 2) step, JAX's step
+    on the matching mesh), computed once for the module."""
     port = create_stgcn_nucla(generator=torch.Generator().manual_seed(2))
     rs = np.random.RandomState(3)
     with torch.no_grad():  # edge importance off its init of ones
@@ -133,7 +143,41 @@ def test_stgcn_sequence_parallel_step_matches_jax(x64):
             getattr(port, f"edge_importance_{i}").mul_(
                 torch.from_numpy(1 + 0.2 * rs.randn(3, 20, 20)).float())
     x, y = rs.randn(BATCH, 3, 20, 20, 1), rs.randint(0, 10, BATCH)
-    _sp_step("stgcn", dict(UCLA, in_channels=3), port, jax_stgcn(), (x,), y)
+    spec = _grid_spec("stgcn", dict(UCLA, in_channels=3), port, (x,), y)
+    mesh = jax_mesh(1, 2, devices=jax.devices()[:2])
+    return spec, _reference(port.double(), jax_stgcn(), (x,), y, mesh)
+
+
+def test_stgcn_sequence_parallel_step_matches_jax(stgcn_sp):
+    spec, ref = stgcn_sp
+    _check_sp(run_ranks(DRIVE, 2, spec, timeout=240, env=ENV), ref)
+
+
+def _worst_share(result, ref, rtol=1e-7, atol=1e-9) -> float:
+    """The largest share of _check's tolerance that a rank's loss, reduced
+    gradients or state after the step takes: max |got - want| / (atol +
+    rtol |want|) over every tensor's elements (the loss by its 1e-9)."""
+    loss, grads, after = ref
+    worst = abs(result["losses"][0] - loss) / (1e-9 * abs(loss))
+    for got, want in ([(result["grads"][k], v) for k, v in grads.items()]
+                      + [(result["states"][1][k], v) for k, v in after.items()]):
+        got, want = got.double().numpy(), want.double().numpy()
+        worst = max(worst, float((np.abs(got - want) / (atol + rtol * np.abs(want))).max()))
+    return worst
+
+
+@pytest.mark.parametrize("fault", ["halo_zeroed", "shares_averaged"])
+def test_stgcn_sequence_parallel_step_with_a_planted_fault_leaves_jax(stgcn_sp, fault):
+    """The unfaulted step's agreement with JAX can fail: with each SP fault
+    of tests/_torch_dist_worker.py:sp_fault planted in both ranks (the
+    halo frames zeroed; the time-sharded gradient shares averaged instead
+    of summed), every rank's worst tensor leaves its tolerance by at least
+    1e3 times."""
+    spec, ref = stgcn_sp
+    ranks = run_ranks(f"{WORKER}:faulted_step", 2, dict(fault=fault, spec=spec),
+                      timeout=240, env=ENV)
+    for r in ranks:
+        assert _worst_share(r, ref) >= 1e3, (fault, r["rank"], _worst_share(r, ref))
 
 
 def test_resnet_only_sequence_parallel_step_matches_jax(x64):
