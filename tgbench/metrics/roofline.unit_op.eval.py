@@ -1,0 +1,8 @@
+"""The unit op's least time in the traced eval batches (the forward of
+every block) over the device time of the kernels named in
+roofline.unit_op.eval.json (%)."""
+from tgbench.readers import unit_op_roofline
+
+
+def read(ctx):
+    return unit_op_roofline(ctx, __file__, train=False)
