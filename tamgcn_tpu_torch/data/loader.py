@@ -14,10 +14,13 @@ the processes' batches in process order).
 """
 from __future__ import annotations
 
+import itertools
 from concurrent.futures import ThreadPoolExecutor
 from typing import Iterator, Sequence
 
 import numpy as np
+
+from ..utils.spans import span
 
 
 def _collate(samples: Sequence[tuple]) -> tuple:
@@ -94,13 +97,11 @@ class Loader:
         with ThreadPoolExecutor(max_workers=max(1, self.num_workers)) as pool:
             for b in range(nb):
                 chunk = idx[b * self.local_batch:(b + 1) * self.local_batch]
-                if get_batch is not None:
-                    batch = get_batch(chunk)
-                    if batch is not None:  # the native fast path
-                        yield batch
-                        continue
-                samples = list(pool.map(self.dataset.__getitem__, chunk))
-                yield _collate(samples)
+                with span("tamgcn.loader.assemble", b):
+                    batch = get_batch(chunk) if get_batch is not None else None
+                    if batch is None:  # no native fast path
+                        batch = _collate(list(pool.map(self.dataset.__getitem__, chunk)))
+                yield batch
 
 
 def prefetch(iterator, put=None, size: int = 2):
@@ -111,6 +112,12 @@ def prefetch(iterator, put=None, size: int = 2):
     the next batch's copy and the feeder's CPU work overlap the current step
     instead of serialising with it (reference processor/processor.py:57-70
     uses DataLoader workers for the same).
+
+    Spans (utils/spans.py), keyed by the item's index: the producer's `put`
+    (`tamgcn.loader.h2d`) and its wait for room in the queue
+    (`tamgcn.loader.put_wait`); the consumer's wait for the item
+    (`tamgcn.loader.wait`; the first takes in the thread's start, and one
+    more waits for the end of the iterator).
     """
     import queue
     import threading
@@ -120,16 +127,22 @@ def prefetch(iterator, put=None, size: int = 2):
 
     def producer():
         try:
-            for item in iterator:
-                q.put(put(item) if put is not None else item)
+            for k, item in enumerate(iterator):
+                if put is not None:
+                    with span("tamgcn.loader.h2d", k):
+                        item = put(item)
+                with span("tamgcn.loader.put_wait", k):
+                    q.put(item)
             q.put(done)
         except BaseException as e:  # propagate into the consumer
             q.put(e)
 
     t = threading.Thread(target=producer, daemon=True)
-    t.start()
-    while True:
-        item = q.get()
+    for k in itertools.count():
+        with span("tamgcn.loader.wait", k):
+            if k == 0:
+                t.start()
+            item = q.get()
         if item is done:
             break
         if isinstance(item, BaseException):

@@ -15,7 +15,8 @@ step ``fn(*tensors) -> tuple of tensors``:
     warm-up leaves no trace in the training state;
   * each call copies its inputs into the graph's static buffers, replays
     the graph and returns clones of its outputs, so a result outlives the
-    next replay;
+    next replay (the span `tamgcn.graph.replay`; a capture with its warm-up
+    is `tamgcn.graph.capture`, utils/spans.py);
   * the graph reads the parameters and statistics at the addresses it was
     captured on. The packed state is updated in place, and `load_state_dict`
     copies in place, so a graph captured in epoch 1 computes with the
@@ -43,6 +44,7 @@ from typing import Callable, Sequence
 import torch
 
 from ..ops.cuda import launch_counts
+from ..utils.spans import span
 
 WARMUP = 3
 
@@ -102,37 +104,39 @@ class GraphedStep:
         entry = self.graphs.get(key)
         if entry is None:
             entry = self.graphs[key] = self._capture(args)
-        for static, a in zip(entry.inputs, args):
-            static.copy_(a)
-        entry.graph.replay()
-        s = stats[self.name]
-        s.replays += 1
-        s.replayed.update(entry.launches)
-        return tuple(o.clone() for o in entry.outputs)
+        with span("tamgcn.graph.replay", self.name):
+            for static, a in zip(entry.inputs, args):
+                static.copy_(a)
+            entry.graph.replay()
+            s = stats[self.name]
+            s.replays += 1
+            s.replayed.update(entry.launches)
+            return tuple(o.clone() for o in entry.outputs)
 
     def _capture(self, args) -> _Graph:
         if not all(a.is_cuda for a in args):
             raise ValueError(f"{self.name}: a CUDA graph takes tensors on the card")
-        inputs = [a.clone() for a in args]
-        saved = [t.clone() for t in self.preserve]
-        with torch.cuda.device(args[0].device):
-            side = torch.cuda.Stream()
-            side.wait_stream(torch.cuda.current_stream())
-            with torch.cuda.stream(side):
-                for _ in range(WARMUP):
-                    self.fn(*inputs)
-                for t, s in zip(self.preserve, saved):
-                    t.copy_(s)
-            torch.cuda.current_stream().wait_stream(side)
-            del saved
-            graph = torch.cuda.CUDAGraph()
-            before = launch_counts()
-            with torch.cuda.graph(graph, capture_error_mode="thread_local"):
-                outputs = tuple(self.fn(*inputs))
-            after = launch_counts()
-        launches = {k: n - before[k] for k, n in after.items() if n != before[k]}
-        s = stats[self.name]
-        s.captures += 1
-        s.warmups += WARMUP
-        s.captured.update(launches)
-        return _Graph(graph, inputs, outputs, launches)
+        with span("tamgcn.graph.capture", self.name):
+            inputs = [a.clone() for a in args]
+            saved = [t.clone() for t in self.preserve]
+            with torch.cuda.device(args[0].device):
+                side = torch.cuda.Stream()
+                side.wait_stream(torch.cuda.current_stream())
+                with torch.cuda.stream(side):
+                    for _ in range(WARMUP):
+                        self.fn(*inputs)
+                    for t, s in zip(self.preserve, saved):
+                        t.copy_(s)
+                torch.cuda.current_stream().wait_stream(side)
+                del saved
+                graph = torch.cuda.CUDAGraph()
+                before = launch_counts()
+                with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+                    outputs = tuple(self.fn(*inputs))
+                after = launch_counts()
+            launches = {k: n - before[k] for k, n in after.items() if n != before[k]}
+            s = stats[self.name]
+            s.captures += 1
+            s.warmups += WARMUP
+            s.captured.update(launches)
+            return _Graph(graph, inputs, outputs, launches)

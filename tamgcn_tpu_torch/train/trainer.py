@@ -31,7 +31,8 @@ make_eval_step are the eager steps, for a comparison on the card).
 
 --profile_dir wraps the train phase in a torch.profiler trace (CPU and, on
 the card, CUDA activity) written as a Chrome trace under that directory, as
-the JAX trainer wraps it in jax.profiler (:649-679). --debug_nans adds a
+the JAX trainer wraps it in jax.profiler (:649-679), with the spans of the
+loop and the loader (utils/spans.py) in it. --debug_nans adds a
 finiteness check to every step and, at the first non-finite value, raises
 FloatingPointError naming the module that made it (train/debug_nans.py).
 
@@ -80,6 +81,7 @@ from ..parallel.mesh import data_slice, init_distributed, make_mesh, shard_batch
 from ..parallel.sequence import shard_time
 from ..parallel.sharded import (GradientSum, full_optimizer_state, full_state_dict,
                                 load_full_state, parallelize, shard_optimizer_state)
+from ..utils import spans
 from .checkpoint import Checkpoints, filter_ignore, partial_update, port_state, read_weights
 from .config import check_supported, resolve_device
 from .debug_nans import checked, locate_non_finite, non_finite_names
@@ -335,89 +337,106 @@ class RecognitionTrainer:
         return dev_inputs, full, batch[-2]
 
     def train_epoch(self, epoch: int) -> np.ndarray:
-        """One epoch of optimizer steps; returns the loss of each step."""
-        arg = self.arg
-        loader = self.loaders["train"]
-        loader.set_epoch(epoch)
-        self._ensure_steps()
-        train_step = self.steps["train"]
-        self.model.train()
-        losses, hits = [], []
-        self.session.init_timer("dataloader", "device", "statistics")
-        t0 = time.perf_counter()
-        nseen = 0
-        for it, (inputs, label, label_np) in enumerate(prefetch(iter(loader), self._put)):
-            self.session.check_time("dataloader")
-            lr = self.schedule(self.step)
-            self.state.set_lr(lr)
-            if arg.debug_nans:
-                torch._foreach_copy_(self._nan_backup, self.state.tensors())
-                loss, hit, finite = train_step(*inputs, label)
-                if not bool(finite):
-                    self._raise_non_finite("train", epoch, inputs, label)
-            else:
-                loss, hit = train_step(*inputs, label)
-            self.step += 1
-            self.session.check_time("device")
-            # keep the statistics on the device; one copy at the epoch's end
-            losses.append(loss)
-            hits.append(hit)
-            nseen += len(label_np) * (self.mesh.shape["data"] if arg.distributed else 1)
-            if it % arg.log_interval == 0:
+        """One epoch of optimizer steps; returns the loss of each step.
+
+        The Session's timers split the epoch's host time three ways:
+        "dataloader", the wait for the next batch; "step", the host's part
+        of a step (the learning rate and the step's call, which on the card
+        enqueues an asynchronous graph replay: not the device's time); and
+        "statistics". The spans (utils/spans.py) mark the epoch, each step,
+        each log line and the epoch's end."""
+        with spans.span("tamgcn.train.epoch", epoch):
+            arg = self.arg
+            loader = self.loaders["train"]
+            loader.set_epoch(epoch)
+            self._ensure_steps()
+            train_step = self.steps["train"]
+            self.model.train()
+            losses, hits = [], []
+            self.session.init_timer("dataloader", "step", "statistics")
+            t0 = time.perf_counter()
+            nseen = 0
+            for it, (inputs, label, label_np) in enumerate(prefetch(iter(loader), self._put)):
+                self.session.check_time("dataloader")
+                with spans.span("tamgcn.train.step", self.step):
+                    lr = self.schedule(self.step)
+                    self.state.set_lr(lr)
+                    if arg.debug_nans:
+                        torch._foreach_copy_(self._nan_backup, self.state.tensors())
+                        loss, hit, finite = train_step(*inputs, label)
+                        if not bool(finite):
+                            self._raise_non_finite("train", epoch, inputs, label)
+                    else:
+                        loss, hit = train_step(*inputs, label)
+                self.step += 1
+                self.session.check_time("step")
+                # keep the statistics on the device; one copy at the epoch's end
+                losses.append(loss)
+                hits.append(hit)
+                nseen += len(label_np) * (self.mesh.shape["data"] if arg.distributed else 1)
+                if it % arg.log_interval == 0:
+                    with spans.span("tamgcn.train.log", self.step - 1):
+                        self.print_log(
+                            f"\tIter {it}/{len(loader)} | loss: {loss.item():.4f} "
+                            f"| lr: {lr:.6f}"
+                        )
+                self.session.check_time("statistics")
+            with spans.span("tamgcn.train.epoch_end", epoch):
+                losses = torch.stack(losses).cpu().numpy()
+                acc = torch.stack(hits).sum().item() / nseen
+                seconds = time.perf_counter() - t0
                 self.print_log(
-                    f"\tIter {it}/{len(loader)} | loss: {loss.item():.4f} "
-                    f"| lr: {lr:.6f}"
+                    f"\tTraining loss: {float(np.mean(losses)):.4f} | acc: {acc:.2%} "
+                    f"| {nseen / seconds:.1f} samples/s"
                 )
-            self.session.check_time("statistics")
-        losses = torch.stack(losses).cpu().numpy()
-        acc = torch.stack(hits).sum().item() / nseen
-        seconds = time.perf_counter() - t0
-        self.print_log(
-            f"\tTraining loss: {float(np.mean(losses)):.4f} | acc: {acc:.2%} "
-            f"| {nseen / seconds:.1f} samples/s"
-        )
-        self.session.print_timer()
-        return losses
+                self.session.print_timer()
+            return losses
 
     def test_epoch(self):
-        self._ensure_test_loader()
-        self._ensure_steps()
-        eval_step = self.steps["eval"]
-        loader = self.loaders["test"]
-        self.model.eval()
-        losses, scores, labels = [], [], []
-        n_batches = n_samples = 0
-        t0 = time.perf_counter()
-        with torch.inference_mode():
-            # on a grid, each rank its rows of the padded batch, the labels whole
-            put = self._put if self.mesh.size == 1 else self._put_test
-            for it, (inputs, label, label_np) in enumerate(prefetch(iter(loader), put)):
-                loss, logits, *finite = eval_step(*inputs, label)
-                logits = logits[:len(label_np)]  # the padded rows dropped
-                if finite and not bool(finite[0]):
-                    self._raise_non_finite("eval", None, inputs, label, batch=it)
-                # keep results on the device; one bulk copy below
-                losses.append(loss)
-                scores.append(logits)
-                labels.append(label_np)
-                n_batches += 1
-                n_samples += len(label_np)
-            losses = torch.stack(losses).cpu().numpy()
-            scores = torch.cat(scores).float().cpu().numpy()
-        seconds = time.perf_counter() - t0
-        labels = np.concatenate(labels)
-        self.print_log(
-            f"\tEval: {n_batches} batches, {1e3 * seconds / n_batches:.3f} "
-            f"ms/batch, {n_samples / seconds:.1f} samples/s"
-        )
-        mean_loss = float(np.mean(losses))
-        for k in self.arg.show_topk:
-            self.print_log(f"\tTop{k}: {top_k(scores, labels, k):.2%}")
-        top1 = top_k(scores, labels, 1)
-        top5 = top_k(scores, labels, 5)
-        self.result_scores = scores
-        self.result_labels = labels
-        return mean_loss, top1, top5
+        """One pass over the val split: (mean loss, top-1, top-5); the
+        scores and labels stay in `result_scores`, `result_labels`. The
+        spans mark the pass, each batch's step and the pass's end."""
+        with spans.span("tamgcn.eval.pass"):
+            self._ensure_test_loader()
+            self._ensure_steps()
+            eval_step = self.steps["eval"]
+            loader = self.loaders["test"]
+            self.model.eval()
+            losses, scores, labels = [], [], []
+            n_batches = n_samples = 0
+            t0 = time.perf_counter()
+            with torch.inference_mode():
+                # on a grid, each rank its rows of the padded batch, the labels whole
+                put = self._put if self.mesh.size == 1 else self._put_test
+                for it, (inputs, label, label_np) in enumerate(prefetch(iter(loader), put)):
+                    with spans.span("tamgcn.eval.step", it):
+                        loss, logits, *finite = eval_step(*inputs, label)
+                        logits = logits[:len(label_np)]  # the padded rows dropped
+                        if finite and not bool(finite[0]):
+                            self._raise_non_finite("eval", None, inputs, label, batch=it)
+                    # keep results on the device; one bulk copy below
+                    losses.append(loss)
+                    scores.append(logits)
+                    labels.append(label_np)
+                    n_batches += 1
+                    n_samples += len(label_np)
+            with spans.span("tamgcn.eval.pass_end"):
+                losses = torch.stack(losses).cpu().numpy()
+                scores = torch.cat(scores).float().cpu().numpy()
+                seconds = time.perf_counter() - t0
+                labels = np.concatenate(labels)
+                self.print_log(
+                    f"\tEval: {n_batches} batches, {1e3 * seconds / n_batches:.3f} "
+                    f"ms/batch, {n_samples / seconds:.1f} samples/s"
+                )
+                mean_loss = float(np.mean(losses))
+                for k in self.arg.show_topk:
+                    self.print_log(f"\tTop{k}: {top_k(scores, labels, k):.2%}")
+                top1 = top_k(scores, labels, 1)
+                top5 = top_k(scores, labels, 5)
+            self.result_scores = scores
+            self.result_labels = labels
+            return mean_loss, top1, top5
 
     def _raise_non_finite(self, kind: str, epoch, inputs, label, batch=None):
         """--debug_nans: a step made a non-finite value. Re-run it eagerly
@@ -470,23 +489,28 @@ class RecognitionTrainer:
 
     def _start_profiler(self):
         """--profile_dir: a torch.profiler trace of the train phase, CPU and,
-        on the card, CUDA activity."""
+        on the card, CUDA activity, with the spans (utils/spans.py) that it
+        collects."""
         from torch.profiler import ProfilerActivity, profile
 
         activities = [ProfilerActivity.CPU]
         if self.device.type == "cuda":
             activities.append(ProfilerActivity.CUDA)
         profiler = profile(activities=activities)
+        spans.reset()
         profiler.start()
         return profiler
 
     def _stop_profiler(self, profiler):
+        """Write the Chrome trace, then add to it the spans of the threads
+        kineto does not record (the loader's producer)."""
         profiler.stop()
         os.makedirs(self.arg.profile_dir, exist_ok=True)
         path = os.path.join(self.arg.profile_dir,
                             f"train_{socket.gethostname()}_{os.getpid()}.pt.trace.json")
         profiler.export_chrome_trace(path)
-        self.print_log(f"profile trace written: {path}")
+        added = spans.add_to_chrome_trace(path)
+        self.print_log(f"profile trace written: {path} ({added} spans of other threads)")
 
     def _epochs(self, start_epoch: int):
         arg = self.arg

@@ -31,7 +31,8 @@ variant queries are held to the launches the C launchers count per design
 where they launch a kernel (a witness that cannot miss a launch).
 The trainer's steps as CUDA graphs (train/graphs.py): the graphed fused
 train step equals the eager one bit for bit (deterministic cuDNN), a second
-input shape captures a second graph, weights written after a capture are
+input shape captures a second graph (each capture and replay a span under
+a profiler, utils/spans.py), weights written after a capture are
 the ones the next replay uses, and a host read inside a step makes the
 capture raise; ST-GCN's graphed step equals its eager one bit for bit, and
 --debug_nans' finiteness flag replays inside the train step's graph.
@@ -1234,6 +1235,30 @@ def test_second_input_shape_captures_second_graph(device):
     assert len(step.graphs) == 2
     s = graphs.stats["eval_shapes"]
     assert (s.captures, s.replays, s.warmups) == (2, 4, 2 * graphs.WARMUP)
+
+
+def test_graphed_step_spans_each_capture_and_replay(device):
+    """Under a profiler a graphed step marks each capture (its warm-up
+    included) and each replay, keyed by the step's name (utils/spans.py)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from tamgcn_tpu_torch.models.ctrgcn_infer import make_eval_step
+    from tamgcn_tpu_torch.train import graphs
+    from tamgcn_tpu_torch.utils import spans
+
+    model, _ = _packed_model(device)
+    model.eval()
+    step = graphs.GraphedStep(make_eval_step(model), "eval_spans")
+    spans.reset()
+    try:
+        with profile(activities=[ProfilerActivity.CPU]), torch.inference_mode():
+            for n in (8, 4, 8):
+                step(*_graph_batch(device, n=n, seed=n))
+        t = spans.totals()
+        assert (t["tamgcn.graph.capture"].count, t["tamgcn.graph.replay"].count) == (2, 3)
+        assert {r.ident for r in spans.records()} == {"eval_spans"}
+    finally:
+        spans.reset()
 
 
 def test_weights_loaded_after_capture_are_used(device):
