@@ -4,7 +4,8 @@ A plain numpy pipeline with deterministic per-epoch shuffling and
 fixed-shape stacked batches: a dataset's batched `get_batch` first (the
 NW-UCLA feeder's native core), and thread-pool sample assembly where it has
 none or it returns None; `prefetch` overlaps the next batch's assembly and
-host->device copy with the current step.
+host->device copy with the current step, and a `Copier` makes that copy
+(on the card from pinned memory on a copy stream of its own).
 
 Process sharding, as the JAX loader's (:48-80): with process_count > 1
 each process takes its contiguous shard of the (shuffled) indices, n //
@@ -14,13 +15,18 @@ the processes' batches in process order).
 """
 from __future__ import annotations
 
+import dataclasses
 import itertools
 from concurrent.futures import ThreadPoolExecutor
-from typing import Iterator, Sequence
+from typing import Callable, Iterator, Sequence
 
 import numpy as np
+import torch
 
 from ..utils.spans import span
+
+DEPTH = 2  # the batches `prefetch` keeps in its queue
+SLOTS = DEPTH + 2  # a Copier's pinned slots per (shape, dtype): deeper than the batches in flight
 
 
 def _collate(samples: Sequence[tuple]) -> tuple:
@@ -104,20 +110,144 @@ class Loader:
                 yield batch
 
 
-def prefetch(iterator, put=None, size: int = 2):
+@dataclasses.dataclass
+class CopyStats:
+    """What the copiers did since the last `reset_stats`."""
+
+    pinned: int = 0  # batches copied from pinned slots on a copy stream
+    plain: int = 0  # batches copied by `.to(device)` (a CPU device)
+    slot_waits: int = 0  # the producer's waits for a slot whose copy was in flight
+
+
+stats = CopyStats()
+
+
+def reset_stats() -> None:
+    for field in dataclasses.fields(CopyStats):
+        setattr(stats, field.name, 0)
+
+
+class _Card:
+    """The CUDA calls of the pinned path on one device (a test hands the
+    copier a stand-in with the same methods)."""
+
+    def __init__(self, device: torch.device):
+        self.stream = torch.cuda.Stream(device)
+
+    def host(self, shape, dtype) -> torch.Tensor:
+        return torch.empty(shape, dtype=dtype, pin_memory=True)
+
+    def event(self):
+        return torch.cuda.Event()
+
+    def copying(self):
+        return torch.cuda.stream(self.stream)
+
+    def copy(self, out: torch.Tensor, host: torch.Tensor) -> None:
+        out.copy_(host, non_blocking=True)
+
+    def hand_over(self, event, tensors: Sequence[torch.Tensor]) -> None:
+        stream = torch.cuda.current_stream(tensors[0].device)
+        stream.wait_event(event)
+        for t in tensors:  # their blocks are not reused before `stream` is past here
+            t.record_stream(stream)
+
+
+class _Slot:
+    __slots__ = ("host", "view", "event")
+
+    def __init__(self, host: torch.Tensor, event):
+        self.host, self.view, self.event = host, host.numpy(), event
+
+
+@dataclasses.dataclass(slots=True)
+class Ready:
+    """A batch whose device tensors a copy stream may still be writing:
+    `prefetch` hands it to its consumer with `hand_over`, which orders the
+    consumer's current stream after `event` and returns `item`."""
+
+    item: object
+    event: object
+    tensors: tuple
+    card: _Card
+
+    def hand_over(self):
+        self.card.hand_over(self.event, self.tensors)
+        return self.item
+
+
+class Copier:
+    """A batch's arrays to `device`, kept for a trainer's lifetime.
+
+    On a CPU device each array is `torch.from_numpy(...).to(device)`, the
+    item built from those tensors. On the card each array goes through a
+    ring of SLOTS pinned host buffers per (shape, dtype), each with its
+    event: the producer waits for the slot's previous copy (`stats.slot_waits`,
+    span `tamgcn.loader.slot_wait`; the ring is deeper than the batches in
+    flight, so it should not engage), writes the array into it, enqueues the
+    copy into a tensor allocated on the copier's own stream and records the
+    slot's event. The copy then runs beside the steps queued on the
+    consumer's stream instead of behind them, and the item comes back as a
+    `Ready` that the batch's last event makes ready."""
+
+    def __init__(self, device, card=None):
+        self.device = torch.device(device)
+        if card is None and self.device.type == "cuda":
+            card = _Card(self.device)
+        self.card = card
+        self.rings: dict[tuple, Iterator[_Slot]] = {}  # (shape, dtype) -> its slots in turn
+
+    def __call__(self, arrays: Sequence[np.ndarray], build: Callable):
+        """`build(*tensors)` of `arrays` on the device; on the card a
+        `Ready` of it."""
+        if self.card is None:
+            stats.plain += 1
+            return build(*(torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+                           for a in arrays))
+        with self.card.copying():
+            copies = [self._copy(a) for a in arrays]
+        stats.pinned += 1
+        tensors = tuple(t for t, _ in copies)
+        # one stream: the last copy's event follows every copy before it
+        return Ready(build(*tensors), copies[-1][1], tensors, self.card)
+
+    def _copy(self, a: np.ndarray):
+        key = (a.shape, a.dtype)
+        ring = self.rings.get(key)
+        if ring is None:
+            dtype = torch.from_numpy(np.empty(0, a.dtype)).dtype
+            ring = self.rings[key] = itertools.cycle(
+                [_Slot(self.card.host(a.shape, dtype), self.card.event())
+                 for _ in range(SLOTS)])
+        slot = next(ring)
+        if not slot.event.query():
+            stats.slot_waits += 1
+            with span("tamgcn.loader.slot_wait"):
+                slot.event.synchronize()
+        np.copyto(slot.view, a)
+        out = torch.empty(a.shape, dtype=slot.host.dtype, device=self.device)
+        self.card.copy(out, slot.host)
+        slot.event.record(self.card.stream)
+        return out, slot.event
+
+
+def prefetch(iterator, put=None, size: int = DEPTH):
     """Pipeline an iterator through a background thread, keeping up to `size`
     items in flight.
 
-    `put` runs in the producer thread — pass the host->device transfer so
-    the next batch's copy and the feeder's CPU work overlap the current step
-    instead of serialising with it (reference processor/processor.py:57-70
-    uses DataLoader workers for the same).
+    `put` runs in the producer thread — pass the host->device transfer (a
+    `Copier`) so the next batch's assembly and copy overlap the current
+    step instead of serialising with it (reference processor/processor.py:
+    57-70 uses DataLoader workers for the same). An item that `put` returns
+    as a `Ready` is handed over before it is yielded: the consumer's current
+    stream waits for its copy, so whatever the consumer runs on that stream
+    sees the whole batch.
 
     Spans (utils/spans.py), keyed by the item's index: the producer's `put`
-    (`tamgcn.loader.h2d`) and its wait for room in the queue
-    (`tamgcn.loader.put_wait`); the consumer's wait for the item
-    (`tamgcn.loader.wait`; the first takes in the thread's start, and one
-    more waits for the end of the iterator).
+    (`tamgcn.loader.h2d`: on the card the copy's enqueue) and its wait for
+    room in the queue (`tamgcn.loader.put_wait`); the consumer's wait for the
+    item and its hand-over (`tamgcn.loader.wait`; the first takes in the
+    thread's start, and one more waits for the end of the iterator).
     """
     import queue
     import threading
@@ -143,6 +273,8 @@ def prefetch(iterator, put=None, size: int = 2):
             if k == 0:
                 t.start()
             item = q.get()
+            if isinstance(item, Ready):
+                item = item.hand_over()
         if item is done:
             break
         if isinstance(item, BaseException):

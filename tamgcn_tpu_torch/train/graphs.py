@@ -24,8 +24,10 @@ step ``fn(*tensors) -> tuple of tensors``:
 
 There is no eager fallback: a capture that fails, or a host read inside the
 step (`.item()`, a Python branch on a tensor's value), raises. The capture
-runs in "thread_local" mode, so the loader's producer thread may copy the
-next batch to the card meanwhile.
+runs in "thread_local" mode, so the loader's producer thread may meanwhile
+copy the next batch to the card on its copier's own stream, wait for a
+slot's event and allocate (data/loader.py:Copier): that mode forbids such
+calls to the capturing thread alone.
 
 The kernel wrappers count their launches where they launch
 (ops/cuda.launch_counts), which inside a capture records a launch that

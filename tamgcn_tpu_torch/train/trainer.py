@@ -71,7 +71,7 @@ import numpy as np
 import torch
 
 from ..data import Loader, feeder_accepts_seed, get_feeder
-from ..data.loader import prefetch
+from ..data.loader import Copier, prefetch
 from ..data.transforms import top_k
 from ..models import get_model
 from ..models.ctrgcn import CTRGCN
@@ -108,6 +108,8 @@ class RecognitionTrainer:
         self.capture = self.device.type == "cuda" and self.mesh.size == 1
         if self.device.type == "cuda":
             torch.cuda.set_device(self.device)  # where the graphs replay
+        # every batch's copy to the device (data/loader.py; pinned on the card)
+        self.copier = Copier(self.device)
         self.state = None  # PackedTrainState, built with the steps
         self.steps = None
         self.session = Session(arg.work_dir, arg.save_log and self.lead,
@@ -311,15 +313,17 @@ class RecognitionTrainer:
         inputs, label = batch[:-2], batch[-2]
         if not self.arg.distributed:
             *inputs, label = shard_batch(self.mesh, *inputs, label)
-        return self._to_device(inputs, label) + (label,)
+        return self._to_device(inputs, label, label)
 
-    def _to_device(self, inputs, label):
+    def _to_device(self, inputs, label, label_np):
+        """(the inputs on the device, the int64 labels on the device,
+        `label_np`) through the trainer's copier; on the card a
+        `loader.Ready` of it, which prefetch hands over once copied."""
         if self.model.sequence_parallel:
             inputs = tuple(shard_time(a, self.mesh) if a.ndim in (3, 5) else a
                            for a in inputs)
-        inputs = tuple(torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
-                       for a in inputs)
-        return inputs, torch.from_numpy(label.astype(np.int64)).to(self.device)
+        return self.copier([*inputs, label.astype(np.int64)],
+                           lambda *t: (t[:-1], t[-1], label_np))
 
     def _put_test(self, batch):
         """A test batch padded by tiling to a multiple of the data size (JAX
@@ -332,9 +336,7 @@ class RecognitionTrainer:
             inputs = tuple(np.concatenate([a, np.resize(a, (pad,) + a.shape[1:])])
                            for a in inputs)
             label = np.concatenate([label, np.resize(label, (pad,))])
-        dev_inputs, _ = self._to_device(shard_batch(self.mesh, *inputs), label)
-        full = torch.from_numpy(label.astype(np.int64)).to(self.device)
-        return dev_inputs, full, batch[-2]
+        return self._to_device(shard_batch(self.mesh, *inputs), label, batch[-2])
 
     def train_epoch(self, epoch: int) -> np.ndarray:
         """One epoch of optimizer steps; returns the loss of each step.
